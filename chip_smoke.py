@@ -6,23 +6,30 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card's name and power limit (nvidia-smi), and the native host
    engine (g++), which must load;
-2. build every CUDA kernel of the main path (one nvcc per source, in
-   parallel) and print the build seconds and the ptxas resource lines;
+2. build every CUDA kernel (one nvcc per source, in parallel) and print
+   the build seconds and the ptxas resource lines;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
    just before and read just after; berr <= 1e-12 and
-   ||Ax - b||inf / ||b||inf <= 1e-10 are required and every kernel must
-   have been launched; a second, warm call is timed the same way, and one
-   refinement is profiled (device busy and idle share);
-4. every kernel against its plain PyTorch version on the card, level by
-   level on the main path's own inputs (both get the same input; the run
-   goes on with the kernel's output), timed with CUDA events; then the
-   whole clk factor against the independent right-looking float64
-   reference ``blocklu.factor_plain``;
-5. the same checks at the Options default block size 64 on
-   ``laplacian_3d(16)``, whose solution is held against scipy's;
-6. one JSON line of per-kernel results, the nvidia-smi line, and the
+   ||Ax - b||inf / ||b||inf <= 1e-10 are required and every kernel of
+   the path must have been launched; a second, warm call is timed the
+   same way, and one refinement is profiled (device busy and idle share);
+4. every clk-path kernel against its plain PyTorch version on the card,
+   level by level on the main path's own inputs (both get the same input;
+   the run goes on with the kernel's output), timed with CUDA events;
+   then the whole clk factor against the independent right-looking
+   float64 reference ``blocklu.factor_plain``;
+5. the other factor executors on the same matrix, each driven and
+   checked like the main path: ``executor="flk"`` (flk and diag_lu, no
+   clk_update), ILU(1) (flk; its slots and refinement steps printed) and
+   ``executor="pallas"`` (diag_lu, trsm, schur); then flk, schur and trsm
+   against their plain versions level by level on their paths' inputs,
+   and each whole factor against ``factor_plain`` on its plan;
+6. the same checks at the Options default block size 64 on
+   ``laplacian_3d(16)``, whose solution (by each executor) is held
+   against scipy's;
+7. one JSON line of per-kernel results, the nvidia-smi line, and the
    final ``{"ok": true, "device": ...}`` line.
 
 Imports neither JAX nor the JAX package.
@@ -48,10 +55,25 @@ PEAK_BYTES = 3.35e12
 #: whose inverses carry the tile's conditioning); 1e-4 is ~840 float32
 #: ulp, while a wrong block or index gives errors of order 1.
 REL_TOL = 1e-4
-#: clk factor against the float64 right-looking reference: 512 float32
-#: ulp at the pool scale, the tolerance tests/test_clk.py gives random
-#: patterns (the top separator blocks of lap3d32 sum hundreds of products)
+#: a whole factor against the float64 right-looking reference: 512
+#: float32 ulp at the pool scale, the tolerance tests/test_clk.py gives
+#: random patterns (the top separator blocks of lap3d32 sum hundreds of
+#: products)
 FACTOR_ULPS = 512
+
+#: the TPU kernel each port kernel replaces (file:line of its body)
+REPLACES = {
+    "diag_lu": "superlu_dist_tpu/ops/kernels/flk.py:339",
+    "clk_update": "superlu_dist_tpu/ops/kernels/clk.py:248",
+    "clk_trsm": "superlu_dist_tpu/ops/kernels/clk.py:248",
+    "sweep": "superlu_dist_tpu/ops/kernels/pallas_exec.py:680",
+    "flk": "superlu_dist_tpu/ops/kernels/flk.py:434",
+    # _schur_kernel_db (on the executor's path) and _schur_kernel compute
+    # the same function; one CUDA kernel stands for both
+    "schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:942",
+    "trsm": "superlu_dist_tpu/ops/kernels/pallas_exec.py:93",
+}
+ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
 
 
 def fail(msg: str) -> None:
@@ -67,11 +89,11 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import scipy.sparse.linalg as spla
 
-    from superlu_dist_tpu_torch import Options, gssvx
+    from superlu_dist_tpu_torch import Options
     from superlu_dist_tpu_torch.ops import blocklu
     from superlu_dist_tpu_torch.ops.host.native import get_lib
-    from superlu_dist_tpu_torch.ops.kernels import _build, clk, diag_lu
-    from superlu_dist_tpu_torch.ops.kernels import sweep
+    from superlu_dist_tpu_torch.ops.kernels import (_build, clk, diag_lu, flk,
+                                                    schur, sweep)
     from superlu_dist_tpu_torch.utils.testing import laplacian_3d
 
     smi = subprocess.run(
@@ -84,12 +106,15 @@ def main() -> None:
     print("native host engine: loaded", flush=True)
 
     kernels = {"diag_lu": diag_lu.KERNEL, "clk_update": clk.UPDATE,
-               "clk_trsm": clk.TRSM, "sweep": sweep.KERNEL}
+               "clk_trsm": clk.TRSM, "sweep": sweep.KERNEL,
+               "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM}
     build_s = _build.build_all(list(kernels.values()))
     print(f"kernels built in {build_s:.1f} s", flush=True)
-    for k in (diag_lu.KERNEL, clk.UPDATE, sweep.KERNEL):
+    for k in (diag_lu.KERNEL, clk.UPDATE, sweep.KERNEL, flk.KERNEL,
+              schur.SCHUR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
-    dev = torch.device("cuda")
+    ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
+               flk=flk, schur=schur, sweep=sweep, kernels=kernels)
 
     # ---- 3. the main path ---------------------------------------------
     A = laplacian_3d(32)
@@ -97,89 +122,134 @@ def main() -> None:
     rng = np.random.default_rng(0)
     b = np.asarray(A @ rng.standard_normal(n))
     opts = Options(dtype="float32", block_size=128)
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    res, lu = gssvx(A, b, opts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    res, lu, launches = drive(ctx, "main path", A, b, opts,
+                              ("diag_lu", "clk_update", "clk_trsm", "sweep"))
     plan = lu.plan
-    resid = float(np.abs(A @ res.x - b).max() / np.abs(b).max())
-    berr = float(np.max(res.berr))
-    st = res.stat
     print(f"main path: lap3d32 n={n} aligned to {plan.n} rows, "
           f"{plan.nb} block columns, {plan.nslots} slots, pool "
           f"{plan.pool_bytes(np.float32) / 2**20:.0f} MiB, "
           f"{plan.n_flevels} factor levels, {plan.lsol_nlvl}+"
           f"{plan.usol_nlvl} solve levels, {len(plan.g_l)} Schur triples, "
           f"{plan.factor_flops / 1e9:.1f} GFLOP (padded block model)")
-    print_phases("main path", wall, st)
-    print(f"main path: berr {berr:.3e}, ||Ax-b||/||b|| {resid:.3e}, "
-          f"tiny pivots {st.tiny_pivots}, launches {launches}", flush=True)
-    if not np.all(np.isfinite(res.x)) or res.x.shape != (n,):
-        fail("solution not finite or of the wrong shape")
-    if berr > 1e-12 or resid > 1e-10:
-        fail(f"main path accuracy: berr {berr:.3e} (<= 1e-12), residual "
-             f"{resid:.3e} (<= 1e-10)")
-    for name, c in launches.items():
-        if c <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-
-    # the same call again, with kernels loaded and allocator warm: the
-    # first call's phases also hold one-time module loads
-    t0 = time.perf_counter()
-    res_w, _ = gssvx(A, b, opts)
-    torch.cuda.synchronize()
-    print_phases("main path, second call", time.perf_counter() - t0,
-                 res_w.stat)
-    if float(np.max(res_w.berr)) > 1e-12:
-        fail(f"second call: berr {np.max(res_w.berr):.3e} > 1e-12")
-
+    warm_call(ctx, "main path", A, b, opts)
     profile_refine(torch, lu, b, res.x)
 
-    # ---- 4. kernels against plain versions on the main path's inputs --
-    checks = check_kernels(lu, torch, blocklu, clk, sweep, diag_lu,
-                           launches)
+    # ---- 4. clk-path kernels against plain versions --------------------
+    checks = check_kernels(lu, ctx, launches)
 
-    # ---- 5. the Options default block size ----------------------------
+    # ---- 5. the flk, ILU(1) and level executors ------------------------
+    paths = {
+        "flk": (Options(dtype="float32", block_size=128, executor="flk"),
+                ("flk", "diag_lu", "sweep"), ("clk_update",)),
+        "ilu1": (Options(dtype="float32", block_size=128, ilu_level=1,
+                         max_refine_steps=60, refine_rthresh=1.0),
+                 ("flk", "diag_lu", "sweep"), ("clk_update",)),
+        "pallas": (Options(dtype="float32", block_size=128,
+                           executor="pallas"),
+                   ("schur", "trsm", "diag_lu", "sweep"),
+                   ("clk_update", "flk")),
+    }
+    lus, got = {}, {}
+    for name, (o, need, zero) in paths.items():
+        r, lus[name], got[name] = drive(ctx, name, A, b, o, need, zero)
+        print(f"{name}: {lus[name].plan.nslots} slots, {r.stat.refine_steps}"
+              f" refinement steps, executor {r.stat.counters['executor']}",
+              flush=True)
+        warm_call(ctx, name, A, b, o)
+    # each new kernel's launches come from the path that it serves
+    launches["flk"] = got["flk"]["flk"]
+    launches["schur"] = got["pallas"]["schur"]
+    launches["trsm"] = got["pallas"]["trsm"]
+    checks.update(check_flk(lus["flk"], ctx, report=True))
+    o = check_flk(lus["ilu1"], ctx, report=False)["flk"]
+    print(f"ILU(1) flk: max_abs_err {o['max_abs_err']:.3e} (tolerance "
+          f"{o['tol']:.3e}), {got['ilu1']['flk']} launches on its path",
+          flush=True)
+    checks.update(check_level(lus["pallas"], ctx, report=True))
+    for name in ("flk", "schur", "trsm"):
+        print_check(name, checks[name], launches[name])
+
+    # ---- 6. the Options default block size ----------------------------
     A2 = laplacian_3d(16)
     b2 = np.asarray(A2 @ rng.standard_normal(A2.shape[0]))
-    res2, lu2 = gssvx(A2, b2, Options(dtype="float32", block_size=64))
     x_ref = spla.spsolve(A2.tocsc(), b2)
-    err2 = float(np.abs(res2.x - x_ref).max() / np.abs(x_ref).max())
-    print(f"bs=64: lap3d16 berr {np.max(res2.berr):.3e}, |x - scipy|/|x| "
-          f"{err2:.3e} (tolerance 1e-10)", flush=True)
-    if err2 > 1e-10 or np.max(res2.berr) > 1e-12:
-        fail("bs=64 solution disagrees with scipy")
-    checks64 = check_kernels(lu2, torch, blocklu, clk, sweep, diag_lu,
-                             None)
-    for name, c in checks64.items():
-        print(f"bs=64 {name}: max_abs_err {c['max_abs_err']:.3e} "
-              f"(tolerance {c['tol']:.3e})", flush=True)
+    for executor in ("clk", "flk", "pallas"):
+        res2, lu2, _ = drive(ctx, f"bs=64 {executor}", A2, b2, Options(
+            dtype="float32", block_size=64, executor=executor), ())
+        err2 = float(np.abs(res2.x - x_ref).max() / np.abs(x_ref).max())
+        print(f"bs=64 {executor}: lap3d16 |x - scipy|/|x| {err2:.3e} "
+              f"(tolerance 1e-10)", flush=True)
+        if err2 > 1e-10:
+            fail(f"bs=64 {executor} solution disagrees with scipy")
+        c64 = {"clk": check_kernels, "flk": check_flk,
+               "pallas": check_level}[executor](lu2, ctx, None)
+        for name, c in c64.items():
+            print(f"bs=64 {name}: max_abs_err {c['max_abs_err']:.3e} "
+                  f"(tolerance {c['tol']:.3e})", flush=True)
 
     rows = []
-    replaces = {
-        "diag_lu": "superlu_dist_tpu/ops/kernels/flk.py:339",
-        "clk_update": "superlu_dist_tpu/ops/kernels/clk.py:248",
-        "clk_trsm": "superlu_dist_tpu/ops/kernels/clk.py:248",
-        "sweep": "superlu_dist_tpu/ops/kernels/pallas_exec.py:680",
-    }
     for name, k in kernels.items():
         c = checks[name]
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source=f"superlu_dist_tpu_torch/ops/kernels/csrc/{k.source}",
-            replaces=replaces[name], launches=launches[name],
+            replaces=REPLACES[name], launches=launches[name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
-            per=c["per"]))
+            per=c["per"])
+        if name in ALSO_REPLACES:
+            row["also_replaces"] = ALSO_REPLACES[name]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def drive(ctx, what, A, b, opts, need, zero=()):
+    """One ``gssvx`` call with every launch count set to 0 just before and
+    read just after; checks the accuracy limits, that every kernel of
+    ``need`` launched and that none of ``zero`` did."""
+    from superlu_dist_tpu_torch import gssvx
+    torch = ctx["torch"]
+    for k in ctx["kernels"].values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res, lu = gssvx(A, b, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ctx["kernels"].items()}
+    resid = float(np.abs(A @ res.x - b).max() / np.abs(b).max())
+    berr = float(np.max(res.berr))
+    print_phases(what, wall, res.stat)
+    print(f"{what}: berr {berr:.3e}, ||Ax-b||/||b|| {resid:.3e}, tiny "
+          f"pivots {res.stat.tiny_pivots}, launches {launches}", flush=True)
+    if not np.all(np.isfinite(res.x)) or res.x.shape != (A.shape[0],):
+        fail(f"{what}: solution not finite or of the wrong shape")
+    if berr > 1e-12 or resid > 1e-10:
+        fail(f"{what} accuracy: berr {berr:.3e} (<= 1e-12), residual "
+             f"{resid:.3e} (<= 1e-10)")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {what} path")
+    for name in zero:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched on the {what} path")
+    return res, lu, launches
+
+
+def warm_call(ctx, what, A, b, opts):
+    """The same call again, with kernels loaded and allocator warm: the
+    first call's phases also hold one-time module loads."""
+    from superlu_dist_tpu_torch import gssvx
+    t0 = time.perf_counter()
+    res, _ = gssvx(A, b, opts)
+    ctx["torch"].cuda.synchronize()
+    print_phases(f"{what}, second call", time.perf_counter() - t0, res.stat)
+    if float(np.max(res.berr)) > 1e-12:
+        fail(f"{what} second call: berr {np.max(res.berr):.3e} > 1e-12")
 
 
 def print_phases(what, wall, st):
@@ -232,58 +302,112 @@ def _timed(torch, fn):
     return ev[0].elapsed_time(ev[1])
 
 
-def check_kernels(lu, torch, blocklu, clk, sweep, diag_lu, launches):
-    """Each kernel against its plain version on ``lu``'s plan, level by
-    level: both get the same input and the factor goes on with the
-    kernel's output. Returns per kernel the max abs error, its tolerance,
-    the summed kernel and plain ms of one factor (one L+U solve for the
-    sweep) and the bound of that work."""
-    plan, tp, dev = lu.plan, lu._ftapes, lu.device
+class Checker:
+    """Kernel-against-plain comparisons of one factor (or solve): per
+    kernel the max abs error, its tolerance and the summed kernel and
+    plain ms."""
+
+    def __init__(self, torch, bs, names, library=()):
+        self.torch = torch
+        self.bs = bs
+        self.out = {k: dict(max_abs_err=0.0, tol=0.0, ms=0.0, plain_ms=0.0,
+                            library_ms=0.0 if k in library else None)
+                    for k in names}
+
+    def compare(self, name, kern, plain, state):
+        """Run kernel and plain on copies of ``state``; keep the kernel's
+        copy. Returns it and the kernel's ms."""
+        torch = self.torch
+        a = [t.clone() for t in state]
+        p = [t.clone() for t in state]
+        ms = _timed(torch, lambda: kern(*a))
+        o = self.out[name]
+        o["ms"] += ms
+        o["plain_ms"] += _timed(torch, lambda: plain(*p))
+        err = max(float((x - y).abs().max()) for x, y in zip(a, p))
+        scale = max(1.0, max(float(y.abs().max()) for y in p))
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+        o["tol"] = max(o["tol"], REL_TOL * scale)
+        if err > REL_TOL * scale:
+            fail(f"{name} (bs={self.bs}) disagrees with its plain version: "
+                 f"{err:.3e} > {REL_TOL * scale:.3e}")
+        return a, ms
+
+    def library(self, name, fn):
+        """One untimed call first: the kernels ran warm on their path, so
+        cuBLAS's first call at a shape is left out too."""
+        fn()
+        self.out[name]["library_ms"] += _timed(self.torch, fn)
+
+
+def _state(lu, torch, blocklu):
+    plan, dev = lu.plan, lu.device
     bs, nb = plan.bs, plan.nb
-    th = lu._thresh()
     pool = blocklu.init_pool(plan, lu._a3_data, np.float32, dev)
     linv = torch.zeros((nb, bs, bs), dtype=torch.float32, device=dev)
     uinv = torch.zeros_like(linv)
     tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+    return pool, linv, uinv, tiny
+
+
+def check_whole_factor(what, lu, ctx, pool, tiny):
+    """A whole factor against the float64 right-looking reference on its
+    plan."""
+    blocklu = ctx["blocklu"]
+    plan = lu.plan
+    ref, _, _, _ = blocklu.factor_plain(
+        plan, blocklu.init_pool(plan, lu._a3_data, np.float64, lu.device),
+        lu._thresh())
+    ns = plan.nslots
+    scale = max(1.0, float(ref[:ns].abs().max()))
+    ferr = float((pool[:ns].double() - ref[:ns]).abs().max())
+    ftol = FACTOR_ULPS * float(np.finfo(np.float32).eps) * scale
+    print(f"bs={plan.bs}: {what} factor vs float64 right-looking reference:"
+          f" max abs err {ferr:.3e} (tolerance {ftol:.3e}); tiny pivots "
+          f"{int(tiny.item())}", flush=True)
+    if ferr > ftol:
+        fail(f"{what} factor disagrees with the float64 reference")
+
+
+def print_check(name, o, launches):
+    lib = "none" if o["library_ms"] is None else f"{o['library_ms']:.3f} ms"
+    print(f"{name}: max_abs_err {o['max_abs_err']:.3e} (tolerance "
+          f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
+          f"{o['plain_ms']:.3f} ms, library {lib}, bound "
+          f"{o['bound_ms']:.4f} ms ({o['bound_by']}) per {o['per']}; "
+          f"{launches} launches on its path", flush=True)
+
+
+def check_kernels(lu, ctx, launches):
+    """Each clk-path kernel against its plain version on ``lu``'s plan,
+    level by level: both get the same input and the factor goes on with
+    the kernel's output. Returns per kernel the max abs error, its
+    tolerance, the summed kernel and plain ms of one factor (one L+U solve
+    for the sweep) and the bound of that work."""
+    torch, clk, diag_lu, sweep = (ctx[k] for k in
+                                  ("torch", "clk", "diag_lu", "sweep"))
+    plan, tp, dev = lu.plan, lu._ftapes, lu.device
+    bs, nb = plan.bs, plan.nb
+    th = lu._thresh()
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
     # library_ms: clk_trsm is a batched product per level, timed as one
     # torch.bmm on the level's gathered L blocks and U inverses. No one
     # PyTorch call computes diag_lu (no-pivot LU with both inverses and
     # tiny-pivot replacement), clk_update (a chain of dependent products
     # per column) or the sweep (a level of a block-sparse triangular
     # solve), so theirs stays None.
-    out = {k: dict(max_abs_err=0.0, tol=0.0, ms=0.0, plain_ms=0.0,
-                   library_ms=None)
-           for k in ("diag_lu", "clk_update", "clk_trsm", "sweep")}
-    out["clk_trsm"]["library_ms"] = 0.0
-
-    def compare(name, kern, plain, state):
-        """Run kernel and plain on copies of ``state``; keep the
-        kernel's copy."""
-        a = [t.clone() for t in state]
-        p = [t.clone() for t in state]
-        out[name]["ms"] += _timed(torch, lambda: kern(*a))
-        out[name]["plain_ms"] += _timed(torch, lambda: plain(*p))
-        err = max(float((x - y).abs().max()) for x, y in zip(a, p))
-        scale = max(1.0, max(float(y.abs().max()) for y in p))
-        o = out[name]
-        o["max_abs_err"] = max(o["max_abs_err"], err)
-        o["tol"] = max(o["tol"], REL_TOL * scale)
-        if err > REL_TOL * scale:
-            fail(f"{name} (bs={bs}) disagrees with its plain version: "
-                 f"{err:.3e} > {REL_TOL * scale:.3e}")
-        return a
+    ck = Checker(torch, bs, ("diag_lu", "clk_update", "clk_trsm", "sweep"),
+                 library=("clk_trsm",))
 
     per_level = []
     for lvl in range(tp.nlvl):
-        ms0, plain0 = out["clk_update"]["ms"], out["clk_update"]["plain_ms"]
-        pool, = compare(
+        (pool,), ms = ck.compare(
             "clk_update", lambda p: clk.clk_update(p, linv, tp, lvl),
             lambda p: clk.clk_update_plain(p, linv, tp, lvl), [pool])
-        per_level.append((out["clk_update"]["ms"] - ms0,
-                          out["clk_update"]["plain_ms"] - plain0, lvl))
+        per_level.append((ms, lvl))
         lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
         ds, dk = tp.dslot[lo:hi], tp.dstep[lo:hi]
-        pool, linv, uinv, tiny = compare(
+        (pool, linv, uinv, tiny), _ = ck.compare(
             "diag_lu",
             lambda p, li, ui, t: diag_lu.diag_lu(p, li, ui, ds, dk, th, t),
             lambda p, li, ui, t: diag_lu.diag_lu_plain(
@@ -294,31 +418,14 @@ def check_kernels(lu, torch, blocklu, clk, sweep, diag_lu, launches):
             Lg = pool[tp.lslot[lo:hi].long()]
             Ug = uinv[tp.lstep[lo:hi].long()]
             C = torch.empty_like(Lg)
-            # one untimed call first: the kernels ran warm on the main
-            # path, so cuBLAS's first call at a shape is left out too
-            torch.bmm(Lg, Ug, out=C)
-            out["clk_trsm"]["library_ms"] += _timed(
-                torch, lambda: torch.bmm(Lg, Ug, out=C))
+            ck.library("clk_trsm", lambda: torch.bmm(Lg, Ug, out=C))
             del Lg, Ug, C
-        pool, = compare(
+        (pool,), _ = ck.compare(
             "clk_trsm", lambda p: clk.clk_trsm(p, uinv, tp, lvl),
             lambda p: clk.clk_trsm_plain(p, uinv, tp, lvl), [pool])
     if launches is not None:
         print_update_levels(tp, per_level)
-
-    # the whole clk factor against the float64 right-looking reference
-    ref, _, _, _ = blocklu.factor_plain(
-        plan, blocklu.init_pool(plan, lu._a3_data, np.float64, dev), th)
-    ns = plan.nslots
-    scale = max(1.0, float(ref[:ns].abs().max()))
-    ferr = float((pool[:ns].double() - ref[:ns]).abs().max())
-    ftol = FACTOR_ULPS * float(np.finfo(np.float32).eps) * scale
-    print(f"bs={bs}: clk factor vs float64 right-looking reference: max "
-          f"abs err {ferr:.3e} (tolerance {ftol:.3e}); tiny pivots "
-          f"{int(tiny.item())}", flush=True)
-    if ferr > ftol:
-        fail("clk factor disagrees with the float64 reference")
-    del ref
+    check_whole_factor("clk", lu, ctx, pool, tiny)
 
     # one L+U solve of a right-hand side, level by level
     rng = np.random.default_rng(1)
@@ -326,36 +433,102 @@ def check_kernels(lu, torch, blocklu, clk, sweep, diag_lu, launches):
                         dtype=torch.float32, device=dev)
     for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
         for lvl in range(tape.nlvl):
-            X, = compare(
+            (X,), _ = ck.compare(
                 "sweep", lambda x: sweep.sweep_level(lu.pool, dinv, x, tape,
                                                      lvl),
                 lambda x: sweep.sweep_level_plain(lu.pool, dinv, x, tape,
                                                   lvl), [X])
 
+    out = ck.out
     bounds = work_bounds(plan, tp, lu)
     for name, o in out.items():
         o.update(bounds[name])
         if launches is not None:
-            lib = "none" if o["library_ms"] is None \
-                else f"{o['library_ms']:.3f} ms"
-            print(f"{name}: max_abs_err {o['max_abs_err']:.3e} (tolerance "
-                  f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
-                  f"{o['plain_ms']:.3f} ms, library {lib}, bound "
-                  f"{o['bound_ms']:.4f} ms "
-                  f"({o['bound_by']}) per {o['per']}; "
-                  f"{launches[name]} launches on the main path",
-                  flush=True)
+            print_check(name, o, launches[name])
     return out
+
+
+def check_flk(lu, ctx, report):
+    """flk_update against its plain version on ``lu``'s flk plan, level by
+    level (diag_lu runs as the kernel between the two groups). No one
+    PyTorch call computes flk (per target a chain of products, then a
+    product by a stored inverse), so its library_ms stays None."""
+    torch, flk, diag_lu = ctx["torch"], ctx["flk"], ctx["diag_lu"]
+    plan, tp = lu.plan, lu._ftapes
+    th = lu._thresh()
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
+    ck = Checker(torch, plan.bs, ("flk",))
+    per_group = []
+    for lvl in range(tp.nlvl):
+        for g in (2 * lvl, 2 * lvl + 1):
+            (pool,), ms = ck.compare(
+                "flk", lambda p: flk.flk_update(p, linv, uinv, tp, g),
+                lambda p: flk.flk_update_plain(p, linv, uinv, tp, g), [pool])
+            per_group.append((ms, g))
+            if g == 2 * lvl:
+                lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
+                diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
+                                tp.dstep[lo:hi], th, tiny)
+    what = "ILU(1) flk" if lu.options.ilu_level is not None else "flk"
+    if report:
+        print_flk_groups(tp, per_group)
+    check_whole_factor(what, lu, ctx, pool, tiny)
+    ck.out["flk"].update(flk_bounds(plan, tp, flk))
+    return ck.out
+
+
+def check_level(lu, ctx, report):
+    """trsm (both flags) and schur against their plain versions on
+    ``lu``'s plan, level by level (diag_lu runs as the kernel).
+    library_ms: trsm is a batched product, timed as one torch.bmm per
+    panel list per level on the gathered panels and inverses; no one
+    PyTorch call computes schur (per target a sum of products of gathered
+    blocks; an ``index_add_`` of batched products is two calls and a
+    temporary of every product), so its library_ms stays None."""
+    torch, schur, diag_lu = ctx["torch"], ctx["schur"], ctx["diag_lu"]
+    plan, tp = lu.plan, lu._ftapes
+    th = lu._thresh()
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
+    ck = Checker(torch, plan.bs, ("schur", "trsm"), library=("trsm",))
+    per_level = []
+    for lvl in range(tp.nlvl):
+        d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[d], tp.dstep[d], th, tiny)
+        for left, dinv, sl, st, ptr in (
+                (False, uinv, tp.lslot, tp.lstep, tp.lptr),
+                (True, linv, tp.uslot, tp.ustep, tp.uptr)):
+            s = slice(int(ptr[lvl]), int(ptr[lvl + 1]))
+            if s.stop > s.start:
+                Xg, Dg = pool[sl[s].long()], dinv[st[s].long()]
+                C = torch.empty_like(Xg)
+                ck.library("trsm", (lambda: torch.bmm(Dg, Xg, out=C)) if left
+                           else (lambda: torch.bmm(Xg, Dg, out=C)))
+                del Xg, Dg, C
+            (pool,), _ = ck.compare(
+                "trsm", lambda p: schur.trsm(p, dinv, sl[s], st[s], left),
+                lambda p: schur.trsm_plain(p, dinv, sl[s], st[s], left),
+                [pool])
+        (pool,), ms = ck.compare(
+            "schur", lambda p: schur.schur(p, tp, lvl),
+            lambda p: schur.schur_plain(p, tp, lvl), [pool])
+        per_level.append((ms, lvl))
+    if report:
+        print_schur_levels(tp, per_level)
+    check_whole_factor("level executor", lu, ctx, pool, tiny)
+    b = level_bounds(plan, tp)
+    for name in ("schur", "trsm"):
+        ck.out[name].update(b[name])
+    return ck.out
 
 
 def print_update_levels(tp, per_level, top=6):
     """Where clk_update's time goes: the costliest levels, with their
     columns, U blocks (jobs) and L·U block products."""
     h = tp.host
-    total = sum(ms for ms, _, _ in per_level)
+    total = sum(ms for ms, _ in per_level)
     print(f"clk_update by level (kernel {total:.3f} ms over {tp.nlvl} "
           f"levels; top {top}):")
-    for ms, plain_ms, lvl in sorted(per_level, reverse=True)[:top]:
+    for ms, lvl in sorted(per_level, reverse=True)[:top]:
         cols = h["ucols"][tp.uptr[lvl]:tp.uptr[lvl + 1]]
         jobs = [np.arange(h["col_job0"][k], h["col_job0"][k]
                           + h["col_dpos"][k]) for k in cols]
@@ -363,30 +536,62 @@ def print_update_levels(tp, per_level, top=6):
         longest = max((int(h["col_dpos"][k] + h["job_lm"][
             h["col_job0"][k]:h["col_job0"][k] + h["col_dpos"][k]].sum())
             for k in cols), default=0)
-        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms, plain {plain_ms:9.3f}"
-              f" ms; {len(cols)} columns, {len(jobs)} U blocks, "
-              f"{int(h['job_lm'][jobs].sum())} L·U products, longest "
-              f"column chain {longest} products", flush=True)
+        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {len(cols)} columns, "
+              f"{len(jobs)} U blocks, {int(h['job_lm'][jobs].sum())} L·U "
+              f"products, longest column chain {longest} products",
+              flush=True)
+
+
+def print_flk_groups(tp, per_group, top=6):
+    """Where flk's time goes: the costliest target groups, with their
+    targets, products and the longest chain one CTA walks."""
+    h = tp.host
+    total = sum(ms for ms, _ in per_group)
+    print(f"flk by target group (kernel {total:.3f} ms over "
+          f"{len(per_group)} groups; top {top}):")
+    for ms, g in sorted(per_group, reverse=True)[:top]:
+        lo, hi = tp.tptr[g], tp.tptr[g + 1]
+        chain = np.diff(h["cptr"][lo:hi + 1])
+        print(f"  level {g // 2:3d} {'panels' if g % 2 else 'diagonal'}: "
+              f"kernel {ms:9.3f} ms; {hi - lo} targets, {int(chain.sum())} "
+              f"L·U products, longest chain {int(chain.max(initial=0))}",
+              flush=True)
+
+
+def print_schur_levels(tp, per_level, top=6):
+    """Where schur's time goes: the costliest levels, with their targets,
+    products and longest per-target chain."""
+    h = tp.host
+    total = sum(ms for ms, _ in per_level)
+    print(f"schur by level (kernel {total:.3f} ms over {tp.nlvl} levels; "
+          f"top {top}):")
+    for ms, lvl in sorted(per_level, reverse=True)[:top]:
+        lo, hi = tp.sptr[lvl], tp.sptr[lvl + 1]
+        chain = np.diff(h["cptr"][lo:hi + 1])
+        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {hi - lo} targets, "
+              f"{int(chain.sum())} L·U products, longest chain "
+              f"{int(chain.max(initial=0))}", flush=True)
+
+
+def _bound(flops, nbytes, per):
+    tf, tb = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(tf, tb) * 1e3,
+                bound_by="operations" if tf >= tb else "bytes",
+                per=per, flops=flops, bytes=nbytes)
 
 
 def work_bounds(plan, tp, lu):
-    """Least time for each kernel's work in one factor (one L+U solve for
-    the sweep) on this plan: the larger of its operations at FP32 peak
-    and its bytes (each input read once, each output written once) at the
-    memory rate."""
+    """Least time for each clk-path kernel's work in one factor (one L+U
+    solve for the sweep) on this plan: the larger of its operations at
+    FP32 peak and its bytes (each input read once, each output written
+    once) at the memory rate."""
     bs = plan.bs
     blk = 4.0 * bs * bs
     h = tp.host
     res = {}
-
-    def bound(flops, nbytes, per):
-        tf, tb = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-        return dict(bound_ms=max(tf, tb) * 1e3,
-                    bound_by="operations" if tf >= tb else "bytes",
-                    per=per, flops=flops, bytes=nbytes)
-
     nd = plan.nb
-    res["diag_lu"] = bound(nd * (4.0 / 3.0) * bs ** 3, nd * 4 * blk, "factor")
+    res["diag_lu"] = _bound(nd * (4.0 / 3.0) * bs ** 3, nd * 4 * blk,
+                            "factor")
 
     flops = nbytes = 0.0
     for lvl in range(tp.nlvl):
@@ -411,19 +616,63 @@ def work_bounds(plan, tp, lu):
         nlinv = len(np.unique(h["job_src"][jobs]))
         flops += 2.0 * bs ** 3 * (len(jobs) + h["job_lm"][jobs].sum())
         nbytes += blk * (reads + writes + nlinv)
-    res["clk_update"] = bound(flops, nbytes, "factor")
+    res["clk_update"] = _bound(flops, nbytes, "factor")
 
     nl = len(h["lslot"])
-    res["clk_trsm"] = bound(2.0 * bs ** 3 * nl,
-                            blk * (2 * nl + plan.nb), "factor")
+    res["clk_trsm"] = _bound(2.0 * bs ** 3 * nl, blk * (2 * nl + plan.nb),
+                             "factor")
 
     ncon = len(lu._ltape.host["cslot"]) + len(lu._utape.host["cslot"])
     nslots_read = len(np.unique(lu._ltape.host["cslot"])) + \
         len(np.unique(lu._utape.host["cslot"]))
-    res["sweep"] = bound(2.0 * bs * bs * (ncon + 2 * plan.nb),
-                         blk * (nslots_read + 2 * plan.nb)
-                         + 2 * 2 * 4.0 * plan.n_pad, "solve")
+    res["sweep"] = _bound(2.0 * bs * bs * (ncon + 2 * plan.nb),
+                          blk * (nslots_read + 2 * plan.nb)
+                          + 2 * 2 * 4.0 * plan.n_pad, "solve")
     return res
+
+
+def flk_bounds(plan, tp, flk):
+    """flk's least time per factor: 2·bs³ per Schur triple and per panel
+    finalize; per launch (target group), the distinct target and source
+    blocks read once, the targets written once and the inverses read
+    once."""
+    bs = plan.bs
+    blk = 4.0 * bs * bs
+    h = tp.host
+    nfin = int(np.count_nonzero(h["tfin"] != flk.FIN_NONE))
+    flops = 2.0 * bs ** 3 * (len(h["cl"]) + nfin)
+    nbytes = 0.0
+    for g in range(2 * tp.nlvl):
+        lo, hi = tp.tptr[g], tp.tptr[g + 1]
+        if hi == lo:
+            continue
+        c = slice(h["cptr"][lo], h["cptr"][hi])
+        t = h["tslot"][lo:hi]
+        src = np.union1d(h["cl"][c], h["cu"][c])
+        fin = h["tfin"][lo:hi] != flk.FIN_NONE
+        ninv = len(np.unique(h["tstep"][lo:hi][fin]))
+        nbytes += blk * (len(np.union1d(t, src)) + len(t) + ninv)
+    return _bound(flops, nbytes, "factor")
+
+
+def level_bounds(plan, tp):
+    """schur: 2·bs³ per Schur triple; per level the distinct targets and
+    sources read once and the targets written once. trsm: 2·bs³ per panel
+    block; panels in and out, each step's two inverses read once."""
+    bs = plan.bs
+    blk = 4.0 * bs * bs
+    h = tp.host
+    nbytes = 0.0
+    for lvl in range(tp.nlvl):
+        lo, hi = tp.sptr[lvl], tp.sptr[lvl + 1]
+        c = slice(h["cptr"][lo], h["cptr"][hi])
+        t = h["tslot"][lo:hi]
+        src = np.union1d(h["cl"][c], h["cu"][c])
+        nbytes += blk * (len(np.union1d(t, src)) + len(t))
+    npanel = len(h["lslot"]) + len(h["uslot"])
+    return {"schur": _bound(2.0 * bs ** 3 * len(h["cl"]), nbytes, "factor"),
+            "trsm": _bound(2.0 * bs ** 3 * npanel,
+                           blk * (2 * npanel + 2 * plan.nb), "factor")}
 
 
 if __name__ == "__main__":

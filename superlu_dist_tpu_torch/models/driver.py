@@ -19,8 +19,16 @@ Deliberate differences from the JAX package:
 - Etree alignment stays on whatever the device, as the JAX package
   keeps it off the TPU, so both build the same plan.
 - This slice serves real ``float32`` on CUDA (``float64`` on the CPU
-  too), DOFACT, NOTRANS, the clk executor, and no condition estimate;
-  the rest raises ``NotImplementedError`` naming its ROADMAP.md item.
+  too), DOFACT, NOTRANS, exact LU and ILU(k) plans (``ilu_level``), the
+  clk, flk and level-by-level (``"pallas"``) executors, and no condition
+  estimate; the rest raises ``NotImplementedError`` naming its ROADMAP.md
+  item.
+- The executor is chosen as in the JAX package (driver.py:705-797): clk
+  for exact plans, flk for ILU plans and ``executor="flk"``, the level
+  executor for ``executor="pallas"`` (with or without ILU). The port has
+  no ``flk_supported`` check and no ``"xla-fallback"``: those exist for
+  the TPU's SMEM budget for tapes, and the CUDA kernels read their tapes
+  from device memory, so flk serves every plan.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from ..ops.host import mc64 as _mc64
 from ..ops.host import ordering as _ordering
 from ..ops.host.symbolic import SymbolicPlan, block_symbolic
 from ..ops.kernels import clk as _clk
+from ..ops.kernels import flk as _flk
+from ..ops.kernels import schur as _schur
 from ..ops.kernels import sweep as _sweep
 from ..utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                              Options, RowPerm, Trans, apply_env_overrides)
@@ -90,10 +100,12 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
         raise ValueError(f"unknown dtype {opts.dtype!r}")
     if opts.dtype == "float64" and device.type == "cuda":
         todo("float64 on CUDA", "queue 1 item 3")
-    if opts.ilu_level is not None:
-        todo("ilu_level", "queue 1 item 5")
-    if opts.executor not in (None, "clk"):
-        todo(f"executor={opts.executor!r}", "queue 2")
+    if opts.executor == "tck":
+        todo("executor='tck'", "queue 2 item 2")
+    if opts.executor == "xla":
+        todo("executor='xla'", "queue 1 item 12")
+    if opts.executor not in (None, "clk", "flk", "pallas"):
+        raise ValueError(f"unknown executor {opts.executor!r}")
     if opts.trans != Trans.NOTRANS:
         todo(f"trans={opts.trans}", "queue 1 item 1")
     if opts.fact != Fact.DOFACT:
@@ -102,6 +114,22 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
         todo("condition_number", "queue 1 item 1")
     if (opts.gemm_precision or "auto") not in ("auto", "highest"):
         todo(f"gemm_precision={opts.gemm_precision!r}", "queue 1 item 2")
+
+
+#: the factor module of each executor; each has ``factor(pool, thresh,
+#: tapes, nb)`` and a tape builder
+_EXECUTORS = {"clk": (_clk, _clk.build_clk_tapes),
+              "flk": (_flk, _flk.build_flk_tapes),
+              "pallas": (_schur, _schur.build_level_tapes)}
+
+
+def _executor(opts: Options) -> str:
+    """clk for exact plans, flk for ILU plans unless an executor is named
+    (driver.py:728-797 of the JAX package)."""
+    exc = opts.executor or "clk"
+    if exc == "clk" and opts.ilu_level is not None:
+        return "flk"
+    return exc
 
 
 def _check_user_perm(p, n: int, what: str) -> np.ndarray:
@@ -375,23 +403,28 @@ class SparseLU:
         return float(self.dtype.type(t))
 
     def _device_factor(self, A3: sp.csc_matrix):
-        """Assemble the pool on the device and run the clk factor."""
+        """Assemble the pool on the device and run the executor's
+        factor."""
         self.pool = self.linv = self.uinv = None
         stat, plan = self.stat, self.plan
         self._a3_data = np.asarray(A3.data)     # the factor's input values
+        self.executor = _executor(self.options)
+        mod, build_tapes = _EXECUTORS[self.executor]
         with stat.phase("DIST"):
             t0 = time.perf_counter()
-            self._ftapes = _clk.build_clk_tapes(plan, self.device)
+            self._ftapes = build_tapes(plan, self.device)
             self._ltape = _sweep.build_sweep_tape(plan, "L", self.device)
             self._utape = _sweep.build_sweep_tape(plan, "U", self.device)
             stat.counters["dist_tapes_s"] = round(time.perf_counter() - t0, 3)
             pool = _blocklu.init_pool(plan, A3.data, self.dtype, self.device)
         # FP32 kernels: "auto" resolves to "highest" (no escalation)
         stat.counters["gemm_precision"] = "highest"
-        stat.counters["clk_jobs"] = len(self._ftapes.host["job_src"])
+        stat.counters["executor"] = self.executor
+        if self.executor == "clk":
+            stat.counters["clk_jobs"] = len(self._ftapes.host["job_src"])
         with stat.phase("FACT"):
-            pool, linv, uinv, tiny = _clk.factor(pool, self._thresh(),
-                                                 self._ftapes, plan.nb)
+            pool, linv, uinv, tiny = mod.factor(pool, self._thresh(),
+                                                self._ftapes, plan.nb)
         self.pool, self.linv, self.uinv = pool, linv, uinv
         stat.tiny_pivots += int(tiny.item())
 

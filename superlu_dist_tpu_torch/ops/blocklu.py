@@ -10,8 +10,9 @@ Counterpart of the JAX package's ``ops/kernels/blocklu.py``:
   JAX package's XLA executor (``_make_level_step`` with
   ``block_lu_inv``) in plain PyTorch: per level the diagonal batch, the
   L panels times U⁻¹, L⁻¹ times the U panels, then the Schur
-  gather-GEMM-scatter-add. It is the independent reference that the clk
-  kernel is held against.
+  gather-GEMM-scatter-add. It is the independent reference that the clk,
+  flk and level-executor factors are held against; it reads the plan's
+  triples, so it serves ILU(k) plans too.
 """
 
 from __future__ import annotations
@@ -109,9 +110,17 @@ def factor_plain(plan: SymbolicPlan, pool: torch.Tensor, thresh: float):
         pool[s] = linv[k] @ pool[s]
 
         lo, hi = int(lv["gptr"][l]), int(lv["gptr"][l + 1])
-        for c in range(lo, hi, SCHUR_CHUNK):
-            e = min(c + SCHUR_CHUNK, hi)
-            gl, gu = idx(lv["g_l"], c, e), idx(lv["g_u"], c, e)
-            gt = idx(lv["g_t"], c, e)
-            pool.index_add_(0, gt, pool[gl] @ pool[gu], alpha=-1)
+        subtract_products(pool, lv["g_l"][lo:hi], lv["g_u"][lo:hi],
+                          lv["g_t"][lo:hi])
     return pool, linv, uinv, tiny
+
+
+def subtract_products(pool: torch.Tensor, gl, gu, gt) -> None:
+    """pool[gt[i]] −= pool[gl[i]]·pool[gu[i]] for every i, in order of i
+    (host index arrays; gathered in batches of ``SCHUR_CHUNK``)."""
+    dev = pool.device
+    for c in range(0, len(gt), SCHUR_CHUNK):
+        def idx(a):
+            return torch.as_tensor(np.asarray(a[c:c + SCHUR_CHUNK],
+                                              dtype=np.int64), device=dev)
+        pool.index_add_(0, idx(gt), pool[idx(gl)] @ pool[idx(gu)], alpha=-1)

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source under ``csrc/`` has a plain C interface. It is compiled by
+Each source under ``csrc/`` has a plain C interface (the ``.cuh``
+headers hold device code that several sources share). It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_kernels/`` at the
 root of the checkout (git-ignored) on first use, and loaded with
 ``ctypes``. Nothing is built when a module is imported: a build starts
@@ -58,8 +59,12 @@ class CudaKernel:
 
     def so_path(self) -> str:
         h = hashlib.sha256()
-        with open(self.source_path, "rb") as f:
-            h.update(f.read())
+        # the source and every shared header it may include
+        headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+        for path in [self.source_path] + [os.path.join(_CSRC, f)
+                                          for f in headers]:
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

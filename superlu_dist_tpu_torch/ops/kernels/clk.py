@@ -30,6 +30,7 @@ from ..blocklu import level_order
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .schur import trsm_plain
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -185,9 +186,7 @@ def _launch_update(pool, linv, tp: ClkTapes, level: int) -> None:
 def clk_trsm_plain(pool, uinv, tp: ClkTapes, level: int) -> None:
     """Plain version of :func:`clk_trsm`."""
     lo, hi = int(tp.lptr[level]), int(tp.lptr[level + 1])
-    if hi > lo:
-        s = tp.lslot[lo:hi].long()
-        pool[s] = pool[s] @ uinv[tp.lstep[lo:hi].long()]
+    trsm_plain(pool, uinv, tp.lslot[lo:hi], tp.lstep[lo:hi], left=False)
 
 
 def clk_trsm(pool, uinv, tp: ClkTapes, level: int) -> None:

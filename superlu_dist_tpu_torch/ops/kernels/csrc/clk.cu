@@ -28,45 +28,17 @@
 // inside a CTA the U blocks are walked in order, with the finalized U
 // strip held in shared memory while every L block of the source column is
 // multiplied against it and subtracted from its target strip in device
-// memory (L2-resident). clk_trsm runs one CTA per (L block, strip of TM
+// memory (L2-resident). clk_trsm runs one CTA per (L block, strip of 16
 // rows); the row strip is staged in shared memory so the product can be
-// written in place. Each thread owns a 4x4 tile of the result. Offsets
-// are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
+// written in place (strip.cuh, shared with flk.cu and schur.cu). Each
+// thread owns a 4x4 tile of the result. Offsets are computed in 64 bits
+// (slot * bs^2 passes 2^31 near n = 885k).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "strip.cuh"
 
 namespace {
 
-constexpr int TN = 16;   // clk_update: scalar columns per strip
-constexpr int TM = 16;   // clk_trsm: rows per strip
-
-// acc += A[r0:r0+4, :] . B[:, c0:c0+4] with A (bs x bs, row major, device
-// memory) and B (bs x ldb, shared memory).
-__device__ __forceinline__ void mma4x4(const float* __restrict__ A,
-                                       const float* B, int ldb, int bs,
-                                       int r0, int c0, float acc[4][4]) {
-  const float* a0 = A + (int64_t)r0 * bs;
-  for (int k = 0; k < bs; k += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = __ldg(reinterpret_cast<const float4*>(a0 + i * bs + k));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(B + (k + kk) * ldb + c0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
-                       : kk == 2 ? a[i].z : a[i].w;
-        acc[i][0] += av * b.x;
-        acc[i][1] += av * b.y;
-        acc[i][2] += av * b.z;
-        acc[i][3] += av * b.w;
-      }
-    }
-  }
-}
+constexpr int TN = slu_strip::kStrip;   // clk_update: scalar columns per strip
 
 __global__ void __launch_bounds__(256)
 clk_update_kernel(float* __restrict__ pool, const float* __restrict__ linv,
@@ -103,7 +75,8 @@ clk_update_kernel(float* __restrict__ pool, const float* __restrict__ linv,
     }
     __syncthreads();
     float acc[4][4] = {};
-    mma4x4(linv + (int64_t)job_src[job] * bb, B, TN, bs, r0, c0, acc);
+    slu_strip::mul_dev_smem(linv + (int64_t)job_src[job] * bb, B, bs, r0,
+                            c0, acc);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -117,7 +90,7 @@ clk_update_kernel(float* __restrict__ pool, const float* __restrict__ linv,
     const int d0 = job_dst0[job];
     for (int m = 0; m < lm; ++m) {
       float p[4][4] = {};
-      mma4x4(pool + (la0 + m) * bb, B, TN, bs, r0, c0, p);
+      slu_strip::mul_dev_smem(pool + (la0 + m) * bb, B, bs, r0, c0, p);
       float* C = pool + (int64_t)dst[d0 + m] * bb + s0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -135,40 +108,15 @@ clk_update_kernel(float* __restrict__ pool, const float* __restrict__ linv,
   }
 }
 
-__global__ void __launch_bounds__(256)
+// L(i,k) <- L(i,k) . uinv(k): a row-strip TRSM (strip.cuh), the same
+// function as schur.cu's trsm with left = 0, launched and counted apart.
+__global__ void __launch_bounds__(slu_strip::kMaxBs)
 clk_trsm_kernel(float* __restrict__ pool, const float* __restrict__ uinv,
                 const int32_t* __restrict__ lslots,
                 const int32_t* __restrict__ lsteps, int bs) {
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);   // TM x bs row strip
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int64_t bb = (int64_t)bs * bs;
-  float* G = pool + (int64_t)lslots[blockIdx.x] * bb
-             + (int64_t)blockIdx.y * TM * bs;
-  const float* Ui = uinv + (int64_t)lsteps[blockIdx.x] * bb;
-  for (int e = tid; e < TM * bs / 4; e += nt)
-    reinterpret_cast<float4*>(X)[e] = reinterpret_cast<const float4*>(G)[e];
-  __syncthreads();
-  const int nc = bs / 4;
-  const int r0 = (tid / nc) * 4;
-  const int c0 = (tid % nc) * 4;
-  float acc[4][4] = {};
-  for (int kk = 0; kk < bs; ++kk) {
-    const float4 b = __ldg(reinterpret_cast<const float4*>(Ui + (int64_t)kk * bs + c0));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = X[(r0 + i) * bs + kk];
-      acc[i][0] += a * b.x;
-      acc[i][1] += a * b.y;
-      acc[i][2] += a * b.z;
-      acc[i][3] += a * b.w;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(G + (int64_t)(r0 + i) * bs + c0) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  slu_strip::strip_update(pool, uinv, uinv, lslots[blockIdx.x],
+                          lsteps[blockIdx.x], slu_strip::FIN_L, nullptr,
+                          nullptr, 0, 0, bs, blockIdx.y);
 }
 
 }  // namespace
@@ -197,10 +145,8 @@ extern "C" int slu_clk_trsm_f32(void* pool, const void* uinv,
                                 const void* lslots, const void* lsteps,
                                 int count, int bs, void* stream) {
   if (count == 0) return 0;
-  const dim3 grid(count, bs / TM);
-  const int threads = (TM / 4) * (bs / 4);
-  const size_t smem = (size_t)TM * bs * sizeof(float);
-  clk_trsm_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(count, bs / slu_strip::kStrip);
+  clk_trsm_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
       (float*)pool, (const float*)uinv, (const int32_t*)lslots,
       (const int32_t*)lsteps, bs);
   return (int)cudaGetLastError();

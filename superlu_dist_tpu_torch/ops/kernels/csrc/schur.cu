@@ -1,0 +1,77 @@
+// schur.cu: the two device phases of the level-by-level (right-looking)
+// factor executor after the diagonal batch: the panel TRSMs and the Schur
+// update of one elimination level.
+//
+// Replaces: superlu_dist_tpu/ops/kernels/pallas_exec.py
+//   - _trsm_kernel (make_trsm_call), both flags, by `trsm`:
+//       left = 0 (L panels):  X <- X . dinv[step]
+//       left = 1 (U panels):  X <- dinv[step] . X
+//     in place over a list of (slot, step);
+//   - _schur_kernel (make_schur_call) and _schur_kernel_db
+//     (make_schur_call_db), which compute the same function with single-
+//     and double-buffered DMA windows, by one kernel `schur`:
+//       T <- T - sum of L . U over the level's (L slot, U slot) pairs of
+//       each target T.
+// The TPU kernels walk window-scheduled lanes on a sequential grid, and
+// the host keeps two lanes of a window (and, double-buffered, of adjacent
+// windows) off one target; the single-buffered form still lost
+// contributions on shared root targets (pallas_exec.py:407-412). Here the
+// level's triples are grouped by target (a CSR over targets): one CTA owns
+// one strip of one target and sums its products in the plan's order, with
+// no atomics, so a target shared by many steps of the level cannot lose a
+// contribution. A level's targets belong to ancestor steps, so no target
+// is an L or U source of the same level.
+//
+// What bounds them on an H100: operations, 2*bs^3 per block product (FP32
+// on the CUDA cores, 67 TFLOP/s peak).
+//
+// Design: strip.cuh, one CTA of bs threads per (target or panel, strip of
+// 16 scalar columns, or rows for X . dinv).
+
+#include "strip.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(slu_strip::kMaxBs)
+schur_kernel(float* pool, const int32_t* __restrict__ tslot,
+             const int32_t* __restrict__ cptr,
+             const int32_t* __restrict__ cl, const int32_t* __restrict__ cu,
+             int bs) {
+  const int t = blockIdx.x;
+  slu_strip::strip_update(pool, nullptr, nullptr, tslot[t], 0,
+                          slu_strip::FIN_NONE, cl, cu, cptr[t], cptr[t + 1],
+                          bs, blockIdx.y);
+}
+
+__global__ void __launch_bounds__(slu_strip::kMaxBs)
+trsm_kernel(float* pool, const float* __restrict__ dinv,
+            const int32_t* __restrict__ slots,
+            const int32_t* __restrict__ steps, int fin, int bs) {
+  const int t = blockIdx.x;
+  slu_strip::strip_update(pool, dinv, dinv, slots[t], steps[t], fin,
+                          nullptr, nullptr, 0, 0, bs, blockIdx.y);
+}
+
+}  // namespace
+
+extern "C" int slu_schur_f32(void* pool, const void* tslot, const void* cptr,
+                             const void* cl, const void* cu, int count,
+                             int bs, void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, bs / slu_strip::kStrip);
+  schur_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
+      (float*)pool, (const int32_t*)tslot, (const int32_t*)cptr,
+      (const int32_t*)cl, (const int32_t*)cu, bs);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int slu_trsm_f32(void* pool, const void* dinv, const void* slots,
+                            const void* steps, int count, int bs, int left,
+                            void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, bs / slu_strip::kStrip);
+  trsm_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
+      (float*)pool, (const float*)dinv, (const int32_t*)slots,
+      (const int32_t*)steps, left ? slu_strip::FIN_U : slu_strip::FIN_L, bs);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,198 @@
+"""Kernels 6–8: the level-by-level (right-looking) factor executor.
+
+Counterpart of the factor half of the JAX package's
+``ops/kernels/pallas_exec.py`` (``pallas_factor_meta``,
+``_pallas_factor_executor``, ``build_factor_fn_pallas``), which
+``executor="pallas"`` runs. Per elimination level, on one stream:
+
+1. ``diag_lu`` (``csrc/diag_lu.cu``) on the level's diagonal blocks (the
+   JAX package's XLA ``block_lu_inv`` batch);
+2. ``trsm`` (``csrc/schur.cu``, ``left=False``): L(i,k) ← L(i,k)·uinv(k);
+3. ``trsm`` (``left=True``): U(k,j) ← linv(k)·U(k,j);
+4. ``schur`` (``csrc/schur.cu``): T −= L·U over the level's Schur
+   triples, grouped by target.
+
+The TPU's window scheduling and bucket padding (pallas_exec.py:191-342)
+keep two DMA lanes off one target on its sequential grid; here each
+target's triples form one CSR row that one CTA sums in order.
+``blocklu.factor_plain`` is the same composition in plain PyTorch (and
+the independent float64 reference); :func:`schur_plain` and
+:func:`trsm_plain` are its per-phase pieces.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..blocklu import level_order, subtract_products
+from ..host.symbolic import SymbolicPlan
+from ._build import CudaKernel, ptr, stream_ptr
+from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+SCHUR = CudaKernel("schur", "schur.cu", {
+    "slu_schur_f32": [_V] * 5 + [_I, _I, _V]})
+TRSM = CudaKernel("trsm", "schur.cu", {
+    "slu_trsm_f32": [_V] * 4 + [_I, _I, _I, _V]})
+
+
+@dataclasses.dataclass
+class LevelTapes:
+    """Per-level lists of the level executor. ``*ptr`` are host int64
+    level pointers; every other field is an int32 tensor on the device.
+
+    - diag_lu: ``dslot``/``dstep`` over ``dptr``;
+    - trsm: L panels ``lslot``/``lstep`` over ``lptr``, U panels
+      ``uslot``/``ustep`` over ``uptr``;
+    - schur: level l's targets ``tslot[sptr[l]:sptr[l+1]]``; target t
+      sums ``pool[cl[p]]·pool[cu[p]]`` for p over ``cptr[t]:cptr[t+1]``.
+    """
+
+    nlvl: int
+    dptr: np.ndarray
+    dslot: torch.Tensor
+    dstep: torch.Tensor
+    lptr: np.ndarray
+    lslot: torch.Tensor
+    lstep: torch.Tensor
+    uptr: np.ndarray
+    uslot: torch.Tensor
+    ustep: torch.Tensor
+    sptr: np.ndarray
+    tslot: torch.Tensor
+    cptr: torch.Tensor
+    cl: torch.Tensor
+    cu: torch.Tensor
+    # host copies for the plain version and for work counts
+    host: dict
+
+
+def build_level_tapes(plan: SymbolicPlan, device) -> LevelTapes:
+    lv = level_order(plan)
+    nlvl = plan.n_flevels
+    gptr = np.asarray(lv["gptr"], dtype=np.int64)
+    g_t = lv["g_t"].astype(np.int64)
+    # group each level's triples by target; the stable sort keeps the
+    # plan's order within a target
+    glvl = np.repeat(np.arange(nlvl), np.diff(gptr))
+    key = glvl * (plan.nslots + 2) + g_t
+    o = np.argsort(key, kind="stable")
+    key = key[o]
+    first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if len(key) \
+        else np.zeros(0, dtype=np.int64)
+    cptr = np.r_[first, len(key)].astype(np.int64)
+    sptr = np.searchsorted(glvl[o][first], np.arange(nlvl + 1))
+    host = dict(dslot=np.asarray(plan.diag_slot)[lv["dstep"]],
+                dstep=lv["dstep"], lslot=lv["l_slot"], lstep=lv["l_step"],
+                uslot=lv["u_slot"], ustep=lv["u_step"], tslot=g_t[o][first],
+                cptr=cptr, cl=lv["g_l"][o], cu=lv["g_u"][o])
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+
+    return LevelTapes(nlvl=nlvl, dptr=np.asarray(lv["dptr"]),
+                      lptr=np.asarray(lv["lptr"]),
+                      uptr=np.asarray(lv["uptr"]), sptr=sptr, host=host,
+                      **{k: dev(v) for k, v in host.items()})
+
+
+# ---------------------------------------------------------------------------
+# trsm: panel solve by a stored inverse
+# ---------------------------------------------------------------------------
+
+
+def trsm_plain(pool, dinv, slots, steps, left: bool) -> None:
+    """Plain version of :func:`trsm`."""
+    if len(slots):
+        s, k = slots.long(), steps.long()
+        pool[s] = dinv[k] @ pool[s] if left else pool[s] @ dinv[k]
+
+
+def trsm(pool, dinv, slots, steps, left: bool) -> None:
+    """In place over ``slots`` (int32): X ← X·dinv[step] (L panels,
+    ``left=False``) or X ← dinv[step]·X (U panels, ``left=True``)."""
+    if pool.device.type == "cpu":
+        return trsm_plain(pool, dinv, slots, steps, left)
+    _check_cuda(pool, dinv)
+    if len(slots) == 0:
+        return
+    TRSM.launches += 1
+    TRSM.call("slu_trsm_f32", ptr(pool), ptr(dinv), ptr(slots), ptr(steps),
+              len(slots), pool.shape[-1], int(left), stream_ptr(pool.device))
+
+
+# ---------------------------------------------------------------------------
+# schur: the level's Schur update, grouped by target
+# ---------------------------------------------------------------------------
+
+
+def schur_plain(pool, tp: LevelTapes, level: int) -> None:
+    """Plain version of :func:`schur`."""
+    h = tp.host
+    lo, hi = int(tp.sptr[level]), int(tp.sptr[level + 1])
+    c0, c1 = int(h["cptr"][lo]), int(h["cptr"][hi])
+    dst = np.repeat(h["tslot"][lo:hi], np.diff(h["cptr"][lo:hi + 1]))
+    subtract_products(pool, h["cl"][c0:c1], h["cu"][c0:c1], dst)
+
+
+def schur(pool, tp: LevelTapes, level: int) -> None:
+    """T −= Σ L·U over the Schur triples of ``level`` (in place)."""
+    if pool.device.type == "cpu":
+        return schur_plain(pool, tp, level)
+    _check_cuda(pool)
+    lo, hi = int(tp.sptr[level]), int(tp.sptr[level + 1])
+    if hi == lo:
+        return
+    SCHUR.launches += 1
+    SCHUR.call("slu_schur_f32", ptr(pool), ptr(tp.tslot[lo:hi]),
+               ptr(tp.cptr[lo:hi + 1]), ptr(tp.cl), ptr(tp.cu), hi - lo,
+               pool.shape[-1], stream_ptr(pool.device))
+
+
+def _check_cuda(pool, *invs):
+    bs = pool.shape[-1]
+    if pool.device.type != "cuda":
+        raise ValueError(f"schur/trsm: unsupported device {pool.device}")
+    for t in (pool,) + invs:
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != pool.device or t.shape[-2:] != (bs, bs):
+            raise ValueError("schur/trsm: pool and inverses must be "
+                             "contiguous float32 (., bs, bs) tensors on one "
+                             "device")
+    if bs not in CUDA_BLOCK_SIZES:
+        raise ValueError(f"schur/trsm: block size {bs} not in "
+                         f"{CUDA_BLOCK_SIZES}")
+
+
+# ---------------------------------------------------------------------------
+# the whole factor
+# ---------------------------------------------------------------------------
+
+
+def factor_level(pool, linv, uinv, tiny, thresh, tp: LevelTapes,
+                 level: int) -> None:
+    """The four phases of one elimination level."""
+    d = slice(int(tp.dptr[level]), int(tp.dptr[level + 1]))
+    lp = slice(int(tp.lptr[level]), int(tp.lptr[level + 1]))
+    up = slice(int(tp.uptr[level]), int(tp.uptr[level + 1]))
+    diag_lu(pool, linv, uinv, tp.dslot[d], tp.dstep[d], thresh, tiny)
+    trsm(pool, uinv, tp.lslot[lp], tp.lstep[lp], left=False)
+    trsm(pool, linv, tp.uslot[up], tp.ustep[up], left=True)
+    schur(pool, tp, level)
+
+
+def factor(pool, thresh: float, tp: LevelTapes, nb: int):
+    """Factor ``pool`` in place. Returns (pool, linv, uinv, tiny) with
+    linv/uinv of shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
+    bs = pool.shape[-1]
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
+    for level in range(tp.nlvl):
+        factor_level(pool, linv, uinv, tiny, thresh, tp, level)
+    return pool, linv, uinv, tiny

@@ -29,6 +29,27 @@ def laplacian_3d(k: int, dtype=np.float64) -> sp.csc_matrix:
     return sp.csc_matrix(A, dtype=dtype)
 
 
+def laplacian_arrowhead(k: int = 6, seed: int = 1) -> sp.csc_matrix:
+    """``k`` disjoint 16×16-grid Laplacians (two 128-blocks each) and a
+    128-wide random coupling border: at block size 128 many elimination
+    steps per level update shared ancestor blocks (the "bushy" fixture of
+    the JAX package's tests/test_pallas.py, on which its single-buffered
+    Pallas Schur kernel lost contributions)."""
+    D = sp.block_diag([laplacian_2d(16) for _ in range(k)], format="lil")
+    n_inner = D.shape[0]
+    m = 128
+    rng = np.random.default_rng(seed)
+    B = sp.lil_matrix((n_inner, m))
+    C = sp.lil_matrix((m, n_inner))
+    for j in range(m):
+        for _ in range(3):
+            i = rng.integers(0, n_inner)
+            B[i, j] = rng.standard_normal()
+            C[j, i] = rng.standard_normal()
+    E = sp.lil_matrix(np.eye(m) * 50.0)
+    return sp.csc_matrix(sp.bmat([[D, B], [C, E]], format="csc"))
+
+
 # ---------------------------------------------------------------------------
 # Irregular (SuiteSparse-class) generators.
 #

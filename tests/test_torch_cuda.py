@@ -12,7 +12,8 @@ import torch
 
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu
-from superlu_dist_tpu_torch.ops.kernels import clk, diag_lu, sweep
+from superlu_dist_tpu_torch.ops.kernels import (clk, diag_lu, flk, schur,
+                                                sweep)
 from superlu_dist_tpu_torch.utils import testing as tt
 
 pytestmark = pytest.mark.cuda
@@ -26,6 +27,8 @@ ULPS = 64
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plain versions' products in full FP32, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -68,3 +71,98 @@ def test_factor_and_sweeps_match_plain(cuda, bs):
             sweep.sweep_level_plain(lu.pool, dinv, Xp, tape, level)
     scale = max(1.0, float(Xp.abs().max()))
     assert float((Xk - Xp).abs().max()) <= ULPS * eps * scale
+
+
+def _flk_plain(pool, thresh, tp, nb):
+    """``flk.factor`` through the plain version of each phase."""
+    bs = pool.shape[-1]
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
+    for level in range(tp.nlvl):
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        flk.flk_update_plain(pool, linv, uinv, tp, 2 * level)
+        diag_lu.diag_lu_plain(pool, linv, uinv, tp.dslot[lo:hi].long(),
+                              tp.dstep[lo:hi].long(), thresh, tiny)
+        flk.flk_update_plain(pool, linv, uinv, tp, 2 * level + 1)
+    return pool, linv, uinv, tiny
+
+
+def _level_plain(pool, thresh, tp, nb):
+    """``schur.factor`` through the plain version of each phase."""
+    bs = pool.shape[-1]
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
+    for level in range(tp.nlvl):
+        d = slice(int(tp.dptr[level]), int(tp.dptr[level + 1]))
+        lp = slice(int(tp.lptr[level]), int(tp.lptr[level + 1]))
+        up = slice(int(tp.uptr[level]), int(tp.uptr[level + 1]))
+        diag_lu.diag_lu_plain(pool, linv, uinv, tp.dslot[d].long(),
+                              tp.dstep[d].long(), thresh, tiny)
+        schur.trsm_plain(pool, uinv, tp.lslot[lp], tp.lstep[lp], False)
+        schur.trsm_plain(pool, linv, tp.uslot[up], tp.ustep[up], True)
+        schur.schur_plain(pool, tp, level)
+    return pool, linv, uinv, tiny
+
+
+@pytest.mark.parametrize("ilu", [None, 1], ids=["exact", "ilu1"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_flk_and_level_factors_match_plain(cuda, bs, ilu):
+    """The flk and level-executor factors of an exact and an ILU(1) plan
+    of lap3d12 against the same factors through the plain phases."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    eps = np.finfo(np.float32).eps
+    for executor, mod, plain in (("flk", flk, _flk_plain),
+                                 ("pallas", schur, _level_plain)):
+        res, lu = T.gssvx(A, b, T.Options(
+            dtype="float32", block_size=bs, executor=executor,
+            ilu_level=ilu, max_refine_steps=60, refine_rthresh=1.0),
+            device=cuda)
+        assert res.berr.max() < 1e-12
+        plan, tp = lu.plan, lu._ftapes
+        pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
+        kern = mod.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+        ref = plain(pool.clone(), lu._thresh(), tp, plan.nb)
+        for k, p in zip(kern[:3], ref[:3]):
+            scale = max(1.0, float(p.abs().max()))
+            assert float((k - p).abs().max()) <= ULPS * eps * scale
+        assert int(kern[3].item()) == int(ref[3].item())
+
+
+@pytest.mark.parametrize("left", [False, True])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_trsm_matches_plain(cuda, bs, left):
+    g = torch.Generator(device="cpu").manual_seed(bs + left)
+    pool = torch.randn(40, bs, bs, generator=g).to(cuda)
+    dinv = torch.randn(9, bs, bs, generator=g).to(cuda)
+    slots = torch.tensor([3, 17, 0, 39, 22], dtype=torch.int32, device=cuda)
+    steps = torch.tensor([8, 0, 8, 4, 1], dtype=torch.int32, device=cuda)
+    want = pool.clone()
+    schur.trsm_plain(want, dinv, slots, steps, left)
+    schur.trsm(pool, dinv, slots, steps, left)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((pool - want).abs().max()) \
+        <= ULPS * np.finfo(np.float32).eps * scale
+
+
+def test_level_executor_arrowhead_matches_plain(cuda):
+    """Many steps per level feeding shared ancestor targets, at block size
+    128: each target's strip sums its products in one CTA, so none is
+    lost."""
+    A = tt.laplacian_arrowhead()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    res, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=128,
+                                      executor="pallas"), device=cuda)
+    assert res.berr.max() < 1e-12
+    plan, tp = lu.plan, lu._ftapes
+    assert plan.n_flevels < plan.nb
+    pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
+    kern = schur.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+    ref = _level_plain(pool.clone(), lu._thresh(), tp, plan.nb)
+    eps = np.finfo(np.float32).eps
+    for k, p in zip(kern[:3], ref[:3]):
+        scale = max(1.0, float(p.abs().max()))
+        assert float((k - p).abs().max()) <= ULPS * eps * scale

@@ -1,7 +1,8 @@
 """The port's ``gssvx`` on the CPU (plain versions of the kernels)
 against the JAX package's ``gssvx`` on the CPU, end to end: solution,
-backward error, refinement steps and tiny-pivot count; and the port's
-refusals (no silent CPU fallback, unported options raise)."""
+backward error, refinement steps and tiny-pivot count, for the clk, flk
+(exact and ILU(k)) and level executors; and the port's refusals (no
+silent CPU fallback, unported options raise)."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,8 @@ import superlu_dist_tpu as J
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.models import driver as tdrv
 from superlu_dist_tpu_torch.utils import testing as tt
+
+from torch_state import numpy_state
 
 torch.set_num_threads(2)
 
@@ -82,11 +85,87 @@ def test_no_device_raises_without_cuda():
         T.SparseLU(A, T.Options(), device="cuda")
 
 
+#: executor cases: matrix, block size, Options, and the executor that the
+#: Options select (as the JAX package selects it). In interpret mode the
+#: JAX package stands etree alignment down for its fused executors unless
+#: ``align_blocks="on"`` (driver.py:250-284); the port always aligns, so
+#: the flk cases ask for it and both packages build the same plan.
+EXEC_CASES = {
+    "ilu1": (lambda: tt.laplacian_3d(8), 16,
+             dict(ilu_level=1, max_refine_steps=60, refine_rthresh=1.0,
+                  align_blocks="on"), "flk"),
+    "flk": (lambda: tt.laplacian_3d(8), 16,
+            dict(executor="flk", align_blocks="on"), "flk"),
+    "pallas": (tt.laplacian_arrowhead, 128, dict(executor="pallas"),
+               "pallas"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXEC_CASES))
+def test_gssvx_executors_match_jax(name, monkeypatch):
+    """The JAX package runs its flk or Pallas level executor (interpret
+    mode); both refine to f64 quality, on the same plan."""
+    monkeypatch.setenv("SLU_TPU_FORCE_PALLAS", "interpret")
+    make, bs, kw, exc = EXEC_CASES[name]
+    A = make().tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    rj, _ = J.gssvx(A, b, J.Options(dtype="float32", block_size=bs, **kw))
+    rt, _ = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs, **kw),
+                    device="cpu")
+    assert rt.stat.counters["executor"] == exc
+    assert rt.berr.max() <= 1e-12 and rj.berr.max() <= 1e-12
+    assert np.abs(rt.x - rj.x).max() <= 1e-10 * np.abs(rj.x).max()
+    assert rt.stat.counters["fill_blocks"] == rj.stat.counters["fill_blocks"]
+    assert rt.stat.tiny_pivots == rj.stat.tiny_pivots
+    assert np.abs(A @ rt.x - b).max() / np.abs(b).max() < 1e-10
+
+
+def test_ilu_float64_matches_jax():
+    """tests/test_ilu.py's case through the port: ILU(1) and refinement
+    as a preconditioned Richardson iteration, in float64."""
+    A = tt.laplacian_2d(10)
+    rng = np.random.default_rng(0)
+    xt = rng.standard_normal(A.shape[0])
+    b = A @ xt
+    kw = dict(dtype="float64", block_size=8, ilu_level=1,
+              row_perm=T.RowPerm.NOROWPERM, equil=T.Equil.NO,
+              col_perm=T.ColPerm.NATURAL, max_refine_steps=60,
+              refine_rthresh=1.0)
+    lu = T.SparseLU(A, T.Options(**kw), device="cpu")
+    x, _ = lu.refine(b, lu.solve(b))
+    assert np.abs(x - xt).max() < 1e-8
+    jkw = dict(kw, row_perm=J.RowPerm.NOROWPERM, equil=J.Equil.NO,
+               col_perm=J.ColPerm.NATURAL)
+    jlu = J.SparseLU(A, J.Options(**jkw))
+    xj, _ = jlu.refine(b, jlu.solve(b))
+    assert np.abs(x - xj).max() <= 1e-10 * np.abs(xj).max()
+
+
+def test_ilu_state_from_jax_solves():
+    """An ILU(1) factorization of the JAX package loads through
+    ``from_numpy_state`` (the plan fields carry the dropped fill) and
+    refines to the same solution."""
+    A = tt.laplacian_3d(8).tocsc()
+    b = np.random.default_rng(1).standard_normal(A.shape[0])
+    kw = dict(dtype="float32", block_size=16, ilu_level=1,
+              max_refine_steps=60, refine_rthresh=1.0)
+    jlu = J.SparseLU(A, J.Options(**kw))
+    tlu = T.SparseLU.from_numpy_state(numpy_state(jlu, T.Options(**kw)),
+                                      device="cpu")
+    assert tlu.plan.nslots < J.SparseLU(A, J.Options(
+        dtype="float32", block_size=16)).plan.nslots
+    xt, bt = tlu.refine(b, tlu.solve(b))
+    xj, bj = jlu.refine(b, jlu.solve(b))
+    assert bt.max() <= 1e-12 and bj.max() <= 1e-12
+    assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max()
+
+
 @pytest.mark.parametrize("kw", [
-    dict(dtype="complex64"), dict(ilu_level=1), dict(executor="flk"),
+    dict(dtype="complex64"), dict(executor="tck"), dict(executor="xla"),
     dict(trans=T.Trans.TRANS), dict(fact=T.Fact.SAME_PATTERN),
     dict(condition_number=True), dict(gemm_precision="bf16"),
-], ids=lambda kw: next(iter(kw)))
+], ids=["dtype", "executor-tck", "executor-xla", "trans", "fact",
+        "condition_number", "gemm_precision"])
 def test_unported_options_raise(kw):
     A = tt.laplacian_2d(6).tocsc()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -97,3 +176,9 @@ def test_float64_on_cuda_raises():
     with pytest.raises(NotImplementedError, match="float64 on CUDA"):
         tdrv._check_supported(T.Options(dtype="float64"),
                               torch.device("cuda"), sp.eye(4).tocsc())
+
+
+def test_unknown_executor_raises():
+    A = tt.laplacian_2d(6).tocsc()
+    with pytest.raises(ValueError, match="unknown executor"):
+        T.SparseLU(A, T.Options(block_size=8, executor="cpu"), device="cpu")

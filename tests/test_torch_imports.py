@@ -50,6 +50,8 @@ def test_native_source_names_no_jax_module(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys; import superlu_dist_tpu_torch as t; "
             "import superlu_dist_tpu_torch.ops.kernels.clk, "
+            "superlu_dist_tpu_torch.ops.kernels.flk, "
+            "superlu_dist_tpu_torch.ops.kernels.schur, "
             "superlu_dist_tpu_torch.ops.kernels.sweep; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'superlu_dist_tpu' not in sys.modules; print('ok')")
