@@ -26,10 +26,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``executor="pallas"`` (diag_lu, trsm, schur); then flk, schur and trsm
    against their plain versions level by level on their paths' inputs,
    and each whole factor against ``factor_plain`` on its plan;
-6. the same checks at the Options default block size 64 on
+6. the transposed path on ``lap3d32u`` (``laplacian_3d(32)`` with
+   unsymmetric off-diagonal values, the same plan):
+   ``gssvx(A, b, Options(dtype="float32", block_size=128,
+   trans=Trans.TRANS, condition_number=True))``, driven and checked like
+   the main path in Aᵀ (solve_gemm and diag_apply must launch, rcond must
+   lie in (0, 1]); then the reuse modes on perturbed values
+   (SamePattern_SameRowPerm, SamePattern, FACTORED), each held to the
+   same limits with the phases and launches that its mode implies; then
+   solve_gemm and diag_apply against their plain versions level by
+   level, ``transpose=True`` on the transposed tapes and
+   ``transpose=False`` on the main path's L and U tapes; and at block
+   size 64 on ``laplacian_3d_unsym(16)``: x against scipy's
+   ``spsolve(A.T, b)``, rcond against the dense 1-norm truth, ``logdet``
+   against the plain CPU factor and ``numpy.linalg.slogdet``, and a
+   ``save_factors`` / ``load_factors`` round trip;
+7. the same checks at the Options default block size 64 on
    ``laplacian_3d(16)``, whose solution (by each executor) is held
    against scipy's;
-7. one JSON line of per-kernel results, the nvidia-smi line, and the
+8. one JSON line of per-kernel results, the nvidia-smi line, and the
    final ``{"ok": true, "device": ...}`` line.
 
 Imports neither JAX nor the JAX package.
@@ -42,6 +57,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -72,6 +88,8 @@ REPLACES = {
     # the same function; one CUDA kernel stands for both
     "schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:942",
     "trsm": "superlu_dist_tpu/ops/kernels/pallas_exec.py:93",
+    "solve_gemm": "superlu_dist_tpu/ops/kernels/pallas_exec.py:433",
+    "diag_apply": "superlu_dist_tpu/ops/kernels/pallas_exec.py:513",
 }
 ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
 
@@ -93,7 +111,7 @@ def main() -> None:
     from superlu_dist_tpu_torch.ops import blocklu
     from superlu_dist_tpu_torch.ops.host.native import get_lib
     from superlu_dist_tpu_torch.ops.kernels import (_build, clk, diag_lu, flk,
-                                                    schur, sweep)
+                                                    schur, solve_gemm, sweep)
     from superlu_dist_tpu_torch.utils.testing import laplacian_3d
 
     smi = subprocess.run(
@@ -107,14 +125,17 @@ def main() -> None:
 
     kernels = {"diag_lu": diag_lu.KERNEL, "clk_update": clk.UPDATE,
                "clk_trsm": clk.TRSM, "sweep": sweep.KERNEL,
-               "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM}
+               "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM,
+               "solve_gemm": solve_gemm.SOLVE_GEMM,
+               "diag_apply": solve_gemm.DIAG_APPLY}
     build_s = _build.build_all(list(kernels.values()))
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for k in (diag_lu.KERNEL, clk.UPDATE, sweep.KERNEL, flk.KERNEL,
-              schur.SCHUR):
+              schur.SCHUR, solve_gemm.SOLVE_GEMM):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
-               flk=flk, schur=schur, sweep=sweep, kernels=kernels)
+               flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
+               kernels=kernels)
 
     # ---- 3. the main path ---------------------------------------------
     A = laplacian_3d(32)
@@ -169,7 +190,14 @@ def main() -> None:
     for name in ("flk", "schur", "trsm"):
         print_check(name, checks[name], launches[name])
 
-    # ---- 6. the Options default block size ----------------------------
+    # ---- 6. the transposed path, the condition estimate, reuse ---------
+    got = trans_phase(ctx, rng, lu, checks)
+    launches["solve_gemm"] = got["solve_gemm"]
+    launches["diag_apply"] = got["diag_apply"]
+    for name in ("solve_gemm", "diag_apply"):
+        print_check(name, checks[name], launches[name])
+
+    # ---- 7. the Options default block size ----------------------------
     A2 = laplacian_3d(16)
     b2 = np.asarray(A2 @ rng.standard_normal(A2.shape[0]))
     x_ref = spla.spsolve(A2.tocsc(), b2)
@@ -208,23 +236,25 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def drive(ctx, what, A, b, opts, need, zero=()):
+def drive(ctx, what, A, b, opts, need, zero=(), lu=None):
     """One ``gssvx`` call with every launch count set to 0 just before and
-    read just after; checks the accuracy limits, that every kernel of
-    ``need`` launched and that none of ``zero`` did."""
-    from superlu_dist_tpu_torch import gssvx
+    read just after; checks the accuracy limits (in Aᵀ under
+    ``opts.trans``), that every kernel of ``need`` launched and that none
+    of ``zero`` did. ``lu`` is passed on for the reuse modes."""
+    from superlu_dist_tpu_torch import Trans, gssvx
     torch = ctx["torch"]
     for k in ctx["kernels"].values():
         k.launches = 0
     t0 = time.perf_counter()
-    res, lu = gssvx(A, b, opts)
+    res, lu = gssvx(A, b, opts, lu=lu)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ctx["kernels"].items()}
-    resid = float(np.abs(A @ res.x - b).max() / np.abs(b).max())
+    op, tag = (A.T, "A^T") if opts.trans != Trans.NOTRANS else (A, "A")
+    resid = float(np.abs(op @ res.x - b).max() / np.abs(b).max())
     berr = float(np.max(res.berr))
     print_phases(what, wall, res.stat)
-    print(f"{what}: berr {berr:.3e}, ||Ax-b||/||b|| {resid:.3e}, tiny "
+    print(f"{what}: berr {berr:.3e}, ||{tag}x-b||/||b|| {resid:.3e}, tiny "
           f"pivots {res.stat.tiny_pivots}, launches {launches}", flush=True)
     if not np.all(np.isfinite(res.x)) or res.x.shape != (A.shape[0],):
         fail(f"{what}: solution not finite or of the wrong shape")
@@ -254,12 +284,15 @@ def warm_call(ctx, what, A, b, opts):
 
 def print_phases(what, wall, st):
     """A gssvx call's wall seconds, its phases' CUDA-event ms (the stream's
-    elapsed time, host gaps included) and its host seconds per phase."""
+    elapsed time, host gaps included; SOLVE also counts the solves inside
+    RCOND) and its host seconds per phase."""
+    rc = (f", rcond {st.device_ms['RCOND']:.3f}" if "RCOND" in st.device_ms
+          else "")
     print(f"{what}: gssvx wall {wall:.2f} s; device ms: factor "
           f"{st.device_ms['FACT']:.3f}, solve {st.device_ms['SOLVE']:.3f}, "
-          f"refine {st.device_ms['REFINE']:.3f} ({st.refine_steps} steps); "
-          f"host s: " + ", ".join(f"{k} {v:.3f}"
-                                  for k, v in sorted(st.utime.items())),
+          f"refine {st.device_ms['REFINE']:.3f} ({st.refine_steps} steps)"
+          f"{rc}; host s: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in sorted(st.utime.items())),
           flush=True)
 
 
@@ -293,7 +326,19 @@ def profile_refine(torch, lu, b, x):
               f"{e.count:6d}x {e.key[:90]}")
 
 
+#: device buffer written before each timed call, five times the H100's
+#: 50 MB L2, so that no call finds its inputs left in L2 by the one before
+#: (the library call of a level reads the same blocks as its kernel)
+_FLUSH = []
+FLUSH_BYTES = 256 << 20
+
+
 def _timed(torch, fn):
+    """Device ms of ``fn`` by CUDA events, with L2 flushed before."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                  device="cuda"))
+    _FLUSH[0].zero_()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     fn()
@@ -519,6 +564,270 @@ def check_level(lu, ctx, report):
     for name in ("schur", "trsm"):
         ck.out[name].update(b[name])
     return ck.out
+
+
+def trans_phase(ctx, rng, lu_main, checks):
+    """Phase 6: the TRANS + condition_number path on lap3d32u, the reuse
+    modes, solve_gemm and diag_apply against their plain versions, and
+    the block size 64 checks. Adds the two kernels to ``checks``; returns
+    the launches of the TRANS call."""
+    from superlu_dist_tpu_torch import Fact, Options, Trans
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d_unsym
+    A = laplacian_3d_unsym(32)
+    n = A.shape[0]
+    b = rng.standard_normal(n)
+    opts = Options(dtype="float32", block_size=128, trans=Trans.TRANS,
+                   condition_number=True)
+    res, lu, got = drive(ctx, "trans", A, b, opts, (
+        "solve_gemm", "diag_apply", "diag_lu", "clk_update", "clk_trsm",
+        "sweep"))
+    st = res.stat
+    if res.rcond is None or not 0 < res.rcond <= 1 or "RCOND" not in \
+            st.utime:
+        fail(f"trans: rcond {res.rcond} not in (0, 1] or no RCOND phase")
+    print(f"trans: rcond {res.rcond:.6e} after {st.counters['rcond_iters']}"
+          f" Hager steps (converged {st.counters['rcond_converged']}), "
+          f"{st.refine_steps} refinement steps; lap3d32u {lu.plan.nslots} "
+          f"slots (main path {lu_main.plan.nslots})", flush=True)
+    for name, tape in zip(("U^T", "L^T"), lu._ttapes):
+        chain = np.diff(tape.host["rowptr"])
+        print(f"{name} sweep: {tape.nlvl} levels, {len(tape.host['cslot'])}"
+              f" triples, longest destination chain {chain.max()}",
+              flush=True)
+    warm_call(ctx, "trans", A, b, opts)
+
+    # the reuse modes (pddrive1/2/3), on values perturbed from a seed
+    pr = np.random.default_rng(7)
+
+    def perturb(M):
+        M = M.copy()
+        M.data = M.data * (1.0 + 0.05 * pr.standard_normal(M.nnz))
+        return M
+
+    ropts = Options(dtype="float32", block_size=128, trans=Trans.TRANS)
+    A2, plan0 = perturb(A), lu.plan
+    r, lu, _ = drive(ctx, "SamePattern_SameRowPerm", A2, b, ropts.replace(
+        fact=Fact.SAME_PATTERN_SAME_ROWPERM), ("clk_update", "diag_lu",
+                                               "solve_gemm", "diag_apply"),
+        lu=lu)
+    if set(r.stat.utime) & {"EQUIL", "ROWPERM", "COLPERM"} \
+            or lu.plan is not plan0:
+        fail("SamePattern_SameRowPerm redid preprocessing or the plan")
+    A3, colperm0 = perturb(A2), lu.colperm.copy()
+    r, lu, _ = drive(ctx, "SamePattern", A3, b, ropts.replace(
+        fact=Fact.SAME_PATTERN), ("clk_update", "diag_lu", "solve_gemm",
+                                  "diag_apply"), lu=lu)
+    if "ROWPERM" not in r.stat.utime or not np.array_equal(lu.colperm,
+                                                          colperm0):
+        fail("SamePattern skipped row matching or changed the column order")
+    drive(ctx, "FACTORED", A3, rng.standard_normal(n), ropts.replace(
+        fact=Fact.FACTORED), ("solve_gemm", "diag_apply"),
+        ("clk_update", "diag_lu"), lu=lu)
+
+    checks.update(check_solve(lu, ctx, lu_main))
+    trans_bs64(ctx, rng)
+    return got
+
+
+def check_solve(lu, ctx, lu_main):
+    """solve_gemm and diag_apply against their plain versions, level by
+    level from the same X (the solve goes on with the kernel's output):
+    ``transpose=True`` over one transposed solve (Uᵀ, then Lᵀ) of ``lu``,
+    whose numbers are returned, and ``transpose=False`` over one L+U
+    solve on ``lu_main``'s tapes (checked and printed). library_ms, each
+    timed warm into a preallocated output: diag_apply is a batched
+    product per level, one ``torch.bmm`` on the gathered Dinv[I]ᵀ
+    (Dinv[I]) and X[I]; solve_gemm is X − M·X with M the level's
+    block-sparse matrix of op(pool[slot]) at (dst, src), one
+    ``torch.addmm`` of a BSR tensor (cuSPARSE), held against the kernel's
+    output too."""
+    torch, sg = ctx["torch"], ctx["solve_gemm"]
+    rng = np.random.default_rng(2)
+    out = None
+    tu, tl = lu._ttapes
+    for transpose, lu_, tapes in (
+            (True, lu, ((tu, lu.uinv), (tl, lu.linv))),
+            (False, lu_main, ((lu_main._ltape, lu_main.linv),
+                              (lu_main._utape, lu_main.uinv)))):
+        plan = lu_.plan
+        ck = Checker(torch, plan.bs, ("solve_gemm", "diag_apply"),
+                     library=("solve_gemm", "diag_apply"))
+        X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
+                            dtype=torch.float32, device=lu_.device)
+        per_level = []
+        for sweep_name, (tape, dinv) in zip(("U^T", "L^T") if transpose
+                                            else ("L", "U"), tapes):
+            for lvl in range(tape.nlvl):
+                M = level_bsr(torch, lu_.pool, tape, lvl, transpose,
+                              plan.nb)
+                if M is not None:
+                    X2 = X.view(-1, X.shape[2])
+                    C = torch.empty_like(X2)
+                    ck.library("solve_gemm", lambda: torch.addmm(
+                        X2, M, X2, alpha=-1, out=C))
+                (X,), ms = ck.compare(
+                    "solve_gemm", lambda x: sg.solve_gemm(
+                        lu_.pool, x, tape, lvl, transpose),
+                    lambda x: sg.solve_gemm_plain(lu_.pool, x, tape, lvl,
+                                                  transpose), [X])
+                if M is not None:
+                    lerr = float((C.view_as(X) - X).abs().max())
+                    if lerr > REL_TOL * max(1.0, float(X.abs().max())):
+                        fail(f"solve_gemm's library call (BSR addmm) "
+                             f"disagrees with the kernel: {lerr:.3e}")
+                    del M, X2, C
+                per_level.append((ms, sweep_name, lvl, tape))
+                r = tape.rows[int(tape.dptr[lvl]):int(tape.dptr[lvl + 1])]
+                Dg = dinv[r.long()]
+                Dg = Dg.mT if transpose else Dg
+                Xg = X[r.long()]
+                C = torch.empty_like(Xg)
+                ck.library("diag_apply", lambda: torch.bmm(Dg, Xg, out=C))
+                del Dg, Xg, C
+                (X,), _ = ck.compare(
+                    "diag_apply", lambda x: sg.diag_apply(
+                        dinv, x, tape, lvl, transpose),
+                    lambda x: sg.diag_apply_plain(dinv, x, tape, lvl,
+                                                  transpose), [X])
+        bounds = solve_bounds(plan, [t for t, _ in tapes])
+        for name, o in ck.out.items():
+            o.update(bounds[name])
+            print(f"bs={plan.bs} {name} transpose={transpose}: "
+                  f"max_abs_err {o['max_abs_err']:.3e} (tolerance "
+                  f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
+                  f"{o['plain_ms']:.3f} ms, library {o['library_ms']:.3f} "
+                  f"ms per solve", flush=True)
+        if transpose:
+            out = ck.out
+            print_solve_levels(per_level)
+    return out
+
+
+def level_bsr(torch, pool, tape, lvl, transpose, nb):
+    """The level's contributions as one BSR matrix (nb·bs)² with block
+    (dst, src) = op(pool[slot]), so that solve_gemm is X − M·X; None for
+    a level without contributions. Built outside any timed window."""
+    h = tape.host
+    lo, hi = int(tape.dptr[lvl]), int(tape.dptr[lvl + 1])
+    rp = h["rowptr"]
+    c0, c1 = int(rp[lo]), int(rp[hi])
+    if c1 == c0:
+        return None
+    bs = pool.shape[-1]
+    dst = np.repeat(h["rows"][lo:hi], np.diff(rp[lo:hi + 1]))
+    src, slot = h["csrc"][c0:c1], h["cslot"][c0:c1]
+    order = np.lexsort((src, dst))
+    crow = np.zeros(nb + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=nb), out=crow[1:])
+    V = pool[torch.as_tensor(slot[order], device=pool.device).long()]
+    V = (V.mT if transpose else V).contiguous()
+    idx = dict(dtype=torch.int32, device=pool.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse BSR tensor support")
+        return torch.sparse_bsr_tensor(
+            torch.as_tensor(crow, **idx), torch.as_tensor(src[order], **idx),
+            V, size=(nb * bs, nb * bs), check_invariants=True)
+
+
+def print_solve_levels(per_level, top=6):
+    """Where solve_gemm's time goes in one transposed solve: the costliest
+    levels, with their destination rows, products and the longest chain
+    that one CTA walks."""
+    total = sum(ms for ms, *_ in per_level)
+    print(f"solve_gemm transpose=True by level (kernel {total:.3f} ms over "
+          f"{len(per_level)} levels; top {top}):")
+    for ms, name, lvl, tape in sorted(per_level, key=lambda t: -t[0])[:top]:
+        lo, hi = int(tape.dptr[lvl]), int(tape.dptr[lvl + 1])
+        chain = np.diff(tape.host["rowptr"][lo:hi + 1])
+        print(f"  {name} level {lvl:3d}: kernel {ms:9.3f} ms; {hi - lo} rows, "
+              f"{int(chain.sum())} products, longest chain "
+              f"{int(chain.max(initial=0))}", flush=True)
+
+
+def solve_bounds(plan, tapes):
+    """Least time of one solve's solve_gemm and diag_apply launches (two
+    sweeps, one right-hand side): 2·bs² operations per triple (per
+    diagonal inverse); bytes: each stored block (inverse) read once per
+    sweep, and X read and written once per sweep."""
+    bs = plan.bs
+    blk = 4.0 * bs * bs
+    xb = 2 * 2 * 4.0 * plan.n_pad
+    ntrip = sum(len(t.host["cslot"]) for t in tapes)
+    nblk = sum(len(np.unique(t.host["cslot"])) for t in tapes)
+    ninv = sum(len(t.host["rows"]) for t in tapes)
+    return {"solve_gemm": _bound(2.0 * bs * bs * ntrip, blk * nblk + xb,
+                                 "solve"),
+            "diag_apply": _bound(2.0 * bs * bs * ninv, blk * ninv + xb,
+                                 "solve")}
+
+
+def trans_bs64(ctx, rng):
+    """At block size 64 on laplacian_3d_unsym(16): the TRANS solution
+    against scipy's, rcond against the dense truth (the 30x bound of
+    tests/test_trans_cond.py), logdet, a save_factors / load_factors
+    round trip, and the two kernels against their plain versions.
+
+    logdet is held to 1e-8 relative against the same plan factored on
+    the CPU by the plain versions (float32 both, so the bias of the
+    float32 pivots, which both carry, cancels), and against numpy's
+    slogdet to the sign and n·eps32 absolute in log|det| (one float32 ulp of
+    relative error per pivot; the float32 factor's pivots carry a bias
+    that reaches ~1e-8 relative of log|det| here)."""
+    import tempfile
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from superlu_dist_tpu_torch import (Options, SparseLU, Trans,
+                                        load_factors, save_factors)
+    from superlu_dist_tpu_torch.utils.norms import langs
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d_unsym
+    A = laplacian_3d_unsym(16).tocsc()
+    n = A.shape[0]
+    b = rng.standard_normal(n)
+    opts = Options(dtype="float32", block_size=64, trans=Trans.TRANS,
+                   condition_number=True)
+    res, lu, _ = drive(ctx, "bs=64 trans", A, b, opts,
+                       ("solve_gemm", "diag_apply"))
+    x_ref = spla.spsolve(sp.csc_matrix(A.T), b)
+    err = float(np.abs(res.x - x_ref).max() / np.abs(x_ref).max())
+    Ad = A.toarray()
+    truth = 1.0 / (langs("1", A) * np.abs(np.linalg.inv(Ad)).sum(
+        axis=0).max())
+    sign, logabs = lu.logdet()
+    csign, clog = SparseLU(A, opts, device="cpu").logdet()
+    ds, dl = np.linalg.slogdet(Ad)
+    cerr = abs(logabs - clog) / abs(clog)
+    derr, dtol = abs(logabs - dl), n * float(np.finfo(np.float32).eps)
+    print(f"bs=64 trans: lap3d16u |x - scipy|/|x| {err:.3e} (tolerance "
+          f"1e-10); rcond {res.rcond:.6e}, dense {truth:.6e} (within 30x); "
+          f"logdet sign {sign:+.0f} (CPU {csign:+.0f}, slogdet {ds:+.0f}), "
+          f"log|det| {logabs:.10f}: vs the CPU factor's {clog:.10f} rel "
+          f"err {cerr:.3e} (tolerance 1e-8), vs slogdet's {dl:.10f} abs "
+          f"err {derr:.3e} (tolerance {dtol:.3e})", flush=True)
+    if err > 1e-10:
+        fail("bs=64 TRANS solution disagrees with scipy")
+    if not truth / 30 < res.rcond < 30 * truth:
+        fail("bs=64 rcond outside 30x of the dense truth")
+    if sign != csign or cerr > 1e-8:
+        fail("bs=64 logdet disagrees with the CPU factor's")
+    if sign != ds or derr > dtol:
+        fail("bs=64 logdet disagrees with slogdet")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = os.path.join(d, "factors.npz")
+        save_factors(lu, path)
+        lu2 = load_factors(path, device="cuda")
+        for trans, op in ((Trans.NOTRANS, A), (Trans.TRANS, A.T)):
+            x, berr = lu2.refine(b, lu2.solve(b, trans=trans), trans=trans)
+            resid = float(np.abs(op @ x - b).max() / np.abs(b).max())
+            print(f"bs=64 load_factors {trans.name}: berr {berr.max():.3e},"
+                  f" residual {resid:.3e}", flush=True)
+            if berr.max() > 1e-12 or resid > 1e-10:
+                fail(f"bs=64 loaded factors miss the limits in {trans.name}")
+    check_solve(lu, ctx, lu)
 
 
 def print_update_levels(tp, per_level, top=6):

@@ -14,11 +14,13 @@ Pass ``device="cpu"`` to run the plain PyTorch version of every kernel.
 This package imports neither JAX nor ``superlu_dist_tpu``.
 """
 
-from .models.driver import SolveResult, SparseLU, gssvx
+from .models.driver import (SolveResult, SparseLU, gssvx, load_factors,
+                            save_factors)
 from .utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                             Options, RowPerm, Trans)
 from .utils.stats import Stats
 
-__all__ = ["gssvx", "SparseLU", "SolveResult", "Options", "Stats", "Fact",
+__all__ = ["gssvx", "SparseLU", "SolveResult", "save_factors",
+           "load_factors", "Options", "Stats", "Fact",
            "RowPerm", "ColPerm", "Trans", "IterRefine", "Equil",
            "DiagScale"]

@@ -1,9 +1,12 @@
 """Expert driver: the ``pdgssvx`` analog, in PyTorch on one CUDA device.
 
-Port of the JAX package's ``models/driver.py`` main path:
+Port of the JAX package's ``models/driver.py`` single-device driver:
   equilibrate → static row pivot (MC64) → fill-reducing column order →
   etree alignment → block symbolic → clk factor on the device → level
-  sweeps → iterative refinement with a float64 residual.
+  sweeps → iterative refinement with a float64 residual; and the
+  transposed solve, the condition estimate, ``logdet``, the reuse modes of
+  ``Options.fact`` and factor persistence (:func:`save_factors`,
+  :func:`load_factors`).
 The factored operator satisfies Pc·Pr·Dr·A·Dc·Pcᵀ = L·U as in the
 reference (pdgssvx.c "What is performed").
 
@@ -18,11 +21,17 @@ Deliberate differences from the JAX package:
   the JAX package never fires.
 - Etree alignment stays on whatever the device, as the JAX package
   keeps it off the TPU, so both build the same plan.
-- This slice serves real ``float32`` on CUDA (``float64`` on the CPU
-  too), DOFACT, NOTRANS, exact LU and ILU(k) plans (``ilu_level``), the
-  clk, flk and level-by-level (``"pallas"``) executors, and no condition
-  estimate; the rest raises ``NotImplementedError`` naming its ROADMAP.md
-  item.
+- The port serves real ``float32`` on CUDA (``float64`` on the CPU
+  too), every ``Fact`` and ``Trans`` mode, the condition estimate, exact
+  LU and ILU(k) plans (``ilu_level``), and the clk, flk and level-by-level
+  (``"pallas"``) executors; the rest raises ``NotImplementedError`` naming
+  its ROADMAP.md item.
+- The transposed solve (Aᵀx = b, and Aᴴx = b, which is the same for real
+  dtypes) runs the hand-written counterparts of the JAX package's
+  ``pallas_exec._solve_gemm_kernel`` and ``_diag_apply_kernel`` with
+  ``transpose=True`` (``ops/kernels/solve_gemm.py``), where the JAX
+  package runs the XLA level loop ``blocklu._solve_core(transpose=True)``
+  that computes the same function per level on the same schedule.
 - The executor is chosen as in the JAX package (driver.py:705-797): clk
   for exact plans, flk for ILU plans and ``executor="flk"``, the level
   executor for ``executor="pallas"`` (with or without ILU). The port has
@@ -50,10 +59,12 @@ from ..ops.host.symbolic import SymbolicPlan, block_symbolic
 from ..ops.kernels import clk as _clk
 from ..ops.kernels import flk as _flk
 from ..ops.kernels import schur as _schur
+from ..ops.kernels import solve_gemm as _solve_gemm
 from ..ops.kernels import sweep as _sweep
 from ..utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                              Options, RowPerm, Trans, apply_env_overrides)
 from ..utils.stats import Stats
+from ..utils.norms import langs
 
 _DTYPES = {"float32": np.float32, "float64": np.float64}
 _TORCH = {np.dtype(np.float32): torch.float32,
@@ -106,12 +117,6 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
         todo("executor='xla'", "queue 1 item 12")
     if opts.executor not in (None, "clk", "flk", "pallas"):
         raise ValueError(f"unknown executor {opts.executor!r}")
-    if opts.trans != Trans.NOTRANS:
-        todo(f"trans={opts.trans}", "queue 1 item 1")
-    if opts.fact != Fact.DOFACT:
-        todo(f"fact={opts.fact}", "queue 1 item 1")
-    if opts.condition_number:
-        todo("condition_number", "queue 1 item 1")
     if (opts.gemm_precision or "auto") not in ("auto", "highest"):
         todo(f"gemm_precision={opts.gemm_precision!r}", "queue 1 item 2")
 
@@ -130,6 +135,39 @@ def _executor(opts: Options) -> str:
     if exc == "clk" and opts.ilu_level is not None:
         return "flk"
     return exc
+
+
+def _parse_trans(trans) -> Trans:
+    """``Trans``, the reference's letter codes 'N'/'T'/'C' or its integer
+    ``trans_t`` codes 0/1/2; anything else raises rather than running the
+    NOTRANS path."""
+    if isinstance(trans, Trans):
+        return trans
+    if isinstance(trans, str) and trans in ("N", "T", "C"):
+        return Trans(trans)
+    if isinstance(trans, (int, np.integer)) and not isinstance(trans, bool) \
+            and 0 <= trans <= 2:
+        return list(Trans)[int(trans)]
+    raise ValueError("invalid trans value; expected Trans.NOTRANS/TRANS/"
+                     "CONJ, 'N'/'T'/'C', or 0/1/2")
+
+
+def _perm_sign(perm: np.ndarray) -> float:
+    """Permutation parity via cycle counting."""
+    n = len(perm)
+    seen = np.zeros(n, dtype=bool)
+    sign = 1.0
+    for i in range(n):
+        if seen[i]:
+            continue
+        j, clen = i, 0
+        while not seen[j]:
+            seen[j] = True
+            j = int(perm[j])
+            clen += 1
+        if clen % 2 == 0:
+            sign = -sign
+    return sign
 
 
 def _check_user_perm(p, n: int, what: str) -> np.ndarray:
@@ -174,16 +212,24 @@ class SparseLU:
         self.n = A.shape[0]
         self.dtype = np.dtype(_DTYPES[self.options.dtype])
         self.refine_dtype = _resolve_refine_dtype(self.options)
-        self.plan = None
-        self._factor(A)
+        self.plan = self.executor = None
+        self._factor(A, self.options.fact)
 
     # ------------------------------------------------------------------
     # preprocessing + factorization
     # ------------------------------------------------------------------
 
-    def _preprocess(self, A: sp.spmatrix) -> sp.csc_matrix:
+    def _preprocess(self, A: sp.spmatrix, reuse_perms: bool = False,
+                    reuse_colperm: bool = False) -> sp.csc_matrix:
         opts, stat = self.options, self.stat
         n = self.n
+
+        if reuse_perms:
+            # SamePattern_SameRowPerm: reuse Dr/Dc/Pr/Pc wholesale
+            A3 = A.multiply(self.row_scale[:, None]) \
+                  .multiply(self.col_scale[None, :]).tocsc()
+            A3 = A3[self.rowperm, :][self.colperm, :][:, self.colperm]
+            return self._expand_A(sp.csc_matrix(A3))
 
         with stat.phase("EQUIL"):
             if opts.equil == Equil.YES:
@@ -202,24 +248,40 @@ class SparseLU:
                 R = R1 * R
                 C = C * C1
             elif opts.row_perm == RowPerm.MY_PERMR:
-                rowperm = _check_user_perm(opts.user_rowperm, n,
-                                           "user_rowperm")
+                rowperm = (self.rowperm if opts.user_rowperm is None
+                           and hasattr(self, "rowperm") else
+                           _check_user_perm(opts.user_rowperm, n,
+                                            "user_rowperm"))
             else:
                 rowperm = np.arange(n, dtype=np.int64)
         A2 = sp.csc_matrix(A1)[rowperm, :]
 
         with stat.phase("COLPERM"):
-            if opts.col_perm == ColPerm.MY_PERMC:
+            if opts.col_perm == ColPerm.MY_PERMC and \
+                    (opts.user_colperm is not None or not reuse_colperm):
                 pc = _check_user_perm(opts.user_colperm, n, "user_colperm")
+            elif reuse_colperm:
+                pc = self.colperm
             else:
                 pc = _ordering.get_perm_c(opts.col_perm, A2)
-        A3 = A2[pc, :][:, pc]
+        A3 = sp.csc_matrix(A2[pc, :][:, pc])
 
         self.row_scale = np.asarray(R)
         self.col_scale = np.asarray(C)
         self.rowperm = np.asarray(rowperm, dtype=np.int64)
         self.colperm = np.asarray(pc, dtype=np.int64)
-        return self._align_blocks(sp.csc_matrix(A3))
+        if reuse_colperm:
+            # SamePattern: the stored colperm already folds in the
+            # alignment postorder; reapply the stored expansion
+            return self._expand_A(A3)
+        return self._align_blocks(A3)
+
+    def _expand_A(self, A3: sp.csc_matrix) -> sp.csc_matrix:
+        """Reapply a stored expansion (factor-reuse modes)."""
+        if self._expand is None:
+            return A3
+        from ..ops.host import align as _align
+        return _align.expand_matrix(A3, self._expand, self._n_e)
 
     def _align_blocks(self, A3: sp.csc_matrix) -> sp.csc_matrix:
         """Postorder + expand ``A3`` so block boundaries follow the etree
@@ -249,15 +311,32 @@ class SparseLU:
         stat.counters["align_blocks"] = res.n_blocks
         return _align.expand_matrix(A3, res.expand, res.n_e)
 
-    def _factor(self, A: sp.csc_matrix):
+    def _factor(self, A: sp.csc_matrix, fact: Fact = Fact.DOFACT):
         stat = self.stat
+        if fact == Fact.FACTORED:
+            raise ValueError("FACTORED requires an existing factorization")
+        reuse_perms = fact == Fact.SAME_PATTERN_SAME_ROWPERM
+        reuse_colperm = fact == Fact.SAME_PATTERN or reuse_perms
+        if reuse_colperm and self.plan is None \
+                and not hasattr(self, "colperm"):
+            raise ValueError(f"{fact} requested but no prior factorization")
         self._A_orig = A
-        A3 = self._preprocess(A)
+        A3 = self._preprocess(A, reuse_perms, reuse_colperm)
         self._anorm = float(np.abs(A3.data).max()) if A3.nnz else 1.0
 
         with stat.phase("SYMBFAC"):
-            plan = self._symbolic(A3)
-            A3, plan = self._adapt_plan(A3, plan)
+            if reuse_perms and self.plan is not None:
+                plan = self.plan
+            else:
+                plan = self._symbolic(A3)
+                A3, plan = self._adapt_plan(A3, plan)
+                # every tape is derived from the plan: drop them with it,
+                # or a SamePattern refactor that changes the row
+                # permutation solves against stale schedules (the JAX
+                # package measured err 7e4 on Aᵀ while NOTRANS stayed
+                # 5e-12, driver.py:360-368 there)
+                self._ftapes = self._ltape = self._utape = None
+                self._ttapes = None
         self._rows_idx = self._expand if self._expand is not None \
             else np.arange(self.n, dtype=np.int64)
 
@@ -403,18 +482,24 @@ class SparseLU:
         return float(self.dtype.type(t))
 
     def _device_factor(self, A3: sp.csc_matrix):
-        """Assemble the pool on the device and run the executor's
-        factor."""
+        """Assemble the pool on the device and run the executor's factor.
+        The previous factors are released first, so a refactor holds one
+        pool; the tapes of an unchanged plan and executor are kept."""
         self.pool = self.linv = self.uinv = None
         stat, plan = self.stat, self.plan
         self._a3_data = np.asarray(A3.data)     # the factor's input values
-        self.executor = _executor(self.options)
-        mod, build_tapes = _EXECUTORS[self.executor]
+        exc = _executor(self.options)
+        if exc != self.executor:
+            self._ftapes = None
+        self.executor = exc
+        mod, build_tapes = _EXECUTORS[exc]
         with stat.phase("DIST"):
             t0 = time.perf_counter()
-            self._ftapes = build_tapes(plan, self.device)
-            self._ltape = _sweep.build_sweep_tape(plan, "L", self.device)
-            self._utape = _sweep.build_sweep_tape(plan, "U", self.device)
+            if self._ftapes is None:
+                self._ftapes = build_tapes(plan, self.device)
+            if self._ltape is None:
+                self._ltape = _sweep.build_sweep_tape(plan, "L", self.device)
+                self._utape = _sweep.build_sweep_tape(plan, "U", self.device)
             stat.counters["dist_tapes_s"] = round(time.perf_counter() - t0, 3)
             pool = _blocklu.init_pool(plan, A3.data, self.dtype, self.device)
         # FP32 kernels: "auto" resolves to "highest" (no escalation)
@@ -427,6 +512,23 @@ class SparseLU:
                                                 self._ftapes, plan.nb)
         self.pool, self.linv, self.uinv = pool, linv, uinv
         stat.tiny_pivots += int(tiny.item())
+
+    def refactor(self, A_new, fact: Fact = Fact.SAME_PATTERN_SAME_ROWPERM
+                 ) -> "SparseLU":
+        """Refactor a matrix with the same sparsity pattern.
+
+        ``SAME_PATTERN_SAME_ROWPERM`` reuses the permutations, the scalings
+        and the whole symbolic plan (with its tapes); ``SAME_PATTERN``
+        reuses the column order and the stored expansion and redoes
+        equilibration and row matching. As in the JAX package, the
+        previous factors are released before the new factor starts, so a
+        refactor that fails midway leaves no factors and later solves
+        raise."""
+        if fact not in (Fact.SAME_PATTERN, Fact.SAME_PATTERN_SAME_ROWPERM):
+            raise ValueError("refactor expects a SamePattern* mode")
+        _check_supported(self.options, self.device, A_new)
+        self._factor(sp.csc_matrix(A_new), fact)
+        return self
 
     def _transforms(self):
         """Device copies of the permutations and scalings of a solve."""
@@ -468,31 +570,77 @@ class SparseLU:
         x[self._t_pc] = self._t_cs.to(r.dtype)[:, None] * y
         return x
 
-    def solve(self, b, trans: Trans = Trans.NOTRANS):
-        """Single LU solve (no refinement), the ``pdgstrs`` analog. A
-        torch tensor comes back as a tensor on the device, anything else
-        as a numpy array."""
+    def _lu_solve_t(self, r: torch.Tensor) -> torch.Tensor:
+        """x = A⁻ᵀ r, the mirror of :meth:`_lu_solve`: b3[k] =
+        Dc[pc[k]]·r[pc[k]] in, the Uᵀ then Lᵀ sweeps in the factor dtype,
+        x[prc[k]] = Dr[prc[k]]·y[k] out, all on the device; the result has
+        r's dtype. The transposed tapes are built on the first call and
+        kept with the plan."""
+        plan = self.plan
+        fdt = _TORCH[self.dtype]
+        k = r.shape[1]
+        if self._ttapes is None:
+            self._ttapes = tuple(_solve_gemm.build_trans_tape(
+                plan, w, self.device) for w in ("U", "L"))
+        tu, tl = self._ttapes
+        cs = self._t_cs.to(r.dtype)[:, None]
+        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
+        bp[self._t_ridx] = (cs * r[self._t_pc]).to(fdt)
+        X = _solve_gemm.solve_transposed(self.pool, self.uinv, self.linv, tu,
+                                         tl, bp.view(plan.nb, plan.bs, k))
+        y = X.view(plan.n_pad, k)[self._t_ridx].to(r.dtype)
+        # x comes back in the factor dtype, as the JAX package's
+        # solve_transposed returns it: TRANS refinement then adds the same
+        # rounded correction and takes the same steps
+        x = torch.zeros((self.n, k), dtype=fdt, device=self.device)
+        x[self._t_prc] = (self._t_rs.to(r.dtype)[:, None] * y).to(fdt)
+        return x.to(r.dtype)
+
+    def _apply(self, b, fn):
+        """Run the solve ``fn`` on b in the factor dtype. A torch tensor
+        comes back as a tensor on the device, anything else as a numpy
+        array."""
         self._require_factors()
-        if trans not in (Trans.NOTRANS, "N", 0):
-            raise NotImplementedError(
-                "transposed solves are not ported yet (ROADMAP.md, queue 1 "
-                "item 1)")
         as_tensor = isinstance(b, torch.Tensor)
         bt = torch.as_tensor(b, device=self.device)
         squeeze = bt.dim() == 1
         if squeeze:
             bt = bt[:, None]
         with self.stat.phase("SOLVE"):
-            x = self._lu_solve(bt.to(_TORCH[self.dtype]))
+            x = fn(bt.to(_TORCH[self.dtype]))
         x = x[:, 0] if squeeze else x
         return x if as_tensor else x.cpu().numpy()
 
-    def _berr_t(self, x: torch.Tensor, b: torch.Tensor):
+    def solve(self, b, trans=Trans.NOTRANS):
+        """Single LU solve (no refinement), the ``pdgstrs`` analog.
+        ``trans`` takes ``Trans``, 'N'/'T'/'C' or 0/1/2 and raises
+        ``ValueError`` on anything else."""
+        trans = _parse_trans(trans)
+        if trans != Trans.NOTRANS:
+            return self.solve_transposed(b, conj=trans == Trans.CONJ)
+        return self._apply(b, self._lu_solve)
+
+    def solve_transposed(self, b, conj: bool = False):
+        """Solve Aᵀx = b (Aᴴx = b with ``conj``, the same system for the
+        real dtypes the port serves) with the same factorization: a
+        forward Uᵀ sweep, then a backward Lᵀ sweep with the transposed
+        diagonal inverses."""
+        return self._apply(b, self._lu_solve_t)
+
+    def _berr_t(self, x: torch.Tensor, b: torch.Tensor,
+                trans: Trans = Trans.NOTRANS):
         """Componentwise backward error with the safe1/safe2 guards
-        (reference: pdgsrfs.c:189-231) on the device; returns (berr, r)."""
+        (reference: pdgsrfs.c:189-231) on the device, of the operator A
+        or, for TRANS/CONJ, Aᵀ (real dtypes); returns (berr, r)."""
         rows, cols, vals = self._coo_ref
-        r = b - _spmv.spmv(rows, cols, vals, x, self.n)
-        denom = _spmv.abs_spmv(rows, cols, vals, x.abs(), self.n) + b.abs()
+        if trans == Trans.NOTRANS:
+            ax = _spmv.spmv(rows, cols, vals, x, self.n)
+            denom = _spmv.abs_spmv(rows, cols, vals, x.abs(), self.n)
+        else:
+            ax = _spmv.spmv_t(rows, cols, vals, x, self.n)
+            denom = _spmv.abs_spmv_t(rows, cols, vals, x.abs(), self.n)
+        r = b - ax
+        denom = denom + b.abs()
         nz = self._max_row_nnz() + 1
         safe1 = nz * np.finfo(np.float64).tiny
         safe2 = safe1 / np.finfo(np.float64).eps
@@ -501,32 +649,33 @@ class SparseLU:
                           (num + safe1) / (denom + safe1))
         return val.amax(dim=0), r
 
-    def _berr(self, x, b):
+    def _berr(self, x, b, trans: Trans = Trans.NOTRANS):
         """Host-facing backward error of (n, k) arrays; returns (berr, r)
         as numpy."""
         rdt = _TORCH[self.refine_dtype]
         berr, r = self._berr_t(
             torch.as_tensor(np.asarray(x), device=self.device).to(rdt),
-            torch.as_tensor(np.asarray(b), device=self.device).to(rdt))
+            torch.as_tensor(np.asarray(b), device=self.device).to(rdt),
+            _parse_trans(trans))
         return berr.cpu().numpy(), r.cpu().numpy()
 
     def _max_row_nnz(self) -> int:
         return int(self._A_orig.getnnz(axis=1).max())
 
-    def refine(self, b, x0, trans: Trans = Trans.NOTRANS):
+    def refine(self, b, x0, trans=Trans.NOTRANS):
         """Iterative refinement, the ``pdgsrfs`` analog (pdgsrfs.c:
-        129-251), with residuals in ``refine_dtype`` on the device. It
-        keeps the JAX package's fused loop exactly: the first step always
-        runs; after it, refinement goes on while some berr > eps, every
-        berr ≤ rthresh·(previous berr) and fewer than ``max_refine_steps``
-        steps ran. The FP32 factor is never re-run at another precision.
-        Returns (x, berr) as numpy arrays."""
+        129-251), with residuals in ``refine_dtype`` on the device. The FP32
+        factor is never re-run at another precision. Returns (x, berr) as
+        numpy arrays.
+
+        NOTRANS keeps the JAX package's fused loop exactly: the first step
+        always runs; after it, refinement goes on while some berr > eps,
+        every berr ≤ rthresh·(previous berr) and fewer than
+        ``max_refine_steps`` steps ran. TRANS/CONJ keep its host loop
+        (``_refine_hostloop``), which tests berr ≤ eps and "not halving"
+        before each step, so no step may run."""
         self._require_factors()
-        if trans not in (Trans.NOTRANS, "N", 0):
-            raise NotImplementedError(
-                "transposed refinement is not ported yet (ROADMAP.md, "
-                "queue 1 item 1)")
-        opts = self.options
+        trans = _parse_trans(trans)
         rdt = _TORCH[self.refine_dtype]
         bt = torch.as_tensor(np.asarray(b) if not isinstance(
             b, torch.Tensor) else b, device=self.device).to(rdt)
@@ -539,20 +688,87 @@ class SparseLU:
             xt = xt[:, None]
         eps = float(np.finfo(self.refine_dtype).eps)
         with self.stat.phase("REFINE"):
-            berr, r = self._berr_t(xt, bt)
-            prev = torch.full_like(berr, float("inf"))
-            it = 0
-            while it < opts.max_refine_steps and (
-                    it == 0 or bool((berr > eps).any()
-                                    & (berr <= opts.refine_rthresh
-                                       * prev).all())):
-                xt = xt + self._lu_solve(r)
-                prev = berr
-                berr, r = self._berr_t(xt, bt)
-                it += 1
+            if trans == Trans.NOTRANS:
+                xt, berr, it = self._refine_fused(xt, bt, eps)
+            else:
+                xt, berr, it = self._refine_hostloop(xt, bt, eps, trans)
         self.stat.refine_steps = it
         x = xt.cpu().numpy()
         return (x[:, 0] if squeeze else x), np.atleast_1d(berr.cpu().numpy())
+
+    def _refine_fused(self, xt, bt, eps):
+        opts = self.options
+        berr, r = self._berr_t(xt, bt)
+        prev = torch.full_like(berr, float("inf"))
+        it = 0
+        while it < opts.max_refine_steps and (
+                it == 0 or bool((berr > eps).any()
+                                & (berr <= opts.refine_rthresh
+                                   * prev).all())):
+            xt = xt + self._lu_solve(r)
+            prev = berr
+            berr, r = self._berr_t(xt, bt)
+            it += 1
+        return xt, berr, it
+
+    def _refine_hostloop(self, xt, bt, eps, trans):
+        opts = self.options
+        prev = torch.full((bt.shape[1],), float("inf"), dtype=bt.dtype,
+                          device=self.device)
+        for it in range(opts.max_refine_steps):
+            berr, r = self._berr_t(xt, bt, trans)
+            if bool((berr <= eps).all()) or \
+                    bool((berr > opts.refine_rthresh * prev).all()):
+                return xt, berr, it
+            prev = berr
+            xt = xt + self._lu_solve_t(r)
+        berr, _ = self._berr_t(xt, bt, trans)
+        return xt, berr, opts.max_refine_steps
+
+    # ------------------------------------------------------------------
+    # condition estimate (pdlangs + pdgscon analog)
+    # ------------------------------------------------------------------
+
+    def rcond_1(self) -> float:
+        """Reciprocal 1-norm condition estimate by the Hager/Higham
+        iteration (LAPACK dlacn2, which the reference's gscon path wraps)
+        over :meth:`solve` and :meth:`solve_transposed`, as the JAX
+        package computes it: at most 5 power steps, stopping when the
+        estimate stops increasing or the dual test |z|∞ ≤ zᵀx fires, then
+        the alternating-sign probe. ``stat.counters['rcond_iters']`` holds
+        the steps and ``'rcond_converged'`` whether a test fired before
+        the cap."""
+        n = self.n
+        anorm = langs("1", self._A_orig)
+        if anorm == 0:
+            return 0.0
+        x = np.full(n, 1.0 / n)
+        est = 0.0
+        converged = 0
+        it = 0
+        for it in range(1, 6):
+            y = self.solve(x)
+            est_new = float(np.abs(y).sum())
+            if it > 1 and est_new <= est:
+                converged = 1          # the estimate stopped increasing
+                break
+            est = max(est, est_new)
+            xi = np.sign(y)
+            xi[xi == 0] = 1.0
+            z = self.solve_transposed(xi)
+            j = int(np.argmax(np.abs(z)))
+            if np.abs(z[j]) <= float(np.real(np.vdot(z, x))):
+                converged = 1          # a stationary point of the dual
+                break
+            x = np.zeros(n)
+            x[j] = 1.0
+        # alternating-sign probe (guards against underestimation)
+        i = np.arange(n)
+        v = np.where(i % 2, -1.0, 1.0) * (1.0 + i / max(n - 1, 1))
+        est = max(est, 2.0 * np.abs(self.solve(v)).sum() / (3.0 * n))
+        self.stat.counters["rcond_iters"] = it
+        self.stat.counters["rcond_converged"] = converged
+        return float(1.0 / (anorm * est)) if est > 0 else 0.0
 
     # ------------------------------------------------------------------
     # extras
@@ -568,6 +784,17 @@ class SparseLU:
         sel = slice(0, self.n) if self._expand is None else self._expand
         return d[sel]
 
+    def logdet(self):
+        """(sign, log|det A|), the PYTHON/pdbridge.py logdet analog (real
+        dtypes): the diagonal of U, the scalings and the parity of the row
+        permutation (the symmetric column permutation cancels)."""
+        du = self.diag_u().astype(np.float64)
+        logabs = float(np.sum(np.log(np.abs(du)))
+                       - np.sum(np.log(self.row_scale))
+                       - np.sum(np.log(self.col_scale)))
+        sign = float(np.prod(du / np.abs(du))) * _perm_sign(self.rowperm)
+        return sign, logabs
+
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "SparseLU":
         """A solve-ready object from plain numpy arrays, e.g. the state of
@@ -576,7 +803,9 @@ class SparseLU:
         without alignment), every ``SymbolicPlan`` field under ``plan``
         (a dict), ``pool``, ``linv``, ``uinv`` (bucket-padded rows are
         accepted and cut), ``anorm``, and the COO of the original A as
-        ``a_row``, ``a_col``, ``a_data`` with ``n``."""
+        ``a_row``, ``a_col``, ``a_data`` with ``n``. It serves every solve
+        (NOTRANS and transposed), ``refine``, ``rcond_1`` and ``logdet``,
+        and a SamePattern* ``refactor``."""
         lu = cls.__new__(cls)
         lu.options = state.get("options") or Options()
         lu.device = _resolve_device(device)
@@ -620,6 +849,8 @@ class SparseLU:
         lu.uinv = dev(state["uinv"], plan.nb)
         lu._ltape = _sweep.build_sweep_tape(plan, "L", lu.device)
         lu._utape = _sweep.build_sweep_tape(plan, "U", lu.device)
+        lu._ttapes = lu._ftapes = lu._a3_data = None   # built when needed
+        lu.executor = _executor(lu.options)
         lu._coo_ref = _spmv.coo_arrays(lu._A_orig, lu.refine_dtype,
                                        lu.device)
         lu._transforms()
@@ -631,21 +862,130 @@ def gssvx(A, b, options: Optional[Options] = None,
           lu: Optional[SparseLU] = None, *, device=None):
     """One-call expert driver (``pdgssvx`` analog). Returns (result, lu).
 
-    Factors A on ``device`` (default ``cuda``; ``"cpu"`` runs the plain
-    PyTorch versions of the kernels), solves, and refines to the
-    ``refine_dtype`` backward error. As in the JAX package, ``lu`` is
-    only read by the reuse modes of ``options.fact``, which are not
-    ported yet; under DOFACT a new factorization is made."""
+    Under DOFACT, factors A on ``device`` (default ``cuda``; ``"cpu"``
+    runs the plain PyTorch versions of the kernels). With ``lu``,
+    ``options.fact`` stages the pddrive1/2/3 patterns on ``lu``'s device:
+    SAME_PATTERN and SAME_PATTERN_SAME_ROWPERM refactor ``lu`` with A's
+    values, FACTORED only solves (and needs ``lu``). The solve, the
+    refinement residuals and berr follow ``options.trans`` (A, Aᵀ or Aᴴ,
+    pdgssvx.c:622); ``condition_number`` fills ``rcond``."""
     options = options or Options()
     stat = Stats()
-    lu = SparseLU(A, options=options, stat=stat, device=device)
-    x = lu.solve(np.asarray(b))
+    if options.fact == Fact.FACTORED:
+        if lu is None:
+            raise ValueError("FACTORED requires an existing SparseLU")
+        lu.stat = stat
+        stat.device = lu.device
+    elif lu is not None and options.fact in (
+            Fact.SAME_PATTERN, Fact.SAME_PATTERN_SAME_ROWPERM):
+        lu.stat = stat
+        stat.device = lu.device
+        lu.options = apply_env_overrides(options)
+        lu.refactor(A, fact=options.fact)
+    else:
+        lu = SparseLU(A, options=options, stat=stat, device=device)
+
+    x = lu.solve(np.asarray(b), trans=options.trans)
     if options.iter_refine != IterRefine.NOREFINE:
-        x, berr = lu.refine(b, x)
+        x, berr = lu.refine(b, x, trans=options.trans)
     else:
         xb = x[:, None] if x.ndim == 1 else x
         bb = np.asarray(b)
         bb = bb[:, None] if bb.ndim == 1 else bb
-        berr, _ = lu._berr(xb, bb)
+        berr, _ = lu._berr(xb, bb, trans=options.trans)
+    rcond = None
+    if options.condition_number:
+        with stat.phase("RCOND"):
+            rcond = lu.rcond_1()
     return SolveResult(x=x, berr=np.atleast_1d(berr), stat=stat,
-                       info=lu.info), lu
+                       info=lu.info, rcond=rcond), lu
+
+
+# ---------------------------------------------------------------------------
+# factor persistence (SolveOnly / checkpoint-resume analog)
+# ---------------------------------------------------------------------------
+
+
+def _bucket125(x: int, lo: int = 8) -> int:
+    """The JAX package's ``blocklu.bucket125``: the smallest value ≥ x of
+    the form 2^k·{1, 1.25, 1.5, 1.75}."""
+    x = max(int(x), lo)
+    k = max(0, int(np.floor(np.log2(x))))
+    for base in (1.0, 1.25, 1.5, 1.75, 2.0):
+        cand = int(np.ceil((2 ** k) * base))
+        if cand >= x:
+            return cand
+    return 2 ** (k + 1)
+
+
+def _bucket_fine(x: int, lo: int = 8) -> int:
+    """The JAX package's ``blocklu.bucket_fine`` (1/32-octave steps above
+    65,536)."""
+    x = max(int(x), lo)
+    if x <= 1 << 16:
+        return _bucket125(x, lo)
+    k = int(np.floor(np.log2(x)))
+    step = 2 ** k / 32.0
+    return int(np.ceil(np.ceil(x / step) * step))
+
+
+def _padded(t: torch.Tensor, rows: int) -> np.ndarray:
+    a = t.cpu().numpy()
+    out = np.zeros((rows,) + a.shape[1:], dtype=a.dtype)
+    out[: len(a)] = a
+    return out
+
+
+def save_factors(lu: SparseLU, path) -> None:
+    """Persist a factorization (block pool, diagonal inverses, symbolic
+    plan, permutations, scalings and the original A for refinement) in
+    the JAX package's ``.npz`` layout: its keys, and its bucket-padded
+    shapes of ``pool`` (``bucket_fine(nslots + 2, lo=64)`` rows) and of
+    ``linv``/``uinv`` (``bucket125(nb) + 1`` rows), so that either package
+    loads the other's checkpoint. Real dtypes only."""
+    plan = lu.plan
+    A = sp.csc_matrix(lu._A_orig)
+    npool = _bucket_fine(plan.nslots + 2, lo=64)
+    ninv = _bucket125(plan.nb) + 1
+    np.savez_compressed(
+        path,
+        pool=_padded(lu.pool, npool), linv=_padded(lu.linv, ninv),
+        uinv=_padded(lu.uinv, ninv),
+        rowperm=lu.rowperm, colperm=lu.colperm,
+        row_scale=lu.row_scale, col_scale=lu.col_scale,
+        a_indptr=A.indptr, a_indices=A.indices, a_data=A.data,
+        a_shape=np.asarray(A.shape),
+        dtype=np.asarray(str(lu.options.dtype)),
+        block_size=np.asarray(lu.options.block_size),
+        anorm=np.asarray(lu._anorm),
+        embed=np.asarray(False),
+        expand=(np.asarray(lu._expand) if lu._expand is not None
+                else np.empty(0, dtype=np.int64)),
+        **{"plan_" + f.name: np.asarray(getattr(plan, f.name))
+           for f in dataclasses.fields(plan)})
+
+
+def load_factors(path, options: Optional[Options] = None, *,
+                 device=None) -> SparseLU:
+    """A solve-ready :class:`SparseLU` from a :func:`save_factors`
+    checkpoint of either package, without refactoring (the SolveOnly
+    path), on ``device`` (default ``cuda``, which raises without CUDA
+    unless ``device="cpu"``). The sweep tapes are rebuilt; the transposed
+    tapes are built at the first transposed solve."""
+    z = np.load(path, allow_pickle=False)
+    options = (options or Options()).replace(
+        dtype=str(z["dtype"]), block_size=int(z["block_size"]))
+    plan = {}
+    for f in dataclasses.fields(SymbolicPlan):
+        v = z["plan_" + f.name]
+        plan[f.name] = v if v.ndim else v.item()
+    A = sp.coo_matrix(sp.csc_matrix(
+        (z["a_data"], z["a_indices"], z["a_indptr"]),
+        shape=tuple(z["a_shape"])))
+    expand = z["expand"] if "expand" in z.files else None
+    return SparseLU.from_numpy_state(dict(
+        options=options, n=int(z["a_shape"][0]), rowperm=z["rowperm"],
+        colperm=z["colperm"], row_scale=z["row_scale"],
+        col_scale=z["col_scale"], expand=expand, plan=plan, pool=z["pool"],
+        linv=z["linv"], uinv=z["uinv"], anorm=float(z["anorm"]),
+        a_row=A.row, a_col=A.col, a_data=A.data), device=device)

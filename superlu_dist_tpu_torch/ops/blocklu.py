@@ -6,6 +6,8 @@ Counterpart of the JAX package's ``ops/kernels/blocklu.py``:
   block pool (slot ``nslots`` is the zero block, ``nslots + 1`` the
   trash block, as in the JAX package; the port does not bucket-pad);
 - :func:`level_order` groups per-step factor work by elimination level;
+- :func:`trans_schedule` is the level schedule of the transposed solve's
+  Uᵀ and Lᵀ sweeps (the JAX package's ``_trans_schedule``);
 - :func:`factor_plain` is the level-batched right-looking factor of the
   JAX package's XLA executor (``_make_level_step`` with
   ``block_lu_inv``) in plain PyTorch: per level the diagonal batch, the
@@ -72,6 +74,42 @@ def level_order(plan: SymbolicPlan):
     return dict(dptr=dptr, dstep=order.astype(np.int32), lptr=lptr,
                 l_slot=l_slot, l_step=l_step, uptr=uptr, u_slot=u_slot,
                 u_step=u_step, gptr=gptr, g_l=g_l, g_u=g_u, g_t=g_t)
+
+
+def trans_schedule(plan: SymbolicPlan, which: str):
+    """Level schedule of a transposed sweep, as the JAX package's
+    ``blocklu._trans_schedule`` builds it (same levels, same triple order).
+
+    Uᵀ forward (``which="U"``): for each U block (I, J), I < J, the unknown
+    z_J depends on z_I; Lᵀ backward (``"L"``): w_J depends on w_I for each
+    L block (I, J), I > J. Block row J sits one level above its highest
+    source. Returns (gptr, gslot, gsrc, gdst, dptr, diag, nlvl): the
+    (slot, src, dst) triples of level l over ``gptr[l]:gptr[l+1]``, and
+    its block rows ``diag[dptr[l]:dptr[l+1]]`` in ascending order."""
+    nb = plan.nb
+    if which == "U":
+        ptr, slots, order = plan.u_ptr, plan.u_slots, range(nb)
+    else:
+        ptr, slots, order = plan.l_ptr, plan.l_slots, range(nb - 1, -1, -1)
+    s = np.asarray(slots[int(ptr[0]):int(ptr[nb])], dtype=np.int64)
+    dst = np.asarray(plan.slot_col, dtype=np.int64)[s]
+    src = np.asarray(plan.slot_row, dtype=np.int64)[s]
+    # each destination's sources in step order, then the slot lists' order
+    o = np.argsort(dst, kind="stable")
+    s, src, dst = s[o], src[o], dst[o]
+    start = np.searchsorted(dst, np.arange(nb + 1))
+    level = np.zeros(nb, dtype=np.int64)
+    for J in order:
+        if start[J + 1] > start[J]:
+            level[J] = level[src[start[J]:start[J + 1]]].max() + 1
+    nlvl = int(level.max()) + 1 if nb else 1
+    o = np.argsort(level[dst], kind="stable")
+    gptr = np.zeros(nlvl + 1, dtype=np.int64)
+    gptr[1:] = np.cumsum(np.bincount(level[dst], minlength=nlvl))
+    dptr = np.zeros(nlvl + 1, dtype=np.int64)
+    dptr[1:] = np.cumsum(np.bincount(level, minlength=nlvl))
+    diag = np.argsort(level, kind="stable")
+    return gptr, s[o], src[o], dst[o], dptr, diag, nlvl
 
 
 def factor_plain(plan: SymbolicPlan, pool: torch.Tensor, thresh: float):

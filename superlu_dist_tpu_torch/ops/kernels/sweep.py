@@ -50,11 +50,17 @@ def build_sweep_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
     else:
         gslot, gsrc, gdst = p.usol_gslot, p.usol_gsrc, p.usol_gdst
         dptr, rows, nlvl = p.usol_dptr, p.usol_diag, p.usol_nlvl
+    return csr_tape(p.nb, gslot, gsrc, gdst, dptr, rows, nlvl, device)
+
+
+def csr_tape(nb, gslot, gsrc, gdst, dptr, rows, nlvl, device) -> SweepTape:
+    """A :class:`SweepTape` from a level schedule: the (slot, src, dst)
+    triples, and the block rows ``rows[dptr[l]:dptr[l+1]]`` of level l."""
     rows = np.asarray(rows, dtype=np.int64)
     gdst = np.asarray(gdst, dtype=np.int64)
     # position of each block row in the level-ordered row list; sort the
     # contributions by it (stable: the plan's order within a row stays)
-    where = np.empty(p.nb, dtype=np.int64)
+    where = np.empty(nb, dtype=np.int64)
     where[rows] = np.arange(len(rows))
     o = np.argsort(where[gdst], kind="stable")
     rowptr = np.zeros(len(rows) + 1, dtype=np.int64)

@@ -32,3 +32,15 @@ def abs_spmv(rows, cols, vals, x, n_rows: int):
     """y = |A| @ x (the backward-error denominator |A|·|x| + |b|,
     reference: pdgsrfs.c:189-231)."""
     return spmv(rows, cols, vals.abs(), x, n_rows)
+
+
+def spmv_t(rows, cols, vals, x, n_cols: int):
+    """y = Aᵀ @ x with A in COO (the residual of a transposed solve; the
+    caller conjugates for Aᴴ)."""
+    return spmv(cols, rows, vals, x, n_cols)
+
+
+def abs_spmv_t(rows, cols, vals, x, n_cols: int):
+    """y = |A|ᵀ @ x, the backward-error denominator of a transposed
+    solve."""
+    return spmv(cols, rows, vals.abs(), x, n_cols)

@@ -29,6 +29,20 @@ def laplacian_3d(k: int, dtype=np.float64) -> sp.csc_matrix:
     return sp.csc_matrix(A, dtype=dtype)
 
 
+def laplacian_3d_unsym(k: int, seed: int = 1) -> sp.csc_matrix:
+    """``laplacian_3d(k)`` with unsymmetric values: every off-diagonal
+    entry times an independent ``default_rng(seed).uniform(0.5, 1.0)``
+    draw, the diagonal kept at 6. Strictly diagonally dominant, with the
+    7-point pattern (so the plan of ``laplacian_3d(k)``); a transpose left
+    out of a solve shows, as it would not on the symmetric operator."""
+    A = sp.coo_matrix(laplacian_3d(k))
+    off = A.row != A.col
+    data = A.data.copy()
+    data[off] *= np.random.default_rng(seed).uniform(0.5, 1.0,
+                                                     int(off.sum()))
+    return sp.csc_matrix((data, (A.row, A.col)), shape=A.shape)
+
+
 def laplacian_arrowhead(k: int = 6, seed: int = 1) -> sp.csc_matrix:
     """``k`` disjoint 16×16-grid Laplacians (two 128-blocks each) and a
     128-wide random coupling border: at block size 128 many elimination

@@ -13,7 +13,7 @@ import torch
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu
 from superlu_dist_tpu_torch.ops.kernels import (clk, diag_lu, flk, schur,
-                                                sweep)
+                                                solve_gemm, sweep)
 from superlu_dist_tpu_torch.utils import testing as tt
 
 pytestmark = pytest.mark.cuda
@@ -166,3 +166,57 @@ def test_level_executor_arrowhead_matches_plain(cuda):
     for k, p in zip(kern[:3], ref[:3]):
         scale = max(1.0, float(p.abs().max()))
         assert float((k - p).abs().max()) <= ULPS * eps * scale
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_solve_gemm_and_diag_apply_match_plain(cuda, bs, transpose):
+    """Level by level on lap3d12u's transposed tapes (``transpose=True``)
+    or its L and U tapes (``False``), from the same X each time, with one
+    and nine right-hand sides (a tile of eight and a ragged one)."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+        dtype="float32", block_size=bs), device=cuda)
+    plan = lu.plan
+    if transpose:
+        tapes = ((solve_gemm.build_trans_tape(plan, "U", cuda), lu.uinv),
+                 (solve_gemm.build_trans_tape(plan, "L", cuda), lu.linv))
+    else:
+        tapes = ((lu._ltape, lu.linv), (lu._utape, lu.uinv))
+    eps = np.finfo(np.float32).eps
+    for nrhs in (1, 9):
+        X = torch.randn(plan.nb, plan.bs, nrhs, device=cuda)
+        for tape, dinv in tapes:
+            for level in range(tape.nlvl):
+                for kern, plain, M in (
+                        (solve_gemm.solve_gemm, solve_gemm.solve_gemm_plain,
+                         lu.pool),
+                        (solve_gemm.diag_apply, solve_gemm.diag_apply_plain,
+                         dinv)):
+                    Xp = X.clone()
+                    kern(M, X, tape, level, transpose)
+                    plain(M, Xp, tape, level, transpose)
+                    torch.cuda.synchronize()
+                    scale = max(1.0, float(Xp.abs().max()))
+                    assert float((X - Xp).abs().max()) <= ULPS * eps * scale
+
+
+def test_trans_gssvx_with_rcond_matches_cpu(cuda):
+    """The TRANS + condition_number path on the card against the same
+    call on the CPU (plain versions): x to 1e-10 relative, berr, the
+    refinement steps, and rcond to 1e-4 relative (f32 solves in other
+    summation orders)."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    opts = T.Options(dtype="float32", block_size=64, trans=T.Trans.TRANS,
+                     condition_number=True)
+    solve_gemm.SOLVE_GEMM.launches = solve_gemm.DIAG_APPLY.launches = 0
+    rg, lu = T.gssvx(A, b, opts, device=cuda)
+    assert solve_gemm.SOLVE_GEMM.launches > 0
+    assert solve_gemm.DIAG_APPLY.launches > 0
+    rc, _ = T.gssvx(A, b, opts, device="cpu")
+    assert rg.berr.max() < 1e-15 and rc.berr.max() < 1e-15
+    assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
+    assert np.abs(A.T @ rg.x - b).max() / np.abs(b).max() < 1e-12
+    assert abs(rg.rcond - rc.rcond) <= 1e-4 * rc.rcond
+    assert 0 < rg.rcond <= 1

@@ -2,7 +2,8 @@
 against the JAX package's ``gssvx`` on the CPU, end to end: solution,
 backward error, refinement steps and tiny-pivot count, for the clk, flk
 (exact and ILU(k)) and level executors; and the port's refusals (no
-silent CPU fallback, unported options raise)."""
+silent CPU fallback, unported options raise), with the options that it
+refused before the transposed solve was ported now running."""
 
 import numpy as np
 import pytest
@@ -162,14 +163,40 @@ def test_ilu_state_from_jax_solves():
 
 @pytest.mark.parametrize("kw", [
     dict(dtype="complex64"), dict(executor="tck"), dict(executor="xla"),
-    dict(trans=T.Trans.TRANS), dict(fact=T.Fact.SAME_PATTERN),
-    dict(condition_number=True), dict(gemm_precision="bf16"),
-], ids=["dtype", "executor-tck", "executor-xla", "trans", "fact",
-        "condition_number", "gemm_precision"])
+    dict(gemm_precision="bf16"),
+], ids=["dtype", "executor-tck", "executor-xla", "gemm_precision"])
 def test_unported_options_raise(kw):
     A = tt.laplacian_2d(6).tocsc()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.SparseLU(A, T.Options(block_size=8, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["trans", "fact", "condition_number"])
+def test_formerly_refused_options_run(option):
+    """The options that the port refused before the transposed solve was
+    ported now run, as the JAX package runs them."""
+    A = tt.unsymmetric_pattern(120, seed=4).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    kw = dict(dtype="float32", block_size=16)
+    if option == "trans":
+        res, _ = T.gssvx(A, b, T.Options(trans=T.Trans.TRANS, **kw),
+                         device="cpu")
+        assert np.abs(A.T @ res.x - b).max() / np.abs(b).max() < 1e-12
+    elif option == "fact":
+        _, lu = T.gssvx(A, b, T.Options(**kw), device="cpu")
+        A2 = A.copy()
+        A2.data = A.data * 1.01
+        res, lu2 = T.gssvx(A2, b, T.Options(fact=T.Fact.SAME_PATTERN, **kw),
+                           lu=lu)
+        assert lu2 is lu
+        assert np.abs(A2 @ res.x - b).max() / np.abs(b).max() < 1e-12
+    else:
+        res, _ = T.gssvx(A, b, T.Options(condition_number=True, **kw),
+                         device="cpu")
+        rj, _ = J.gssvx(A, b, J.Options(condition_number=True, **kw))
+        # the estimate carries the f32 solves' rounding
+        assert res.rcond == pytest.approx(rj.rcond, rel=1e-3)
+    assert res.berr.max() < 1e-15
 
 
 def test_float64_on_cuda_raises():

@@ -52,6 +52,7 @@ def test_import_leaves_jax_unloaded():
             "import superlu_dist_tpu_torch.ops.kernels.clk, "
             "superlu_dist_tpu_torch.ops.kernels.flk, "
             "superlu_dist_tpu_torch.ops.kernels.schur, "
+            "superlu_dist_tpu_torch.ops.kernels.solve_gemm, "
             "superlu_dist_tpu_torch.ops.kernels.sweep; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'superlu_dist_tpu' not in sys.modules; print('ok')")
