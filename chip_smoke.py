@@ -25,7 +25,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    clk_update), ILU(1) (flk; its slots and refinement steps printed) and
    ``executor="pallas"`` (diag_lu, trsm, schur); then flk, schur and trsm
    against their plain versions level by level on their paths' inputs,
-   and each whole factor against ``factor_plain`` on its plan;
+   and each whole factor against ``factor_plain`` on its plan; then
+   ``executor="tck"`` on the same matrix (tck_update, diag_lu, clk_trsm),
+   driven the same way, with tck_update against its plain version beside
+   clk_update's time; and ``SparseLU.profile_levels`` on the level
+   executor's factor (its six costliest levels), with the solve checked
+   after it;
 6. the transposed path on ``lap3d32u`` (``laplacian_3d(32)`` with
    unsymmetric off-diagonal values, the same plan):
    ``gssvx(A, b, Options(dtype="float32", block_size=128,
@@ -42,10 +47,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    against the plain CPU factor and ``numpy.linalg.slogdet``, and a
    ``save_factors`` / ``load_factors`` round trip;
 7. the same checks at the Options default block size 64 on
-   ``laplacian_3d(16)``, whose solution (by each executor) is held
-   against scipy's;
-8. one JSON line of per-kernel results, the nvidia-smi line, and the
-   final ``{"ok": true, "device": ...}`` line.
+   ``laplacian_3d(16)``, whose solution (by each executor, ``"tck"`` and
+   ``"xla"`` included) is held against scipy's;
+8. the tiled column factor at full width:
+   ``gssvx(A, b, Options(dtype="float32", block_size=128,
+   executor="tck"))`` on ``laplacian_3d(50)`` (n = 125,000, the matrix
+   with many columns taller than the TPU clk's 104-block panel), driven
+   like the main path (tck_update, diag_lu, clk_trsm and sweep must
+   launch, clk_update, flk and schur must not), a warm call,
+   ``tck_update`` against its plain version level by level and the
+   whole factor against the float64 reference; then clk, flk and the
+   level executor on the same plan (SamePattern_SameRowPerm refactors),
+   each held to the same limits, with clk_update's costliest levels;
+9. float64 on the card, which runs the level executor:
+   ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
+   ``condition_number`` on lap3d32u, each held to the same limits; every
+   float64 kernel (diag_lu, trsm, schur, sweep, solve_gemm, diag_apply)
+   against its plain version, each bound taken at the FP64 peak;
+10. one JSON line of per-kernel results (the float64 instantiations in
+   rows of their own, with a ``dtype`` field), the nvidia-smi line, the
+   seconds the run held the card, and the final
+   ``{"ok": true, "device": ...}`` line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -61,16 +83,20 @@ import warnings
 
 import numpy as np
 
-#: FP32 peak outside the tensor cores and memory rate of an H100 SXM
-#: (NVIDIA data sheet; the kernels run IEEE FP32 on the CUDA cores)
-PEAK_FLOPS = 67e12
+#: the best IEEE rate of an H100 SXM for each type and its memory rate
+#: (NVIDIA data sheet): FP32 67 TFLOP/s on the CUDA cores (TF32 is not
+#: FP32); FP64 67 TFLOP/s on the tensor cores (DMMA), twice the CUDA
+#: cores' 34
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 #: kernel against plain version: max |difference| <= REL_TOL * max(1,
 #: max |plain output|). Both compute in float32 from the same input but
 #: sum in other orders (128-long dot products, a 128-step elimination
 #: whose inverses carry the tile's conditioning); 1e-4 is ~840 float32
-#: ulp, while a wrong block or index gives errors of order 1.
+#: ulp, while a wrong block or index gives errors of order 1. The float64
+#: instantiations are held to REL_TOL_F64, ~4,500 float64 ulp.
 REL_TOL = 1e-4
+REL_TOL_F64 = 1e-12
 #: a whole factor against the float64 right-looking reference: 512
 #: float32 ulp at the pool scale, the tolerance tests/test_clk.py gives
 #: random patterns (the top separator blocks of lap3d32 sum hundreds of
@@ -90,8 +116,12 @@ REPLACES = {
     "trsm": "superlu_dist_tpu/ops/kernels/pallas_exec.py:93",
     "solve_gemm": "superlu_dist_tpu/ops/kernels/pallas_exec.py:433",
     "diag_apply": "superlu_dist_tpu/ops/kernels/pallas_exec.py:513",
+    "tck_update": "superlu_dist_tpu/ops/kernels/tck.py:220",
 }
 ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
+#: the kernels with a float64 instantiation, which the float64 path runs
+F64_KERNELS = ("diag_lu", "trsm", "schur", "sweep", "solve_gemm",
+               "diag_apply")
 
 
 def fail(msg: str) -> None:
@@ -100,6 +130,7 @@ def fail(msg: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -111,7 +142,8 @@ def main() -> None:
     from superlu_dist_tpu_torch.ops import blocklu
     from superlu_dist_tpu_torch.ops.host.native import get_lib
     from superlu_dist_tpu_torch.ops.kernels import (_build, clk, diag_lu, flk,
-                                                    schur, solve_gemm, sweep)
+                                                    schur, solve_gemm, sweep,
+                                                    tck)
     from superlu_dist_tpu_torch.utils.testing import laplacian_3d
 
     smi = subprocess.run(
@@ -127,15 +159,16 @@ def main() -> None:
                "clk_trsm": clk.TRSM, "sweep": sweep.KERNEL,
                "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM,
                "solve_gemm": solve_gemm.SOLVE_GEMM,
-               "diag_apply": solve_gemm.DIAG_APPLY}
+               "diag_apply": solve_gemm.DIAG_APPLY,
+               "tck_update": tck.UPDATE}
     build_s = _build.build_all(list(kernels.values()))
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for k in (diag_lu.KERNEL, clk.UPDATE, sweep.KERNEL, flk.KERNEL,
-              schur.SCHUR, solve_gemm.SOLVE_GEMM):
+              schur.SCHUR, solve_gemm.SOLVE_GEMM, tck.UPDATE):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
-               kernels=kernels)
+               tck=tck, kernels=kernels)
 
     # ---- 3. the main path ---------------------------------------------
     A = laplacian_3d(32)
@@ -158,7 +191,7 @@ def main() -> None:
     # ---- 4. clk-path kernels against plain versions --------------------
     checks = check_kernels(lu, ctx, launches)
 
-    # ---- 5. the flk, ILU(1) and level executors ------------------------
+    # ---- 5. the flk, ILU(1), level and tck executors -------------------
     paths = {
         "flk": (Options(dtype="float32", block_size=128, executor="flk"),
                 ("flk", "diag_lu", "sweep"), ("clk_update",)),
@@ -169,6 +202,9 @@ def main() -> None:
                            executor="pallas"),
                    ("schur", "trsm", "diag_lu", "sweep"),
                    ("clk_update", "flk")),
+        "tck": (Options(dtype="float32", block_size=128, executor="tck"),
+                ("tck_update", "diag_lu", "clk_trsm", "sweep"),
+                ("clk_update", "flk", "schur")),
     }
     lus, got = {}, {}
     for name, (o, need, zero) in paths.items():
@@ -189,6 +225,14 @@ def main() -> None:
     checks.update(check_level(lus["pallas"], ctx, report=True))
     for name in ("flk", "schur", "trsm"):
         print_check(name, checks[name], launches[name])
+    o = check_tck(lus["tck"], ctx, report=False)["tck_update"]
+    print(f"lap3d32 tck_update: max_abs_err {o['max_abs_err']:.3e} "
+          f"(tolerance {o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
+          f"{o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f} ms "
+          f"({o['bound_by']}); clk_update on the same plan "
+          f"{checks['clk_update']['ms']:.3f} ms; {got['tck']['tck_update']}"
+          f" launches on its path", flush=True)
+    profile_phase(lus["pallas"], A, b)
 
     # ---- 6. the transposed path, the condition estimate, reuse ---------
     got = trans_phase(ctx, rng, lu, checks)
@@ -201,7 +245,7 @@ def main() -> None:
     A2 = laplacian_3d(16)
     b2 = np.asarray(A2 @ rng.standard_normal(A2.shape[0]))
     x_ref = spla.spsolve(A2.tocsc(), b2)
-    for executor in ("clk", "flk", "pallas"):
+    for executor in ("clk", "flk", "pallas", "tck", "xla"):
         res2, lu2, _ = drive(ctx, f"bs=64 {executor}", A2, b2, Options(
             dtype="float32", block_size=64, executor=executor), ())
         err2 = float(np.abs(res2.x - x_ref).max() / np.abs(x_ref).max())
@@ -209,27 +253,38 @@ def main() -> None:
               f"(tolerance 1e-10)", flush=True)
         if err2 > 1e-10:
             fail(f"bs=64 {executor} solution disagrees with scipy")
-        c64 = {"clk": check_kernels, "flk": check_flk,
-               "pallas": check_level}[executor](lu2, ctx, None)
+        c64 = {"clk": check_kernels, "flk": check_flk, "pallas": check_level,
+               "tck": check_tck, "xla": check_level}[executor](lu2, ctx,
+                                                                None)
         for name, c in c64.items():
             print(f"bs=64 {name}: max_abs_err {c['max_abs_err']:.3e} "
                   f"(tolerance {c['tol']:.3e})", flush=True)
 
+    # ---- 8. tck at full width on lap3d50 -------------------------------
+    tck_phase(ctx, rng, checks, launches)
+
+    # ---- 9. float64 on the card ---------------------------------------
+    f64_phase(ctx, rng, checks, launches)
+
     rows = []
-    for name, k in kernels.items():
-        c = checks[name]
+    for name, dtype in [(k, "float32") for k in kernels] + \
+            [(k, "float64") for k in F64_KERNELS]:
+        key = name if dtype == "float32" else f"{name}_f64"
+        c = checks[key]
         row = dict(
-            name=name, route="cuda",
-            source=f"superlu_dist_tpu_torch/ops/kernels/csrc/{k.source}",
-            replaces=REPLACES[name], launches=launches[name],
+            name=key, route="cuda",
+            source=("superlu_dist_tpu_torch/ops/kernels/csrc/"
+                    f"{kernels[name].source}"),
+            replaces=REPLACES[name], launches=launches[key],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
-            per=c["per"])
+            per=c["per"], dtype=dtype)
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
+    print(f"smoke held the card {time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -371,11 +426,12 @@ class Checker:
         o["plain_ms"] += _timed(torch, lambda: plain(*p))
         err = max(float((x - y).abs().max()) for x, y in zip(a, p))
         scale = max(1.0, max(float(y.abs().max()) for y in p))
+        rel = REL_TOL_F64 if state[0].dtype == torch.float64 else REL_TOL
         o["max_abs_err"] = max(o["max_abs_err"], err)
-        o["tol"] = max(o["tol"], REL_TOL * scale)
-        if err > REL_TOL * scale:
-            fail(f"{name} (bs={self.bs}) disagrees with its plain version: "
-                 f"{err:.3e} > {REL_TOL * scale:.3e}")
+        o["tol"] = max(o["tol"], rel * scale)
+        if err > rel * scale:
+            fail(f"{name} (bs={self.bs}, {state[0].dtype}) disagrees with its "
+                 f"plain version: {err:.3e} > {rel * scale:.3e}")
         return a, ms
 
     def library(self, name, fn):
@@ -388,8 +444,8 @@ class Checker:
 def _state(lu, torch, blocklu):
     plan, dev = lu.plan, lu.device
     bs, nb = plan.bs, plan.nb
-    pool = blocklu.init_pool(plan, lu._a3_data, np.float32, dev)
-    linv = torch.zeros((nb, bs, bs), dtype=torch.float32, device=dev)
+    pool = blocklu.init_pool(plan, lu._a3_data, lu.dtype, dev)
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=dev)
     uinv = torch.zeros_like(linv)
     tiny = torch.zeros(1, dtype=torch.int32, device=dev)
     return pool, linv, uinv, tiny
@@ -406,7 +462,7 @@ def check_whole_factor(what, lu, ctx, pool, tiny):
     ns = plan.nslots
     scale = max(1.0, float(ref[:ns].abs().max()))
     ferr = float((pool[:ns].double() - ref[:ns]).abs().max())
-    ftol = FACTOR_ULPS * float(np.finfo(np.float32).eps) * scale
+    ftol = FACTOR_ULPS * float(np.finfo(lu.dtype).eps) * scale
     print(f"bs={plan.bs}: {what} factor vs float64 right-looking reference:"
           f" max abs err {ferr:.3e} (tolerance {ftol:.3e}); tiny pivots "
           f"{int(tiny.item())}", flush=True)
@@ -423,12 +479,13 @@ def print_check(name, o, launches):
           f"{launches} launches on its path", flush=True)
 
 
-def check_kernels(lu, ctx, launches):
+def check_kernels(lu, ctx, launches, levels=False):
     """Each clk-path kernel against its plain version on ``lu``'s plan,
     level by level: both get the same input and the factor goes on with
     the kernel's output. Returns per kernel the max abs error, its
     tolerance, the summed kernel and plain ms of one factor (one L+U solve
-    for the sweep) and the bound of that work."""
+    for the sweep) and the bound of that work. With ``launches`` (or
+    ``levels``) it prints clk_update's costliest levels."""
     torch, clk, diag_lu, sweep = (ctx[k] for k in
                                   ("torch", "clk", "diag_lu", "sweep"))
     plan, tp, dev = lu.plan, lu._ftapes, lu.device
@@ -468,21 +525,10 @@ def check_kernels(lu, ctx, launches):
         (pool,), _ = ck.compare(
             "clk_trsm", lambda p: clk.clk_trsm(p, uinv, tp, lvl),
             lambda p: clk.clk_trsm_plain(p, uinv, tp, lvl), [pool])
-    if launches is not None:
+    if levels or launches is not None:
         print_update_levels(tp, per_level)
     check_whole_factor("clk", lu, ctx, pool, tiny)
-
-    # one L+U solve of a right-hand side, level by level
-    rng = np.random.default_rng(1)
-    X = torch.as_tensor(rng.standard_normal((nb, bs, 1)),
-                        dtype=torch.float32, device=dev)
-    for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
-        for lvl in range(tape.nlvl):
-            (X,), _ = ck.compare(
-                "sweep", lambda x: sweep.sweep_level(lu.pool, dinv, x, tape,
-                                                     lvl),
-                lambda x: sweep.sweep_level_plain(lu.pool, dinv, x, tape,
-                                                  lvl), [X])
+    check_sweep(lu, ctx, ck)
 
     out = ck.out
     bounds = work_bounds(plan, tp, lu)
@@ -491,6 +537,54 @@ def check_kernels(lu, ctx, launches):
         if launches is not None:
             print_check(name, o, launches[name])
     return out
+
+
+def check_sweep(lu, ctx, ck):
+    """The sweep against its plain version over one L+U solve of a
+    right-hand side, level by level, into ``ck``'s "sweep" entry."""
+    torch, sweep = ctx["torch"], ctx["sweep"]
+    plan = lu.plan
+    rng = np.random.default_rng(1)
+    X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
+                        dtype=lu.pool.dtype, device=lu.device)
+    for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
+        for lvl in range(tape.nlvl):
+            (X,), _ = ck.compare(
+                "sweep", lambda x: sweep.sweep_level(lu.pool, dinv, x, tape,
+                                                     lvl),
+                lambda x: sweep.sweep_level_plain(lu.pool, dinv, x, tape,
+                                                  lvl), [X])
+
+
+def check_tck(lu, ctx, report):
+    """tck_update against its plain version on ``lu``'s tck plan, level by
+    level (diag_lu and clk_trsm run as kernels after it), then the whole
+    factor against the float64 reference. No one PyTorch call computes
+    tck_update (per column a chain of dependent products), so its
+    library_ms stays None. It computes clk_update's function, so its
+    bound is clk_update's on the same plan."""
+    torch, tck, clk, diag_lu = (ctx[k] for k in ("torch", "tck", "clk",
+                                                 "diag_lu"))
+    plan, tp = lu.plan, lu._ftapes
+    th = lu._thresh()
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
+    ck = Checker(torch, plan.bs, ("tck_update",))
+    per_level = []
+    for lvl in range(tp.nlvl):
+        (pool,), ms = ck.compare(
+            "tck_update", lambda p: tck.tck_update(p, linv, tp, lvl),
+            lambda p: tck.tck_update_plain(p, linv, tp, lvl), [pool])
+        per_level.append((ms, lvl))
+        lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        th, tiny)
+        clk.clk_trsm(pool, uinv, tp, lvl)
+    if report:
+        print_tck_levels(tp, per_level)
+    check_whole_factor("tck", lu, ctx, pool, tiny)
+    ck.out["tck_update"].update(update_bound(
+        plan, clk.build_clk_tapes(plan, "cpu"), lu.dtype))
+    return ck.out
 
 
 def check_flk(lu, ctx, report):
@@ -522,9 +616,10 @@ def check_flk(lu, ctx, report):
     return ck.out
 
 
-def check_level(lu, ctx, report):
+def check_level(lu, ctx, report, full=False):
     """trsm (both flags) and schur against their plain versions on
-    ``lu``'s plan, level by level (diag_lu runs as the kernel).
+    ``lu``'s plan, level by level (diag_lu runs as the kernel; with
+    ``full`` it is compared too, and so is the sweep over one L+U solve).
     library_ms: trsm is a batched product, timed as one torch.bmm per
     panel list per level on the gathered panels and inverses; no one
     PyTorch call computes schur (per target a sum of products of gathered
@@ -534,11 +629,22 @@ def check_level(lu, ctx, report):
     plan, tp = lu.plan, lu._ftapes
     th = lu._thresh()
     pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
-    ck = Checker(torch, plan.bs, ("schur", "trsm"), library=("trsm",))
+    ck = Checker(torch, plan.bs, ("schur", "trsm") + (
+        ("diag_lu", "sweep") if full else ()), library=("trsm",))
     per_level = []
     for lvl in range(tp.nlvl):
         d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
-        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[d], tp.dstep[d], th, tiny)
+        ds, dk = tp.dslot[d], tp.dstep[d]
+        if full:
+            (pool, linv, uinv, tiny), _ = ck.compare(
+                "diag_lu",
+                lambda p, li, ui, t: diag_lu.diag_lu(p, li, ui, ds, dk, th,
+                                                     t),
+                lambda p, li, ui, t: diag_lu.diag_lu_plain(
+                    p, li, ui, ds.long(), dk.long(), th, t),
+                [pool, linv, uinv, tiny])
+        else:
+            diag_lu.diag_lu(pool, linv, uinv, ds, dk, th, tiny)
         for left, dinv, sl, st, ptr in (
                 (False, uinv, tp.lslot, tp.lstep, tp.lptr),
                 (True, linv, tp.uslot, tp.ustep, tp.uptr)):
@@ -560,9 +666,12 @@ def check_level(lu, ctx, report):
     if report:
         print_schur_levels(tp, per_level)
     check_whole_factor("level executor", lu, ctx, pool, tiny)
-    b = level_bounds(plan, tp)
-    for name in ("schur", "trsm"):
-        ck.out[name].update(b[name])
+    b = level_bounds(plan, tp, lu.dtype)
+    if full:
+        check_sweep(lu, ctx, ck)
+        b.update(diag_bound(plan, lu.dtype), sweep=sweep_bound(plan, lu))
+    for name, o in ck.out.items():
+        o.update(b[name])
     return ck.out
 
 
@@ -653,7 +762,7 @@ def check_solve(lu, ctx, lu_main):
         ck = Checker(torch, plan.bs, ("solve_gemm", "diag_apply"),
                      library=("solve_gemm", "diag_apply"))
         X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
-                            dtype=torch.float32, device=lu_.device)
+                            dtype=lu_.pool.dtype, device=lu_.device)
         per_level = []
         for sweep_name, (tape, dinv) in zip(("U^T", "L^T") if transpose
                                             else ("L", "U"), tapes):
@@ -689,10 +798,10 @@ def check_solve(lu, ctx, lu_main):
                         dinv, x, tape, lvl, transpose),
                     lambda x: sg.diag_apply_plain(dinv, x, tape, lvl,
                                                   transpose), [X])
-        bounds = solve_bounds(plan, [t for t, _ in tapes])
+        bounds = solve_bounds(plan, [t for t, _ in tapes], lu_.dtype)
         for name, o in ck.out.items():
             o.update(bounds[name])
-            print(f"bs={plan.bs} {name} transpose={transpose}: "
+            print(f"bs={plan.bs} {lu_.dtype} {name} transpose={transpose}: "
                   f"max_abs_err {o['max_abs_err']:.3e} (tolerance "
                   f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
                   f"{o['plain_ms']:.3f} ms, library {o['library_ms']:.3f} "
@@ -744,21 +853,21 @@ def print_solve_levels(per_level, top=6):
               f"{int(chain.max(initial=0))}", flush=True)
 
 
-def solve_bounds(plan, tapes):
+def solve_bounds(plan, tapes, dtype):
     """Least time of one solve's solve_gemm and diag_apply launches (two
     sweeps, one right-hand side): 2·bs² operations per triple (per
     diagonal inverse); bytes: each stored block (inverse) read once per
     sweep, and X read and written once per sweep."""
     bs = plan.bs
-    blk = 4.0 * bs * bs
-    xb = 2 * 2 * 4.0 * plan.n_pad
+    blk = _blk(plan, dtype)
+    xb = 2 * 2 * float(np.dtype(dtype).itemsize) * plan.n_pad
     ntrip = sum(len(t.host["cslot"]) for t in tapes)
     nblk = sum(len(np.unique(t.host["cslot"])) for t in tapes)
     ninv = sum(len(t.host["rows"]) for t in tapes)
     return {"solve_gemm": _bound(2.0 * bs * bs * ntrip, blk * nblk + xb,
-                                 "solve"),
+                                 "solve", dtype),
             "diag_apply": _bound(2.0 * bs * bs * ninv, blk * ninv + xb,
-                                 "solve")}
+                                 "solve", dtype)}
 
 
 def trans_bs64(ctx, rng):
@@ -830,6 +939,142 @@ def trans_bs64(ctx, rng):
     check_solve(lu, ctx, lu)
 
 
+def tck_phase(ctx, rng, checks, launches):
+    """Phase 8: ``executor="tck"`` on lap3d50 at block size 128, its warm
+    call, tck_update against its plain version and the whole factor
+    against the float64 reference; then clk, flk and the level executor
+    on the same plan through SamePattern_SameRowPerm refactors (the host
+    phases are not redone), with clk_update's costliest levels."""
+    from superlu_dist_tpu_torch import Fact, Options
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d
+    A = laplacian_3d(50)
+    n = A.shape[0]
+    b = np.asarray(A @ rng.standard_normal(n))
+    opts = Options(dtype="float32", block_size=128, executor="tck")
+    res, lu, got = drive(ctx, "tck lap3d50", A, b, opts, (
+        "tck_update", "diag_lu", "clk_trsm", "sweep"),
+        ("clk_update", "flk", "schur"))
+    launches["tck_update"] = got["tck_update"]
+    plan, tp = lu.plan, lu._ftapes
+    colptr = np.searchsorted(plan.slot_col, np.arange(plan.nb + 1))
+    height = np.diff(colptr)
+    dpos = np.asarray(plan.diag_slot) - colptr[:-1]
+    c = tp.host["counts"]
+    print(f"lap3d50: n={n} aligned to {plan.n} rows, {plan.nb} block "
+          f"columns, {plan.nslots} slots, pool "
+          f"{plan.pool_bytes(np.float32) / 2**20:.0f} MiB, {plan.n_flevels} "
+          f"factor levels, {len(plan.g_l)} Schur triples, "
+          f"{plan.factor_flops / 1e9:.1f} GFLOP (padded block model); "
+          f"tallest column {height.max()} blocks, {(height > 104).sum()} "
+          f"columns > 104 and {(height > 64).sum()} > 64 blocks, at most "
+          f"{dpos.max()} U / {(height - dpos - 1).max()} L blocks in a "
+          f"column; tck tiles of {tp.w} rows: {c['tiles']} tiles, "
+          f"{c['gemm']} GEMM chunks, {c['finu']} FINU jobs", flush=True)
+    warm_call(ctx, "tck lap3d50", A, b, opts)
+    checks.update(check_tck(lu, ctx, report=True))
+    print_check("tck_update", checks["tck_update"], launches["tck_update"])
+
+    ssr = Fact.SAME_PATTERN_SAME_ROWPERM
+    for exc, need, zero in (
+            ("clk", ("clk_update", "diag_lu", "clk_trsm", "sweep"),
+             ("tck_update", "flk", "schur")),
+            ("flk", ("flk", "diag_lu", "sweep"),
+             ("clk_update", "tck_update", "schur")),
+            ("pallas", ("schur", "trsm", "diag_lu", "sweep"),
+             ("clk_update", "tck_update", "flk"))):
+        _, lu, _ = drive(ctx, f"{exc} lap3d50", A, b,
+                         opts.replace(executor=exc, fact=ssr), need, zero,
+                         lu=lu)
+        if lu.plan is not plan:
+            fail(f"{exc} lap3d50: the refactor rebuilt the plan")
+        if exc == "clk":
+            o = check_kernels(lu, ctx, None, levels=True)["clk_update"]
+            print(f"lap3d50 clk_update: max_abs_err {o['max_abs_err']:.3e} "
+                  f"(tolerance {o['tol']:.3e}); kernel {o['ms']:.3f} ms, "
+                  f"plain {o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f}"
+                  f" ms ({o['bound_by']})", flush=True)
+
+
+def f64_phase(ctx, rng, checks, launches):
+    """Phase 9: float64 on the card. lap3d32 NOTRANS and lap3d32u TRANS +
+    condition_number run the level executor whatever ``executor`` says;
+    every float64 kernel against its plain version on their inputs."""
+    from superlu_dist_tpu_torch import Options, Trans
+    from superlu_dist_tpu_torch.utils.testing import (laplacian_3d,
+                                                      laplacian_3d_unsym)
+    level = ("diag_lu", "trsm", "schur", "sweep")
+    fused = ("clk_update", "clk_trsm", "tck_update", "flk")
+    A = laplacian_3d(32)
+    n = A.shape[0]
+    b = np.asarray(A @ rng.standard_normal(n))
+    opts = Options(dtype="float64", block_size=128)
+    res, lu, got = drive(ctx, "float64", A, b, opts, level, fused)
+    if res.stat.counters["executor"] != "pallas" or \
+            lu.pool.dtype != ctx["torch"].float64:
+        fail("float64 did not run the level executor in float64")
+    warm_call(ctx, "float64", A, b, opts)
+    c = check_level(lu, ctx, report=True, full=True)
+    for name in level:
+        checks[f"{name}_f64"] = c[name]
+        launches[f"{name}_f64"] = got[name]
+        print_check(f"{name}_f64", c[name], got[name])
+
+    Au = laplacian_3d_unsym(32)
+    bu = rng.standard_normal(Au.shape[0])
+    topts = Options(dtype="float64", block_size=128, trans=Trans.TRANS,
+                    condition_number=True, executor="tck")
+    res, lut, got = drive(ctx, "float64 trans", Au, bu, topts,
+                          ("solve_gemm", "diag_apply") + level, fused)
+    if res.rcond is None or not 0 < res.rcond <= 1:
+        fail(f"float64 trans: rcond {res.rcond} not in (0, 1]")
+    print(f"float64 trans: rcond {res.rcond:.6e}, executor "
+          f"{res.stat.counters['executor']} (asked for tck)", flush=True)
+    c = check_solve(lut, ctx, lu)
+    for name in ("solve_gemm", "diag_apply"):
+        checks[f"{name}_f64"] = c[name]
+        launches[f"{name}_f64"] = got[name]
+        print_check(f"{name}_f64", c[name], got[name])
+
+
+def profile_phase(lu, A, b):
+    """``SparseLU.profile_levels`` on a level-executor factor: the six
+    costliest levels; the solve after it must still meet the limits."""
+    rows = lu.profile_levels()
+    total = sum(r["ms"] for r in rows)
+    print(f"profile_levels (level executor, bs={lu.plan.bs}): {len(rows)} "
+          f"levels, {total:.3f} ms in all; the six costliest:")
+    for r in sorted(rows, key=lambda r: -r["ms"])[:6]:
+        print(f"  level {r['level']:3d}: {r['ms']:8.3f} ms; {r['steps']} "
+              f"steps, {r['lpanels']}+{r['upanels']} panels, {r['gemms']} "
+              f"Schur triples, {r['gflops_model']:.1f} GFLOP/s (model)",
+              flush=True)
+    x, berr = lu.refine(b, lu.solve(b))
+    resid = float(np.abs(A @ x - b).max() / np.abs(b).max())
+    print(f"after profile_levels: berr {berr.max():.3e}, residual "
+          f"{resid:.3e}", flush=True)
+    if len(rows) != lu.plan.n_flevels or berr.max() > 1e-12 \
+            or resid > 1e-10:
+        fail("profile_levels: wrong row count, or the solve after it "
+             "misses the limits")
+
+
+def print_tck_levels(tp, per_level, top=6):
+    """Where tck_update's time goes: the costliest levels, with their
+    columns, tiles, GEMM chunks, L·U products and the tallest column."""
+    h = tp.host
+    total = sum(ms for ms, _ in per_level)
+    print(f"tck_update by level (kernel {total:.3f} ms over {tp.nlvl} "
+          f"levels; top {top}):")
+    for ms, lvl in sorted(per_level, reverse=True)[:top]:
+        c0, c1 = int(tp.cptr[lvl]), int(tp.cptr[lvl + 1])
+        tiles = h["tiles"][h["ctile"][c0]:h["ctile"][c1]]
+        jobs = [h["gjobs"][g0:g1, 1] for _, _, g0, g1, _, _ in tiles]
+        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {c1 - c0} columns, "
+              f"{len(tiles)} tiles, {sum(len(j) for j in jobs)} GEMM chunks,"
+              f" {sum(int(j.sum()) for j in jobs)} L·U products, tallest "
+              f"tile {int(tp.hmax[lvl])} rows", flush=True)
+
+
 def print_update_levels(tp, per_level, top=6):
     """Where clk_update's time goes: the costliest levels, with their
     columns, U blocks (jobs) and L·U block products."""
@@ -882,26 +1127,66 @@ def print_schur_levels(tp, per_level, top=6):
               f"{int(chain.max(initial=0))}", flush=True)
 
 
-def _bound(flops, nbytes, per):
-    tf, tb = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, per, dtype=np.float32):
+    tf = flops / PEAK_FLOPS[np.dtype(dtype).name]
+    tb = nbytes / PEAK_BYTES
     return dict(bound_ms=max(tf, tb) * 1e3,
                 bound_by="operations" if tf >= tb else "bytes",
                 per=per, flops=flops, bytes=nbytes)
 
 
+def _blk(plan, dtype):
+    """Bytes of one stored block."""
+    return float(np.dtype(dtype).itemsize) * plan.bs * plan.bs
+
+
 def work_bounds(plan, tp, lu):
     """Least time for each clk-path kernel's work in one factor (one L+U
-    solve for the sweep) on this plan: the larger of its operations at
-    FP32 peak and its bytes (each input read once, each output written
-    once) at the memory rate."""
+    solve for the sweep) on this plan: the larger of its operations at the
+    peak of its type and its bytes (each input read once, each output
+    written once) at the memory rate."""
     bs = plan.bs
-    blk = 4.0 * bs * bs
     h = tp.host
-    res = {}
-    nd = plan.nb
-    res["diag_lu"] = _bound(nd * (4.0 / 3.0) * bs ** 3, nd * 4 * blk,
-                            "factor")
+    nl = len(h["lslot"])
+    return {"diag_lu": diag_bound(plan, lu.dtype)["diag_lu"],
+            "clk_update": update_bound(plan, tp, lu.dtype),
+            "clk_trsm": _bound(2.0 * bs ** 3 * nl,
+                               _blk(plan, lu.dtype) * (2 * nl + plan.nb),
+                               "factor", lu.dtype),
+            "sweep": sweep_bound(plan, lu)}
 
+
+def diag_bound(plan, dtype):
+    """diag_lu: (4/3)·bs³ per tile; the tile in and out, both inverses
+    out."""
+    nd, bs = plan.nb, plan.bs
+    return {"diag_lu": _bound(nd * (4.0 / 3.0) * bs ** 3,
+                              nd * 4 * _blk(plan, dtype), "factor", dtype)}
+
+
+def sweep_bound(plan, lu):
+    """One L+U solve: 2·bs² per contribution and per diagonal inverse;
+    each stored block and inverse read once, X read and written once per
+    sweep."""
+    bs = plan.bs
+    ncon = len(lu._ltape.host["cslot"]) + len(lu._utape.host["cslot"])
+    nslots_read = len(np.unique(lu._ltape.host["cslot"])) + \
+        len(np.unique(lu._utape.host["cslot"]))
+    esz = np.dtype(lu.dtype).itemsize
+    return _bound(2.0 * bs * bs * (ncon + 2 * plan.nb),
+                  _blk(plan, lu.dtype) * (nslots_read + 2 * plan.nb)
+                  + 2 * 2 * esz * plan.n_pad, "solve", lu.dtype)
+
+
+def update_bound(plan, tp, dtype):
+    """The left-looking update of one factor (clk_update, and tck_update,
+    which computes the same function), from the clk tapes ``tp``: 2·bs³
+    per U finalize and per L·U product; per level the distinct U blocks,
+    L sources and targets read once, the U blocks and targets written
+    once, each source's inverse read once."""
+    bs = plan.bs
+    blk = _blk(plan, dtype)
+    h = tp.host
     flops = nbytes = 0.0
     for lvl in range(tp.nlvl):
         cols = h["ucols"][tp.uptr[lvl]:tp.uptr[lvl + 1]]
@@ -925,19 +1210,7 @@ def work_bounds(plan, tp, lu):
         nlinv = len(np.unique(h["job_src"][jobs]))
         flops += 2.0 * bs ** 3 * (len(jobs) + h["job_lm"][jobs].sum())
         nbytes += blk * (reads + writes + nlinv)
-    res["clk_update"] = _bound(flops, nbytes, "factor")
-
-    nl = len(h["lslot"])
-    res["clk_trsm"] = _bound(2.0 * bs ** 3 * nl, blk * (2 * nl + plan.nb),
-                             "factor")
-
-    ncon = len(lu._ltape.host["cslot"]) + len(lu._utape.host["cslot"])
-    nslots_read = len(np.unique(lu._ltape.host["cslot"])) + \
-        len(np.unique(lu._utape.host["cslot"]))
-    res["sweep"] = _bound(2.0 * bs * bs * (ncon + 2 * plan.nb),
-                          blk * (nslots_read + 2 * plan.nb)
-                          + 2 * 2 * 4.0 * plan.n_pad, "solve")
-    return res
+    return _bound(flops, nbytes, "factor", dtype)
 
 
 def flk_bounds(plan, tp, flk):
@@ -946,7 +1219,7 @@ def flk_bounds(plan, tp, flk):
     blocks read once, the targets written once and the inverses read
     once."""
     bs = plan.bs
-    blk = 4.0 * bs * bs
+    blk = _blk(plan, np.float32)
     h = tp.host
     nfin = int(np.count_nonzero(h["tfin"] != flk.FIN_NONE))
     flops = 2.0 * bs ** 3 * (len(h["cl"]) + nfin)
@@ -964,12 +1237,12 @@ def flk_bounds(plan, tp, flk):
     return _bound(flops, nbytes, "factor")
 
 
-def level_bounds(plan, tp):
+def level_bounds(plan, tp, dtype):
     """schur: 2·bs³ per Schur triple; per level the distinct targets and
     sources read once and the targets written once. trsm: 2·bs³ per panel
     block; panels in and out, each step's two inverses read once."""
     bs = plan.bs
-    blk = 4.0 * bs * bs
+    blk = _blk(plan, dtype)
     h = tp.host
     nbytes = 0.0
     for lvl in range(tp.nlvl):
@@ -979,9 +1252,11 @@ def level_bounds(plan, tp):
         src = np.union1d(h["cl"][c], h["cu"][c])
         nbytes += blk * (len(np.union1d(t, src)) + len(t))
     npanel = len(h["lslot"]) + len(h["uslot"])
-    return {"schur": _bound(2.0 * bs ** 3 * len(h["cl"]), nbytes, "factor"),
+    return {"schur": _bound(2.0 * bs ** 3 * len(h["cl"]), nbytes, "factor",
+                            dtype),
             "trsm": _bound(2.0 * bs ** 3 * npanel,
-                           blk * (2 * npanel + 2 * plan.nb), "factor")}
+                           blk * (2 * npanel + 2 * plan.nb), "factor",
+                           dtype)}
 
 
 if __name__ == "__main__":

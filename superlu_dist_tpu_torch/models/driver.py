@@ -21,23 +21,30 @@ Deliberate differences from the JAX package:
   the JAX package never fires.
 - Etree alignment stays on whatever the device, as the JAX package
   keeps it off the TPU, so both build the same plan.
-- The port serves real ``float32`` on CUDA (``float64`` on the CPU
-  too), every ``Fact`` and ``Trans`` mode, the condition estimate, exact
-  LU and ILU(k) plans (``ilu_level``), and the clk, flk and level-by-level
-  (``"pallas"``) executors; the rest raises ``NotImplementedError`` naming
-  its ROADMAP.md item.
+- The port serves real ``float32`` and ``float64`` on CUDA and on the
+  CPU, every ``Fact`` and ``Trans`` mode, the condition estimate, exact
+  LU and ILU(k) plans (``ilu_level``), every executor name (clk, tck,
+  flk, the level-by-level ``"pallas"`` and ``"xla"``) and the per-level
+  factor profile (:meth:`SparseLU.profile_levels`); the rest (complex
+  dtypes, ``gemm_precision`` below FP32) raises ``NotImplementedError``
+  naming its ROADMAP.md item.
 - The transposed solve (Aᵀx = b, and Aᴴx = b, which is the same for real
   dtypes) runs the hand-written counterparts of the JAX package's
   ``pallas_exec._solve_gemm_kernel`` and ``_diag_apply_kernel`` with
   ``transpose=True`` (``ops/kernels/solve_gemm.py``), where the JAX
   package runs the XLA level loop ``blocklu._solve_core(transpose=True)``
   that computes the same function per level on the same schedule.
-- The executor is chosen as in the JAX package (driver.py:705-797): clk
-  for exact plans, flk for ILU plans and ``executor="flk"``, the level
-  executor for ``executor="pallas"`` (with or without ILU). The port has
-  no ``flk_supported`` check and no ``"xla-fallback"``: those exist for
-  the TPU's SMEM budget for tapes, and the CUDA kernels read their tapes
-  from device memory, so flk serves every plan.
+- The executor is chosen as in the JAX package (driver.py:630-651,
+  705-797): clk for exact plans, flk for ILU plans and ``executor="flk"``,
+  tck for ``executor="tck"`` (not rerouted: an ILU plan raises
+  ``ValueError``), the level executor for ``executor="pallas"`` (with or
+  without ILU). ``executor="xla"`` and every float64 factor run the level
+  executor's kernels, the port's counterpart of the JAX package's
+  level-batched XLA executor (the JAX package runs no fused kernel but in
+  float32); ``stat.counters["executor"]`` names what ran. The port has no
+  ``flk_supported`` check and no ``"xla-fallback"``: those exist for the
+  TPU's SMEM budget for tapes, and the CUDA kernels read their tapes from
+  device memory, so flk serves every plan.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from ..ops.kernels import flk as _flk
 from ..ops.kernels import schur as _schur
 from ..ops.kernels import solve_gemm as _solve_gemm
 from ..ops.kernels import sweep as _sweep
+from ..ops.kernels import tck as _tck
 from ..utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                              Options, RowPerm, Trans, apply_env_overrides)
 from ..utils.stats import Stats
@@ -109,29 +117,31 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
         todo("complex dtypes", "queue 1 item 4")
     if opts.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {opts.dtype!r}")
-    if opts.dtype == "float64" and device.type == "cuda":
-        todo("float64 on CUDA", "queue 1 item 3")
-    if opts.executor == "tck":
-        todo("executor='tck'", "queue 2 item 2")
-    if opts.executor == "xla":
-        todo("executor='xla'", "queue 1 item 12")
-    if opts.executor not in (None, "clk", "flk", "pallas"):
+    if opts.executor not in (None, "clk", "tck", "flk", "pallas", "xla"):
         raise ValueError(f"unknown executor {opts.executor!r}")
     if (opts.gemm_precision or "auto") not in ("auto", "highest"):
         todo(f"gemm_precision={opts.gemm_precision!r}", "queue 1 item 2")
 
 
-#: the factor module of each executor; each has ``factor(pool, thresh,
-#: tapes, nb)`` and a tape builder
+#: the factor module of each executor (each has ``factor(pool, thresh,
+#: tapes, nb)`` and ``factor_level``) and the function that makes its tapes
 _EXECUTORS = {"clk": (_clk, _clk.build_clk_tapes),
+              "tck": (_tck, _tck.build_tck_tapes),
               "flk": (_flk, _flk.build_flk_tapes),
               "pallas": (_schur, _schur.build_level_tapes)}
 
 
 def _executor(opts: Options) -> str:
-    """clk for exact plans, flk for ILU plans unless an executor is named
-    (driver.py:728-797 of the JAX package)."""
+    """The executor that runs, as the JAX package chooses it
+    (driver.py:630-651, 728-797 there): the level executor for float64
+    whatever ``executor`` names (the JAX package runs no fused kernel but
+    in float32) and for ``executor="xla"`` (the port's counterpart of the
+    level-batched XLA executor); otherwise clk for exact plans and flk
+    for ILU plans unless an executor is named. tck is not rerouted: with
+    an ILU plan ``build_tck_tapes`` raises."""
     exc = opts.executor or "clk"
+    if opts.dtype == "float64" or exc == "xla":
+        return "pallas"
     if exc == "clk" and opts.ilu_level is not None:
         return "flk"
     return exc
@@ -507,6 +517,12 @@ class SparseLU:
         stat.counters["executor"] = self.executor
         if self.executor == "clk":
             stat.counters["clk_jobs"] = len(self._ftapes.host["job_src"])
+        elif self.executor == "tck":
+            # every job of the TPU kernel's stream (a LOAD and a STORE per
+            # tile), without its NOP pads
+            c = self._ftapes.host["counts"]
+            stat.counters["tck_jobs"] = (c["gemm"] + c["finu"] + c["diag"]
+                                         + c["trsm"] + 2 * c["tiles"])
         with stat.phase("FACT"):
             pool, linv, uinv, tiny = mod.factor(pool, self._thresh(),
                                                 self._ftapes, plan.nb)
@@ -773,6 +789,59 @@ class SparseLU:
     # ------------------------------------------------------------------
     # extras
     # ------------------------------------------------------------------
+
+    def profile_levels(self):
+        """Per-elimination-level device timings of the factor (the JAX
+        package's ``profile_levels``, driver.py:1674-1712 there): the
+        current factors are released first, the pool is rebuilt from the
+        factor's input values and the level executor (``schur``) runs one
+        level per step, timed by CUDA events on the card (a host clock on
+        the CPU). Returns one dict per level: level, ms, steps, lpanels,
+        upanels, gemms, gflops_model. The profiled factors become the live
+        ones, so the instance stays solve-ready; a level's ms include its
+        launches' overhead, so read the shape, not the sum."""
+        if getattr(self, "_a3_data", None) is None:
+            raise RuntimeError(
+                "profile_levels needs the factorization input values, which "
+                "this instance does not carry (restored by load_factors) — "
+                "use a freshly factored SparseLU")
+        self.pool = self.linv = self.uinv = None
+        plan, dev = self.plan, self.device
+        tp = (self._ftapes if self.executor == "pallas"
+              else _schur.build_level_tapes(plan, dev))
+        pool = _blocklu.init_pool(plan, self._a3_data, self.dtype, dev)
+        bs = plan.bs
+        linv = torch.zeros((plan.nb, bs, bs), dtype=pool.dtype, device=dev)
+        uinv = torch.zeros_like(linv)
+        tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+        thresh = self._thresh()
+        cptr = tp.host["cptr"]
+        b3 = float(bs) ** 3
+        rows = []
+        for lvl in range(tp.nlvl):
+            if dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                _schur.factor_level(pool, linv, uinv, tiny, thresh, tp, lvl)
+                ev[1].record()
+                torch.cuda.synchronize(dev)
+                ms = ev[0].elapsed_time(ev[1])
+            else:
+                t0 = time.perf_counter()
+                _schur.factor_level(pool, linv, uinv, tiny, thresh, tp, lvl)
+                ms = (time.perf_counter() - t0) * 1e3
+            steps = int(tp.dptr[lvl + 1] - tp.dptr[lvl])
+            lp = int(tp.lptr[lvl + 1] - tp.lptr[lvl])
+            up = int(tp.uptr[lvl + 1] - tp.uptr[lvl])
+            gm = int(cptr[tp.sptr[lvl + 1]] - cptr[tp.sptr[lvl]])
+            fl = (2.0 / 3.0) * b3 * steps + b3 * (lp + up) + 2.0 * b3 * gm
+            rows.append(dict(level=lvl, ms=ms, steps=steps, lpanels=lp,
+                             upanels=up, gemms=gm,
+                             gflops_model=fl / max(ms * 1e-3, 1e-12) / 1e9))
+        self.pool, self.linv, self.uinv = pool, linv, uinv
+        self.stat.counters["profiled_levels"] = len(rows)
+        self.stat.counters["profiled_executor"] = "pallas"
+        return rows
 
     def diag_u(self) -> np.ndarray:
         """Diagonal of U in elimination order (reference: pdGetDiagU.c)."""

@@ -75,8 +75,8 @@ clk_update_kernel(float* __restrict__ pool, const float* __restrict__ linv,
     }
     __syncthreads();
     float acc[4][4] = {};
-    slu_strip::mul_dev_smem(linv + (int64_t)job_src[job] * bb, B, bs, r0,
-                            c0, acc);
+    slu_strip::mul_dev_smem<float>(linv + (int64_t)job_src[job] * bb, B, bs,
+                                   r0, c0, acc);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -90,7 +90,8 @@ clk_update_kernel(float* __restrict__ pool, const float* __restrict__ linv,
     const int d0 = job_dst0[job];
     for (int m = 0; m < lm; ++m) {
       float p[4][4] = {};
-      slu_strip::mul_dev_smem(pool + (la0 + m) * bb, B, bs, r0, c0, p);
+      slu_strip::mul_dev_smem<float>(pool + (la0 + m) * bb, B, bs, r0, c0,
+                                     p);
       float* C = pool + (int64_t)dst[d0 + m] * bb + s0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -114,9 +115,9 @@ __global__ void __launch_bounds__(slu_strip::kMaxBs)
 clk_trsm_kernel(float* __restrict__ pool, const float* __restrict__ uinv,
                 const int32_t* __restrict__ lslots,
                 const int32_t* __restrict__ lsteps, int bs) {
-  slu_strip::strip_update(pool, uinv, uinv, lslots[blockIdx.x],
-                          lsteps[blockIdx.x], slu_strip::FIN_L, nullptr,
-                          nullptr, 0, 0, bs, blockIdx.y);
+  slu_strip::strip_update<float>(pool, uinv, uinv, lslots[blockIdx.x],
+                                 lsteps[blockIdx.x], slu_strip::FIN_L,
+                                 nullptr, nullptr, 0, 0, bs, blockIdx.y);
 }
 
 }  // namespace

@@ -21,7 +21,13 @@
 // device memory only to load the tile and store the three results. L^{-1}
 // is accumulated in the same forward sweep (each elimination step applies
 // the same rank-1 update to it); U^{-1} follows by a right-looking
-// backward sweep. All arithmetic is IEEE FP32.
+// backward sweep. The kernel is a template on the element type, IEEE
+// arithmetic in that type. In double the tile and an inverse would take
+// 2 x 128 KiB at bs=128, above the 227 KiB a block may have, so the double
+// instantiation keeps only the tile (and the L column) in shared memory
+// and builds each inverse in place in its output block of linv / uinv
+// (device memory, L2-resident: 128 KiB per tile); the float path is the
+// one described above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,43 +36,48 @@ namespace {
 
 constexpr int kThreads = 512;
 
+// kInvSmem: the inverse being built lives in shared memory beside the tile
+// (float), or in place in its output block in device memory (double).
+template <typename T, bool kInvSmem>
 __global__ void __launch_bounds__(kThreads)
-diag_lu_kernel(float* __restrict__ pool, float* __restrict__ linv,
-               float* __restrict__ uinv, const int32_t* __restrict__ slots,
-               const int32_t* __restrict__ steps, int bs, int lg,
-               float thresh, int32_t* __restrict__ tiny) {
-  extern __shared__ float smem[];
-  float* A = smem;                 // bs*bs: the tile, LU in place
-  float* R = smem + bs * bs;       // bs*bs: L^{-1}, then U^{-1}
-  float* lcol = R + bs * bs;       // bs: column of L at the current step
-  __shared__ float piv_s;
+diag_lu_kernel(T* __restrict__ pool, T* __restrict__ linv,
+               T* __restrict__ uinv, const int32_t* __restrict__ slots,
+               const int32_t* __restrict__ steps, int bs, int lg, T thresh,
+               int32_t* __restrict__ tiny) {
+  extern __shared__ __align__(16) unsigned char diag_lu_smem[];
+  const int bb = bs * bs;
+  T* A = reinterpret_cast<T*>(diag_lu_smem);   // bs*bs: the tile, LU in place
+  T* lcol = A + (kInvSmem ? 2 * bb : bb);      // bs: column of L at step j
+  __shared__ T piv_s;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int bb = bs * bs;
   const int msk = bs - 1;
-  float* g = pool + (int64_t)slots[blockIdx.x] * bb;
+  T* g = pool + (int64_t)slots[blockIdx.x] * bb;
   const int64_t step = steps[blockIdx.x];
+  T* gl = linv + step * bb;
+  T* gu = uinv + step * bb;
+  T* R = kInvSmem ? A + bb : gl;               // bs*bs: L^{-1}, then U^{-1}
 
   for (int e = tid; e < bb; e += nt) {
     A[e] = g[e];
-    R[e] = ((e >> lg) == (e & msk)) ? 1.f : 0.f;
+    R[e] = ((e >> lg) == (e & msk)) ? T(1) : T(0);
   }
   int ntiny = 0;
   __syncthreads();
 
   for (int j = 0; j < bs; ++j) {
     if (tid == 0) {
-      float p = A[j * bs + j];
-      const float ap = fabsf(p);
+      T p = A[j * bs + j];
+      const T ap = fabs(p);
       if (ap < thresh) {
-        p = ap > 0.f ? copysignf(thresh, p) : thresh;
+        p = ap > T(0) ? copysign(thresh, p) : thresh;
         A[j * bs + j] = p;
         ++ntiny;
       }
       piv_s = p;
     }
     __syncthreads();
-    const float p = piv_s;
+    const T p = piv_s;
     for (int i = j + 1 + tid; i < bs; i += nt) lcol[i] = A[i * bs + j] / p;
     __syncthreads();
     // rows below j: trailing update of A right of j, the rank-1 update of
@@ -75,7 +86,7 @@ diag_lu_kernel(float* __restrict__ pool, float* __restrict__ linv,
     for (int e = tid; e < cnt; e += nt) {
       const int i = j + 1 + (e >> lg);
       const int c = e & msk;
-      const float l = lcol[i];
+      const T l = lcol[i];
       if (c > j) {
         A[i * bs + c] -= l * A[j * bs + c];
       } else {
@@ -86,11 +97,11 @@ diag_lu_kernel(float* __restrict__ pool, float* __restrict__ linv,
     __syncthreads();
   }
 
-  float* gl = linv + step * bb;
+  if (!kInvSmem) R = gu;
   for (int e = tid; e < bb; e += nt) {
     g[e] = A[e];
-    gl[e] = R[e];
-    R[e] = ((e >> lg) == (e & msk)) ? 1.f : 0.f;
+    if (kInvSmem) gl[e] = R[e];
+    R[e] = ((e >> lg) == (e & msk)) ? T(1) : T(0);
   }
   if (tid == 0 && ntiny) atomicAdd(tiny, ntiny);
   __syncthreads();
@@ -98,7 +109,7 @@ diag_lu_kernel(float* __restrict__ pool, float* __restrict__ linv,
   // U X = I by right-looking back substitution: row j of X is final once
   // divided by U[j][j]; then it is eliminated from the rows above.
   for (int j = bs - 1; j >= 0; --j) {
-    const float d = A[j * bs + j];
+    const T d = A[j * bs + j];
     for (int c = j + tid; c < bs; c += nt) R[j * bs + c] /= d;
     __syncthreads();
     const int w = bs - j;
@@ -110,8 +121,28 @@ diag_lu_kernel(float* __restrict__ pool, float* __restrict__ linv,
     }
     __syncthreads();
   }
-  float* gu = uinv + step * bb;
-  for (int e = tid; e < bb; e += nt) gu[e] = R[e];
+  if (kInvSmem)
+    for (int e = tid; e < bb; e += nt) gu[e] = R[e];
+}
+
+template <typename T, bool kInvSmem>
+int launch(void* pool, void* linv, void* uinv, const void* slots,
+           const void* steps, int count, int bs, T thresh, void* tiny,
+           void* stream) {
+  int lg = 0;
+  while ((1 << lg) < bs) ++lg;
+  const size_t smem =
+      (size_t)((kInvSmem ? 2 : 1) * bs * bs + bs) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      diag_lu_kernel<T, kInvSmem>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (count == 0) return 0;
+  diag_lu_kernel<T, kInvSmem><<<count, kThreads, smem,
+                                (cudaStream_t)stream>>>(
+      (T*)pool, (T*)linv, (T*)uinv, (const int32_t*)slots,
+      (const int32_t*)steps, bs, lg, thresh, (int32_t*)tiny);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -120,16 +151,14 @@ extern "C" int slu_diag_lu_f32(void* pool, void* linv, void* uinv,
                                const void* slots, const void* steps,
                                int count, int bs, float thresh, void* tiny,
                                void* stream) {
-  int lg = 0;
-  while ((1 << lg) < bs) ++lg;
-  const size_t smem = (size_t)(2 * bs * bs + bs) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      diag_lu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (count == 0) return 0;
-  diag_lu_kernel<<<count, kThreads, smem, (cudaStream_t)stream>>>(
-      (float*)pool, (float*)linv, (float*)uinv, (const int32_t*)slots,
-      (const int32_t*)steps, bs, lg, thresh, (int32_t*)tiny);
-  return (int)cudaGetLastError();
+  return launch<float, true>(pool, linv, uinv, slots, steps, count, bs,
+                             thresh, tiny, stream);
+}
+
+extern "C" int slu_diag_lu_f64(void* pool, void* linv, void* uinv,
+                               const void* slots, const void* steps,
+                               int count, int bs, double thresh, void* tiny,
+                               void* stream) {
+  return launch<double, false>(pool, linv, uinv, slots, steps, count, bs,
+                               thresh, tiny, stream);
 }

@@ -40,8 +40,9 @@ flk_kernel(float* pool, const float* __restrict__ linv,
            const int32_t* __restrict__ cptr, const int32_t* __restrict__ cl,
            const int32_t* __restrict__ cu, int bs) {
   const int t = blockIdx.x;
-  slu_strip::strip_update(pool, linv, uinv, tslot[t], tstep[t], tfin[t], cl,
-                          cu, cptr[t], cptr[t + 1], bs, blockIdx.y);
+  slu_strip::strip_update<float>(pool, linv, uinv, tslot[t], tstep[t],
+                                 tfin[t], cl, cu, cptr[t], cptr[t + 1], bs,
+                                 blockIdx.y);
 }
 
 }  // namespace

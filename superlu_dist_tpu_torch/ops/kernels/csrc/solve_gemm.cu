@@ -33,7 +33,9 @@
 // and no transpose in shared memory is needed; the shares meet in shared
 // memory in a fixed order (rows.cuh::cols_times). diag_apply stages
 // X[I] in shared memory first, since its product reads all of X[I] before
-// any of it is written. IEEE FP32 throughout.
+// any of it is written. Both kernels are templates on the element type
+// (the _f32 entries serve float32 factors, the _f64 entries float64 ones);
+// IEEE arithmetic in that type.
 
 #include "rows.cuh"
 
@@ -45,34 +47,33 @@ using slu_rows::kThreads;
 using slu_rows::load_tile;
 using slu_rows::rows_times;
 
-template <bool kTrans>
+template <typename T, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
-solve_gemm_kernel(const float* __restrict__ pool, float* __restrict__ X,
+solve_gemm_kernel(const T* __restrict__ pool, T* __restrict__ X,
                   const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ rowptr,
                   const int32_t* __restrict__ cslot,
                   const int32_t* __restrict__ csrc, int bs, int nrhs) {
   const int p0 = rowptr[blockIdx.x], p1 = rowptr[blockIdx.x + 1];
   if (p0 == p1) return;          // a row of the level without contributions
-  extern __shared__ float smem[];
-  float* acc = smem;              // kRT x bs, column major
-  float* xs = smem + kRT * bs;    // kRT x bs, column major
-  float* red = xs + kRT * bs;     // kRT x blockDim, cols_times' partials
+  T* acc = slu_rows::dyn_smem<T>();   // kRT x bs, column major
+  T* xs = acc + kRT * bs;             // kRT x bs, column major
+  T* red = xs + kRT * bs;             // kRT x blockDim, cols_times' partials
   const int64_t bb = (int64_t)bs * bs;
   const int c0 = blockIdx.y * kRT;
   const int rt = min(kRT, nrhs - c0);
-  float* XI = X + (int64_t)rows[blockIdx.x] * bs * nrhs + c0;
+  T* XI = X + (int64_t)rows[blockIdx.x] * bs * nrhs + c0;
 
   load_tile(acc, XI, bs, rt, nrhs);
   for (int p = p0; p < p1; ++p) {
     load_tile(xs, X + (int64_t)csrc[p] * bs * nrhs + c0, bs, rt, nrhs);
     __syncthreads();
-    const float* P = pool + (int64_t)cslot[p] * bb;
+    const T* P = pool + (int64_t)cslot[p] * bb;
     if (kTrans) {
       cols_times(P, xs, bs, rt, red,
-                 [&](int i, int c, float v) { acc[c * bs + i] -= v; });
+                 [&](int i, int c, T v) { acc[c * bs + i] -= v; });
     } else {
-      rows_times(P, xs, bs, rt, [&](int r, const float* s) {
+      rows_times(P, xs, bs, rt, [&](int r, const T* s) {
         for (int c = 0; c < rt; ++c) acc[c * bs + r] -= s[c];
       });
     }
@@ -84,30 +85,68 @@ solve_gemm_kernel(const float* __restrict__ pool, float* __restrict__ X,
   }
 }
 
-template <bool kTrans>
+template <typename T, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
-diag_apply_kernel(const float* __restrict__ dinv, float* __restrict__ X,
+diag_apply_kernel(const T* __restrict__ dinv, T* __restrict__ X,
                   const int32_t* __restrict__ rows, int bs, int nrhs) {
-  extern __shared__ float smem[];
-  float* xs = smem;               // kRT x bs, column major
-  float* red = smem + kRT * bs;   // kRT x blockDim, cols_times' partials
+  T* xs = slu_rows::dyn_smem<T>();    // kRT x bs, column major
+  T* red = xs + kRT * bs;             // kRT x blockDim, cols_times' partials
   const int I = rows[blockIdx.x];
   const int c0 = blockIdx.y * kRT;
   const int rt = min(kRT, nrhs - c0);
-  float* XI = X + (int64_t)I * bs * nrhs + c0;
-  const float* D = dinv + (int64_t)I * bs * bs;
+  T* XI = X + (int64_t)I * bs * nrhs + c0;
+  const T* D = dinv + (int64_t)I * bs * bs;
 
   load_tile(xs, XI, bs, rt, nrhs);
   __syncthreads();
   if (kTrans) {
-    cols_times(D, xs, bs, rt, red, [&](int i, int c, float v) {
+    cols_times(D, xs, bs, rt, red, [&](int i, int c, T v) {
       XI[(int64_t)i * nrhs + c] = v;
     });
   } else {
-    rows_times(D, xs, bs, rt, [&](int r, const float* s) {
+    rows_times(D, xs, bs, rt, [&](int r, const T* s) {
       for (int c = 0; c < rt; ++c) XI[(int64_t)r * nrhs + c] = s[c];
     });
   }
+}
+
+template <typename T>
+int launch_solve_gemm(const void* pool, void* X, const void* rows,
+                      const void* rowptr, const void* cslot,
+                      const void* csrc, int count, int bs, int nrhs,
+                      int transpose, void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
+  const size_t smem = (size_t)kRT * (2 * bs + kThreads) * sizeof(T);
+  const auto s = (cudaStream_t)stream;
+  const auto* P = (const T*)pool;
+  const auto* R = (const int32_t*)rows;
+  const auto* RP = (const int32_t*)rowptr;
+  const auto* CS = (const int32_t*)cslot;
+  const auto* SR = (const int32_t*)csrc;
+  if (transpose)
+    solve_gemm_kernel<T, true><<<grid, kThreads, smem, s>>>(
+        P, (T*)X, R, RP, CS, SR, bs, nrhs);
+  else
+    solve_gemm_kernel<T, false><<<grid, kThreads, smem, s>>>(
+        P, (T*)X, R, RP, CS, SR, bs, nrhs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_diag_apply(const void* dinv, void* X, const void* rows, int count,
+                      int bs, int nrhs, int transpose, void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
+  const size_t smem = (size_t)kRT * (bs + kThreads) * sizeof(T);
+  const auto s = (cudaStream_t)stream;
+  if (transpose)
+    diag_apply_kernel<T, true><<<grid, kThreads, smem, s>>>(
+        (const T*)dinv, (T*)X, (const int32_t*)rows, bs, nrhs);
+  else
+    diag_apply_kernel<T, false><<<grid, kThreads, smem, s>>>(
+        (const T*)dinv, (T*)X, (const int32_t*)rows, bs, nrhs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -116,36 +155,28 @@ extern "C" int slu_solve_gemm_f32(const void* pool, void* X, const void* rows,
                                   const void* rowptr, const void* cslot,
                                   const void* csrc, int count, int bs,
                                   int nrhs, int transpose, void* stream) {
-  if (count == 0) return 0;
-  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
-  const size_t smem = (size_t)kRT * (2 * bs + kThreads) * sizeof(float);
-  const auto s = (cudaStream_t)stream;
-  const auto* P = (const float*)pool;
-  const auto* R = (const int32_t*)rows;
-  const auto* RP = (const int32_t*)rowptr;
-  const auto* CS = (const int32_t*)cslot;
-  const auto* SR = (const int32_t*)csrc;
-  if (transpose)
-    solve_gemm_kernel<true><<<grid, kThreads, smem, s>>>(
-        P, (float*)X, R, RP, CS, SR, bs, nrhs);
-  else
-    solve_gemm_kernel<false><<<grid, kThreads, smem, s>>>(
-        P, (float*)X, R, RP, CS, SR, bs, nrhs);
-  return (int)cudaGetLastError();
+  return launch_solve_gemm<float>(pool, X, rows, rowptr, cslot, csrc, count,
+                                  bs, nrhs, transpose, stream);
+}
+
+extern "C" int slu_solve_gemm_f64(const void* pool, void* X, const void* rows,
+                                  const void* rowptr, const void* cslot,
+                                  const void* csrc, int count, int bs,
+                                  int nrhs, int transpose, void* stream) {
+  return launch_solve_gemm<double>(pool, X, rows, rowptr, cslot, csrc, count,
+                                   bs, nrhs, transpose, stream);
 }
 
 extern "C" int slu_diag_apply_f32(const void* dinv, void* X, const void* rows,
                                   int count, int bs, int nrhs, int transpose,
                                   void* stream) {
-  if (count == 0) return 0;
-  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
-  const size_t smem = (size_t)kRT * (bs + kThreads) * sizeof(float);
-  const auto s = (cudaStream_t)stream;
-  if (transpose)
-    diag_apply_kernel<true><<<grid, kThreads, smem, s>>>(
-        (const float*)dinv, (float*)X, (const int32_t*)rows, bs, nrhs);
-  else
-    diag_apply_kernel<false><<<grid, kThreads, smem, s>>>(
-        (const float*)dinv, (float*)X, (const int32_t*)rows, bs, nrhs);
-  return (int)cudaGetLastError();
+  return launch_diag_apply<float>(dinv, X, rows, count, bs, nrhs, transpose,
+                                  stream);
+}
+
+extern "C" int slu_diag_apply_f64(const void* dinv, void* X, const void* rows,
+                                  int count, int bs, int nrhs, int transpose,
+                                  void* stream) {
+  return launch_diag_apply<double>(dinv, X, rows, count, bs, nrhs, transpose,
+                                   stream);
 }

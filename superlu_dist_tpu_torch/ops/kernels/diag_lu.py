@@ -2,8 +2,8 @@
 
 ``diag_lu`` factors a batch of diagonal blocks of the pool in place and
 stores their triangular inverses: on a CUDA tensor through the
-hand-written kernel ``csrc/diag_lu.cu``, on a CPU tensor through
-:func:`lu_inv_plain`. Counterpart of the JAX package's
+hand-written kernel ``csrc/diag_lu.cu`` (float32 or float64), on a CPU
+tensor through :func:`lu_inv_plain`. Counterpart of the JAX package's
 ``flk._lu_tile_blocked`` / ``blocklu.block_lu_inv``.
 """
 
@@ -17,13 +17,22 @@ from ._build import CudaKernel, ptr, stream_ptr
 
 _V = ctypes.c_void_p
 KERNEL = CudaKernel("diag_lu", "diag_lu.cu", {
-    "slu_diag_lu_f32": [_V, _V, _V, _V, _V, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_float, _V, _V],
-})
+    f"slu_diag_lu_{sfx}": [_V, _V, _V, _V, _V, ctypes.c_int, ctypes.c_int,
+                           th, _V, _V]
+    for sfx, th in (("f32", ctypes.c_float), ("f64", ctypes.c_double))})
 
 #: block sizes the CUDA kernels take (powers of two; the tile and one
 #: inverse fill 128 KiB of shared memory at 128)
 CUDA_BLOCK_SIZES = (32, 64, 128)
+#: element types of the kernels that the level executor and the solves
+#: run, and the suffix of their C entries (clk, tck and flk take float32
+#: only, as on the TPU)
+CUDA_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def entry(name: str, t: torch.Tensor) -> str:
+    """The C entry of kernel ``name`` for ``t``'s element type."""
+    return f"slu_{name}_{CUDA_DTYPES[t.dtype]}"
 
 
 def lu_inv_plain(T: torch.Tensor, thresh: float):
@@ -82,7 +91,7 @@ def _launch(pool, linv, uinv, slots, steps, thresh, tiny):
     if len(slots) == 0:
         return
     KERNEL.launches += 1
-    KERNEL.call("slu_diag_lu_f32", ptr(pool), ptr(linv), ptr(uinv),
+    KERNEL.call(entry("diag_lu", pool), ptr(pool), ptr(linv), ptr(uinv),
                 ptr(slots), ptr(steps), len(slots), pool.shape[-1],
                 float(thresh), ptr(tiny), stream_ptr(pool.device))
 
@@ -91,10 +100,12 @@ def _check_cuda(pool, linv, uinv, slots, steps, tiny, bs):
     if pool.device.type != "cuda":
         raise ValueError(f"diag_lu: unsupported device {pool.device}")
     for t in (pool, linv, uinv):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != pool.device or t.shape[-2:] != (bs, bs):
+        if t.dtype not in CUDA_DTYPES or t.dtype != pool.dtype \
+                or not t.is_contiguous() or t.device != pool.device \
+                or t.shape[-2:] != (bs, bs):
             raise ValueError("diag_lu: pool/linv/uinv must be contiguous "
-                             "float32 (., bs, bs) tensors on one device")
+                             "(., bs, bs) tensors of one dtype (float32 or "
+                             "float64) on one device")
     for t in (slots, steps):
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != pool.device or t.shape != slots.shape:

@@ -3,7 +3,9 @@
 Counterpart of the factor half of the JAX package's
 ``ops/kernels/pallas_exec.py`` (``pallas_factor_meta``,
 ``_pallas_factor_executor``, ``build_factor_fn_pallas``), which
-``executor="pallas"`` runs. Per elimination level, on one stream:
+``executor="pallas"`` runs (and ``executor="xla"``, and every float64
+factor, as the JAX package runs its level-batched XLA executor there).
+Per elimination level, on one stream:
 
 1. ``diag_lu`` (``csrc/diag_lu.cu``) on the level's diagonal blocks (the
    JAX package's XLA ``block_lu_inv`` batch);
@@ -31,14 +33,14 @@ import torch
 from ..blocklu import level_order, subtract_products
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, diag_lu, entry
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 SCHUR = CudaKernel("schur", "schur.cu", {
-    "slu_schur_f32": [_V] * 5 + [_I, _I, _V]})
+    f"slu_schur_{s}": [_V] * 5 + [_I, _I, _V] for s in ("f32", "f64")})
 TRSM = CudaKernel("trsm", "schur.cu", {
-    "slu_trsm_f32": [_V] * 4 + [_I, _I, _I, _V]})
+    f"slu_trsm_{s}": [_V] * 4 + [_I, _I, _I, _V] for s in ("f32", "f64")})
 
 
 @dataclasses.dataclass
@@ -122,7 +124,7 @@ def trsm(pool, dinv, slots, steps, left: bool) -> None:
     if len(slots) == 0:
         return
     TRSM.launches += 1
-    TRSM.call("slu_trsm_f32", ptr(pool), ptr(dinv), ptr(slots), ptr(steps),
+    TRSM.call(entry("trsm", pool), ptr(pool), ptr(dinv), ptr(slots), ptr(steps),
               len(slots), pool.shape[-1], int(left), stream_ptr(pool.device))
 
 
@@ -149,7 +151,7 @@ def schur(pool, tp: LevelTapes, level: int) -> None:
     if hi == lo:
         return
     SCHUR.launches += 1
-    SCHUR.call("slu_schur_f32", ptr(pool), ptr(tp.tslot[lo:hi]),
+    SCHUR.call(entry("schur", pool), ptr(pool), ptr(tp.tslot[lo:hi]),
                ptr(tp.cptr[lo:hi + 1]), ptr(tp.cl), ptr(tp.cu), hi - lo,
                pool.shape[-1], stream_ptr(pool.device))
 
@@ -159,11 +161,12 @@ def _check_cuda(pool, *invs):
     if pool.device.type != "cuda":
         raise ValueError(f"schur/trsm: unsupported device {pool.device}")
     for t in (pool,) + invs:
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != pool.device or t.shape[-2:] != (bs, bs):
+        if t.dtype not in CUDA_DTYPES or t.dtype != pool.dtype \
+                or not t.is_contiguous() or t.device != pool.device \
+                or t.shape[-2:] != (bs, bs):
             raise ValueError("schur/trsm: pool and inverses must be "
-                             "contiguous float32 (., bs, bs) tensors on one "
-                             "device")
+                             "contiguous (., bs, bs) tensors of one dtype "
+                             "(float32 or float64) on one device")
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"schur/trsm: block size {bs} not in "
                          f"{CUDA_BLOCK_SIZES}")

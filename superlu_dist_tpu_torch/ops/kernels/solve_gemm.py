@@ -29,15 +29,17 @@ import torch
 from ..blocklu import trans_schedule
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES
+from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, entry
 from .sweep import SweepTape, csr_tape
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 SOLVE_GEMM = CudaKernel("solve_gemm", "solve_gemm.cu", {
-    "slu_solve_gemm_f32": [_V] * 6 + [_I] * 4 + [_V]})
+    f"slu_solve_gemm_{s}": [_V] * 6 + [_I] * 4 + [_V]
+    for s in ("f32", "f64")})
 DIAG_APPLY = CudaKernel("diag_apply", "solve_gemm.cu", {
-    "slu_diag_apply_f32": [_V] * 3 + [_I] * 4 + [_V]})
+    f"slu_diag_apply_{s}": [_V] * 3 + [_I] * 4 + [_V]
+    for s in ("f32", "f64")})
 
 
 def build_trans_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
@@ -80,7 +82,7 @@ def solve_gemm(pool, X, tape: SweepTape, level: int, transpose: bool) -> None:
     if c1 == c0:
         return
     SOLVE_GEMM.launches += 1
-    SOLVE_GEMM.call("slu_solve_gemm_f32", ptr(pool), ptr(X),
+    SOLVE_GEMM.call(entry("solve_gemm", X), ptr(pool), ptr(X),
                     ptr(tape.rows[lo:hi]), ptr(tape.rowptr[lo:hi + 1]),
                     ptr(tape.cslot), ptr(tape.csrc), hi - lo, pool.shape[-1],
                     X.shape[2], int(transpose), stream_ptr(X.device))
@@ -107,7 +109,7 @@ def diag_apply(dinv, X, tape: SweepTape, level: int, transpose: bool) -> None:
     if hi == lo:
         return
     DIAG_APPLY.launches += 1
-    DIAG_APPLY.call("slu_diag_apply_f32", ptr(dinv), ptr(X),
+    DIAG_APPLY.call(entry("diag_apply", X), ptr(dinv), ptr(X),
                     ptr(tape.rows[lo:hi]), hi - lo, dinv.shape[-1],
                     X.shape[2], int(transpose), stream_ptr(X.device))
 
@@ -129,10 +131,11 @@ def _check_cuda(what, blocks, X):
     if X.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {X.device}")
     for t in (blocks, X):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != X.device:
+        if t.dtype not in CUDA_DTYPES or t.dtype != X.dtype \
+                or not t.is_contiguous() or t.device != X.device:
             raise ValueError(f"{what}: blocks and X must be contiguous "
-                             "float32 tensors on one device")
+                             "tensors of one dtype (float32 or float64) on "
+                             "one device")
     if blocks.shape[-2:] != (bs, bs) or X.dim() != 3 or X.shape[1] != bs:
         raise ValueError(f"{what}: shapes must be blocks (., bs, bs) and X "
                          "(nb, bs, nrhs)")

@@ -18,12 +18,12 @@ import torch
 
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES
+from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, entry
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("sweep", "sweep.cu", {
-    "slu_sweep_f32": [_V] * 7 + [_I, _I, _I, _V]})
+    f"slu_sweep_{s}": [_V] * 7 + [_I, _I, _I, _V] for s in ("f32", "f64")})
 
 
 @dataclasses.dataclass
@@ -110,7 +110,7 @@ def _launch(pool, dinv, X, tape: SweepTape, level: int) -> None:
     if hi == lo:
         return
     KERNEL.launches += 1
-    KERNEL.call("slu_sweep_f32", ptr(pool), ptr(dinv), ptr(X),
+    KERNEL.call(entry("sweep", X), ptr(pool), ptr(dinv), ptr(X),
                 ptr(tape.rows[lo:hi]), ptr(tape.rowptr[lo:hi + 1]),
                 ptr(tape.cslot), ptr(tape.csrc), hi - lo, pool.shape[-1],
                 X.shape[2], stream_ptr(X.device))
@@ -129,10 +129,11 @@ def _check_cuda(pool, dinv, X, bs):
     if X.device.type != "cuda":
         raise ValueError(f"sweep: unsupported device {X.device}")
     for t in (pool, dinv, X):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != X.device:
+        if t.dtype not in CUDA_DTYPES or t.dtype != X.dtype \
+                or not t.is_contiguous() or t.device != X.device:
             raise ValueError("sweep: pool, dinv and X must be contiguous "
-                             "float32 tensors on one device")
+                             "tensors of one dtype (float32 or float64) on "
+                             "one device")
     if pool.shape[-2:] != (bs, bs) or dinv.shape[-2:] != (bs, bs) \
             or X.dim() != 3 or X.shape[1] != bs:
         raise ValueError("sweep: shapes must be pool/dinv (., bs, bs) and "

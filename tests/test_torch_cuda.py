@@ -13,13 +13,13 @@ import torch
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu
 from superlu_dist_tpu_torch.ops.kernels import (clk, diag_lu, flk, schur,
-                                                solve_gemm, sweep)
+                                                solve_gemm, sweep, tck)
 from superlu_dist_tpu_torch.utils import testing as tt
 
 pytestmark = pytest.mark.cuda
 
-#: kernel against plain version on the same input: float32 sums in other
-#: orders; 64 ulp of the output's magnitude
+#: kernel against plain version on the same input: sums in other orders;
+#: 64 ulp (of the working type) of the output's magnitude
 ULPS = 64
 
 
@@ -220,3 +220,120 @@ def test_trans_gssvx_with_rcond_matches_cpu(cuda):
     assert np.abs(A.T @ rg.x - b).max() / np.abs(b).max() < 1e-12
     assert abs(rg.rcond - rc.rcond) <= 1e-4 * rc.rcond
     assert 0 < rg.rcond <= 1
+
+
+def _tck_plain(pool, thresh, tp, nb):
+    """``tck.factor`` through the plain version of each phase."""
+    bs = pool.shape[-1]
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
+    for level in range(tp.nlvl):
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        tck.tck_update_plain(pool, linv, tp, level)
+        diag_lu.diag_lu_plain(pool, linv, uinv, tp.dslot[lo:hi].long(),
+                              tp.dstep[lo:hi].long(), thresh, tiny)
+        clk.clk_trsm_plain(pool, uinv, tp, level)
+    return pool, linv, uinv, tiny
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_tck_matches_plain(cuda, bs):
+    """``executor="tck"`` on the card, then the tck factor against the
+    same factor through the plain phases, on tapes of 3-row tiles (every
+    column of more than 3 blocks spans several tiles) and on the kernel's
+    own tile height."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    tck.UPDATE.launches = 0
+    res, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs,
+                                      executor="tck"), device=cuda)
+    assert res.berr.max() < 1e-15 and tck.UPDATE.launches > 0
+    assert res.stat.counters["executor"] == "tck"
+    plan = lu.plan
+    pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
+    eps = np.finfo(np.float32).eps
+    for w in (3, None):
+        tp = tck.build_tck_tapes(plan, cuda, w=w)
+        if w == 3:
+            assert tp.host["counts"]["tiles"] > plan.nb
+        kern = tck.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+        ref = _tck_plain(pool.clone(), lu._thresh(), tp, plan.nb)
+        for k, p in zip(kern[:3], ref[:3]):
+            scale = max(1.0, float(p.abs().max()))
+            assert float((k - p).abs().max()) <= ULPS * eps * scale
+        assert int(kern[3].item()) == int(ref[3].item())
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_float64_kernels_match_plain(cuda, bs):
+    """Every float64 instantiation against its plain version: the level
+    executor's factor (diag_lu, trsm with both flags, schur) through the
+    plain phases, the L+U sweep, and solve_gemm / diag_apply with both
+    flags level by level, at 64 float64 ulp."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, sweep.KERNEL):
+        k.launches = 0
+    res, lu = T.gssvx(A, b, T.Options(dtype="float64", block_size=bs),
+                      device=cuda)
+    assert res.stat.counters["executor"] == "pallas"
+    assert res.berr.max() < 1e-15
+    for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, sweep.KERNEL):
+        assert k.launches > 0, k.name
+    assert lu.pool.dtype == torch.float64
+    eps = np.finfo(np.float64).eps
+    plan, tp = lu.plan, lu._ftapes
+    pool = blocklu.init_pool(plan, lu._a3_data, np.float64, cuda)
+    kern = schur.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+    ref = _level_plain(pool.clone(), lu._thresh(), tp, plan.nb)
+    for k, p in zip(kern[:3], ref[:3]):
+        scale = max(1.0, float(p.abs().max()))
+        assert float((k - p).abs().max()) <= ULPS * eps * scale
+    X = torch.randn(plan.nb, plan.bs, 3, device=cuda, dtype=torch.float64)
+    Xk = sweep.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape,
+                     X.clone())
+    Xp = X.clone()
+    for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
+        for level in range(tape.nlvl):
+            sweep.sweep_level_plain(lu.pool, dinv, Xp, tape, level)
+    assert float((Xk - Xp).abs().max()) \
+        <= ULPS * eps * max(1.0, float(Xp.abs().max()))
+    for transpose in (False, True):
+        tapes = (((solve_gemm.build_trans_tape(plan, "U", cuda), lu.uinv),
+                  (solve_gemm.build_trans_tape(plan, "L", cuda), lu.linv))
+                 if transpose else ((lu._ltape, lu.linv),
+                                    (lu._utape, lu.uinv)))
+        X = torch.randn(plan.nb, plan.bs, 9, device=cuda,
+                        dtype=torch.float64)
+        for tape, dinv in tapes:
+            for level in range(tape.nlvl):
+                for kern, plain, M in (
+                        (solve_gemm.solve_gemm, solve_gemm.solve_gemm_plain,
+                         lu.pool),
+                        (solve_gemm.diag_apply, solve_gemm.diag_apply_plain,
+                         dinv)):
+                    Xp = X.clone()
+                    kern(M, X, tape, level, transpose)
+                    plain(M, Xp, tape, level, transpose)
+                    torch.cuda.synchronize()
+                    scale = max(1.0, float(Xp.abs().max()))
+                    assert float((X - Xp).abs().max()) <= ULPS * eps * scale
+
+
+def test_float64_gssvx_matches_cpu(cuda):
+    """float64 ``gssvx`` on the card (NOTRANS, and TRANS with the
+    condition estimate) against the same calls on the CPU: x to 1e-12
+    relative, berr below 1e-15, rcond to 1e-8 relative."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    for trans, op in ((T.Trans.NOTRANS, A), (T.Trans.TRANS, A.T)):
+        opts = T.Options(dtype="float64", block_size=64, trans=trans,
+                         condition_number=trans == T.Trans.TRANS)
+        rg, _ = T.gssvx(A, b, opts, device=cuda)
+        rc, _ = T.gssvx(A, b, opts, device="cpu")
+        assert rg.berr.max() < 1e-15 and rc.berr.max() < 1e-15
+        assert np.abs(rg.x - rc.x).max() <= 1e-12 * np.abs(rc.x).max()
+        assert np.abs(op @ rg.x - b).max() / np.abs(b).max() < 1e-12
+        if trans == T.Trans.TRANS:
+            assert abs(rg.rcond - rc.rcond) <= 1e-8 * rc.rcond

@@ -1,9 +1,10 @@
 """The port's ``gssvx`` on the CPU (plain versions of the kernels)
 against the JAX package's ``gssvx`` on the CPU, end to end: solution,
 backward error, refinement steps and tiny-pivot count, for the clk, flk
-(exact and ILU(k)) and level executors; and the port's refusals (no
-silent CPU fallback, unported options raise), with the options that it
-refused before the transposed solve was ported now running."""
+(exact and ILU(k)), tck, level and ``"xla"`` executors and float64; the
+per-level factor profile; and the port's refusals (no silent CPU
+fallback, unported options raise), with the options that it refused in
+earlier slices now running."""
 
 import numpy as np
 import pytest
@@ -162,23 +163,40 @@ def test_ilu_state_from_jax_solves():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(dtype="complex64"), dict(executor="tck"), dict(executor="xla"),
-    dict(gemm_precision="bf16"),
-], ids=["dtype", "executor-tck", "executor-xla", "gemm_precision"])
+    dict(dtype="complex64"), dict(gemm_precision="bf16"),
+], ids=["dtype", "gemm_precision"])
 def test_unported_options_raise(kw):
     A = tt.laplacian_2d(6).tocsc()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.SparseLU(A, T.Options(block_size=8, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("option", ["trans", "fact", "condition_number"])
-def test_formerly_refused_options_run(option):
-    """The options that the port refused before the transposed solve was
-    ported now run, as the JAX package runs them."""
+@pytest.mark.parametrize("option", ["trans", "fact", "condition_number",
+                                    "executor-tck", "executor-xla"])
+def test_formerly_refused_options_run(option, monkeypatch):
+    """The options that the port refused before the transposed solve, the
+    tck kernel and the ``"xla"`` executor were ported now run, as the JAX
+    package runs them: tck against the JAX tck (interpret mode, the same
+    plan), ``"xla"`` against the JAX package's level-batched XLA executor,
+    which the port's level executor computes per level with kernels."""
     A = tt.unsymmetric_pattern(120, seed=4).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     kw = dict(dtype="float32", block_size=16)
-    if option == "trans":
+    if option.startswith("executor-"):
+        exc = option.split("-")[1]
+        if exc == "tck":
+            monkeypatch.setenv("SLU_TPU_FORCE_PALLAS", "interpret")
+        kw.update(executor=exc, align_blocks="on")
+        res, _ = T.gssvx(A, b, T.Options(**kw), device="cpu")
+        rj, _ = J.gssvx(A, b, J.Options(**kw))
+        assert res.stat.counters["executor"] == \
+            {"tck": "tck", "xla": "pallas"}[exc]
+        assert "tck_jobs" in rj.stat.counters if exc == "tck" else \
+            "clk_jobs" not in rj.stat.counters
+        assert res.stat.counters["fill_blocks"] == \
+            rj.stat.counters["fill_blocks"]
+        assert np.abs(res.x - rj.x).max() <= 1e-10 * np.abs(rj.x).max()
+    elif option == "trans":
         res, _ = T.gssvx(A, b, T.Options(trans=T.Trans.TRANS, **kw),
                          device="cpu")
         assert np.abs(A.T @ res.x - b).max() / np.abs(b).max() < 1e-12
@@ -200,9 +218,99 @@ def test_formerly_refused_options_run(option):
 
 
 def test_float64_on_cuda_raises():
-    with pytest.raises(NotImplementedError, match="float64 on CUDA"):
-        tdrv._check_supported(T.Options(dtype="float64"),
-                              torch.device("cuda"), sp.eye(4).tocsc())
+    """float64 on a ``cuda`` device raises only for what is still not
+    served: an unported ``gemm_precision``, complex data or an unknown
+    executor."""
+    cuda, A = torch.device("cuda"), sp.eye(4).tocsc()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdrv._check_supported(T.Options(dtype="float64",
+                                        gemm_precision="bf16"), cuda, A)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdrv._check_supported(T.Options(dtype="float64"), cuda,
+                              (A * 1j).tocsc())
+    with pytest.raises(ValueError, match="unknown executor"):
+        tdrv._check_supported(T.Options(dtype="float64", executor="nope"),
+                              cuda, A)
+
+
+def test_float64_on_cuda_runs_level_executor():
+    """float64 passes ``_check_supported`` on a ``cuda`` device and,
+    whatever the executor names, ILU or not, runs the level executor, as
+    the JAX package runs no fused kernel but in float32 (driver.py:644-645
+    there)."""
+    for exc in (None, "clk", "tck", "flk", "pallas", "xla"):
+        for ilu in (None, 1):
+            o = T.Options(dtype="float64", executor=exc, ilu_level=ilu)
+            tdrv._check_supported(o, torch.device("cuda"), sp.eye(4).tocsc())
+            assert tdrv._executor(o) == "pallas"
+    assert tdrv._executor(T.Options(dtype="float32", executor="xla")) \
+        == "pallas"
+
+
+@pytest.mark.parametrize("executor", [None, "tck"], ids=["default", "tck"])
+def test_float64_gssvx_matches_jax(executor):
+    """A float64 ``gssvx`` runs the level executor (recorded in the
+    executor counter) and agrees with the JAX package's float64 gssvx,
+    which runs its XLA executor, to 1e-12 relative."""
+    A = tt.unsymmetric_pattern(150, seed=5).tocsc()
+    b = np.random.default_rng(3).standard_normal(A.shape[0])
+    kw = dict(dtype="float64", block_size=16, executor=executor)
+    rt, _ = T.gssvx(A, b, T.Options(**kw), device="cpu")
+    rj, _ = J.gssvx(A, b, J.Options(**kw))
+    assert rt.stat.counters["executor"] == "pallas"
+    assert rt.berr.max() < 1e-15 and rj.berr.max() < 1e-15
+    assert rt.stat.tiny_pivots == rj.stat.tiny_pivots
+    assert np.abs(rt.x - rj.x).max() <= 1e-12 * np.abs(rj.x).max()
+
+
+@pytest.mark.parametrize("dtype,executor", [("float32", "xla"),
+                                            ("float32", "clk"),
+                                            ("float64", None)])
+def test_profile_levels(dtype, executor):
+    """``profile_levels`` (tests/test_factor.py:260-270,
+    tests/test_round4_fixes.py:29-43): one row per factor level, whose
+    steps/lpanels/upanels/gemms equal the JAX package's profile on the
+    same plan; the factors are reinstalled, so the solve after the
+    profile equals the one before (to the float32 factor's rounding when
+    the live factor came from clk)."""
+    from superlu_dist_tpu.ops.kernels import blocklu as jbl
+    A = tt.laplacian_2d(10).tocsc()
+    lu = T.SparseLU(A, T.Options(dtype=dtype, block_size=8,
+                                 executor=executor), device="cpu")
+    b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
+    x_before = lu.solve(b)
+    rows = lu.profile_levels()
+    assert len(rows) == lu.plan.n_flevels
+    assert lu.stat.counters["profiled_levels"] == len(rows)
+    assert all(r["ms"] >= 0 and r["gflops_model"] >= 0 for r in rows)
+    jrows, _ = jbl.profile_factor_levels(lu.plan, lu._a3_data, np.float64,
+                                         lu._thresh(), chunk=16)
+    keys = ("level", "steps", "lpanels", "upanels", "gemms")
+    assert [{k: r[k] for k in keys} for r in rows] == \
+        [{k: r[k] for k in keys} for r in jrows]
+    assert sum(r["steps"] for r in rows) == lu.plan.nb
+    assert sum(r["gemms"] for r in rows) == len(lu.plan.g_l)
+    x_after = lu.solve(b)
+    tol = 1e-12 if dtype == "float64" else 1e-4
+    assert np.abs(x_after - x_before).max() <= tol * np.abs(x_before).max()
+    x, berr = lu.refine(b, x_after)
+    assert berr.max() < 1e-15
+
+
+def test_profile_levels_after_load_factors_raises(tmp_path):
+    """A ``load_factors`` instance carries no factor input values: the
+    profile raises (tests/test_round4_fixes.py:46-55) and the instance
+    still solves."""
+    A = tt.laplacian_2d(6).tocsc()
+    lu = T.SparseLU(A, T.Options(dtype="float64", block_size=8),
+                    device="cpu")
+    path = tmp_path / "f.npz"
+    T.save_factors(lu, path)
+    lu2 = T.load_factors(path, device="cpu")
+    with pytest.raises(RuntimeError, match="input"):
+        lu2.profile_levels()
+    b = np.asarray(A @ np.ones(A.shape[0]))
+    assert np.abs(A @ lu2.solve(b) - b).max() < 1e-10
 
 
 def test_unknown_executor_raises():

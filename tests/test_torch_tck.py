@@ -1,0 +1,164 @@
+"""Kernel 5 (tck): the port's plain level-by-level tck factor against the
+JAX package's tck kernel (in interpret mode) on the cases of
+tests/test_tck.py, its job stream against the JAX tapes, its refusal of
+ILU plans, and ``gssvx(..., executor="tck")`` against the JAX package."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import superlu_dist_tpu as J
+from superlu_dist_tpu.ops.host.symbolic import block_symbolic as jsym
+from superlu_dist_tpu.ops.kernels import blocklu as jbl
+from superlu_dist_tpu.ops.kernels import tck as jtck
+from superlu_dist_tpu.utils.testing import random_sparse
+
+import superlu_dist_tpu_torch as T
+from superlu_dist_tpu_torch.ops import blocklu as tbl
+from superlu_dist_tpu_torch.ops.host.symbolic import block_symbolic
+from superlu_dist_tpu_torch.ops.kernels import clk, tck
+from superlu_dist_tpu_torch.utils.testing import laplacian_2d, laplacian_3d
+
+torch.set_num_threads(2)
+
+#: tests/test_tck.py's cases: matrix, block size, tile rows
+CASES = {
+    "lap2d12-w16": (lambda: laplacian_2d(12), 8, 16),
+    "lap3d8-w4": (lambda: laplacian_3d(8), 8, 4),
+    "lap3d8-w8": (lambda: laplacian_3d(8), 8, 8),
+    "random180-w4": (lambda: random_sparse(180, density=0.05, seed=4), 8, 4),
+}
+
+
+def _plans(name):
+    make, bs, w = CASES[name]
+    A = make().tocsc().astype(np.float32)
+    return A, block_symbolic(A, bs), jsym(A, bs), w
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tck_factor_matches_jax(name):
+    """Pool, linv and uinv slot by slot to 1e-4·max(1, scale), the
+    tolerance of tests/test_tck.py (float32 sums in other orders)."""
+    A, plan, jplan, w = _plans(name)
+    pool0 = jbl.init_pool(jplan, A.data, np.float32)
+    fn, tapes = jtck.build_factor_fn_tck(jplan, w=w, interpret=True)
+    pj, lj, uj, tj = fn(jnp.array(pool0), jnp.asarray(0.0, jnp.float32),
+                        tapes)
+    tp = tck.build_tck_tapes(plan, "cpu", w=w)
+    pt, lt, ut, tt = tck.factor(tbl.init_pool(plan, A.data, np.float32,
+                                              "cpu"), 0.0, tp, plan.nb)
+    assert int(tt) == int(tj) == 0
+    ns, nb = plan.nslots, plan.nb
+    for got, want in ((pt[:ns], pj[:ns]), (lt, lj[:nb]), (ut, uj[:nb])):
+        want = np.asarray(want)
+        scale = max(1.0, float(np.abs(want).max()))
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * scale
+    if name != "lap2d12-w16":
+        assert tp.host["counts"]["tiles"] > plan.nb, "tiling not exercised"
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tck_job_stream_matches_jax_tapes(name):
+    """The port's job counts by type equal the JAX tapes' job stream at
+    the same tile rows and chunk size, with the NOP pads removed."""
+    _, plan, jplan, w = _plans(name)
+    jtapes, _ = jtck.build_tck_tapes(jplan, w, tck.MC)
+    jt = np.concatenate([np.asarray(t["jt"]) for t in jtapes])
+    jt = jt[jt != jtck.J_NOP]
+    want = dict(gemm=jtck.J_GEMM, finu=jtck.J_FINU, diag=jtck.J_DIAG,
+                trsm=jtck.J_TRSM, tiles=jtck.J_LOAD)
+    got = tck.build_tck_tapes(plan, "cpu", w=w).host["counts"]
+    assert got == {k: int((jt == v).sum()) for k, v in want.items()}
+    assert int((jt == jtck.J_STORE).sum()) == got["tiles"]
+
+
+def test_tck_tapes_cover_every_schur_triple():
+    """Every Schur triple of the plan is exactly one (GEMM job, L block)
+    pair of the tiled tapes, with the same target slot; every U block is
+    finalized exactly once, in place or by a FINU job."""
+    A = laplacian_3d(8).tocsc()
+    plan = block_symbolic(A, 8)
+    tp = tck.build_tck_tapes(plan, "cpu", w=4)
+    h = tp.host
+    pairs, finals = set(), []
+    for c in range(len(h["cbase"])):
+        base = int(h["cbase"][c])
+        for p0, _, g0, g1, f0, f1 in h["tiles"][h["ctile"][c]:
+                                                h["ctile"][c + 1]]:
+            t0 = base + int(p0)
+            for a0, m, bpos, bslot, _, fin, d0 in h["gjobs"][g0:g1]:
+                u = t0 + int(bpos) if bpos >= 0 else int(bslot)
+                if fin:
+                    finals.append(u)
+                for i in range(m):
+                    pairs.add((int(a0) + i, u, t0 + int(h["dst"][d0 + i])))
+            finals += [t0 + int(p) for p, _ in h["fjobs"][f0:f1]]
+    triples = set(zip(plan.g_l.tolist(), plan.g_u.tolist(),
+                      plan.g_t.tolist()))
+    assert pairs == triples
+    assert sorted(finals) == sorted(np.asarray(plan.u_slots).tolist())
+
+
+def test_tck_equals_clk_plain():
+    """tck and clk compute the same function: their plain factors agree
+    to float32 rounding on a multi-tile plan."""
+    A = laplacian_3d(8).tocsc().astype(np.float32)
+    plan = block_symbolic(A, 8)
+    outs = [mod.factor(tbl.init_pool(plan, A.data, np.float32, "cpu"), 0.0,
+                       tapes, plan.nb)
+            for mod, tapes in ((tck, tck.build_tck_tapes(plan, "cpu", w=4)),
+                               (clk, clk.build_clk_tapes(plan, "cpu")))]
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 64 * np.finfo(np.float32).eps \
+            * scale
+
+
+def test_tck_refuses_ilu_plan():
+    """The fill-closure ValueError of the JAX tck (tck.py:121-123), from
+    ``build_tck_tapes`` and from ``SparseLU``, which does not reroute
+    tck."""
+    A = laplacian_3d(8).tocsc().astype(np.float32)
+    plan = block_symbolic(A, 8, ilu_level=1)
+    with pytest.raises(ValueError, match="fill closure"):
+        jtck.build_tck_tapes(jsym(A, 8, ilu_level=1), 4, tck.MC)
+    with pytest.raises(ValueError, match="fill closure"):
+        tck.build_tck_tapes(plan, "cpu", w=4)
+    with pytest.raises(ValueError, match="fill closure"):
+        T.SparseLU(A, T.Options(dtype="float32", block_size=8,
+                                executor="tck", ilu_level=1), device="cpu")
+
+
+def test_tile_rows():
+    assert [tck.tile_rows(bs) for bs in (32, 64, 128)] == [99, 49, 24]
+
+
+@pytest.mark.parametrize("make,bs", [(lambda: laplacian_3d(8), 16),
+                                     (lambda: laplacian_2d(16), 8)],
+                         ids=["lap3d8", "lap2d16"])
+def test_gssvx_tck_matches_jax(make, bs, monkeypatch):
+    """``executor="tck"`` end to end against the JAX package's tck in
+    interpret mode, on the same plan (``align_blocks="on"``): equal
+    fill_blocks and tiny pivots, x within 1e-10 relative."""
+    monkeypatch.setenv("SLU_TPU_FORCE_PALLAS", "interpret")
+    A = make().tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    kw = dict(dtype="float32", block_size=bs, executor="tck",
+              align_blocks="on")
+    rj, jlu = J.gssvx(A, b, J.Options(**kw))
+    rt, lu = T.gssvx(A, b, T.Options(**kw), device="cpu")
+    # tck_jobs counts the JAX tapes' jobs at the port's tile rows, without
+    # the NOP pads that the JAX counter also counts
+    jtapes, _ = jtck.build_tck_tapes(jlu.plan, lu._ftapes.w, tck.MC)
+    jt = np.concatenate([np.asarray(t["jt"]) for t in jtapes])
+    assert rt.stat.counters["executor"] == "tck"
+    assert rt.stat.counters["tck_jobs"] == int((jt != jtck.J_NOP).sum()) > 0
+    assert rj.stat.counters["tck_jobs"] >= sum(
+        int((np.asarray(t["jt"]) != jtck.J_NOP).sum()) for t in jlu.tapes)
+    assert rt.stat.counters["fill_blocks"] == rj.stat.counters["fill_blocks"]
+    assert rt.stat.tiny_pivots == rj.stat.tiny_pivots
+    assert rt.berr.max() <= 1e-12 and rj.berr.max() <= 1e-12
+    assert np.abs(rt.x - rj.x).max() <= 1e-10 * np.abs(rj.x).max()
+    assert np.abs(A @ rt.x - b).max() / np.abs(b).max() < 1e-10
