@@ -64,10 +64,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``condition_number`` on lap3d32u, each held to the same limits; every
    float64 kernel (diag_lu, trsm, schur, sweep, solve_gemm, diag_apply)
    against its plain version, each bound taken at the FP64 peak;
-10. one JSON line of per-kernel results (the float64 instantiations in
-   rows of their own, with a ``dtype`` field), the nvidia-smi line, the
-   seconds the run held the card, and the final
-   ``{"ok": true, "device": ...}`` line.
+10. the 2D block-cyclic driver with every rank of a 2x2 grid on the card:
+   ``gssvx_dist(A, b, Grid2D(2, 2), Options(dtype="float32",
+   block_size=128, dist_executor="rdma"))`` on lap3d32, driven like the
+   main path (every entry of rdma_factor and rdma_solve must launch, no
+   single-device factor, sweep or solve kernel may), the receive counters
+   against the TPU's receive tapes, a warm call beside the level
+   executor's FACT, each entry against its plain version level by level
+   on the path's inputs, the gathered factor against the float64
+   reference; ``dist_executor="xla"``, which runs the same entries; and at
+   block size 64 on lap3d16 the grids 2x2, 1x4, 4x1 and 2x4, x against
+   scipy's;
+11. one JSON line of per-kernel results (the float64 instantiations in
+   rows of their own, with a ``dtype`` field; the RDMA rows with their
+   launches per entry), the nvidia-smi line, the seconds the run held the
+   card, and the final ``{"ok": true, "device": ...}`` line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -117,6 +128,8 @@ REPLACES = {
     "solve_gemm": "superlu_dist_tpu/ops/kernels/pallas_exec.py:433",
     "diag_apply": "superlu_dist_tpu/ops/kernels/pallas_exec.py:513",
     "tck_update": "superlu_dist_tpu/ops/kernels/tck.py:220",
+    "rdma_factor": "superlu_dist_tpu/parallel/dist2d_rdma.py:120",
+    "rdma_solve": "superlu_dist_tpu/parallel/dist2d_rdma.py:534",
 }
 ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
 #: the kernels with a float64 instantiation, which the float64 path runs
@@ -144,6 +157,7 @@ def main() -> None:
     from superlu_dist_tpu_torch.ops.kernels import (_build, clk, diag_lu, flk,
                                                     schur, solve_gemm, sweep,
                                                     tck)
+    from superlu_dist_tpu_torch.parallel import dist2d_rdma as rdma
     from superlu_dist_tpu_torch.utils.testing import laplacian_3d
 
     smi = subprocess.run(
@@ -160,15 +174,17 @@ def main() -> None:
                "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM,
                "solve_gemm": solve_gemm.SOLVE_GEMM,
                "diag_apply": solve_gemm.DIAG_APPLY,
-               "tck_update": tck.UPDATE}
+               "tck_update": tck.UPDATE, "rdma_factor": rdma.RDMA_FACTOR,
+               "rdma_solve": rdma.RDMA_SOLVE}
     build_s = _build.build_all(list(kernels.values()))
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for k in (diag_lu.KERNEL, clk.UPDATE, sweep.KERNEL, flk.KERNEL,
-              schur.SCHUR, solve_gemm.SOLVE_GEMM, tck.UPDATE):
+              schur.SCHUR, solve_gemm.SOLVE_GEMM, tck.UPDATE,
+              rdma.RDMA_FACTOR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
-               tck=tck, kernels=kernels)
+               tck=tck, rdma=rdma, kernels=kernels, entry_launches={})
 
     # ---- 3. the main path ---------------------------------------------
     A = laplacian_3d(32)
@@ -212,7 +228,9 @@ def main() -> None:
         print(f"{name}: {lus[name].plan.nslots} slots, {r.stat.refine_steps}"
               f" refinement steps, executor {r.stat.counters['executor']}",
               flush=True)
-        warm_call(ctx, name, A, b, o)
+        st = warm_call(ctx, name, A, b, o)
+        if name == "pallas":
+            ctx["level_fact_ms"] = st.device_ms["FACT"]
     # each new kernel's launches come from the path that it serves
     launches["flk"] = got["flk"]["flk"]
     launches["schur"] = got["pallas"]["schur"]
@@ -266,6 +284,9 @@ def main() -> None:
     # ---- 9. float64 on the card ---------------------------------------
     f64_phase(ctx, rng, checks, launches)
 
+    # ---- 10. the 2D grid on one card -----------------------------------
+    dist_phase(ctx, rng, checks, launches)
+
     rows = []
     for name, dtype in [(k, "float32") for k in kernels] + \
             [(k, "float64") for k in F64_KERNELS]:
@@ -280,6 +301,8 @@ def main() -> None:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             per=c["per"], dtype=dtype)
+        if name in ctx["entry_launches"]:
+            row["entry_launches"] = ctx["entry_launches"][name]
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         rows.append(row)
@@ -291,17 +314,21 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def drive(ctx, what, A, b, opts, need, zero=(), lu=None):
-    """One ``gssvx`` call with every launch count set to 0 just before and
-    read just after; checks the accuracy limits (in Aᵀ under
-    ``opts.trans``), that every kernel of ``need`` launched and that none
-    of ``zero`` did. ``lu`` is passed on for the reuse modes."""
-    from superlu_dist_tpu_torch import Trans, gssvx
+def drive(ctx, what, A, b, opts, need, zero=(), lu=None, grid=None):
+    """One ``gssvx`` call (``gssvx_dist`` over ``grid``) with every launch
+    count set to 0 just before and read just after; checks the accuracy
+    limits (in Aᵀ under ``opts.trans``), that every kernel of ``need``
+    launched and that none of ``zero`` did. ``lu`` is passed on for the
+    reuse modes."""
+    from superlu_dist_tpu_torch import Trans, gssvx, gssvx_dist
     torch = ctx["torch"]
     for k in ctx["kernels"].values():
-        k.launches = 0
+        k.reset_counts()
     t0 = time.perf_counter()
-    res, lu = gssvx(A, b, opts, lu=lu)
+    if grid is None:
+        res, lu = gssvx(A, b, opts, lu=lu)
+    else:
+        res, lu = gssvx_dist(A, b, grid, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ctx["kernels"].items()}
@@ -325,16 +352,19 @@ def drive(ctx, what, A, b, opts, need, zero=(), lu=None):
     return res, lu, launches
 
 
-def warm_call(ctx, what, A, b, opts):
+def warm_call(ctx, what, A, b, opts, grid=None):
     """The same call again, with kernels loaded and allocator warm: the
-    first call's phases also hold one-time module loads."""
-    from superlu_dist_tpu_torch import gssvx
+    first call's phases also hold one-time module loads. Returns its
+    Stats."""
+    from superlu_dist_tpu_torch import gssvx, gssvx_dist
     t0 = time.perf_counter()
-    res, _ = gssvx(A, b, opts)
+    res, _ = gssvx(A, b, opts) if grid is None else gssvx_dist(A, b, grid,
+                                                               opts)
     ctx["torch"].cuda.synchronize()
     print_phases(f"{what}, second call", time.perf_counter() - t0, res.stat)
     if float(np.max(res.berr)) > 1e-12:
         fail(f"{what} second call: berr {np.max(res.berr):.3e} > 1e-12")
+    return res.stat
 
 
 def print_phases(what, wall, st):
@@ -1034,6 +1064,254 @@ def f64_phase(ctx, rng, checks, launches):
         checks[f"{name}_f64"] = c[name]
         launches[f"{name}_f64"] = got[name]
         print_check(f"{name}_f64", c[name], got[name])
+
+
+#: the single-device factor, sweep and solve kernels, none of which the
+#: grid path may launch
+SINGLE_DEVICE = ("clk_update", "clk_trsm", "tck_update", "flk", "schur",
+                 "trsm", "diag_lu", "sweep", "solve_gemm", "diag_apply")
+GRID_NEED = ("rdma_factor", "rdma_solve")
+
+
+def dist_phase(ctx, rng, checks, launches):
+    """Phase 10: ``gssvx_dist`` over a 2x2 grid of ranks on the card, on
+    lap3d32 at block size 128: driven like the main path, the receive
+    counters against the tapes, a warm call beside the level executor's
+    FACT, every entry against its plain version level by level, the
+    gathered factor against the float64 reference; then
+    ``dist_executor="xla"`` and the bs 64 grids against scipy."""
+    import scipy.sparse.linalg as spla
+
+    from superlu_dist_tpu_torch import Grid2D, Options
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d
+    torch = ctx["torch"]
+    A = laplacian_3d(32)
+    n = A.shape[0]
+    b = np.asarray(A @ rng.standard_normal(n))
+    opts = Options(dtype="float32", block_size=128, dist_executor="rdma")
+    grid = Grid2D(2, 2)
+    torch.cuda.reset_peak_memory_stats()
+    res, lu, got = drive(ctx, "grid 2x2 rdma", A, b, opts, GRID_NEED,
+                         SINGLE_DEVICE, grid=grid)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    entries = {k: dict(ctx["kernels"][k].entry_launches) for k in GRID_NEED}
+    for k, e in entries.items():
+        if not all(e.values()):
+            fail(f"an entry of {k} was not launched on the grid path: {e}")
+    ctx["entry_launches"] = entries
+    for k in GRID_NEED:
+        launches[k] = got[k]
+    print_grid(lu, peak, entries)
+    check_recv(lu, "grid 2x2 rdma")
+    st = warm_call(ctx, "grid 2x2 rdma", A, b, opts, grid=grid)
+    print(f"grid 2x2 rdma, second call: device ms FACT "
+          f"{st.device_ms['FACT']:.3f}, SOLVE {st.device_ms['SOLVE']:.3f}, "
+          f"REFINE {st.device_ms['REFINE']:.3f} ({st.refine_steps} steps); "
+          f"the level executor's FACT on one rank "
+          f"{ctx['level_fact_ms']:.3f} ms", flush=True)
+    checks.update(check_dist(lu, ctx))
+    for k in GRID_NEED:
+        print_check(k, checks[k], launches[k])
+    pool, _, _ = lu._export_factors()
+    tiny = torch.tensor([res.stat.tiny_pivots])
+    check_whole_factor("grid 2x2 rdma (gathered)", lu, ctx, pool, tiny)
+
+    _, _, gx = drive(ctx, "grid 2x2 xla", A, b,
+                     opts.replace(dist_executor="xla"), GRID_NEED,
+                     SINGLE_DEVICE, grid=grid)
+    ex = {k: dict(ctx["kernels"][k].entry_launches) for k in GRID_NEED}
+    print(f"grid 2x2 xla: launches per entry {ex}", flush=True)
+    if ex != entries:
+        fail("dist_executor='xla' did not run the same launches as 'rdma'")
+
+    A2 = laplacian_3d(16)
+    b2 = np.asarray(A2 @ rng.standard_normal(A2.shape[0]))
+    x_ref = spla.spsolve(A2.tocsc(), b2)
+    for pr, pc in ((2, 2), (1, 4), (4, 1), (2, 4)):
+        what = f"bs=64 grid {pr}x{pc}"
+        r2, lu2, _ = drive(ctx, what, A2, b2, Options(
+            dtype="float32", block_size=64, dist_executor="rdma"),
+            GRID_NEED, SINGLE_DEVICE, grid=Grid2D(pr, pc))
+        err = float(np.abs(r2.x - x_ref).max() / np.abs(x_ref).max())
+        print(f"{what}: lap3d16 |x - scipy|/|x| {err:.3e} (tolerance "
+              f"1e-10)", flush=True)
+        if err > 1e-10:
+            fail(f"{what} solution disagrees with scipy")
+        check_recv(lu2, what)
+
+
+def print_grid(lu, peak_mib, entries):
+    """The grid path's sizes: per-rank slots, Schur products and state,
+    the broadcast buffers' heights and the puts of one factor."""
+    dp, ft = lu.dplan, lu._ft
+    nd = ft.ndev
+    gemms = np.asarray(dp.gptr).reshape(nd, -1)[:, -1]
+    puts = {k: int(v.sum()) for k, v in ft.recv.items()}
+    rows = (dp.n_local + 2 * (ft.dlen + 1) + 2 * dp.max_dlvl + dp.max_lbuf
+            + dp.max_ubuf)
+    mib = rows * lu.plan.bs ** 2 * 4 / 2**20
+    print(f"grid {dp.pr}x{dp.pc}: {dp.nlvl} levels, n_local {dp.n_local}, "
+          f"Schur products per rank {gemms.min()}-{gemms.max()} "
+          f"({gemms.sum()} in all), max_lbuf {dp.max_lbuf}, max_ubuf "
+          f"{dp.max_ubuf}, max_dlvl {dp.max_dlvl}, dlen {ft.dlen}; factor "
+          f"state {mib:.0f} MiB per rank; factor puts {puts} "
+          f"({sum(puts.values())} blocks, "
+          f"{sum(puts.values()) * lu.plan.bs ** 2 * 4 / 2**20:.0f} MiB); "
+          f"peak device memory of the first call {peak_mib:.0f} MiB; "
+          f"launches per entry {entries}", flush=True)
+
+
+def check_recv(lu, what):
+    """The receive counters that the puts tallied against the TPU's
+    receive tapes: the factor's, and the last solve's L and U sweeps'."""
+    bad = [k for k, v in lu.factor_recv().items()
+           if not np.array_equal(v, lu._ft.recv[k])]
+    for got, tp in zip(lu.solve_recv(), (lu._lt, lu._ut)):
+        bad += [f"{tp.which}:{k}" for k, v in got.items()
+                if not np.array_equal(v, tp.recv[k])]
+    print(f"{what}: receive counters equal the tapes: {not bad}", flush=True)
+    if bad:
+        fail(f"{what}: receive counters differ from the tapes in {bad}")
+
+
+def compare_state(torch, o, state, kern, plain, of, flat, table):
+    """Run an RDMA entry and its plain version on copies of ``state`` (a
+    FactorState or SweepState; ``of`` rebuilds one from ``flat``'s tensor
+    list), time both, hold the float buffers to REL_TOL and the receive
+    counters to equality, and keep the kernel's copy. ``table`` makes the
+    copy's pointer table before the timed call, as a factor or a sweep
+    makes it once. Returns the kernel's copy and its ms."""
+    ts = flat(state)
+    a = [t.clone() for t in ts]
+    p = [t.clone() for t in ts]
+    sa = of(a)
+    if a[0].is_cuda:
+        table(sa)
+    ms = _timed(torch, lambda: kern(sa))
+    o["ms"] += ms
+    o["plain_ms"] += _timed(torch, lambda: plain(of(p)))
+    fl = [(x, y) for x, y in zip(a, p) if x.is_floating_point()]
+    err = max(float((x - y).abs().max()) for x, y in fl)
+    scale = max(1.0, max(float(y.abs().max()) for _, y in fl))
+    o["max_abs_err"] = max(o["max_abs_err"], err)
+    o["tol"] = max(o["tol"], REL_TOL * scale)
+    if err > REL_TOL * scale:
+        fail(f"an RDMA entry disagrees with its plain version: {err:.3e} > "
+             f"{REL_TOL * scale:.3e}")
+    if any(not torch.equal(x, y) for x, y in zip(a, p)
+           if not x.is_floating_point()):
+        fail("an RDMA entry's receive counters differ from its plain "
+             "version's")
+    return sa, ms
+
+
+def check_dist(lu, ctx):
+    """rdma_factor's three entries over one factor and rdma_solve's two
+    over one L+U solve of a right-hand side, each against its plain
+    version level by level from the same state (the run goes on with the
+    kernel's output). No one PyTorch call computes a distributed factor
+    or sweep, so library_ms stays None."""
+    from collections import defaultdict
+
+    from superlu_dist_tpu_torch.parallel import dist2d
+    torch, rdma = ctx["torch"], ctx["rdma"]
+    plan, ft = lu.plan, lu._ft
+    out = {k: dict(max_abs_err=0.0, tol=0.0, ms=0.0, plain_ms=0.0,
+                   library_ms=None) for k in GRID_NEED}
+    per_entry = defaultdict(float)
+    th = lu._thresh()
+    st = rdma.new_factor_state(dist2d.init_local_pools(
+        plan, lu.dplan, lu._a3_data, lu.dtype, lu.device), ft)
+    for lvl in range(ft.nlvl):
+        for entry, kern, plain in (
+                ("rdma_diag", lambda s: rdma.rdma_diag(s, th, ft, lvl),
+                 lambda s: rdma.rdma_diag_plain(s, th, ft, lvl)),
+                ("rdma_panel", lambda s: rdma.rdma_panel(s, ft, lvl),
+                 lambda s: rdma.rdma_panel_plain(s, ft, lvl)),
+                ("rdma_schur", lambda s: rdma.rdma_schur(s, ft, lvl),
+                 lambda s: rdma.rdma_schur_plain(s, ft, lvl))):
+            st, ms = compare_state(
+                torch, out["rdma_factor"], st, kern, plain,
+                lambda ts: rdma.FactorState.of(ts, ft.ndev),
+                rdma.FactorState.tensors, rdma.FactorState.table)
+            per_entry[entry] += ms
+    rng = np.random.default_rng(1)
+    B = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
+                        dtype=torch.float32, device=lu.device)
+    X = [B.clone() for _ in range(ft.ndev)]
+    for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv)):
+        ss = rdma.new_sweep_state(X, tp)
+        for lvl in range(tp.nlvl):
+            for entry, kern, plain, M in (
+                    ("rdma_solve_gemm", rdma.rdma_solve_gemm,
+                     rdma.rdma_solve_gemm_plain, lu.pool),
+                    ("rdma_solve_diag", rdma.rdma_solve_diag,
+                     rdma.rdma_solve_diag_plain, dinv)):
+                ss, ms = compare_state(
+                    torch, out["rdma_solve"], ss,
+                    lambda s: kern(M, s, tp, lvl),
+                    lambda s: plain(M, s, tp, lvl),
+                    lambda ts: rdma.SweepState(*(
+                        ts[i * ft.ndev:(i + 1) * ft.ndev] for i in range(4))),
+                    lambda s: s.X + s.P + s.slots + s.recv,
+                    lambda s: s.table(M))
+                per_entry[entry] += ms
+        X = ss.X
+    print("RDMA entries, kernel ms summed over the levels (one factor, one "
+          "L+U solve): " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in per_entry.items()),
+          flush=True)
+    out["rdma_factor"].update(grid_factor_bound(lu))
+    out["rdma_solve"].update(grid_solve_bound(lu))
+    return out
+
+
+def grid_factor_bound(lu):
+    """Least time of one 2D factor: 2·bs³ per Schur product and per panel,
+    (4/3)·bs³ per tile (operations); bytes: each tile read and written,
+    its two inverses stored and put into Pr + Pc broadcast rows, each
+    panel read, written and put into its Pc (L) or Pr (U) buffer rows,
+    each rank's inverses read once per level by its panels, and per level
+    and rank the distinct targets read and written and the distinct
+    broadcast rows read once."""
+    plan, ft = lu.plan, lu._ft
+    h, bs = ft.host, plan.bs
+    blk = _blk(plan, np.float32)
+    nprod, npanel = len(h["c_l"]), len(h["b_loc"])
+    flops = 2.0 * bs ** 3 * (nprod + npanel) + (4.0 / 3.0) * bs ** 3 * plan.nb
+    side = h["b_side"]
+    nblk = plan.nb * (4 + ft.pr + ft.pc) + int(
+        ((side == 0) * (2 + ft.pc) + (side == 1) * (2 + ft.pr)).sum())
+    for lvl in range(ft.nlvl):
+        b = slice(ft.bptr[lvl, 0], ft.bptr[lvl, -1])
+        nblk += len(set(zip(h["b_rank"][b], h["b_pil"][b], side[b])))
+        s = slice(ft.sptr[lvl, 0], ft.sptr[lvl, -1])
+        c = slice(h["cptr"][s.start], h["cptr"][s.stop])
+        rk = np.repeat(h["s_rank"][s], np.diff(h["cptr"][s.start:s.stop + 1]))
+        nblk += 2 * (s.stop - s.start) + len(set(zip(rk, h["c_l"][c]))) \
+            + len(set(zip(rk, h["c_u"][c])))
+    return _bound(flops, blk * nblk, "factor")
+
+
+def grid_solve_bound(lu, nrhs=1):
+    """Least time of one 2D L+U solve of one right-hand side: 2·bs²·nrhs
+    per product and per diagonal inverse (operations); bytes: per sweep
+    each rank's distinct pool blocks and the inverses read once, the
+    partials written, put (non-owners) and read by the owner, the solved
+    rows read by their owner and written into every rank's X."""
+    plan = lu.plan
+    blk = _blk(plan, np.float32)
+    xrow = 4.0 * plan.bs * nrhs
+    flops = nbytes = 0.0
+    for tp in (lu._lt, lu._ut):
+        h = tp.host
+        rk = np.repeat(h["p_rank"], np.diff(h["cptr"]))
+        flops += 2.0 * plan.bs ** 2 * nrhs * (len(h["c_loc"]) + plan.nb)
+        nbytes += blk * (len(set(zip(rk, h["c_loc"]))) + plan.nb)
+        nsend = int(h["p_send"].sum())
+        nbytes += xrow * (2 * len(h["p_pos"]) + 2 * nsend
+                          + plan.nb * (1 + tp.ndev))
+    return _bound(flops, nbytes, "solve")
 
 
 def profile_phase(lu, A, b):

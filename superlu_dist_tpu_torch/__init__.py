@@ -11,16 +11,25 @@ The host preprocessing (equilibration, MC64, ordering, etree alignment,
 block symbolic) is a copy of the JAX package's; the factor and the
 triangular sweeps run hand-written CUDA kernels (``ops/kernels/csrc``).
 Pass ``device="cpu"`` to run the plain PyTorch version of every kernel.
+The 2D distributed driver runs every rank of a process grid on one
+card::
+
+    from superlu_dist_tpu_torch import Grid2D, gssvx_dist
+    res, lu = gssvx_dist(A, b, Grid2D(2, 2), Options(dtype="float32"))
+
 This package imports neither JAX nor ``superlu_dist_tpu``.
 """
 
+from .models.dist_driver import DistributedSparseLU, gssvx_dist
 from .models.driver import (SolveResult, SparseLU, gssvx, load_factors,
                             save_factors)
+from .parallel.grid import Grid2D
 from .utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                             Options, RowPerm, Trans)
 from .utils.stats import Stats
 
 __all__ = ["gssvx", "SparseLU", "SolveResult", "save_factors",
-           "load_factors", "Options", "Stats", "Fact",
+           "load_factors", "gssvx_dist", "DistributedSparseLU", "Grid2D",
+           "Options", "Stats", "Fact",
            "RowPerm", "ColPerm", "Trans", "IterRefine", "Equil",
            "DiagScale"]

@@ -408,6 +408,10 @@ class SparseLU:
                     pool=plan.pool_bytes(self.dtype),
                     pad=plan.factor_flops / est["flops"])
 
+    #: the distributed driver keeps its plan as the JAX package's does:
+    #: the adaptive retry loop runs on one device only
+    _adapt_ok = True
+
     def _adapt_plan(self, A3: sp.csc_matrix, plan):
         """Adaptive plan policy (host logic, as in the JAX package): when
         the plan's flop pad against the Gilbert–Ng–Peyton estimate exceeds
@@ -416,7 +420,7 @@ class SparseLU:
         budget overruns, smaller block sizes, keeping the cheapest plan.
         Every decision lands in ``stat.counters['adapt_*']``."""
         opts, stat = self.options, self.stat
-        if (opts.adapt_policy or "auto") == "off":
+        if (opts.adapt_policy or "auto") == "off" or not self._adapt_ok:
             return A3, plan
         budget = opts.hbm_budget_gb * 2**30
         pool = plan.pool_bytes(self.dtype)
@@ -875,6 +879,30 @@ class SparseLU:
         ``a_row``, ``a_col``, ``a_data`` with ``n``. It serves every solve
         (NOTRANS and transposed), ``refine``, ``rcond_1`` and ``logdet``,
         and a SamePattern* ``refactor``."""
+        lu = cls._restore(state, device)
+        plan, fdt = lu.plan, _TORCH[lu.dtype]
+
+        def dev(a, rows):
+            a = np.asarray(a)
+            if a.shape[0] < rows:
+                raise ValueError(f"factor array has {a.shape[0]} rows, "
+                                 f"the plan needs {rows}")
+            return torch.tensor(np.asarray(a[:rows]), device=lu.device,
+                                dtype=fdt)
+
+        lu.pool = dev(state["pool"], plan.nslots + 2)
+        lu.linv = dev(state["linv"], plan.nb)
+        lu.uinv = dev(state["uinv"], plan.nb)
+        lu._ltape = _sweep.build_sweep_tape(plan, "L", lu.device)
+        lu._utape = _sweep.build_sweep_tape(plan, "U", lu.device)
+        lu._ttapes = lu._ftapes = None   # built when needed
+        lu.executor = _executor(lu.options)
+        return lu
+
+    @classmethod
+    def _restore(cls, state: dict, device) -> "SparseLU":
+        """Everything of :meth:`from_numpy_state` but the factors and the
+        tapes: options, plan, transforms, the original A and its COO."""
         lu = cls.__new__(cls)
         lu.options = state.get("options") or Options()
         lu.device = _resolve_device(device)
@@ -903,23 +931,7 @@ class SparseLU:
             (np.asarray(state["a_data"]),
              (np.asarray(state["a_row"]), np.asarray(state["a_col"]))),
             shape=(lu.n, lu.n))
-        fdt = _TORCH[lu.dtype]
-
-        def dev(a, rows):
-            a = np.asarray(a)
-            if a.shape[0] < rows:
-                raise ValueError(f"factor array has {a.shape[0]} rows, "
-                                 f"the plan needs {rows}")
-            return torch.tensor(np.asarray(a[:rows]), device=lu.device,
-                                dtype=fdt)
-
-        lu.pool = dev(state["pool"], plan.nslots + 2)
-        lu.linv = dev(state["linv"], plan.nb)
-        lu.uinv = dev(state["uinv"], plan.nb)
-        lu._ltape = _sweep.build_sweep_tape(plan, "L", lu.device)
-        lu._utape = _sweep.build_sweep_tape(plan, "U", lu.device)
-        lu._ttapes = lu._ftapes = lu._a3_data = None   # built when needed
-        lu.executor = _executor(lu.options)
+        lu._a3_data = None
         lu._coo_ref = _spmv.coo_arrays(lu._A_orig, lu.refine_dtype,
                                        lu.device)
         lu._transforms()
@@ -1016,10 +1028,13 @@ def save_factors(lu: SparseLU, path) -> None:
     A = sp.csc_matrix(lu._A_orig)
     npool = _bucket_fine(plan.nslots + 2, lo=64)
     ninv = _bucket125(plan.nb) + 1
+    # the distributed driver gathers its per-rank factors into this layout
+    pool, linv, uinv = (lu._export_factors() if hasattr(lu, "_export_factors")
+                        else (lu.pool, lu.linv, lu.uinv))
     np.savez_compressed(
         path,
-        pool=_padded(lu.pool, npool), linv=_padded(lu.linv, ninv),
-        uinv=_padded(lu.uinv, ninv),
+        pool=_padded(pool, npool), linv=_padded(linv, ninv),
+        uinv=_padded(uinv, ninv),
         rowperm=lu.rowperm, colperm=lu.colperm,
         row_scale=lu.row_scale, col_scale=lu.col_scale,
         a_indptr=A.indptr, a_indices=A.indices, a_data=A.data,

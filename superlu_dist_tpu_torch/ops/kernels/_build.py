@@ -44,14 +44,25 @@ class CudaKernel:
     ``entries`` maps each exported C function to its ``argtypes``; every
     entry returns the ``cudaError_t`` of its launch as an int.
     ``launches`` is incremented by the Python wrapper each time it
-    launches the kernel (and nowhere else)."""
+    launches the kernel (and nowhere else); a wrapper that counts by
+    :meth:`count` also keeps ``entry_launches``, the launches per entry."""
 
     def __init__(self, name: str, source: str, entries: dict):
         self.name = name
         self.source = source
         self.entries = entries
         self.launches = 0
+        self.entry_launches = dict.fromkeys(entries, 0)
         self._lib = None
+
+    def count(self, fn: str) -> None:
+        """One launch through entry ``fn``."""
+        self.launches += 1
+        self.entry_launches[fn] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)
 
     @property
     def source_path(self) -> str:

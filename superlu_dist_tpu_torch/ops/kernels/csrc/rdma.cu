@@ -1,0 +1,366 @@
+// rdma.cu: the 2D block-cyclic factor and triangular sweeps of a Pr x Pc
+// grid of ranks, with every broadcast made as a store ("put") into the
+// peer rank's buffer by the kernel that produced the block.
+//
+// Replaces: superlu_dist_tpu/parallel/dist2d_rdma.py
+//   - _rdma_kernel (called by _rdma_call), the whole 2D factor of one rank
+//     as one kernel, by three entries run per elimination level:
+//       rdma_diag  (A): tile LU and inverses of the level's owned diagonal
+//                       steps; linv put to the row peers' lC[pos], uinv to
+//                       the column peers' uC[pos];
+//       rdma_panel (B): L panels L . uC[pil] put to the row peers' lB[pos],
+//                       U panels lC[pil] . U to the column peers' uB[pos];
+//       rdma_schur (C): T -= lB[lpos] . uB[upos] into the local targets;
+//   - _rdma_solve_kernel (called by _rdma_solve_call), one L or U sweep of
+//     one rank, by two entries run per solve level:
+//       rdma_solve_gemm: a rank's partial P[pos] = -sum pool[loc] . X[src]
+//                        of one row, put to the diagonal owner's
+//                        slots[pos * pc + my column] by a non-owner;
+//       rdma_solve_diag: the owner's x_I = dinv . (X[I] + P[pos] + the
+//                        peers' slots, in column order), put to every
+//                        rank's X[I].
+//
+// On the TPU one pallas_call per rank walks grid=(nlvl,) in order, and
+// counted DMA waits and a dissemination barrier fence each level. Here each
+// phase of each level is one launch on one stream that covers the jobs of
+// all ranks (blockIdx.x picks a job, the job names its rank); the kernel
+// boundary is the counted wait and the barrier. Every rank's buffers are
+// reached through a device table of pointers, tab[kind * ndev + rank], so
+// a put is an ordinary store into another rank's buffer, the same store
+// that reaches a peer card over NVLink once peer access is on. Each put
+// also adds one to the receiver's counter for (level, kind) with atomicAdd;
+// the host holds these counts against the TPU's receive tapes
+// (build_rdma_recv_tapes, and rcv_part / rcv_x of the solve tapes).
+//
+// What bounds them on an H100. The factor: operations, 2*bs^3 per Schur
+// product and per panel, (4/3)*bs^3 per tile, at the FP32 67 TFLOP/s of the
+// CUDA cores; each put moves one bs x bs block more (4 + 4 + 2 + 2 = 12 puts
+// per step and panel on a 2 x 2 grid), which is bytes far below the
+// operations' time. The sweeps: bytes, each stored block read once per
+// sweep for 2*bs^2*nrhs operations, and the put bytes (a partial per
+// non-owner and an x row per peer per solved row) beside them.
+//
+// Design. Phase A runs slu_tile::tile_lu (tile_lu.cuh, shared with
+// diag_lu.cu) on the owner's pool block, with its inverses stored into
+// the owner's linvL/uinvL rows; after a barrier the CTA copies them into
+// the lC/uC rows of the peers (and its own). Phase B is the panel product
+// of schur.cu's trsm (strip.cuh, one CTA of bs threads per panel strip),
+// whose strip, left in registers, is stored once into the owner's pool and
+// once into each peer's broadcast buffer. Phase C groups a level's
+// products by target (host sort, tape order kept within a target): one CTA
+// per (target, strip) sums its chain and stores once, as schur.cu does; a
+// target belongs to one rank, so ranks never race and no atomics touch the
+// blocks. The solve's products are grouped by destination position, one
+// CTA per (rank, position, tile of kRT right-hand sides), with rows.cuh's
+// warp-per-row products; the owner's CTA adds its partial and then the
+// peers' slots in column order, so a result repeats bit for bit. float32
+// only, as the TPU kernels are.
+
+#include "rows.cuh"
+#include "strip.cuh"
+#include "tile_lu.cuh"
+
+namespace {
+
+using slu_rows::kRT;
+using slu_rows::kThreads;
+using slu_rows::load_tile;
+using slu_rows::rows_times;
+using slu_strip::FIN_L;
+using slu_strip::FIN_NONE;
+using slu_strip::FIN_U;
+using slu_strip::strip_eval;
+using slu_strip::strip_store;
+using slu_tile::kTileThreads;
+
+// kinds of the factor's pointer table; the counters of a rank are
+// int32[nlvl][4], its tiny-pivot count int32[1]
+enum { F_POOL = 0, F_LINV, F_UINV, F_LC, F_UC, F_LB, F_UB, F_CNT, F_TINY };
+enum { R_LI = 0, R_UI = 1, R_L = 2, R_U = 3, R_NFACTOR = 4 };
+// kinds of a sweep's pointer table; the counters are int32[nlvl][2]
+enum { S_POOL = 0, S_DINV, S_X, S_P, S_SLOTS, S_CNT };
+enum { R_PART = 0, R_X = 1, R_NSOLVE = 2 };
+
+template <typename P>
+__device__ __forceinline__ P* buf(const uint64_t* tab, int kind, int ndev,
+                                  int rank) {
+  return reinterpret_cast<P*>(tab[kind * ndev + rank]);
+}
+
+// dst[0:n] = src[0:n] by the whole CTA, 16 bytes a thread; n % 4 == 0
+__device__ __forceinline__ void copy_block(float* dst, const float* src,
+                                           int64_t n) {
+  for (int64_t e = threadIdx.x; e < n / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(dst)[e] =
+        reinterpret_cast<const float4*>(src)[e];
+}
+
+// ---- A: owned diagonal steps ----------------------------------------------
+__global__ void __launch_bounds__(kTileThreads)
+rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+                 const int32_t* __restrict__ rank,
+                 const int32_t* __restrict__ loc,
+                 const int32_t* __restrict__ pos,
+                 const int32_t* __restrict__ inv, int bs, int lg,
+                 float thresh, int level) {
+  const int j = blockIdx.x;
+  const int d = rank[j];
+  const int pr = ndev / pc, myr = d / pc, myc = d % pc;
+  const int64_t bb = (int64_t)bs * bs;
+  float* linv = buf<float>(tab, F_LINV, ndev, d);
+  float* uinv = buf<float>(tab, F_UINV, ndev, d);
+  // job j is CTA j: tile_lu reads loc[j] and inv[j]
+  slu_tile::tile_lu<float, true>(buf<float>(tab, F_POOL, ndev, d), linv,
+                                 uinv, loc, inv, bs, lg, thresh,
+                                 buf<int32_t>(tab, F_TINY, ndev, d));
+  __syncthreads();   // the inverses are stored; read them back
+  const float* gl = linv + inv[j] * bb;
+  const float* gu = uinv + inv[j] * bb;
+  const int64_t p = pos[j] * bb;
+  for (int c = 0; c < pc; ++c)       // linv -> lC[pos] along the grid row
+    copy_block(buf<float>(tab, F_LC, ndev, myr * pc + c) + p, gl, bb);
+  for (int r = 0; r < pr; ++r)       // uinv -> uC[pos] down the column
+    copy_block(buf<float>(tab, F_UC, ndev, r * pc + myc) + p, gu, bb);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < pc; ++c)
+      if (c != myc)
+        atomicAdd(buf<int32_t>(tab, F_CNT, ndev, myr * pc + c) +
+                      level * R_NFACTOR + R_LI, 1);
+    for (int r = 0; r < pr; ++r)
+      if (r != myr)
+        atomicAdd(buf<int32_t>(tab, F_CNT, ndev, r * pc + myc) +
+                      level * R_NFACTOR + R_UI, 1);
+  }
+}
+
+// ---- B: owned panels ------------------------------------------------------
+// side 0: an L panel, Y = L . uC[pil], put along the grid row into lB[pos];
+// side 1: a U panel, Y = lC[pil] . U, put down the grid column into uB[pos].
+__global__ void __launch_bounds__(slu_strip::kMaxBs)
+rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+                  const int32_t* __restrict__ rank,
+                  const int32_t* __restrict__ loc,
+                  const int32_t* __restrict__ pos,
+                  const int32_t* __restrict__ pil,
+                  const int32_t* __restrict__ side, int bs, int level) {
+  const int j = blockIdx.x;
+  const int d = rank[j];
+  const int pr = ndev / pc, myr = d / pc, myc = d % pc;
+  const int64_t bb = (int64_t)bs * bs;
+  const bool lside = side[j] == 0;
+  const int fin = lside ? FIN_L : FIN_U;
+  const float* dinv = buf<float>(tab, lside ? F_UC : F_LC, ndev, d);
+  float* tgt = buf<float>(tab, F_POOL, ndev, d) + loc[j] * bb;
+  float acc[4][4];
+  strip_eval<float>(tgt, nullptr, nullptr, dinv, dinv, pil[j], fin, nullptr,
+                    nullptr, 0, 0, bs, blockIdx.y, acc);
+  strip_store<float>(tgt, bs, fin, blockIdx.y, acc);
+  const int64_t p = pos[j] * bb;
+  const int npeer = lside ? pc : pr;
+  for (int q = 0; q < npeer; ++q) {
+    const int e = lside ? myr * pc + q : q * pc + myc;
+    strip_store<float>(buf<float>(tab, lside ? F_LB : F_UB, ndev, e) + p, bs,
+                       fin, blockIdx.y, acc);
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0)
+    for (int q = 0; q < npeer; ++q) {
+      if (q == (lside ? myc : myr)) continue;
+      const int e = lside ? myr * pc + q : q * pc + myc;
+      atomicAdd(buf<int32_t>(tab, F_CNT, ndev, e) + level * R_NFACTOR +
+                    (lside ? R_L : R_U), 1);
+    }
+}
+
+// ---- C: owned Schur products, grouped by target ---------------------------
+__global__ void __launch_bounds__(slu_strip::kMaxBs)
+rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
+                  const int32_t* __restrict__ rank,
+                  const int32_t* __restrict__ tloc,
+                  const int32_t* __restrict__ cptr,
+                  const int32_t* __restrict__ cl,
+                  const int32_t* __restrict__ cu, int bs) {
+  const int t = blockIdx.x;
+  const int d = rank[t];
+  float* tgt = buf<float>(tab, F_POOL, ndev, d) + tloc[t] * (int64_t)bs * bs;
+  float acc[4][4];
+  strip_eval<float>(tgt, buf<float>(tab, F_LB, ndev, d),
+                    buf<float>(tab, F_UB, ndev, d), nullptr, nullptr, 0,
+                    FIN_NONE, cl, cu, cptr[t], cptr[t + 1], bs, blockIdx.y,
+                    acc);
+  strip_store<float>(tgt, bs, FIN_NONE, blockIdx.y, acc);
+}
+
+// ---- solve: partial products of one rank into one row position ------------
+__global__ void __launch_bounds__(kThreads)
+rdma_solve_gemm_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+                       const int32_t* __restrict__ rank,
+                       const int32_t* __restrict__ pos,
+                       const int32_t* __restrict__ send,
+                       const int32_t* __restrict__ dstc,
+                       const int32_t* __restrict__ cptr,
+                       const int32_t* __restrict__ cloc,
+                       const int32_t* __restrict__ csrc, int bs, int nrhs,
+                       int level) {
+  const int j = blockIdx.x;
+  const int d = rank[j];
+  const int myr = d / pc, myc = d % pc;
+  float* acc = slu_rows::dyn_smem<float>();   // kRT x bs, column major
+  float* xs = acc + kRT * bs;                 // kRT x bs, column major
+  const int64_t bb = (int64_t)bs * bs;
+  const int64_t rb = (int64_t)bs * nrhs;
+  const int c0 = blockIdx.y * kRT;
+  const int rt = min(kRT, nrhs - c0);
+  const float* pool = buf<float>(tab, S_POOL, ndev, d);
+  const float* X = buf<float>(tab, S_X, ndev, d);
+
+  for (int e = threadIdx.x; e < kRT * bs; e += blockDim.x) acc[e] = 0.0f;
+  for (int p = cptr[j]; p < cptr[j + 1]; ++p) {
+    load_tile(xs, X + csrc[p] * rb + c0, bs, rt, nrhs);
+    __syncthreads();
+    rows_times(pool + cloc[p] * bb, xs, bs, rt, [&](int r, const float* s) {
+      for (int c = 0; c < rt; ++c) acc[c * bs + r] -= s[c];
+    });
+    __syncthreads();
+  }
+  __syncthreads();
+  float* P = buf<float>(tab, S_P, ndev, d) + pos[j] * rb + c0;
+  const int owner = myr * pc + dstc[j];
+  float* S = send[j] ? buf<float>(tab, S_SLOTS, ndev, owner) +
+                           ((int64_t)pos[j] * pc + myc) * rb + c0
+                     : nullptr;
+  for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
+    const int r = e / rt, c = e - r * rt;
+    const float v = acc[c * bs + r];
+    P[(int64_t)r * nrhs + c] = v;
+    if (S) S[(int64_t)r * nrhs + c] = v;
+  }
+  if (send[j] && blockIdx.y == 0 && threadIdx.x == 0)
+    atomicAdd(buf<int32_t>(tab, S_CNT, ndev, owner) + level * R_NSOLVE +
+                  R_PART, 1);
+}
+
+// ---- solve: the owner's diagonal apply and x broadcast --------------------
+__global__ void __launch_bounds__(kThreads)
+rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+                       const int32_t* __restrict__ rank,
+                       const int32_t* __restrict__ row,
+                       const int32_t* __restrict__ pos,
+                       const int32_t* __restrict__ inv, int bs, int nrhs,
+                       int level) {
+  const int j = blockIdx.x;
+  const int d = rank[j];
+  const int myc = d % pc;
+  float* tile = slu_rows::dyn_smem<float>();  // kRT x bs, column major
+  float* out = tile + kRT * bs;               // kRT x bs, column major
+  const int64_t rb = (int64_t)bs * nrhs;
+  const int c0 = blockIdx.y * kRT;
+  const int rt = min(kRT, nrhs - c0);
+  const int64_t I = row[j];
+  const float* X = buf<float>(tab, S_X, ndev, d) + I * rb + c0;
+  const float* P = buf<float>(tab, S_P, ndev, d) + pos[j] * rb + c0;
+  const float* S = buf<float>(tab, S_SLOTS, ndev, d);
+
+  for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
+    const int r = e / rt, c = e - r * rt;
+    const int64_t o = (int64_t)r * nrhs + c;
+    float v = X[o] + P[o];
+    for (int q = 0; q < pc; ++q)     // the peers' partials, column order
+      if (q != myc) v += S[((int64_t)pos[j] * pc + q) * rb + c0 + o];
+    tile[c * bs + r] = v;
+  }
+  __syncthreads();
+  rows_times(buf<float>(tab, S_DINV, ndev, d) + inv[j] * (int64_t)bs * bs,
+             tile, bs, rt, [&](int r, const float* s) {
+               for (int c = 0; c < rt; ++c) out[c * bs + r] = s[c];
+             });
+  __syncthreads();
+  for (int e2 = 0; e2 < ndev; ++e2) {   // x_I into every rank's X[I]
+    float* Xe = buf<float>(tab, S_X, ndev, e2) + I * rb + c0;
+    for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
+      const int r = e / rt, c = e - r * rt;
+      Xe[(int64_t)r * nrhs + c] = out[c * bs + r];
+    }
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0)
+    for (int e2 = 0; e2 < ndev; ++e2)
+      if (e2 != d)
+        atomicAdd(buf<int32_t>(tab, S_CNT, ndev, e2) + level * R_NSOLVE +
+                      R_X, 1);
+}
+
+}  // namespace
+
+extern "C" int slu_rdma_diag(const void* tab, int ndev, int pc,
+                             const void* rank, const void* loc,
+                             const void* pos, const void* inv, int count,
+                             int bs, float thresh, int level, void* stream) {
+  const size_t smem = slu_tile::tile_lu_smem_bytes<float, true>(bs);
+  cudaError_t err = cudaFuncSetAttribute(
+      rdma_diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (count == 0) return 0;
+  rdma_diag_kernel<<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
+      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+      (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)inv, bs,
+      slu_tile::log2_bs(bs), thresh, level);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int slu_rdma_panel(const void* tab, int ndev, int pc,
+                              const void* rank, const void* loc,
+                              const void* pos, const void* pil,
+                              const void* side, int count, int bs, int level,
+                              void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, bs / slu_strip::kStrip);
+  rdma_panel_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+      (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)pil,
+      (const int32_t*)side, bs, level);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int slu_rdma_schur(const void* tab, int ndev, const void* rank,
+                              const void* tloc, const void* cptr,
+                              const void* cl, const void* cu, int count,
+                              int bs, void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, bs / slu_strip::kStrip);
+  rdma_schur_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)tab, ndev, (const int32_t*)rank, (const int32_t*)tloc,
+      (const int32_t*)cptr, (const int32_t*)cl, (const int32_t*)cu, bs);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int slu_rdma_solve_gemm(const void* tab, int ndev, int pc,
+                                   const void* rank, const void* pos,
+                                   const void* send, const void* dstc,
+                                   const void* cptr, const void* cloc,
+                                   const void* csrc, int count, int bs,
+                                   int nrhs, int level, void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
+  const size_t smem = (size_t)2 * kRT * bs * sizeof(float);
+  rdma_solve_gemm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+      (const int32_t*)pos, (const int32_t*)send, (const int32_t*)dstc,
+      (const int32_t*)cptr, (const int32_t*)cloc, (const int32_t*)csrc, bs,
+      nrhs, level);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int slu_rdma_solve_diag(const void* tab, int ndev, int pc,
+                                   const void* rank, const void* row,
+                                   const void* pos, const void* inv,
+                                   int count, int bs, int nrhs, int level,
+                                   void* stream) {
+  if (count == 0) return 0;
+  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
+  const size_t smem = (size_t)2 * kRT * bs * sizeof(float);
+  rdma_solve_diag_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+      (const int32_t*)row, (const int32_t*)pos, (const int32_t*)inv, bs, nrhs,
+      level);
+  return (int)cudaGetLastError();
+}

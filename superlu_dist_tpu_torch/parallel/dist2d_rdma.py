@@ -1,0 +1,835 @@
+"""Kernels 11–12: the 2D block-cyclic factor and triangular sweeps with
+puts into the peer ranks' buffers.
+
+Counterpart of the JAX package's ``parallel/dist2d_rdma.py``. There one
+Pallas kernel per rank (``_rdma_kernel``: the whole factor;
+``_rdma_solve_kernel``: one L or U sweep) walks the elimination levels as
+its sequential grid, broadcasts blocks by remote DMA into the peers'
+buffers and fences each level by counted receive waits and a barrier.
+Here every rank of the grid lives in one process, and each phase of each
+level is one launch that covers the jobs of all ranks
+(``csrc/rdma.cu``):
+
+- :func:`rdma_factor`: per level ``rdma_diag`` (owned diagonal tiles, linv
+  put along the grid row into ``lC``, uinv down the column into ``uC``),
+  ``rdma_panel`` (owned L and U panels times the received inverses, put
+  into ``lB`` / ``uB``) and ``rdma_schur`` (owned Schur products from the
+  broadcast buffers, grouped by target);
+- :func:`rdma_solve`: the L sweep, then the U sweep, each per level
+  ``rdma_solve_gemm`` (partials, put by non-owners into the diagonal
+  owner's slots) and ``rdma_solve_diag`` (the owner's diagonal apply, x put
+  into every rank's replicated X).
+
+A put is a store by the producing kernel into the peer's buffer, reached
+through a device table of every rank's buffer pointers, and adds one to
+the receiver's counter for (level, kind); the counters are held against
+the TPU's receive tapes (:func:`build_rdma_recv_tapes`, the solve tapes'
+``rcv_part`` / ``rcv_x``). Every phase has a plain PyTorch version beside
+it (``*_plain``): level by level, rank by rank over the same job lists,
+with the puts as indexed copies into the peers' tensors and each receive
+tallied. On a CPU tensor the wrappers run the plain versions; on a CUDA
+tensor they launch the kernel or raise. float32 only, as on the TPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops.host.symbolic import SymbolicPlan
+from ..ops.kernels._build import CudaKernel, ptr, stream_ptr
+from ..ops.kernels.diag_lu import CUDA_BLOCK_SIZES, lu_inv_plain
+from .dist2d import _ZERO, DistPlan2D
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+RDMA_FACTOR = CudaKernel("rdma_factor", "rdma.cu", {
+    "slu_rdma_diag": [_V, _I, _I] + [_V] * 4 + [_I, _I, ctypes.c_float, _I,
+                                                _V],
+    "slu_rdma_panel": [_V, _I, _I] + [_V] * 5 + [_I, _I, _I, _V],
+    "slu_rdma_schur": [_V, _I] + [_V] * 5 + [_I, _I, _V]})
+RDMA_SOLVE = CudaKernel("rdma_solve", "rdma.cu", {
+    "slu_rdma_solve_gemm": [_V, _I, _I] + [_V] * 7 + [_I] * 4 + [_V],
+    "slu_rdma_solve_diag": [_V, _I, _I] + [_V] * 4 + [_I] * 4 + [_V]})
+
+#: receive kinds of the factor's counters (rank, level, kind), the TPU's
+#: rcv_li, rcv_ui, rcv_l, rcv_u; of a sweep's, rcv_part and rcv_x
+FACTOR_RECV = ("rcv_li", "rcv_ui", "rcv_l", "rcv_u")
+SOLVE_RECV = ("rcv_part", "rcv_x")
+_LI, _UI, _L, _U = range(4)
+_PART, _X = range(2)
+
+
+# ---------------------------------------------------------------------------
+# the TPU kernels' tapes (copies of the JAX package's host code)
+# ---------------------------------------------------------------------------
+
+
+def build_rdma_recv_tapes(plan: SymbolicPlan, dplan: DistPlan2D) -> dict:
+    """Per-(rank, level) receive counts of the factor's counted waits, as
+    (pr, pc, nlvl) int32 arrays:
+
+    - rcv_ui: uinv blocks arriving from column-peer step owners
+    - rcv_li: linv blocks arriving from row-peer step owners
+    - rcv_l / rcv_u: panel blocks arriving from row / column peers
+    """
+    pr, pc, nlvl = dplan.pr, dplan.pc, dplan.nlvl
+    step_level = np.asarray(plan.step_level)
+    scol = np.asarray(plan.slot_col)
+    srow = np.asarray(plan.slot_row)
+    nb = plan.nb
+
+    rcv_ui = np.zeros((pr, pc, nlvl), np.int64)
+    rcv_li = np.zeros((pr, pc, nlvl), np.int64)
+    rcv_l = np.zeros((pr, pc, nlvl), np.int64)
+    rcv_u = np.zeros((pr, pc, nlvl), np.int64)
+
+    for k in range(nb):
+        l = step_level[k]
+        rk, ck = k % pr, k % pc
+        # uinv(k) -> (r, ck) for all r != rk ; linv(k) -> (rk, c) != ck
+        for r in range(pr):
+            if r != rk:
+                rcv_ui[r, ck, l] += 1
+        for c in range(pc):
+            if c != ck:
+                rcv_li[rk, c, l] += 1
+
+    # L blocks (i, k): owner (i%pr, k%pc) puts to (i%pr, c!=k%pc)
+    # U blocks (k, j): owner (k%pr, j%pc) puts to (r!=k%pr, j%pc)
+    for k in range(nb):
+        l = step_level[k]
+        lo, hi = plan.l_ptr[k], plan.l_ptr[k + 1]
+        for s in np.asarray(plan.l_slots[lo:hi]):
+            i = srow[s]
+            orow, ocol = i % pr, k % pc
+            for c in range(pc):
+                if c != ocol:
+                    rcv_l[orow, c, l] += 1
+        lo, hi = plan.u_ptr[k], plan.u_ptr[k + 1]
+        for s in np.asarray(plan.u_slots[lo:hi]):
+            j = scol[s]
+            orow, ocol = k % pr, j % pc
+            for r in range(pr):
+                if r != orow:
+                    rcv_u[r, ocol, l] += 1
+
+    return dict(rcv_ui=rcv_ui.astype(np.int32), rcv_li=rcv_li.astype(np.int32),
+                rcv_l=rcv_l.astype(np.int32), rcv_u=rcv_u.astype(np.int32))
+
+
+def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
+                           which: str):
+    """Per-rank tapes of one RDMA solve sweep ("L" or "U"), the JAX
+    package's layout and pads.
+
+    Returns (tapes, consts): tapes is a dict of (pr, pc, ...) int32
+    arrays; consts has nlvl and MAXR (max rows per level, the height of
+    the receive slots and of the partial buffer).
+    """
+    pr, pc, nb = dplan.pr, dplan.pc, dplan.nb
+    owner_dev = np.asarray(dplan.owner_dev)
+    local_slot = np.asarray(dplan.local_slot)
+    dinv_idx = np.asarray(dplan.dinv_idx)
+    ndev = pr * pc
+    if which == "L":
+        gptr_g, gslot_g = plan.lsol_gptr, plan.lsol_gslot
+        gsrc_g, gdst_g = plan.lsol_gsrc, plan.lsol_gdst
+        dptr_g, diag_g, nlvl = plan.lsol_dptr, plan.lsol_diag, plan.lsol_nlvl
+    else:
+        gptr_g, gslot_g = plan.usol_gptr, plan.usol_gslot
+        gsrc_g, gdst_g = plan.usol_gsrc, plan.usol_gdst
+        dptr_g, diag_g, nlvl = plan.usol_dptr, plan.usol_diag, plan.usol_nlvl
+
+    pos_of_row = np.zeros(nb, dtype=np.int64)
+    maxr = 1
+    for l in range(nlvl):
+        rows = np.asarray(diag_g[dptr_g[l]:dptr_g[l + 1]], np.int64)
+        pos_of_row[rows] = np.arange(len(rows))
+        maxr = max(maxr, len(rows))
+
+    g_lists = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    s_lists = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    d_lists = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    rcv_part = np.zeros((ndev, nlvl), np.int64)
+    rcv_x = np.zeros((ndev, nlvl), np.int64)
+
+    for l in range(nlvl):
+        for t in range(gptr_g[l], gptr_g[l + 1]):
+            s = int(gslot_g[t])
+            g_lists[owner_dev[s]][l].append(
+                (int(local_slot[s]), int(gsrc_g[t]),
+                 int(pos_of_row[gdst_g[t]])))
+        rows = np.asarray(diag_g[dptr_g[l]:dptr_g[l + 1]], np.int64)
+        for I in rows:
+            r_own, c_own = int(I % pr), int(I % pc)
+            # every rank in grid row I%pr holds a (possibly zero) partial
+            # for row I: zero it, and non-owners put it
+            for c in range(pc):
+                d = r_own * pc + c
+                s_lists[d][l].append(
+                    (int(pos_of_row[I]), c_own, 1 if c != c_own else 0))
+            d_own = r_own * pc + c_own
+            d_lists[d_own][l].append(
+                (int(I), int(pos_of_row[I]), int(dinv_idx[I])))
+            rcv_part[d_own, l] += pc - 1
+            for d in range(ndev):
+                if d != d_own:
+                    rcv_x[d, l] += 1
+
+    def pack(lists, nfields, fills):
+        ptr_ = np.zeros((ndev, nlvl + 1), dtype=np.int64)
+        for d in range(ndev):
+            for l in range(nlvl):
+                ptr_[d, l + 1] = ptr_[d, l] + len(lists[d][l])
+        maxlen = max(1, int(ptr_[:, -1].max()))
+        out = [np.full((ndev, maxlen), fills[f], dtype=np.int32)
+               for f in range(nfields)]
+        for d in range(ndev):
+            p0 = 0
+            for l in range(nlvl):
+                for item in lists[d][l]:
+                    for f in range(nfields):
+                        out[f][d, p0] = item[f]
+                    p0 += 1
+        return (ptr_.reshape(pr, pc, nlvl + 1).astype(np.int32),
+                [o.reshape(pr, pc, maxlen) for o in out])
+
+    gp, (gloc, gsrc, gdpos) = pack(g_lists, 3, [_ZERO, nb, maxr])
+    sp_, (spos, sdstc, ssend) = pack(s_lists, 3, [maxr, 0, 0])
+    dp, (drow, dpos_a, dinv) = pack(d_lists, 3, [nb, maxr, 0])
+
+    tapes = dict(gp=gp, gloc=gloc, gsrc=gsrc, gdpos=gdpos,
+                 sp=sp_, spos=spos, sdstc=sdstc, ssend=ssend,
+                 dp=dp, drow=drow, dpos=dpos_a, dinv=dinv,
+                 rcv_part=rcv_part.reshape(pr, pc, nlvl).astype(np.int32),
+                 rcv_x=rcv_x.reshape(pr, pc, nlvl).astype(np.int32))
+    return tapes, dict(nlvl=nlvl, maxr=maxr)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' own job lists: per level the jobs of every rank, rank-major
+# ---------------------------------------------------------------------------
+
+
+def _dev(a, device):
+    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                           device=device)
+
+
+def _jobs(ndev, nlvl, lists, nfields):
+    """Flatten per-(rank, level) job lists into level-major, rank-major
+    arrays; returns (ptr (nlvl, ndev+1) int64, [field arrays], rank)."""
+    ptr_ = np.zeros((nlvl, ndev + 1), dtype=np.int64)
+    cols = [[] for _ in range(nfields)]
+    rank = []
+    n = 0
+    for l in range(nlvl):
+        for d in range(ndev):
+            ptr_[l, d] = n
+            for item in lists[d][l]:
+                for f in range(nfields):
+                    cols[f].append(item[f])
+                rank.append(d)
+                n += 1
+        ptr_[l, ndev] = n
+    return (ptr_, [np.asarray(c, dtype=np.int64) for c in cols],
+            np.asarray(rank, dtype=np.int64))
+
+
+@dataclasses.dataclass
+class FactorTapes:
+    """The RDMA factor's jobs, unpadded. Level l's jobs of rank d are
+    ``[xptr[l, d], xptr[l, d + 1])`` of phase x's lists (A: ``a_*``,
+    B: ``b_*``, C: the targets ``s_*`` with their products ``c_l``/``c_u``
+    over ``cptr``); ``dev`` holds int32 device copies of every list,
+    ``host`` the numpy ones; ``recv`` the TPU's receive tapes."""
+
+    pr: int
+    pc: int
+    nlvl: int
+    bs: int
+    n_local: int
+    dlen: int
+    max_dlvl: int
+    max_lbuf: int
+    max_ubuf: int
+    aptr: np.ndarray
+    bptr: np.ndarray
+    sptr: np.ndarray
+    host: dict
+    dev: dict
+    recv: dict
+
+    @property
+    def ndev(self) -> int:
+        return self.pr * self.pc
+
+
+def build_factor_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
+                       device) -> FactorTapes:
+    """The job lists of :func:`rdma_factor` from the partition: phase A
+    (rank, local slot, level position, inverse row), phase B (rank, local
+    slot, buffer position, position of the step, side 0 = L / 1 = U), and
+    phase C's products grouped by target (stable: tape order within a
+    target)."""
+    pr, pc, nlvl = dplan.pr, dplan.pc, dplan.nlvl
+    ndev = pr * pc
+
+    def flat(a):
+        return np.asarray(a).reshape(ndev, -1).astype(np.int64)
+
+    dptr, lptr, uptr, gptr = (flat(getattr(dplan, n)) for n in
+                              ("dptr", "lptr", "uptr", "gptr"))
+    dloc, dpos = flat(dplan.dloc), flat(dplan.dpos)
+    lloc, lpos, lpil = flat(dplan.lloc), flat(dplan.lpos), flat(dplan.lpil)
+    uloc, upos, upil = flat(dplan.uloc), flat(dplan.upos), flat(dplan.upil)
+    glpos, gupos, gtloc = (flat(dplan.glpos), flat(dplan.gupos),
+                           flat(dplan.gtloc))
+    a_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    b_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    s_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    prods = [[None] * nlvl for _ in range(ndev)]
+    for d in range(ndev):
+        for l in range(nlvl):
+            a_l[d][l] = [(int(dloc[d, t]), int(dpos[d, t]), t)
+                         for t in range(dptr[d, l], dptr[d, l + 1])]
+            b_l[d][l] = [(int(lloc[d, t]), int(lpos[d, t]), int(lpil[d, t]),
+                          0) for t in range(lptr[d, l], lptr[d, l + 1])] + \
+                [(int(uloc[d, t]), int(upos[d, t]), int(upil[d, t]), 1)
+                 for t in range(uptr[d, l], uptr[d, l + 1])]
+            g = slice(gptr[d, l], gptr[d, l + 1])
+            tl = gtloc[d, g]
+            o = np.argsort(tl, kind="stable")
+            tgts, cnt = np.unique(tl[o], return_counts=True)
+            s_l[d][l] = [(int(t), int(c)) for t, c in zip(tgts, cnt)]
+            prods[d][l] = (glpos[d, g][o], gupos[d, g][o])
+    aptr, (a_loc, a_pos, a_inv), a_rank = _jobs(ndev, nlvl, a_l, 3)
+    bptr, (b_loc, b_pos, b_pil, b_side), b_rank = _jobs(ndev, nlvl, b_l, 4)
+    sptr, (s_tloc, s_cnt), s_rank = _jobs(ndev, nlvl, s_l, 2)
+    cl = [prods[d][l][0] for l in range(nlvl) for d in range(ndev)]
+    cu = [prods[d][l][1] for l in range(nlvl) for d in range(ndev)]
+    host = dict(a_rank=a_rank, a_loc=a_loc, a_pos=a_pos, a_inv=a_inv,
+                b_rank=b_rank, b_loc=b_loc, b_pos=b_pos, b_pil=b_pil,
+                b_side=b_side, s_rank=s_rank, s_tloc=s_tloc,
+                cptr=np.r_[0, np.cumsum(s_cnt)].astype(np.int64),
+                c_l=np.concatenate(cl).astype(np.int64) if cl else
+                np.zeros(0, np.int64),
+                c_u=np.concatenate(cu).astype(np.int64) if cu else
+                np.zeros(0, np.int64))
+    return FactorTapes(
+        pr=pr, pc=pc, nlvl=nlvl, bs=dplan.bs, n_local=dplan.n_local,
+        dlen=int(np.asarray(dplan.dstep).shape[-1]), max_dlvl=dplan.max_dlvl,
+        max_lbuf=dplan.max_lbuf, max_ubuf=dplan.max_ubuf, aptr=aptr,
+        bptr=bptr, sptr=sptr, host=host,
+        dev={k: _dev(v, device) for k, v in host.items()},
+        recv=build_rdma_recv_tapes(plan, dplan))
+
+
+@dataclasses.dataclass
+class SweepTapes:
+    """One RDMA sweep's jobs, unpadded. Level l's partial jobs of rank d
+    are ``[pptr[l, d], pptr[l, d + 1])`` of ``p_*`` (position, send flag,
+    the owner's grid column), with their products ``c_loc``/``c_src`` over
+    ``cptr``; its diagonal jobs ``[dptr[l, d], dptr[l, d + 1])`` of ``d_*``
+    (block row, position, inverse row). ``recv`` holds the TPU's
+    ``rcv_part`` and ``rcv_x``."""
+
+    which: str
+    pr: int
+    pc: int
+    nlvl: int
+    maxr: int
+    pptr: np.ndarray
+    dptr: np.ndarray
+    host: dict
+    dev: dict
+    recv: dict
+
+    @property
+    def ndev(self) -> int:
+        return self.pr * self.pc
+
+
+def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
+                      device) -> SweepTapes:
+    """The job lists of one sweep of :func:`rdma_solve` from
+    :func:`build_rdma_solve_tapes`: one partial job per entry of a rank's
+    zero/send list, holding that rank's products into the position in
+    tape order; one diagonal job per solved row on its owner."""
+    t, c = build_rdma_solve_tapes(plan, dplan, which)
+    pr, pc = dplan.pr, dplan.pc
+    ndev, nlvl = pr * pc, c["nlvl"]
+
+    def flat(a):
+        return np.asarray(a).reshape(ndev, -1).astype(np.int64)
+
+    gp, sp_, dp = flat(t["gp"]), flat(t["sp"]), flat(t["dp"])
+    gloc, gsrc, gdpos = flat(t["gloc"]), flat(t["gsrc"]), flat(t["gdpos"])
+    spos, sdstc, ssend = flat(t["spos"]), flat(t["sdstc"]), flat(t["ssend"])
+    drow, dpos, dinv = flat(t["drow"]), flat(t["dpos"]), flat(t["dinv"])
+    p_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    d_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
+    cl, cs = [], []
+    for l in range(nlvl):
+        for d in range(ndev):
+            g = slice(gp[d, l], gp[d, l + 1])
+            gpos = gdpos[d, g]
+            o = np.argsort(gpos, kind="stable")
+            gpos = gpos[o]
+            s = slice(sp_[d, l], sp_[d, l + 1])
+            if not np.isin(gpos, spos[d, s]).all():
+                raise AssertionError("a partial product without its "
+                                     "position on the rank")
+            for p, dc, snd in zip(spos[d, s], sdstc[d, s], ssend[d, s]):
+                lo, hi = np.searchsorted(gpos, [p, p + 1])
+                cl.append(gloc[d, g][o][lo:hi])
+                cs.append(gsrc[d, g][o][lo:hi])
+                p_l[d][l].append((int(p), int(snd), int(dc), hi - lo))
+            d_l[d][l] = [(int(drow[d, i]), int(dpos[d, i]), int(dinv[d, i]))
+                         for i in range(dp[d, l], dp[d, l + 1])]
+    pptr, (p_pos, p_send, p_dstc, p_cnt), p_rank = _jobs(ndev, nlvl, p_l, 4)
+    dptr_, (d_row, d_pos, d_inv), d_rank = _jobs(ndev, nlvl, d_l, 3)
+    host = dict(p_rank=p_rank, p_pos=p_pos, p_send=p_send, p_dstc=p_dstc,
+                cptr=np.r_[0, np.cumsum(p_cnt)].astype(np.int64),
+                c_loc=np.concatenate(cl).astype(np.int64) if cl else
+                np.zeros(0, np.int64),
+                c_src=np.concatenate(cs).astype(np.int64) if cs else
+                np.zeros(0, np.int64),
+                d_rank=d_rank, d_row=d_row, d_pos=d_pos, d_inv=d_inv)
+    return SweepTapes(which=which, pr=pr, pc=pc, nlvl=nlvl, maxr=c["maxr"],
+                      pptr=pptr, dptr=dptr_, host=host,
+                      dev={k: _dev(v, device) for k, v in host.items()},
+                      recv={k: t[k] for k in SOLVE_RECV})
+
+
+# ---------------------------------------------------------------------------
+# per-rank buffers and the device table of their pointers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FactorState:
+    """Every rank's buffers of the factor, one list per kind (index r·Pc +
+    c): ``pool`` (n_local, bs, bs), ``linv``/``uinv`` (dlen+1, bs, bs) by
+    d-tape position, the broadcast buffers ``lC``/``uC`` (max_dlvl, bs,
+    bs) and ``lB`` (max_lbuf, ...), ``uB`` (max_ubuf, ...), the receive
+    counters ``recv`` (nlvl, 4) int32 and ``tiny`` (1,) int32; ``tables``
+    keeps the device tables of their pointers."""
+
+    pool: list
+    linv: list
+    uinv: list
+    lC: list
+    uC: list
+    lB: list
+    uB: list
+    recv: list
+    tiny: list
+    tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    KINDS = ("pool", "linv", "uinv", "lC", "uC", "lB", "uB", "recv", "tiny")
+
+    def tensors(self) -> list:
+        return [t for k in self.KINDS for t in getattr(self, k)]
+
+    @classmethod
+    def of(cls, tensors, ndev: int) -> "FactorState":
+        """The inverse of :meth:`tensors`."""
+        return cls(*(list(tensors[i * ndev:(i + 1) * ndev])
+                     for i in range(len(cls.KINDS))))
+
+    def table(self) -> torch.Tensor:
+        """The device table of these buffers' pointers (kinds in the
+        order of ``KINDS``, rank-major within a kind), made and checked
+        once per set of buffers."""
+        return _table(self.tables, [getattr(self, k) for k in self.KINDS],
+                      lambda: _check_cuda(
+                          "rdma_factor", [t for k in self.KINDS[:7]
+                                          for t in getattr(self, k)],
+                          self.recv + self.tiny))
+
+
+def new_factor_state(pools, ft: FactorTapes) -> FactorState:
+    """Zeroed buffers beside the given per-rank pools (the inverse tables
+    are zero where no step writes: the solve reads them as the JAX
+    package's do)."""
+    bs, dev, dt = ft.bs, pools[0].device, pools[0].dtype
+
+    def z(rows, shape=None, dtype=dt):
+        return [torch.zeros(shape or (rows, bs, bs), dtype=dtype, device=dev)
+                for _ in range(ft.ndev)]
+
+    return FactorState(pool=list(pools), linv=z(ft.dlen + 1),
+                       uinv=z(ft.dlen + 1), lC=z(ft.max_dlvl),
+                       uC=z(ft.max_dlvl), lB=z(ft.max_lbuf),
+                       uB=z(ft.max_ubuf),
+                       recv=z(0, (ft.nlvl, 4), torch.int32),
+                       tiny=z(0, (1,), torch.int32))
+
+
+@dataclasses.dataclass
+class SweepState:
+    """Every rank's buffers of one sweep: the replicated ``X`` (nb, bs,
+    nrhs), the partials ``P`` (maxr, bs, nrhs), the receive ``slots``
+    (maxr·Pc, bs, nrhs) and the counters ``recv`` (nlvl, 2) int32;
+    ``tables`` keeps the device tables of their pointers."""
+
+    X: list
+    P: list
+    slots: list
+    recv: list
+    tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def table(self, blocks) -> torch.Tensor:
+        """The device table of the sweep's pointers, with ``blocks`` (the
+        per-rank pools, or the inverse tables) in the first two kinds,
+        made and checked once per set of buffers."""
+        return _table(self.tables, [blocks, blocks, self.X, self.P,
+                                    self.slots, self.recv],
+                      lambda: _check_cuda(
+                          "rdma_solve", list(blocks) + self.X + self.P
+                          + self.slots, self.recv))
+
+
+def new_sweep_state(X, tp: SweepTapes) -> SweepState:
+    _, bs, k = X[0].shape
+    dev, dt = X[0].device, X[0].dtype
+    return SweepState(
+        X=list(X),
+        P=[torch.zeros((tp.maxr, bs, k), dtype=dt, device=dev)
+           for _ in X],
+        slots=[torch.zeros((tp.maxr * tp.pc, bs, k), dtype=dt, device=dev)
+               for _ in X],
+        recv=[torch.zeros((tp.nlvl, 2), dtype=torch.int32, device=dev)
+              for _ in X])
+
+
+def _table(cache: dict, lists, check) -> torch.Tensor:
+    """The device table of buffer pointers, ``tab[kind * ndev + rank]``,
+    made once per set of pointers and kept in ``cache``; ``check`` raises
+    on buffers the kernels do not take, before the first table of a set
+    is made."""
+    key = tuple(t.data_ptr() for ts in lists for t in ts)
+    tab = cache.get(key)
+    if tab is None:
+        check()
+        tab = cache[key] = torch.tensor(key, dtype=torch.int64,
+                                        device=lists[0][0].device)
+    return tab
+
+
+def _at(t: torch.Tensor, i: int) -> ctypes.c_void_p:
+    """Pointer to element ``i`` of a contiguous int32 job list."""
+    return ctypes.c_void_p(t.data_ptr() + 4 * i)
+
+
+def _check_cuda(what, blocks, others=()):
+    """Every tensor float32 (int32 for counters), contiguous, on one CUDA
+    device; a block size the kernels take."""
+    dev = blocks[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for t in blocks:
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"{what}: every buffer must be a contiguous "
+                             "float32 tensor on one device (the RDMA kernels "
+                             "are float32 only)")
+    for t in others:
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"{what}: counters must be contiguous int32 "
+                             "tensors on the device")
+    bs = blocks[0].shape[1]
+    if bs not in CUDA_BLOCK_SIZES:
+        raise ValueError(f"{what}: block size {bs} not in "
+                         f"{CUDA_BLOCK_SIZES}")
+
+
+def _span(ptr_, level):
+    return int(ptr_[level, 0]), int(ptr_[level, -1])
+
+
+def _idx(a, device):
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+# ---------------------------------------------------------------------------
+# kernel 11: the factor
+# ---------------------------------------------------------------------------
+
+
+def rdma_diag_plain(st: FactorState, thresh: float, ft: FactorTapes,
+                    level: int) -> None:
+    """Plain version of :func:`rdma_diag`."""
+    h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.pool[0].device
+    for d in range(ft.ndev):
+        lo, hi = int(ft.aptr[level, d]), int(ft.aptr[level, d + 1])
+        if hi == lo:
+            continue
+        loc, pos, inv = (_idx(h[k][lo:hi], dev) for k in
+                         ("a_loc", "a_pos", "a_inv"))
+        LU, li, ui, nt = lu_inv_plain(st.pool[d][loc], thresh)
+        st.pool[d][loc] = LU
+        st.linv[d][inv] = li
+        st.uinv[d][inv] = ui
+        st.tiny[d] += nt.to(torch.int32)
+        myr, myc = divmod(d, pc)
+        for c in range(pc):            # linv along the grid row
+            st.lC[myr * pc + c][pos] = li
+            if c != myc:
+                st.recv[myr * pc + c][level, _LI] += hi - lo
+        for r in range(pr):            # uinv down the grid column
+            st.uC[r * pc + myc][pos] = ui
+            if r != myr:
+                st.recv[r * pc + myc][level, _UI] += hi - lo
+
+
+def rdma_diag(st: FactorState, thresh: float, ft: FactorTapes,
+              level: int) -> None:
+    """Phase A of ``level``: tile LU and inverses of every rank's owned
+    diagonal steps, the inverses put into the peers' ``lC``/``uC``."""
+    if st.pool[0].device.type == "cpu":
+        return rdma_diag_plain(st, thresh, ft, level)
+    tab = st.table()
+    lo, hi = _span(ft.aptr, level)
+    if hi == lo:
+        return
+    dv = ft.dev
+    RDMA_FACTOR.count("slu_rdma_diag")
+    RDMA_FACTOR.call(
+        "slu_rdma_diag", ptr(tab), ft.ndev, ft.pc, _at(dv["a_rank"], lo),
+        _at(dv["a_loc"], lo), _at(dv["a_pos"], lo), _at(dv["a_inv"], lo),
+        hi - lo, ft.bs, float(thresh), level, stream_ptr(st.pool[0].device))
+
+
+def rdma_panel_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
+    """Plain version of :func:`rdma_panel`."""
+    h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.pool[0].device
+    for d in range(ft.ndev):
+        lo, hi = int(ft.bptr[level, d]), int(ft.bptr[level, d + 1])
+        myr, myc = divmod(d, pc)
+        side = h["b_side"][lo:hi]
+        for s, inv, buf, peers, kind in (
+                (0, st.uC[d], st.lB, [myr * pc + c for c in range(pc)], _L),
+                (1, st.lC[d], st.uB, [r * pc + myc for r in range(pr)], _U)):
+            sel = np.flatnonzero(side == s) + lo
+            if not len(sel):
+                continue
+            loc, pos, pil = (_idx(h[k][sel], dev) for k in
+                             ("b_loc", "b_pos", "b_pil"))
+            Y = st.pool[d][loc] @ inv[pil] if s == 0 else \
+                inv[pil] @ st.pool[d][loc]
+            st.pool[d][loc] = Y
+            for e in peers:
+                buf[e][pos] = Y
+                if e != d:
+                    st.recv[e][level, kind] += len(sel)
+
+
+def rdma_panel(st: FactorState, ft: FactorTapes, level: int) -> None:
+    """Phase B of ``level``: every rank's owned L panels times the
+    received U⁻¹ (put into the row peers' ``lB``) and U panels times the
+    received L⁻¹ (put into the column peers' ``uB``)."""
+    if st.pool[0].device.type == "cpu":
+        return rdma_panel_plain(st, ft, level)
+    tab = st.table()
+    lo, hi = _span(ft.bptr, level)
+    if hi == lo:
+        return
+    dv = ft.dev
+    RDMA_FACTOR.count("slu_rdma_panel")
+    RDMA_FACTOR.call(
+        "slu_rdma_panel", ptr(tab), ft.ndev, ft.pc, _at(dv["b_rank"], lo),
+        _at(dv["b_loc"], lo), _at(dv["b_pos"], lo), _at(dv["b_pil"], lo),
+        _at(dv["b_side"], lo), hi - lo, ft.bs, level,
+        stream_ptr(st.pool[0].device))
+
+
+#: Schur products per gathered batch in :func:`rdma_schur_plain`
+SCHUR_CHUNK = 256
+
+
+def rdma_schur_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
+    """Plain version of :func:`rdma_schur`."""
+    h, dev = ft.host, st.pool[0].device
+    for d in range(ft.ndev):
+        lo, hi = int(ft.sptr[level, d]), int(ft.sptr[level, d + 1])
+        c0, c1 = int(h["cptr"][lo]), int(h["cptr"][hi])
+        dst = np.repeat(h["s_tloc"][lo:hi], np.diff(h["cptr"][lo:hi + 1]))
+        for c in range(c0, c1, SCHUR_CHUNK):
+            e = min(c + SCHUR_CHUNK, c1)
+            st.pool[d].index_add_(
+                0, _idx(dst[c - c0:e - c0], dev),
+                st.lB[d][_idx(h["c_l"][c:e], dev)]
+                @ st.uB[d][_idx(h["c_u"][c:e], dev)], alpha=-1)
+
+
+def rdma_schur(st: FactorState, ft: FactorTapes, level: int) -> None:
+    """Phase C of ``level``: T −= Σ lB[lpos]·uB[upos] into every rank's
+    owned targets, one CTA per (target, strip)."""
+    if st.pool[0].device.type == "cpu":
+        return rdma_schur_plain(st, ft, level)
+    tab = st.table()
+    lo, hi = _span(ft.sptr, level)
+    if hi == lo:
+        return
+    dv = ft.dev
+    RDMA_FACTOR.count("slu_rdma_schur")
+    RDMA_FACTOR.call(
+        "slu_rdma_schur", ptr(tab), ft.ndev, _at(dv["s_rank"], lo),
+        _at(dv["s_tloc"], lo), _at(dv["cptr"], lo), ptr(dv["c_l"]),
+        ptr(dv["c_u"]), hi - lo, ft.bs, stream_ptr(st.pool[0].device))
+
+
+def rdma_factor(pools, thresh: float, ft: FactorTapes) -> FactorState:
+    """Factor the per-rank ``pools`` in place, the three phases level by
+    level; returns the factor's buffers (the pools, the owner-local
+    inverse tables, the receive counters and the tiny-pivot counts)."""
+    st = new_factor_state(pools, ft)
+    for level in range(ft.nlvl):
+        rdma_diag(st, thresh, ft, level)
+        rdma_panel(st, ft, level)
+        rdma_schur(st, ft, level)
+    return st
+
+
+def rdma_factor_plain(pools, thresh: float, ft: FactorTapes) -> FactorState:
+    """Plain version of :func:`rdma_factor` on any device."""
+    st = new_factor_state(pools, ft)
+    for level in range(ft.nlvl):
+        rdma_diag_plain(st, thresh, ft, level)
+        rdma_panel_plain(st, ft, level)
+        rdma_schur_plain(st, ft, level)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# kernel 12: the sweeps
+# ---------------------------------------------------------------------------
+
+
+def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
+                          level: int) -> None:
+    """Plain version of :func:`rdma_solve_gemm`."""
+    h, pc, dev = tp.host, tp.pc, ss.X[0].device
+    for d in range(tp.ndev):
+        lo, hi = int(tp.pptr[level, d]), int(tp.pptr[level, d + 1])
+        if hi == lo:
+            continue
+        pos = h["p_pos"][lo:hi]
+        ss.P[d][_idx(pos, dev)] = 0
+        c0, c1 = int(h["cptr"][lo]), int(h["cptr"][hi])
+        if c1 > c0:
+            dst = np.repeat(pos, np.diff(h["cptr"][lo:hi + 1]))
+            ss.P[d].index_add_(
+                0, _idx(dst, dev), pools[d][_idx(h["c_loc"][c0:c1], dev)]
+                @ ss.X[d][_idx(h["c_src"][c0:c1], dev)], alpha=-1)
+        myr, myc = divmod(d, pc)
+        send = h["p_send"][lo:hi] == 1
+        owner = myr * pc + h["p_dstc"][lo:hi]
+        for e in np.unique(owner[send]):
+            p = pos[send & (owner == e)]
+            ss.slots[e][_idx(p * pc + myc, dev)] = ss.P[d][_idx(p, dev)]
+            ss.recv[e][level, _PART] += len(p)
+
+
+def rdma_solve_gemm(pools, ss: SweepState, tp: SweepTapes,
+                    level: int) -> None:
+    """Level ``level``'s partials: every rank's P[pos] = −Σ pool[loc]·X[src]
+    over its products into the row at pos, put by non-owners into the
+    diagonal owner's slots[pos·Pc + own grid column]."""
+    if ss.X[0].device.type == "cpu":
+        return rdma_solve_gemm_plain(pools, ss, tp, level)
+    tab = ss.table(pools)
+    lo, hi = _span(tp.pptr, level)
+    if hi == lo:
+        return
+    dv = tp.dev
+    RDMA_SOLVE.count("slu_rdma_solve_gemm")
+    RDMA_SOLVE.call(
+        "slu_rdma_solve_gemm", ptr(tab), tp.ndev, tp.pc,
+        _at(dv["p_rank"], lo), _at(dv["p_pos"], lo), _at(dv["p_send"], lo),
+        _at(dv["p_dstc"], lo), _at(dv["cptr"], lo), ptr(dv["c_loc"]),
+        ptr(dv["c_src"]), hi - lo, ss.X[0].shape[1], ss.X[0].shape[2],
+        level, stream_ptr(ss.X[0].device))
+
+
+def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,
+                          level: int) -> None:
+    """Plain version of :func:`rdma_solve_diag`."""
+    h, pc, dev = tp.host, tp.pc, ss.X[0].device
+    for d in range(tp.ndev):
+        lo, hi = int(tp.dptr[level, d]), int(tp.dptr[level, d + 1])
+        if hi == lo:
+            continue
+        rows, pos, inv = (_idx(h[k][lo:hi], dev) for k in
+                          ("d_row", "d_pos", "d_inv"))
+        t = ss.X[d][rows] + ss.P[d][pos]
+        for c in range(pc):            # the peers' partials, column order
+            if c != d % pc:
+                t = t + ss.slots[d][pos * pc + c]
+        x = dinvs[d][inv] @ t
+        for e in range(tp.ndev):       # x into every rank's X
+            ss.X[e][rows] = x
+            if e != d:
+                ss.recv[e][level, _X] += hi - lo
+
+
+def rdma_solve_diag(dinvs, ss: SweepState, tp: SweepTapes,
+                    level: int) -> None:
+    """Level ``level``'s solved rows: the owner's x_I = dinv·(X[I] + P +
+    the peers' slots in grid-column order), put into every rank's X[I]."""
+    if ss.X[0].device.type == "cpu":
+        return rdma_solve_diag_plain(dinvs, ss, tp, level)
+    tab = ss.table(dinvs)
+    lo, hi = _span(tp.dptr, level)
+    if hi == lo:
+        return
+    dv = tp.dev
+    RDMA_SOLVE.count("slu_rdma_solve_diag")
+    RDMA_SOLVE.call(
+        "slu_rdma_solve_diag", ptr(tab), tp.ndev, tp.pc, _at(dv["d_rank"], lo),
+        _at(dv["d_row"], lo), _at(dv["d_pos"], lo), _at(dv["d_inv"], lo),
+        hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
+        stream_ptr(ss.X[0].device))
+
+
+def rdma_sweep(pools, dinvs, X, tp: SweepTapes, plain: bool = False):
+    """One sweep over the per-rank replicated ``X`` (each (nb, bs, nrhs),
+    updated in place); returns the sweep's state (X and the counters)."""
+    ss = new_sweep_state(X, tp)
+    gemm = rdma_solve_gemm_plain if plain else rdma_solve_gemm
+    diag = rdma_solve_diag_plain if plain else rdma_solve_diag
+    for level in range(tp.nlvl):
+        gemm(pools, ss, tp, level)
+        diag(dinvs, ss, tp, level)
+    return ss
+
+
+def rdma_solve(pools, linvs, uinvs, lt: SweepTapes, ut: SweepTapes, B,
+               plain: bool = False):
+    """L·U·x = b for the (nb, bs, nrhs) right-hand side ``B``: every rank
+    starts from a copy of B, then the L sweep and the U sweep. Returns
+    (x of shape (nb, bs, nrhs), the L sweep's and the U sweep's receive
+    counters, one (nlvl, 2) tensor per rank each)."""
+    X = [B.clone() for _ in range(lt.ndev)]
+    sl = rdma_sweep(pools, linvs, X, lt, plain)
+    su = rdma_sweep(pools, uinvs, X, ut, plain)
+    return X[0], sl.recv, su.recv
+
+
+def rdma_solve_plain(pools, linvs, uinvs, lt, ut, B):
+    """Plain version of :func:`rdma_solve` on any device."""
+    return rdma_solve(pools, linvs, uinvs, lt, ut, B, plain=True)
+
+
+def stacked_recv(recv: list, pr: int, pc: int, names) -> dict:
+    """Per-rank (nlvl, kinds) counters as the TPU tapes' (pr, pc, nlvl)
+    arrays, by kind name."""
+    a = torch.stack([r.cpu() for r in recv]).numpy()
+    return {n: a[:, :, i].reshape(pr, pc, -1) for i, n in enumerate(names)}

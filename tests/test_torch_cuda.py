@@ -14,6 +14,7 @@ import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu
 from superlu_dist_tpu_torch.ops.kernels import (clk, diag_lu, flk, schur,
                                                 solve_gemm, sweep, tck)
+from superlu_dist_tpu_torch.parallel import dist2d_rdma as rdma
 from superlu_dist_tpu_torch.utils import testing as tt
 
 pytestmark = pytest.mark.cuda
@@ -337,3 +338,76 @@ def test_float64_gssvx_matches_cpu(cuda):
         assert np.abs(op @ rg.x - b).max() / np.abs(b).max() < 1e-12
         if trans == T.Trans.TRANS:
             assert abs(rg.rcond - rc.rcond) <= 1e-8 * rc.rcond
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+@pytest.mark.parametrize("pr,pc", [(2, 2), (1, 4), (4, 1), (2, 4)])
+def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
+    """The 2D driver on the card: every entry of the RDMA factor and
+    solve (rdma_diag, rdma_panel, rdma_schur, rdma_solve_gemm,
+    rdma_solve_diag) launched, each phase against its plain version level
+    by level on the same state, the receive counters equal to the tapes,
+    and the solution against the CPU run of the same call (1e-10
+    relative)."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
+    opts = T.Options(dtype="float32", block_size=bs, dist_executor="rdma")
+    for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
+        k.reset_counts()
+    rg, lu = T.gssvx_dist(A, b, T.Grid2D(pr, pc), opts, device=cuda)
+    for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
+        assert all(v > 0 for v in k.entry_launches.values()), \
+            k.entry_launches
+    rc, _ = T.gssvx_dist(A, b, T.Grid2D(pr, pc), opts, device="cpu")
+    assert rg.berr.max() < 1e-15
+    assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
+    for k, v in lu.factor_recv().items():
+        assert np.array_equal(v, lu._ft.recv[k]), k
+    for got, tp in zip(lu.solve_recv(), (lu._lt, lu._ut)):
+        for k, v in got.items():
+            assert np.array_equal(v, tp.recv[k]), (tp.which, k)
+
+    eps = np.finfo(np.float32).eps
+    ft, plan = lu._ft, lu.plan
+
+    def close(a, p):
+        torch.cuda.synchronize()
+        for x, y in zip(a, p):
+            scale = max(1.0, float(y.float().abs().max()))
+            assert float((x.float() - y.float()).abs().max()) \
+                <= ULPS * eps * scale
+
+    from superlu_dist_tpu_torch.parallel import dist2d
+    st = rdma.new_factor_state(dist2d.init_local_pools(
+        plan, lu.dplan, lu._a3_data, np.float32, cuda), ft)
+    th = lu._thresh()
+    for level in range(ft.nlvl):
+        for kern, plain in (
+                (lambda s: rdma.rdma_diag(s, th, ft, level),
+                 lambda s: rdma.rdma_diag_plain(s, th, ft, level)),
+                (lambda s: rdma.rdma_panel(s, ft, level),
+                 lambda s: rdma.rdma_panel_plain(s, ft, level)),
+                (lambda s: rdma.rdma_schur(s, ft, level),
+                 lambda s: rdma.rdma_schur_plain(s, ft, level))):
+            ref = rdma.FactorState.of([t.clone() for t in st.tensors()],
+                                      ft.ndev)
+            kern(st)
+            plain(ref)
+            close(st.tensors(), ref.tensors())
+    for nrhs in (1, 3, 9):
+        B = torch.randn(plan.nb, plan.bs, nrhs, device=cuda)
+        for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv)):
+            ss = rdma.new_sweep_state([B.clone() for _ in lu.pool], tp)
+            for level in range(tp.nlvl):
+                for kern, plain, M in (
+                        (rdma.rdma_solve_gemm, rdma.rdma_solve_gemm_plain,
+                         lu.pool),
+                        (rdma.rdma_solve_diag, rdma.rdma_solve_diag_plain,
+                         dinv)):
+                    ref = rdma.SweepState(*([t.clone() for t in ts] for ts in
+                                            (ss.X, ss.P, ss.slots, ss.recv)))
+                    kern(M, ss, tp, level)
+                    plain(M, ref, tp, level)
+                    close(ss.X + ss.P + ss.slots + ss.recv,
+                          ref.X + ref.P + ref.slots + ref.recv)
+

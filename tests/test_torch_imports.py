@@ -54,7 +54,10 @@ def test_import_leaves_jax_unloaded():
             "superlu_dist_tpu_torch.ops.kernels.schur, "
             "superlu_dist_tpu_torch.ops.kernels.solve_gemm, "
             "superlu_dist_tpu_torch.ops.kernels.sweep, "
-            "superlu_dist_tpu_torch.ops.kernels.tck; "
+            "superlu_dist_tpu_torch.ops.kernels.tck, "
+            "superlu_dist_tpu_torch.parallel.dist2d, "
+            "superlu_dist_tpu_torch.parallel.dist2d_rdma, "
+            "superlu_dist_tpu_torch.models.dist_driver; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'superlu_dist_tpu' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,0 +1,174 @@
+"""The plain versions of the port's RDMA factor and solve
+(``superlu_dist_tpu_torch.parallel.dist2d_rdma``) against the JAX
+package's XLA 2D executors (``dist2d.build_dist_factor_fn`` and
+``build_dist_solve_fn``, about 3 s a case on the 8-device test mesh;
+``tests/test_rdma.py`` holds the JAX package's RDMA kernels equal to them
+to roundoff, and runs those kernels in interpret mode only under
+``slow``, at ~55 s a case).
+
+Tolerances: the factor's per-rank pool, linv and uinv within
+1e-4·max(1, max|JAX pool|): float32, the two executors sum in other
+orders (blocked XLA products, batched torch products), along chains of
+a few dozen products and through the tile inverses. The solve within
+1e-5 relative: float32 sweeps over the same factors."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import superlu_dist_tpu as J
+from superlu_dist_tpu.models.dist_driver import DistributedSparseLU as JDist
+from superlu_dist_tpu.ops.host.symbolic import block_symbolic as j_symbolic
+from superlu_dist_tpu.parallel import dist2d as jd
+from superlu_dist_tpu.parallel.grid import Grid2D as JGrid2D
+from superlu_dist_tpu.utils.testing import random_sparse
+import superlu_dist_tpu_torch as T
+from superlu_dist_tpu_torch.ops.host.symbolic import block_symbolic
+from superlu_dist_tpu_torch.parallel import dist2d as td
+from superlu_dist_tpu_torch.parallel import dist2d_rdma as tr
+from superlu_dist_tpu_torch.utils.testing import laplacian_2d
+from torch_state import numpy_state
+
+
+def _tiny_diag(A, rows):
+    A = A.tolil()
+    for i in rows:
+        A[i, i] = 1e-6
+    return A.tocsc()
+
+
+BS = 16
+TOL = 1e-4
+MATRICES = {
+    "lap2d12": lambda: laplacian_2d(12).tocsc(),
+    "random_unsym": lambda: random_sparse(150, density=0.04, seed=7).tocsc(),
+    # three diagonal entries of 1e-6 and no row matching: the factor
+    # replaces a tiny pivot
+    "tiny_pivots": lambda: _tiny_diag(laplacian_2d(12), (0, 37, 90)),
+}
+CASES = [("lap2d12", 2, 2), ("lap2d12", 1, 4), ("lap2d12", 4, 2),
+         ("lap2d12", 2, 4), ("random_unsym", 2, 2), ("tiny_pivots", 2, 4)]
+
+
+@pytest.fixture(scope="module")
+def factors():
+    """Per case: the port's plain factor state and the JAX XLA executor's
+    (pools, linvL, uinvL, tiny), from one plan of A."""
+    out = {}
+
+    def get(name, pr, pc):
+        key = (name, pr, pc)
+        if key not in out:
+            A = MATRICES[name]()
+            plan, jplan = block_symbolic(A, BS), j_symbolic(A, BS)
+            thresh = float(np.float32(np.sqrt(np.finfo(np.float32).eps)
+                                      * np.abs(A.data).max()))
+            dp = td.partition_plan(plan, pr, pc)
+            ft = tr.build_factor_tapes(plan, dp, "cpu")
+            st = tr.rdma_factor_plain(
+                td.init_local_pools(plan, dp, A.data, np.float32, "cpu"), thresh,
+                ft)
+            jdp = jd.partition_plan(jplan, pr, pc)
+            grid = JGrid2D(pr, pc)
+            fn = jd.build_dist_factor_fn(jplan, jdp, grid)
+            jout = fn(jd.init_local_pools(jplan, jdp, A, np.float32, grid),
+                      jnp.asarray(thresh, jnp.float32),
+                      jd.make_dist_factor_tapes(jdp))
+            out[key] = (plan, dp, ft, st,
+                        [np.asarray(a) for a in jout[:3]], int(jout[3]))
+        return out[key]
+
+    return get
+
+
+def _ranks(ts, pr, pc):
+    return np.stack([t.numpy() for t in ts]).reshape(
+        (pr, pc) + tuple(ts[0].shape))
+
+
+@pytest.mark.parametrize("name,pr,pc", CASES)
+def test_factor_plain_matches_jax_xla(factors, name, pr, pc):
+    plan, dp, ft, st, (jpool, jlinv, juinv), jtiny = factors(name, pr, pc)
+    scale = max(1.0, float(np.abs(jpool).max()))
+    # local slot 1 is the trash block, which the XLA executor's masked
+    # lanes write and the port's unpadded jobs never touch
+    pool = _ranks(st.pool, pr, pc)
+    assert float(np.abs(pool[:, :, 2:] - jpool[:, :, 2:]).max()) \
+        <= TOL * scale
+    assert not pool[:, :, :2].any()
+    for got, ref in ((st.linv, jlinv), (st.uinv, juinv)):
+        assert float(np.abs(_ranks(got, pr, pc) - ref).max()) <= TOL * scale
+    assert sum(int(t.item()) for t in st.tiny) == jtiny
+    if name == "tiny_pivots":
+        assert jtiny > 0
+
+
+@pytest.mark.parametrize("name,pr,pc", CASES)
+def test_receive_counts_equal_recv_tapes(factors, name, pr, pc):
+    plan, dp, ft, st, _, _ = factors(name, pr, pc)
+    got = tr.stacked_recv(st.recv, pr, pc, tr.FACTOR_RECV)
+    for k in tr.FACTOR_RECV:
+        assert np.array_equal(got[k], ft.recv[k]), k
+    # every put of the factor was tallied by its receiver
+    assert sum(int(v.sum()) for v in got.values()) == sum(
+        int(v.sum()) for v in tr.build_rdma_recv_tapes(plan, dp).values())
+
+
+@pytest.mark.parametrize("name,pr,pc", CASES)
+def test_unwritten_inverse_rows_are_zero(factors, name, pr, pc):
+    """Rows of a rank's linvL/uinvL past its own diagonal steps are never
+    written and stay zero (the solve reads them, as on the TPU)."""
+    plan, dp, ft, st, _, _ = factors(name, pr, pc)
+    owned = np.asarray(dp.dptr).reshape(pr * pc, -1)[:, -1]
+    for d in range(pr * pc):
+        for t in (st.linv[d], st.uinv[d]):
+            assert not t[owned[d]:].any()
+            assert torch.isfinite(t).all()
+
+
+@pytest.fixture(scope="module", params=[(2, 2), (2, 4)],
+                ids=lambda g: f"{g[0]}x{g[1]}")
+def jax_factored(request):
+    pr, pc = request.param
+    A = random_sparse(150, density=0.04, seed=7)
+    opts = dict(dtype="float32", block_size=BS)
+    jlu = JDist(A, JGrid2D(pr, pc), J.Options(**opts))
+    state = numpy_state(jlu, T.Options(**opts))
+    state.update(pool=np.asarray(jlu.pool), linv=np.asarray(jlu.linv),
+                 uinv=np.asarray(jlu.uinv))
+    plu = T.DistributedSparseLU.from_numpy_state(state, T.Grid2D(pr, pc),
+                                                 device="cpu")
+    return jlu, plu
+
+
+@pytest.mark.parametrize("nrhs", [1, 3])
+def test_solve_plain_matches_jax_xla(jax_factored, nrhs):
+    jlu, plu = jax_factored
+    plan = plu.plan
+    assert plu.dplan.n_local == jlu.dplan.n_local
+    B = np.random.default_rng(nrhs).standard_normal(
+        (plan.n_pad, nrhs)).astype(np.float32)
+    ref = np.asarray(jlu._solve_fn(nrhs)(jlu.pool, jlu.linv, jlu.uinv,
+                                         jlu.stapes, jnp.asarray(B)))
+    X, rl, ru = tr.rdma_solve_plain(
+        plu.pool, plu.linv, plu.uinv, plu._lt, plu._ut,
+        torch.as_tensor(B).view(plan.nb, plan.bs, nrhs))
+    got = X.reshape(plan.n_pad, nrhs).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    pr, pc = plu.grid.shape
+    for recv, tp in ((rl, plu._lt), (ru, plu._ut)):
+        counts = tr.stacked_recv(recv, pr, pc, tr.SOLVE_RECV)
+        for k in tr.SOLVE_RECV:
+            assert np.array_equal(counts[k], tp.recv[k]), (tp.which, k)
+
+
+def test_from_numpy_state_checks_the_partition(jax_factored):
+    jlu, plu = jax_factored
+    state = numpy_state(jlu, T.Options(dtype="float32", block_size=BS))
+    state.update(pool=np.asarray(jlu.pool)[:, :, :-1],
+                 linv=np.asarray(jlu.linv), uinv=np.asarray(jlu.uinv))
+    with pytest.raises(ValueError, match="partition"):
+        T.DistributedSparseLU.from_numpy_state(state, plu.grid,
+                                               device="cpu")
