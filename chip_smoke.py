@@ -23,7 +23,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. the other factor executors on the same matrix, each driven and
    checked like the main path: ``executor="flk"`` (flk and diag_lu, no
    clk_update), ILU(1) (flk; its slots and refinement steps printed) and
-   ``executor="pallas"`` (diag_lu, trsm, schur); then flk, schur and trsm
+   ``executor="pallas"`` (diag_lu, trsm, schur), ILU(1)'s two calls held
+   to bit-equal x and equal refinement steps; then flk, schur and trsm
    against their plain versions level by level on their paths' inputs,
    and each whole factor against ``factor_plain`` on its plan; then
    ``executor="tck"`` on the same matrix (tck_update, diag_lu, clk_trsm),
@@ -36,12 +37,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``gssvx(A, b, Options(dtype="float32", block_size=128,
    trans=Trans.TRANS, condition_number=True))``, driven and checked like
    the main path in Aᵀ (solve_gemm and diag_apply must launch, rcond must
-   lie in (0, 1]); then the reuse modes on perturbed values
-   (SamePattern_SameRowPerm, SamePattern, FACTORED), each held to the
-   same limits with the phases and launches that its mode implies; then
-   solve_gemm and diag_apply against their plain versions level by
-   level, ``transpose=True`` on the transposed tapes and
-   ``transpose=False`` on the main path's L and U tapes; and at block
+   lie in (0, 1], two transposed solves of one b must be bit-equal); then
+   the reuse modes on perturbed values (SamePattern_SameRowPerm,
+   SamePattern, FACTORED), each held to the same limits with the phases
+   and launches that its mode implies; then the fused ``solve_level``
+   (pass 1, solve_gemm, over chunks of the chains; pass 2, diag_apply,
+   per row) against ``solve_level_plain`` level by level on the
+   transposed tapes, each pass timed beside its library call, with the
+   costliest levels' chunks and CTAs; the pair against the library pair
+   at 32 right-hand sides; and the pair with ``transpose=False`` on the
+   main path's L and U tapes beside the sweep (printed); and at block
    size 64 on ``laplacian_3d_unsym(16)``: x against scipy's
    ``spsolve(A.T, b)``, rcond against the dense 1-norm truth, ``logdet``
    against the plain CPU factor and ``numpy.linalg.slogdet``, and a
@@ -56,9 +61,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    like the main path (tck_update, diag_lu, clk_trsm and sweep must
    launch, clk_update, flk and schur must not), a warm call,
    ``tck_update`` against its plain version level by level and the
-   whole factor against the float64 reference; then clk, flk and the
-   level executor on the same plan (SamePattern_SameRowPerm refactors),
-   each held to the same limits, with clk_update's costliest levels;
+   whole factor against the float64 reference; the solve_level pair with
+   ``transpose=False`` beside the sweep on its L and U tapes (printed);
+   then clk, flk and the level executor on the same plan
+   (SamePattern_SameRowPerm refactors), each held to the same limits,
+   with clk_update's costliest levels;
 9. float64 on the card, which runs the level executor:
    ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
    ``condition_number`` on lap3d32u, each held to the same limits; every
@@ -72,7 +79,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    against the TPU's receive tapes, a warm call beside the level
    executor's FACT, each entry against its plain version level by level
    on the path's inputs, the gathered factor against the float64
-   reference; ``dist_executor="xla"``, which runs the same entries; and at
+   reference, the warm call's x and refinement steps equal to the first
+   call's; ``dist_executor="xla"``, which runs the same entries; and at
    block size 64 on lap3d16 the grids 2x2, 1x4, 4x1 and 2x4, x against
    scipy's;
 11. one JSON line of per-kernel results (the float64 instantiations in
@@ -228,9 +236,11 @@ def main() -> None:
         print(f"{name}: {lus[name].plan.nslots} slots, {r.stat.refine_steps}"
               f" refinement steps, executor {r.stat.counters['executor']}",
               flush=True)
-        st = warm_call(ctx, name, A, b, o)
+        r2 = warm_call(ctx, name, A, b, o)
         if name == "pallas":
-            ctx["level_fact_ms"] = st.device_ms["FACT"]
+            ctx["level_fact_ms"] = r2.stat.device_ms["FACT"]
+        if name == "ilu1":
+            check_repeat("ILU(1) lap3d32", r, r2)
     # each new kernel's launches come from the path that it serves
     launches["flk"] = got["flk"]["flk"]
     launches["schur"] = got["pallas"]["schur"]
@@ -355,7 +365,7 @@ def drive(ctx, what, A, b, opts, need, zero=(), lu=None, grid=None):
 def warm_call(ctx, what, A, b, opts, grid=None):
     """The same call again, with kernels loaded and allocator warm: the
     first call's phases also hold one-time module loads. Returns its
-    Stats."""
+    result."""
     from superlu_dist_tpu_torch import gssvx, gssvx_dist
     t0 = time.perf_counter()
     res, _ = gssvx(A, b, opts) if grid is None else gssvx_dist(A, b, grid,
@@ -364,7 +374,18 @@ def warm_call(ctx, what, A, b, opts, grid=None):
     print_phases(f"{what}, second call", time.perf_counter() - t0, res.stat)
     if float(np.max(res.berr)) > 1e-12:
         fail(f"{what} second call: berr {np.max(res.berr):.3e} > 1e-12")
-    return res.stat
+    return res
+
+
+def check_repeat(what, first, second):
+    """Two calls of one system give bit-equal x and the same refinement
+    steps (every sum of the path has a fixed order on the card)."""
+    same = np.array_equal(first.x, second.x)
+    steps = (first.stat.refine_steps, second.stat.refine_steps)
+    print(f"{what}: two calls bit-equal x {same}, refinement steps "
+          f"{steps[0]} / {steps[1]}", flush=True)
+    if not same or steps[0] != steps[1]:
+        fail(f"{what}: two calls of the same system differ")
 
 
 def print_phases(what, wall, st):
@@ -451,18 +472,24 @@ class Checker:
         a = [t.clone() for t in state]
         p = [t.clone() for t in state]
         ms = _timed(torch, lambda: kern(*a))
+        self.record(name, ms, _timed(torch, lambda: plain(*p)), a, p)
+        return a, ms
+
+    def record(self, name, ms, plain_ms, got, want):
+        """Add a kernel's and its plain version's ms to ``name`` and hold
+        the kernel's outputs ``got`` to the plain ones ``want``."""
         o = self.out[name]
         o["ms"] += ms
-        o["plain_ms"] += _timed(torch, lambda: plain(*p))
-        err = max(float((x - y).abs().max()) for x, y in zip(a, p))
-        scale = max(1.0, max(float(y.abs().max()) for y in p))
-        rel = REL_TOL_F64 if state[0].dtype == torch.float64 else REL_TOL
+        o["plain_ms"] += plain_ms
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        scale = max(1.0, max(float(y.abs().max()) for y in want))
+        dtype = want[0].dtype
+        rel = REL_TOL_F64 if dtype == self.torch.float64 else REL_TOL
         o["max_abs_err"] = max(o["max_abs_err"], err)
         o["tol"] = max(o["tol"], rel * scale)
         if err > rel * scale:
-            fail(f"{name} (bs={self.bs}, {state[0].dtype}) disagrees with its "
+            fail(f"{name} (bs={self.bs}, {dtype}) disagrees with its "
                  f"plain version: {err:.3e} > {rel * scale:.3e}")
-        return a, ms
 
     def library(self, name, fn):
         """One untimed call first: the kernels ran warm on their path, so
@@ -734,6 +761,7 @@ def trans_phase(ctx, rng, lu_main, checks):
               f" triples, longest destination chain {chain.max()}",
               flush=True)
     warm_call(ctx, "trans", A, b, opts)
+    check_trans_repeat("trans", lu, b)
 
     # the reuse modes (pddrive1/2/3), on values perturbed from a seed
     pr = np.random.default_rng(7)
@@ -768,78 +796,185 @@ def trans_phase(ctx, rng, lu_main, checks):
     return got
 
 
+def check_trans_repeat(what, lu, b):
+    """Two transposed solves of one b give bit-equal x."""
+    from superlu_dist_tpu_torch import Trans
+    same = np.array_equal(lu.solve(b, trans=Trans.TRANS),
+                          lu.solve(b, trans=Trans.TRANS))
+    print(f"{what}: two transposed solves of one b bit-equal {same}",
+          flush=True)
+    if not same:
+        fail(f"{what}: two transposed solves of one b differ")
+
+
 def check_solve(lu, ctx, lu_main):
-    """solve_gemm and diag_apply against their plain versions, level by
-    level from the same X (the solve goes on with the kernel's output):
-    ``transpose=True`` over one transposed solve (Uᵀ, then Lᵀ) of ``lu``,
-    whose numbers are returned, and ``transpose=False`` over one L+U
-    solve on ``lu_main``'s tapes (checked and printed). library_ms, each
-    timed warm into a preallocated output: diag_apply is a batched
-    product per level, one ``torch.bmm`` on the gathered Dinv[I]ᵀ
-    (Dinv[I]) and X[I]; solve_gemm is X − M·X with M the level's
-    block-sparse matrix of op(pool[slot]) at (dst, src), one
-    ``torch.addmm`` of a BSR tensor (cuSPARSE), held against the kernel's
-    output too."""
+    """The transposed solve's kernels against their plain versions on
+    ``lu``, level by level from the same X over one transposed solve (Uᵀ,
+    then Lᵀ) of one right-hand side, the solve going on with the kernel's
+    output: solve_level (pass 1 over the level's chunks, then the fused
+    pass 2) against solve_level_plain; pass 1's time is solve_gemm's,
+    pass 2's diag_apply's, and the plain versions are timed phase by
+    phase. library_ms, each timed warm into a preallocated output:
+    solve_gemm is X − M·X with M the level's block-sparse matrix of
+    op(pool[slot]) at (dst, src), one ``torch.addmm`` of a BSR tensor
+    (cuSPARSE), held against the plain solve_gemm's output too;
+    diag_apply is a batched product per level, one ``torch.bmm`` on the
+    gathered Dinv[I]ᵀ and X[I]. Returns these numbers; then prints the
+    pair against the library pair at 32 right-hand sides, and the pair
+    with ``transpose=False`` on ``lu_main``'s L and U tapes beside the
+    sweep."""
     torch, sg = ctx["torch"], ctx["solve_gemm"]
-    rng = np.random.default_rng(2)
-    out = None
+    plan = lu.plan
     tu, tl = lu._ttapes
-    for transpose, lu_, tapes in (
-            (True, lu, ((tu, lu.uinv), (tl, lu.linv))),
-            (False, lu_main, ((lu_main._ltape, lu_main.linv),
-                              (lu_main._utape, lu_main.uinv)))):
-        plan = lu_.plan
-        ck = Checker(torch, plan.bs, ("solve_gemm", "diag_apply"),
-                     library=("solve_gemm", "diag_apply"))
-        X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
-                            dtype=lu_.pool.dtype, device=lu_.device)
-        per_level = []
-        for sweep_name, (tape, dinv) in zip(("U^T", "L^T") if transpose
-                                            else ("L", "U"), tapes):
-            for lvl in range(tape.nlvl):
-                M = level_bsr(torch, lu_.pool, tape, lvl, transpose,
-                              plan.nb)
-                if M is not None:
-                    X2 = X.view(-1, X.shape[2])
-                    C = torch.empty_like(X2)
-                    ck.library("solve_gemm", lambda: torch.addmm(
-                        X2, M, X2, alpha=-1, out=C))
-                (X,), ms = ck.compare(
-                    "solve_gemm", lambda x: sg.solve_gemm(
-                        lu_.pool, x, tape, lvl, transpose),
-                    lambda x: sg.solve_gemm_plain(lu_.pool, x, tape, lvl,
-                                                  transpose), [X])
-                if M is not None:
-                    lerr = float((C.view_as(X) - X).abs().max())
-                    if lerr > REL_TOL * max(1.0, float(X.abs().max())):
-                        fail(f"solve_gemm's library call (BSR addmm) "
-                             f"disagrees with the kernel: {lerr:.3e}")
-                    del M, X2, C
-                per_level.append((ms, sweep_name, lvl, tape))
-                r = tape.rows[int(tape.dptr[lvl]):int(tape.dptr[lvl + 1])]
-                Dg = dinv[r.long()]
-                Dg = Dg.mT if transpose else Dg
-                Xg = X[r.long()]
-                C = torch.empty_like(Xg)
-                ck.library("diag_apply", lambda: torch.bmm(Dg, Xg, out=C))
-                del Dg, Xg, C
-                (X,), _ = ck.compare(
-                    "diag_apply", lambda x: sg.diag_apply(
-                        dinv, x, tape, lvl, transpose),
-                    lambda x: sg.diag_apply_plain(dinv, x, tape, lvl,
-                                                  transpose), [X])
-        bounds = solve_bounds(plan, [t for t, _ in tapes], lu_.dtype)
-        for name, o in ck.out.items():
-            o.update(bounds[name])
-            print(f"bs={plan.bs} {lu_.dtype} {name} transpose={transpose}: "
-                  f"max_abs_err {o['max_abs_err']:.3e} (tolerance "
-                  f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
-                  f"{o['plain_ms']:.3f} ms, library {o['library_ms']:.3f} "
-                  f"ms per solve", flush=True)
-        if transpose:
-            out = ck.out
-            print_solve_levels(per_level)
-    return out
+    tapes = ((tu, lu.uinv), (tl, lu.linv))
+    ck = Checker(torch, plan.bs, ("solve_gemm", "diag_apply"),
+                 library=("solve_gemm", "diag_apply"))
+    rng = np.random.default_rng(2)
+    X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
+                        dtype=lu.pool.dtype, device=lu.device)
+    per_level = []
+    for name, (tape, dinv) in zip(("U^T", "L^T"), tapes):
+        for lvl in range(tape.nlvl):
+            M = level_bsr(torch, lu.pool, tape, lvl, True, plan.nb)
+            if M is not None:
+                X2 = X.view(-1, X.shape[2])
+                C = torch.empty_like(X2)
+                ck.library("solve_gemm", lambda: torch.addmm(
+                    X2, M, X2, alpha=-1, out=C))
+                ref = X.clone()
+                sg.solve_gemm_plain(lu.pool, ref, tape, lvl, True)
+                lerr = float((C.view_as(ref) - ref).abs().max())
+                if lerr > REL_TOL * max(1.0, float(ref.abs().max())):
+                    fail(f"solve_gemm's library call (BSR addmm) "
+                         f"disagrees with the plain version: {lerr:.3e}")
+                del M, X2, C, ref
+            r = tape.rows[int(tape.dptr[lvl]):int(tape.dptr[lvl + 1])].long()
+            Dg, Xg = dinv[r].mT, X[r]
+            C = torch.empty_like(Xg)
+            ck.library("diag_apply", lambda: torch.bmm(Dg, Xg, out=C))
+            del Dg, Xg, C
+            X, ms = compare_level(ck, sg, lu.pool, dinv, X, tape, lvl)
+            per_level.append(ms + (name, lvl, tape))
+    bounds = solve_bounds(plan, [t for t, _ in tapes], lu.dtype)
+    for name, o in ck.out.items():
+        o.update(bounds[name])
+        print(f"bs={plan.bs} {lu.dtype} {name} transpose=True: "
+              f"max_abs_err {o['max_abs_err']:.3e} (tolerance "
+              f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
+              f"{o['plain_ms']:.3f} ms, library {o['library_ms']:.3f} "
+              f"ms per solve", flush=True)
+    print_solve_levels(per_level)
+    wide_pair(lu, ctx, 32)
+    notrans_pair(lu_main, ctx)
+    return ck.out
+
+
+def compare_level(ck, sg, pool, dinv, X, tape, lvl):
+    """One level of a transposed sweep: solve_chunks then solve_rows (the
+    fused solve_level) and the two plain phases on copies of X, each timed
+    alone; holds the kernels' X to the plain one and returns it with
+    (pass 1 ms, pass 2 ms)."""
+    torch = ck.torch
+    a, p = X.clone(), X.clone()
+    held = []
+    ms1 = _timed(torch, lambda: held.append(
+        sg.solve_chunks(pool, a, tape, lvl, True)))
+    ms2 = _timed(torch, lambda: sg.solve_rows(dinv, a, held[0], tape, lvl,
+                                              True))
+    pm1 = _timed(torch, lambda: sg.solve_gemm_plain(pool, p, tape, lvl, True))
+    pm2 = _timed(torch, lambda: sg.diag_apply_plain(dinv, p, tape, lvl,
+                                                    True))
+    ck.record("solve_gemm", ms1, pm1, [a], [p])
+    ck.record("diag_apply", ms2, pm2, [a], [p])
+    return a, (ms1, ms2)
+
+
+def wide_pair(lu, ctx, nrhs):
+    """One transposed solve of ``nrhs`` right-hand sides: the kernel pair
+    (pass 1, pass 2) against the library pair (BSR addmm, bmm) level by
+    level, each timed warm with L2 flushed (printed)."""
+    torch, sg = ctx["torch"], ctx["solve_gemm"]
+    plan = lu.plan
+    X = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (plan.nb, plan.bs, nrhs)), dtype=lu.pool.dtype, device=lu.device)
+    warm_solve(sg, lu.pool, zip(lu._ttapes, (lu.uinv, lu.linv)), X, True)
+    t = dict(p1=0.0, p2=0.0, addmm=0.0, bmm=0.0)
+
+    def lib(key, fn):
+        fn()
+        t[key] += _timed(torch, fn)
+
+    for tape, dinv in zip(lu._ttapes, (lu.uinv, lu.linv)):
+        for lvl in range(tape.nlvl):
+            M = level_bsr(torch, lu.pool, tape, lvl, True, plan.nb)
+            if M is not None:
+                X2 = X.view(-1, nrhs)
+                C = torch.empty_like(X2)
+                lib("addmm", lambda: torch.addmm(X2, M, X2, alpha=-1, out=C))
+                del M, X2, C
+            r = tape.rows[int(tape.dptr[lvl]):int(tape.dptr[lvl + 1])].long()
+            Dg, Xg = dinv[r].mT, X[r]
+            C = torch.empty_like(Xg)
+            lib("bmm", lambda: torch.bmm(Dg, Xg, out=C))
+            del Dg, Xg, C
+            held = []
+            t["p1"] += _timed(torch, lambda: held.append(
+                sg.solve_chunks(lu.pool, X, tape, lvl, True)))
+            t["p2"] += _timed(torch, lambda: sg.solve_rows(
+                dinv, X, held[0], tape, lvl, True))
+    if not bool(torch.isfinite(X).all()):
+        fail(f"the transposed solve at nrhs={nrhs} is not finite")
+    print(f"bs={plan.bs} {lu.dtype} transposed solve at nrhs={nrhs}: kernel "
+          f"pair {t['p1'] + t['p2']:.3f} ms (solve_gemm {t['p1']:.3f}, "
+          f"diag_apply {t['p2']:.3f}), library pair "
+          f"{t['addmm'] + t['bmm']:.3f} ms (BSR addmm {t['addmm']:.3f}, bmm "
+          f"{t['bmm']:.3f}) per solve", flush=True)
+
+
+def warm_solve(sg, pool, tapes, X, transpose):
+    """One untimed solve_level sweep over ``tapes`` on a copy of X: the
+    card loads a kernel on its first launch, which no timed call should
+    hold."""
+    W = X.clone()
+    for tape, dinv in tapes:
+        for lvl in range(tape.nlvl):
+            sg.solve_level(pool, dinv, W, tape, lvl, transpose)
+
+
+def notrans_pair(lu, ctx, what=""):
+    """solve_level with ``transpose=False`` on ``lu``'s L and U tapes
+    beside the sweep kernel that the NOTRANS solve runs, level by level
+    from the same X over one L+U solve of one right-hand side, each timed
+    alone with L2 flushed; the pair's output held to the sweep's
+    (REL_TOL). Printed only."""
+    torch, sg, sweep = ctx["torch"], ctx["solve_gemm"], ctx["sweep"]
+    plan = lu.plan
+    X = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (plan.nb, plan.bs, 1)), dtype=lu.pool.dtype, device=lu.device)
+    warm_solve(sg, lu.pool, ((lu._ltape, lu.linv), (lu._utape, lu.uinv)), X,
+               False)
+    t = dict(p1=0.0, p2=0.0, sweep=0.0)
+    err = 0.0
+    for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
+        for lvl in range(tape.nlvl):
+            a, w = X.clone(), X.clone()
+            held = []
+            t["p1"] += _timed(torch, lambda: held.append(
+                sg.solve_chunks(lu.pool, a, tape, lvl, False)))
+            t["p2"] += _timed(torch, lambda: sg.solve_rows(
+                dinv, a, held[0], tape, lvl, False))
+            t["sweep"] += _timed(torch, lambda: sweep.sweep_level(
+                lu.pool, dinv, w, tape, lvl))
+            err = max(err, float((a - w).abs().max()))
+            rel = REL_TOL_F64 if a.dtype == torch.float64 else REL_TOL
+            if err > rel * max(1.0, float(w.abs().max())):
+                fail(f"solve_level transpose=False disagrees with the "
+                     f"sweep: {err:.3e}")
+            X = a
+    print(f"bs={plan.bs} {lu.dtype} {what}NOTRANS L+U solve: solve_level "
+          f"pair {t['p1'] + t['p2']:.3f} ms (pass 1 {t['p1']:.3f}, pass 2 "
+          f"{t['p2']:.3f}), sweep {t['sweep']:.3f} ms; max abs difference "
+          f"{err:.3e}", flush=True)
 
 
 def level_bsr(torch, pool, tape, lvl, transpose, nb):
@@ -869,18 +1004,23 @@ def level_bsr(torch, pool, tape, lvl, transpose, nb):
 
 
 def print_solve_levels(per_level, top=6):
-    """Where solve_gemm's time goes in one transposed solve: the costliest
-    levels, with their destination rows, products and the longest chain
-    that one CTA walks."""
-    total = sum(ms for ms, *_ in per_level)
-    print(f"solve_gemm transpose=True by level (kernel {total:.3f} ms over "
-          f"{len(per_level)} levels; top {top}):")
-    for ms, name, lvl, tape in sorted(per_level, key=lambda t: -t[0])[:top]:
+    """Where one transposed solve's time goes: the costliest levels by
+    pass 1 + pass 2, with their destination rows, products, longest
+    chain, chunks (pass 1's CTAs at one right-hand side; pass 2 runs one
+    CTA per row)."""
+    t1 = sum(m1 for m1, *_ in per_level)
+    t2 = sum(m2 for _, m2, *_ in per_level)
+    print(f"transposed solve by level (pass 1 {t1:.3f} ms, pass 2 "
+          f"{t2:.3f} ms over {len(per_level)} levels; top {top}):")
+    for m1, m2, name, lvl, tape in sorted(per_level,
+                                          key=lambda t: -t[0] - t[1])[:top]:
         lo, hi = int(tape.dptr[lvl]), int(tape.dptr[lvl + 1])
         chain = np.diff(tape.host["rowptr"][lo:hi + 1])
-        print(f"  {name} level {lvl:3d}: kernel {ms:9.3f} ms; {hi - lo} rows, "
-              f"{int(chain.sum())} products, longest chain "
-              f"{int(chain.max(initial=0))}", flush=True)
+        nq = int(tape.qptr[lvl + 1] - tape.qptr[lvl])
+        print(f"  {name} level {lvl:3d}: pass 1 {m1:8.3f} ms, pass 2 "
+              f"{m2:8.3f} ms; {hi - lo} rows, {int(chain.sum())} products, "
+              f"longest chain {int(chain.max(initial=0))}, {nq} chunks "
+              f"(pass 1 CTAs), {hi - lo} pass 2 CTAs", flush=True)
 
 
 def solve_bounds(plan, tapes, dtype):
@@ -1003,6 +1143,7 @@ def tck_phase(ctx, rng, checks, launches):
     warm_call(ctx, "tck lap3d50", A, b, opts)
     checks.update(check_tck(lu, ctx, report=True))
     print_check("tck_update", checks["tck_update"], launches["tck_update"])
+    notrans_pair(lu, ctx, "lap3d50 ")
 
     ssr = Fact.SAME_PATTERN_SAME_ROWPERM
     for exc, need, zero in (
@@ -1059,6 +1200,7 @@ def f64_phase(ctx, rng, checks, launches):
         fail(f"float64 trans: rcond {res.rcond} not in (0, 1]")
     print(f"float64 trans: rcond {res.rcond:.6e}, executor "
           f"{res.stat.counters['executor']} (asked for tck)", flush=True)
+    check_trans_repeat("float64 trans", lut, bu)
     c = check_solve(lut, ctx, lu)
     for name in ("solve_gemm", "diag_apply"):
         checks[f"{name}_f64"] = c[name]
@@ -1103,7 +1245,9 @@ def dist_phase(ctx, rng, checks, launches):
         launches[k] = got[k]
     print_grid(lu, peak, entries)
     check_recv(lu, "grid 2x2 rdma")
-    st = warm_call(ctx, "grid 2x2 rdma", A, b, opts, grid=grid)
+    r2 = warm_call(ctx, "grid 2x2 rdma", A, b, opts, grid=grid)
+    check_repeat("grid 2x2 rdma lap3d32", res, r2)
+    st = r2.stat
     print(f"grid 2x2 rdma, second call: device ms FACT "
           f"{st.device_ms['FACT']:.3f}, SOLVE {st.device_ms['SOLVE']:.3f}, "
           f"REFINE {st.device_ms['REFINE']:.3f} ({st.refine_steps} steps); "

@@ -133,17 +133,8 @@ class DistributedSparseLU(SparseLU):
         """The COO of the current A, split evenly over the ranks, for the
         distributed residual (re-made per factorization, so a refactor
         refines against its own values)."""
-        rows, cols, vals = _dist2d.make_coo_shards(
-            self._A_orig, self.grid.size, self.refine_dtype)
-
-        def t(a, dtype):
-            return torch.as_tensor(a, device=self.device, dtype=dtype)
-
-        rdt = _TORCH[self.refine_dtype]
-        self._coo_shards = [(t(r, torch.int64), t(c, torch.int64),
-                             t(v, rdt)) for r, c, v in zip(rows, cols, vals)]
-        self._coo_shards_abs = [(r, c, v.abs())
-                                for r, c, v in self._coo_shards]
+        self._coo_shards = _dist2d.coo_shards(
+            self._A_orig, self.grid.size, self.refine_dtype, self.device)
 
     def _device_factor(self, A3: sp.csc_matrix):
         self.pool = self.linv = self.uinv = self._fstate = None
@@ -226,8 +217,8 @@ class DistributedSparseLU(SparseLU):
         if trans != Trans.NOTRANS:
             _todo("the transposed residual", _TRANS_ITEM)
         r = b - _dist2d.dist_spmv(self._coo_shards, x, self.n)
-        denom = _dist2d.dist_spmv(self._coo_shards_abs, x.abs(), self.n) \
-            + b.abs()
+        denom = _dist2d.dist_spmv(self._coo_shards, x.abs(), self.n,
+                                  absolute=True) + b.abs()
         nz = self._max_row_nnz() + 1
         safe1 = nz * np.finfo(np.float64).tiny
         safe2 = safe1 / np.finfo(np.float64).eps

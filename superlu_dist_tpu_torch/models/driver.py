@@ -652,13 +652,13 @@ class SparseLU:
         """Componentwise backward error with the safe1/safe2 guards
         (reference: pdgsrfs.c:189-231) on the device, of the operator A
         or, for TRANS/CONJ, Aᵀ (real dtypes); returns (berr, r)."""
-        rows, cols, vals = self._coo_ref
+        A = self._coo_ref
         if trans == Trans.NOTRANS:
-            ax = _spmv.spmv(rows, cols, vals, x, self.n)
-            denom = _spmv.abs_spmv(rows, cols, vals, x.abs(), self.n)
+            ax = _spmv.spmv(A, x)
+            denom = _spmv.abs_spmv(A, x.abs())
         else:
-            ax = _spmv.spmv_t(rows, cols, vals, x, self.n)
-            denom = _spmv.abs_spmv_t(rows, cols, vals, x.abs(), self.n)
+            ax = _spmv.spmv_t(A, x)
+            denom = _spmv.abs_spmv_t(A, x.abs())
         r = b - ax
         denom = denom + b.abs()
         nz = self._max_row_nnz() + 1

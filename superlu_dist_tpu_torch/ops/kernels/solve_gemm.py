@@ -5,16 +5,27 @@ Counterpart of the JAX package's ``pallas_exec._solve_gemm_kernel`` and
 ``_diag_apply_kernel`` (``make_solve_gemm_call``/``make_diag_apply_call``,
 driven by ``_pallas_solve_executor``) and of the level loop of
 ``blocklu._solve_core(transpose=True)``, which is the JAX package's
-transposed solve. Per level, on one stream (``csrc/solve_gemm.cu``):
+transposed solve. Per level, with op(M) = Mᵀ under ``transpose``:
 
-1. :func:`solve_gemm`: X[dst] −= op(pool[slot])·X[src] over the level's
-   triples, grouped by destination (one CTA sums a row's products);
-2. :func:`diag_apply`: X[I] = op(dinv[I])·X[I] over the level's rows;
+- :func:`solve_gemm`: X[dst] −= op(pool[slot])·X[src] over the level's
+  triples;
+- :func:`diag_apply`: X[I] = op(dinv[I])·X[I] over the level's rows;
+- :func:`solve_level`: both, X[I] = op(dinv[I])·(X[I] − Σ op(pool)·X[src]).
 
-with op(M) = Mᵀ under ``transpose``. :func:`solve_transposed` runs the Uᵀ
-forward sweep with ``uinv`` and then the Lᵀ backward sweep with ``linv``
-(both transposed) on the tapes of :func:`build_trans_tape`, which keep the
-JAX package's level of every block row (``blocklu.trans_schedule``). With
+On the card (``csrc/solve_gemm.cu``) a level runs in two passes on one
+stream: :func:`solve_chunks` (pass 1, one CTA per chunk of a
+destination's chain, ``SweepTape.chunkptr``/``cptr``) writes each chunk's
+sum into a scratch buffer, and :func:`solve_rows` (pass 2, one CTA per
+row) subtracts a row's chunk sums in chunk order and applies the
+diagonal. :func:`solve_level` is pass 1 and pass 2 with the diagonal;
+:func:`solve_gemm` is pass 1 and pass 2 without it; :func:`diag_apply`
+is pass 2 without partials. SOLVE_GEMM counts the launches of pass 1 and
+of solve_gemm's pass 2, DIAG_APPLY those of the other pass 2 launches.
+
+:func:`solve_transposed` runs :func:`solve_level` over the Uᵀ forward
+sweep with ``uinv`` and then the Lᵀ backward sweep with ``linv`` (both
+transposed) on the tapes of :func:`build_trans_tape`, which keep the JAX
+package's level of every block row (``blocklu.trans_schedule``). With
 ``transpose=False`` on the plan's L and U tapes the two phases compose to
 the NOTRANS sweep of ``sweep.py``.
 """
@@ -34,18 +45,19 @@ from .sweep import SweepTape, csr_tape
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
+_ROWS = {f"slu_solve_rows_{s}": [_V] * 5 + [_I] * 6 + [_V]
+         for s in ("f32", "f64")}
 SOLVE_GEMM = CudaKernel("solve_gemm", "solve_gemm.cu", {
-    f"slu_solve_gemm_{s}": [_V] * 6 + [_I] * 4 + [_V]
-    for s in ("f32", "f64")})
-DIAG_APPLY = CudaKernel("diag_apply", "solve_gemm.cu", {
-    f"slu_diag_apply_{s}": [_V] * 3 + [_I] * 4 + [_V]
-    for s in ("f32", "f64")})
+    **{f"slu_solve_gemm_{s}": [_V] * 6 + [_I] * 4 + [_V]
+       for s in ("f32", "f64")}, **_ROWS})
+DIAG_APPLY = CudaKernel("diag_apply", "solve_gemm.cu", _ROWS)
 
 
 def build_trans_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
     """The Uᵀ (``which="U"``) or Lᵀ (``"L"``) sweep's levels as a CSR by
     destination in level order (the JAX package's
-    ``make_trans_solve_tapes``, without bucket padding)."""
+    ``make_trans_solve_tapes``, without bucket padding), its chains cut
+    into chunks (``sweep.chunk_chains``)."""
     gptr, gslot, gsrc, gdst, dptr, diag, nlvl = trans_schedule(plan, which)
     return csr_tape(plan.nb, gslot, gsrc, gdst, dptr, diag, nlvl, device)
 
@@ -72,22 +84,6 @@ def solve_gemm_plain(pool, X, tape: SweepTape, level: int,
     X.index_add_(0, dst, P @ X[src], alpha=-1)
 
 
-def solve_gemm(pool, X, tape: SweepTape, level: int, transpose: bool) -> None:
-    """In place on ``X`` (nb, bs, nrhs): X[dst] −= op(pool[slot])·X[src]
-    for the contributions into the block rows of ``level``."""
-    if X.device.type == "cpu":
-        return solve_gemm_plain(pool, X, tape, level, transpose)
-    _check_cuda("solve_gemm", pool, X)
-    lo, hi, c0, c1 = _span(tape, level)
-    if c1 == c0:
-        return
-    SOLVE_GEMM.launches += 1
-    SOLVE_GEMM.call(entry("solve_gemm", X), ptr(pool), ptr(X),
-                    ptr(tape.rows[lo:hi]), ptr(tape.rowptr[lo:hi + 1]),
-                    ptr(tape.cslot), ptr(tape.csrc), hi - lo, pool.shape[-1],
-                    X.shape[2], int(transpose), stream_ptr(X.device))
-
-
 def diag_apply_plain(dinv, X, tape: SweepTape, level: int,
                      transpose: bool) -> None:
     """Plain version of :func:`diag_apply`."""
@@ -99,19 +95,80 @@ def diag_apply_plain(dinv, X, tape: SweepTape, level: int,
     X[r] = (D.mT if transpose else D) @ X[r]
 
 
+def solve_level_plain(pool, dinv, X, tape: SweepTape, level: int,
+                      transpose: bool) -> None:
+    """Plain version of :func:`solve_level`: the two plain phases."""
+    solve_gemm_plain(pool, X, tape, level, transpose)
+    diag_apply_plain(dinv, X, tape, level, transpose)
+
+
+def solve_chunks(pool, X, tape: SweepTape, level: int, transpose: bool):
+    """Pass 1 on the card: each chunk's sum Σ op(pool[slot])·X[src] of
+    ``level`` into the tape's scratch buffer, which it returns (None for a
+    level without products). Counts one launch on SOLVE_GEMM."""
+    q0, q1 = int(tape.qptr[level]), int(tape.qptr[level + 1])
+    if q1 == q0:
+        return None
+    P = _scratch(tape, X)
+    fn = entry("solve_gemm", X)
+    SOLVE_GEMM.count(fn)
+    SOLVE_GEMM.call(fn, ptr(pool), ptr(X), ptr(P),
+                    ptr(tape.cptr[q0:q1 + 1]), ptr(tape.cslot),
+                    ptr(tape.csrc), q1 - q0, pool.shape[-1], X.shape[2],
+                    int(transpose), stream_ptr(X.device))
+    return P
+
+
+def solve_rows(dinv, X, P, tape: SweepTape, level: int, transpose: bool,
+               kernel: CudaKernel = DIAG_APPLY) -> None:
+    """Pass 2 on the card, for the rows I of ``level``: X[I] −= the sums of
+    I's chunks in ``P`` (from :func:`solve_chunks`; None for none), then
+    X[I] = op(dinv[I])·X[I] unless ``dinv`` is None. Counts one launch on
+    ``kernel``."""
+    lo, hi, _, _ = _span(tape, level)
+    if hi == lo:
+        return
+    bs = X.shape[1]
+    fn = entry("solve_rows", X)
+    kernel.count(fn)
+    kernel.call(fn, None if dinv is None else ptr(dinv), ptr(X),
+                None if P is None else ptr(P), ptr(tape.rows[lo:hi]),
+                None if P is None else ptr(tape.chunkptr[lo:hi + 1]),
+                int(tape.qptr[level]), hi - lo, bs, X.shape[2],
+                int(transpose), int(dinv is not None), stream_ptr(X.device))
+
+
+def solve_gemm(pool, X, tape: SweepTape, level: int, transpose: bool) -> None:
+    """In place on ``X`` (nb, bs, nrhs): X[dst] −= op(pool[slot])·X[src]
+    for the contributions into the block rows of ``level``."""
+    if X.device.type == "cpu":
+        return solve_gemm_plain(pool, X, tape, level, transpose)
+    _check_cuda("solve_gemm", pool, X)
+    P = solve_chunks(pool, X, tape, level, transpose)
+    if P is not None:
+        solve_rows(None, X, P, tape, level, transpose, kernel=SOLVE_GEMM)
+
+
 def diag_apply(dinv, X, tape: SweepTape, level: int, transpose: bool) -> None:
     """In place on ``X``: X[I] = op(dinv[I])·X[I] for the block rows I of
     ``level``."""
     if X.device.type == "cpu":
         return diag_apply_plain(dinv, X, tape, level, transpose)
     _check_cuda("diag_apply", dinv, X)
-    lo, hi, _, _ = _span(tape, level)
-    if hi == lo:
-        return
-    DIAG_APPLY.launches += 1
-    DIAG_APPLY.call(entry("diag_apply", X), ptr(dinv), ptr(X),
-                    ptr(tape.rows[lo:hi]), hi - lo, dinv.shape[-1],
-                    X.shape[2], int(transpose), stream_ptr(X.device))
+    solve_rows(dinv, X, None, tape, level, transpose)
+
+
+def solve_level(pool, dinv, X, tape: SweepTape, level: int,
+                transpose: bool) -> None:
+    """One level of a sweep in place on ``X`` (nb, bs, nrhs):
+    X[I] = op(dinv[I])·(X[I] − Σ op(pool[slot])·X[src]) for the block rows
+    I of ``level``."""
+    if X.device.type == "cpu":
+        return solve_level_plain(pool, dinv, X, tape, level, transpose)
+    _check_cuda("solve_level", pool, X)
+    _check_cuda("solve_level", dinv, X)
+    P = solve_chunks(pool, X, tape, level, transpose)
+    solve_rows(dinv, X, P, tape, level, transpose)
 
 
 def solve_transposed(pool, uinv, linv, tu: SweepTape, tl: SweepTape, X):
@@ -121,9 +178,20 @@ def solve_transposed(pool, uinv, linv, tu: SweepTape, tl: SweepTape, X):
     ``build_trans_solve_fn``). Returns X."""
     for tape, dinv in ((tu, uinv), (tl, linv)):
         for level in range(tape.nlvl):
-            solve_gemm(pool, X, tape, level, True)
-            diag_apply(dinv, X, tape, level, True)
+            solve_level(pool, dinv, X, tape, level, True)
     return X
+
+
+def _scratch(tape: SweepTape, X):
+    """The tape's buffer of chunk sums for X's dtype, width and device:
+    (most chunks of one level, bs, nrhs), made once."""
+    key = (X.dtype, X.shape[2], X.device)
+    P = tape.scratch.get(key)
+    if P is None:
+        P = tape.scratch[key] = torch.empty(
+            (tape.max_chunks,) + tuple(X.shape[1:]), dtype=X.dtype,
+            device=X.device)
+    return P
 
 
 def _check_cuda(what, blocks, X):
@@ -142,3 +210,6 @@ def _check_cuda(what, blocks, X):
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"{what}: block size {bs} not in "
                          f"{CUDA_BLOCK_SIZES}")
+    if blocks.data_ptr() % 16:
+        raise ValueError(f"{what}: the blocks must start on 16 bytes (the "
+                         "kernels read them in 16-byte words)")

@@ -26,12 +26,22 @@ KERNEL = CudaKernel("sweep", "sweep.cu", {
     f"slu_sweep_{s}": [_V] * 7 + [_I, _I, _I, _V] for s in ("f32", "f64")})
 
 
+#: CTAs that the products of one level should fill when it has enough of
+#: them: two per SM of an H100 (132 SMs). ``chunk_chains`` cuts chains so.
+CHUNK_CTAS = 2 * 132
+
+
 @dataclasses.dataclass
 class SweepTape:
     """One sweep's levels: the block rows ``rows[dptr[l]:dptr[l+1]]`` of
     level l; row b's contributions are ``cslot``/``csrc`` over
     ``rowptr[b]:rowptr[b+1]`` (a CSR by destination, in level order).
-    ``dptr`` is a host array, the rest int32 device tensors."""
+    Each row's chain is cut into chunks in tape order: row b's chunks are
+    ``chunkptr[b]:chunkptr[b+1]``, chunk q's triples ``cptr[q]:cptr[q+1]``
+    (``solve_gemm.cu``'s first pass runs one CTA per chunk); level l's
+    chunks are ``qptr[l]:qptr[l+1]``. ``dptr`` and ``qptr`` are host
+    arrays, the rest int32 device tensors; ``scratch`` caches the partial
+    sums' buffers of ``solve_gemm.py`` by (dtype, nrhs, device)."""
 
     nlvl: int
     dptr: np.ndarray
@@ -40,6 +50,15 @@ class SweepTape:
     cslot: torch.Tensor
     csrc: torch.Tensor
     host: dict
+    chunkptr: torch.Tensor
+    cptr: torch.Tensor
+    qptr: np.ndarray
+    scratch: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def max_chunks(self) -> int:
+        """The most chunks of one level."""
+        return int(np.diff(self.qptr).max(initial=0))
 
 
 def build_sweep_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
@@ -53,11 +72,36 @@ def build_sweep_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
     return csr_tape(p.nb, gslot, gsrc, gdst, dptr, rows, nlvl, device)
 
 
-def csr_tape(nb, gslot, gsrc, gdst, dptr, rows, nlvl, device) -> SweepTape:
+def chunk_chains(rowptr, dptr, chunk: int | None = None):
+    """Cut each destination's chain of ``rowptr`` into chunks of at most
+    c products, in tape order and of near-equal sizes. Per level, c is
+    ``chunk``, or else the level's products over CHUNK_CTAS (at least 1),
+    so that a level with enough products fills the card and its longest
+    chains spread over many CTAs. Returns (chunkptr, cptr, qptr)."""
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    dptr = np.asarray(dptr, dtype=np.int64)
+    lens = np.diff(rowptr)
+    per_level = rowptr[dptr[1:]] - rowptr[dptr[:-1]]
+    c = np.full(len(per_level), chunk, dtype=np.int64) if chunk else \
+        np.maximum(1, per_level // CHUNK_CTAS)
+    c_row = np.repeat(c, np.diff(dptr))
+    nk = -(-lens // c_row)
+    chunkptr = np.concatenate([[0], np.cumsum(nk)])
+    row = np.repeat(np.arange(len(lens)), nk)
+    i = np.arange(chunkptr[-1]) - chunkptr[row]
+    start = rowptr[row] + i * lens[row] // nk[row]
+    cptr = np.concatenate([start, rowptr[-1:]])
+    return chunkptr, cptr, chunkptr[dptr]
+
+
+def csr_tape(nb, gslot, gsrc, gdst, dptr, rows, nlvl, device,
+             chunk: int | None = None) -> SweepTape:
     """A :class:`SweepTape` from a level schedule: the (slot, src, dst)
-    triples, and the block rows ``rows[dptr[l]:dptr[l+1]]`` of level l."""
+    triples, and the block rows ``rows[dptr[l]:dptr[l+1]]`` of level l;
+    ``chunk`` fixes the chunk length (:func:`chunk_chains`)."""
     rows = np.asarray(rows, dtype=np.int64)
     gdst = np.asarray(gdst, dtype=np.int64)
+    dptr = np.asarray(dptr, dtype=np.int64)
     # position of each block row in the level-ordered row list; sort the
     # contributions by it (stable: the plan's order within a row stays)
     where = np.empty(nb, dtype=np.int64)
@@ -65,17 +109,19 @@ def csr_tape(nb, gslot, gsrc, gdst, dptr, rows, nlvl, device) -> SweepTape:
     o = np.argsort(where[gdst], kind="stable")
     rowptr = np.zeros(len(rows) + 1, dtype=np.int64)
     rowptr[1:] = np.cumsum(np.bincount(where[gdst], minlength=len(rows)))
+    chunkptr, cptr, qptr = chunk_chains(rowptr, dptr, chunk)
     host = dict(rows=rows, rowptr=rowptr,
                 cslot=np.asarray(gslot, dtype=np.int64)[o],
-                csrc=np.asarray(gsrc, dtype=np.int64)[o])
+                csrc=np.asarray(gsrc, dtype=np.int64)[o],
+                chunkptr=chunkptr, cptr=cptr)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
 
-    return SweepTape(nlvl=int(nlvl), dptr=np.asarray(dptr, dtype=np.int64),
-                     rows=dev(rows), rowptr=dev(rowptr),
-                     cslot=dev(host["cslot"]), csrc=dev(host["csrc"]),
-                     host=host)
+    return SweepTape(nlvl=int(nlvl), dptr=dptr, rows=dev(rows),
+                     rowptr=dev(rowptr), cslot=dev(host["cslot"]),
+                     csrc=dev(host["csrc"]), host=host,
+                     chunkptr=dev(chunkptr), cptr=dev(cptr), qptr=qptr)
 
 
 def sweep_level_plain(pool, dinv, X, tape: SweepTape, level: int) -> None:

@@ -9,10 +9,11 @@ Counterpart of the host half of the JAX package's ``parallel/dist2d.py``:
   package's numpy code, field for field;
 - :func:`init_local_pools` scatters A into one ``(n_local, bs, bs)`` pool
   per rank (local slot 0 is the zero block, slot 1 the trash block);
-- :func:`make_coo_shards` and :func:`dist_spmv`: the refinement's
-  distributed SpMV (pdgsmv analog), a partial product per rank, then a
+- :func:`make_coo_shards`, :func:`coo_shards` and :func:`dist_spmv`:
+  the refinement's distributed SpMV (pdgsmv analog), a partial product
+  per rank, each row summed in a fixed order (``ops/spmv.py``), then a
   sum over the ranks in rank order. The JAX package's is XLA (a psum
-  over the mesh), not a TPU kernel, so here it is plain ``index_add_``.
+  over the mesh), not a TPU kernel, so here it is plain PyTorch.
 
 The factor and the solve that run on these lists are
 ``parallel/dist2d_rdma.py``. The JAX package's XLA executors
@@ -29,6 +30,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops import spmv as _spmv
 from ..ops.host.symbolic import SymbolicPlan
 
 # local pool layout: slot 0 = zero block (never written), slot 1 = trash
@@ -419,15 +421,23 @@ def make_coo_shards(A, ndev: int, dtype):
     return _pad_coo_streams(coo, A.shape[0], ndev, [(coo.data, dtype)])
 
 
-def dist_spmv(shards, x, n: int):
-    """A·x from per-rank COO shards ``[(rows, cols, vals), ...]`` (int64
-    indices, rows may hold the trash row ``n``): each rank's partial
-    product, then their sum over the ranks in rank order (the JAX
-    package's psum over the mesh). ``x`` is (n, k) and replicated."""
+def coo_shards(A, ndev: int, dtype, device) -> list:
+    """The ranks' entries of :func:`make_coo_shards` on ``device``, one
+    :class:`ops.spmv.Coo` per rank whose output rows end with the trash
+    row ``n``; each rank's rows are summed in a fixed order."""
+    n = A.shape[0]
+    return [_spmv.Coo.from_arrays(r, c, v, (n + 1, A.shape[1]), device)
+            for r, c, v in zip(*make_coo_shards(A, ndev, dtype))]
+
+
+def dist_spmv(shards, x, n: int, absolute: bool = False):
+    """A·x (|A|·x with ``absolute``) from the ranks' shards of
+    :func:`coo_shards`: each rank's partial product, then their sum over
+    the ranks in rank order (the JAX package's psum over the mesh). ``x``
+    is (n, k) and replicated."""
+    fn = _spmv.abs_spmv if absolute else _spmv.spmv
     out = None
-    for rl, cl, vl in shards:
-        part = torch.zeros((n + 1, x.shape[1]), dtype=x.dtype,
-                           device=x.device)
-        part.index_add_(0, rl, vl[:, None] * x[cl])
+    for A in shards:
+        part = fn(A, x)
         out = part if out is None else out + part
     return out[:n]

@@ -411,3 +411,109 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
                     close(ss.X + ss.P + ss.slots + ss.recv,
                           ref.X + ref.P + ref.slots + ref.recv)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_solve_level_matches_plain(cuda, bs, dtype):
+    """The two-pass solve_level (pass 1 over chunks, fused pass 2) against
+    solve_level_plain level by level, from the same X, with one and nine
+    right-hand sides, on lap3d12u's transposed tapes (``transpose=True``)
+    and its L and U tapes (``False``), chunked by the level rule and by
+    c = 1 and 2 (rows of several chunks)."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+        dtype="float32" if dtype == torch.float32 else "float64",
+        block_size=bs), device=cuda)
+    plan = lu.plan
+    eps = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps
+
+    def make_tape(which, transpose, chunk):
+        if transpose:
+            sched = blocklu.trans_schedule(plan, which)[1:]
+        else:
+            p = "lsol" if which == "L" else "usol"
+            sched = [getattr(plan, f"{p}_{f}") for f in
+                     ("gslot", "gsrc", "gdst", "dptr", "diag", "nlvl")]
+        return sweep.csr_tape(plan.nb, *sched, cuda, chunk)
+
+    for chunk in (None, 1, 2):
+        for transpose in (False, True):
+            tapes = ((make_tape("U", True, chunk), lu.uinv),
+                     (make_tape("L", True, chunk), lu.linv)) if transpose \
+                else ((make_tape("L", False, chunk), lu.linv),
+                      (make_tape("U", False, chunk), lu.uinv))
+            for nrhs in (1, 9):
+                X = torch.randn(plan.nb, plan.bs, nrhs, device=cuda,
+                                dtype=dtype)
+                for tape, dinv in tapes:
+                    for level in range(tape.nlvl):
+                        Xp = X.clone()
+                        solve_gemm.solve_level(lu.pool, dinv, X, tape, level,
+                                               transpose)
+                        solve_gemm.solve_level_plain(lu.pool, dinv, Xp, tape,
+                                                     level, transpose)
+                        torch.cuda.synchronize()
+                        scale = max(1.0, float(Xp.abs().max()))
+                        assert float((X - Xp).abs().max()) \
+                            <= ULPS * eps * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_transposed_solves_are_bit_equal(cuda, dtype):
+    """Two transposed solves of the same b (one and nine right-hand sides)
+    give bit-equal results, and the kernels launched."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+        dtype="float32" if dtype == torch.float32 else "float64",
+        block_size=128), device=cuda)
+    plan = lu.plan
+    tu, tl = (solve_gemm.build_trans_tape(plan, w, cuda) for w in "UL")
+    for nrhs in (1, 9):
+        B = torch.randn(plan.nb, plan.bs, nrhs, device=cuda, dtype=dtype)
+        solve_gemm.SOLVE_GEMM.reset_counts()
+        solve_gemm.DIAG_APPLY.reset_counts()
+        X1 = solve_gemm.solve_transposed(lu.pool, lu.uinv, lu.linv, tu, tl,
+                                         B.clone())
+        X2 = solve_gemm.solve_transposed(lu.pool, lu.uinv, lu.linv, tu, tl,
+                                         B.clone())
+        torch.cuda.synchronize()
+        assert solve_gemm.SOLVE_GEMM.launches > 0
+        assert solve_gemm.DIAG_APPLY.launches == 2 * (tu.nlvl + tl.nlvl)
+        assert torch.equal(X1, X2)
+
+
+def test_spmv_calls_are_bit_equal(cuda):
+    """The refinement SpMVs and the grid's dist_spmv give bit-equal
+    results on two calls (float64, three right-hand sides, a matrix with
+    hub rows), and agree with scipy."""
+    from superlu_dist_tpu_torch.ops import spmv
+    from superlu_dist_tpu_torch.parallel import dist2d
+    A = tt.circuit_graph(20000, seed=3).tocsc()
+    x = np.random.default_rng(0).standard_normal((A.shape[0], 3))
+    xt = torch.as_tensor(x, device=cuda)
+    coo = spmv.coo_arrays(A, np.float64, cuda)
+    for fn, ref in ((spmv.spmv, A @ x), (spmv.abs_spmv, abs(A) @ x),
+                    (spmv.spmv_t, A.T @ x), (spmv.abs_spmv_t, abs(A).T @ x)):
+        y1, y2 = fn(coo, xt), fn(coo, xt)
+        assert torch.equal(y1, y2)
+        assert np.abs(y1.cpu().numpy() - ref).max() \
+            <= 1e-13 * np.abs(ref).max()
+    shards = dist2d.coo_shards(A, 4, np.float64, cuda)
+    y1 = dist2d.dist_spmv(shards, xt, A.shape[0])
+    assert torch.equal(y1, dist2d.dist_spmv(shards, xt, A.shape[0]))
+
+
+def test_ilu_refinement_repeats(cuda):
+    """Two ILU(1) gssvx calls give bit-equal x and the same refinement
+    steps (the residual's sums have a fixed order)."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    opts = T.Options(dtype="float32", block_size=64, ilu_level=1,
+                     max_refine_steps=60, refine_rthresh=1.0)
+    r1, _ = T.gssvx(A, b, opts, device=cuda)
+    r2, _ = T.gssvx(A, b, opts, device=cuda)
+    assert r1.stat.refine_steps == r2.stat.refine_steps
+    assert np.array_equal(r1.x, r2.x)

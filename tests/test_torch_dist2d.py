@@ -117,9 +117,7 @@ def test_dist_spmv_matches_scipy():
     x = np.random.default_rng(3).standard_normal((150, 3))
     import torch
     for ndev in (1, 4, 8):
-        shards = [tuple(torch.as_tensor(a.astype(np.int64) if a.dtype.kind
-                                        == "i" else a) for a in s)
-                  for s in zip(*td.make_coo_shards(A, ndev, np.float64))]
+        shards = td.coo_shards(A, ndev, np.float64, "cpu")
         y = td.dist_spmv(shards, torch.as_tensor(x), 150).numpy()
         ref = A @ x
         assert np.abs(y - ref).max() <= 1e-13 * np.abs(ref).max()

@@ -111,19 +111,29 @@ def test_plain_transposed_solve_matches_jax_xla(carried, nrhs):
     _close(X.reshape(-1, nrhs).numpy(), np.asarray(ref)[: len(b)])
 
 
-def _pallas_levels(plan, which, C):
-    """A transposed sweep's window-scheduled tapes, as
+def _schedule(plan, which, transpose):
+    """The JAX package's level schedule of a sweep: the transposed one
+    (``_trans_schedule``) or the plan's L or U sweep."""
+    if transpose:
+        return jbl._trans_schedule(plan, which)
+    p = "lsol" if which == "L" else "usol"
+    return tuple(getattr(plan, f"{p}_{f}") for f in
+                 ("gptr", "gslot", "gsrc", "gdst", "dptr", "diag", "nlvl"))
+
+
+def _pallas_levels(plan, which, C, transpose=True):
+    """A sweep's window-scheduled tapes, as
     ``pallas_exec.pallas_solve_meta`` builds them for the NOTRANS sweeps
     (fillers read the zero block and hit the trash row of X)."""
     nbp = jbl.bucket125(plan.nb)
-    gptr, gs, gr, gd, dptr, diag, nlvl = jbl._trans_schedule(plan, which)
+    gptr, gs, gr, gd, dptr, diag, nlvl = _schedule(plan, which, transpose)
     ws, wr, wd, wptr = jpe.window_schedule(gs, gr, gd, gptr, C,
                                            plan.zero_slot, nbp)
     wr = np.where(wd == nbp, 0, wr).astype(np.int32)
     grid_g = max(1, -(-int(np.diff(wptr).max(initial=1)) // C))
     grid_d = max(1, -(-int(np.diff(dptr).max(initial=1)) // C))
     return (nlvl, wptr, dptr, jnp.asarray(ws), jnp.asarray(wr),
-            jnp.asarray(wd), jnp.asarray(diag.astype(np.int32)), grid_g,
+            jnp.asarray(wd), jnp.asarray(np.asarray(diag, np.int32)), grid_g,
             grid_d)
 
 
@@ -227,3 +237,137 @@ def test_plain_phases_by_hand(transpose):
     Y = X.clone()
     solve_gemm.solve_gemm(pool, Y, tape, 0, transpose)
     assert torch.equal(X, Y)
+
+
+
+def _tapes(plan, chunk=None):
+    """The plan's L and U tapes and its Uᵀ and Lᵀ tapes, chunked by
+    ``chunk`` (by the level rule when None)."""
+    return [sweep.csr_tape(plan.nb, *_schedule(plan, w, tr)[1:], "cpu",
+                           chunk)
+            for w, tr in (("L", False), ("U", False), ("U", True),
+                          ("L", True))]
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3, "longer", None])
+def test_chunks_cover_each_chain_in_tape_order(carried, chunk):
+    """Each destination's chunks cover its chain exactly once, in tape
+    order, each of 1..c products (one chunk per chain when c is longer
+    than the longest chain); a row without products has none; the levels'
+    chunk ranges follow the rows'. Without ``chunk``, a level's c is its
+    products over CHUNK_CTAS, so a level of P products has at least
+    min(P, CHUNK_CTAS) chunks."""
+    _, jlu, _ = carried
+    plan = jlu.plan
+    longest = max(int(np.diff(t.host["rowptr"]).max(initial=0))
+                  for t in _tapes(plan))
+    fixed = longest + 1 if chunk == "longer" else chunk
+    for t in _tapes(plan, fixed):
+        h = t.host
+        rp, kp, cp = h["rowptr"], h["chunkptr"], h["cptr"]
+        assert np.array_equal(t.chunkptr.numpy(), kp)
+        assert np.array_equal(t.cptr.numpy(), cp)
+        assert np.array_equal(t.qptr, kp[t.dptr])
+        assert cp[0] == 0 and cp[-1] == rp[-1] and len(cp) == kp[-1] + 1
+        size = np.diff(cp)
+        assert np.all(size >= 1)
+        for l in range(t.nlvl):
+            lo, hi = int(t.dptr[l]), int(t.dptr[l + 1])
+            prods = int(rp[hi] - rp[lo])
+            q = slice(int(kp[lo]), int(kp[hi]))
+            assert np.all(size[q] <= (fixed or max(1, prods //
+                                                   sweep.CHUNK_CTAS)))
+            if chunk is None:
+                assert q.stop - q.start >= min(prods, sweep.CHUNK_CTAS)
+        for b in range(len(h["rows"])):
+            q0, q1 = int(kp[b]), int(kp[b + 1])
+            # the chunks tile [rowptr[b], rowptr[b+1]) in order
+            assert cp[q0] == rp[b] and cp[q1] == rp[b + 1]
+            assert (q1 == q0) == (rp[b + 1] == rp[b])
+            if chunk == "longer" and q1 > q0:
+                assert q1 - q0 == 1
+
+
+#: right-hand-side counts of the level tests: one, a few, and one more
+#: than the CUDA kernels' tile of 8
+NRHS = (1, 3, 9)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_solve_level_plain_matches_pallas_pair(bushy, transpose):
+    """Level by level on the bushy bs-128 plan, solve_level_plain against
+    the JAX package's make_solve_gemm_call + make_diag_apply_call pair
+    (interpret mode) with the same flag, on the plan's L and U sweeps
+    (``transpose=False``) or the Uᵀ and Lᵀ sweeps, from the same X, for
+    1, 3 and 9 right-hand sides (one JAX run carries all 13 columns);
+    level 0 of each sweep has no products."""
+    _, jlu, tlu = bushy
+    plan = jlu.plan
+    C, W = 4, 128
+    nbp = jbl.bucket125(plan.nb)
+    b = _rhs(plan, sum(NRHS))
+    cuts = np.cumsum((0,) + NRHS)
+    Xs = [torch.from_numpy(b[:, lo:hi].copy()).view(plan.nb, plan.bs, -1)
+          for lo, hi in zip(cuts[:-1], cuts[1:])]
+    xw = np.zeros((nbp + 1, plan.bs, W), np.float32)
+    xw[: plan.nb, :, : len(b[0])] = b.reshape(plan.nb, plan.bs, -1)
+    xw = jnp.asarray(xw)
+    sweeps = (("U", jlu.uinv, tlu.uinv), ("L", jlu.linv, tlu.linv)) \
+        if transpose else (("L", jlu.linv, tlu.linv),
+                           ("U", jlu.uinv, tlu.uinv))
+    for which, jinv, tinv in sweeps:
+        nlvl, wptr, dptr, ws, wr, wd, diag, grid_g, grid_d = \
+            _pallas_levels(plan, which, C, transpose)
+        gcall = jpe.make_solve_gemm_call(grid_g, C, W, True,
+                                         transpose=transpose, interpret=True)
+        dcall = jpe.make_diag_apply_call(grid_d, C, W, True,
+                                         transpose=transpose, interpret=True)
+        tape = (solve_gemm.build_trans_tape(plan, which, "cpu") if transpose
+                else sweep.build_sweep_tape(plan, which, "cpu"))
+        assert tape.host["rowptr"][tape.dptr[1]] == 0
+        for l in range(nlvl):
+            xw = gcall(jlu.pool, xw,
+                       jnp.asarray([wptr[l], wptr[l + 1]], jnp.int32),
+                       ws, wr, wd)
+            xw = dcall(jlu.pool, jinv, xw,
+                       jnp.asarray([dptr[l], dptr[l + 1]], jnp.int32), diag)
+            ref = np.asarray(xw)[: plan.nb]
+            for X, lo, hi in zip(Xs, cuts[:-1], cuts[1:]):
+                solve_gemm.solve_level_plain(tlu.pool, tinv, X, tape, l,
+                                             transpose)
+                _close(X.numpy(), ref[:, :, lo:hi])
+
+
+@pytest.mark.parametrize("nrhs", NRHS)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_solve_level_plain_matches_jax_xla_sweeps(transpose, nrhs):
+    """At block size 16 (the JAX package's Pallas kernels take 128 only),
+    solve_level_plain over every level of both sweeps against the JAX
+    package's XLA level loop (``build_solve_fn`` /
+    ``build_trans_solve_fn``) on the same factors."""
+    _, jlu, tlu = _carry("unsym")
+    plan = jlu.plan
+    assert plan.bs == 16
+    b = _rhs(plan, nrhs)
+    X = torch.from_numpy(b.copy()).view(plan.nb, plan.bs, nrhs)
+    if transpose:
+        sweeps = ((solve_gemm.build_trans_tape(plan, "U", "cpu"), tlu.uinv),
+                  (solve_gemm.build_trans_tape(plan, "L", "cpu"), tlu.linv))
+    else:
+        sweeps = ((tlu._ltape, tlu.linv), (tlu._utape, tlu.uinv))
+    for tape, dinv in sweeps:
+        for l in range(tape.nlvl):
+            solve_gemm.solve_level_plain(tlu.pool, dinv, X, tape, l,
+                                         transpose)
+    bp = np.zeros((jbl.bucket125(plan.nb) * plan.bs, nrhs), np.float32)
+    bp[: len(b)] = b
+    if transpose:
+        ref = jbl.build_trans_solve_fn(plan, nrhs)(
+            jlu.pool, jlu.uinv, jlu.linv,
+            jbl.make_trans_solve_tapes(plan, "U"),
+            jbl.make_trans_solve_tapes(plan, "L"), jnp.asarray(bp))
+    else:
+        ref = jbl.build_solve_fn(plan, nrhs)(
+            jlu.pool, jlu.linv, jlu.uinv, jbl.make_solve_tapes(plan, "L"),
+            jbl.make_solve_tapes(plan, "U"), jnp.asarray(bp))
+    _close(X.reshape(-1, nrhs).numpy(), np.asarray(ref)[: len(b)])
