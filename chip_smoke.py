@@ -17,9 +17,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    same way, and one refinement is profiled (device busy and idle share);
 4. every clk-path kernel against its plain PyTorch version on the card,
    level by level on the main path's own inputs (both get the same input;
-   the run goes on with the kernel's output), timed with CUDA events;
-   then the whole clk factor against the independent right-looking
-   float64 reference ``blocklu.factor_plain``;
+   the run goes on with the kernel's output), timed with CUDA events,
+   with clk_update's costliest levels (waves, targets, CTAs, the longest
+   per-wave list); the NOTRANS sweep is ``solve_gemm.cu``'s two passes
+   with ``transpose=False`` (counted as "sweep"), one timed call per level
+   against ``sweep_level_plain``; then the whole clk factor against the
+   independent right-looking float64 reference ``blocklu.factor_plain``;
 5. the other factor executors on the same matrix, each driven and
    checked like the main path: ``executor="flk"`` (flk and diag_lu, no
    clk_update), ILU(1) (flk; its slots and refinement steps printed) and
@@ -45,9 +48,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    per row) against ``solve_level_plain`` level by level on the
    transposed tapes, each pass timed beside its library call, with the
    costliest levels' chunks and CTAs; the pair against the library pair
-   at 32 right-hand sides; and the pair with ``transpose=False`` on the
-   main path's L and U tapes beside the sweep (printed); and at block
-   size 64 on ``laplacian_3d_unsym(16)``: x against scipy's
+   at 32 right-hand sides; and the main path's NOTRANS L+U solve as the
+   driver runs it, its device ms beside the host seconds of its launch
+   loop (printed); and at block size 64 on ``laplacian_3d_unsym(16)``:
+   x against scipy's
    ``spsolve(A.T, b)``, rcond against the dense 1-norm truth, ``logdet``
    against the plain CPU factor and ``numpy.linalg.slogdet``, and a
    ``save_factors`` / ``load_factors`` round trip;
@@ -61,8 +65,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    like the main path (tck_update, diag_lu, clk_trsm and sweep must
    launch, clk_update, flk and schur must not), a warm call,
    ``tck_update`` against its plain version level by level and the
-   whole factor against the float64 reference; the solve_level pair with
-   ``transpose=False`` beside the sweep on its L and U tapes (printed);
+   whole factor against the float64 reference; its NOTRANS L+U solve's
+   device ms and host launch loop (printed);
    then clk, flk and the level executor on the same plan
    (SamePattern_SameRowPerm refactors), each held to the same limits,
    with clk_update's costliest levels;
@@ -178,7 +182,7 @@ def main() -> None:
     print("native host engine: loaded", flush=True)
 
     kernels = {"diag_lu": diag_lu.KERNEL, "clk_update": clk.UPDATE,
-               "clk_trsm": clk.TRSM, "sweep": sweep.KERNEL,
+               "clk_trsm": clk.TRSM, "sweep": solve_gemm.SWEEP,
                "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM,
                "solve_gemm": solve_gemm.SOLVE_GEMM,
                "diag_apply": solve_gemm.DIAG_APPLY,
@@ -186,9 +190,8 @@ def main() -> None:
                "rdma_solve": rdma.RDMA_SOLVE}
     build_s = _build.build_all(list(kernels.values()))
     print(f"kernels built in {build_s:.1f} s", flush=True)
-    for k in (diag_lu.KERNEL, clk.UPDATE, sweep.KERNEL, flk.KERNEL,
-              schur.SCHUR, solve_gemm.SOLVE_GEMM, tck.UPDATE,
-              rdma.RDMA_FACTOR):
+    for k in (diag_lu.KERNEL, clk.UPDATE, flk.KERNEL, schur.SCHUR,
+              solve_gemm.SOLVE_GEMM, tck.UPDATE, rdma.RDMA_FACTOR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
@@ -439,12 +442,17 @@ _FLUSH = []
 FLUSH_BYTES = 256 << 20
 
 
-def _timed(torch, fn):
-    """Device ms of ``fn`` by CUDA events, with L2 flushed before."""
+def _flush(torch):
+    """Write the flush buffer (made on first use)."""
     if not _FLUSH:
         _FLUSH.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
                                   device="cuda"))
     _FLUSH[0].zero_()
+
+
+def _timed(torch, fn):
+    """Device ms of ``fn`` by CUDA events, with L2 flushed before."""
+    _flush(torch)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     fn()
@@ -583,7 +591,7 @@ def check_kernels(lu, ctx, launches, levels=False):
             "clk_trsm", lambda p: clk.clk_trsm(p, uinv, tp, lvl),
             lambda p: clk.clk_trsm_plain(p, uinv, tp, lvl), [pool])
     if levels or launches is not None:
-        print_update_levels(tp, per_level)
+        print_update_levels(tp, per_level, bs)
     check_whole_factor("clk", lu, ctx, pool, tiny)
     check_sweep(lu, ctx, ck)
 
@@ -597,18 +605,23 @@ def check_kernels(lu, ctx, launches, levels=False):
 
 
 def check_sweep(lu, ctx, ck):
-    """The sweep against its plain version over one L+U solve of a
-    right-hand side, level by level, into ``ck``'s "sweep" entry."""
-    torch, sweep = ctx["torch"], ctx["sweep"]
+    """The NOTRANS sweep (both passes of ``solve_level`` with
+    ``transpose=False``, one timed call per level) against its plain
+    version ``sweep_level_plain`` over one L+U solve of a right-hand side,
+    level by level, into ``ck``'s "sweep" entry; an untimed solve first
+    loads the kernels."""
+    torch, sweep, sg = ctx["torch"], ctx["sweep"], ctx["solve_gemm"]
     plan = lu.plan
     rng = np.random.default_rng(1)
     X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
                         dtype=lu.pool.dtype, device=lu.device)
-    for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
+    tapes = ((lu._ltape, lu.linv), (lu._utape, lu.uinv))
+    warm_solve(sg, lu.pool, tapes, X, False)
+    for tape, dinv in tapes:
         for lvl in range(tape.nlvl):
             (X,), _ = ck.compare(
-                "sweep", lambda x: sweep.sweep_level(lu.pool, dinv, x, tape,
-                                                     lvl),
+                "sweep", lambda x: sg.solve_level(lu.pool, dinv, x, tape,
+                                                  lvl, False),
                 lambda x: sweep.sweep_level_plain(lu.pool, dinv, x, tape,
                                                   lvl), [X])
 
@@ -820,9 +833,8 @@ def check_solve(lu, ctx, lu_main):
     (cuSPARSE), held against the plain solve_gemm's output too;
     diag_apply is a batched product per level, one ``torch.bmm`` on the
     gathered Dinv[I]ᵀ and X[I]. Returns these numbers; then prints the
-    pair against the library pair at 32 right-hand sides, and the pair
-    with ``transpose=False`` on ``lu_main``'s L and U tapes beside the
-    sweep."""
+    pair against the library pair at 32 right-hand sides, and
+    ``lu_main``'s NOTRANS L+U solve (:func:`notrans_solve`)."""
     torch, sg = ctx["torch"], ctx["solve_gemm"]
     plan = lu.plan
     tu, tl = lu._ttapes
@@ -865,7 +877,7 @@ def check_solve(lu, ctx, lu_main):
               f"ms per solve", flush=True)
     print_solve_levels(per_level)
     wide_pair(lu, ctx, 32)
-    notrans_pair(lu_main, ctx)
+    notrans_solve(lu_main, ctx)
     return ck.out
 
 
@@ -941,40 +953,49 @@ def warm_solve(sg, pool, tapes, X, transpose):
             sg.solve_level(pool, dinv, W, tape, lvl, transpose)
 
 
-def notrans_pair(lu, ctx, what=""):
-    """solve_level with ``transpose=False`` on ``lu``'s L and U tapes
-    beside the sweep kernel that the NOTRANS solve runs, level by level
-    from the same X over one L+U solve of one right-hand side, each timed
-    alone with L2 flushed; the pair's output held to the sweep's
-    (REL_TOL). Printed only."""
+def notrans_solve(lu, ctx, what=""):
+    """The NOTRANS L+U solve of one right-hand side as the driver runs it
+    (``solve_gemm.solve``: both sweeps, two launches per level, counted on
+    "sweep"), after one untimed solve: the host seconds of its launch loop
+    (no synchronisation inside it), its device ms by CUDA events (L2
+    flushed before), both over three calls; the result held to the plain
+    levels (REL_TOL). Printed only; returns (host s, device ms) of the
+    last call."""
     torch, sg, sweep = ctx["torch"], ctx["solve_gemm"], ctx["sweep"]
     plan = lu.plan
-    X = torch.as_tensor(np.random.default_rng(4).standard_normal(
+    B = torch.as_tensor(np.random.default_rng(4).standard_normal(
         (plan.nb, plan.bs, 1)), dtype=lu.pool.dtype, device=lu.device)
-    warm_solve(sg, lu.pool, ((lu._ltape, lu.linv), (lu._utape, lu.uinv)), X,
-               False)
-    t = dict(p1=0.0, p2=0.0, sweep=0.0)
-    err = 0.0
-    for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
+    tapes = ((lu._ltape, lu.linv), (lu._utape, lu.uinv))
+    sg.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape, B.clone())
+    host, dev = [], []
+    for _ in range(3):
+        X = B.clone()
+        _flush(torch)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        t0 = time.perf_counter()
+        sg.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape, X)
+        host.append(time.perf_counter() - t0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        dev.append(ev[0].elapsed_time(ev[1]))
+    P = B.clone()
+    for tape, dinv in tapes:
         for lvl in range(tape.nlvl):
-            a, w = X.clone(), X.clone()
-            held = []
-            t["p1"] += _timed(torch, lambda: held.append(
-                sg.solve_chunks(lu.pool, a, tape, lvl, False)))
-            t["p2"] += _timed(torch, lambda: sg.solve_rows(
-                dinv, a, held[0], tape, lvl, False))
-            t["sweep"] += _timed(torch, lambda: sweep.sweep_level(
-                lu.pool, dinv, w, tape, lvl))
-            err = max(err, float((a - w).abs().max()))
-            rel = REL_TOL_F64 if a.dtype == torch.float64 else REL_TOL
-            if err > rel * max(1.0, float(w.abs().max())):
-                fail(f"solve_level transpose=False disagrees with the "
-                     f"sweep: {err:.3e}")
-            X = a
-    print(f"bs={plan.bs} {lu.dtype} {what}NOTRANS L+U solve: solve_level "
-          f"pair {t['p1'] + t['p2']:.3f} ms (pass 1 {t['p1']:.3f}, pass 2 "
-          f"{t['p2']:.3f}), sweep {t['sweep']:.3f} ms; max abs difference "
+            sweep.sweep_level_plain(lu.pool, dinv, P, tape, lvl)
+    err = float((X - P).abs().max())
+    rel = REL_TOL_F64 if X.dtype == torch.float64 else REL_TOL
+    nl = sum(2 * t.nlvl for t, _ in tapes)
+    print(f"bs={plan.bs} {lu.dtype} {what}NOTRANS L+U solve: device "
+          f"{' / '.join(f'{m:.3f}' for m in dev)} ms, host launch loop "
+          f"{' / '.join(f'{h * 1e3:.3f}' for h in host)} ms (up to {nl} "
+          f"launches); max abs difference from the plain levels "
           f"{err:.3e}", flush=True)
+    if err > rel * max(1.0, float(P.abs().max())):
+        fail(f"{what}NOTRANS solve disagrees with its plain version: "
+             f"{err:.3e}")
+    return host[-1], dev[-1]
 
 
 def level_bsr(torch, pool, tape, lvl, transpose, nb):
@@ -1143,7 +1164,7 @@ def tck_phase(ctx, rng, checks, launches):
     warm_call(ctx, "tck lap3d50", A, b, opts)
     checks.update(check_tck(lu, ctx, report=True))
     print_check("tck_update", checks["tck_update"], launches["tck_update"])
-    notrans_pair(lu, ctx, "lap3d50 ")
+    notrans_solve(lu, ctx, "lap3d50 ")
 
     ssr = Fact.SAME_PATTERN_SAME_ROWPERM
     for exc, need, zero in (
@@ -1497,24 +1518,29 @@ def print_tck_levels(tp, per_level, top=6):
               f"tile {int(tp.hmax[lvl])} rows", flush=True)
 
 
-def print_update_levels(tp, per_level, top=6):
+def print_update_levels(tp, per_level, bs, top=6):
     """Where clk_update's time goes: the costliest levels, with their
-    columns, U blocks (jobs) and L·U block products."""
+    columns, waves (one launch each), targets and CTAs (a target has bs/16
+    strips) over the level's waves, L·U products, the longest product list
+    of one wave's target, and the critical path (the longest lists summed
+    over the waves) with the time per product on it."""
     h = tp.host
+    cnt = np.diff(h["pptr"])
     total = sum(ms for ms, _ in per_level)
     print(f"clk_update by level (kernel {total:.3f} ms over {tp.nlvl} "
-          f"levels; top {top}):")
+          f"levels, {int(tp.lwave[-1])} waves; top {top}):")
     for ms, lvl in sorted(per_level, reverse=True)[:top]:
-        cols = h["ucols"][tp.uptr[lvl]:tp.uptr[lvl + 1]]
-        jobs = [np.arange(h["col_job0"][k], h["col_job0"][k]
-                          + h["col_dpos"][k]) for k in cols]
-        jobs = np.concatenate(jobs) if jobs else np.zeros(0, np.int64)
-        longest = max((int(h["col_dpos"][k] + h["job_lm"][
-            h["col_job0"][k]:h["col_job0"][k] + h["col_dpos"][k]].sum())
-            for k in cols), default=0)
-        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {len(cols)} columns, "
-              f"{len(jobs)} U blocks, {int(h['job_lm'][jobs].sum())} L·U "
-              f"products, longest column chain {longest} products",
+        w0, w1 = int(tp.lwave[lvl]), int(tp.lwave[lvl + 1])
+        t0, t1 = int(tp.wptr[w0]), int(tp.wptr[w1])
+        longest = [int(cnt[tp.wptr[w]:tp.wptr[w + 1]].max())
+                   for w in range(w0, w1)]
+        crit = sum(longest)
+        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; "
+              f"{int(tp.uptr[lvl + 1] - tp.uptr[lvl])} columns, {w1 - w0} "
+              f"waves, {t1 - t0} targets ({(t1 - t0) * (bs // 16)} CTAs), "
+              f"{int(cnt[t0:t1].sum())} L·U products, longest per-wave "
+              f"list {max(longest, default=0)}, critical path {crit} "
+              f"products ({1e3 * ms / max(crit, 1):.2f} us each)",
               flush=True)
 
 

@@ -33,7 +33,10 @@ Deliberate differences from the JAX package:
   ``pallas_exec._solve_gemm_kernel`` and ``_diag_apply_kernel`` with
   ``transpose=True`` (``ops/kernels/solve_gemm.py``), where the JAX
   package runs the XLA level loop ``blocklu._solve_core(transpose=True)``
-  that computes the same function per level on the same schedule.
+  that computes the same function per level on the same schedule. The
+  NOTRANS solve, the port of the JAX package's whole-sweep kernel, runs
+  the same two-pass kernels with ``transpose=False`` on the plan's L and U
+  tapes (``solve_gemm.solve``).
 - The executor is chosen as in the JAX package (driver.py:630-651,
   705-797): clk for exact plans, flk for ILU plans and ``executor="flk"``,
   tck for ``executor="tck"`` (not rerouted: an ILU plan raises
@@ -583,8 +586,8 @@ class SparseLU:
         rs = self._t_rs.to(r.dtype)[:, None]
         bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
         bp[self._t_ridx] = (rs * r[self._t_prc]).to(fdt)
-        X = _sweep.solve(self.pool, self.linv, self.uinv, self._ltape,
-                         self._utape, bp.view(plan.nb, plan.bs, k))
+        X = _solve_gemm.solve(self.pool, self.linv, self.uinv, self._ltape,
+                              self._utape, bp.view(plan.nb, plan.bs, k))
         y = X.view(plan.n_pad, k)[self._t_ridx].to(r.dtype)
         x = torch.zeros((self.n, k), dtype=r.dtype, device=self.device)
         x[self._t_pc] = self._t_cs.to(r.dtype)[:, None] * y

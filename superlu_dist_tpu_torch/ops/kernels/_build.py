@@ -106,12 +106,21 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
+    def fn(self, name: str):
+        """The ctypes function of entry ``name``, for a caller that
+        launches it many times (it returns the ``cudaError_t``, which the
+        caller passes to :meth:`check`)."""
+        return getattr(self.lib(), name)
+
+    def check(self, name: str, err: int) -> None:
+        """Raise if a launch through entry ``name`` returned ``err`` != 0."""
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch of {name} failed "
+                               f"with cudaError {err}")
+
     def call(self, fn: str, *args) -> None:
         """Launch through entry ``fn`` and raise if the launch failed."""
-        err = getattr(self.lib(), fn)(*args)
-        if err != 0:
-            raise RuntimeError(f"{self.name}: CUDA launch of {fn} failed "
-                               f"with cudaError {err}")
+        self.check(fn, self.fn(fn)(*args))
 
 
 def build_all(kernels) -> float:

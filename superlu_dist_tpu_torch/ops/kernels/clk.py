@@ -6,9 +6,10 @@ contiguous slot range U(j,k) for ascending j, the diagonal block, then
 L(i,k) for ascending i. Per elimination level, three phases run on one
 stream:
 
-1. ``clk_update`` (``csrc/clk.cu``): for each column k of the level and
-   each U(j,k) in ascending j, U(j,k) ← linv(j)·U(j,k), then
-   panel(i) −= L(i,j)·U(j,k) for every L block of column j;
+1. ``clk_update`` (``csrc/clk.cu``): for each column k of the level, every
+   stored block (i,k) receives −Σ L(i,j)·U(j,k) over the column's U
+   blocks U(j,k) with j < i and L(i,j) stored, and every U block is
+   finalized as U(i,k) ← linv(i)·U(i,k) once its sum is complete;
 2. ``diag_lu`` (``csrc/diag_lu.cu``) on the level's diagonal blocks;
 3. ``clk_trsm`` (``csrc/clk.cu``): L(i,k) ← L(i,k)·uinv(k).
 
@@ -16,6 +17,16 @@ Columns of one level depend only on columns of lower levels, so the
 level order gives the dependencies that the TPU kernel takes from its
 sequential grid. The TPU kernel's 104-block panel cap (VMEM) has no
 counterpart: the panel stays in device memory.
+
+Inside a column, U(i,k) waits on U(j,k) only when L(i,j) is stored, so
+phase 1 runs in *source-ready waves*: a U block without sources is final
+in wave f = 0, one with sources in wave f(i) = 1 + max f(j) over them,
+and the product L(i',j)·U(j,k) is applied in wave f(j) + 1 (every column
+of a level shares the wave index). One launch per wave: each target of
+the wave subtracts that wave's products in ascending j and, if its sum is
+complete, is finalized. A target's sum therefore runs by source wave,
+then ascending j, where ``clk_update_plain`` (the reference, the JAX
+kernel's order) runs by ascending j.
 """
 
 from __future__ import annotations
@@ -30,48 +41,58 @@ from ..blocklu import level_order
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .flk import FIN_NONE, FIN_U
 from .schur import trsm_plain
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 UPDATE = CudaKernel("clk_update", "clk.cu", {
-    "slu_clk_update_f32": [_V, _V, _V, _I] + [_V] * 8 + [_I, _V]})
+    "slu_clk_waves_f32": [_V] * 9 + [_I, _I, _V]})
 TRSM = CudaKernel("clk_trsm", "clk.cu", {
     "slu_clk_trsm_f32": [_V, _V, _V, _V, _I, _I, _V]})
 
 
 @dataclasses.dataclass
 class ClkTapes:
-    """Per-level schedule of the clk factor. ``*_ptr`` are host int64
-    level pointers; every other field is an int32 tensor on the device.
+    """Per-level schedule of the clk factor. ``lwave``, ``wptr``,
+    ``dptr`` and ``lptr`` are host int64 pointers; every other field is
+    an int32 tensor on the device.
 
-    - update: ``ucols[uptr[l]:uptr[l+1]]`` are the level's columns with
-      U blocks; column k's U blocks are jobs ``col_job0[k] + t`` for
-      t < ``col_dpos[k]``, at slot ``col_base[k] + t``. Job q reads
-      linv(``job_src[q]``) and the L blocks at slots ``job_la0[q]`` …
-      ``+ job_lm[q]``, whose targets are ``dst[job_dst0[q]:]``;
+    - update, in waves: level l's waves are ``lwave[l]:lwave[l+1]``, wave
+      w's targets ``wptr[w]:wptr[w+1]`` (longest product list first). A
+      target t is the slot ``tslot[t]``; its products of the wave are
+      L = ``cl[p]``, U = ``cu[p]`` for p in ``pptr[t]:pptr[t+1]``, in
+      ascending source row j; ``tfin[t]`` is FIN_U when it is then
+      finalized by linv(``tstep[t]``), else FIN_NONE;
     - diag: ``dslot``/``dstep`` over ``dptr``;
     - trsm: ``lslot``/``lstep`` over ``lptr``.
+
+    ``host`` holds numpy copies of the wave tapes and the column jobs of
+    the reference order (``clk_update_plain``): ``ucols[uptr[l]:
+    uptr[l+1]]`` are level l's columns with U blocks; column k's U blocks
+    are jobs ``col_job0[k] + t`` for t < ``col_dpos[k]``, at slot
+    ``col_base[k] + t``; job q reads linv(``job_src[q]``) and the L blocks
+    at slots ``job_la0[q]`` … ``+ job_lm[q]``, whose targets are
+    ``dst[job_dst0[q]:]``. ``job_fwave[q]`` is job q's finalize wave
+    within its level.
     """
 
     nlvl: int
     uptr: np.ndarray
-    ucols: torch.Tensor
-    col_base: torch.Tensor
-    col_dpos: torch.Tensor
-    col_job0: torch.Tensor
-    job_src: torch.Tensor
-    job_la0: torch.Tensor
-    job_lm: torch.Tensor
-    job_dst0: torch.Tensor
-    dst: torch.Tensor
+    lwave: np.ndarray
+    wptr: np.ndarray
+    tslot: torch.Tensor
+    tstep: torch.Tensor
+    tfin: torch.Tensor
+    pptr: torch.Tensor
+    cl: torch.Tensor
+    cu: torch.Tensor
     dptr: np.ndarray
     dslot: torch.Tensor
     dstep: torch.Tensor
     lptr: np.ndarray
     lslot: torch.Tensor
     lstep: torch.Tensor
-    # host copies for the plain version and for work counts
     host: dict
 
 
@@ -99,7 +120,8 @@ def build_clk_tapes(plan: SymbolicPlan, device) -> ClkTapes:
     # target slot in column k of every L block L(i, j) of every job
     nd = int(job_lm.sum())
     d_job = np.repeat(np.arange(njobs), job_lm)
-    d_row = srow[la0[job_src][d_job] + np.arange(nd) - job_dst0[d_job]]
+    d_l = la0[job_src][d_job] + np.arange(nd) - job_dst0[d_job]
+    d_row = srow[d_l]
     d_col = job_col[d_job]
     key = scol.astype(np.int64) * nb + srow
     tkey = d_col.astype(np.int64) * nb + d_row
@@ -119,21 +141,74 @@ def build_clk_tapes(plan: SymbolicPlan, device) -> ClkTapes:
     host = dict(col_base=colptr[:nb], col_dpos=dpos, col_job0=col_job0,
                 job_src=job_src, job_la0=la0[job_src], job_lm=job_lm,
                 job_dst0=job_dst0, dst=pos, ucols=ucols,
+                job_slot=colptr[job_col] + job_t,
                 dslot=diag_slot[dstep], dstep=dstep,
                 lslot=lvo["l_slot"], lstep=lvo["l_step"])
+    lwave, wptr = _waves(host, plan.n_flevels, lev, job_col, d_job, d_l,
+                         pos, len(scol))
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
 
     return ClkTapes(
-        nlvl=plan.n_flevels, uptr=uptr, ucols=dev(ucols),
-        col_base=dev(host["col_base"]), col_dpos=dev(dpos),
-        col_job0=dev(col_job0), job_src=dev(job_src),
-        job_la0=dev(host["job_la0"]), job_lm=dev(job_lm),
-        job_dst0=dev(job_dst0), dst=dev(pos),
+        nlvl=plan.n_flevels, uptr=uptr, lwave=lwave, wptr=wptr,
+        **{k: dev(host[k]) for k in ("tslot", "tstep", "tfin", "pptr", "cl",
+                                     "cu")},
         dptr=np.asarray(lvo["dptr"]), dslot=dev(host["dslot"]),
-        dstep=dev(dstep), lptr=np.asarray(lvo["lptr"]),
+        dstep=dev(host["dstep"]), lptr=np.asarray(lvo["lptr"]),
         lslot=dev(host["lslot"]), lstep=dev(host["lstep"]), host=host)
+
+
+def _waves(h, nlvl, lev, job_col, d_job, d_l, pos, nslots):
+    """The wave tapes of the update (see :class:`ClkTapes`) from the
+    column jobs in ``h`` (job q in column ``job_col[q]``, of level
+    ``lev[job_col[q]]``) and the products (job ``d_job``, L slot ``d_l``,
+    target slot ``pos``); adds them to ``h`` and returns (lwave, wptr)."""
+    job_slot, job_src = h["job_slot"], h["job_src"]
+    njobs = len(job_src)
+    job_lev = lev[job_col]
+    # position of each product's target in its column; the target is a U
+    # block (a job) when it lies above the diagonal
+    d_col = job_col[d_job]
+    tpos = pos - h["col_base"][d_col]
+    u = tpos < h["col_dpos"][d_col]
+    tj = (h["col_job0"][d_col] + tpos)[u]
+    sj, tp = d_job[u], tpos[u]
+    o = np.argsort(tp, kind="stable")
+    tj, sj, tp = tj[o], sj[o], tp[o]
+    # finalize wave f of every job, by ascending target position: a
+    # source sits above its target, so its f is final when it is read
+    f = np.zeros(njobs, dtype=np.int64)
+    cuts = np.flatnonzero(np.diff(tp)) + 1
+    for a, b in zip(np.r_[0, cuts], np.r_[cuts, len(tp)]):
+        np.maximum.at(f, tj[a:b], f[sj[a:b]] + 1)
+    pw = f[d_job] + 1                          # each product's wave
+    nw = np.zeros(nlvl, dtype=np.int64)
+    np.maximum.at(nw, job_lev, f + 1)
+    np.maximum.at(nw, job_lev[d_job], pw + 1)
+    lwave = np.concatenate([[0], np.cumsum(nw)])
+    # targets: (global wave, slot) of every product and every finalize
+    pkey = (lwave[job_lev[d_job]] + pw) * nslots + pos
+    fkey = (lwave[job_lev] + f) * nslots + job_slot
+    tkeys = np.unique(np.concatenate([pkey, fkey]))
+    pt = np.searchsorted(tkeys, pkey)
+    cnt = np.bincount(pt, minlength=len(tkeys))
+    fin = np.full(len(tkeys), FIN_NONE, dtype=np.int64)
+    step = np.zeros(len(tkeys), dtype=np.int64)
+    ft = np.searchsorted(tkeys, fkey)
+    fin[ft] = FIN_U
+    step[ft] = job_src
+    tgw, tslot = tkeys // nslots, tkeys % nslots
+    # per wave the longest product lists first, so that they start first
+    order = np.lexsort((tslot, -cnt, tgw))
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    pj = job_src[d_job]
+    po = np.lexsort((pj, rank[pt]))
+    h.update(tslot=tslot[order], tstep=step[order], tfin=fin[order],
+             pptr=np.concatenate([[0], np.cumsum(cnt[order])]),
+             cl=d_l[po], cu=job_slot[d_job][po], pj=pj[po], job_fwave=f)
+    return lwave, np.searchsorted(tgw[order], np.arange(lwave[-1] + 1))
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +217,9 @@ def build_clk_tapes(plan: SymbolicPlan, device) -> ClkTapes:
 
 
 def clk_update_plain(pool, linv, tp: ClkTapes, level: int) -> None:
-    """Plain version of :func:`clk_update`."""
+    """Plain version of :func:`clk_update`, in the reference order: per
+    column, each U(j,k) in ascending j is finalized and then multiplies
+    every L block of column j."""
     h = tp.host
     dev = pool.device
     for k in h["ucols"][tp.uptr[level]:tp.uptr[level + 1]]:
@@ -158,6 +235,31 @@ def clk_update_plain(pool, linv, tp: ClkTapes, level: int) -> None:
                 pool.index_add_(0, tgt, pool[a0:a0 + lm] @ U, alpha=-1)
 
 
+def clk_update_waves_plain(pool, linv, tp: ClkTapes, level: int) -> None:
+    """:func:`clk_update` by the wave tapes, in the kernel's order: per
+    wave, every target subtracts its products in list order, then the
+    FIN_U targets are finalized. It checks the tapes on the CPU; no card
+    path calls it."""
+    h = tp.host
+    dev = pool.device
+    for w in range(int(tp.lwave[level]), int(tp.lwave[level + 1])):
+        t0, t1 = int(tp.wptr[w]), int(tp.wptr[w + 1])
+        p0, p1 = int(h["pptr"][t0]), int(h["pptr"][t1])
+        ts = torch.as_tensor(h["tslot"][t0:t1], device=dev)
+        T = pool[ts]
+        if p1 > p0:
+            row = np.repeat(np.arange(t1 - t0), np.diff(h["pptr"][t0:t1 + 1]))
+            L = pool[torch.as_tensor(h["cl"][p0:p1], device=dev)]
+            U = pool[torch.as_tensor(h["cu"][p0:p1], device=dev)]
+            T.index_add_(0, torch.as_tensor(row, device=dev),
+                         torch.matmul(L, U), alpha=-1)
+        fin = torch.as_tensor(h["tfin"][t0:t1] == FIN_U, device=dev)
+        if bool(fin.any()):
+            st = torch.as_tensor(h["tstep"][t0:t1], device=dev)[fin]
+            T[fin] = torch.matmul(linv[st], T[fin])
+        pool[ts] = T
+
+
 def clk_update(pool, linv, tp: ClkTapes, level: int) -> None:
     """Left-looking update of the columns of ``level`` (in place)."""
     if pool.device.type == "cpu":
@@ -167,15 +269,16 @@ def clk_update(pool, linv, tp: ClkTapes, level: int) -> None:
 
 
 def _launch_update(pool, linv, tp: ClkTapes, level: int) -> None:
-    lo, hi = int(tp.uptr[level]), int(tp.uptr[level + 1])
-    if hi == lo:
+    """One launch per wave of ``level``, issued by the C entry from the
+    host array ``wptr``."""
+    w0, w1 = int(tp.lwave[level]), int(tp.lwave[level + 1])
+    if w1 == w0:
         return
-    UPDATE.launches += 1
-    UPDATE.call("slu_clk_update_f32", ptr(pool), ptr(linv),
-                ptr(tp.ucols[lo:hi]), hi - lo, ptr(tp.col_base),
-                ptr(tp.col_dpos), ptr(tp.col_job0), ptr(tp.job_src),
-                ptr(tp.job_la0), ptr(tp.job_lm), ptr(tp.job_dst0),
-                ptr(tp.dst), pool.shape[-1], stream_ptr(pool.device))
+    UPDATE.launches += w1 - w0
+    UPDATE.call("slu_clk_waves_f32", ptr(pool), ptr(linv), ptr(tp.tslot),
+                ptr(tp.tstep), ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl),
+                ptr(tp.cu), ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0),
+                w1 - w0, pool.shape[-1], stream_ptr(pool.device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-// rows.cuh: block-times-tile products shared by sweep.cu and solve_gemm.cu.
+// rows.cuh: block-times-tile products shared by rdma.cu and solve_gemm.cu.
 //
 // A tile is up to kRT right-hand sides of one block row of X, staged in
 // shared memory column major (V[c * bs + k]), so that the threads of a

@@ -1,11 +1,13 @@
 """Kernels 9–10: the per-level solve GEMM and diagonal apply, each with a
-transpose flag, and the transposed solve that runs them.
+transpose flag, and the two solves that run them (kernel 3's NOTRANS
+solve and the transposed solve).
 
 Counterpart of the JAX package's ``pallas_exec._solve_gemm_kernel`` and
 ``_diag_apply_kernel`` (``make_solve_gemm_call``/``make_diag_apply_call``,
-driven by ``_pallas_solve_executor``) and of the level loop of
-``blocklu._solve_core(transpose=True)``, which is the JAX package's
-transposed solve. Per level, with op(M) = Mᵀ under ``transpose``:
+driven by ``_pallas_solve_executor``), of its whole-sweep solve kernel
+``_sweep_kernel`` (``build_solve_fn_pallas_fused``), and of the level loop
+of ``blocklu._solve_core``. Per level, with op(M) = Mᵀ under
+``transpose``:
 
 - :func:`solve_gemm`: X[dst] −= op(pool[slot])·X[src] over the level's
   triples;
@@ -19,15 +21,24 @@ sum into a scratch buffer, and :func:`solve_rows` (pass 2, one CTA per
 row) subtracts a row's chunk sums in chunk order and applies the
 diagonal. :func:`solve_level` is pass 1 and pass 2 with the diagonal;
 :func:`solve_gemm` is pass 1 and pass 2 without it; :func:`diag_apply`
-is pass 2 without partials. SOLVE_GEMM counts the launches of pass 1 and
-of solve_gemm's pass 2, DIAG_APPLY those of the other pass 2 launches.
+is pass 2 without partials.
 
-:func:`solve_transposed` runs :func:`solve_level` over the Uᵀ forward
-sweep with ``uinv`` and then the Lᵀ backward sweep with ``linv`` (both
-transposed) on the tapes of :func:`build_trans_tape`, which keep the JAX
-package's level of every block row (``blocklu.trans_schedule``). With
-``transpose=False`` on the plan's L and U tapes the two phases compose to
-the NOTRANS sweep of ``sweep.py``.
+The two solves share one host loop over the levels, which checks the
+tensors once per solve and takes each level's arguments from
+``SweepTape.launch_levels``:
+
+- :func:`solve`, the NOTRANS solve (kernel 3): the L sweep with ``linv``,
+  then the U sweep with ``uinv``, on the plan's tapes
+  (``sweep.build_sweep_tape``), ``transpose=False``;
+- :func:`solve_transposed`: the Uᵀ forward sweep with ``uinv`` and then
+  the Lᵀ backward sweep with ``linv``, both transposed, on the tapes of
+  :func:`build_trans_tape`, which keep the JAX package's level of every
+  block row (``blocklu.trans_schedule``).
+
+Launch counters: with ``transpose=False`` both passes count on SWEEP
+(kernel 3); with ``transpose=True`` pass 1 counts on SOLVE_GEMM and pass
+2 on DIAG_APPLY; the standalone :func:`solve_gemm` counts both its passes
+on SOLVE_GEMM and :func:`diag_apply` on DIAG_APPLY, whatever the flag.
 """
 
 from __future__ import annotations
@@ -47,10 +58,12 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 _ROWS = {f"slu_solve_rows_{s}": [_V] * 5 + [_I] * 6 + [_V]
          for s in ("f32", "f64")}
-SOLVE_GEMM = CudaKernel("solve_gemm", "solve_gemm.cu", {
-    **{f"slu_solve_gemm_{s}": [_V] * 6 + [_I] * 4 + [_V]
-       for s in ("f32", "f64")}, **_ROWS})
+_CHUNKS = {f"slu_solve_gemm_{s}": [_V] * 6 + [_I] * 4 + [_V]
+           for s in ("f32", "f64")}
+SOLVE_GEMM = CudaKernel("solve_gemm", "solve_gemm.cu", {**_CHUNKS, **_ROWS})
 DIAG_APPLY = CudaKernel("diag_apply", "solve_gemm.cu", _ROWS)
+#: kernel 3, the NOTRANS sweep: both passes with ``transpose=False``
+SWEEP = CudaKernel("sweep", "solve_gemm.cu", {**_CHUNKS, **_ROWS})
 
 
 def build_trans_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
@@ -102,20 +115,20 @@ def solve_level_plain(pool, dinv, X, tape: SweepTape, level: int,
     diag_apply_plain(dinv, X, tape, level, transpose)
 
 
-def solve_chunks(pool, X, tape: SweepTape, level: int, transpose: bool):
+def solve_chunks(pool, X, tape: SweepTape, level: int, transpose: bool,
+                 kernel: CudaKernel = SOLVE_GEMM):
     """Pass 1 on the card: each chunk's sum Σ op(pool[slot])·X[src] of
     ``level`` into the tape's scratch buffer, which it returns (None for a
-    level without products). Counts one launch on SOLVE_GEMM."""
+    level without products). Counts one launch on ``kernel``."""
     q0, q1 = int(tape.qptr[level]), int(tape.qptr[level + 1])
     if q1 == q0:
         return None
     P = _scratch(tape, X)
     fn = entry("solve_gemm", X)
-    SOLVE_GEMM.count(fn)
-    SOLVE_GEMM.call(fn, ptr(pool), ptr(X), ptr(P),
-                    ptr(tape.cptr[q0:q1 + 1]), ptr(tape.cslot),
-                    ptr(tape.csrc), q1 - q0, pool.shape[-1], X.shape[2],
-                    int(transpose), stream_ptr(X.device))
+    kernel.count(fn)
+    kernel.call(fn, ptr(pool), ptr(X), ptr(P), ptr(tape.cptr[q0:q1 + 1]),
+                ptr(tape.cslot), ptr(tape.csrc), q1 - q0, pool.shape[-1],
+                X.shape[2], int(transpose), stream_ptr(X.device))
     return P
 
 
@@ -167,8 +180,17 @@ def solve_level(pool, dinv, X, tape: SweepTape, level: int,
         return solve_level_plain(pool, dinv, X, tape, level, transpose)
     _check_cuda("solve_level", pool, X)
     _check_cuda("solve_level", dinv, X)
-    P = solve_chunks(pool, X, tape, level, transpose)
-    solve_rows(dinv, X, P, tape, level, transpose)
+    k1, k2 = _counters(transpose)
+    P = solve_chunks(pool, X, tape, level, transpose, k1)
+    solve_rows(dinv, X, P, tape, level, transpose, k2)
+
+
+def solve(pool, linv, uinv, tl: SweepTape, tu: SweepTape, X):
+    """The NOTRANS solve A3·y = b in place on ``X`` (nb, bs, nrhs): the L
+    sweep with ``linv`` on ``tl``, then the U sweep with ``uinv`` on
+    ``tu``, each level by the two passes of :func:`solve_level` with
+    ``transpose=False`` (counted on SWEEP). Returns X."""
+    return _solve(pool, ((tl, linv), (tu, uinv)), X, False)
 
 
 def solve_transposed(pool, uinv, linv, tu: SweepTape, tl: SweepTape, X):
@@ -176,9 +198,48 @@ def solve_transposed(pool, uinv, linv, tu: SweepTape, tl: SweepTape, X):
     with ``uinv`` on ``tu``, then the Lᵀ backward sweep with ``linv`` on
     ``tl`` (the argument order of the JAX package's
     ``build_trans_solve_fn``). Returns X."""
-    for tape, dinv in ((tu, uinv), (tl, linv)):
-        for level in range(tape.nlvl):
-            solve_level(pool, dinv, X, tape, level, True)
+    return _solve(pool, ((tu, uinv), (tl, linv)), X, True)
+
+
+def _counters(transpose: bool):
+    """The launch counters of (pass 1, pass 2) of :func:`solve_level`."""
+    return (SOLVE_GEMM, DIAG_APPLY) if transpose else (SWEEP, SWEEP)
+
+
+def _solve(pool, sweeps, X, transpose: bool):
+    """Every level of each (tape, dinv) of ``sweeps`` in turn, in place on
+    X: the plain levels on the CPU; on the card the tensors are checked
+    once and each level's two launches take their arguments from
+    ``SweepTape.launch_levels``."""
+    if X.device.type == "cpu":
+        for tape, dinv in sweeps:
+            for level in range(tape.nlvl):
+                solve_level_plain(pool, dinv, X, tape, level, transpose)
+        return X
+    what = "solve_transposed" if transpose else "solve"
+    _check_cuda(what, pool, X)
+    for _, dinv in sweeps:
+        _check_cuda(what, dinv, X)
+    k1, k2 = _counters(transpose)
+    n1, n2 = entry("solve_gemm", X), entry("solve_rows", X)
+    f1, f2 = k1.fn(n1), k2.fn(n2)
+    bs, nrhs, tr = X.shape[1], X.shape[2], int(transpose)
+    stream = stream_ptr(X.device)
+    pp, xp = pool.data_ptr(), X.data_ptr()
+    for tape, dinv in sweeps:
+        P = _scratch(tape, X).data_ptr()
+        dp, cs, cr = dinv.data_ptr(), tape.cslot.data_ptr(), \
+            tape.csrc.data_ptr()
+        for cp, nq, rows, chp, q0, nr in tape.launch_levels():
+            if nq:
+                k1.count(n1)
+                k1.check(n1, f1(pp, xp, P, cp, cs, cr, nq, bs, nrhs, tr,
+                                stream))
+            if nr:
+                k2.count(n2)
+                k2.check(n2, f2(dp, xp, P if nq else None, rows,
+                                chp if nq else None, q0, nr, bs, nrhs, tr,
+                                1, stream))
     return X
 
 

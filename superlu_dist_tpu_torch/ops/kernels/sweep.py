@@ -1,30 +1,25 @@
-"""Kernel 3: the level-set triangular sweeps of the solve.
+"""The level-set schedule of the triangular sweeps, and row 3's plain
+version.
 
 Counterpart of the JAX package's whole-sweep solve kernel
 (``pallas_exec._sweep_kernel`` through ``build_solve_fn_pallas_fused``)
-and of the level loop of ``blocklu._solve_core``. One launch of
-``csrc/sweep.cu`` per level per sweep (L, then U): every contribution
-into block row I, and I's diagonal apply, sit in I's level, and every
-source row is at a lower level (``ops/host/symbolic.py::_level_schedule``).
+and of the level loop of ``blocklu._solve_core``: every contribution into
+block row I, and I's diagonal apply, sit in I's level, and every source
+row is at a lower level (``ops/host/symbolic.py::_level_schedule``). This
+module holds the tapes (a CSR by destination in level order, each chain
+cut into chunks) and :func:`sweep_level_plain`; the card runs the sweeps
+through ``solve_gemm.py`` (``csrc/solve_gemm.cu``'s two passes per
+level), the NOTRANS solve by ``solve_gemm.solve``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..host.symbolic import SymbolicPlan
-from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, entry
-
-_V = ctypes.c_void_p
-_I = ctypes.c_int
-KERNEL = CudaKernel("sweep", "sweep.cu", {
-    f"slu_sweep_{s}": [_V] * 7 + [_I, _I, _I, _V] for s in ("f32", "f64")})
-
 
 #: CTAs that the products of one level should fill when it has enough of
 #: them: two per SM of an H100 (132 SMs). ``chunk_chains`` cuts chains so.
@@ -41,7 +36,8 @@ class SweepTape:
     (``solve_gemm.cu``'s first pass runs one CTA per chunk); level l's
     chunks are ``qptr[l]:qptr[l+1]``. ``dptr`` and ``qptr`` are host
     arrays, the rest int32 device tensors; ``scratch`` caches the partial
-    sums' buffers of ``solve_gemm.py`` by (dtype, nrhs, device)."""
+    sums' buffers of ``solve_gemm.py`` by (dtype, nrhs, device), and
+    ``levels`` the launch arguments of :meth:`launch_levels`."""
 
     nlvl: int
     dptr: np.ndarray
@@ -54,11 +50,26 @@ class SweepTape:
     cptr: torch.Tensor
     qptr: np.ndarray
     scratch: dict = dataclasses.field(default_factory=dict, repr=False)
+    levels: list | None = dataclasses.field(default=None, repr=False)
 
     @property
     def max_chunks(self) -> int:
         """The most chunks of one level."""
         return int(np.diff(self.qptr).max(initial=0))
+
+    def launch_levels(self) -> list:
+        """Per level, the two passes' arguments as plain ints, made once
+        (the tensors never move): (address of the level's ``cptr``, its
+        chunks, address of its ``rows``, address of its ``chunkptr``, its
+        first chunk, its rows)."""
+        if self.levels is None:
+            cp, rw, ch = (t.data_ptr() for t in (self.cptr, self.rows,
+                                                  self.chunkptr))
+            q, d = self.qptr.tolist(), self.dptr.tolist()
+            self.levels = [(cp + 4 * q[i], q[i + 1] - q[i], rw + 4 * d[i],
+                            ch + 4 * d[i], q[i], d[i + 1] - d[i])
+                           for i in range(self.nlvl)]
+        return self.levels
 
 
 def build_sweep_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
@@ -125,7 +136,10 @@ def csr_tape(nb, gslot, gsrc, gdst, dptr, rows, nlvl, device,
 
 
 def sweep_level_plain(pool, dinv, X, tape: SweepTape, level: int) -> None:
-    """Plain version of :func:`sweep_level`."""
+    """One level of a sweep, in place on ``X`` (nb, bs, nrhs):
+    X[I] = dinv[I]·(X[I] − Σ pool[slot]·X[src]) for the level's rows (the
+    plain version of ``solve_gemm.solve_level`` with ``transpose=False``,
+    operation for operation)."""
     h = tape.host
     lo, hi = int(tape.dptr[level]), int(tape.dptr[level + 1])
     if hi == lo:
@@ -140,49 +154,3 @@ def sweep_level_plain(pool, dinv, X, tape: SweepTape, level: int) -> None:
         X.index_add_(0, dst, pool[sl] @ X[src], alpha=-1)
     r = torch.as_tensor(h["rows"][lo:hi], device=dev)
     X[r] = dinv[r] @ X[r]
-
-
-def sweep_level(pool, dinv, X, tape: SweepTape, level: int) -> None:
-    """One level of a sweep, in place on ``X`` (nb, bs, nrhs):
-    X[I] = dinv[I]·(X[I] − Σ pool[slot]·X[src]) for the level's rows."""
-    if X.device.type == "cpu":
-        return sweep_level_plain(pool, dinv, X, tape, level)
-    _check_cuda(pool, dinv, X, pool.shape[-1])
-    _launch(pool, dinv, X, tape, level)
-
-
-def _launch(pool, dinv, X, tape: SweepTape, level: int) -> None:
-    lo, hi = int(tape.dptr[level]), int(tape.dptr[level + 1])
-    if hi == lo:
-        return
-    KERNEL.launches += 1
-    KERNEL.call(entry("sweep", X), ptr(pool), ptr(dinv), ptr(X),
-                ptr(tape.rows[lo:hi]), ptr(tape.rowptr[lo:hi + 1]),
-                ptr(tape.cslot), ptr(tape.csrc), hi - lo, pool.shape[-1],
-                X.shape[2], stream_ptr(X.device))
-
-
-def solve(pool, linv, uinv, tl: SweepTape, tu: SweepTape, X):
-    """L then U sweep of ``X`` (nb, bs, nrhs) in place; returns X."""
-    for level in range(tl.nlvl):
-        sweep_level(pool, linv, X, tl, level)
-    for level in range(tu.nlvl):
-        sweep_level(pool, uinv, X, tu, level)
-    return X
-
-
-def _check_cuda(pool, dinv, X, bs):
-    if X.device.type != "cuda":
-        raise ValueError(f"sweep: unsupported device {X.device}")
-    for t in (pool, dinv, X):
-        if t.dtype not in CUDA_DTYPES or t.dtype != X.dtype \
-                or not t.is_contiguous() or t.device != X.device:
-            raise ValueError("sweep: pool, dinv and X must be contiguous "
-                             "tensors of one dtype (float32 or float64) on "
-                             "one device")
-    if pool.shape[-2:] != (bs, bs) or dinv.shape[-2:] != (bs, bs) \
-            or X.dim() != 3 or X.shape[1] != bs:
-        raise ValueError("sweep: shapes must be pool/dinv (., bs, bs) and "
-                         "X (nb, bs, nrhs)")
-    if bs not in CUDA_BLOCK_SIZES:
-        raise ValueError(f"sweep: block size {bs} not in {CUDA_BLOCK_SIZES}")

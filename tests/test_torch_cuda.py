@@ -12,6 +12,7 @@ import torch
 
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu
+from superlu_dist_tpu_torch.ops.host.symbolic import block_symbolic
 from superlu_dist_tpu_torch.ops.kernels import (clk, diag_lu, flk, schur,
                                                 solve_gemm, sweep, tck)
 from superlu_dist_tpu_torch.parallel import dist2d_rdma as rdma
@@ -64,14 +65,95 @@ def test_factor_and_sweeps_match_plain(cuda, bs):
         scale = max(1.0, float(p.abs().max()))
         assert float((k - p).abs().max()) <= ULPS * eps * scale
     X = torch.randn(plan.nb, plan.bs, 2, device=cuda)
-    Xk = sweep.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape,
-                     X.clone())
+    Xk = solve_gemm.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape,
+                          X.clone())
     Xp = X.clone()
     for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
         for level in range(tape.nlvl):
             sweep.sweep_level_plain(lu.pool, dinv, Xp, tape, level)
     scale = max(1.0, float(Xp.abs().max()))
     assert float((Xk - Xp).abs().max()) <= ULPS * eps * scale
+
+
+def _sym_random(n, density, seed):
+    """A random symmetric pattern with a dominant diagonal."""
+    import scipy.sparse as sp
+    M = sp.random(n, n, density=density, random_state=seed, format="csc")
+    return (M + M.T + sp.eye(n) * (n * 0.5)).tocsc().astype(np.float32)
+
+
+@pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_clk_update_matches_plain(cuda, bs, mat):
+    """The wave kernel of clk_update against clk_update_plain (the
+    reference order) level by level from the same pool, on lap3d12 in the
+    driver's order and on random patterns in their natural order; the
+    factor goes on with the kernel's output. Launches: one per wave."""
+    if mat == "lap3d12":
+        A = tt.laplacian_3d(12).tocsc()
+        _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+            dtype="float32", block_size=bs), device=cuda)
+        plan, data = lu.plan, lu._a3_data
+    else:
+        A = _sym_random(6 * bs, 0.004 * int(mat[-1]), int(mat[-1]))
+        plan, data = block_symbolic(A, bs), A.data
+    tp = clk.build_clk_tapes(plan, cuda)
+    pool = blocklu.init_pool(plan, data, np.float32, cuda)
+    linv = torch.zeros((plan.nb, bs, bs), device=cuda)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+    eps = np.finfo(np.float32).eps
+    clk.UPDATE.reset_counts()
+    for level in range(tp.nlvl):
+        ref = pool.clone()
+        clk.clk_update(pool, linv, tp, level)
+        clk.clk_update_plain(ref, linv, tp, level)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((pool - ref).abs().max()) <= ULPS * eps * scale
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        0.0, tiny)
+        clk.clk_trsm(pool, uinv, tp, level)
+    assert clk.UPDATE.launches == int(tp.lwave[-1]) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_notrans_solve_matches_plain(cuda, bs, dtype):
+    """The NOTRANS solve through the two passes (solve_gemm.solve, counted
+    on SWEEP alone) against the plain levels, with one and three
+    right-hand sides, and two solves of one X bit-equal."""
+    A = tt.laplacian_3d_unsym(12).tocsc()
+    _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+        dtype="float32" if dtype == torch.float32 else "float64",
+        block_size=bs), device=cuda)
+    plan = lu.plan
+    eps = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps
+    tapes = ((lu._ltape, lu.linv), (lu._utape, lu.uinv))
+    for nrhs in (1, 3):
+        X = torch.randn(plan.nb, plan.bs, nrhs, device=cuda, dtype=dtype)
+        for k in (solve_gemm.SWEEP, solve_gemm.SOLVE_GEMM,
+                  solve_gemm.DIAG_APPLY):
+            k.reset_counts()
+        Xk = solve_gemm.solve(lu.pool, lu.linv, lu.uinv, *(t for t, _ in
+                                                         tapes), X.clone())
+        X2 = solve_gemm.solve(lu.pool, lu.linv, lu.uinv, *(t for t, _ in
+                                                         tapes), X.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(Xk, X2)
+        assert solve_gemm.SWEEP.launches >= 2 * sum(t.nlvl for t, _ in
+                                                   tapes)
+        assert solve_gemm.SOLVE_GEMM.launches == 0
+        assert solve_gemm.DIAG_APPLY.launches == 0
+        Xp = X.clone()
+        for tape, dinv in tapes:
+            for level in range(tape.nlvl):
+                solve_gemm.solve_level_plain(lu.pool, dinv, Xp, tape, level,
+                                             False)
+        scale = max(1.0, float(Xp.abs().max()))
+        assert float((Xk - Xp).abs().max()) <= ULPS * eps * scale
 
 
 def _flk_plain(pool, thresh, tp, nb):
@@ -274,13 +356,13 @@ def test_float64_kernels_match_plain(cuda, bs):
     flags level by level, at 64 float64 ulp."""
     A = tt.laplacian_3d_unsym(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
-    for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, sweep.KERNEL):
+    for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, solve_gemm.SWEEP):
         k.launches = 0
     res, lu = T.gssvx(A, b, T.Options(dtype="float64", block_size=bs),
                       device=cuda)
     assert res.stat.counters["executor"] == "pallas"
     assert res.berr.max() < 1e-15
-    for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, sweep.KERNEL):
+    for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, solve_gemm.SWEEP):
         assert k.launches > 0, k.name
     assert lu.pool.dtype == torch.float64
     eps = np.finfo(np.float64).eps
@@ -292,8 +374,8 @@ def test_float64_kernels_match_plain(cuda, bs):
         scale = max(1.0, float(p.abs().max()))
         assert float((k - p).abs().max()) <= ULPS * eps * scale
     X = torch.randn(plan.nb, plan.bs, 3, device=cuda, dtype=torch.float64)
-    Xk = sweep.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape,
-                     X.clone())
+    Xk = solve_gemm.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape,
+                          X.clone())
     Xp = X.clone()
     for tape, dinv in ((lu._ltape, lu.linv), (lu._utape, lu.uinv)):
         for level in range(tape.nlvl):

@@ -1,6 +1,7 @@
 """Kernel 3 (sweep): on a JAX-factored pool carried across into the
-port, the plain level sweeps against the JAX package's whole-sweep
-kernel (interpret mode) and its XLA level-set solve."""
+port, the NOTRANS solve (``solve_gemm.solve``, whose CPU path runs the
+plain levels) against the JAX package's whole-sweep kernel (interpret
+mode) and its XLA level-set solve."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +13,7 @@ from superlu_dist_tpu.ops.kernels import blocklu as jbl
 from superlu_dist_tpu.ops.kernels import pallas_exec as jpe
 
 import superlu_dist_tpu_torch as T
-from superlu_dist_tpu_torch.ops.kernels import sweep
+from superlu_dist_tpu_torch.ops.kernels import solve_gemm
 from superlu_dist_tpu_torch.utils import testing as tt
 
 from torch_state import numpy_state
@@ -50,7 +51,8 @@ def test_sweep_matches_jax_solvers(carried, nrhs):
     plan = jlu.plan
     b = _rhs(plan, nrhs)
     X = torch.from_numpy(b.copy()).view(plan.nb, plan.bs, nrhs)
-    sweep.solve(tlu.pool, tlu.linv, tlu.uinv, tlu._ltape, tlu._utape, X)
+    solve_gemm.solve(tlu.pool, tlu.linv, tlu.uinv, tlu._ltape, tlu._utape,
+                     X)
     got = X.reshape(-1, nrhs).numpy()
 
     nbp = jbl.bucket125(plan.nb)
