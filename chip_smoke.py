@@ -69,7 +69,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    device ms and host launch loop (printed);
    then clk, flk and the level executor on the same plan
    (SamePattern_SameRowPerm refactors), each held to the same limits,
-   with clk_update's costliest levels;
+   with clk_update's costliest levels, clk_trsm, and the level executor's
+   trsm and schur against their plain versions on lap3d50's inputs;
 9. float64 on the card, which runs the level executor:
    ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
    ``condition_number`` on lap3d32u, each held to the same limits; every
@@ -144,6 +145,8 @@ REPLACES = {
     "rdma_solve": "superlu_dist_tpu/parallel/dist2d_rdma.py:534",
 }
 ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
+#: where a kernel's body lives when it is not in the source that builds it
+SOURCE = {"trsm": "panel.cuh", "clk_trsm": "panel.cuh"}
 #: the kernels with a float64 instantiation, which the float64 path runs
 F64_KERNELS = ("diag_lu", "trsm", "schur", "sweep", "solve_gemm",
                "diag_apply")
@@ -308,7 +311,7 @@ def main() -> None:
         row = dict(
             name=key, route="cuda",
             source=("superlu_dist_tpu_torch/ops/kernels/csrc/"
-                    f"{kernels[name].source}"),
+                    f"{SOURCE.get(name, kernels[name].source)}"),
             replaces=REPLACES[name], launches=launches[key],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
@@ -566,7 +569,7 @@ def check_kernels(lu, ctx, launches, levels=False):
     ck = Checker(torch, bs, ("diag_lu", "clk_update", "clk_trsm", "sweep"),
                  library=("clk_trsm",))
 
-    per_level = []
+    per_level, per_panel = [], []
     for lvl in range(tp.nlvl):
         (pool,), ms = ck.compare(
             "clk_update", lambda p: clk.clk_update(p, linv, tp, lvl),
@@ -587,11 +590,14 @@ def check_kernels(lu, ctx, launches, levels=False):
             C = torch.empty_like(Lg)
             ck.library("clk_trsm", lambda: torch.bmm(Lg, Ug, out=C))
             del Lg, Ug, C
-        (pool,), _ = ck.compare(
+        (pool,), ms = ck.compare(
             "clk_trsm", lambda p: clk.clk_trsm(p, uinv, tp, lvl),
             lambda p: clk.clk_trsm_plain(p, uinv, tp, lvl), [pool])
+        if hi > lo:
+            per_panel.append((ms, hi - lo, f"level {lvl}"))
     if levels or launches is not None:
         print_update_levels(tp, per_level, bs)
+        print_panel_levels("clk_trsm", per_panel)
     check_whole_factor("clk", lu, ctx, pool, tiny)
     check_sweep(lu, ctx, ck)
 
@@ -701,7 +707,7 @@ def check_level(lu, ctx, report, full=False):
     pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
     ck = Checker(torch, plan.bs, ("schur", "trsm") + (
         ("diag_lu", "sweep") if full else ()), library=("trsm",))
-    per_level = []
+    per_level, per_panel = [], []
     for lvl in range(tp.nlvl):
         d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
         ds, dk = tp.dslot[d], tp.dstep[d]
@@ -725,16 +731,20 @@ def check_level(lu, ctx, report, full=False):
                 ck.library("trsm", (lambda: torch.bmm(Dg, Xg, out=C)) if left
                            else (lambda: torch.bmm(Xg, Dg, out=C)))
                 del Xg, Dg, C
-            (pool,), _ = ck.compare(
+            (pool,), ms = ck.compare(
                 "trsm", lambda p: schur.trsm(p, dinv, sl[s], st[s], left),
                 lambda p: schur.trsm_plain(p, dinv, sl[s], st[s], left),
                 [pool])
+            if s.stop > s.start:
+                per_panel.append((ms, s.stop - s.start,
+                                  f"level {lvl} {'U' if left else 'L'}"))
         (pool,), ms = ck.compare(
             "schur", lambda p: schur.schur(p, tp, lvl),
             lambda p: schur.schur_plain(p, tp, lvl), [pool])
         per_level.append((ms, lvl))
     if report:
         print_schur_levels(tp, per_level)
+        print_panel_levels("trsm", per_panel)
     check_whole_factor("level executor", lu, ctx, pool, tiny)
     b = level_bounds(plan, tp, lu.dtype)
     if full:
@@ -1174,17 +1184,23 @@ def tck_phase(ctx, rng, checks, launches):
              ("clk_update", "tck_update", "schur")),
             ("pallas", ("schur", "trsm", "diag_lu", "sweep"),
              ("clk_update", "tck_update", "flk"))):
-        _, lu, _ = drive(ctx, f"{exc} lap3d50", A, b,
-                         opts.replace(executor=exc, fact=ssr), need, zero,
-                         lu=lu)
+        _, lu, got = drive(ctx, f"{exc} lap3d50", A, b,
+                           opts.replace(executor=exc, fact=ssr), need, zero,
+                           lu=lu)
         if lu.plan is not plan:
             fail(f"{exc} lap3d50: the refactor rebuilt the plan")
         if exc == "clk":
-            o = check_kernels(lu, ctx, None, levels=True)["clk_update"]
+            c = check_kernels(lu, ctx, None, levels=True)
+            o = c["clk_update"]
             print(f"lap3d50 clk_update: max_abs_err {o['max_abs_err']:.3e} "
                   f"(tolerance {o['tol']:.3e}); kernel {o['ms']:.3f} ms, "
                   f"plain {o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f}"
                   f" ms ({o['bound_by']})", flush=True)
+            print_check("lap3d50 clk_trsm", c["clk_trsm"], got["clk_trsm"])
+        if exc == "pallas":
+            c = check_level(lu, ctx, report=False)
+            for name in ("trsm", "schur"):
+                print_check(f"lap3d50 {name}", c[name], got[name])
 
 
 def f64_phase(ctx, rng, checks, launches):
@@ -1558,6 +1574,19 @@ def print_flk_groups(tp, per_group, top=6):
               f"kernel {ms:9.3f} ms; {hi - lo} targets, {int(chain.sum())} "
               f"L·U products, longest chain {int(chain.max(initial=0))}",
               flush=True)
+
+
+def print_panel_levels(name, per_launch, top=6):
+    """Where a panel TRSM's time goes: the launches of fewer than 66
+    panels (one partial wave of 64-row bands on 132 SMs) against the rest,
+    and the costliest launches with their panels."""
+    total = sum(ms for ms, _, _ in per_launch)
+    small = [ms for ms, n, _ in per_launch if n < 66]
+    print(f"{name} by launch (kernel {total:.3f} ms over {len(per_launch)} "
+          f"launches; {len(small)} launches of < 66 panels take "
+          f"{sum(small):.3f} ms; top {top}):")
+    for ms, n, what in sorted(per_launch, reverse=True)[:top]:
+        print(f"  {what}: kernel {ms:.3f} ms; {n} panels", flush=True)
 
 
 def print_schur_levels(tp, per_level, top=6):

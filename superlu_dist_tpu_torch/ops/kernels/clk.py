@@ -11,7 +11,8 @@ stream:
    blocks U(j,k) with j < i and L(i,j) stored, and every U block is
    finalized as U(i,k) ← linv(i)·U(i,k) once its sum is complete;
 2. ``diag_lu`` (``csrc/diag_lu.cu``) on the level's diagonal blocks;
-3. ``clk_trsm`` (``csrc/clk.cu``): L(i,k) ← L(i,k)·uinv(k).
+3. ``clk_trsm`` (``csrc/clk.cu``, the band-times-inverse kernel of
+   ``csrc/panel.cuh``, as ``schur.trsm``): L(i,k) ← L(i,k)·uinv(k).
 
 Columns of one level depend only on columns of lower levels, so the
 level order gives the dependencies that the TPU kernel takes from its

@@ -50,15 +50,20 @@
 // consecutive columns. The arithmetic is IEEE FP32 FMA on the CUDA cores
 // (no TF32).
 //
-// clk_trsm runs one CTA per (L block, strip of 16 rows); the row strip is
-// staged in shared memory so the product can be written in place
-// (strip.cuh, shared with flk.cu and schur.cu). Offsets are computed in 64
-// bits (slot * bs^2 passes 2^31 near n = 885k).
+// clk_trsm is panel.cuh's band-times-inverse kernel (shared with
+// schur.cu's trsm): one CTA per (L block, band of whole rows), the band
+// and the inverse streamed through a cp.async ring, the band written back
+// in place once all of it has been read. Offsets are computed in 64 bits
+// (slot * bs^2 passes 2^31 near n = 885k).
 
+#include "panel.cuh"
 #include "strip.cuh"
 
 namespace {
 
+using slu_panel::cp_async16;
+using slu_panel::cp_async_commit;
+using slu_panel::cp_async_wait;
 using slu_strip::Vec4;
 
 // clk_update's columns per strip: 8 and 32 were no faster on an H100
@@ -78,22 +83,6 @@ struct Wave {
       (size_t)(STAGES * kStage + BS * TN) * sizeof(float);
   static_assert(kBytes <= 227 * 1024, "shared memory");
 };
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int BS>
 __global__ void __launch_bounds__(Wave<BS>::kThreads)
@@ -229,17 +218,6 @@ int launch_waves(float* pool, const float* linv, const int32_t* tslot,
   return 0;
 }
 
-// L(i,k) <- L(i,k) . uinv(k): a row-strip TRSM (strip.cuh), the same
-// function as schur.cu's trsm with left = 0, launched and counted apart.
-__global__ void __launch_bounds__(slu_strip::kMaxBs)
-clk_trsm_kernel(float* __restrict__ pool, const float* __restrict__ uinv,
-                const int32_t* __restrict__ lslots,
-                const int32_t* __restrict__ lsteps, int bs) {
-  slu_strip::strip_update<float>(pool, uinv, uinv, lslots[blockIdx.x],
-                                 lsteps[blockIdx.x], slu_strip::FIN_L,
-                                 nullptr, nullptr, 0, 0, bs, blockIdx.y);
-}
-
 }  // namespace
 
 // The update of one level: `nwaves` launches, wave w over the targets
@@ -265,13 +243,11 @@ extern "C" int slu_clk_waves_f32(void* pool, const void* linv,
   }
 }
 
+// L(i,k) <- L(i,k) . uinv(k) over the level's L blocks: the same function
+// as schur.cu's trsm with left = 0, launched and counted apart.
 extern "C" int slu_clk_trsm_f32(void* pool, const void* uinv,
                                 const void* lslots, const void* lsteps,
                                 int count, int bs, void* stream) {
-  if (count == 0) return 0;
-  const dim3 grid(count, bs / slu_strip::kStrip);
-  clk_trsm_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
-      (float*)pool, (const float*)uinv, (const int32_t*)lslots,
-      (const int32_t*)lsteps, bs);
-  return (int)cudaGetLastError();
+  return slu_panel::trsm<float>(pool, uinv, lslots, lsteps, count, bs, 0,
+                                stream);
 }

@@ -1,0 +1,285 @@
+// panel.cuh: the panel TRSM by a stored inverse, shared by schur.cu
+// (`trsm`, both flags, float and double) and clk.cu (`clk_trsm`), and the
+// cp.async helpers that clk.cu's update stages its operands with.
+//
+// What it computes, in place over a list of (slot, step), X = pool[slot]
+// and D = dinv[step], every block bs x bs:
+//   LEFT = false (L panels):  X <- X . D
+//   LEFT = true  (U panels):  X <- D . X
+//
+// Ownership, which keeps the update in place safe. X . D mixes the columns
+// of a row of X, and D . X the rows of a column; so a CTA owns a band of BM
+// whole rows of one block (LEFT = false) or BM whole columns (LEFT = true),
+// and every element of its output band depends only on its input band and
+// on D. The CTA reads its band only through copies into shared memory, and
+// writes it back from registers only after the last of those copies has
+// landed for every thread (the last wait and barrier of the loop). No
+// other CTA reads or writes those rows (columns), a slot appears once in a
+// launch, and the inverses are another array. This is the hazard that
+// makes strip.cuh's FIN_L strips whole rows.
+//
+// Design. The product is out = A . B with A = the band, B = D (LEFT =
+// false) or A = D, B = the band (LEFT = true). Both stream through shared
+// memory by cp.async in a ring of four stages, each KC columns of A and
+// the matching KC rows of B (KC * sizeof(T) = 128 bytes), so the product
+// never waits on L2 or device-memory latency and the first product starts
+// after one stage, not after the whole band. The staged rows of A (which
+// a warp reads down a column) are padded by 16 bytes, so the rows that one
+// access reads fall in distinct banks. Each thread owns a 4 x TN tile of
+// the M x N output band: rows g, g + M/4, g + M/2, g + 3M/4 and TN columns
+// in 16-byte groups spaced N / (TN/W) apart (W elements per 16 bytes), so
+// that the threads of a quarter warp read consecutive 16-byte words of a
+// B row. The arithmetic is IEEE FMA in T on the CUDA cores (no TF32); each
+// output sums its bs products in ascending k. At bs = 128 a launch takes
+// bands of 64 with 4 x 8 tiles (two bands a block, 256 threads, 100-104
+// KiB of shared memory, two CTAs an SM), or bands of 16 with 4 x 4 tiles
+// (8 bands a block, 128 threads) when the bands of 64 would fill fewer
+// CTAs than the card has SMs: such a launch is latency-bound, and each
+// thread's chain of products is then a quarter as long. bs = 64 chooses
+// the same way between the whole block and bands of 16; bs = 32 takes the
+// whole block.
+//
+// Offsets are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace slu_panel {
+
+// ---------------------------------------------------------------------------
+// cp.async: 16-byte copies from device memory to shared memory through L2
+// (cp.async.cg), committed in groups; both addresses 16-byte aligned.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// W = 16 / sizeof(T) consecutive elements, 16-byte aligned
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int W = 4;
+  static __device__ __forceinline__ void ld(const float* p, float v[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  static __device__ __forceinline__ void st(float* p, const float v[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec16<double> {
+  static constexpr int W = 2;
+  static __device__ __forceinline__ void ld(const double* p, double v[2]) {
+    const double2 x = *reinterpret_cast<const double2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  }
+  static __device__ __forceinline__ void st(double* p, const double v[2]) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
+
+// The geometry of one instantiation: bands of BM rows (columns), a
+// 4 x TN tile per thread. The product is out = A . B, out M x N, with
+// A = the band and B = D (LEFT = false) or A = D and B = the band
+// (LEFT = true), k over BS; a stage of the ring holds KC columns of A
+// (rows padded to LDA) and the matching KC rows of B.
+template <typename T, int BS, bool LEFT, int BM, int TN>
+struct Panel {
+  static constexpr int W = Vec16<T>::W;
+  static constexpr int KC = 128 / sizeof(T);     // k per stage
+  static constexpr int STAGES = 4;
+  static constexpr int NT = BM * BS / (4 * TN);  // threads
+  static constexpr int M = LEFT ? BS : BM;
+  static constexpr int N = LEFT ? BM : BS;
+  static constexpr int LDA = KC + W;
+  static constexpr int kA = M * LDA;
+  static constexpr int kStage = kA + KC * N;
+  static constexpr size_t kBytes = (size_t)STAGES * kStage * sizeof(T);
+  static_assert(BS % KC == 0 && BS % BM == 0 && TN % W == 0 &&
+                    BM >= 2 * TN, "block size");
+  static_assert(kBytes <= 113 * 1024, "shared memory: two CTAs per SM");
+};
+
+template <typename T, int BS, bool LEFT, int BM, int TN>
+__global__ void __launch_bounds__(Panel<T, BS, LEFT, BM, TN>::NT)
+band_times_inverse(T* pool, const T* __restrict__ dinv,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ steps) {
+  using P = Panel<T, BS, LEFT, BM, TN>;
+  using V = Vec16<T>;
+  constexpr int W = P::W, NT = P::NT, KC = P::KC, ST = P::STAGES;
+  constexpr int M = P::M, N = P::N, LDA = P::LDA;
+  constexpr int NK = BS / KC;            // stages per product
+  constexpr int CT = N / TN;             // threads along a row of out
+  constexpr int RS = M / 4;              // row stride of a thread's 4 rows
+  constexpr int CS = CT * W;             // column stride of its groups
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+  const int tid = threadIdx.x;
+  const int g = tid / CT;
+  const int c0 = (tid % CT) * W;
+  const int64_t bb = (int64_t)BS * BS;
+  const int64_t band = blockIdx.y;
+  // element (r, q) of the band is X[r * BS + q]
+  T* X = pool + (int64_t)slots[blockIdx.x] * bb +
+         (LEFT ? band * BM : band * BM * BS);
+  const T* D = dinv + (int64_t)steps[blockIdx.x] * bb;
+  const T* Ag = LEFT ? D : X;   // element (r, k) at Ag[r * BS + k]
+  const T* Bg = LEFT ? X : D;   // element (k, q) at Bg[k * BS + q]
+
+  // stage chunk c: columns k0.. of A and rows k0.. of B
+  auto load = [&](int c) {
+    T* st = ring + (c % ST) * P::kStage;
+    const int k0 = c * KC;
+    for (int e = tid; e < M * (KC / W); e += NT) {
+      const int r = e / (KC / W), q = (e % (KC / W)) * W;
+      cp_async16(st + r * LDA + q, Ag + (int64_t)r * BS + k0 + q);
+    }
+    T* bs = st + P::kA;
+    for (int e = tid; e < KC * (N / W); e += NT) {
+      const int r = e / (N / W), q = (e % (N / W)) * W;
+      cp_async16(bs + r * N + q, Bg + (int64_t)(k0 + r) * BS + q);
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < ST - 1; ++c) {
+    if (c < NK) load(c);
+    cp_async_commit();
+  }
+  T acc[4][TN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
+  for (int c = 0; c < NK; ++c) {
+    cp_async_wait<ST - 2>();   // chunk c has landed
+    __syncthreads();           // ... for every thread; stage c-1 is free
+    if (c + ST - 1 < NK) load(c + ST - 1);
+    cp_async_commit();
+    const T* A = ring + (c % ST) * P::kStage;
+    const T* B = A + P::kA;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += W) {
+      T a[4][W];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) V::ld(A + (g + i * RS) * LDA + kk, a[i]);
+#pragma unroll
+      for (int u = 0; u < W; ++u) {
+        T b[TN];
+#pragma unroll
+        for (int j = 0; j < TN / W; ++j)
+          V::ld(B + (kk + u) * N + c0 + j * CS, b + j * W);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] += a[i][u] * b[j];
+      }
+    }
+  }
+  // every read of the band was a copy that has landed (the last wait);
+  // only now is it written
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TN / W; ++j)
+      V::st(X + (int64_t)(g + i * RS) * BS + c0 + j * CS, acc[i] + j * W);
+}
+
+template <typename T, int BS, bool LEFT, int BM, int TN>
+int launch_bm(void* pool, const void* dinv, const void* slots,
+              const void* steps, int count, cudaStream_t stream) {
+  using P = Panel<T, BS, LEFT, BM, TN>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      band_times_inverse<T, BS, LEFT, BM, TN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  band_times_inverse<T, BS, LEFT, BM, TN>
+      <<<dim3((unsigned)count, BS / BM), P::NT, P::kBytes, stream>>>(
+          (T*)pool, (const T*)dinv, (const int32_t*)slots,
+          (const int32_t*)steps);
+  return (int)cudaGetLastError();
+}
+
+// The SMs of the current device (read once).
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return n;
+}
+
+// At bs >= 64, bands of 64 rows (columns) with 4 x 8 tiles, or, when that
+// gives the card fewer CTAs than SMs, bands of 16 with 4 x 4 tiles: a
+// launch of few panels is latency-bound, and each thread's chain of
+// products is then a quarter (bs = 128) as long.
+template <typename T, int BS, bool LEFT>
+int launch_bs(void* pool, const void* dinv, const void* slots,
+              const void* steps, int count, cudaStream_t stream) {
+  if constexpr (BS < 64) {
+    return launch_bm<T, BS, LEFT, BS, 8>(pool, dinv, slots, steps, count,
+                                         stream);
+  } else {
+    if ((int64_t)count * (BS / 64) < sm_count())
+      return launch_bm<T, BS, LEFT, 16, 4>(pool, dinv, slots, steps, count,
+                                           stream);
+    return launch_bm<T, BS, LEFT, 64, 8>(pool, dinv, slots, steps, count,
+                                         stream);
+  }
+}
+
+template <typename T, bool LEFT>
+int launch_left(void* pool, const void* dinv, const void* slots,
+                const void* steps, int count, int bs, cudaStream_t stream) {
+  switch (bs) {
+    case 32: return launch_bs<T, 32, LEFT>(pool, dinv, slots, steps, count,
+                                           stream);
+    case 64: return launch_bs<T, 64, LEFT>(pool, dinv, slots, steps, count,
+                                           stream);
+    case 128: return launch_bs<T, 128, LEFT>(pool, dinv, slots, steps,
+                                             count, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The panel TRSM over `count` (slot, step) pairs (int32 device arrays):
+// X <- X . dinv[step] (left = 0) or dinv[step] . X (left != 0). Returns
+// the cudaError_t of the launch (a refused launch never runs).
+template <typename T>
+int trsm(void* pool, const void* dinv, const void* slots, const void* steps,
+         int count, int bs, int left, void* stream) {
+  if (count == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return left ? launch_left<T, true>(pool, dinv, slots, steps, count, bs, s)
+              : launch_left<T, false>(pool, dinv, slots, steps, count, bs,
+                                      s);
+}
+
+}  // namespace slu_panel

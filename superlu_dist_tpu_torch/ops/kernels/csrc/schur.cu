@@ -22,16 +22,19 @@
 // contribution. A level's targets belong to ancestor steps, so no target
 // is an L or U source of the same level.
 //
-// What bounds them on an H100: operations, 2*bs^3 per block product (FP32
-// on the CUDA cores, 67 TFLOP/s peak; FP64, which float64 factors run,
-// 67 TFLOP/s on the tensor cores, of which these kernels reach at most
-// the CUDA cores' 34).
+// What bounds them on an H100: operations, 2*bs^3 per block product or
+// panel (FP32 on the CUDA cores, 67 TFLOP/s peak; FP64, which float64
+// factors run, 67 TFLOP/s on the tensor cores, of which these kernels
+// reach at most the CUDA cores' 34).
 //
-// Design: strip.cuh, one CTA of bs threads per (target or panel, strip of
-// 16 scalar columns, or rows for X . dinv). Both kernels are templates on
-// the element type; the _f32 and _f64 entries launch the float and double
-// instantiations.
+// Design: `schur` is strip.cuh's strip update, one CTA of bs threads per
+// (target, strip of 16 scalar columns). `trsm` is panel.cuh's band-times-
+// inverse kernel (shared with clk.cu's clk_trsm): one CTA per (panel, band
+// of whole rows or columns), the band and the inverse staged in shared
+// memory by cp.async. Both are templates on the element type; the _f32
+// and _f64 entries launch the float and double instantiations.
 
+#include "panel.cuh"
 #include "strip.cuh"
 
 namespace {
@@ -49,16 +52,6 @@ schur_kernel(T* pool, const int32_t* __restrict__ tslot,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(slu_strip::kMaxBs)
-trsm_kernel(T* pool, const T* __restrict__ dinv,
-            const int32_t* __restrict__ slots,
-            const int32_t* __restrict__ steps, int fin, int bs) {
-  const int t = blockIdx.x;
-  slu_strip::strip_update<T>(pool, dinv, dinv, slots[t], steps[t], fin,
-                             nullptr, nullptr, 0, 0, bs, blockIdx.y);
-}
-
-template <typename T>
 int launch_schur(void* pool, const void* tslot, const void* cptr,
                  const void* cl, const void* cu, int count, int bs,
                  void* stream) {
@@ -67,18 +60,6 @@ int launch_schur(void* pool, const void* tslot, const void* cptr,
   schur_kernel<T><<<grid, bs, 0, (cudaStream_t)stream>>>(
       (T*)pool, (const int32_t*)tslot, (const int32_t*)cptr,
       (const int32_t*)cl, (const int32_t*)cu, bs);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_trsm(void* pool, const void* dinv, const void* slots,
-                const void* steps, int count, int bs, int left,
-                void* stream) {
-  if (count == 0) return 0;
-  const dim3 grid(count, bs / slu_strip::kStrip);
-  trsm_kernel<T><<<grid, bs, 0, (cudaStream_t)stream>>>(
-      (T*)pool, (const T*)dinv, (const int32_t*)slots,
-      (const int32_t*)steps, left ? slu_strip::FIN_U : slu_strip::FIN_L, bs);
   return (int)cudaGetLastError();
 }
 
@@ -99,13 +80,13 @@ extern "C" int slu_schur_f64(void* pool, const void* tslot, const void* cptr,
 extern "C" int slu_trsm_f32(void* pool, const void* dinv, const void* slots,
                             const void* steps, int count, int bs, int left,
                             void* stream) {
-  return launch_trsm<float>(pool, dinv, slots, steps, count, bs, left,
-                            stream);
+  return slu_panel::trsm<float>(pool, dinv, slots, steps, count, bs, left,
+                                stream);
 }
 
 extern "C" int slu_trsm_f64(void* pool, const void* dinv, const void* slots,
                             const void* steps, int count, int bs, int left,
                             void* stream) {
-  return launch_trsm<double>(pool, dinv, slots, steps, count, bs, left,
-                             stream);
+  return slu_panel::trsm<double>(pool, dinv, slots, steps, count, bs, left,
+                                 stream);
 }

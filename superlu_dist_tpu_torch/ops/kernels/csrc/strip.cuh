@@ -10,13 +10,15 @@
 // and writes T once. FIN_L mixes the columns of a row, so its strips are
 // strips of whole rows; FIN_NONE and FIN_U (which mixes the rows of a
 // column) use strips of whole columns. With p0 == p1 this is the panel
-// TRSM by a stored inverse. strip_update works on one pool (the single-
+// TRSM by a stored inverse, as flk.cu's and rdma.cu's panels run it
+// (schur.cu's trsm and clk.cu's clk_trsm run panel.cuh's band kernel
+// instead). strip_update works on one pool (the single-
 // device kernels); strip_eval computes the same update with the target,
 // the L factors and the U factors in three arrays and leaves the strip in
 // registers, so that rdma.cu takes its factors from broadcast buffers and
 // stores one result into several blocks (strip_store). strip_update keeps
-// its own body: written as strip_eval + strip_store, clk_trsm compiled
-// 1.6x slower on an H100.
+// its own body: written as strip_eval + strip_store, its panel TRSM
+// compiled 1.6x slower on an H100.
 //
 // Each thread owns a 4x4 tile of the strip. The operand that is read
 // along the strip (the U strip, or the L row strip, then T itself for the

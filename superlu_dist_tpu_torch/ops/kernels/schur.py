@@ -10,7 +10,10 @@ Per elimination level, on one stream:
 1. ``diag_lu`` (``csrc/diag_lu.cu``) on the level's diagonal blocks (the
    JAX package's XLA ``block_lu_inv`` batch);
 2. ``trsm`` (``csrc/schur.cu``, ``left=False``): L(i,k) ← L(i,k)·uinv(k);
-3. ``trsm`` (``left=True``): U(k,j) ← linv(k)·U(k,j);
+3. ``trsm`` (``left=True``): U(k,j) ← linv(k)·U(k,j) (both flags, and
+   ``clk.clk_trsm``, run the band-times-inverse kernel of
+   ``csrc/panel.cuh``: one CTA per band of whole rows, or columns, of a
+   panel, the band and the inverse staged in shared memory);
 4. ``schur`` (``csrc/schur.cu``): T −= L·U over the level's Schur
    triples, grouped by target.
 

@@ -231,3 +231,30 @@ def test_clk_tapes_cover_every_schur_triple():
     triples = set(zip(plan.g_l.tolist(), plan.g_u.tolist(),
                       plan.g_t.tolist()))
     assert pairs == triples
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_clk_trsm_each_level(bs):
+    """clk_trsm (its plain version on the CPU) level by level on lap3d8's
+    clk plan: each L block of the level becomes L(i,k)·uinv(k), every
+    other slot is untouched; a level lists several L blocks of one column,
+    so steps repeat within a launch."""
+    A = laplacian_3d(8).tocsc().astype(np.float32)
+    plan = block_symbolic(A, bs)
+    tp = clk.build_clk_tapes(plan, "cpu")
+    rng = np.random.default_rng(bs)
+    pool = torch.as_tensor(rng.standard_normal((plan.nslots, bs, bs)),
+                           dtype=torch.float32)
+    uinv = torch.triu(torch.as_tensor(
+        rng.standard_normal((plan.nb, bs, bs)), dtype=torch.float32))
+    repeats = 0
+    for level in range(tp.nlvl):
+        lo, hi = int(tp.lptr[level]), int(tp.lptr[level + 1])
+        steps = tp.lstep[lo:hi].tolist()
+        repeats += len(steps) - len(set(steps))
+        want = pool.clone()
+        for s, k in zip(tp.lslot[lo:hi].tolist(), steps):
+            want[s] = pool[s] @ uinv[k]
+        clk.clk_trsm(pool, uinv, tp, level)
+        assert torch.allclose(pool, want, rtol=1e-6, atol=1e-6)
+    assert repeats > 0

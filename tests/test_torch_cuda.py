@@ -214,18 +214,89 @@ def test_flk_and_level_factors_match_plain(cuda, bs, ilu):
         assert int(kern[3].item()) == int(ref[3].item())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("left", [False, True])
 @pytest.mark.parametrize("bs", [32, 64, 128])
-def test_trsm_matches_plain(cuda, bs, left):
+def test_trsm_matches_plain(cuda, bs, left, dtype):
     g = torch.Generator(device="cpu").manual_seed(bs + left)
-    pool = torch.randn(40, bs, bs, generator=g).to(cuda)
-    dinv = torch.randn(9, bs, bs, generator=g).to(cuda)
+    pool = torch.randn(40, bs, bs, generator=g, dtype=dtype).to(cuda)
+    dinv = torch.randn(9, bs, bs, generator=g, dtype=dtype).to(cuda)
     slots = torch.tensor([3, 17, 0, 39, 22], dtype=torch.int32, device=cuda)
     steps = torch.tensor([8, 0, 8, 4, 1], dtype=torch.int32, device=cuda)
     want = pool.clone()
     schur.trsm_plain(want, dinv, slots, steps, left)
     schur.trsm(pool, dinv, slots, steps, left)
     torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((pool - want).abs().max()) \
+        <= ULPS * np.finfo(np.float32 if dtype == torch.float32
+                           else np.float64).eps * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_trsm_many_panels_matches_plain(cuda, bs, dtype):
+    """300 panels of a 320-slot pool in one launch per flag, over 12
+    steps that repeat (as a level lists several panels of one column),
+    with the triangular inverses that diag_lu leaves: L panels by uinv,
+    U panels by linv."""
+    g = torch.Generator(device="cpu").manual_seed(bs)
+    nb = 12
+    diag = torch.randn(nb, bs, bs, generator=g, dtype=dtype)
+    diag += bs * torch.eye(bs, dtype=dtype)
+    diag = diag.to(cuda)
+    linv = torch.zeros_like(diag)
+    uinv = torch.zeros_like(diag)
+    tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+    idx = torch.arange(nb, dtype=torch.int32, device=cuda)
+    diag_lu.diag_lu(diag, linv, uinv, idx, idx, 0.0, tiny)
+    assert torch.equal(linv, torch.tril(linv))
+    assert torch.equal(uinv, torch.triu(uinv))
+    pool = torch.randn(320, bs, bs, generator=g, dtype=dtype).to(cuda)
+    slots = torch.randperm(320, generator=g)[:300].to(torch.int32).to(cuda)
+    steps = torch.randint(0, nb, (300,), generator=g,
+                          dtype=torch.int32).to(cuda)
+    eps = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps
+    for left, dinv in ((False, uinv), (True, linv)):
+        want = pool.clone()
+        schur.trsm_plain(want, dinv, slots, steps, left)
+        n0 = schur.TRSM.launches
+        schur.trsm(pool, dinv, slots, steps, left)
+        torch.cuda.synchronize()
+        assert schur.TRSM.launches == n0 + 1
+        scale = max(1.0, float(want.abs().max()))
+        assert float((pool - want).abs().max()) <= ULPS * eps * scale
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_clk_trsm_matches_plain(cuda, bs):
+    """clk_trsm alone on the level of lap3d12's clk plan with the most L
+    blocks, its input made by the kernels of the levels below and that
+    level's update and diag_lu."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    _, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs),
+                    device=cuda)
+    plan, tp = lu.plan, lu._ftapes
+    th = lu._thresh()
+    pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
+    linv = torch.zeros((plan.nb, bs, bs), dtype=pool.dtype, device=cuda)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+    level = int(np.argmax(np.diff(tp.lptr)))
+    assert tp.lptr[level + 1] - tp.lptr[level] > 1
+    for lvl in range(level):
+        clk.factor_level(pool, linv, uinv, tiny, th, tp, lvl)
+    lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+    clk.clk_update(pool, linv, tp, level)
+    diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi], th,
+                    tiny)
+    want = pool.clone()
+    clk.clk_trsm_plain(want, uinv, tp, level)
+    n0 = clk.TRSM.launches
+    clk.clk_trsm(pool, uinv, tp, level)
+    torch.cuda.synchronize()
+    assert clk.TRSM.launches == n0 + 1
     scale = max(1.0, float(want.abs().max()))
     assert float((pool - want).abs().max()) \
         <= ULPS * np.finfo(np.float32).eps * scale

@@ -100,18 +100,29 @@ def test_level_executor_equals_right_looking_plain(ilu):
     assert int(got[3]) == ref[3] == 0
 
 
+@pytest.mark.parametrize("tri", [False, True], ids=["full", "tri"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
 @pytest.mark.parametrize("left", [False, True])
-def test_trsm_plain(left):
+def test_trsm_plain(left, dtype, tri):
+    """``trsm`` on the CPU against one product per panel. ``tri``: the
+    inverses are triangular as diag_lu leaves them (linv lower for U
+    panels, uinv upper for L panels) and steps repeat, as in a level of
+    the tapes."""
     rng = np.random.default_rng(3)
-    pool = torch.as_tensor(rng.standard_normal((6, 8, 8)))
-    dinv = torch.as_tensor(rng.standard_normal((3, 8, 8)))
-    slots = torch.tensor([4, 1, 2], dtype=torch.int32)
-    steps = torch.tensor([2, 0, 2], dtype=torch.int32)
+    pool = torch.as_tensor(rng.standard_normal((6, 8, 8)), dtype=dtype)
+    dinv = torch.as_tensor(rng.standard_normal((3, 8, 8)), dtype=dtype)
+    slots, steps = [4, 1, 2], [2, 0, 2]
+    if tri:
+        dinv = torch.tril(dinv) if left else torch.triu(dinv)
+        slots, steps = [4, 1, 2, 5, 0], [2, 0, 2, 2, 0]
     want = pool.clone()
-    for s, k in zip(slots.tolist(), steps.tolist()):
+    for s, k in zip(slots, steps):
         want[s] = dinv[k] @ pool[s] if left else pool[s] @ dinv[k]
-    schur.trsm(pool, dinv, slots, steps, left)
-    assert torch.allclose(pool, want, rtol=1e-14, atol=1e-14)
+    schur.trsm(pool, dinv, torch.tensor(slots, dtype=torch.int32),
+               torch.tensor(steps, dtype=torch.int32), left)
+    tol = 1e-14 if dtype == torch.float64 else 1e-5
+    assert torch.allclose(pool, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("mat", ["bushy", "lap3d8"])
