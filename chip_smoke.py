@@ -19,7 +19,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    level by level on the main path's own inputs (both get the same input;
    the run goes on with the kernel's output), timed with CUDA events,
    with clk_update's costliest levels (waves, targets, CTAs, the longest
-   per-wave list); the NOTRANS sweep is ``solve_gemm.cu``'s two passes
+   per-wave list) and clk_trsm's and diag_lu's launches by size, diag_lu
+   beside its library yardstick (``lu_factor_ex`` without pivoting and
+   two ``solve_triangular`` per level); the NOTRANS sweep is ``solve_gemm.cu``'s two passes
    with ``transpose=False`` (counted as "sweep"), one timed call per level
    against ``sweep_level_plain``; then the whole clk factor against the
    independent right-looking float64 reference ``blocklu.factor_plain``;
@@ -69,8 +71,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    device ms and host launch loop (printed);
    then clk, flk and the level executor on the same plan
    (SamePattern_SameRowPerm refactors), each held to the same limits,
-   with clk_update's costliest levels, clk_trsm, and the level executor's
-   trsm and schur against their plain versions on lap3d50's inputs;
+   with clk_update's costliest levels, clk_trsm, diag_lu, and the level
+   executor's trsm and schur against their plain versions on lap3d50's
+   inputs;
 9. float64 on the card, which runs the level executor:
    ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
    ``condition_number`` on lap3d32u, each held to the same limits; every
@@ -561,15 +564,15 @@ def check_kernels(lu, ctx, launches, levels=False):
     th = lu._thresh()
     pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
     # library_ms: clk_trsm is a batched product per level, timed as one
-    # torch.bmm on the level's gathered L blocks and U inverses. No one
-    # PyTorch call computes diag_lu (no-pivot LU with both inverses and
-    # tiny-pivot replacement), clk_update (a chain of dependent products
-    # per column) or the sweep (a level of a block-sparse triangular
-    # solve), so theirs stays None.
+    # torch.bmm on the level's gathered L blocks and U inverses; diag_lu as
+    # three calls per level on the gathered tiles (diag_library), which do
+    # not replace tiny pivots. No one PyTorch call computes clk_update (a
+    # chain of dependent products per column) or the sweep (a level of a
+    # block-sparse triangular solve), so theirs stays None.
     ck = Checker(torch, bs, ("diag_lu", "clk_update", "clk_trsm", "sweep"),
-                 library=("clk_trsm",))
+                 library=("clk_trsm", "diag_lu"))
 
-    per_level, per_panel = [], []
+    per_level, per_panel, per_diag = [], [], []
     for lvl in range(tp.nlvl):
         (pool,), ms = ck.compare(
             "clk_update", lambda p: clk.clk_update(p, linv, tp, lvl),
@@ -577,12 +580,14 @@ def check_kernels(lu, ctx, launches, levels=False):
         per_level.append((ms, lvl))
         lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
         ds, dk = tp.dslot[lo:hi], tp.dstep[lo:hi]
-        (pool, linv, uinv, tiny), _ = ck.compare(
+        diag_library(ck, pool, ds)
+        (pool, linv, uinv, tiny), ms = ck.compare(
             "diag_lu",
             lambda p, li, ui, t: diag_lu.diag_lu(p, li, ui, ds, dk, th, t),
             lambda p, li, ui, t: diag_lu.diag_lu_plain(
                 p, li, ui, ds.long(), dk.long(), th, t),
             [pool, linv, uinv, tiny])
+        per_diag.append((ms, hi - lo, f"level {lvl}"))
         lo, hi = int(tp.lptr[lvl]), int(tp.lptr[lvl + 1])
         if hi > lo:
             Lg = pool[tp.lslot[lo:hi].long()]
@@ -598,6 +603,7 @@ def check_kernels(lu, ctx, launches, levels=False):
     if levels or launches is not None:
         print_update_levels(tp, per_level, bs)
         print_panel_levels("clk_trsm", per_panel)
+        print_panel_levels("diag_lu", per_diag, "tiles", small=5)
     check_whole_factor("clk", lu, ctx, pool, tiny)
     check_sweep(lu, ctx, ck)
 
@@ -608,6 +614,25 @@ def check_kernels(lu, ctx, launches, levels=False):
         if launches is not None:
             print_check(name, o, launches[name])
     return out
+
+
+def diag_library(ck, pool, ds):
+    """diag_lu's library time on one level: ``lu_factor_ex`` without
+    pivoting, then L⁻¹ and U⁻¹ by ``solve_triangular`` against I, each
+    reading its triangle of the compact LU: three calls on the gathered
+    tiles, with no tiny-pivot replacement."""
+    torch = ck.torch
+    if len(ds) == 0:
+        return
+    G = pool[ds.long()]
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device).expand_as(G)
+
+    def lib():
+        LU = torch.linalg.lu_factor_ex(G, pivot=False).LU
+        torch.linalg.solve_triangular(LU, eye, upper=False,
+                                      unitriangular=True)
+        torch.linalg.solve_triangular(LU, eye, upper=True)
+    ck.library("diag_lu", lib)
 
 
 def check_sweep(lu, ctx, ck):
@@ -706,19 +731,22 @@ def check_level(lu, ctx, report, full=False):
     th = lu._thresh()
     pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
     ck = Checker(torch, plan.bs, ("schur", "trsm") + (
-        ("diag_lu", "sweep") if full else ()), library=("trsm",))
-    per_level, per_panel = [], []
+        ("diag_lu", "sweep") if full else ()),
+        library=("trsm", "diag_lu") if full else ("trsm",))
+    per_level, per_panel, per_diag = [], [], []
     for lvl in range(tp.nlvl):
         d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
         ds, dk = tp.dslot[d], tp.dstep[d]
         if full:
-            (pool, linv, uinv, tiny), _ = ck.compare(
+            diag_library(ck, pool, ds)
+            (pool, linv, uinv, tiny), ms = ck.compare(
                 "diag_lu",
                 lambda p, li, ui, t: diag_lu.diag_lu(p, li, ui, ds, dk, th,
                                                      t),
                 lambda p, li, ui, t: diag_lu.diag_lu_plain(
                     p, li, ui, ds.long(), dk.long(), th, t),
                 [pool, linv, uinv, tiny])
+            per_diag.append((ms, d.stop - d.start, f"level {lvl}"))
         else:
             diag_lu.diag_lu(pool, linv, uinv, ds, dk, th, tiny)
         for left, dinv, sl, st, ptr in (
@@ -745,6 +773,8 @@ def check_level(lu, ctx, report, full=False):
     if report:
         print_schur_levels(tp, per_level)
         print_panel_levels("trsm", per_panel)
+        if full:
+            print_panel_levels("diag_lu", per_diag, "tiles", small=5)
     check_whole_factor("level executor", lu, ctx, pool, tiny)
     b = level_bounds(plan, tp, lu.dtype)
     if full:
@@ -1197,6 +1227,7 @@ def tck_phase(ctx, rng, checks, launches):
                   f"plain {o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f}"
                   f" ms ({o['bound_by']})", flush=True)
             print_check("lap3d50 clk_trsm", c["clk_trsm"], got["clk_trsm"])
+            print_check("lap3d50 diag_lu", c["diag_lu"], got["diag_lu"])
         if exc == "pallas":
             c = check_level(lu, ctx, report=False)
             for name in ("trsm", "schur"):
@@ -1576,17 +1607,18 @@ def print_flk_groups(tp, per_group, top=6):
               flush=True)
 
 
-def print_panel_levels(name, per_launch, top=6):
-    """Where a panel TRSM's time goes: the launches of fewer than 66
-    panels (one partial wave of 64-row bands on 132 SMs) against the rest,
-    and the costliest launches with their panels."""
+def print_panel_levels(name, per_launch, unit="panels", small=66, top=6):
+    """Where a per-level kernel's time goes: the launches of fewer than
+    ``small`` ``unit`` (for the panel TRSMs 66 panels, one partial wave of
+    64-row bands on 132 SMs; for diag_lu 5 tiles, the top levels) against
+    the rest, and the costliest launches with their ``unit``."""
     total = sum(ms for ms, _, _ in per_launch)
-    small = [ms for ms, n, _ in per_launch if n < 66]
+    few = [ms for ms, n, _ in per_launch if n < small]
     print(f"{name} by launch (kernel {total:.3f} ms over {len(per_launch)} "
-          f"launches; {len(small)} launches of < 66 panels take "
-          f"{sum(small):.3f} ms; top {top}):")
+          f"launches; {len(few)} launches of < {small} {unit} take "
+          f"{sum(few):.3f} ms; top {top}):")
     for ms, n, what in sorted(per_launch, reverse=True)[:top]:
-        print(f"  {what}: kernel {ms:.3f} ms; {n} panels", flush=True)
+        print(f"  {what}: kernel {ms:.3f} ms; {n} {unit}", flush=True)
 
 
 def print_schur_levels(tp, per_level, top=6):

@@ -13,16 +13,19 @@
 //   count of replaced pivots is added to *tiny.
 //
 // What bounds it on an H100: neither bytes (4 tiles of 64 KiB at bs=128)
-// nor operations (~2.8 MFLOP a tile). It is latency: the elimination is a
-// chain of bs dependent steps, each a rank-1 update with a barrier.
+// nor operations (~2.8 MFLOP a tile). It is latency on one SM: a launch of
+// 1 tile takes as long as one of 130.
 //
 // Design: one CTA per tile, running slu_tile::tile_lu (tile_lu.cuh, shared
-// with rdma.cu): the tile and the inverse being built live in dynamic
-// shared memory, so the bs steps touch device memory only to load the tile
-// and store the three results. The kernel is a template on the element
-// type; the float instantiation keeps the inverse in shared memory, the
-// double one (tile and inverse would exceed the 227 KiB a block may have)
-// builds each inverse in place in its output block of linv / uinv.
+// with rdma.cu): the forward LU in panels of 32 columns (one warp factors
+// each 32x32 diagonal subtile with shuffles, two warps form its inverses,
+// all 16 warps form the panel's L and U blocks and the trailing update
+// from register tiles), then the L^{-1} and U^{-1} sweeps side by side on
+// the two halves of the CTA, one barrier a step: 143 barriers a tile at
+// bs=128 (the element-by-element form had 640). The tile, then both
+// inverses packed in its place, live in dynamic shared memory (79 KiB in
+// float, 158 KiB in double at bs=128). The kernel is a template on the
+// element type.
 
 #include "tile_lu.cuh"
 
@@ -30,31 +33,28 @@ namespace {
 
 using slu_tile::kTileThreads;
 
-template <typename T, bool kInvSmem>
+template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
 diag_lu_kernel(T* __restrict__ pool, T* __restrict__ linv,
                T* __restrict__ uinv, const int32_t* __restrict__ slots,
-               const int32_t* __restrict__ steps, int bs, int lg, T thresh,
+               const int32_t* __restrict__ steps, int bs, T thresh,
                int32_t* __restrict__ tiny) {
-  slu_tile::tile_lu<T, kInvSmem>(pool, linv, uinv, slots, steps, bs, lg,
-                                 thresh, tiny);
+  slu_tile::tile_lu<T>(pool, linv, uinv, slots, steps, bs, thresh, tiny);
 }
 
-template <typename T, bool kInvSmem>
+template <typename T>
 int launch(void* pool, void* linv, void* uinv, const void* slots,
            const void* steps, int count, int bs, T thresh, void* tiny,
            void* stream) {
-  const int lg = slu_tile::log2_bs(bs);
-  const size_t smem = slu_tile::tile_lu_smem_bytes<T, kInvSmem>(bs);
+  const size_t smem = slu_tile::tile_lu_smem_bytes<T>(bs);
   cudaError_t err = cudaFuncSetAttribute(
-      diag_lu_kernel<T, kInvSmem>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      diag_lu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (count == 0) return 0;
-  diag_lu_kernel<T, kInvSmem><<<count, kTileThreads, smem,
-                                (cudaStream_t)stream>>>(
+  diag_lu_kernel<T><<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
       (T*)pool, (T*)linv, (T*)uinv, (const int32_t*)slots,
-      (const int32_t*)steps, bs, lg, thresh, (int32_t*)tiny);
+      (const int32_t*)steps, bs, thresh, (int32_t*)tiny);
   return (int)cudaGetLastError();
 }
 
@@ -64,14 +64,14 @@ extern "C" int slu_diag_lu_f32(void* pool, void* linv, void* uinv,
                                const void* slots, const void* steps,
                                int count, int bs, float thresh, void* tiny,
                                void* stream) {
-  return launch<float, true>(pool, linv, uinv, slots, steps, count, bs,
-                             thresh, tiny, stream);
+  return launch<float>(pool, linv, uinv, slots, steps, count, bs, thresh,
+                       tiny, stream);
 }
 
 extern "C" int slu_diag_lu_f64(void* pool, void* linv, void* uinv,
                                const void* slots, const void* steps,
                                int count, int bs, double thresh, void* tiny,
                                void* stream) {
-  return launch<double, false>(pool, linv, uinv, slots, steps, count, bs,
-                               thresh, tiny, stream);
+  return launch<double>(pool, linv, uinv, slots, steps, count, bs, thresh,
+                        tiny, stream);
 }

@@ -101,7 +101,7 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                  const int32_t* __restrict__ rank,
                  const int32_t* __restrict__ loc,
                  const int32_t* __restrict__ pos,
-                 const int32_t* __restrict__ inv, int bs, int lg,
+                 const int32_t* __restrict__ inv, int bs,
                  float thresh, int level) {
   const int j = blockIdx.x;
   const int d = rank[j];
@@ -110,9 +110,9 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
   float* linv = buf<float>(tab, F_LINV, ndev, d);
   float* uinv = buf<float>(tab, F_UINV, ndev, d);
   // job j is CTA j: tile_lu reads loc[j] and inv[j]
-  slu_tile::tile_lu<float, true>(buf<float>(tab, F_POOL, ndev, d), linv,
-                                 uinv, loc, inv, bs, lg, thresh,
-                                 buf<int32_t>(tab, F_TINY, ndev, d));
+  slu_tile::tile_lu<float>(buf<float>(tab, F_POOL, ndev, d), linv, uinv,
+                           loc, inv, bs, thresh,
+                           buf<int32_t>(tab, F_TINY, ndev, d));
   __syncthreads();   // the inverses are stored; read them back
   const float* gl = linv + inv[j] * bb;
   const float* gu = uinv + inv[j] * bb;
@@ -294,7 +294,7 @@ extern "C" int slu_rdma_diag(const void* tab, int ndev, int pc,
                              const void* rank, const void* loc,
                              const void* pos, const void* inv, int count,
                              int bs, float thresh, int level, void* stream) {
-  const size_t smem = slu_tile::tile_lu_smem_bytes<float, true>(bs);
+  const size_t smem = slu_tile::tile_lu_smem_bytes<float>(bs);
   cudaError_t err = cudaFuncSetAttribute(
       rdma_diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -303,7 +303,7 @@ extern "C" int slu_rdma_diag(const void* tab, int ndev, int pc,
   rdma_diag_kernel<<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
       (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
       (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)inv, bs,
-      slu_tile::log2_bs(bs), thresh, level);
+      thresh, level);
   return (int)cudaGetLastError();
 }
 

@@ -4,10 +4,12 @@
 
 Builds each source with the port's nvcc flags into a library of its own
 (under ``build/torch_kernels/ab``), loads both into one process and, for
-float32 and float64 at 130 and 8 tiles of 128 × 128, launches them in
-alternating order (an L2 flush before each launch, CUDA events around
-it): prints whether the outputs agree bit for bit, the median time of each
-with its quartiles, the median ratio NEW/OLD and in how many pairs NEW was
+float32 and float64 at 130 and 8 tiles of 128 × 128 and of 64 × 64,
+launches them in alternating order (an L2 flush before each launch, CUDA
+events around it): prints whether the outputs agree bit for bit and, where
+they do not, the largest difference of each output (the LU, L⁻¹, U⁻¹, the
+tiny count) relative to max(1, max |OLD|), the median time of each with
+its quartiles, the median ratio NEW/OLD and in how many pairs NEW was
 faster; then whether each kernel's SASS is the same instruction for
 instruction (``cuobjdump``, where the toolkit has it). A source may include
 headers beside it (``tile_lu.cuh``). Needs a CUDA device.
@@ -60,6 +62,77 @@ def _sass(so: str) -> dict:
     return fns
 
 
+def _rel(got, want) -> float:
+    """max |got - want| / max(1, max |want|), in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def tiles(bs, dt, ntile):
+    """Diagonally dominant tiles in pool slots 1..ntile of ntile + 2, and
+    their slots and steps, on the card."""
+    import torch
+    g = torch.Generator().manual_seed(11)
+    base = (torch.randn(ntile + 2, bs, bs, generator=g, dtype=torch.float64)
+            + 40 * torch.eye(bs, dtype=torch.float64)).to(dt).cuda()
+    slots = torch.arange(1, ntile + 1, dtype=torch.int32, device="cuda")
+    steps = torch.arange(ntile, dtype=torch.int32, device="cuda")
+    return base, slots, steps
+
+
+def timed_launch(fn, base, slots, steps, flush, stream):
+    """One launch of entry ``fn`` on a copy of ``base``, L2 flushed before:
+    its ms by CUDA events and its outputs (pool, L⁻¹, U⁻¹, tiny count)."""
+    import torch
+    P = ctypes.c_void_p
+    ntile, bs = len(slots), base.shape[-1]
+    pool = base.clone()
+    li = torch.zeros(ntile, bs, bs, dtype=base.dtype, device="cuda")
+    ui = torch.zeros_like(li)
+    tiny = torch.zeros(1, dtype=torch.int32, device="cuda")
+    flush.zero_()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    err = fn(P(pool.data_ptr()), P(li.data_ptr()), P(ui.data_ptr()),
+             P(slots.data_ptr()), P(steps.data_ptr()), ntile, bs, 1e-3,
+             P(tiny.data_ptr()), stream)
+    ev[1].record()
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"diag_lu: cudaError {err}")
+    return ev[0].elapsed_time(ev[1]), (pool, li, ui, tiny)
+
+
+def _case(libs, bs, dt, sfx, ntile, flush, stream) -> str:
+    """One alternating A/B of ``ntile`` tiles of bs × bs in ``dt``."""
+    import torch
+    base, slots, steps = tiles(bs, dt, ntile)
+    ms = {"old": [], "new": []}
+    outs = {}
+    for rep in range(PAIRS + 1):
+        for tag in (("old", "new") if rep % 2 else ("new", "old")):
+            t, out = timed_launch(getattr(libs[tag][0], f"slu_diag_lu_{sfx}"),
+                                  base, slots, steps, flush, stream)
+            if rep:       # the first pair warms both up
+                ms[tag].append(t)
+            outs[tag] = [x.cpu() for x in out]
+    same = all(torch.equal(x, y) for x, y in zip(outs["old"], outs["new"]))
+    rel = "" if same else "; largest difference / scale (LU, L⁻¹, U⁻¹, " \
+        "tiny) " + ", ".join(f"{_rel(y, x):.3e}"
+                             for x, y in zip(outs["old"], outs["new"]))
+    o, n = np.array(ms["old"]), np.array(ms["new"])
+
+    def q(a):
+        return (f"{np.median(a):.4f} ms (quartiles {np.percentile(a, 25):.4f}"
+                f"-{np.percentile(a, 75):.4f})")
+
+    return (f"diag_lu {sfx} bs {bs}, {ntile} tiles: bit for bit {same}{rel};"
+            f" old {q(o)}, new {q(n)}; median new/old "
+            f"{np.median(n / o):.4f}; new faster in {int((n < o).sum())} of "
+            f"{len(o)} pairs")
+
+
 def main(old_src: str, new_src: str) -> None:
     import torch
     if not torch.cuda.is_available():
@@ -68,54 +141,11 @@ def main(old_src: str, new_src: str) -> None:
                                                                  "new")}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    P = ctypes.c_void_p
-    bs = 128
-    for dt, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-        for ntile in (130, 8):
-            g = torch.Generator().manual_seed(11)
-            base = (torch.randn(ntile + 2, bs, bs, generator=g,
-                                dtype=torch.float64)
-                    + 40 * torch.eye(bs, dtype=torch.float64)).to(dt).cuda()
-            slots = torch.arange(1, ntile + 1, dtype=torch.int32,
-                                 device="cuda")
-            steps = torch.arange(ntile, dtype=torch.int32, device="cuda")
-            ms = {"old": [], "new": []}
-            outs = {}
-            for rep in range(PAIRS + 1):
-                for tag in (("old", "new") if rep % 2 else ("new", "old")):
-                    pool = base.clone()
-                    li = torch.zeros(ntile, bs, bs, dtype=dt, device="cuda")
-                    ui = torch.zeros_like(li)
-                    tiny = torch.zeros(1, dtype=torch.int32, device="cuda")
-                    fn = getattr(libs[tag][0], f"slu_diag_lu_{sfx}")
-                    flush.zero_()
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                    err = fn(P(pool.data_ptr()), P(li.data_ptr()),
-                             P(ui.data_ptr()), P(slots.data_ptr()),
-                             P(steps.data_ptr()), ntile, bs, 1e-3,
-                             P(tiny.data_ptr()), stream)
-                    ev[1].record()
-                    torch.cuda.synchronize()
-                    if err:
-                        raise RuntimeError(f"{tag}: cudaError {err}")
-                    if rep:       # the first pair warms both up
-                        ms[tag].append(ev[0].elapsed_time(ev[1]))
-                    outs[tag] = [t.cpu() for t in (pool, li, ui, tiny)]
-            same = all(torch.equal(x, y)
-                       for x, y in zip(outs["old"], outs["new"]))
-            o, n = np.array(ms["old"]), np.array(ms["new"])
-
-            def q(a):
-                return (f"{np.median(a):.4f} ms (quartiles "
-                        f"{np.percentile(a, 25):.4f}-"
-                        f"{np.percentile(a, 75):.4f})")
-
-            print(f"diag_lu {sfx}, {ntile} tiles: bit for bit {same}; old "
-                  f"{q(o)}, new {q(n)}; median new/old "
-                  f"{np.median(n / o):.4f}; new faster in "
-                  f"{int((n < o).sum())} of {len(o)} pairs", flush=True)
+    for bs in (128, 64):
+        for dt, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+            for ntile in (130, 8):
+                print(_case(libs, bs, dt, sfx, ntile, flush, stream),
+                      flush=True)
     a, b = _sass(libs["old"][1]), _sass(libs["new"][1])
     for name in sorted(a):
         print(f"SASS {name}: {len(a[name])} / {len(b.get(name, []))} "

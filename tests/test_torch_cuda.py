@@ -493,6 +493,77 @@ def test_float64_gssvx_matches_cpu(cuda):
             assert abs(rg.rcond - rc.rcond) <= 1e-8 * rc.rcond
 
 
+#: tile with replaced pivots (compared in float64 only): its entries reach
+#: ~1/thresh and its inverses ~1/thresh², so either elimination order's
+#: roundoff grows by ~1e6; the CPU test of the plain version holds the JAX
+#: tile LUs to it at the same limit
+TINY_RTOL64 = 1e-9
+
+
+def _tiny_tile(bs, dtype):
+    """The tiny-pivot tile of ``tests/test_torch_diag_lu.py::tiles``:
+    pivots 1e-9, -1e-9 and 0 at 5, 9 and 12, uncoupled from the rows and
+    columns before them, so each stays tiny through the elimination."""
+    T = np.random.default_rng(0).standard_normal((bs, bs)) + bs * np.eye(bs)
+    for j, v in ((5, 1e-9), (9, -1e-9), (12, 0.0)):
+        T[j, :j] = 0.0
+        T[:j, j] = 0.0
+        T[j, j] = v
+    return T.astype(dtype)
+
+
+@pytest.mark.parametrize("ntile", [1, 140], ids=["1tile", "140tiles"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_diag_lu_matches_plain(cuda, bs, dtype, ntile):
+    """diag_lu alone against ``lu_inv_plain``, in launches of 1 tile and of
+    140 (two waves of one CTA per SM on 132 SMs) scattered over a pool
+    with permuted steps: diagonally dominant tiles at 64 ulp of scale,
+    then the same launch with the tiny-pivot tile first, whose 3 replaced
+    pivots are counted and signed +thresh, -thresh, +thresh."""
+    thresh = 1e-3
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    eps = np.finfo(npd).eps
+    rng = np.random.default_rng(bs + ntile)
+    base = rng.standard_normal((ntile, bs, bs)) + bs * np.eye(bs)
+    slots = rng.permutation(ntile + 3)[:ntile] + 1
+    steps = rng.permutation(ntile)
+    for with_tiny in (False, True):
+        tiles = base.astype(npd)
+        if with_tiny:
+            tiles[0] = _tiny_tile(bs, npd)
+        pool = torch.zeros(ntile + 4, bs, bs, dtype=dtype, device=cuda)
+        pool[torch.as_tensor(slots, device=cuda)] = torch.as_tensor(
+            tiles, device=cuda)
+        linv = torch.zeros(ntile, bs, bs, dtype=dtype, device=cuda)
+        uinv = torch.zeros_like(linv)
+        tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+        sl = torch.as_tensor(slots, dtype=torch.int32, device=cuda)
+        st = torch.as_tensor(steps, dtype=torch.int32, device=cuda)
+        diag_lu.diag_lu(pool, linv, uinv, sl, st, thresh, tiny)
+        torch.cuda.synchronize()
+        LU, li, ui, nt = diag_lu.lu_inv_plain(
+            torch.as_tensor(tiles, device=cuda), thresh)
+        assert int(tiny.item()) == int(nt) == (3 if with_tiny else 0)
+        got = (pool[sl.long()], linv[st.long()], uinv[st.long()])
+        if with_tiny:
+            assert [float(got[0][0, j, j]) for j in (5, 9, 12)] == \
+                [float(npd(v)) for v in (thresh, -thresh, thresh)]
+        first = 1 if with_tiny else 0
+        for g, p in zip(got, (LU, li, ui)):
+            if ntile > first:
+                scale = max(1.0, float(p[first:].abs().max()))
+                assert float((g[first:] - p[first:]).abs().max()) \
+                    <= ULPS * eps * scale
+            if with_tiny and dtype == torch.float64:
+                scale = max(1.0, float(p[0].abs().max()))
+                assert float((g[0] - p[0]).abs().max()) \
+                    <= TINY_RTOL64 * scale
+        untouched = np.setdiff1d(np.arange(ntile + 4), slots)
+        assert not pool[torch.as_tensor(untouched, device=cuda)].any()
+
+
 @pytest.mark.parametrize("bs", [32, 64, 128])
 @pytest.mark.parametrize("pr,pc", [(2, 2), (1, 4), (4, 1), (2, 4)])
 def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
