@@ -33,10 +33,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    against their plain versions level by level on their paths' inputs,
    and each whole factor against ``factor_plain`` on its plan; then
    ``executor="tck"`` on the same matrix (tck_update, diag_lu, clk_trsm),
-   driven the same way, with tck_update against its plain version beside
-   clk_update's time; and ``SparseLU.profile_levels`` on the level
-   executor's factor (its six costliest levels), with the solve checked
-   after it;
+   driven the same way, with tck_update's two phases (A: the U blocks in
+   waves; B: the tiles) against their plain versions level by level,
+   their costliest levels (waves, tiles, products, chains, ms of each
+   phase), beside clk_update's time; and ``SparseLU.profile_levels`` on
+   the level executor's factor (its six costliest levels), with the
+   solve checked after it;
 6. the transposed path on ``lap3d32u`` (``laplacian_3d(32)`` with
    unsymmetric off-diagonal values, the same plan):
    ``gssvx(A, b, Options(dtype="float32", block_size=128,
@@ -66,8 +68,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    with many columns taller than the TPU clk's 104-block panel), driven
    like the main path (tck_update, diag_lu, clk_trsm and sweep must
    launch, clk_update, flk and schur must not), a warm call,
-   ``tck_update`` against its plain version level by level and the
-   whole factor against the float64 reference; its NOTRANS L+U solve's
+   ``tck_update``'s two phases against their plain versions level by
+   level (the costliest levels printed as on lap3d32) and the whole
+   factor against the float64 reference; its NOTRANS L+U solve's
    device ms and host launch loop (printed);
    then clk, flk and the level executor on the same plan
    (SamePattern_SameRowPerm refactors), each held to the same limits,
@@ -86,14 +89,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    single-device factor, sweep or solve kernel may), the receive counters
    against the TPU's receive tapes, a warm call beside the level
    executor's FACT, each entry against its plain version level by level
-   on the path's inputs, the gathered factor against the float64
+   on the path's inputs (the solve's three: rdma_solve_chunks,
+   rdma_solve_sum, rdma_solve_diag, with their ms per L+U solve and the
+   sweeps' chains and chunks), the gathered factor against the float64
    reference, the warm call's x and refinement steps equal to the first
-   call's; ``dist_executor="xla"``, which runs the same entries; and at
+   call's, one refinement profiled (device busy and idle share);
+   ``dist_executor="xla"``, which runs the same entries; and at
    block size 64 on lap3d16 the grids 2x2, 1x4, 4x1 and 2x4, x against
    scipy's;
 11. one JSON line of per-kernel results (the float64 instantiations in
-   rows of their own, with a ``dtype`` field; the RDMA rows with their
-   launches per entry), the nvidia-smi line, the seconds the run held the
+   rows of their own, with a ``dtype`` field; the tck and RDMA rows with
+   their launches per entry), the nvidia-smi line, the seconds the run held the
    card, and the final ``{"ok": true, "device": ...}`` line.
 
 Imports neither JAX nor the JAX package.
@@ -262,7 +268,7 @@ def main() -> None:
     checks.update(check_level(lus["pallas"], ctx, report=True))
     for name in ("flk", "schur", "trsm"):
         print_check(name, checks[name], launches[name])
-    o = check_tck(lus["tck"], ctx, report=False)["tck_update"]
+    o = check_tck(lus["tck"], ctx, report=True)["tck_update"]
     print(f"lap3d32 tck_update: max_abs_err {o['max_abs_err']:.3e} "
           f"(tolerance {o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
           f"{o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f} ms "
@@ -411,7 +417,7 @@ def print_phases(what, wall, st):
           flush=True)
 
 
-def profile_refine(torch, lu, b, x):
+def profile_refine(torch, lu, b, x, what=""):
     """Where the time of one refinement goes: ``torch.profiler`` over a
     refine call from the f32 solution (one SpMV residual, one L+U solve
     per step), summed by device kernel; the device's idle share is 1 -
@@ -433,8 +439,8 @@ def profile_refine(torch, lu, b, x):
             and e.self_device_time_total > 0
             and not e.key.startswith("slu:")]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"profile of one refine ({lu.stat.refine_steps} steps): wall "
-          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+    print(f"{what}profile of one refine ({lu.stat.refine_steps} steps): "
+          f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
           f"{max(0.0, 1 - busy / wall):.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
@@ -659,10 +665,11 @@ def check_sweep(lu, ctx, ck):
 
 def check_tck(lu, ctx, report):
     """tck_update against its plain version on ``lu``'s tck plan, level by
-    level (diag_lu and clk_trsm run as kernels after it), then the whole
-    factor against the float64 reference. No one PyTorch call computes
-    tck_update (per column a chain of dependent products), so its
-    library_ms stays None. It computes clk_update's function, so its
+    level and phase by phase (phase A, the U blocks in waves; phase B, the
+    tiles), diag_lu and clk_trsm running as kernels after them, then the
+    whole factor against the float64 reference. No one PyTorch call
+    computes tck_update (per column a chain of dependent products), so
+    its library_ms stays None. It computes clk_update's function, so its
     bound is clk_update's on the same plan."""
     torch, tck, clk, diag_lu = (ctx[k] for k in ("torch", "tck", "clk",
                                                  "diag_lu"))
@@ -672,10 +679,13 @@ def check_tck(lu, ctx, report):
     ck = Checker(torch, plan.bs, ("tck_update",))
     per_level = []
     for lvl in range(tp.nlvl):
-        (pool,), ms = ck.compare(
-            "tck_update", lambda p: tck.tck_update(p, linv, tp, lvl),
-            lambda p: tck.tck_update_plain(p, linv, tp, lvl), [pool])
-        per_level.append((ms, lvl))
+        (pool,), ms_a = ck.compare(
+            "tck_update", lambda p: tck.tck_waves(p, linv, tp, lvl),
+            lambda p: tck.tck_waves_plain(p, linv, tp, lvl), [pool])
+        (pool,), ms_b = ck.compare(
+            "tck_update", lambda p: tck.tck_tiles(p, tp, lvl),
+            lambda p: tck.tck_tiles_plain(p, tp, lvl), [pool])
+        per_level.append((ms_a + ms_b, ms_a, ms_b, lvl))
         lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
         diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
                         th, tiny)
@@ -1186,6 +1196,8 @@ def tck_phase(ctx, rng, checks, launches):
         "tck_update", "diag_lu", "clk_trsm", "sweep"),
         ("clk_update", "flk", "schur"))
     launches["tck_update"] = got["tck_update"]
+    ctx["entry_launches"]["tck_update"] = dict(
+        ctx["tck"].UPDATE.entry_launches)
     plan, tp = lu.plan, lu._ftapes
     colptr = np.searchsorted(plan.slot_col, np.arange(plan.nb + 1))
     height = np.diff(colptr)
@@ -1199,8 +1211,11 @@ def tck_phase(ctx, rng, checks, launches):
           f"tallest column {height.max()} blocks, {(height > 104).sum()} "
           f"columns > 104 and {(height > 64).sum()} > 64 blocks, at most "
           f"{dpos.max()} U / {(height - dpos - 1).max()} L blocks in a "
-          f"column; tck tiles of {tp.w} rows: {c['tiles']} tiles, "
-          f"{c['gemm']} GEMM chunks, {c['finu']} FINU jobs", flush=True)
+          f"column; tck: phase A {int(tp.lwave[-1])} waves over "
+          f"{len(tp.host['tslot'])} U targets, phase B "
+          f"{len(tp.host['tiles'])} tiles of up to {tp.w} rows; the TPU "
+          f"stream at {tp.w} rows: {c['tiles']} tiles, {c['gemm']} GEMM "
+          f"chunks, {c['finu']} FINU jobs", flush=True)
     warm_call(ctx, "tck lap3d50", A, b, opts)
     checks.update(check_tck(lu, ctx, report=True))
     print_check("tck_update", checks["tck_update"], launches["tck_update"])
@@ -1308,13 +1323,14 @@ def dist_phase(ctx, rng, checks, launches):
     for k, e in entries.items():
         if not all(e.values()):
             fail(f"an entry of {k} was not launched on the grid path: {e}")
-    ctx["entry_launches"] = entries
+    ctx["entry_launches"].update(entries)
     for k in GRID_NEED:
         launches[k] = got[k]
     print_grid(lu, peak, entries)
     check_recv(lu, "grid 2x2 rdma")
     r2 = warm_call(ctx, "grid 2x2 rdma", A, b, opts, grid=grid)
     check_repeat("grid 2x2 rdma lap3d32", res, r2)
+    profile_refine(torch, lu, b, res.x, "grid 2x2 rdma: ")
     st = r2.stat
     print(f"grid 2x2 rdma, second call: device ms FACT "
           f"{st.device_ms['FACT']:.3f}, SOLVE {st.device_ms['SOLVE']:.3f}, "
@@ -1455,24 +1471,34 @@ def check_dist(lu, ctx):
         ss = rdma.new_sweep_state(X, tp)
         for lvl in range(tp.nlvl):
             for entry, kern, plain, M in (
-                    ("rdma_solve_gemm", rdma.rdma_solve_gemm,
-                     rdma.rdma_solve_gemm_plain, lu.pool),
+                    ("rdma_solve_chunks", rdma.rdma_solve_chunks,
+                     rdma.rdma_solve_chunks_plain, lu.pool),
+                    ("rdma_solve_sum", rdma.rdma_solve_sum,
+                     rdma.rdma_solve_sum_plain, lu.pool),
                     ("rdma_solve_diag", rdma.rdma_solve_diag,
                      rdma.rdma_solve_diag_plain, dinv)):
                 ss, ms = compare_state(
                     torch, out["rdma_solve"], ss,
                     lambda s: kern(M, s, tp, lvl),
                     lambda s: plain(M, s, tp, lvl),
-                    lambda ts: rdma.SweepState(*(
-                        ts[i * ft.ndev:(i + 1) * ft.ndev] for i in range(4))),
-                    lambda s: s.X + s.P + s.slots + s.recv,
-                    lambda s: s.table(M))
+                    lambda ts: rdma.SweepState.of(ts, ft.ndev),
+                    rdma.SweepState.tensors, lambda s: s.table(M))
                 per_entry[entry] += ms
         X = ss.X
     print("RDMA entries, kernel ms summed over the levels (one factor, one "
           "L+U solve): " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in per_entry.items()),
           flush=True)
+    for tp in (lu._lt, lu._ut):
+        h = tp.host
+        nk = np.diff(h["chunkptr"])
+        print(f"grid {tp.which} sweep: {tp.nlvl} levels, "
+              f"{len(h['p_pos'])} partial jobs, {len(h['c_loc'])} products "
+              f"in {len(h['q_rank'])} chunks (longest chain "
+              f"{int(np.diff(h['cptr']).max(initial=0))}, most chunks of "
+              f"one chain {int(nk.max(initial=0))}, most chunks of one "
+              f"level {int(np.diff(tp.qptr).max(initial=0))}), "
+              f"{len(h['d_row'])} solved rows", flush=True)
     out["rdma_factor"].update(grid_factor_bound(lu))
     out["rdma_solve"].update(grid_solve_bound(lu))
     return out
@@ -1549,20 +1575,32 @@ def profile_phase(lu, A, b):
 
 
 def print_tck_levels(tp, per_level, top=6):
-    """Where tck_update's time goes: the costliest levels, with their
-    columns, tiles, GEMM chunks, L·U products and the tallest column."""
+    """Where tck_update's time goes: the costliest levels, each with
+    phase A (waves, U targets, L·U products, critical path: the longest
+    per-wave lists summed) and phase B (tiles, their rows, L·U products,
+    the longest tile's list), and each phase's ms."""
     h = tp.host
-    total = sum(ms for ms, _ in per_level)
+    cnt = np.diff(h["pptr"])
+    tcnt = h["tiles"][:, 3] - h["tiles"][:, 2]
+    total = sum(r[0] for r in per_level)
     print(f"tck_update by level (kernel {total:.3f} ms over {tp.nlvl} "
-          f"levels; top {top}):")
-    for ms, lvl in sorted(per_level, reverse=True)[:top]:
-        c0, c1 = int(tp.cptr[lvl]), int(tp.cptr[lvl + 1])
-        tiles = h["tiles"][h["ctile"][c0]:h["ctile"][c1]]
-        jobs = [h["gjobs"][g0:g1, 1] for _, _, g0, g1, _, _ in tiles]
-        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {c1 - c0} columns, "
-              f"{len(tiles)} tiles, {sum(len(j) for j in jobs)} GEMM chunks,"
-              f" {sum(int(j.sum()) for j in jobs)} L·U products, tallest "
-              f"tile {int(tp.hmax[lvl])} rows", flush=True)
+          f"levels: phase A {sum(r[1] for r in per_level):.3f} ms in "
+          f"{int(tp.lwave[-1])} waves, phase B "
+          f"{sum(r[2] for r in per_level):.3f} ms in {len(tcnt)} tiles; top "
+          f"{top}):")
+    for ms, ms_a, ms_b, lvl in sorted(per_level, reverse=True)[:top]:
+        w0, w1 = int(tp.lwave[lvl]), int(tp.lwave[lvl + 1])
+        t0, t1 = int(tp.wptr[w0]), int(tp.wptr[w1])
+        crit = sum(int(cnt[tp.wptr[w]:tp.wptr[w + 1]].max(initial=0))
+                   for w in range(w0, w1))
+        b0, b1 = int(tp.tptr[lvl]), int(tp.tptr[lvl + 1])
+        print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; phase A {ms_a:.3f} "
+              f"ms: {w1 - w0} waves, {t1 - t0} U targets, "
+              f"{int(cnt[t0:t1].sum())} L·U products, critical path {crit};"
+              f" phase B {ms_b:.3f} ms: {b1 - b0} tiles of up to "
+              f"{int(h['trows'][lvl])} rows (tallest {int(tp.hmax[lvl])}), "
+              f"{int(tcnt[b0:b1].sum())} L·U products, longest tile "
+              f"{int(tcnt[b0:b1].max(initial=0))}", flush=True)
 
 
 def print_update_levels(tp, per_level, bs, top=6):

@@ -55,10 +55,10 @@ class CudaKernel:
         self.entry_launches = dict.fromkeys(entries, 0)
         self._lib = None
 
-    def count(self, fn: str) -> None:
-        """One launch through entry ``fn``."""
-        self.launches += 1
-        self.entry_launches[fn] += 1
+    def count(self, fn: str, n: int = 1) -> None:
+        """``n`` launches through entry ``fn``."""
+        self.launches += n
+        self.entry_launches[fn] += n
 
     def reset_counts(self) -> None:
         self.launches = 0

@@ -239,8 +239,9 @@ def clk_update_plain(pool, linv, tp: ClkTapes, level: int) -> None:
 def clk_update_waves_plain(pool, linv, tp: ClkTapes, level: int) -> None:
     """:func:`clk_update` by the wave tapes, in the kernel's order: per
     wave, every target subtracts its products in list order, then the
-    FIN_U targets are finalized. It checks the tapes on the CPU; no card
-    path calls it."""
+    FIN_U targets are finalized. It checks the tapes on the CPU, and is
+    the plain version of tck's phase A (``tck.tck_waves_plain``) on tck's
+    wave tapes."""
     h = tp.host
     dev = pool.device
     for w in range(int(tp.lwave[level]), int(tp.lwave[level + 1])):

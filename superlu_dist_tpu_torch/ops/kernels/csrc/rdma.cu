@@ -12,13 +12,15 @@
 //                       U panels lC[pil] . U to the column peers' uB[pos];
 //       rdma_schur (C): T -= lB[lpos] . uB[upos] into the local targets;
 //   - _rdma_solve_kernel (called by _rdma_solve_call), one L or U sweep of
-//     one rank, by two entries run per solve level:
-//       rdma_solve_gemm: a rank's partial P[pos] = -sum pool[loc] . X[src]
-//                        of one row, put to the diagonal owner's
-//                        slots[pos * pc + my column] by a non-owner;
-//       rdma_solve_diag: the owner's x_I = dinv . (X[I] + P[pos] + the
-//                        peers' slots, in column order), put to every
-//                        rank's X[I].
+//     one rank, by three entries run per solve level:
+//       rdma_solve_chunks: each chunk of a rank's chain into a row position
+//                          summed into the rank's chunk scratch C;
+//       rdma_solve_sum:    a rank's partial P[pos] = -(its chunks' sums, in
+//                          chunk order), put to the diagonal owner's
+//                          slots[pos * pc + my column] by a non-owner;
+//       rdma_solve_diag:   the owner's x_I = dinv . (X[I] + P[pos] + the
+//                          peers' slots, in column order), put to every
+//                          rank's X[I].
 //
 // On the TPU one pallas_call per rank walks grid=(nlvl,) in order, and
 // counted DMA waits and a dissemination barrier fence each level. Here each
@@ -50,11 +52,15 @@
 // products by target (host sort, tape order kept within a target): one CTA
 // per (target, strip) sums its chain and stores once, as schur.cu does; a
 // target belongs to one rank, so ranks never race and no atomics touch the
-// blocks. The solve's products are grouped by destination position, one
-// CTA per (rank, position, tile of kRT right-hand sides), with rows.cuh's
-// warp-per-row products; the owner's CTA adds its partial and then the
-// peers' slots in column order, so a result repeats bit for bit. float32
-// only, as the TPU kernels are.
+// blocks. The solve runs solve_gemm.cu's two passes (rows.cuh): the host
+// cuts each (rank, position) chain into chunks in tape order
+// (sweep.py::chunk_chains, sized per level to fill the card), pass 1 runs
+// one CTA per (chunk, tile of kRT right-hand sides) through rows.cuh's
+// chunk_sum, and pass 2 one CTA per (rank, position, tile) that sums the
+// position's chunks in chunk order and puts the partial once, so the
+// receive counts stay those of the TPU. The owner's CTA of pass 3 adds its
+// partial and then the peers' slots in column order, so a result repeats
+// bit for bit. float32 only, as the TPU kernels are.
 
 #include "rows.cuh"
 #include "strip.cuh"
@@ -64,7 +70,6 @@ namespace {
 
 using slu_rows::kRT;
 using slu_rows::kThreads;
-using slu_rows::load_tile;
 using slu_rows::rows_times;
 using slu_strip::FIN_L;
 using slu_strip::FIN_NONE;
@@ -78,7 +83,7 @@ using slu_tile::kTileThreads;
 enum { F_POOL = 0, F_LINV, F_UINV, F_LC, F_UC, F_LB, F_UB, F_CNT, F_TINY };
 enum { R_LI = 0, R_UI = 1, R_L = 2, R_U = 3, R_NFACTOR = 4 };
 // kinds of a sweep's pointer table; the counters are int32[nlvl][2]
-enum { S_POOL = 0, S_DINV, S_X, S_P, S_SLOTS, S_CNT };
+enum { S_POOL = 0, S_DINV, S_X, S_P, S_SLOTS, S_CNT, S_C };
 enum { R_PART = 0, R_X = 1, R_NSOLVE = 2 };
 
 template <typename P>
@@ -190,53 +195,88 @@ rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
   strip_store<float>(tgt, bs, FIN_NONE, blockIdx.y, acc);
 }
 
-// ---- solve: partial products of one rank into one row position ------------
+// ---- solve pass 1: one chunk of a rank's chain into its scratch row ------
+template <int BS, int RT>
+__global__ void __launch_bounds__(kThreads, 2)
+rdma_solve_chunks_kernel(const uint64_t* __restrict__ tab, int ndev,
+                         const int32_t* __restrict__ qrank,
+                         const int32_t* __restrict__ qrow,
+                         const int32_t* __restrict__ qcptr,
+                         const int32_t* __restrict__ cloc,
+                         const int32_t* __restrict__ csrc, int nrhs) {
+  const int q = blockIdx.x;
+  const int d = qrank[q];
+  const int c0 = blockIdx.y * RT;
+  float* C = buf<float>(tab, S_C, ndev, d) + (int64_t)qrow[q] * BS * nrhs +
+             c0;
+  slu_rows::chunk_sum<float, BS, false, RT>(
+      buf<float>(tab, S_POOL, ndev, d), buf<float>(tab, S_X, ndev, d),
+      qcptr[q], qcptr[q + 1], cloc, csrc, c0, nrhs,
+      [&](int i, int c, float v) { C[i * nrhs + c] = v; });
+}
+
+// ---- solve pass 2: a rank's partial of one row position, and its put -----
 __global__ void __launch_bounds__(kThreads)
-rdma_solve_gemm_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
-                       const int32_t* __restrict__ rank,
-                       const int32_t* __restrict__ pos,
-                       const int32_t* __restrict__ send,
-                       const int32_t* __restrict__ dstc,
-                       const int32_t* __restrict__ cptr,
-                       const int32_t* __restrict__ cloc,
-                       const int32_t* __restrict__ csrc, int bs, int nrhs,
-                       int level) {
+rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+                      const int32_t* __restrict__ rank,
+                      const int32_t* __restrict__ pos,
+                      const int32_t* __restrict__ send,
+                      const int32_t* __restrict__ dstc,
+                      const int32_t* __restrict__ chunkptr,
+                      const int32_t* __restrict__ qrow, int bs, int nrhs,
+                      int level) {
   const int j = blockIdx.x;
   const int d = rank[j];
   const int myr = d / pc, myc = d % pc;
-  float* acc = slu_rows::dyn_smem<float>();   // kRT x bs, column major
-  float* xs = acc + kRT * bs;                 // kRT x bs, column major
-  const int64_t bb = (int64_t)bs * bs;
   const int64_t rb = (int64_t)bs * nrhs;
   const int c0 = blockIdx.y * kRT;
   const int rt = min(kRT, nrhs - c0);
-  const float* pool = buf<float>(tab, S_POOL, ndev, d);
-  const float* X = buf<float>(tab, S_X, ndev, d);
-
-  for (int e = threadIdx.x; e < kRT * bs; e += blockDim.x) acc[e] = 0.0f;
-  for (int p = cptr[j]; p < cptr[j + 1]; ++p) {
-    load_tile(xs, X + csrc[p] * rb + c0, bs, rt, nrhs);
-    __syncthreads();
-    rows_times(pool + cloc[p] * bb, xs, bs, rt, [&](int r, const float* s) {
-      for (int c = 0; c < rt; ++c) acc[c * bs + r] -= s[c];
-    });
-    __syncthreads();
-  }
-  __syncthreads();
+  const int nq = chunkptr[j + 1] - chunkptr[j];
+  const float* C = nq ? buf<float>(tab, S_C, ndev, d) +
+                            qrow[chunkptr[j]] * rb + c0
+                      : nullptr;
   float* P = buf<float>(tab, S_P, ndev, d) + pos[j] * rb + c0;
   const int owner = myr * pc + dstc[j];
   float* S = send[j] ? buf<float>(tab, S_SLOTS, ndev, owner) +
                            ((int64_t)pos[j] * pc + myc) * rb + c0
                      : nullptr;
   for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
-    const int r = e / rt, c = e - r * rt;
-    const float v = acc[c * bs + r];
-    P[(int64_t)r * nrhs + c] = v;
-    if (S) S[(int64_t)r * nrhs + c] = v;
+    const int64_t o = (int64_t)(e / rt) * nrhs + e % rt;
+    float v = 0.0f;
+#pragma unroll 8
+    for (int q = 0; q < nq; ++q) v -= C[q * rb + o];   // loads run ahead
+    P[o] = v;
+    if (S) S[o] = v;
   }
   if (send[j] && blockIdx.y == 0 && threadIdx.x == 0)
     atomicAdd(buf<int32_t>(tab, S_CNT, ndev, owner) + level * R_NSOLVE +
                   R_PART, 1);
+}
+
+template <int BS, int RT>
+int launch_chunks(const uint64_t* tab, int ndev, const int32_t* qrank,
+                  const int32_t* qrow, const int32_t* qcptr,
+                  const int32_t* cloc, const int32_t* csrc, int count,
+                  int nrhs, cudaStream_t stream) {
+  using M = slu_rows::Map<float, BS, false>;
+  constexpr size_t smem = M::template red_elems<RT>() * sizeof(float);
+  static_assert(smem <= 48 * 1024, "shared memory");
+  const dim3 grid(count, (nrhs + RT - 1) / RT);
+  rdma_solve_chunks_kernel<BS, RT><<<grid, kThreads, smem, stream>>>(
+      tab, ndev, qrank, qrow, qcptr, cloc, csrc, nrhs);
+  return (int)cudaGetLastError();
+}
+
+template <int BS>
+int chunks_by_rt(const uint64_t* tab, int ndev, const int32_t* qrank,
+                 const int32_t* qrow, const int32_t* qcptr,
+                 const int32_t* cloc, const int32_t* csrc, int count,
+                 int nrhs, cudaStream_t stream) {
+  return nrhs == 1
+             ? launch_chunks<BS, 1>(tab, ndev, qrank, qrow, qcptr, cloc, csrc,
+                                    count, nrhs, stream)
+             : launch_chunks<BS, kRT>(tab, ndev, qrank, qrow, qcptr, cloc,
+                                      csrc, count, nrhs, stream);
 }
 
 // ---- solve: the owner's diagonal apply and x broadcast --------------------
@@ -333,20 +373,44 @@ extern "C" int slu_rdma_schur(const void* tab, int ndev, const void* rank,
   return (int)cudaGetLastError();
 }
 
-extern "C" int slu_rdma_solve_gemm(const void* tab, int ndev, int pc,
-                                   const void* rank, const void* pos,
-                                   const void* send, const void* dstc,
-                                   const void* cptr, const void* cloc,
-                                   const void* csrc, int count, int bs,
-                                   int nrhs, int level, void* stream) {
+// Pass 1 of a solve level over `count` chunks (the level's slice of
+// qrank, qrow, qcptr): chunk q's products qcptr[q] .. qcptr[q+1] of
+// cloc/csrc summed into row qrow[q] of rank qrank[q]'s chunk scratch.
+extern "C" int slu_rdma_solve_chunks(const void* tab, int ndev,
+                                     const void* qrank, const void* qrow,
+                                     const void* qcptr, const void* cloc,
+                                     const void* csrc, int count, int bs,
+                                     int nrhs, void* stream) {
+  if (count == 0) return 0;
+  auto go = [&](auto launch) {
+    return launch((const uint64_t*)tab, ndev, (const int32_t*)qrank,
+                  (const int32_t*)qrow, (const int32_t*)qcptr,
+                  (const int32_t*)cloc, (const int32_t*)csrc, count, nrhs,
+                  (cudaStream_t)stream);
+  };
+  switch (bs) {
+    case 32: return go(chunks_by_rt<32>);
+    case 64: return go(chunks_by_rt<64>);
+    case 128: return go(chunks_by_rt<128>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Pass 2 over `count` partial jobs (the level's slice of rank, pos, send,
+// dstc, chunkptr): job j's partial is minus the sum of its chunks
+// chunkptr[j] .. chunkptr[j+1] (scratch rows from qrow) in chunk order.
+extern "C" int slu_rdma_solve_sum(const void* tab, int ndev, int pc,
+                                  const void* rank, const void* pos,
+                                  const void* send, const void* dstc,
+                                  const void* chunkptr, const void* qrow,
+                                  int count, int bs, int nrhs, int level,
+                                  void* stream) {
   if (count == 0) return 0;
   const dim3 grid(count, (nrhs + kRT - 1) / kRT);
-  const size_t smem = (size_t)2 * kRT * bs * sizeof(float);
-  rdma_solve_gemm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  rdma_solve_sum_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
       (const int32_t*)pos, (const int32_t*)send, (const int32_t*)dstc,
-      (const int32_t*)cptr, (const int32_t*)cloc, (const int32_t*)csrc, bs,
-      nrhs, level);
+      (const int32_t*)chunkptr, (const int32_t*)qrow, bs, nrhs, level);
   return (int)cudaGetLastError();
 }
 

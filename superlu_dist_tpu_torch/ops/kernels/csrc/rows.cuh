@@ -1,12 +1,17 @@
 // rows.cuh: block-times-tile products shared by rdma.cu and solve_gemm.cu.
 //
-// A tile is up to kRT right-hand sides of one block row of X, staged in
-// shared memory column major (V[c * bs + k]), so that the threads of a
-// warp that walk k read consecutive words. M is one bs x bs block of the
-// pool or of the diagonal inverses, read from device memory through the
-// read-only path (no launch writes a block that it reads). Every function
-// is a template on the element type T (float or double); the arithmetic
-// is IEEE in T.
+// A tile is up to kRT right-hand sides of one block row of X (bs x nrhs,
+// row major). Map is how the kThreads threads of a CTA share the product
+// of one block with a tile: 16-byte loads of the block through the
+// read-only path, eight in flight per thread, the threads' partial sums
+// meeting once in shared memory in a fixed order. chunk_sum is the first
+// pass of a chunked level sweep (solve_gemm.cu's `solve_gemm`, rdma.cu's
+// `rdma_solve_chunks`): the sum of one chunk of a destination's chain.
+// rows_times is the warp-per-row product of a block with a tile staged in
+// shared memory (rdma.cu's diagonal apply). M is one bs x bs block of the
+// pool or of the diagonal inverses; no launch writes a block that it
+// reads. Every function is a template on the element type T (float or
+// double); the arithmetic is IEEE in T.
 
 #pragma once
 
@@ -62,56 +67,137 @@ __device__ __forceinline__ void rows_times(const T* __restrict__ M,
   }
 }
 
-// out[i][c] = sum_k M[k][i] * V[c*bs + k] (the product by M^T): thread t
-// owns output row i = t % bs and sums the k of its group g = t / bs (k = g,
-// g + ng, ..., ng = blockDim / bs groups), so the threads of a warp read
-// consecutive words of row k of M (coalesced, no transpose in shared
-// memory), every word of M is read once, and V's word is a broadcast. The
-// groups' partial sums meet in `red` (kRT * blockDim elements of shared
-// memory) and group 0 adds them in the order of g and hands each (i, c) to
-// emit(i, c, value). Contains a __syncthreads(): call it from every thread
-// of the CTA, and synchronise again before `red` is reused.
-template <typename T, typename Emit>
-__device__ __forceinline__ void cols_times(const T* __restrict__ M,
-                                           const T* V, int bs, int rt,
-                                           T* red, Emit emit) {
-  const int i = threadIdx.x % bs;
-  const int g = threadIdx.x / bs;
-  const int ng = blockDim.x / bs;
-  T part[kRT];
-#pragma unroll
-  for (int c = 0; c < kRT; ++c) part[c] = T(0);
-#pragma unroll 4
-  for (int k = g; k < bs; k += ng) {
-    const T a = __ldg(M + (int64_t)k * bs + i);
-#pragma unroll
-    for (int c = 0; c < kRT; ++c)
-      if (c < rt) part[c] += a * V[c * bs + k];
-  }
-#pragma unroll
-  for (int c = 0; c < kRT; ++c)
-    if (c < rt) red[(c * ng + g) * bs + i] = part[c];
-  __syncthreads();
-  if (g != 0) return;
-#pragma unroll
-  for (int c = 0; c < kRT; ++c) {
-    if (c < rt) {
-      T s = part[c];
-      for (int h = 1; h < ng; ++h) s += red[(c * ng + h) * bs + i];
-      emit(i, c, s);
-    }
+// one 16-byte load through the read-only path into kV = 16 / sizeof(T)
+// registers; p is 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void ld16(const T* __restrict__ p, T* v) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = a.x;
+    v[1] = a.y;
   }
 }
 
-// Stage X[I]'s tile (bs x rt of a row-major bs x nrhs block) column major
-// into shared memory; the caller synchronises.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* XI, int bs,
-                                          int rt, int nrhs) {
-  for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
-    const int r = e / rt, c = e - r * rt;
-    dst[c * bs + r] = XI[(int64_t)r * nrhs + c];
+// How the kThreads threads of a CTA share the product of one bs x bs
+// block M (row major) with a bs x rt tile x (x(k, c) gives its entries).
+template <typename T, int BS, bool kTrans>
+struct Map {
+  static constexpr int kV = 16 / sizeof(T);    // elements per 16-byte load
+  static constexpr int kQ = BS / kV;           // 16-byte words per row of M
+  // threads that hold partial sums of the same outputs
+  static constexpr int kGroups = kTrans ? kThreads / kQ : kThreads / BS;
+  static constexpr int kOut = kTrans ? kV : 1;  // outputs per thread
+  // 16-byte loads per thread per block
+  static constexpr int kSteps = kTrans ? BS / kGroups : kQ / kGroups;
+  static constexpr int kLd = BS + kV;          // padded row of `red`
+  static_assert(kQ <= kThreads && kSteps >= 1, "block size");
+
+  template <int RT>
+  static constexpr int red_elems() {
+    return kGroups * RT * kLd > kThreads ? kGroups * RT * kLd : kThreads;
   }
+
+  __device__ static int group() {
+    return kTrans ? threadIdx.x / kQ : threadIdx.x / BS;
+  }
+
+  // acc += op(M) . x over this thread's share of M.
+  //   M^T: thread (j, g) owns outputs i = j*kV .. j*kV + kV-1 and reads
+  //        16-byte word j of rows k = g, g + kGroups, ...; a warp reads
+  //        consecutive words of a row.
+  //   M:   thread (r, h) owns output row r and reads its 16-byte words
+  //        j = h, h + kGroups, ...; each lane's words fill whole sectors.
+  template <int RT, typename XAt>
+  __device__ static void accumulate(const T* __restrict__ M, int rt, XAt x,
+                                    T (&acc)[kOut][RT]) {
+    const int g = group();
+    if constexpr (kTrans) {
+      const T* col = M + (threadIdx.x % kQ) * kV;
+#pragma unroll 8
+      for (int m = 0; m < kSteps; ++m) {
+        const int k = g + kGroups * m;
+        T a[kV];
+        ld16(col + k * BS, a);
+#pragma unroll
+        for (int c = 0; c < RT; ++c) {
+          if (c < rt) {
+            const T xv = x(k, c);
+#pragma unroll
+            for (int v = 0; v < kV; ++v) acc[v][c] += a[v] * xv;
+          }
+        }
+      }
+    } else {
+      const T* row = M + (threadIdx.x % BS) * BS;
+#pragma unroll 8
+      for (int m = 0; m < kSteps; ++m) {
+        const int j = g + kGroups * m;
+        T a[kV];
+        ld16(row + j * kV, a);
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+#pragma unroll
+          for (int c = 0; c < RT; ++c)
+            if (c < rt) acc[0][c] += a[v] * x(j * kV + v, c);
+        }
+      }
+    }
+  }
+
+  // The groups' partial sums meet in `red` and are added in group order;
+  // emit(i, c, value) for each output row i and column c < rt. Contains a
+  // __syncthreads(): call it from every thread of the CTA.
+  template <int RT, typename Emit>
+  __device__ static void reduce(const T (&acc)[kOut][RT], int rt, T* red,
+                                Emit emit) {
+    const int g = group();
+    const int i0 = kTrans ? (threadIdx.x % kQ) * kV : threadIdx.x % BS;
+#pragma unroll
+    for (int c = 0; c < RT; ++c) {
+      if (c < rt) {
+#pragma unroll
+        for (int v = 0; v < kOut; ++v)
+          red[(g * RT + c) * kLd + i0 + v] = acc[v][c];
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < BS * rt; e += kThreads) {
+      const int i = e / rt, c = e - i * rt;
+      T s = red[c * kLd + i];
+      for (int h = 1; h < kGroups; ++h) s += red[(h * RT + c) * kLd + i];
+      emit(i, c, s);
+    }
+  }
+};
+
+// S = sum over p in [p0, p1), in order, of op(pool[cslot[p]]) . X[csrc[p]]
+// for the tile of right-hand sides c0 .. c0+RT of X (bs x nrhs blocks);
+// emit(i, c, S[i][c]) for each row i and column c of the tile. Uses the
+// kernel's dynamic shared memory (Map::red_elems<RT>() elements) and
+// contains a __syncthreads(): call it from every thread of the CTA.
+template <typename T, int BS, bool kTrans, int RT, typename Emit>
+__device__ __forceinline__ void chunk_sum(const T* __restrict__ pool,
+                                          const T* __restrict__ X, int p0,
+                                          int p1,
+                                          const int32_t* __restrict__ cslot,
+                                          const int32_t* __restrict__ csrc,
+                                          int c0, int nrhs, Emit emit) {
+  using M = Map<T, BS, kTrans>;
+  const int rt = min(RT, nrhs - c0);
+  T acc[M::kOut][RT] = {};
+  for (int p = p0; p < p1; ++p) {
+    const T* x = X + (int64_t)csrc[p] * BS * nrhs + c0;
+    M::template accumulate<RT>(
+        pool + (int64_t)cslot[p] * BS * BS, rt,
+        [&](int k, int c) { return __ldg(x + k * nrhs + c); }, acc);
+  }
+  M::template reduce<RT>(acc, rt, dyn_smem<T>(), emit);
 }
 
 }  // namespace slu_rows

@@ -54,115 +54,7 @@ namespace {
 
 using slu_rows::kRT;
 using slu_rows::kThreads;
-
-// one 16-byte load through the read-only path into kV = 16 / sizeof(T)
-// registers; p is 16-byte aligned
-template <typename T>
-__device__ __forceinline__ void ld16(const T* __restrict__ p, T* v) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-  } else {
-    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
-  }
-}
-
-// How the kThreads threads of a CTA share the product of one bs x bs
-// block M (row major) with a bs x rt tile x (x(k, c) gives its entries).
-template <typename T, int BS, bool kTrans>
-struct Map {
-  static constexpr int kV = 16 / sizeof(T);    // elements per 16-byte load
-  static constexpr int kQ = BS / kV;           // 16-byte words per row of M
-  // threads that hold partial sums of the same outputs
-  static constexpr int kGroups = kTrans ? kThreads / kQ : kThreads / BS;
-  static constexpr int kOut = kTrans ? kV : 1;  // outputs per thread
-  // 16-byte loads per thread per block
-  static constexpr int kSteps = kTrans ? BS / kGroups : kQ / kGroups;
-  static constexpr int kLd = BS + kV;          // padded row of `red`
-  static_assert(kQ <= kThreads && kSteps >= 1, "block size");
-
-  template <int RT>
-  static constexpr int red_elems() {
-    return kGroups * RT * kLd > kThreads ? kGroups * RT * kLd : kThreads;
-  }
-
-  __device__ static int group() {
-    return kTrans ? threadIdx.x / kQ : threadIdx.x / BS;
-  }
-
-  // acc += op(M) . x over this thread's share of M.
-  //   M^T: thread (j, g) owns outputs i = j*kV .. j*kV + kV-1 and reads
-  //        16-byte word j of rows k = g, g + kGroups, ...; a warp reads
-  //        consecutive words of a row.
-  //   M:   thread (r, h) owns output row r and reads its 16-byte words
-  //        j = h, h + kGroups, ...; each lane's words fill whole sectors.
-  template <int RT, typename XAt>
-  __device__ static void accumulate(const T* __restrict__ M, int rt, XAt x,
-                                    T (&acc)[kOut][RT]) {
-    const int g = group();
-    if constexpr (kTrans) {
-      const T* col = M + (threadIdx.x % kQ) * kV;
-#pragma unroll 8
-      for (int m = 0; m < kSteps; ++m) {
-        const int k = g + kGroups * m;
-        T a[kV];
-        ld16(col + k * BS, a);
-#pragma unroll
-        for (int c = 0; c < RT; ++c) {
-          if (c < rt) {
-            const T xv = x(k, c);
-#pragma unroll
-            for (int v = 0; v < kV; ++v) acc[v][c] += a[v] * xv;
-          }
-        }
-      }
-    } else {
-      const T* row = M + (threadIdx.x % BS) * BS;
-#pragma unroll 8
-      for (int m = 0; m < kSteps; ++m) {
-        const int j = g + kGroups * m;
-        T a[kV];
-        ld16(row + j * kV, a);
-#pragma unroll
-        for (int v = 0; v < kV; ++v) {
-#pragma unroll
-          for (int c = 0; c < RT; ++c)
-            if (c < rt) acc[0][c] += a[v] * x(j * kV + v, c);
-        }
-      }
-    }
-  }
-
-  // The groups' partial sums meet in `red` and are added in group order;
-  // emit(i, c, value) for each output row i and column c < rt. Contains a
-  // __syncthreads(): call it from every thread of the CTA.
-  template <int RT, typename Emit>
-  __device__ static void reduce(const T (&acc)[kOut][RT], int rt, T* red,
-                                Emit emit) {
-    const int g = group();
-    const int i0 = kTrans ? (threadIdx.x % kQ) * kV : threadIdx.x % BS;
-#pragma unroll
-    for (int c = 0; c < RT; ++c) {
-      if (c < rt) {
-#pragma unroll
-        for (int v = 0; v < kOut; ++v)
-          red[(g * RT + c) * kLd + i0 + v] = acc[v][c];
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < BS * rt; e += kThreads) {
-      const int i = e / rt, c = e - i * rt;
-      T s = red[c * kLd + i];
-      for (int h = 1; h < kGroups; ++h) s += red[(h * RT + c) * kLd + i];
-      emit(i, c, s);
-    }
-  }
-};
+using slu_rows::Map;
 
 // ---- pass 1: a chunk's products into its partial sum ---------------------
 template <typename T, int BS, bool kTrans, int RT>
@@ -171,21 +63,12 @@ chunk_kernel(const T* __restrict__ pool, const T* __restrict__ X,
              T* __restrict__ P, const int32_t* __restrict__ cptr,
              const int32_t* __restrict__ cslot,
              const int32_t* __restrict__ csrc, int nrhs) {
-  using M = Map<T, BS, kTrans>;
   const int q = blockIdx.x;
   const int c0 = blockIdx.y * RT;
-  const int rt = min(RT, nrhs - c0);
-  T acc[M::kOut][RT] = {};
-  const int p1 = cptr[q + 1];
-  for (int p = cptr[q]; p < p1; ++p) {
-    const T* x = X + (int64_t)csrc[p] * BS * nrhs + c0;
-    M::template accumulate<RT>(
-        pool + (int64_t)cslot[p] * BS * BS, rt,
-        [&](int k, int c) { return __ldg(x + k * nrhs + c); }, acc);
-  }
   T* Pq = P + (int64_t)q * BS * nrhs + c0;
-  M::template reduce<RT>(acc, rt, slu_rows::dyn_smem<T>(),
-                         [&](int i, int c, T v) { Pq[i * nrhs + c] = v; });
+  slu_rows::chunk_sum<T, BS, kTrans, RT>(
+      pool, X, cptr[q], cptr[q + 1], cslot, csrc, c0, nrhs,
+      [&](int i, int c, T v) { Pq[i * nrhs + c] = v; });
 }
 
 // ---- pass 2: a row's partials, then its diagonal --------------------------

@@ -1,5 +1,5 @@
-// strip.cuh: the block-strip update shared by flk.cu, schur.cu, clk.cu,
-// tck.cu and rdma.cu.
+// strip.cuh: the block-strip update shared by flk.cu, schur.cu and
+// rdma.cu (waves.cuh, for clk.cu and tck.cu, takes its Vec4 and FIN_U).
 //
 // One CTA of bs threads owns one strip of kStrip scalar columns (or rows)
 // of one target block T of the pool and computes, in registers,

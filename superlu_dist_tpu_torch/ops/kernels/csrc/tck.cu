@@ -1,5 +1,5 @@
-// tck.cu: the tiled left-looking column update, one elimination level per
-// launch.
+// tck.cu: the tiled left-looking column update, per elimination level in
+// two phases.
 //
 // Replaces: superlu_dist_tpu/ops/kernels/tck.py::_tck_kernel (called by
 // _tck_seg_call), the TPU's column-resident factor for columns of any
@@ -9,167 +9,185 @@
 //
 // What it computes, for each block column k of one elimination level
 // (pool slots of column k are contiguous: U(j,k) for ascending j, the
-// diagonal block, then L(i,k) for ascending i), tile by tile down the
-// column, on the host's job lists (ops/kernels/tck.py::build_tck_tapes):
-//   GEMM job: B = U(j,k); if B sits in the tile and this is its first use
-//             there, B <- linv(j) . B in place (a B from an earlier tile is
-//             read from the pool, already final); then
-//             tile[dst[m]] -= L(i_m, j) . B for the job's m L blocks
-//   FINU job: U(j,k) <- linv(j) . U(j,k) for a U block that was no source
-//             inside its own tile
-// Jobs run in ascending source order within a tile, so each position sums
-// its contributions in that order, and a U block is final before its
-// first use. The diagonal and L positions get their contributions here
-// and are finalized by diag_lu and clk_trsm. Column k depends only on
-// columns of lower levels, so the level order replaces the TPU's
-// sequential grid: one launch per level on one stream.
+// diagonal block, then L(i,k) for ascending i): every stored (i,k)
+// becomes (i,k) - sum of L(i,j) . U(j,k) over the column's U blocks with
+// L(i,j) stored, and every U block is then finalized as
+// U(j,k) <- linv(j) . U(j,k): the TPU kernel's LOAD / GEMM / FINU / STORE
+// stream. The diagonal and L positions are finalized by diag_lu and
+// clk_trsm. Column k depends only on columns of lower levels, so the level
+// order replaces the TPU's sequential grid.
 //
 // What bounds it on an H100: operations, 2*bs^3 per block product in FP32
 // on the CUDA cores (67 TFLOP/s peak), and at the top of the elimination
-// tree the parallelism of a level (one or two columns, so bs/16 CTAs).
+// tree the chains: a U block waits on the U blocks it depends on, and a
+// position sums its products in ascending source order.
 //
-// Design: one CTA per (column, strip of TN = 16 scalar columns), as
-// clk_update; each thread owns a 4x4 tile of a block strip. The CTA keeps
-// the strip of up to W block rows of the current tile in shared memory
-// (W = 24 at bs = 128: 24 x 8 KiB plus one 8 KiB B strip, 200 KiB,
-// opt-in dynamic shared memory sized per launch by the level's tallest
-// tile), accumulates every contribution there and stores the tile to the
-// pool once, where clk_update reads and writes a target strip in device
-// memory for every product. The L blocks are read from device memory (L2)
-// through the read-only path: they belong to lower levels. A B strip from
-// an earlier tile is read with ordinary loads, since this CTA stored it.
-// Offsets are 64-bit (slot * bs^2 passes 2^31 near n = 885k).
+// Design, on the host's tapes (ops/kernels/tck.py::build_tck_tapes):
+//   Phase A (slu_tck_waves_f32): the U part of every column of the level,
+//     waves.cuh's update in source-ready waves (clk.cu's clk_update, fed
+//     only the products whose target lies above the diagonal): one launch
+//     per wave. Every U block is final when phase A ends.
+//   Phase B (slu_tck_tiles_f32): one launch per level for the diagonal
+//     and L positions. One CTA per (tile, strip of TNB = 16 scalar
+//     columns); a tile is up to W consecutive diagonal/L positions of one
+//     column (fewer on a level where a taller tile would lengthen its
+//     longest chain of products). The CTA loads the tile's strips into
+//     shared memory once, subtracts every product into the tile in
+//     ascending source j, then L block (the JAX kernel's order), and
+//     stores the tile once. Each product is L(i,j) . U(j,k), its operands
+//     streamed through waves.cuh's cp.async ring (KC-column chunks of the
+//     L block and the matching KC rows of the final U strip, from the
+//     pool). A thread reads and writes only its own 4x4 share of each
+//     tile position, so the tile needs no barrier of its own. W is what half an SM's shared memory holds
+//     beside the ring (tck.py::tile_rows: 6 rows at bs = 128), so that two
+//     CTAs share an SM; the launch takes the ring plus its tallest tile.
+// Nothing that a launch reads is written in it: phase B reads final U
+// blocks and L blocks of lower levels, and writes only its tiles.
 
-#include "strip.cuh"
+#include "waves.cuh"
 
 namespace {
 
-constexpr int TN = slu_strip::kStrip;   // scalar columns per strip
-constexpr int kB_LOAD = -1;             // load B from the pool (tck.py)
-constexpr int kTileFields = 6;          // p0, rows, g0, g1, f0, f1
-constexpr int kGemmFields = 7;          // a0, m, bpos, bslot, src, fin, d0
+using slu_strip::Vec4;
+using slu_waves::KC;
+using slu_waves::Ring;
 
-// strip (bs x TN, leading dimension TN) of a block at `src` in the pool
-// (leading dimension bs) into shared memory, or back
-__device__ __forceinline__ void copy_in(float* dst, const float* src,
-                                        int bs) {
-  for (int e = threadIdx.x; e < bs * (TN / 4); e += blockDim.x) {
-    const int r = e / (TN / 4);
-    const int c = (e % (TN / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + r * TN + c) =
-        *reinterpret_cast<const float4*>(src + (int64_t)r * bs + c);
-  }
+constexpr int TN = 16;                  // phase A's scalar columns per strip
+// phase B's scalar columns per strip (8 was slower on an H100) and the
+// chunks of its cp.async ring (superlu_dist_tpu_torch/tools/tck_ab.py
+// rewrites these two lines)
+constexpr int TNB = 16;
+constexpr int STB = 3;
+constexpr int kTileFields = 4;          // slot0, rows, q0, q1
+constexpr int kMaxSmem = 227 * 1024;    // opt-in shared memory of a CTA
+
+// the ring, then the tile of `rows` positions (BS x TNB each)
+template <int BS>
+size_t tile_smem_bytes(int rows) {
+  return (size_t)(Ring<BS, TNB, STB>::kFloats + rows * BS * TNB) *
+         sizeof(float);
 }
 
-__device__ __forceinline__ void copy_out(float* dst, const float* src,
-                                         int bs) {
-  for (int e = threadIdx.x; e < bs * (TN / 4); e += blockDim.x) {
-    const int r = e / (TN / 4);
-    const int c = (e % (TN / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + (int64_t)r * bs + c) =
-        *reinterpret_cast<const float4*>(src + r * TN + c);
-  }
-}
-
-// S <- D . S for a strip S in shared memory and a block D in device
-// memory (the U finalize); synchronises before and after the write.
-__device__ __forceinline__ void left_apply(const float* __restrict__ D,
-                                           float* S, int bs, int r0,
-                                           int c0) {
-  float acc[4][4] = {};
-  slu_strip::mul_dev_smem<float>(D, S, bs, r0, c0, acc);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    slu_strip::Vec4<float>::st(S + (r0 + i) * TN + c0, acc[i]);
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(slu_strip::kMaxBs)
-tck_update_kernel(float* pool, const float* __restrict__ linv,
-                  const int32_t* __restrict__ cbase,
-                  const int32_t* __restrict__ ctile,
-                  const int32_t* __restrict__ tiles,
-                  const int32_t* __restrict__ gjobs,
-                  const int32_t* __restrict__ dst,
-                  const int32_t* __restrict__ fjobs, int c0, int bs) {
+template <int BS>
+__global__ void __launch_bounds__(Ring<BS, TNB, STB>::kThreads)
+tck_tile_kernel(float* __restrict__ pool,
+                const int32_t* __restrict__ tiles,
+                const int32_t* __restrict__ bl,
+                const int32_t* __restrict__ bu,
+                const int32_t* __restrict__ bd, int t0) {
+  using S = Ring<BS, TNB, STB>;
+  constexpr int NK = S::NK;
+  constexpr int RS = S::RS;
   extern __shared__ float4 smem4[];
-  float* sB = reinterpret_cast<float*>(smem4);   // bs x TN: a B from the pool
-  float* sT = sB + bs * TN;                      // rows x bs x TN: the tile
-  const int q = c0 + blockIdx.x;
-  const int s0 = blockIdx.y * TN;
-  const int tid = threadIdx.x;
-  const int r0 = (tid / (TN / 4)) * 4;
-  const int cc = (tid % (TN / 4)) * 4;
-  const int64_t bb = (int64_t)bs * bs;
-  const int bst = bs * TN;                       // floats of one block strip
-  const int64_t base = cbase[q];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* tile = smem + S::kFloats;       // rows x BS x TNB
+  const int32_t* tr = tiles + (int64_t)kTileFields * (t0 + blockIdx.x);
+  const int64_t bb = (int64_t)BS * BS;
+  const int s0 = blockIdx.y * TNB;
+  const int g = threadIdx.x / (TNB / 4);
+  const int c0 = (threadIdx.x % (TNB / 4)) * 4;
+  const int rows = tr[1], q0 = tr[2];
+  const int nchunks = (tr[3] - q0) * NK;
+  float* T0 = pool + (int64_t)tr[0] * bb + s0;
 
-  for (int i = ctile[q]; i < ctile[q + 1]; ++i) {
-    const int32_t* tr = tiles + (int64_t)kTileFields * i;
-    const int p0 = tr[0], rows = tr[1];
-    const int g0 = tr[2], g1 = tr[3], f0 = tr[4], f1 = tr[5];
-    if (g0 == g1 && f0 == f1) continue;          // the tile stays as it is
-    float* T0 = pool + (base + p0) * bb + s0;
-    __syncthreads();                             // the last tile is stored
-    for (int p = 0; p < rows; ++p) copy_in(sT + p * bst, T0 + p * bb, bs);
-    __syncthreads();
-
-    for (int g = g0; g < g1; ++g) {
-      const int32_t* gj = gjobs + (int64_t)kGemmFields * g;
-      const int64_t a0 = gj[0];
-      const int m = gj[1], bpos = gj[2], d0 = gj[6];
-      const float* B = sB;
-      if (bpos >= 0) {
-        float* Bt = sT + bpos * bst;
-        if (gj[5]) left_apply(linv + (int64_t)gj[4] * bb, Bt, bs, r0, cc);
-        B = Bt;
-      } else if (bpos == kB_LOAD) {
-        copy_in(sB, pool + (int64_t)gj[3] * bb + s0, bs);
-        __syncthreads();
-      }                                          // else: sB holds it
-      for (int mm = 0; mm < m; ++mm) {
-        float prod[4][4] = {};
-        slu_strip::mul_dev_smem<float>(pool + (a0 + mm) * bb, B, bs, r0, cc,
-                                       prod);
-        float* C = sT + dst[d0 + mm] * bst;
+  // this thread's share of every tile position
+  for (int p = 0; p < rows; ++p)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float v[4];
-          slu_strip::Vec4<float>::ld(C + (r0 + r) * TN + cc, v);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) v[c] -= prod[r][c];
-          slu_strip::Vec4<float>::st(C + (r0 + r) * TN + cc, v);
-        }
-      }
-      // the next job may read a block just written, or reload sB
-      __syncthreads();
+    for (int i = 0; i < 4; ++i) {
+      float v[4];
+      Vec4<float>::ld(T0 + p * bb + (int64_t)(g + i * RS) * BS + c0, v);
+      Vec4<float>::st(tile + (p * BS + g + i * RS) * TNB + c0, v);
     }
-    for (int f = f0; f < f1; ++f)
-      left_apply(linv + (int64_t)fjobs[2 * f + 1] * bb,
-                 sT + fjobs[2 * f] * bst, bs, r0, cc);
-    for (int p = 0; p < rows; ++p) copy_out(T0 + p * bb, sT + p * bst, bs);
+
+  auto load = [&](int c) {
+    const int q = q0 + c / NK;
+    slu_waves::stage<BS, TNB>(smem + (c % STB) * S::kStage,
+                              pool + (int64_t)bl[q] * bb,
+                              pool + (int64_t)bu[q] * bb + s0, (c % NK) * KC);
+  };
+#pragma unroll
+  for (int c = 0; c < STB - 1; ++c) {
+    if (c < nchunks) load(c);
+    slu_waves::cp_async_commit();
   }
+  float prod[4][4] = {};
+  for (int c = 0; c < nchunks; ++c) {
+    slu_waves::cp_async_wait<STB - 2>();   // chunk c has landed
+    __syncthreads();               // ... for every thread; stage c-1 is free
+    if (c + STB - 1 < nchunks) load(c + STB - 1);
+    slu_waves::cp_async_commit();
+    const float* Ls = smem + (c % STB) * S::kStage;
+    slu_waves::mul_chunk<BS, TNB>(Ls, Ls + S::kL, g, c0, prod);
+    if (c % NK == NK - 1) {   // the product is complete: into its position
+      float* T = tile + bd[q0 + c / NK] * BS * TNB;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v[4];
+        Vec4<float>::ld(T + (g + i * RS) * TNB + c0, v);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] -= prod[i][j];
+          prod[i][j] = 0.f;
+        }
+        Vec4<float>::st(T + (g + i * RS) * TNB + c0, v);
+      }
+    }
+  }
+  for (int p = 0; p < rows; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v[4];
+      Vec4<float>::ld(tile + (p * BS + g + i * RS) * TNB + c0, v);
+      Vec4<float>::st(T0 + p * bb + (int64_t)(g + i * RS) * BS + c0, v);
+    }
+}
+
+template <int BS>
+int launch_tiles(float* pool, const int32_t* tiles, const int32_t* bl,
+                 const int32_t* bu, const int32_t* bd, int t0, int count,
+                 int hmax, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes<BS>(hmax);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      tck_tile_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  tck_tile_kernel<BS><<<dim3((unsigned)count, BS / TNB),
+                        Ring<BS, TNB, STB>::kThreads, smem, stream>>>(
+      pool, tiles, bl, bu, bd, t0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int slu_tck_update_f32(void* pool, const void* linv,
-                                  const void* cbase, const void* ctile,
-                                  const void* tiles, const void* gjobs,
-                                  const void* dst, const void* fjobs, int c0,
-                                  int ncols, int hmax, int bs, void* stream) {
-  const size_t smem = (size_t)(hmax + 1) * bs * TN * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      tck_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (ncols == 0) return 0;
-  const dim3 grid(ncols, bs / TN);
-  const int threads = (bs / 4) * (TN / 4);
-  tck_update_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (float*)pool, (const float*)linv, (const int32_t*)cbase,
-      (const int32_t*)ctile, (const int32_t*)tiles, (const int32_t*)gjobs,
-      (const int32_t*)dst, (const int32_t*)fjobs, c0, bs);
-  return (int)cudaGetLastError();
+// Phase A of one level: `nwaves` launches of the wave update, wave w over
+// the targets wptr[w] .. wptr[w+1] (wptr is a host array).
+extern "C" int slu_tck_waves_f32(void* pool, const void* linv,
+                                 const void* tslot, const void* tstep,
+                                 const void* tfin, const void* pptr,
+                                 const void* cl, const void* cu,
+                                 const void* wptr, int nwaves, int bs,
+                                 void* stream) {
+  return slu_waves::waves_f32<TN>(pool, linv, tslot, tstep, tfin, pptr, cl,
+                                  cu, wptr, nwaves, bs, stream);
+}
+
+// Phase B of one level: tiles t0 .. t0+count (rows of `tiles`: first
+// slot, rows, products q0 .. q1 of bl/bu/bd), hmax the tallest of them.
+extern "C" int slu_tck_tiles_f32(void* pool, const void* tiles,
+                                 const void* bl, const void* bu,
+                                 const void* bd, int t0, int count, int hmax,
+                                 int bs, void* stream) {
+  if (count == 0) return 0;
+  auto go = [&](auto launch) {
+    return launch((float*)pool, (const int32_t*)tiles, (const int32_t*)bl,
+                  (const int32_t*)bu, (const int32_t*)bd, t0, count, hmax,
+                  (cudaStream_t)stream);
+  };
+  switch (bs) {
+    case 32: return go(launch_tiles<32>);
+    case 64: return go(launch_tiles<64>);
+    case 128: return go(launch_tiles<128>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

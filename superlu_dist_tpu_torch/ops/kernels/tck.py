@@ -4,24 +4,36 @@ Counterpart of the JAX package's ``ops/kernels/tck.py``: clk's
 left-looking column factor, with a tile of ``w`` block rows sliding down
 each block column. Per elimination level, on one stream:
 
-1. ``tck_update`` (``csrc/tck.cu``): for each column k of the level, tile
-   by tile, every U(j,k) is finalized as linv(j)·U(j,k) and every stored
-   position p of column k receives −Σ L(i,j)·U(j,k) over its sources j in
-   ascending order (the TPU kernel's LOAD / GEMM / FINU / STORE jobs);
+1. ``tck_update`` (``csrc/tck.cu``): every stored (i,k) of the level's
+   columns becomes (i,k) − Σ L(i,j)·U(j,k), and every U block is then
+   finalized as linv(j)·U(j,k) (the TPU kernel's LOAD / GEMM / FINU /
+   STORE stream), in two phases:
+
+   - phase A, ``tck_waves``: the U part of every column, in clk's
+     source-ready waves (``clk._waves`` fed only the products whose target
+     lies above the diagonal; one launch per wave of the wave kernel that
+     ``clk_update`` runs). A U block therefore sums by source wave, then
+     ascending j, exactly as clk's U blocks do;
+   - phase B, ``tck_tiles``: one launch for the diagonal and L positions.
+     A column's positions are cut into tiles of up to ``w`` consecutive
+     rows; one CTA per (tile, strip) holds the tile in shared memory,
+     loaded once and stored once, and subtracts every product into it in
+     ascending source j, then L block (tck's and the JAX kernel's order).
+     Every source U(j,k) is final after phase A and comes from the pool.
+     A tile's products run in one chain, so each level takes the tallest
+     tile whose longest chain stays within the level's floor: the
+     longest chain of one position, or the level's products times
+     strips over ``sweep.CHUNK_CTAS`` (two CTAs per SM), its share of a
+     full card;
 2. ``diag_lu`` on the level's diagonal blocks (its DIAG jobs);
 3. ``clk_trsm``: L(i,k) ← L(i,k)·uinv(k) (its TRSM jobs).
 
-The schedule is the TPU kernel's (``build_tck_tapes`` there): a column's
-positions are cut into tiles of ``w``; within a tile the GEMM chunks (up
-to ``mc`` L blocks of one source column) run in ascending source order; a
-U block that is a source inside its own tile is finalized in place on its
-first use there, one that is not gets a FINU job at the end of its tile,
-and a source from an earlier tile is read back from the pool, already
-final. Columns of one level depend only on columns of lower levels, which
+Columns of one level depend only on columns of lower levels, which
 replaces the TPU kernel's sequential grid. Without that grid the TPU's
 segments, bucket padding, NOP pads and pool-end shift have no counterpart,
 and the DIAG and TRSM jobs are the launches that clk runs (the TPU kernel
-fused them only because its tile sat whole in VMEM).
+fused them only because its tile sat whole in VMEM). ``host["counts"]``
+keeps the job counts of the TPU kernel's stream at tile rows ``w``.
 """
 
 from __future__ import annotations
@@ -35,80 +47,105 @@ import torch
 from ..blocklu import level_order
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .clk import clk_trsm
+from .clk import _waves, clk_trsm, clk_update_waves_plain
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .sweep import CHUNK_CTAS
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 UPDATE = CudaKernel("tck_update", "tck.cu", {
-    "slu_tck_update_f32": [_V] * 8 + [_I] * 4 + [_V]})
+    "slu_tck_waves_f32": [_V] * 9 + [_I, _I, _V],
+    "slu_tck_tiles_f32": [_V] * 5 + [_I] * 4 + [_V]})
 
-MC = 8            # L blocks per GEMM chunk (the TPU kernel's MC)
+MC = 8            # L blocks per GEMM chunk in the job count (the TPU's MC)
 TC = 8            # L blocks per TRSM job in the job count (its TC)
 TN = 16           # scalar columns per CTA strip (csrc/tck.cu)
-#: shared memory a CTA gives its tile and its B strip (csrc/tck.cu)
-TILE_SMEM = 200 * 1024
+KC, STAGES = 32, 3   # waves.cuh's staged chunk width and ring depth
+#: the shared memory of one H100 SM, and what the card reserves per CTA
+SM_SMEM, CTA_RESERVED = 228 * 1024, 1024
+#: the shared memory of a phase-B CTA: two of them share an SM
+TILE_SMEM = SM_SMEM // 2 - CTA_RESERVED
+#: the most that one CTA may take (csrc/tck.cu kMaxSmem)
+CTA_SMEM_MAX = 227 * 1024
+#: products per batched product in the plain version of phase B
+PLAIN_BATCH = 256
 
-#: codes of a GEMM job's B position for a source outside the tile: load
-#: its U block from the pool, or reuse the strip that the previous chunk
-#: of the same source loaded
-B_LOAD, B_REUSE = -1, -2
+
+def ring_bytes(bs: int) -> int:
+    """Shared memory of waves.cuh's cp.async ring at block size ``bs``:
+    STAGES chunks of a bs x KC L chunk (rows padded by 4) and KC x TN of
+    the U strip."""
+    return STAGES * (bs * (KC + 4) + KC * TN) * 4
 
 
 def tile_rows(bs: int) -> int:
-    """The tile height (block rows) of the CUDA kernel at block size
-    ``bs``: the tile and one B strip of ``bs x TN`` floats fill
-    ``TILE_SMEM`` (24 at bs 128, 49 at 64, 99 at 32)."""
-    return max(1, TILE_SMEM // (bs * TN * 4) - 1)
+    """The tallest tile (block rows) of phase B at block size ``bs``: the
+    rows of ``bs x TN`` floats that fit in ``TILE_SMEM`` beside the ring,
+    so that two CTAs share an SM (46 at bs 32, 20 at 64, 6 at 128; taller
+    tiles, up to the 227 KiB of one CTA, were no faster on an H100:
+    ``tools/tck_ab.py``)."""
+    return max(1, (TILE_SMEM - ring_bytes(bs)) // (bs * TN * 4))
 
 
 @dataclasses.dataclass
 class TckTapes:
-    """Per-level schedule of the tck factor. ``*ptr`` and ``hmax`` are
-    host int64 arrays; every other field is an int32 tensor on the device.
+    """Per-level schedule of the tck factor. ``lwave``, ``wptr``,
+    ``tptr``, ``hmax``, ``dptr`` and ``lptr`` are host int64 arrays;
+    every other field is an int32 tensor on the device.
 
-    - update: level l's columns are ``cptr[l]:cptr[l+1]`` of ``cbase``
-      (first slot of the column) and ``ctile`` (column c's tiles are
-      ``ctile[c]:ctile[c+1]``); a tile row of ``tiles`` is (first position,
-      rows, GEMM jobs g0, g1, FINU jobs f0, f1); a row of ``gjobs`` is
-      (first L slot a0, L blocks m, B position in the tile or ``B_LOAD`` /
-      ``B_REUSE``, B slot, source step j, finalize-in-place flag, offset of
-      its m target positions in ``dst``); a row of ``fjobs`` is (position
-      in the tile, source step j). ``hmax[l]`` is the tallest tile of
-      level l, which sizes the launch's shared memory;
+    - phase A, clk's wave tapes (:class:`clk.ClkTapes`, field for field)
+      over the U targets: level l's waves ``lwave[l]:lwave[l+1]``, wave
+      w's targets ``wptr[w]:wptr[w+1]`` (``tslot``, ``tstep``, ``tfin``),
+      target t's products ``pptr[t]:pptr[t+1]`` of ``cl``/``cu``;
+    - phase B: level l's tiles ``tptr[l]:tptr[l+1]`` of ``tiles``, each a
+      row (first slot, rows, q0, q1), longest product list first; product
+      q is L = ``bl[q]``, U = ``bu[q]`` into the tile's position ``bd[q]``,
+      a tile's products in ascending source j, then L block. ``hmax[l]``
+      is the tallest tile of level l (it sizes the launch's shared memory);
     - diag: ``dslot``/``dstep`` over ``dptr``;
     - trsm (``clk.clk_trsm``): ``lslot``/``lstep`` over ``lptr``.
+
+    ``w`` is the tile rows at most; ``host`` holds numpy copies, the
+    per-level tile rows ``trows`` and the TPU kernel's job counts
+    (``counts``).
     """
 
     nlvl: int
     w: int
-    cptr: np.ndarray
+    lwave: np.ndarray
+    wptr: np.ndarray
+    tslot: torch.Tensor
+    tstep: torch.Tensor
+    tfin: torch.Tensor
+    pptr: torch.Tensor
+    cl: torch.Tensor
+    cu: torch.Tensor
+    tptr: np.ndarray
     hmax: np.ndarray
-    cbase: torch.Tensor
-    ctile: torch.Tensor
     tiles: torch.Tensor
-    gjobs: torch.Tensor
-    dst: torch.Tensor
-    fjobs: torch.Tensor
+    bl: torch.Tensor
+    bu: torch.Tensor
+    bd: torch.Tensor
     dptr: np.ndarray
     dslot: torch.Tensor
     dstep: torch.Tensor
     lptr: np.ndarray
     lslot: torch.Tensor
     lstep: torch.Tensor
-    # host copies for the plain version and for work counts, and the job
-    # counts of the TPU kernel's stream ("counts")
     host: dict
 
 
 def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
                     mc: int = MC) -> TckTapes:
-    """Host tapes from the column-major slot order, with tiles of ``w``
-    block rows (``tile_rows(plan.bs)`` when None) and GEMM chunks of up to
-    ``mc`` L blocks; raises ValueError if the exact-LU fill closure does
-    not hold (an ILU plan)."""
+    """Host tapes from the column-major slot order. With ``w`` None, each
+    level's tiles are the tallest of up to ``tile_rows(plan.bs)`` rows
+    that keep its longest chain within its floor; a given ``w`` cuts
+    tiles of ``w`` rows on every level. ``mc`` is the TPU's GEMM chunk in
+    the job counts (taken at the tile rows ``tp.w``). Raises ValueError if
+    the exact-LU fill closure does not hold (an ILU plan)."""
     nb = plan.nb
-    w = tile_rows(plan.bs) if w is None else int(w)
+    fixed = w is not None
+    w = int(w) if fixed else tile_rows(plan.bs)
     if w < 1 or mc < 1:
         raise ValueError("tck: tile rows and chunk size must be positive")
     scol = np.asarray(plan.slot_col, dtype=np.int64)
@@ -123,8 +160,8 @@ def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
     lm = colptr[1:] - la0                      # L blocks of each column
 
     # one pair per U block (j, k) at position t of column k, in (k, t)
-    # order; one entry per L block m of column j, i.e. per product
-    # L(i, j)·U(j, k) into position pos of column k
+    # order (clk's jobs); one entry per L block m of column j, i.e. per
+    # product L(i, j)·U(j, k) into position pos of column k
     pair0 = np.concatenate([[0], np.cumsum(dpos)])   # first pair of each k
     npair = int(pair0[-1])
     p_col = np.repeat(np.arange(nb), dpos)
@@ -145,136 +182,202 @@ def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
         raise ValueError("fill closure violated — tck needs exact-LU "
                          "symbolic")
     d_pos = at - colptr[d_col]
-
-    # GEMM jobs: products ordered by (column, tile of the target, source,
-    # L block); a run of one source in one tile is cut into chunks of mc
-    d_tile = d_pos // w
-    o = np.lexsort((d_m, d_t, d_tile, d_col))
-    d_col, d_t, d_src, d_m, d_pos, d_tile = (a[o] for a in (
-        d_col, d_t, d_src, d_m, d_pos, d_tile))
-    new_run = np.ones(nd, dtype=bool)
-    if nd:
-        new_run[1:] = ((d_col[1:] != d_col[:-1]) | (d_tile[1:] != d_tile[:-1])
-                       | (d_t[1:] != d_t[:-1]))
-    run_start = np.flatnonzero(new_run)
-    in_run = np.arange(nd) - np.repeat(run_start, np.diff(
-        np.r_[run_start, nd]))
-    job_start = np.flatnonzero(in_run % mc == 0)
-    g_m = np.diff(np.r_[job_start, nd])
-    g_col, g_t, g_src, g_tile = (a[job_start] for a in (
-        d_col, d_t, d_src, d_tile))
-    g_first = in_run[job_start] == 0           # the run's first chunk
-    g_in = g_t // w == g_tile                  # the source sits in the tile
-    g_bpos = np.where(g_in, g_t - g_tile * w,
-                      np.where(g_first, B_LOAD, B_REUSE))
-    gjobs = np.stack([la0[g_src] + d_m[job_start], g_m, g_bpos,
-                      colptr[g_col] + g_t, g_src, g_in & g_first, job_start],
-                     axis=1)
-    dst = d_pos - d_tile * w                   # position within the tile
-
-    # FINU jobs: the U blocks that are not a source inside their own tile
-    fin = np.zeros(npair, dtype=bool)
-    first_in = job_start[g_in & g_first]
-    fin[pair0[d_col[first_in]] + d_t[first_in]] = True
-    f_col, f_t, f_src = p_col[~fin], p_t[~fin], p_src[~fin]
-    f_tile = f_t // w                          # already in (k, t) order
-    fjobs = np.stack([f_t - f_tile * w, f_src], axis=1)
-
-    # tiles of the columns with U blocks, columns in level order
+    d_l = la0[d_src] + d_m                     # the product's L slot
     lev = np.asarray(plan.step_level)
-    ucols = np.argsort(lev * nb + np.arange(nb), kind="stable")
-    ucols = ucols[dpos[ucols] > 0]
-    ntile = -(-ncol // w)
-    ctile = np.zeros(len(ucols) + 1, dtype=np.int64)
-    ctile[1:] = np.cumsum(ntile[ucols])
-    t_col = np.repeat(ucols, ntile[ucols])
-    t_i = np.arange(int(ctile[-1])) - np.repeat(ctile[:-1], ntile[ucols])
-    t_p0 = t_i * w
-    t_len = np.minimum(w, ncol[t_col] - t_p0)
-    gkey = g_col * nb + g_tile                 # jobs sorted by (col, tile)
-    fkey = f_col * nb + f_tile
-    tk = t_col * nb + t_i
-    tiles = np.stack([t_p0, t_len, np.searchsorted(gkey, tk),
-                      np.searchsorted(gkey, tk, side="right"),
-                      np.searchsorted(fkey, tk),
-                      np.searchsorted(fkey, tk, side="right")], axis=1)
     nlvl = plan.n_flevels
-    cptr = np.zeros(nlvl + 1, dtype=np.int64)
-    cptr[1:] = np.cumsum(np.bincount(lev[ucols], minlength=nlvl))
-    hmax = np.zeros(nlvl, dtype=np.int64)
-    np.maximum.at(hmax, lev[ucols], np.minimum(w, ncol[ucols]))
 
-    # the TPU kernel's job stream, counted by type (no NOP pads)
-    all_i = np.arange(int(ntile.sum())) - np.repeat(
-        np.concatenate([[0], np.cumsum(ntile)[:-1]]), ntile)
-    all_col = np.repeat(np.arange(nb), ntile)
-    lo = np.maximum(all_i * w, dpos[all_col] + 1)
-    hi = np.minimum(all_i * w + w, ncol[all_col])
-    counts = dict(gemm=len(g_m), finu=int((~fin).sum()), diag=nb,
-                  trsm=int((-(-np.maximum(hi - lo, 0) // TC)).sum()),
-                  tiles=int(ntile.sum()))
+    # phase A: clk's waves over the products into U blocks
+    u = d_pos < dpos[d_col]
+    host = dict(job_slot=colptr[p_col] + p_t, job_src=p_src,
+                col_base=colptr[:nb], col_dpos=dpos, col_job0=pair0[:nb])
+    lwave, wptr = _waves(host, nlvl, lev, p_col, d_pair[u], d_l[u], at[u],
+                         len(scol))
+
+    # phase B: the products into diagonal and L positions, by tile
+    b = ~u
+    b_col, b_t, b_pos, b_l = d_col[b], d_t[b], d_pos[b], d_l[b]
+    b_lev = lev[b_col]
+    b_off = b_pos - dpos[b_col]                # position below the diagonal
+    trows = np.full(nlvl, w, dtype=np.int64) if fixed else \
+        _tile_rows_by_level(b_lev, b_col, b_off, nlvl, w,
+                            max(1, plan.bs // TN) / CHUNK_CTAS)
+    b_tile = b_off // trows[b_lev]
+    o = np.lexsort((d_m[b], b_t, b_tile, b_col, b_lev))
+    b_col, b_t, b_pos, b_l, b_lev, b_tile = (a[o] for a in (
+        b_col, b_t, b_pos, b_l, b_lev, b_tile))
+    nq = len(b_col)
+    new = np.ones(nq, dtype=bool)
+    new[1:] = (b_col[1:] != b_col[:-1]) | (b_tile[1:] != b_tile[:-1])
+    q0 = np.flatnonzero(new)
+    q1 = np.r_[q0[1:], nq]
+    t_col, t_lev = b_col[q0], b_lev[q0]
+    t_lo = np.minimum.reduceat(b_pos, q0) if nq else q0
+    t_hi = np.maximum.reduceat(b_pos, q0) if nq else q0
+    # per level the longest product lists first, so that they start first
+    to = np.lexsort((np.arange(len(q0)), q0 - q1, t_lev))
+    t_col, t_lev, t_lo, t_hi, q0, q1 = (a[to] for a in (
+        t_col, t_lev, t_lo, t_hi, q0, q1))
+    perm = np.concatenate([np.arange(a, c) for a, c in zip(q0, q1)]) \
+        if nq else np.zeros(0, dtype=np.int64)
+    cnt = q1 - q0
+    q0 = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    tiles = np.stack([colptr[t_col] + t_lo, t_hi - t_lo + 1, q0, q0 + cnt],
+                     axis=1)
+    bd = b_pos[perm] - np.repeat(t_lo, cnt)
+    tptr = np.zeros(nlvl + 1, dtype=np.int64)
+    tptr[1:] = np.cumsum(np.bincount(t_lev, minlength=nlvl))
+    hmax = np.zeros(nlvl, dtype=np.int64)
+    np.maximum.at(hmax, t_lev, t_hi - t_lo + 1)
 
     lvo = level_order(plan)
     dstep = lvo["dstep"]
-    host = dict(cbase=colptr[ucols], ctile=ctile, tiles=tiles, gjobs=gjobs,
-                dst=dst, fjobs=fjobs, dslot=diag_slot[dstep], dstep=dstep,
-                lslot=lvo["l_slot"], lstep=lvo["l_step"], counts=counts)
+    host.update(tiles=tiles, bl=b_l[perm], bu=colptr[b_col[perm]]
+                + b_t[perm], bd=bd, trows=trows,
+                dslot=diag_slot[dstep], dstep=dstep,
+                lslot=lvo["l_slot"], lstep=lvo["l_step"],
+                counts=_tpu_counts(ncol, dpos, d_col, d_t, d_m, d_pos, w,
+                                   mc, nb))
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                device=device)
 
     return TckTapes(
-        nlvl=nlvl, w=w, cptr=cptr, hmax=hmax,
-        **{k: dev(host[k]) for k in ("cbase", "ctile", "tiles", "gjobs",
-                                     "dst", "fjobs", "dslot", "dstep",
-                                     "lslot", "lstep")},
+        nlvl=nlvl, w=w, lwave=lwave, wptr=wptr, tptr=tptr, hmax=hmax,
+        **{k: dev(host[k]) for k in ("tslot", "tstep", "tfin", "pptr", "cl",
+                                     "cu", "tiles", "bl", "bu", "bd",
+                                     "dslot", "dstep", "lslot", "lstep")},
         dptr=np.asarray(lvo["dptr"]), lptr=np.asarray(lvo["lptr"]),
         host=host)
 
 
+def _tile_rows_by_level(lev, col, off, nlvl, w, share):
+    """Per level, the tallest tile (at most ``w`` rows) whose longest
+    product list stays within the level's floor: the longest list of one
+    position, or its products times ``share`` (strips per position over
+    the CTAs that fill the card). Product i of the level ``lev[i]`` goes
+    into column ``col[i]``, ``off[i]`` rows below its diagonal."""
+    rows = np.ones(nlvl, dtype=np.int64)
+    order = np.argsort(lev, kind="stable")
+    cuts = np.searchsorted(lev[order], np.arange(nlvl + 1))
+    span = int(off.max(initial=0)) + 1
+    for lvl in range(nlvl):
+        sel = order[cuts[lvl]:cuts[lvl + 1]]
+        if not len(sel):
+            continue
+
+        def longest(r):
+            return np.unique(col[sel] * span + off[sel] // r,
+                             return_counts=True)[1].max()
+
+        floor = max(longest(1), len(sel) * share)
+        rows[lvl] = max(r for r in range(1, w + 1) if longest(r) <= floor)
+    return rows
+
+
+def _tpu_counts(ncol, dpos, d_col, d_t, d_m, d_pos, w, mc, nb) -> dict:
+    """The job counts by type of the TPU kernel's stream (no NOP pads) at
+    tile rows ``w`` and GEMM chunks of ``mc``: tiles of ``w`` rows down
+    each whole column; a GEMM job per chunk of a source's L blocks within
+    a tile; a FINU job per U block that is no source inside its own tile;
+    a TRSM job per ``TC`` L blocks of a tile."""
+    d_tile = d_pos // w
+    o = np.lexsort((d_m, d_t, d_tile, d_col))
+    d_col, d_t, d_tile = d_col[o], d_t[o], d_tile[o]
+    nd = len(d_col)
+    new_run = np.ones(nd, dtype=bool)
+    new_run[1:] = ((d_col[1:] != d_col[:-1]) | (d_tile[1:] != d_tile[:-1])
+                   | (d_t[1:] != d_t[:-1]))
+    run_start = np.flatnonzero(new_run)
+    in_run = np.arange(nd) - np.repeat(run_start, np.diff(
+        np.r_[run_start, nd]))
+    gemm = int((in_run % mc == 0).sum())
+    # U blocks that are a source inside their own tile
+    in_tile = np.unique((d_col * nb + d_t)[(d_t // w == d_tile)])
+    ntile = -(-ncol // w)
+    all_i = np.arange(int(ntile.sum())) - np.repeat(
+        np.concatenate([[0], np.cumsum(ntile)[:-1]]), ntile)
+    all_col = np.repeat(np.arange(nb), ntile)
+    lo = np.maximum(all_i * w, dpos[all_col] + 1)
+    hi = np.minimum(all_i * w + w, ncol[all_col])
+    return dict(gemm=gemm, finu=int(dpos.sum()) - len(in_tile), diag=nb,
+                trsm=int((-(-np.maximum(hi - lo, 0) // TC)).sum()),
+                tiles=int(ntile.sum()))
+
+
 # ---------------------------------------------------------------------------
-# phase 1: the tiled left-looking update
+# phase 1: the update, phase A (U blocks in waves) then phase B (tiles)
 # ---------------------------------------------------------------------------
+
+
+def tck_waves_plain(pool, linv, tp: TckTapes, level: int) -> None:
+    """Plain version of :func:`tck_waves`: clk's wave order on tck's
+    phase-A tapes (``clk.clk_update_waves_plain``)."""
+    clk_update_waves_plain(pool, linv, tp, level)
+
+
+def tck_tiles_plain(pool, tp: TckTapes, level: int) -> None:
+    """Plain version of :func:`tck_tiles`: the level's products in tape
+    order, each target summing its products in ascending source j, then L
+    block (in batches of ``PLAIN_BATCH``)."""
+    h = tp.host
+    lo, hi = int(tp.tptr[level]), int(tp.tptr[level + 1])
+    if hi == lo:
+        return
+    dev = pool.device
+    t = h["tiles"][lo:hi]
+    q0, q1 = int(t[0, 2]), int(t[-1, 3])
+    dst = np.repeat(t[:, 0], t[:, 3] - t[:, 2]) + h["bd"][q0:q1]
+    for a in range(q0, q1, PLAIN_BATCH):
+        e = min(a + PLAIN_BATCH, q1)
+        L = pool[torch.as_tensor(h["bl"][a:e], device=dev)]
+        U = pool[torch.as_tensor(h["bu"][a:e], device=dev)]
+        pool.index_add_(0, torch.as_tensor(dst[a - q0:e - q0], device=dev),
+                        torch.matmul(L, U), alpha=-1)
 
 
 def tck_update_plain(pool, linv, tp: TckTapes, level: int) -> None:
-    """Plain version of :func:`tck_update`: the same jobs in the same
-    order, on the pool's blocks (the tile is the kernel's cache)."""
-    h = tp.host
-    dev = pool.device
-    for c in range(int(tp.cptr[level]), int(tp.cptr[level + 1])):
-        base = int(h["cbase"][c])
-        for p0, _, g0, g1, f0, f1 in h["tiles"][h["ctile"][c]:
-                                                h["ctile"][c + 1]]:
-            t0 = base + int(p0)
-            for a0, m, bpos, bslot, src, fin, d0 in h["gjobs"][g0:g1]:
-                if bpos >= 0:
-                    s = t0 + int(bpos)
-                    if fin:
-                        pool[s] = linv[int(src)] @ pool[s]
-                else:
-                    s = int(bslot)
-                tgt = torch.as_tensor(t0 + h["dst"][d0:d0 + m], device=dev)
-                pool.index_add_(0, tgt, pool[a0:a0 + m] @ pool[s], alpha=-1)
-            for pos, src in h["fjobs"][f0:f1]:
-                s = t0 + int(pos)
-                pool[s] = linv[int(src)] @ pool[s]
+    """Plain version of :func:`tck_update`: phase A, then phase B."""
+    tck_waves_plain(pool, linv, tp, level)
+    tck_tiles_plain(pool, tp, level)
+
+
+def tck_waves(pool, linv, tp: TckTapes, level: int) -> None:
+    """Phase A of ``level``: its U blocks in source-ready waves (in
+    place), one launch per wave."""
+    if pool.device.type == "cpu":
+        return tck_waves_plain(pool, linv, tp, level)
+    _check_cuda(pool, linv, pool.shape[-1], tp.w)
+    w0, w1 = int(tp.lwave[level]), int(tp.lwave[level + 1])
+    if w1 == w0:
+        return
+    UPDATE.count("slu_tck_waves_f32", w1 - w0)
+    UPDATE.call("slu_tck_waves_f32", ptr(pool), ptr(linv), ptr(tp.tslot),
+                ptr(tp.tstep), ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl),
+                ptr(tp.cu), ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0),
+                w1 - w0, pool.shape[-1], stream_ptr(pool.device))
+
+
+def tck_tiles(pool, tp: TckTapes, level: int) -> None:
+    """Phase B of ``level``: its diagonal and L positions, tile by tile
+    (in place), one launch."""
+    if pool.device.type == "cpu":
+        return tck_tiles_plain(pool, tp, level)
+    _check_cuda(pool, pool, pool.shape[-1], tp.w)
+    lo, hi = int(tp.tptr[level]), int(tp.tptr[level + 1])
+    if hi == lo:
+        return
+    UPDATE.count("slu_tck_tiles_f32")
+    UPDATE.call("slu_tck_tiles_f32", ptr(pool), ptr(tp.tiles), ptr(tp.bl),
+                ptr(tp.bu), ptr(tp.bd), lo, hi - lo, int(tp.hmax[level]),
+                pool.shape[-1], stream_ptr(pool.device))
 
 
 def tck_update(pool, linv, tp: TckTapes, level: int) -> None:
-    """Tiled left-looking update of the columns of ``level`` (in place)."""
-    if pool.device.type == "cpu":
-        return tck_update_plain(pool, linv, tp, level)
-    _check_cuda(pool, linv, pool.shape[-1], tp.w)
-    lo, hi = int(tp.cptr[level]), int(tp.cptr[level + 1])
-    if hi == lo:
-        return
-    UPDATE.launches += 1
-    UPDATE.call("slu_tck_update_f32", ptr(pool), ptr(linv), ptr(tp.cbase),
-                ptr(tp.ctile), ptr(tp.tiles), ptr(tp.gjobs), ptr(tp.dst),
-                ptr(tp.fjobs), lo, hi - lo, int(tp.hmax[level]),
-                pool.shape[-1], stream_ptr(pool.device))
+    """Tiled left-looking update of the columns of ``level`` (in place):
+    phase A, then phase B."""
+    tck_waves(pool, linv, tp, level)
+    tck_tiles(pool, tp, level)
 
 
 def _check_cuda(pool, linv, bs, w):
@@ -287,9 +390,9 @@ def _check_cuda(pool, linv, bs, w):
                              "float32 (., bs, bs) tensors on one device")
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"tck: block size {bs} not in {CUDA_BLOCK_SIZES}")
-    if w > tile_rows(bs):
-        raise ValueError(f"tck: tiles of {w} rows exceed the kernel's "
-                         f"{tile_rows(bs)} at block size {bs}")
+    if ring_bytes(bs) + w * bs * TN * 4 > CTA_SMEM_MAX:
+        raise ValueError(f"tck: tiles of {w} rows exceed a CTA's shared "
+                         f"memory at block size {bs}")
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,12 @@ level is one launch that covers the jobs of all ranks
   into ``lB`` / ``uB``) and ``rdma_schur`` (owned Schur products from the
   broadcast buffers, grouped by target);
 - :func:`rdma_solve`: the L sweep, then the U sweep, each per level
-  ``rdma_solve_gemm`` (partials, put by non-owners into the diagonal
-  owner's slots) and ``rdma_solve_diag`` (the owner's diagonal apply, x put
-  into every rank's replicated X).
+  ``rdma_solve_chunks`` (each rank's chain into a row position cut into
+  chunks in tape order, one CTA per chunk into the rank's chunk scratch),
+  ``rdma_solve_sum`` (a rank's partial of the position, its chunks summed
+  in chunk order, put by non-owners into the diagonal owner's slots;
+  with the chunks, :func:`rdma_solve_gemm`) and ``rdma_solve_diag`` (the
+  owner's diagonal apply, x put into every rank's replicated X).
 
 A put is a store by the producing kernel into the peer's buffer, reached
 through a device table of every rank's buffer pointers, and adds one to
@@ -42,6 +45,7 @@ import torch
 from ..ops.host.symbolic import SymbolicPlan
 from ..ops.kernels._build import CudaKernel, ptr, stream_ptr
 from ..ops.kernels.diag_lu import CUDA_BLOCK_SIZES, lu_inv_plain
+from ..ops.kernels.sweep import chunk_chains
 from .dist2d import _ZERO, DistPlan2D
 
 _V = ctypes.c_void_p
@@ -52,7 +56,8 @@ RDMA_FACTOR = CudaKernel("rdma_factor", "rdma.cu", {
     "slu_rdma_panel": [_V, _I, _I] + [_V] * 5 + [_I, _I, _I, _V],
     "slu_rdma_schur": [_V, _I] + [_V] * 5 + [_I, _I, _V]})
 RDMA_SOLVE = CudaKernel("rdma_solve", "rdma.cu", {
-    "slu_rdma_solve_gemm": [_V, _I, _I] + [_V] * 7 + [_I] * 4 + [_V],
+    "slu_rdma_solve_chunks": [_V, _I] + [_V] * 5 + [_I] * 3 + [_V],
+    "slu_rdma_solve_sum": [_V, _I, _I] + [_V] * 6 + [_I] * 4 + [_V],
     "slu_rdma_solve_diag": [_V, _I, _I] + [_V] * 4 + [_I] * 4 + [_V]})
 
 #: receive kinds of the factor's counters (rank, level, kind), the TPU's
@@ -335,8 +340,13 @@ class SweepTapes:
     are ``[pptr[l, d], pptr[l, d + 1])`` of ``p_*`` (position, send flag,
     the owner's grid column), with their products ``c_loc``/``c_src`` over
     ``cptr``; its diagonal jobs ``[dptr[l, d], dptr[l, d + 1])`` of ``d_*``
-    (block row, position, inverse row). ``recv`` holds the TPU's
-    ``rcv_part`` and ``rcv_x``."""
+    (block row, position, inverse row). Each partial job's chain is cut
+    into chunks in tape order (``sweep.chunk_chains``): job j's chunks are
+    ``chunkptr[j]:chunkptr[j+1]``, chunk q's products ``q_cptr[q]:
+    q_cptr[q+1]``, on rank ``q_rank[q]`` at row ``q_row[q]`` of its chunk
+    scratch (a job's chunks take consecutive rows); level l's chunks are
+    ``qptr[l]:qptr[l+1]`` and ``maxq`` rows hold any level's chunks of
+    one rank. ``recv`` holds the TPU's ``rcv_part`` and ``rcv_x``."""
 
     which: str
     pr: int
@@ -345,6 +355,8 @@ class SweepTapes:
     maxr: int
     pptr: np.ndarray
     dptr: np.ndarray
+    qptr: np.ndarray
+    maxq: int
     host: dict
     dev: dict
     recv: dict
@@ -355,11 +367,13 @@ class SweepTapes:
 
 
 def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
-                      device) -> SweepTapes:
+                      device, chunk: int | None = None) -> SweepTapes:
     """The job lists of one sweep of :func:`rdma_solve` from
     :func:`build_rdma_solve_tapes`: one partial job per entry of a rank's
     zero/send list, holding that rank's products into the position in
-    tape order; one diagonal job per solved row on its owner."""
+    tape order, cut into chunks of at most ``chunk`` products (when None,
+    the level's products over ``sweep.CHUNK_CTAS``); one diagonal job per
+    solved row on its owner."""
     t, c = build_rdma_solve_tapes(plan, dplan, which)
     pr, pc = dplan.pr, dplan.pc
     ndev, nlvl = pr * pc, c["nlvl"]
@@ -393,15 +407,26 @@ def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
                          for i in range(dp[d, l], dp[d, l + 1])]
     pptr, (p_pos, p_send, p_dstc, p_cnt), p_rank = _jobs(ndev, nlvl, p_l, 4)
     dptr_, (d_row, d_pos, d_inv), d_rank = _jobs(ndev, nlvl, d_l, 3)
+    cptr = np.r_[0, np.cumsum(p_cnt)].astype(np.int64)
+    chunkptr, q_cptr, qptr = chunk_chains(
+        cptr, np.r_[pptr[:, 0], pptr[-1, -1]], chunk)
+    q_job = np.repeat(np.arange(len(p_rank)), np.diff(chunkptr))
+    # a chunk's row in its rank's scratch: its place among the chunks of
+    # its (level, rank), which are consecutive
+    key = np.searchsorted(qptr, np.arange(len(q_job)), side="right") \
+        * ndev + p_rank[q_job]
+    q_row = np.arange(len(q_job)) - np.searchsorted(key, key)
     host = dict(p_rank=p_rank, p_pos=p_pos, p_send=p_send, p_dstc=p_dstc,
-                cptr=np.r_[0, np.cumsum(p_cnt)].astype(np.int64),
+                cptr=cptr, chunkptr=chunkptr, q_cptr=q_cptr,
+                q_rank=p_rank[q_job], q_row=q_row,
                 c_loc=np.concatenate(cl).astype(np.int64) if cl else
                 np.zeros(0, np.int64),
                 c_src=np.concatenate(cs).astype(np.int64) if cs else
                 np.zeros(0, np.int64),
                 d_rank=d_rank, d_row=d_row, d_pos=d_pos, d_inv=d_inv)
     return SweepTapes(which=which, pr=pr, pc=pc, nlvl=nlvl, maxr=c["maxr"],
-                      pptr=pptr, dptr=dptr_, host=host,
+                      pptr=pptr, dptr=dptr_, qptr=qptr,
+                      maxq=int(q_row.max(initial=-1)) + 1, host=host,
                       dev={k: _dev(v, device) for k, v in host.items()},
                       recv={k: t[k] for k in SOLVE_RECV})
 
@@ -475,24 +500,37 @@ def new_factor_state(pools, ft: FactorTapes) -> FactorState:
 class SweepState:
     """Every rank's buffers of one sweep: the replicated ``X`` (nb, bs,
     nrhs), the partials ``P`` (maxr, bs, nrhs), the receive ``slots``
-    (maxr·Pc, bs, nrhs) and the counters ``recv`` (nlvl, 2) int32;
-    ``tables`` keeps the device tables of their pointers."""
+    (maxr·Pc, bs, nrhs), the counters ``recv`` (nlvl, 2) int32 and the
+    chunk scratch ``C`` (max(1, maxq), bs, nrhs); ``tables`` keeps the
+    device tables of their pointers."""
 
     X: list
     P: list
     slots: list
     recv: list
+    C: list
     tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    KINDS = ("X", "P", "slots", "recv", "C")
+
+    def tensors(self) -> list:
+        return [t for k in self.KINDS for t in getattr(self, k)]
+
+    @classmethod
+    def of(cls, tensors, ndev: int) -> "SweepState":
+        """The inverse of :meth:`tensors`."""
+        return cls(*(list(tensors[i * ndev:(i + 1) * ndev])
+                     for i in range(len(cls.KINDS))))
 
     def table(self, blocks) -> torch.Tensor:
         """The device table of the sweep's pointers, with ``blocks`` (the
         per-rank pools, or the inverse tables) in the first two kinds,
         made and checked once per set of buffers."""
         return _table(self.tables, [blocks, blocks, self.X, self.P,
-                                    self.slots, self.recv],
+                                    self.slots, self.recv, self.C],
                       lambda: _check_cuda(
                           "rdma_solve", list(blocks) + self.X + self.P
-                          + self.slots, self.recv))
+                          + self.slots + self.C, self.recv))
 
 
 def new_sweep_state(X, tp: SweepTapes) -> SweepState:
@@ -505,7 +543,9 @@ def new_sweep_state(X, tp: SweepTapes) -> SweepState:
         slots=[torch.zeros((tp.maxr * tp.pc, bs, k), dtype=dt, device=dev)
                for _ in X],
         recv=[torch.zeros((tp.nlvl, 2), dtype=torch.int32, device=dev)
-              for _ in X])
+              for _ in X],
+        C=[torch.zeros((max(1, tp.maxq), bs, k), dtype=dt, device=dev)
+           for _ in X])
 
 
 def _table(cache: dict, lists, check) -> torch.Tensor:
@@ -713,9 +753,50 @@ def rdma_factor_plain(pools, thresh: float, ft: FactorTapes) -> FactorState:
 # ---------------------------------------------------------------------------
 
 
-def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
-                          level: int) -> None:
-    """Plain version of :func:`rdma_solve_gemm`."""
+def rdma_solve_chunks_plain(pools, ss: SweepState, tp: SweepTapes,
+                            level: int) -> None:
+    """Plain version of :func:`rdma_solve_chunks`: each chunk's products
+    summed in tape order into its scratch row."""
+    h, dev = tp.host, ss.X[0].device
+    q0, q1 = int(tp.qptr[level]), int(tp.qptr[level + 1])
+    for d in range(tp.ndev):
+        qs = q0 + np.flatnonzero(h["q_rank"][q0:q1] == d)
+        if not len(qs):
+            continue
+        cnt = h["q_cptr"][qs + 1] - h["q_cptr"][qs]
+        prods = np.concatenate([np.arange(h["q_cptr"][q], h["q_cptr"][q + 1])
+                                for q in qs])
+        rows = _idx(h["q_row"][qs], dev)
+        ss.C[d][rows] = 0
+        ss.C[d].index_add_(
+            0, _idx(np.repeat(h["q_row"][qs], cnt), dev),
+            pools[d][_idx(h["c_loc"][prods], dev)]
+            @ ss.X[d][_idx(h["c_src"][prods], dev)])
+
+
+def rdma_solve_chunks(pools, ss: SweepState, tp: SweepTapes,
+                      level: int) -> None:
+    """Pass 1 of ``level``: every chunk of every rank's chains summed into
+    the rank's chunk scratch, one CTA per (chunk, tile of right-hand
+    sides)."""
+    if ss.X[0].device.type == "cpu":
+        return rdma_solve_chunks_plain(pools, ss, tp, level)
+    tab = ss.table(pools)
+    q0, q1 = int(tp.qptr[level]), int(tp.qptr[level + 1])
+    if q1 == q0:
+        return
+    dv = tp.dev
+    RDMA_SOLVE.count("slu_rdma_solve_chunks")
+    RDMA_SOLVE.call(
+        "slu_rdma_solve_chunks", ptr(tab), tp.ndev, _at(dv["q_rank"], q0),
+        _at(dv["q_row"], q0), _at(dv["q_cptr"], q0), ptr(dv["c_loc"]),
+        ptr(dv["c_src"]), q1 - q0, ss.X[0].shape[1], ss.X[0].shape[2],
+        stream_ptr(ss.X[0].device))
+
+
+def rdma_solve_sum_plain(pools, ss: SweepState, tp: SweepTapes,
+                         level: int) -> None:
+    """Plain version of :func:`rdma_solve_sum`."""
     h, pc, dev = tp.host, tp.pc, ss.X[0].device
     for d in range(tp.ndev):
         lo, hi = int(tp.pptr[level, d]), int(tp.pptr[level, d + 1])
@@ -723,12 +804,12 @@ def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
             continue
         pos = h["p_pos"][lo:hi]
         ss.P[d][_idx(pos, dev)] = 0
-        c0, c1 = int(h["cptr"][lo]), int(h["cptr"][hi])
-        if c1 > c0:
-            dst = np.repeat(pos, np.diff(h["cptr"][lo:hi + 1]))
-            ss.P[d].index_add_(
-                0, _idx(dst, dev), pools[d][_idx(h["c_loc"][c0:c1], dev)]
-                @ ss.X[d][_idx(h["c_src"][c0:c1], dev)], alpha=-1)
+        k0, k1 = int(h["chunkptr"][lo]), int(h["chunkptr"][hi])
+        if k1 > k0:
+            dst = np.repeat(pos, np.diff(h["chunkptr"][lo:hi + 1]))
+            ss.P[d].index_add_(0, _idx(dst, dev),
+                               ss.C[d][_idx(h["q_row"][k0:k1], dev)],
+                               alpha=-1)
         myr, myc = divmod(d, pc)
         send = h["p_send"][lo:hi] == 1
         owner = myr * pc + h["p_dstc"][lo:hi]
@@ -738,25 +819,43 @@ def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
             ss.recv[e][level, _PART] += len(p)
 
 
-def rdma_solve_gemm(pools, ss: SweepState, tp: SweepTapes,
-                    level: int) -> None:
-    """Level ``level``'s partials: every rank's P[pos] = −Σ pool[loc]·X[src]
-    over its products into the row at pos, put by non-owners into the
-    diagonal owner's slots[pos·Pc + own grid column]."""
+def rdma_solve_sum(pools, ss: SweepState, tp: SweepTapes,
+                   level: int) -> None:
+    """Pass 2 of ``level``: every rank's P[pos] = −(its chunks' sums, in
+    chunk order) for each row position it holds products into, put by
+    non-owners into the diagonal owner's slots[pos·Pc + own grid
+    column]."""
     if ss.X[0].device.type == "cpu":
-        return rdma_solve_gemm_plain(pools, ss, tp, level)
+        return rdma_solve_sum_plain(pools, ss, tp, level)
     tab = ss.table(pools)
     lo, hi = _span(tp.pptr, level)
     if hi == lo:
         return
     dv = tp.dev
-    RDMA_SOLVE.count("slu_rdma_solve_gemm")
+    RDMA_SOLVE.count("slu_rdma_solve_sum")
     RDMA_SOLVE.call(
-        "slu_rdma_solve_gemm", ptr(tab), tp.ndev, tp.pc,
+        "slu_rdma_solve_sum", ptr(tab), tp.ndev, tp.pc,
         _at(dv["p_rank"], lo), _at(dv["p_pos"], lo), _at(dv["p_send"], lo),
-        _at(dv["p_dstc"], lo), _at(dv["cptr"], lo), ptr(dv["c_loc"]),
-        ptr(dv["c_src"]), hi - lo, ss.X[0].shape[1], ss.X[0].shape[2],
-        level, stream_ptr(ss.X[0].device))
+        _at(dv["p_dstc"], lo), _at(dv["chunkptr"], lo), ptr(dv["q_row"]),
+        hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
+        stream_ptr(ss.X[0].device))
+
+
+def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
+                          level: int) -> None:
+    """Plain version of :func:`rdma_solve_gemm`."""
+    rdma_solve_chunks_plain(pools, ss, tp, level)
+    rdma_solve_sum_plain(pools, ss, tp, level)
+
+
+def rdma_solve_gemm(pools, ss: SweepState, tp: SweepTapes,
+                    level: int) -> None:
+    """Level ``level``'s partials: every rank's P[pos] = −Σ pool[loc]·X[src]
+    over its products into the row at pos (passes 1 and 2), put by
+    non-owners into the diagonal owner's slots[pos·Pc + own grid
+    column]."""
+    rdma_solve_chunks(pools, ss, tp, level)
+    rdma_solve_sum(pools, ss, tp, level)
 
 
 def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,

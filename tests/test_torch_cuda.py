@@ -396,7 +396,12 @@ def test_tck_matches_plain(cuda, bs):
     """``executor="tck"`` on the card, then the tck factor against the
     same factor through the plain phases, on tapes of 3-row tiles (every
     column of more than 3 blocks spans several tiles) and on the kernel's
-    own tile height."""
+    own tile height (shortened by the level rule, and not); then level by
+    level from one pool, phase A
+    (``tck_waves``) and phase B (``tck_tiles``) against their plain
+    versions on tapes of 3-row tiles on every level, and phase A's U
+    blocks against ``clk_update``'s, bit for bit (one wave kernel, one
+    order)."""
     A = tt.laplacian_3d(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     tck.UPDATE.launches = 0
@@ -407,7 +412,7 @@ def test_tck_matches_plain(cuda, bs):
     plan = lu.plan
     pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
     eps = np.finfo(np.float32).eps
-    for w in (3, None):
+    for w in (3, None, tck.tile_rows(bs)):
         tp = tck.build_tck_tapes(plan, cuda, w=w)
         if w == 3:
             assert tp.host["counts"]["tiles"] > plan.nb
@@ -417,6 +422,54 @@ def test_tck_matches_plain(cuda, bs):
             scale = max(1.0, float(p.abs().max()))
             assert float((k - p).abs().max()) <= ULPS * eps * scale
         assert int(kern[3].item()) == int(ref[3].item())
+
+    tp = tck.build_tck_tapes(plan, cuda, w=3)
+    h = tp.host
+    assert h["tiles"][:, 1].max() == 3
+    tcol = np.searchsorted(np.searchsorted(plan.slot_col, np.arange(
+        plan.nb + 1)), h["tiles"][:, 0], side="right")
+    assert np.bincount(tcol).max() > 1, "no column of several tiles"
+    cp = clk.build_clk_tapes(plan, cuda)
+    u = torch.as_tensor(np.asarray(plan.u_slots, dtype=np.int64),
+                        device=cuda)
+    tck.UPDATE.reset_counts()
+    p, linv, uinv, tiny = pool.clone(), *_zero_inverses(pool, plan.nb)
+    for level in range(tp.nlvl):
+        for kern, plain in ((lambda q: tck.tck_waves(q, linv, tp, level),
+                             lambda q: tck.tck_waves_plain(q, linv, tp,
+                                                           level)),
+                            (lambda q: tck.tck_tiles(q, tp, level),
+                             lambda q: tck.tck_tiles_plain(q, tp, level))):
+            ref = p.clone()
+            kern(p)
+            plain(ref)
+            scale = max(1.0, float(ref.abs().max()))
+            assert float((p - ref).abs().max()) <= ULPS * eps * scale
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu(p, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        lu._thresh(), tiny)
+        clk.clk_trsm(p, uinv, tp, level)
+    assert all(v > 0 for v in tck.UPDATE.entry_launches.values())
+    # phase A and clk_update from one pool: equal U blocks, bit for bit
+    p, linv, uinv, tiny = pool.clone(), *_zero_inverses(pool, plan.nb)
+    for level in range(tp.nlvl):
+        ref = p.clone()
+        clk.clk_update(ref, linv, cp, level)
+        tck.tck_waves(p, linv, tp, level)
+        assert torch.equal(p[u], ref[u])
+        tck.tck_tiles(p, tp, level)
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu(p, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        lu._thresh(), tiny)
+        clk.clk_trsm(p, uinv, tp, level)
+
+
+def _zero_inverses(pool, nb):
+    """Zero linv, uinv (nb, bs, bs) and tiny-pivot count beside ``pool``."""
+    bs = pool.shape[-1]
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
+    return linv, torch.zeros_like(linv), torch.zeros(
+        1, dtype=torch.int32, device=pool.device)
 
 
 @pytest.mark.parametrize("bs", [32, 64, 128])
@@ -568,11 +621,12 @@ def test_diag_lu_matches_plain(cuda, bs, dtype, ntile):
 @pytest.mark.parametrize("pr,pc", [(2, 2), (1, 4), (4, 1), (2, 4)])
 def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
     """The 2D driver on the card: every entry of the RDMA factor and
-    solve (rdma_diag, rdma_panel, rdma_schur, rdma_solve_gemm,
-    rdma_solve_diag) launched, each phase against its plain version level
-    by level on the same state, the receive counters equal to the tapes,
-    and the solution against the CPU run of the same call (1e-10
-    relative)."""
+    solve (rdma_diag, rdma_panel, rdma_schur, rdma_solve_chunks,
+    rdma_solve_sum, rdma_solve_diag) launched, each phase against its
+    plain version level by level on the same state (the solve on the
+    driver's chunks and on chunks of at most two products, so that chains
+    are cut), the receive counters equal to the tapes, and the solution
+    against the CPU run of the same call (1e-10 relative)."""
     A = tt.laplacian_3d(12).tocsc()
     b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
     opts = T.Options(dtype="float32", block_size=bs, dist_executor="rdma")
@@ -618,22 +672,31 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
             kern(st)
             plain(ref)
             close(st.tensors(), ref.tensors())
+    tapes2 = [rdma.build_sweep_tapes(plan, lu.dplan, w, cuda, chunk=2)
+              for w in "LU"]
+    assert any((np.diff(tp.host["chunkptr"]) > 1).any()
+               for tp in (lu._lt, lu._ut))
     for nrhs in (1, 3, 9):
         B = torch.randn(plan.nb, plan.bs, nrhs, device=cuda)
-        for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv)):
+        for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv),
+                         (tapes2[0], lu.linv), (tapes2[1], lu.uinv)):
             ss = rdma.new_sweep_state([B.clone() for _ in lu.pool], tp)
             for level in range(tp.nlvl):
                 for kern, plain, M in (
-                        (rdma.rdma_solve_gemm, rdma.rdma_solve_gemm_plain,
+                        (rdma.rdma_solve_chunks,
+                         rdma.rdma_solve_chunks_plain, lu.pool),
+                        (rdma.rdma_solve_sum, rdma.rdma_solve_sum_plain,
                          lu.pool),
                         (rdma.rdma_solve_diag, rdma.rdma_solve_diag_plain,
                          dinv)):
-                    ref = rdma.SweepState(*([t.clone() for t in ts] for ts in
-                                            (ss.X, ss.P, ss.slots, ss.recv)))
+                    ref = rdma.SweepState.of(
+                        [t.clone() for t in ss.tensors()], tp.ndev)
                     kern(M, ss, tp, level)
                     plain(M, ref, tp, level)
-                    close(ss.X + ss.P + ss.slots + ss.recv,
-                          ref.X + ref.P + ref.slots + ref.recv)
+                    close(ss.tensors(), ref.tensors())
+            for k, v in rdma.stacked_recv(ss.recv, pr, pc,
+                                          rdma.SOLVE_RECV).items():
+                assert np.array_equal(v, tp.recv[k]), (tp.which, k)
 
 
 

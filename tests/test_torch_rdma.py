@@ -107,6 +107,8 @@ def test_factor_plain_matches_jax_xla(factors, name, pr, pc):
 
 @pytest.mark.parametrize("name,pr,pc", CASES)
 def test_receive_counts_equal_recv_tapes(factors, name, pr, pc):
+    """The factor's counters, and the sweeps' after a solve on chunks of
+    at most two products, equal the TPU's receive tapes."""
     plan, dp, ft, st, _, _ = factors(name, pr, pc)
     got = tr.stacked_recv(st.recv, pr, pc, tr.FACTOR_RECV)
     for k in tr.FACTOR_RECV:
@@ -114,6 +116,53 @@ def test_receive_counts_equal_recv_tapes(factors, name, pr, pc):
     # every put of the factor was tallied by its receiver
     assert sum(int(v.sum()) for v in got.values()) == sum(
         int(v.sum()) for v in tr.build_rdma_recv_tapes(plan, dp).values())
+    lt, ut = (tr.build_sweep_tapes(plan, dp, w, "cpu", chunk=2)
+              for w in "LU")
+    B = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (plan.nb, plan.bs, 2)).astype(np.float32))
+    _, rl, ru = tr.rdma_solve_plain(st.pool, st.linv, st.uinv, lt, ut, B)
+    for recv, tp in ((rl, lt), (ru, ut)):
+        counts = tr.stacked_recv(recv, pr, pc, tr.SOLVE_RECV)
+        for k in tr.SOLVE_RECV:
+            assert np.array_equal(counts[k], tp.recv[k]), (tp.which, k)
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+@pytest.mark.parametrize("name,pr,pc", CASES)
+def test_sweep_chunks_cover_each_chain_once(name, pr, pc, chunk):
+    """Each (rank, position) chain of a sweep is cut into chunks that
+    cover its products exactly once, in tape order, on its rank; a job's
+    chunks take consecutive scratch rows below ``maxq``, distinct within
+    a (level, rank), and lie in their level's chunk range."""
+    A = MATRICES[name]()
+    plan = block_symbolic(A, BS)
+    dp = td.partition_plan(plan, pr, pc)
+    for which in "LU":
+        tp = tr.build_sweep_tapes(plan, dp, which, "cpu", chunk=chunk)
+        h = tp.host
+        nq = len(h["q_rank"])
+        assert tp.qptr[0] == 0 and tp.qptr[-1] == nq == h["chunkptr"][-1]
+        seen = set()
+        for lvl in range(tp.nlvl):
+            for j in range(tp.pptr[lvl, 0], tp.pptr[lvl, -1]):
+                q0, q1 = h["chunkptr"][j], h["chunkptr"][j + 1]
+                assert tp.qptr[lvl] <= q0 <= q1 <= tp.qptr[lvl + 1]
+                prods = [p for q in range(q0, q1)
+                         for p in range(h["q_cptr"][q], h["q_cptr"][q + 1])]
+                assert prods == list(range(h["cptr"][j], h["cptr"][j + 1]))
+                if chunk:
+                    assert all(h["q_cptr"][q + 1] - h["q_cptr"][q] <= chunk
+                               for q in range(q0, q1))
+                assert (h["q_rank"][q0:q1] == h["p_rank"][j]).all()
+                rows = h["q_row"][q0:q1]
+                assert (np.diff(rows) == 1).all() and (rows < tp.maxq).all()
+                for r in rows:
+                    key = (lvl, int(h["p_rank"][j]), int(r))
+                    assert key not in seen
+                    seen.add(key)
+        assert len(seen) == nq
+        if chunk == 1:
+            assert nq == len(h["c_loc"])
 
 
 @pytest.mark.parametrize("name,pr,pc", CASES)
@@ -152,16 +201,22 @@ def test_solve_plain_matches_jax_xla(jax_factored, nrhs):
         (plan.n_pad, nrhs)).astype(np.float32)
     ref = np.asarray(jlu._solve_fn(nrhs)(jlu.pool, jlu.linv, jlu.uinv,
                                          jlu.stapes, jnp.asarray(B)))
-    X, rl, ru = tr.rdma_solve_plain(
-        plu.pool, plu.linv, plu.uinv, plu._lt, plu._ut,
-        torch.as_tensor(B).view(plan.nb, plan.bs, nrhs))
-    got = X.reshape(plan.n_pad, nrhs).numpy()
-    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
     pr, pc = plu.grid.shape
-    for recv, tp in ((rl, plu._lt), (ru, plu._ut)):
-        counts = tr.stacked_recv(recv, pr, pc, tr.SOLVE_RECV)
-        for k in tr.SOLVE_RECV:
-            assert np.array_equal(counts[k], tp.recv[k]), (tp.which, k)
+    # the driver's chunking, then chunks of at most two products, which
+    # cut the chains of several products into several chunks
+    lt2, ut2 = (tr.build_sweep_tapes(plan, plu.dplan, w, "cpu", chunk=2)
+                for w in "LU")
+    assert (np.diff(lt2.host["chunkptr"]) > 1).any()
+    for lt, ut in ((plu._lt, plu._ut), (lt2, ut2)):
+        X, rl, ru = tr.rdma_solve_plain(
+            plu.pool, plu.linv, plu.uinv, lt, ut,
+            torch.as_tensor(B).view(plan.nb, plan.bs, nrhs))
+        got = X.reshape(plan.n_pad, nrhs).numpy()
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+        for recv, tp in ((rl, lt), (ru, ut)):
+            counts = tr.stacked_recv(recv, pr, pc, tr.SOLVE_RECV)
+            for k in tr.SOLVE_RECV:
+                assert np.array_equal(counts[k], tp.recv[k]), (tp.which, k)
 
 
 def test_from_numpy_state_checks_the_partition(jax_factored):

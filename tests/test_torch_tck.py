@@ -17,7 +17,7 @@ from superlu_dist_tpu.utils.testing import random_sparse
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu as tbl
 from superlu_dist_tpu_torch.ops.host.symbolic import block_symbolic
-from superlu_dist_tpu_torch.ops.kernels import clk, tck
+from superlu_dist_tpu_torch.ops.kernels import clk, diag_lu, tck
 from superlu_dist_tpu_torch.utils.testing import laplacian_2d, laplacian_3d
 
 torch.set_num_threads(2)
@@ -75,30 +75,39 @@ def test_tck_job_stream_matches_jax_tapes(name):
 
 
 def test_tck_tapes_cover_every_schur_triple():
-    """Every Schur triple of the plan is exactly one (GEMM job, L block)
-    pair of the tiled tapes, with the same target slot; every U block is
-    finalized exactly once, in place or by a FINU job."""
+    """Every Schur triple of the plan is exactly one phase-A wave product
+    or one phase-B tile product, with the same target slot; every U block
+    is finalized exactly once, in phase A; every phase-B source is a U
+    block that phase A finalized; a tile's products run in ascending
+    source j, then L block, within its w rows."""
     A = laplacian_3d(8).tocsc()
     plan = block_symbolic(A, 8)
     tp = tck.build_tck_tapes(plan, "cpu", w=4)
     h = tp.host
-    pairs, finals = set(), []
-    for c in range(len(h["cbase"])):
-        base = int(h["cbase"][c])
-        for p0, _, g0, g1, f0, f1 in h["tiles"][h["ctile"][c]:
-                                                h["ctile"][c + 1]]:
-            t0 = base + int(p0)
-            for a0, m, bpos, bslot, _, fin, d0 in h["gjobs"][g0:g1]:
-                u = t0 + int(bpos) if bpos >= 0 else int(bslot)
-                if fin:
-                    finals.append(u)
-                for i in range(m):
-                    pairs.add((int(a0) + i, u, t0 + int(h["dst"][d0 + i])))
-            finals += [t0 + int(p) for p, _ in h["fjobs"][f0:f1]]
-    triples = set(zip(plan.g_l.tolist(), plan.g_u.tolist(),
-                      plan.g_t.tolist()))
-    assert pairs == triples
+    prods, finals = [], []
+    for t in range(len(h["tslot"])):
+        for p in range(h["pptr"][t], h["pptr"][t + 1]):
+            prods.append((int(h["cl"][p]), int(h["cu"][p]),
+                          int(h["tslot"][t])))
+        if h["tfin"][t] == clk.FIN_U:
+            finals.append(int(h["tslot"][t]))
+    nwave = len(prods)
+    srow = np.asarray(plan.slot_row)
+    for s0, rows, q0, q1 in h["tiles"]:
+        assert 1 <= rows <= tp.w
+        assert set(h["bd"][q0:q1]) <= set(range(rows))
+        key = [(srow[u], srow[l]) for l, u in zip(h["bl"][q0:q1],
+                                                  h["bu"][q0:q1])]
+        assert key == sorted(key)
+        prods += [(int(l), int(u), int(s0 + d)) for l, u, d in zip(
+            h["bl"][q0:q1], h["bu"][q0:q1], h["bd"][q0:q1])]
+    triples = list(zip(plan.g_l.tolist(), plan.g_u.tolist(),
+                       plan.g_t.tolist()))
+    assert sorted(prods) == sorted(triples)
+    assert 0 < nwave < len(prods)
     assert sorted(finals) == sorted(np.asarray(plan.u_slots).tolist())
+    assert set(h["bu"].tolist()) <= set(finals)
+    assert h["tiles"][:, 1].max() > 1, "multi-row tiles not exercised"
 
 
 def test_tck_equals_clk_plain():
@@ -114,6 +123,35 @@ def test_tck_equals_clk_plain():
         scale = max(1.0, float(b.abs().max()))
         assert float((a - b).abs().max()) <= 64 * np.finfo(np.float32).eps \
             * scale
+
+
+def test_tck_u_blocks_equal_clk_waves_plain():
+    """tck's phase A runs clk's wave tapes restricted to the U targets, so
+    from the same pool every level's U blocks come out bit for bit as
+    ``clk.clk_update_waves_plain`` leaves them; the phase-B products touch
+    no U block."""
+    A = laplacian_3d(8).tocsc().astype(np.float32)
+    plan = block_symbolic(A, 8)
+    tp = tck.build_tck_tapes(plan, "cpu", w=4)
+    cp = clk.build_clk_tapes(plan, "cpu")
+    u = torch.as_tensor(np.asarray(plan.u_slots, dtype=np.int64))
+    pool = tbl.init_pool(plan, A.data, np.float32, "cpu")
+    bs, nb = plan.bs, plan.nb
+    linv = torch.zeros((nb, bs, bs))
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32)
+    for level in range(tp.nlvl):
+        ref = pool.clone()
+        clk.clk_update_waves_plain(ref, linv, cp, level)
+        tck.tck_update_plain(pool, linv, tp, level)
+        assert torch.equal(pool[u], ref[u])
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu_plain(pool, linv, uinv, tp.dslot[lo:hi].long(),
+                              tp.dstep[lo:hi].long(), 0.0, tiny)
+        clk.clk_trsm_plain(pool, uinv, tp, level)
+    assert not set(tp.host["bd"] + np.repeat(
+        tp.host["tiles"][:, 0], np.diff(tp.host["tiles"][:, 2:], axis=1)
+        [:, 0])) & set(u.tolist())
 
 
 def test_tck_refuses_ilu_plan():
@@ -132,7 +170,12 @@ def test_tck_refuses_ilu_plan():
 
 
 def test_tile_rows():
-    assert [tck.tile_rows(bs) for bs in (32, 64, 128)] == [99, 49, 24]
+    """The tile rows that fit beside the ring in half an SM's 228 KiB,
+    less the card's 1 KiB per CTA."""
+    assert [tck.tile_rows(bs) for bs in (32, 64, 128)] == [46, 20, 6]
+    for bs in (32, 64, 128):
+        need = tck.ring_bytes(bs) + tck.tile_rows(bs) * bs * tck.TN * 4
+        assert need <= tck.TILE_SMEM < need + bs * tck.TN * 4
 
 
 @pytest.mark.parametrize("make,bs", [(lambda: laplacian_3d(8), 16),
