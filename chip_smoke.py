@@ -29,8 +29,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    checked like the main path: ``executor="flk"`` (flk and diag_lu, no
    clk_update), ILU(1) (flk; its slots and refinement steps printed) and
    ``executor="pallas"`` (diag_lu, trsm, schur), ILU(1)'s two calls held
-   to bit-equal x and equal refinement steps; then flk, schur and trsm
-   against their plain versions level by level on their paths' inputs,
+   to bit-equal x and equal refinement steps, both flk passes launched;
+   then flk, schur and trsm against their plain versions level by level
+   on their paths' inputs (flk's costliest target groups with their
+   chunks, pass-2 targets and band width, and its critical path before
+   and after the cut),
    and each whole factor against ``factor_plain`` on its plan; then
    ``executor="tck"`` on the same matrix (tck_update, diag_lu, clk_trsm),
    driven the same way, with tck_update's two phases (A: the U blocks in
@@ -74,9 +77,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    device ms and host launch loop (printed);
    then clk, flk and the level executor on the same plan
    (SamePattern_SameRowPerm refactors), each held to the same limits,
-   with clk_update's costliest levels, clk_trsm, diag_lu, and the level
-   executor's trsm and schur against their plain versions on lap3d50's
-   inputs;
+   with clk_update's costliest levels, clk_trsm, diag_lu, flk (its
+   groups as on lap3d32), and the level executor's trsm and schur
+   against their plain versions on lap3d50's inputs;
 9. float64 on the card, which runs the level executor:
    ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
    ``condition_number`` on lap3d32u, each held to the same limits; every
@@ -89,9 +92,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    single-device factor, sweep or solve kernel may), the receive counters
    against the TPU's receive tapes, a warm call beside the level
    executor's FACT, each entry against its plain version level by level
-   on the path's inputs (the solve's three: rdma_solve_chunks,
-   rdma_solve_sum, rdma_solve_diag, with their ms per L+U solve and the
-   sweeps' chains and chunks), the gathered factor against the float64
+   on the path's inputs (rdma_panel and rdma_schur by launch, with the
+   launches of fewer than 66 panels or targets; the solve's three:
+   rdma_solve_chunks, rdma_solve_sum, rdma_solve_diag, with their ms per
+   L+U solve and the sweeps' chains and chunks), the gathered factor against the float64
    reference, the warm call's x and refinement steps equal to the first
    call's, one refinement profiled (device busy and idle share);
    ``dist_executor="xla"``, which runs the same entries; and at
@@ -248,6 +252,11 @@ def main() -> None:
     lus, got = {}, {}
     for name, (o, need, zero) in paths.items():
         r, lus[name], got[name] = drive(ctx, name, A, b, o, need, zero)
+        if name == "flk":   # its passes' launches, before the warm call
+            e = ctx["entry_launches"]["flk"] = dict(
+                flk.KERNEL.entry_launches)
+            if not all(e.values()):
+                fail(f"an entry of flk was not launched on its path: {e}")
         print(f"{name}: {lus[name].plan.nslots} slots, {r.stat.refine_steps}"
               f" refinement steps, executor {r.stat.counters['executor']}",
               flush=True)
@@ -721,7 +730,7 @@ def check_flk(lu, ctx, report):
                                 tp.dstep[lo:hi], th, tiny)
     what = "ILU(1) flk" if lu.options.ilu_level is not None else "flk"
     if report:
-        print_flk_groups(tp, per_group)
+        print_flk_groups(tp, per_group, plan.bs)
     check_whole_factor(what, lu, ctx, pool, tiny)
     ck.out["flk"].update(flk_bounds(plan, tp, flk))
     return ck.out
@@ -1243,6 +1252,13 @@ def tck_phase(ctx, rng, checks, launches):
                   f" ms ({o['bound_by']})", flush=True)
             print_check("lap3d50 clk_trsm", c["clk_trsm"], got["clk_trsm"])
             print_check("lap3d50 diag_lu", c["diag_lu"], got["diag_lu"])
+        if exc == "flk":
+            o = check_flk(lu, ctx, report=True)["flk"]
+            print(f"lap3d50 flk: max_abs_err {o['max_abs_err']:.3e} "
+                  f"(tolerance {o['tol']:.3e}); kernel {o['ms']:.3f} ms, "
+                  f"plain {o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f}"
+                  f" ms ({o['bound_by']}); {got['flk']} launches on its "
+                  f"path", flush=True)
         if exc == "pallas":
             c = check_level(lu, ctx, report=False)
             for name in ("trsm", "schur"):
@@ -1447,6 +1463,9 @@ def check_dist(lu, ctx):
     out = {k: dict(max_abs_err=0.0, tol=0.0, ms=0.0, plain_ms=0.0,
                    library_ms=None) for k in GRID_NEED}
     per_entry = defaultdict(float)
+    # the panel and Schur entries by launch: (ms, panels or targets, what)
+    by_launch = defaultdict(list)
+    jobs = {"rdma_panel": ft.bptr, "rdma_schur": ft.sptr}
     th = lu._thresh()
     st = rdma.new_factor_state(dist2d.init_local_pools(
         plan, lu.dplan, lu._a3_data, lu.dtype, lu.device), ft)
@@ -1463,6 +1482,9 @@ def check_dist(lu, ctx):
                 lambda ts: rdma.FactorState.of(ts, ft.ndev),
                 rdma.FactorState.tensors, rdma.FactorState.table)
             per_entry[entry] += ms
+            if entry in jobs:
+                n = int(jobs[entry][lvl, -1] - jobs[entry][lvl, 0])
+                by_launch[entry].append((ms, n, f"level {lvl}"))
     rng = np.random.default_rng(1)
     B = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
                         dtype=torch.float32, device=lu.device)
@@ -1489,6 +1511,9 @@ def check_dist(lu, ctx):
           "L+U solve): " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in per_entry.items()),
           flush=True)
+    print_panel_levels("rdma_panel", by_launch["rdma_panel"], top=3)
+    print_panel_levels("rdma_schur", by_launch["rdma_schur"], "targets",
+                       top=3)
     for tp in (lu._lt, lu._ut):
         h = tp.host
         nk = np.diff(h["chunkptr"])
@@ -1629,20 +1654,41 @@ def print_update_levels(tp, per_level, bs, top=6):
               flush=True)
 
 
-def print_flk_groups(tp, per_group, top=6):
-    """Where flk's time goes: the costliest target groups, with their
-    targets, products and the longest chain one CTA walks."""
+def print_flk_groups(tp, per_group, bs, top=6):
+    """Where flk's time goes: the critical path (the sum over the groups
+    of the longest chain, and of the longest chunk after the cut), then
+    the costliest target groups, with their targets, products, longest
+    chain, chunks (pass 1 CTAs per band), targets of several chunks (pass
+    2) and the band width of pass 1 (``csrc/chain.cuh``'s rule)."""
+    import torch
+
+    from superlu_dist_tpu_torch.ops.kernels import flk
     h = tp.host
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     total = sum(ms for ms, _ in per_group)
+    lens, qlen = np.diff(h["cptr"]), np.diff(h["qcptr"])
+
+    def longest(a, lo, hi):
+        return int(a[lo:hi].max(initial=0))
+
+    crit = sum(longest(lens, tp.tptr[g], tp.tptr[g + 1]) for _, g in
+               per_group)
+    crit_q = sum(longest(qlen, tp.qptr[g], tp.qptr[g + 1]) for _, g in
+                 per_group)
     print(f"flk by target group (kernel {total:.3f} ms over "
-          f"{len(per_group)} groups; top {top}):")
+          f"{len(per_group)} groups, {len(qlen)} chunks, "
+          f"{len(h['mtgt'])} pass-2 targets; critical path {crit} chained "
+          f"products, {crit_q} after the cut; top {top}):")
     for ms, g in sorted(per_group, reverse=True)[:top]:
         lo, hi = tp.tptr[g], tp.tptr[g + 1]
-        chain = np.diff(h["cptr"][lo:hi + 1])
+        q0, q1 = tp.qptr[g], tp.qptr[g + 1]
+        band = flk.band_width(bs, q1 - q0, sms)
         print(f"  level {g // 2:3d} {'panels' if g % 2 else 'diagonal'}: "
-              f"kernel {ms:9.3f} ms; {hi - lo} targets, {int(chain.sum())} "
-              f"L·U products, longest chain {int(chain.max(initial=0))}",
-              flush=True)
+              f"kernel {ms:9.3f} ms; {hi - lo} targets, "
+              f"{int(lens[lo:hi].sum())} L·U products, longest chain "
+              f"{longest(lens, lo, hi)}; {q1 - q0} chunks (longest "
+              f"{longest(qlen, q0, q1)}), {tp.mptr[g + 1] - tp.mptr[g]} "
+              f"pass-2 targets, bands of {band}", flush=True)
 
 
 def print_panel_levels(name, per_launch, unit="panels", small=66, top=6):

@@ -1,6 +1,9 @@
 // panel.cuh: the panel TRSM by a stored inverse, shared by schur.cu
-// (`trsm`, both flags, float and double) and clk.cu (`clk_trsm`), and the
-// cp.async helpers that clk.cu's update stages its operands with.
+// (`trsm`, both flags, float and double) and clk.cu (`clk_trsm`), its
+// band product (band_product, which rdma.cu's `rdma_panel` runs before
+// storing the band into its peers' buffers), its pieces (stage_chunk,
+// mul_chunk, load_tile, store_tile), which chain.cuh's chain product
+// reuses, and the cp.async helpers that waves.cuh stages with.
 //
 // What it computes, in place over a list of (slot, step), X = pool[slot]
 // and D = dinv[step], every block bs x bs:
@@ -119,10 +122,121 @@ struct Panel {
   static constexpr int kA = M * LDA;
   static constexpr int kStage = kA + KC * N;
   static constexpr size_t kBytes = (size_t)STAGES * kStage * sizeof(T);
+  static constexpr int BSZ = BS;
+  static constexpr int TW = TN;       // columns of a thread's tile
+  static constexpr int CT = N / TN;   // threads along a row of out
+  static constexpr int RS = M / 4;    // row stride of a thread's 4 rows
+  static constexpr int CS = CT * W;   // column stride of its groups
   static_assert(BS % KC == 0 && BS % BM == 0 && TN % W == 0 &&
                     BM >= 2 * TN, "block size");
   static_assert(kBytes <= 113 * 1024, "shared memory: two CTAs per SM");
 };
+
+// Stage chunk k0 of a product out = A . B into `st`: columns k0 .. k0+KC
+// of A (element (r, k) at Ag[r * BS + k], r < M; rows padded to LDA) and
+// rows k0 .. k0+KC of B (element (k, q) at Bg[k * BS + q], q < N). A null
+// operand is not staged (it is read from elsewhere). Every thread of the
+// CTA issues its copies.
+template <class P, typename T>
+__device__ __forceinline__ void stage_chunk(T* st, const T* Ag, const T* Bg,
+                                            int k0) {
+  constexpr int W = P::W, KC = P::KC, M = P::M, N = P::N, NT = P::NT;
+  const int tid = threadIdx.x;
+  if (Ag != nullptr)
+    for (int e = tid; e < M * (KC / W); e += NT) {
+      const int r = e / (KC / W), q = (e % (KC / W)) * W;
+      cp_async16(st + r * P::LDA + q, Ag + (int64_t)r * P::BSZ + k0 + q);
+    }
+  if (Bg != nullptr) {
+    T* bs = st + P::kA;
+    for (int e = tid; e < KC * (N / W); e += NT) {
+      const int r = e / (N / W), q = (e % (N / W)) * W;
+      cp_async16(bs + r * N + q, Bg + (int64_t)(k0 + r) * P::BSZ + q);
+    }
+  }
+}
+
+// acc += A . B over one chunk of KC: this thread's rows g + i * RS of A
+// (row r at A + r * LDA_) and its columns c0 + j * CS .. of B (row k at
+// B + k * LDB_), each output summing its k in ascending order.
+template <class P, int LDA_, int LDB_, typename T>
+__device__ __forceinline__ void mul_chunk(const T* A, const T* B, int g,
+                                          int c0, T (&acc)[4][P::TW]) {
+  using V = Vec16<T>;
+  constexpr int W = P::W, TN = P::TW;
+#pragma unroll
+  for (int kk = 0; kk < P::KC; kk += W) {
+    T a[4][W];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) V::ld(A + (g + i * P::RS) * LDA_ + kk, a[i]);
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      T b[TN];
+#pragma unroll
+      for (int j = 0; j < TN / W; ++j)
+        V::ld(B + (kk + u) * LDB_ + c0 + j * P::CS, b + j * W);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] += a[i][u] * b[j];
+    }
+  }
+}
+
+// This thread's 4 x TN share of an M x N band with leading dimension LD:
+// rows g + i * RS, columns c0 + j * CS .. (W at a time).
+template <class P, int LD, typename T>
+__device__ __forceinline__ void load_tile(const T* X, int g, int c0,
+                                          T (&acc)[4][P::TW]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < P::TW / P::W; ++j)
+      Vec16<T>::ld(X + (int64_t)(g + i * P::RS) * LD + c0 + j * P::CS,
+                   acc[i] + j * P::W);
+}
+
+template <class P, int LD, typename T>
+__device__ __forceinline__ void store_tile(T* X, int g, int c0,
+                                           const T (&acc)[4][P::TW]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < P::TW / P::W; ++j)
+      Vec16<T>::st(X + (int64_t)(g + i * P::RS) * LD + c0 + j * P::CS,
+                   acc[i] + j * P::W);
+}
+
+// acc = A . B for one band (k over BS), both operands streamed through the
+// ring (STAGES stages of P::kStage elements at `ring`): A = the band, B = D
+// (LEFT = false) or A = D, B = the band (LEFT = true), as the kernel below
+// and rdma.cu's panels use it. g, c0 give this thread's tile.
+template <class P, typename T>
+__device__ __forceinline__ void band_product(T* ring, const T* Ag,
+                                             const T* Bg, int g, int c0,
+                                             T (&acc)[4][P::TW]) {
+  constexpr int ST = P::STAGES;
+  constexpr int NK = P::BSZ / P::KC;   // stages per product
+#pragma unroll
+  for (int c = 0; c < ST - 1; ++c) {
+    if (c < NK) stage_chunk<P>(ring + c * P::kStage, Ag, Bg, c * P::KC);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < P::TW; ++j) acc[i][j] = T(0);
+  for (int c = 0; c < NK; ++c) {
+    cp_async_wait<ST - 2>();   // chunk c has landed
+    __syncthreads();           // ... for every thread; stage c-1 is free
+    if (c + ST - 1 < NK)
+      stage_chunk<P>(ring + ((c + ST - 1) % ST) * P::kStage, Ag, Bg,
+                     (c + ST - 1) * P::KC);
+    cp_async_commit();
+    const T* A = ring + (c % ST) * P::kStage;
+    mul_chunk<P, P::LDA, P::N>(A, A + P::kA, g, c0, acc);
+  }
+}
 
 template <typename T, int BS, bool LEFT, int BM, int TN>
 __global__ void __launch_bounds__(Panel<T, BS, LEFT, BM, TN>::NT)
@@ -130,84 +244,21 @@ band_times_inverse(T* pool, const T* __restrict__ dinv,
                    const int32_t* __restrict__ slots,
                    const int32_t* __restrict__ steps) {
   using P = Panel<T, BS, LEFT, BM, TN>;
-  using V = Vec16<T>;
-  constexpr int W = P::W, NT = P::NT, KC = P::KC, ST = P::STAGES;
-  constexpr int M = P::M, N = P::N, LDA = P::LDA;
-  constexpr int NK = BS / KC;            // stages per product
-  constexpr int CT = N / TN;             // threads along a row of out
-  constexpr int RS = M / 4;              // row stride of a thread's 4 rows
-  constexpr int CS = CT * W;             // column stride of its groups
   extern __shared__ float4 smem4[];
-  T* ring = reinterpret_cast<T*>(smem4);
-  const int tid = threadIdx.x;
-  const int g = tid / CT;
-  const int c0 = (tid % CT) * W;
+  const int g = threadIdx.x / P::CT;
+  const int c0 = (threadIdx.x % P::CT) * P::W;
   const int64_t bb = (int64_t)BS * BS;
   const int64_t band = blockIdx.y;
   // element (r, q) of the band is X[r * BS + q]
   T* X = pool + (int64_t)slots[blockIdx.x] * bb +
          (LEFT ? band * BM : band * BM * BS);
   const T* D = dinv + (int64_t)steps[blockIdx.x] * bb;
-  const T* Ag = LEFT ? D : X;   // element (r, k) at Ag[r * BS + k]
-  const T* Bg = LEFT ? X : D;   // element (k, q) at Bg[k * BS + q]
-
-  // stage chunk c: columns k0.. of A and rows k0.. of B
-  auto load = [&](int c) {
-    T* st = ring + (c % ST) * P::kStage;
-    const int k0 = c * KC;
-    for (int e = tid; e < M * (KC / W); e += NT) {
-      const int r = e / (KC / W), q = (e % (KC / W)) * W;
-      cp_async16(st + r * LDA + q, Ag + (int64_t)r * BS + k0 + q);
-    }
-    T* bs = st + P::kA;
-    for (int e = tid; e < KC * (N / W); e += NT) {
-      const int r = e / (N / W), q = (e % (N / W)) * W;
-      cp_async16(bs + r * N + q, Bg + (int64_t)(k0 + r) * BS + q);
-    }
-  };
-
-#pragma unroll
-  for (int c = 0; c < ST - 1; ++c) {
-    if (c < NK) load(c);
-    cp_async_commit();
-  }
   T acc[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-  for (int c = 0; c < NK; ++c) {
-    cp_async_wait<ST - 2>();   // chunk c has landed
-    __syncthreads();           // ... for every thread; stage c-1 is free
-    if (c + ST - 1 < NK) load(c + ST - 1);
-    cp_async_commit();
-    const T* A = ring + (c % ST) * P::kStage;
-    const T* B = A + P::kA;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += W) {
-      T a[4][W];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) V::ld(A + (g + i * RS) * LDA + kk, a[i]);
-#pragma unroll
-      for (int u = 0; u < W; ++u) {
-        T b[TN];
-#pragma unroll
-        for (int j = 0; j < TN / W; ++j)
-          V::ld(B + (kk + u) * N + c0 + j * CS, b + j * W);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] += a[i][u] * b[j];
-      }
-    }
-  }
+  band_product<P>(reinterpret_cast<T*>(smem4), LEFT ? D : X, LEFT ? X : D,
+                  g, c0, acc);
   // every read of the band was a copy that has landed (the last wait);
   // only now is it written
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN / W; ++j)
-      V::st(X + (int64_t)(g + i * RS) * BS + c0 + j * CS, acc[i] + j * W);
+  store_tile<P, BS>(X, g, c0, acc);
 }
 
 template <typename T, int BS, bool LEFT, int BM, int TN>

@@ -45,14 +45,17 @@
 // Design. Phase A runs slu_tile::tile_lu (tile_lu.cuh, shared with
 // diag_lu.cu) on the owner's pool block, with its inverses stored into
 // the owner's linvL/uinvL rows; after a barrier the CTA copies them into
-// the lC/uC rows of the peers (and its own). Phase B is the panel product
-// of schur.cu's trsm (strip.cuh, one CTA of bs threads per panel strip),
-// whose strip, left in registers, is stored once into the owner's pool and
-// once into each peer's broadcast buffer. Phase C groups a level's
-// products by target (host sort, tape order kept within a target): one CTA
-// per (target, strip) sums its chain and stores once, as schur.cu does; a
-// target belongs to one rank, so ranks never race and no atomics touch the
-// blocks. The solve runs solve_gemm.cu's two passes (rows.cuh): the host
+// the lC/uC rows of the peers (and its own). Phase B is the band product
+// of schur.cu's trsm (panel.cuh: one CTA per (panel, band of whole rows or
+// columns), the band and the received inverse streamed through a cp.async
+// ring), whose band, left in registers, is stored once into the owner's
+// pool and once into each peer's broadcast buffer. Phase C groups a
+// level's products by target (host sort, tape order kept within a
+// target): one CTA per (target, band of whole columns) runs chain.cuh's
+// staged chain product from the rank's lB / uB and stores once; a target
+// belongs to one rank, so ranks never race and no atomics touch the
+// blocks. Both take chain.cuh's geometry: bands of 64 when the launch
+// fills the card, else of 16. The solve runs solve_gemm.cu's two passes (rows.cuh): the host
 // cuts each (rank, position) chain into chunks in tape order
 // (sweep.py::chunk_chains, sized per level to fill the card), pass 1 runs
 // one CTA per (chunk, tile of kRT right-hand sides) through rows.cuh's
@@ -62,8 +65,8 @@
 // partial and then the peers' slots in column order, so a result repeats
 // bit for bit. float32 only, as the TPU kernels are.
 
+#include "chain.cuh"
 #include "rows.cuh"
-#include "strip.cuh"
 #include "tile_lu.cuh"
 
 namespace {
@@ -71,11 +74,6 @@ namespace {
 using slu_rows::kRT;
 using slu_rows::kThreads;
 using slu_rows::rows_times;
-using slu_strip::FIN_L;
-using slu_strip::FIN_NONE;
-using slu_strip::FIN_U;
-using slu_strip::strip_eval;
-using slu_strip::strip_store;
 using slu_tile::kTileThreads;
 
 // kinds of the factor's pointer table; the counters of a rank are
@@ -141,58 +139,99 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
 // ---- B: owned panels ------------------------------------------------------
 // side 0: an L panel, Y = L . uC[pil], put along the grid row into lB[pos];
 // side 1: a U panel, Y = lC[pil] . U, put down the grid column into uB[pos].
-__global__ void __launch_bounds__(slu_strip::kMaxBs)
+// One CTA per (job, band of whole rows (side 0) or columns (side 1)):
+// panel.cuh's band product, stored into the owner's pool and each peer's
+// buffer from registers. Each orientation's body is a function of its own
+// (not inlined), as flk.cu's are.
+template <class G, bool LEFT>
+__device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
+                                           int pc, int d, int64_t loc,
+                                           int64_t pos, int64_t pil,
+                                           int level) {
+  using P = typename G::template Band<LEFT>;
+  extern __shared__ float4 smem4[];
+  const int pr = ndev / pc, myr = d / pc, myc = d % pc;
+  const int g = threadIdx.x / P::CT;
+  const int c0 = (threadIdx.x % P::CT) * P::W;
+  const int64_t bb = (int64_t)G::BS * G::BS;
+  const int64_t off = LEFT ? (int64_t)blockIdx.y * G::BM
+                           : (int64_t)blockIdx.y * G::BM * G::BS;
+  float* X = buf<float>(tab, F_POOL, ndev, d) + loc * bb + off;
+  const float* D =
+      buf<float>(tab, LEFT ? F_LC : F_UC, ndev, d) + pil * bb;
+  float acc[4][P::TW];
+  slu_panel::band_product<P>(reinterpret_cast<float*>(smem4),
+                             LEFT ? D : X, LEFT ? X : D, g, c0, acc);
+  // every read of the band was a copy that has landed; only now is it
+  // written
+  slu_panel::store_tile<P, G::BS>(X, g, c0, acc);
+  const int npeer = LEFT ? pr : pc;
+  for (int q = 0; q < npeer; ++q) {
+    const int e = LEFT ? q * pc + myc : myr * pc + q;
+    slu_panel::store_tile<P, G::BS>(
+        buf<float>(tab, LEFT ? F_UB : F_LB, ndev, e) + pos * bb + off, g,
+        c0, acc);
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0)
+    for (int q = 0; q < npeer; ++q) {
+      if (q == (LEFT ? myr : myc)) continue;
+      const int e = LEFT ? q * pc + myc : myr * pc + q;
+      atomicAdd(buf<int32_t>(tab, F_CNT, ndev, e) + level * R_NFACTOR +
+                    (LEFT ? R_U : R_L), 1);
+    }
+}
+
+template <class G>
+__global__ void __launch_bounds__(G::NT)
 rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                   const int32_t* __restrict__ rank,
                   const int32_t* __restrict__ loc,
                   const int32_t* __restrict__ pos,
                   const int32_t* __restrict__ pil,
-                  const int32_t* __restrict__ side, int bs, int level) {
+                  const int32_t* __restrict__ side, int level) {
   const int j = blockIdx.x;
-  const int d = rank[j];
-  const int pr = ndev / pc, myr = d / pc, myc = d % pc;
-  const int64_t bb = (int64_t)bs * bs;
-  const bool lside = side[j] == 0;
-  const int fin = lside ? FIN_L : FIN_U;
-  const float* dinv = buf<float>(tab, lside ? F_UC : F_LC, ndev, d);
-  float* tgt = buf<float>(tab, F_POOL, ndev, d) + loc[j] * bb;
-  float acc[4][4];
-  strip_eval<float>(tgt, nullptr, nullptr, dinv, dinv, pil[j], fin, nullptr,
-                    nullptr, 0, 0, bs, blockIdx.y, acc);
-  strip_store<float>(tgt, bs, fin, blockIdx.y, acc);
-  const int64_t p = pos[j] * bb;
-  const int npeer = lside ? pc : pr;
-  for (int q = 0; q < npeer; ++q) {
-    const int e = lside ? myr * pc + q : q * pc + myc;
-    strip_store<float>(buf<float>(tab, lside ? F_LB : F_UB, ndev, e) + p, bs,
-                       fin, blockIdx.y, acc);
-  }
-  if (blockIdx.y == 0 && threadIdx.x == 0)
-    for (int q = 0; q < npeer; ++q) {
-      if (q == (lside ? myc : myr)) continue;
-      const int e = lside ? myr * pc + q : q * pc + myc;
-      atomicAdd(buf<int32_t>(tab, F_CNT, ndev, e) + level * R_NFACTOR +
-                    (lside ? R_L : R_U), 1);
-    }
+  if (side[j] == 0)
+    panel_band<G, false>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
+                         level);
+  else
+    panel_band<G, true>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
+                        level);
 }
 
 // ---- C: owned Schur products, grouped by target ---------------------------
-__global__ void __launch_bounds__(slu_strip::kMaxBs)
+// One CTA per (target, band of whole columns): chain.cuh's chain product
+// from the rank's broadcast buffers lB / uB into its pool.
+template <class G>
+__global__ void __launch_bounds__(G::NT)
 rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
                   const int32_t* __restrict__ rank,
                   const int32_t* __restrict__ tloc,
                   const int32_t* __restrict__ cptr,
                   const int32_t* __restrict__ cl,
-                  const int32_t* __restrict__ cu, int bs) {
+                  const int32_t* __restrict__ cu) {
+  using P = typename G::template Band<true>;
+  extern __shared__ float4 smem4[];
   const int t = blockIdx.x;
   const int d = rank[t];
-  float* tgt = buf<float>(tab, F_POOL, ndev, d) + tloc[t] * (int64_t)bs * bs;
-  float acc[4][4];
-  strip_eval<float>(tgt, buf<float>(tab, F_LB, ndev, d),
-                    buf<float>(tab, F_UB, ndev, d), nullptr, nullptr, 0,
-                    FIN_NONE, cl, cu, cptr[t], cptr[t + 1], bs, blockIdx.y,
-                    acc);
-  strip_store<float>(tgt, bs, FIN_NONE, blockIdx.y, acc);
+  const int g = threadIdx.x / P::CT;
+  const int c0 = (threadIdx.x % P::CT) * P::W;
+  const int64_t bb = (int64_t)G::BS * G::BS;
+  const int64_t off = (int64_t)blockIdx.y * G::BM;
+  float* X = buf<float>(tab, F_POOL, ndev, d) + tloc[t] * bb + off;
+  const float* lB = buf<float>(tab, F_LB, ndev, d);
+  const float* uB = buf<float>(tab, F_UB, ndev, d);
+  const int p0 = cptr[t];
+  float acc[4][P::TW];
+  slu_panel::load_tile<P, G::BS>(X, g, c0, acc);
+  slu_chain::chain_band<G, true>(
+      reinterpret_cast<float*>(smem4), cptr[t + 1] - p0,
+      static_cast<const float*>(nullptr),
+      [&](int p, const float*& Ag, const float*& Bg) {
+        Ag = lB + (int64_t)cl[p0 + p] * bb;
+        Bg = uB + (int64_t)cu[p0 + p] * bb + off;
+      },
+      g, c0, acc);
+  slu_panel::store_tile<P, G::BS>(X, g, c0, acc);
 }
 
 // ---- solve pass 1: one chunk of a rank's chain into its scratch row ------
@@ -351,26 +390,33 @@ extern "C" int slu_rdma_panel(const void* tab, int ndev, int pc,
                               const void* rank, const void* loc,
                               const void* pos, const void* pil,
                               const void* side, int count, int bs, int level,
-                              void* stream) {
+                              int wide, void* stream) {
   if (count == 0) return 0;
-  const dim3 grid(count, bs / slu_strip::kStrip);
-  rdma_panel_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
-      (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)pil,
-      (const int32_t*)side, bs, level);
-  return (int)cudaGetLastError();
+  // the band product's ring of panel.cuh's four stages
+  return slu_chain::by_geometry<float, false>(bs, count, wide, [&](auto geo) {
+    using G = decltype(geo);
+    static_assert(G::STAGES == G::template Band<true>::STAGES, "ring");
+    return slu_chain::launch<G>(
+        rdma_panel_kernel<G>, count, (cudaStream_t)stream,
+        (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+        (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)pil,
+        (const int32_t*)side, level);
+  });
 }
 
 extern "C" int slu_rdma_schur(const void* tab, int ndev, const void* rank,
                               const void* tloc, const void* cptr,
                               const void* cl, const void* cu, int count,
-                              int bs, void* stream) {
+                              int bs, int wide, void* stream) {
   if (count == 0) return 0;
-  const dim3 grid(count, bs / slu_strip::kStrip);
-  rdma_schur_kernel<<<grid, bs, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)tab, ndev, (const int32_t*)rank, (const int32_t*)tloc,
-      (const int32_t*)cptr, (const int32_t*)cl, (const int32_t*)cu, bs);
-  return (int)cudaGetLastError();
+  return slu_chain::by_geometry<float, false>(bs, count, wide, [&](auto geo) {
+    using G = decltype(geo);
+    return slu_chain::launch<G>(
+        rdma_schur_kernel<G>, count, (cudaStream_t)stream,
+        (const uint64_t*)tab, ndev, (const int32_t*)rank,
+        (const int32_t*)tloc, (const int32_t*)cptr, (const int32_t*)cl,
+        (const int32_t*)cu);
+  });
 }
 
 // Pass 1 of a solve level over `count` chunks (the level's slice of

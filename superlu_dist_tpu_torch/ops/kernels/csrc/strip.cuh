@@ -1,5 +1,5 @@
-// strip.cuh: the block-strip update shared by flk.cu, schur.cu and
-// rdma.cu (waves.cuh, for clk.cu and tck.cu, takes its Vec4 and FIN_U).
+// strip.cuh: the block-strip update of schur.cu (waves.cuh, for clk.cu
+// and tck.cu, takes its Vec4 and FIN_U).
 //
 // One CTA of bs threads owns one strip of kStrip scalar columns (or rows)
 // of one target block T of the pool and computes, in registers,
@@ -9,16 +9,9 @@
 //   FIN_U: T <- linv[step] . T   (a U panel)
 // and writes T once. FIN_L mixes the columns of a row, so its strips are
 // strips of whole rows; FIN_NONE and FIN_U (which mixes the rows of a
-// column) use strips of whole columns. With p0 == p1 this is the panel
-// TRSM by a stored inverse, as flk.cu's and rdma.cu's panels run it
-// (schur.cu's trsm and clk.cu's clk_trsm run panel.cuh's band kernel
-// instead). strip_update works on one pool (the single-
-// device kernels); strip_eval computes the same update with the target,
-// the L factors and the U factors in three arrays and leaves the strip in
-// registers, so that rdma.cu takes its factors from broadcast buffers and
-// stores one result into several blocks (strip_store). strip_update keeps
-// its own body: written as strip_eval + strip_store, its panel TRSM
-// compiled 1.6x slower on an H100.
+// column) use strips of whole columns. flk.cu and rdma.cu run chain.cuh's
+// staged chain product instead, and the panel TRSMs panel.cuh's band
+// kernel.
 //
 // Each thread owns a 4x4 tile of the strip. The operand that is read
 // along the strip (the U strip, or the L row strip, then T itself for the
@@ -218,109 +211,6 @@ __device__ __forceinline__ void strip_update(
 #pragma unroll
   for (int i = 0; i < 4; ++i) Vec4<T>::st(Tb + (int64_t)(r0 + i) * bs + c0,
                                           acc[i]);
-}
-
-// Where thread tid's 4x4 tile lies in a strip: rows r0.., columns c0..
-// of the strip, and the strip's offset within its block.
-struct StripPos {
-  int r0, c0;
-  int64_t off;
-};
-
-__device__ __forceinline__ StripPos strip_pos(int bs, int fin, int strip) {
-  const int tid = threadIdx.x;
-  const bool rows = fin == FIN_L;
-  StripPos p;
-  p.r0 = rows ? (tid / (bs / 4)) * 4 : (tid / (kStrip / 4)) * 4;
-  p.c0 = rows ? (tid % (bs / 4)) * 4 : (tid % (kStrip / 4)) * 4;
-  p.off = rows ? (int64_t)strip * kStrip * bs : strip * kStrip;
-  return p;
-}
-
-// The strip update of strip_update with the target, the L factors and the
-// U factors in three arrays (the target block `tgt`; the L and U factors of
-// product p are the blocks cl[p] of lsrc and cu[p] of usrc), left in acc
-// (registers) for strip_store. Launched with blockDim.x == bs.
-template <typename T>
-__device__ __forceinline__ void strip_eval(
-    const T* tgt, const T* lsrc, const T* usrc,
-    const T* __restrict__ linv, const T* __restrict__ uinv, int64_t step,
-    int fin, const int32_t* __restrict__ cl, const int32_t* __restrict__ cu,
-    int p0, int p1, int bs, int strip, T acc[4][4]) {
-  __shared__ __align__(16) T S[kMaxBs * kStrip];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int64_t bb = (int64_t)bs * bs;
-  const bool rows = fin == FIN_L;
-  // the strip is kStrip x bs (rows) or bs x kStrip (columns); ld is the
-  // leading dimension of its copy in S
-  const int ld = rows ? bs : kStrip;
-  const StripPos sp = strip_pos(bs, fin, strip);
-  const int r0 = sp.r0, c0 = sp.c0;
-  const int64_t off = sp.off;
-  const T* Tb = tgt + off;
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) Vec4<T>::ld(Tb + (int64_t)(r0 + i) * bs + c0,
-                                          acc[i]);
-
-  for (int p = p0; p < p1; ++p) {
-    const T* L = lsrc + (int64_t)cl[p] * bb;
-    const T* U = usrc + (int64_t)cu[p] * bb;
-    __syncthreads();   // every thread is done with the previous strip
-    if (rows) {        // rows [strip*kStrip, +kStrip) of L: contiguous
-      for (int e = tid; e < kStrip * bs / 4; e += nt) {
-        T v[4];
-        Vec4<T>::ldg(L + off + 4 * e, v);
-        Vec4<T>::st(S + 4 * e, v);
-      }
-    } else {           // columns [strip*kStrip, +kStrip) of U
-      for (int e = tid; e < bs * (kStrip / 4); e += nt) {
-        const int r = e / (kStrip / 4);
-        const int c = (e % (kStrip / 4)) * 4;
-        T v[4];
-        Vec4<T>::ldg(U + (int64_t)r * bs + off + c, v);
-        Vec4<T>::st(S + r * kStrip + c, v);
-      }
-    }
-    __syncthreads();
-    T prod[4][4] = {};
-    if (rows)
-      mul_smem_dev<T>(S, U, bs, r0, c0, prod);
-    else
-      mul_dev_smem<T>(L, S, bs, r0, c0, prod);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] -= prod[i][j];
-  }
-
-  if (fin != FIN_NONE) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Vec4<T>::st(S + (r0 + i) * ld + c0, acc[i]);
-    __syncthreads();
-    T out[4][4] = {};
-    if (rows)
-      mul_smem_dev<T>(S, uinv + step * bb, bs, r0, c0, out);
-    else
-      mul_dev_smem<T>(linv + step * bb, S, bs, r0, c0, out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = out[i][j];
-  }
-}
-
-// Store the strip that strip_eval left in acc into block `dst`.
-template <typename T>
-__device__ __forceinline__ void strip_store(T* dst, int bs, int fin,
-                                            int strip, T acc[4][4]) {
-  const StripPos sp = strip_pos(bs, fin, strip);
-  T* Tb = dst + sp.off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    Vec4<T>::st(Tb + (int64_t)(sp.r0 + i) * bs + sp.c0, acc[i]);
 }
 
 }  // namespace slu_strip

@@ -19,6 +19,13 @@ blocks). The TPU's Kc windows, ``SYNC_DIST`` hazard analysis and
 ``SEG_W`` segments (flk.py:137-248) exist for its SMEM and its
 sequential grid and have no counterpart here; so neither does
 ``flk_supported``.
+
+On the card a group is one or two launches of ``csrc/chain.cuh``'s
+staged chain product. Every chain is cut into chunks in plan order
+(``sweep.chunk_chains``) of at most CHUNK_MAX products, fewer in a group
+whose bands would not fill the card (:func:`group_chunk`); pass 1 (``slu_flk_chunks_f32``) runs one CTA per (chunk, band) and
+finishes the targets of one chunk, pass 2 (``slu_flk_sum_f32``) adds the
+chunks of the others in chunk order and finalizes them.
 """
 
 from __future__ import annotations
@@ -29,15 +36,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..blocklu import level_order, subtract_products
+from ..blocklu import SCHUR_CHUNK, level_order, subtract_products
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .sweep import CHUNK_CTAS, chunk_chains
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("flk", "flk.cu", {
-    "slu_flk_f32": [_V] * 9 + [_I, _I, _V]})
+    "slu_flk_chunks_f32": [_V] * 12 + [_I, _I, _I, _V],
+    "slu_flk_sum_f32": [_V] * 10 + [_I, _I, _I, _V]})
 
 # finalize codes (the JAX package's values; FIN_DIAG is diag_lu)
 FIN_NONE = 0
@@ -47,15 +56,24 @@ FIN_U = 3       # T ← linv[step]·T
 
 @dataclasses.dataclass
 class FlkTapes:
-    """Per-level schedule of the flk factor. ``*ptr`` are host int64
-    level pointers; every other field is an int32 tensor on the device.
+    """Per-level schedule of the flk factor. ``dptr``, ``tptr``,
+    ``qptr``, ``mptr`` and ``nrow`` are host int64 arrays; every other
+    field is an int32 tensor on the device.
 
     - diag_lu: ``dslot``/``dstep`` over ``dptr`` (every diagonal block);
     - flk_update: target group g = 2l is level l's diagonal targets that
       have contributions, g = 2l + 1 its L then U panels, over
       ``tptr[g]:tptr[g+1]`` of ``tslot``/``tstep``/``tfin``; target t
       sums ``pool[cl[p]]·pool[cu[p]]`` for p over ``cptr[t]:cptr[t+1]``
-      (the plan's triples, stably sorted by target).
+      (the plan's triples, stably sorted by target);
+    - chunks: group g's are ``qptr[g]:qptr[g+1]``; chunk q of target
+      ``qtgt[q]`` holds the products ``qcptr[q]:qcptr[q+1]`` (a target's
+      chunks are consecutive and in plan order) and is summed into row
+      ``qrow[q]`` of the group's scratch of ``nrow[g]`` rows, or, when
+      its target has one chunk (``qrow[q]`` = -1), finishes the target;
+      group g's targets of several chunks are ``mptr[g]:mptr[g+1]`` of
+      ``mtgt``, each with its chunks in the ``mcnt`` scratch rows from
+      ``mrow``.
     """
 
     nlvl: int
@@ -69,11 +87,56 @@ class FlkTapes:
     cptr: torch.Tensor
     cl: torch.Tensor
     cu: torch.Tensor
-    # host copies for the plain version and for work counts
+    qptr: np.ndarray
+    qtgt: torch.Tensor
+    qrow: torch.Tensor
+    qcptr: torch.Tensor
+    nrow: np.ndarray
+    mptr: np.ndarray
+    mtgt: torch.Tensor
+    mrow: torch.Tensor
+    mcnt: torch.Tensor
+    # host copies for the plain versions and for work counts
     host: dict
 
 
-def build_flk_tapes(plan: SymbolicPlan, device) -> FlkTapes:
+def band_ctas(bs: int) -> int:
+    """CTAs per target in bands of 16, ``csrc/chain.cuh``'s geometry for a
+    launch that would not fill the card (bs 32 takes the whole block)."""
+    return bs // 16 if bs >= 64 else 1
+
+
+def band_width(bs: int, count: int, sms: int) -> int:
+    """The band width that ``csrc/chain.cuh`` takes for a launch over
+    ``count`` targets (or chunks) on a card of ``sms`` SMs: bands of 64
+    when they fill the SMs, else of 16; bs 32 the whole block (its rule,
+    for reports)."""
+    if bs < 64:
+        return bs
+    return 16 if count * (bs // 64) < sms else 64
+
+
+#: the longest chunk of the automatic cut: on an H100, chunks of 2 to 8
+#: products on every group took 6.1–7.3 ms per lap3d32 factor and 38–42
+#: on lap3d50, against 13.5–14.4 and 79–83 uncut (``tools/flk_ab.py``),
+#: with no setting ahead in every run
+CHUNK_MAX = 4
+
+
+def group_chunk(ntgt: int, nprod: int, bs: int) -> int:
+    """The chunk length of a group of ``ntgt`` targets and ``nprod``
+    products: CHUNK_MAX, or, when the targets' bands of 16 would not fill
+    CHUNK_CTAS (two CTAs per SM), the group's products in bands of 16
+    over CHUNK_CTAS if that is shorter (at least 1)."""
+    if ntgt * band_ctas(bs) >= CHUNK_CTAS:
+        return CHUNK_MAX
+    return min(CHUNK_MAX, max(1, nprod * band_ctas(bs) // CHUNK_CTAS))
+
+
+def build_flk_tapes(plan: SymbolicPlan, device,
+                    chunk: int | None = None) -> FlkTapes:
+    """The flk schedule of ``plan``; ``chunk`` forces that chunk length on
+    every group (None: :func:`group_chunk` per group)."""
     lv = level_order(plan)
     nlvl = plan.n_flevels
     g_t = np.asarray(plan.g_t, dtype=np.int64)
@@ -114,13 +177,37 @@ def build_flk_tapes(plan: SymbolicPlan, device) -> FlkTapes:
                 tstep=np.concatenate(steps), tfin=np.concatenate(fins),
                 cptr=cptr, cl=np.asarray(plan.g_l, dtype=np.int64)[o],
                 cu=np.asarray(plan.g_u, dtype=np.int64)[o])
+    host.update(_chunk_tapes(cptr, tptr, plan.bs, chunk))
+    hptr = {k: host.pop(k) for k in ("qptr", "nrow", "mptr")}
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
 
     return FlkTapes(nlvl=nlvl, dptr=np.asarray(lv["dptr"]),
-                    tptr=tptr, host=host,
-                    **{k: dev(v) for k, v in host.items()})
+                    tptr=tptr, host=host, **hptr,
+                    **{k: dev(v) for k, v in host.items()
+                       if k != "chunkptr"})
+
+
+def _chunk_tapes(cptr, tptr, bs, chunk):
+    """The chunk fields of :class:`FlkTapes`, and ``chunkptr`` (target
+    t's chunks are ``chunkptr[t]:chunkptr[t+1]``)."""
+    ngrp = len(tptr) - 1
+    c = [chunk or group_chunk(hi - lo, cptr[hi] - cptr[lo], bs)
+         for lo, hi in zip(tptr[:-1], tptr[1:])]
+    chunkptr, qcptr, qptr = chunk_chains(cptr, tptr, c, empty=True)
+    nk = np.diff(chunkptr)
+    qtgt = np.repeat(np.arange(len(nk)), nk)
+    # a chunk of a target of several takes its group's next scratch row
+    split = (nk > 1)[qtgt]
+    before = np.concatenate([[0], np.cumsum(split)])
+    grp = np.repeat(np.arange(ngrp), np.diff(qptr))
+    qrow = np.where(split, before[:-1] - before[qptr[grp]], -1)
+    mtgt = np.flatnonzero(nk > 1)
+    return dict(chunkptr=chunkptr, qptr=qptr, qtgt=qtgt, qrow=qrow,
+                qcptr=qcptr, nrow=np.diff(before[qptr]),
+                mptr=np.concatenate([[0], np.cumsum(nk > 1)])[tptr],
+                mtgt=mtgt, mrow=qrow[chunkptr[mtgt]], mcnt=nk[mtgt])
 
 
 def flk_update_plain(pool, linv, uinv, tp: FlkTapes, group: int) -> None:
@@ -133,30 +220,90 @@ def flk_update_plain(pool, linv, uinv, tp: FlkTapes, group: int) -> None:
     tslot = h["tslot"][lo:hi]
     dst = np.repeat(tslot, np.diff(h["cptr"][lo:hi + 1]))
     subtract_products(pool, h["cl"][c0:c1], h["cu"][c0:c1], dst)
-    fin, step = h["tfin"][lo:hi], h["tstep"][lo:hi]
-    dev = pool.device
+    _finalize(pool, linv, uinv, h, np.arange(lo, hi))
+
+
+def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes,
+                            group: int) -> None:
+    """The two passes of :func:`flk_update` over the tapes' chunks in
+    plain PyTorch (the CPU tests hold the chunk fields with it): pass 1
+    finishes the targets of one chunk and sums each chunk of the others,
+    negated, into its scratch row; pass 2 adds a target's rows in chunk
+    order and finalizes it."""
+    h = tp.host
+    q0, q1 = int(tp.qptr[group]), int(tp.qptr[group + 1])
+    if q1 == q0:
+        return
+    dev, bs = pool.device, pool.shape[-1]
+    qs = np.arange(q0, q1)
+    pq = np.repeat(qs, np.diff(h["qcptr"][q0:q1 + 1]))
+    prods = np.arange(h["qcptr"][q0], h["qcptr"][q1])
+    one = h["qrow"][pq] < 0
+    subtract_products(pool, h["cl"][prods[one]], h["cu"][prods[one]],
+                      h["tslot"][h["qtgt"][pq[one]]])
+    scratch = torch.zeros((int(tp.nrow[group]), bs, bs), dtype=pool.dtype,
+                          device=dev)
+    for c in range(0, int((~one).sum()), SCHUR_CHUNK):
+        p = prods[~one][c:c + SCHUR_CHUNK]
+        scratch.index_add_(0, _idx(h["qrow"][pq[~one][c:c + SCHUR_CHUNK]],
+                                   dev),
+                           pool[_idx(h["cl"][p], dev)]
+                           @ pool[_idx(h["cu"][p], dev)], alpha=-1)
+    _finalize(pool, linv, uinv, h, h["qtgt"][qs[h["qrow"][qs] < 0]])
+    m0, m1 = int(tp.mptr[group]), int(tp.mptr[group + 1])
+    if m1 == m0:
+        return
+    mt, cnt = h["mtgt"][m0:m1], h["mcnt"][m0:m1]
+    for k in range(int(cnt.max())):   # chunk order
+        has = cnt > k
+        s = _idx(h["tslot"][mt[has]], dev)
+        pool[s] += scratch[_idx(h["mrow"][m0:m1][has] + k, dev)]
+    _finalize(pool, linv, uinv, h, mt)
+
+
+def _idx(a, device):
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def _finalize(pool, linv, uinv, h, tgt):
+    """T·uinv[step] (FIN_L) and linv[step]·T (FIN_U) for targets ``tgt``."""
     for code in (FIN_L, FIN_U):
-        sel = fin == code
-        if sel.any():
-            s = torch.as_tensor(tslot[sel], device=dev)
-            k = torch.as_tensor(step[sel], device=dev)
+        t = tgt[h["tfin"][tgt] == code]
+        if len(t):
+            s = _idx(h["tslot"][t], pool.device)
+            k = _idx(h["tstep"][t], pool.device)
             pool[s] = pool[s] @ uinv[k] if code == FIN_L \
                 else linv[k] @ pool[s]
 
 
-def flk_update(pool, linv, uinv, tp: FlkTapes, group: int) -> None:
-    """Accumulate and finalize the targets of ``group`` (in place)."""
+def flk_update(pool, linv, uinv, tp: FlkTapes, group: int,
+               wide: int = -1) -> None:
+    """Accumulate and finalize the targets of ``group`` (in place).
+    ``wide`` < 0 lets the kernel choose its bands (``csrc/chain.cuh``),
+    0 / 1 force bands of 16 / 64 (``tools/flk_ab.py``)."""
     if pool.device.type == "cpu":
         return flk_update_plain(pool, linv, uinv, tp, group)
     _check_cuda(pool, linv, uinv)
-    lo, hi = int(tp.tptr[group]), int(tp.tptr[group + 1])
-    if hi == lo:
+    q0, q1 = int(tp.qptr[group]), int(tp.qptr[group + 1])
+    if q1 == q0:
         return
-    KERNEL.launches += 1
-    KERNEL.call("slu_flk_f32", ptr(pool), ptr(linv), ptr(uinv),
-                ptr(tp.tslot[lo:hi]), ptr(tp.tstep[lo:hi]),
-                ptr(tp.tfin[lo:hi]), ptr(tp.cptr[lo:hi + 1]), ptr(tp.cl),
-                ptr(tp.cu), hi - lo, pool.shape[-1], stream_ptr(pool.device))
+    bs, stream = pool.shape[-1], stream_ptr(pool.device)
+    nrow = int(tp.nrow[group])
+    scratch = torch.empty((nrow, bs, bs), dtype=pool.dtype,
+                          device=pool.device) if nrow else None
+    sp = ptr(scratch) if nrow else None
+    KERNEL.count("slu_flk_chunks_f32")
+    KERNEL.call("slu_flk_chunks_f32", ptr(pool), ptr(linv), ptr(uinv), sp,
+                ptr(tp.qtgt[q0:]), ptr(tp.qrow[q0:]), ptr(tp.qcptr[q0:]),
+                ptr(tp.tslot), ptr(tp.tstep), ptr(tp.tfin), ptr(tp.cl),
+                ptr(tp.cu), q1 - q0, bs, wide, stream)
+    m0, m1 = int(tp.mptr[group]), int(tp.mptr[group + 1])
+    if m1 > m0:
+        KERNEL.count("slu_flk_sum_f32")
+        KERNEL.call("slu_flk_sum_f32", ptr(pool), ptr(linv), ptr(uinv), sp,
+                    ptr(tp.mtgt[m0:]), ptr(tp.mrow[m0:]), ptr(tp.mcnt[m0:]),
+                    ptr(tp.tslot), ptr(tp.tstep), ptr(tp.tfin), m1 - m0, bs,
+                    wide, stream)
 
 
 def _check_cuda(pool, *invs):

@@ -83,20 +83,22 @@ def build_sweep_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
     return csr_tape(p.nb, gslot, gsrc, gdst, dptr, rows, nlvl, device)
 
 
-def chunk_chains(rowptr, dptr, chunk: int | None = None):
+def chunk_chains(rowptr, dptr, chunk=None, empty: bool = False):
     """Cut each destination's chain of ``rowptr`` into chunks of at most
     c products, in tape order and of near-equal sizes. Per level, c is
-    ``chunk``, or else the level's products over CHUNK_CTAS (at least 1),
-    so that a level with enough products fills the card and its longest
-    chains spread over many CTAs. Returns (chunkptr, cptr, qptr)."""
+    ``chunk`` (an int, or an array of one length per level), or else the
+    level's products over CHUNK_CTAS (at least 1), so that a level with
+    enough products fills the card and its longest chains spread over
+    many CTAs. A chain of no products has no chunk, or with ``empty`` one
+    empty chunk. Returns (chunkptr, cptr, qptr)."""
     rowptr = np.asarray(rowptr, dtype=np.int64)
     dptr = np.asarray(dptr, dtype=np.int64)
     lens = np.diff(rowptr)
     per_level = rowptr[dptr[1:]] - rowptr[dptr[:-1]]
-    c = np.full(len(per_level), chunk, dtype=np.int64) if chunk else \
-        np.maximum(1, per_level // CHUNK_CTAS)
+    c = np.maximum(1, per_level // CHUNK_CTAS) if chunk is None else \
+        np.broadcast_to(np.asarray(chunk, dtype=np.int64), per_level.shape)
     c_row = np.repeat(c, np.diff(dptr))
-    nk = -(-lens // c_row)
+    nk = np.maximum(-(-lens // c_row), 1 if empty else 0)
     chunkptr = np.concatenate([[0], np.cumsum(nk)])
     row = np.repeat(np.arange(len(lens)), nk)
     i = np.arange(chunkptr[-1]) - chunkptr[row]

@@ -53,8 +53,8 @@ _I = ctypes.c_int
 RDMA_FACTOR = CudaKernel("rdma_factor", "rdma.cu", {
     "slu_rdma_diag": [_V, _I, _I] + [_V] * 4 + [_I, _I, ctypes.c_float, _I,
                                                 _V],
-    "slu_rdma_panel": [_V, _I, _I] + [_V] * 5 + [_I, _I, _I, _V],
-    "slu_rdma_schur": [_V, _I] + [_V] * 5 + [_I, _I, _V]})
+    "slu_rdma_panel": [_V, _I, _I] + [_V] * 5 + [_I] * 4 + [_V],
+    "slu_rdma_schur": [_V, _I] + [_V] * 5 + [_I] * 3 + [_V]})
 RDMA_SOLVE = CudaKernel("rdma_solve", "rdma.cu", {
     "slu_rdma_solve_chunks": [_V, _I] + [_V] * 5 + [_I] * 3 + [_V],
     "slu_rdma_solve_sum": [_V, _I, _I] + [_V] * 6 + [_I] * 4 + [_V],
@@ -671,10 +671,13 @@ def rdma_panel_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
                     st.recv[e][level, kind] += len(sel)
 
 
-def rdma_panel(st: FactorState, ft: FactorTapes, level: int) -> None:
+def rdma_panel(st: FactorState, ft: FactorTapes, level: int,
+               wide: int = -1) -> None:
     """Phase B of ``level``: every rank's owned L panels times the
     received U⁻¹ (put into the row peers' ``lB``) and U panels times the
-    received L⁻¹ (put into the column peers' ``uB``)."""
+    received L⁻¹ (put into the column peers' ``uB``), one CTA per
+    (panel, band). ``wide`` < 0 lets the kernel choose its bands
+    (``csrc/chain.cuh``), 0 / 1 force bands of 16 / 64."""
     if st.pool[0].device.type == "cpu":
         return rdma_panel_plain(st, ft, level)
     tab = st.table()
@@ -686,7 +689,7 @@ def rdma_panel(st: FactorState, ft: FactorTapes, level: int) -> None:
     RDMA_FACTOR.call(
         "slu_rdma_panel", ptr(tab), ft.ndev, ft.pc, _at(dv["b_rank"], lo),
         _at(dv["b_loc"], lo), _at(dv["b_pos"], lo), _at(dv["b_pil"], lo),
-        _at(dv["b_side"], lo), hi - lo, ft.bs, level,
+        _at(dv["b_side"], lo), hi - lo, ft.bs, level, wide,
         stream_ptr(st.pool[0].device))
 
 
@@ -709,9 +712,11 @@ def rdma_schur_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
                 @ st.uB[d][_idx(h["c_u"][c:e], dev)], alpha=-1)
 
 
-def rdma_schur(st: FactorState, ft: FactorTapes, level: int) -> None:
+def rdma_schur(st: FactorState, ft: FactorTapes, level: int,
+               wide: int = -1) -> None:
     """Phase C of ``level``: T −= Σ lB[lpos]·uB[upos] into every rank's
-    owned targets, one CTA per (target, strip)."""
+    owned targets, one CTA per (target, band); ``wide`` as in
+    :func:`rdma_panel`."""
     if st.pool[0].device.type == "cpu":
         return rdma_schur_plain(st, ft, level)
     tab = st.table()
@@ -723,7 +728,7 @@ def rdma_schur(st: FactorState, ft: FactorTapes, level: int) -> None:
     RDMA_FACTOR.call(
         "slu_rdma_schur", ptr(tab), ft.ndev, _at(dv["s_rank"], lo),
         _at(dv["s_tloc"], lo), _at(dv["cptr"], lo), ptr(dv["c_l"]),
-        ptr(dv["c_u"]), hi - lo, ft.bs, stream_ptr(st.pool[0].device))
+        ptr(dv["c_u"]), hi - lo, ft.bs, wide, stream_ptr(st.pool[0].device))
 
 
 def rdma_factor(pools, thresh: float, ft: FactorTapes) -> FactorState:

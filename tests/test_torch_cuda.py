@@ -189,11 +189,31 @@ def _level_plain(pool, thresh, tp, nb):
     return pool, linv, uinv, tiny
 
 
+def _flk_kernel(pool, thresh, tp, nb, wide):
+    """``flk.factor`` with the band geometry forced by ``wide``."""
+    bs = pool.shape[-1]
+    linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
+    for level in range(tp.nlvl):
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        flk.flk_update(pool, linv, uinv, tp, 2 * level, wide)
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        thresh, tiny)
+        flk.flk_update(pool, linv, uinv, tp, 2 * level + 1, wide)
+    return pool, linv, uinv, tiny
+
+
 @pytest.mark.parametrize("ilu", [None, 1], ids=["exact", "ilu1"])
 @pytest.mark.parametrize("bs", [32, 64, 128])
 def test_flk_and_level_factors_match_plain(cuda, bs, ilu):
     """The flk and level-executor factors of an exact and an ILU(1) plan
-    of lap3d12 against the same factors through the plain phases."""
+    of lap3d12 against the same factors through the plain phases; flk
+    also on the automatic chunks and on chunks of one and of three
+    products (so that pass 2 runs for diagonal, L and U targets), each
+    with the bands the kernel chooses, bands of 16 and bands of 64. 64
+    float32 ulp of the output's magnitude (ULPS): the plain version sums
+    each product in another order."""
     A = tt.laplacian_3d(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     eps = np.finfo(np.float32).eps
@@ -206,12 +226,44 @@ def test_flk_and_level_factors_match_plain(cuda, bs, ilu):
         assert res.berr.max() < 1e-12
         plan, tp = lu.plan, lu._ftapes
         pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
-        kern = mod.factor(pool.clone(), lu._thresh(), tp, plan.nb)
         ref = plain(pool.clone(), lu._thresh(), tp, plan.nb)
-        for k, p in zip(kern[:3], ref[:3]):
-            scale = max(1.0, float(p.abs().max()))
-            assert float((k - p).abs().max()) <= ULPS * eps * scale
-        assert int(kern[3].item()) == int(ref[3].item())
+        runs = [mod.factor(pool.clone(), lu._thresh(), tp, plan.nb)]
+        if executor == "flk":
+            for chunk in (None, 1, 3):
+                tc = flk.build_flk_tapes(plan, cuda, chunk=chunk)
+                if chunk == 1:   # pass 2 on every kind of target
+                    fins = set(tc.host["tfin"][tc.host["mtgt"]].tolist())
+                    assert fins == {flk.FIN_NONE, flk.FIN_L, flk.FIN_U}
+                runs += [_flk_kernel(pool.clone(), lu._thresh(), tc,
+                                     plan.nb, wide) for wide in (-1, 0, 1)]
+        for kern in runs:
+            for k, p in zip(kern[:3], ref[:3]):
+                scale = max(1.0, float(p.abs().max()))
+                assert float((k - p).abs().max()) <= ULPS * eps * scale
+            assert int(kern[3].item()) == int(ref[3].item())
+
+
+def test_flk_factors_are_bit_equal(cuda):
+    """Two flk factors of one matrix, and two ILU(1) gssvx calls, are bit
+    for bit equal: every sum runs in the tapes' fixed order (chunks in
+    plan order, then the chunks in chunk order), with no atomics."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    for bs in (32, 64, 128):
+        _, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs,
+                                        executor="flk"), device=cuda)
+        plan, tp = lu.plan, lu._ftapes
+        pool = blocklu.init_pool(plan, lu._a3_data, np.float32, cuda)
+        f1 = flk.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+        f2 = flk.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+        for x, y in zip(f1, f2):
+            assert torch.equal(x, y)
+    opts = T.Options(dtype="float32", block_size=128, ilu_level=1,
+                     max_refine_steps=60, refine_rthresh=1.0)
+    r1, _ = T.gssvx(A, b, opts, device=cuda)
+    r2, _ = T.gssvx(A, b, opts, device=cuda)
+    assert r1.stat.refine_steps == r2.stat.refine_steps
+    assert np.array_equal(r1.x, r2.x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -623,10 +675,14 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
     """The 2D driver on the card: every entry of the RDMA factor and
     solve (rdma_diag, rdma_panel, rdma_schur, rdma_solve_chunks,
     rdma_solve_sum, rdma_solve_diag) launched, each phase against its
-    plain version level by level on the same state (the solve on the
-    driver's chunks and on chunks of at most two products, so that chains
-    are cut), the receive counters equal to the tapes, and the solution
-    against the CPU run of the same call (1e-10 relative)."""
+    plain version level by level on the same state (the factor's panels
+    and Schur products in the bands the kernels choose, in bands of 16
+    and in bands of 64; the solve on the automatic chunks and on chunks of
+    at most two products, so that chains are cut), within 64 float32 ulp
+    of the output's magnitude (ULPS), the receive counters (which the
+    kernels' puts tally, and the plain versions too) equal to each other
+    and to the TPU's receive tapes, and the solution against the CPU run
+    of the same call (1e-10 relative)."""
     A = tt.laplacian_3d(12).tocsc()
     b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
     opts = T.Options(dtype="float32", block_size=bs, dist_executor="rdma")
@@ -656,22 +712,23 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
                 <= ULPS * eps * scale
 
     from superlu_dist_tpu_torch.parallel import dist2d
-    st = rdma.new_factor_state(dist2d.init_local_pools(
-        plan, lu.dplan, lu._a3_data, np.float32, cuda), ft)
     th = lu._thresh()
-    for level in range(ft.nlvl):
-        for kern, plain in (
-                (lambda s: rdma.rdma_diag(s, th, ft, level),
-                 lambda s: rdma.rdma_diag_plain(s, th, ft, level)),
-                (lambda s: rdma.rdma_panel(s, ft, level),
-                 lambda s: rdma.rdma_panel_plain(s, ft, level)),
-                (lambda s: rdma.rdma_schur(s, ft, level),
-                 lambda s: rdma.rdma_schur_plain(s, ft, level))):
-            ref = rdma.FactorState.of([t.clone() for t in st.tensors()],
-                                      ft.ndev)
-            kern(st)
-            plain(ref)
-            close(st.tensors(), ref.tensors())
+    for wide in (-1, 0, 1):   # the bands the kernels choose, 16, 64
+        st = rdma.new_factor_state(dist2d.init_local_pools(
+            plan, lu.dplan, lu._a3_data, np.float32, cuda), ft)
+        for level in range(ft.nlvl):
+            for kern, plain in (
+                    (lambda s: rdma.rdma_diag(s, th, ft, level),
+                     lambda s: rdma.rdma_diag_plain(s, th, ft, level)),
+                    (lambda s: rdma.rdma_panel(s, ft, level, wide),
+                     lambda s: rdma.rdma_panel_plain(s, ft, level)),
+                    (lambda s: rdma.rdma_schur(s, ft, level, wide),
+                     lambda s: rdma.rdma_schur_plain(s, ft, level))):
+                ref = rdma.FactorState.of(
+                    [t.clone() for t in st.tensors()], ft.ndev)
+                kern(st)
+                plain(ref)
+                close(st.tensors(), ref.tensors())
     tapes2 = [rdma.build_sweep_tapes(plan, lu.dplan, w, cuda, chunk=2)
               for w in "LU"]
     assert any((np.diff(tp.host["chunkptr"]) > 1).any()

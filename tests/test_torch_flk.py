@@ -15,7 +15,7 @@ from superlu_dist_tpu.ops.kernels import flk as jflk
 
 from superlu_dist_tpu_torch.ops import blocklu as tbl
 from superlu_dist_tpu_torch.ops.host.symbolic import block_symbolic
-from superlu_dist_tpu_torch.ops.kernels import flk
+from superlu_dist_tpu_torch.ops.kernels import diag_lu, flk
 from superlu_dist_tpu_torch.utils.testing import laplacian_2d, laplacian_3d
 
 torch.set_num_threads(2)
@@ -39,14 +39,29 @@ def jax_flk(A, plan, thresh=0.0):
     return np.asarray(p), np.asarray(li), np.asarray(ui), int(tiny)
 
 
-def port_flk(A, plan, thresh=0.0):
-    tp = flk.build_flk_tapes(plan, "cpu")
+def port_flk(A, plan, thresh=0.0, chunk=None):
+    """The port's flk factor on the CPU: ``flk.factor`` (the plain
+    version), or with ``chunk`` the two passes' plain version over the
+    tapes' chunks of at most ``chunk`` products."""
+    tp = flk.build_flk_tapes(plan, "cpu", chunk=chunk)
     pool = tbl.init_pool(plan, A.data, np.float32, "cpu")
-    p, li, ui, tiny = flk.factor(pool, thresh, tp, plan.nb)
-    return p.numpy(), li.numpy(), ui.numpy(), int(tiny)
+    if chunk is None:
+        p, li, ui, tiny = flk.factor(pool, thresh, tp, plan.nb)
+        return p.numpy(), li.numpy(), ui.numpy(), int(tiny)
+    bs, nb = plan.bs, plan.nb
+    li = torch.zeros((nb, bs, bs))
+    ui = torch.zeros_like(li)
+    tiny = torch.zeros(1, dtype=torch.int32)
+    for lvl in range(tp.nlvl):
+        lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
+        flk.flk_update_chunks_plain(pool, li, ui, tp, 2 * lvl)
+        diag_lu.diag_lu(pool, li, ui, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        thresh, tiny)
+        flk.flk_update_chunks_plain(pool, li, ui, tp, 2 * lvl + 1)
+    return pool.numpy(), li.numpy(), ui.numpy(), int(tiny)
 
 
-def check(A, bs, ulps, ilu=None):
+def check(A, bs, ulps, ilu=None, chunk=None):
     A = A.tocsc().astype(np.float32)
     plan = block_symbolic(A, bs, ilu_level=ilu)
     jplan = jsym(A, bs, ilu_level=ilu)
@@ -54,7 +69,7 @@ def check(A, bs, ulps, ilu=None):
     ns, nb = plan.nslots, plan.nb
     p64, li64, ui64, _ = jax_f64_truth(A, jplan)
     pj, lij, uij, tj = jax_flk(A, jplan)
-    pt, lit, uit, tt = port_flk(A, plan)
+    pt, lit, uit, tt = port_flk(A, plan, chunk=chunk)
     assert tt == tj == 0
     for got, truth, jax32, rows in ((pt, p64, pj, ns), (lit, li64, lij, nb),
                                     (uit, ui64, uij, nb)):
@@ -79,6 +94,15 @@ def test_flk_ilu_matches_jax(ilu):
     assert block_symbolic(A.tocsc(), 16, ilu_level=ilu).nslots \
         < block_symbolic(A.tocsc(), 16).nslots
     check(A, 16, 64, ilu=ilu)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_flk_chunked_matches_jax(chunk):
+    """The card's two passes in plain PyTorch on chunks of one and of
+    three products (partial sums in scratch rows, then added in chunk
+    order and finalized), on an ILU(1) plan: the tolerance of
+    test_flk_ilu_matches_jax."""
+    check(laplacian_3d(8), 16, 64, ilu=1, chunk=chunk)
 
 
 @pytest.mark.parametrize("trial", range(5))
@@ -138,3 +162,50 @@ def test_flk_tapes_cover_every_block_once(ilu):
                                plan.g_t.tolist()))
     for src in (h["cl"], h["cu"]):
         assert np.all(lev[owner[src]] < lev[owner[dst]])
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+@pytest.mark.parametrize("ilu", [None, 1])
+def test_flk_chunks_cover_each_chain_once(ilu, chunk):
+    """Each target's chain is cut into chunks (at least one) that cover
+    its products exactly once, in plan order, within its group's chunk
+    range; a target of one chunk finishes in pass 1 (no scratch row), the
+    chunks of a target of several take consecutive scratch rows below its
+    group's ``nrow``, distinct within the group, and the target is a pass
+    2 job of its group with those rows."""
+    A = laplacian_3d(8).tocsc()
+    plan = block_symbolic(A, 16, ilu_level=ilu)
+    tp = flk.build_flk_tapes(plan, "cpu", chunk=chunk)
+    h = tp.host
+    nq = len(h["qtgt"])
+    assert tp.qptr[0] == 0 and tp.qptr[-1] == nq == h["chunkptr"][-1]
+    assert len(h["qcptr"]) == nq + 1
+    multi = 0
+    for g in range(2 * tp.nlvl):
+        rows = set()
+        m = range(tp.mptr[g], tp.mptr[g + 1])
+        for t in range(tp.tptr[g], tp.tptr[g + 1]):
+            q0, q1 = h["chunkptr"][t], h["chunkptr"][t + 1]
+            assert tp.qptr[g] <= q0 < q1 <= tp.qptr[g + 1]
+            assert (h["qtgt"][q0:q1] == t).all()
+            prods = [p for q in range(q0, q1)
+                     for p in range(h["qcptr"][q], h["qcptr"][q + 1])]
+            assert prods == list(range(h["cptr"][t], h["cptr"][t + 1]))
+            if chunk:
+                assert (np.diff(h["qcptr"][q0:q1 + 1]) <= chunk).all()
+            r = h["qrow"][q0:q1]
+            if q1 - q0 == 1:
+                assert r[0] == -1 and t not in h["mtgt"][m.start:m.stop]
+                continue
+            multi += 1
+            assert (np.diff(r) == 1).all() and 0 <= r[0]
+            assert r[-1] < tp.nrow[g] and not rows & set(r.tolist())
+            rows |= set(r.tolist())
+            j = m.start + int(np.flatnonzero(h["mtgt"][m.start:m.stop]
+                                             == t)[0])
+            assert h["mrow"][j] == r[0] and h["mcnt"][j] == q1 - q0
+        assert len(rows) == tp.nrow[g]
+    assert multi == len(h["mtgt"])
+    if chunk == 1:
+        assert multi > 0
+        assert nq == sum(max(1, n) for n in np.diff(h["cptr"]))
