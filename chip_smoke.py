@@ -7,7 +7,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. the card's name and power limit (nvidia-smi), and the native host
    engine (g++), which must load;
 2. build every CUDA kernel (one nvcc per source, in parallel) and print
-   the build seconds and the ptxas resource lines;
+   the build seconds and the ptxas resource lines, each under its
+   function's name; every instantiation of ``schur`` must spill no
+   registers;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
@@ -33,8 +35,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    then flk, schur and trsm against their plain versions level by level
    on their paths' inputs (flk's costliest target groups with their
    chunks, pass-2 targets and band width, and its critical path before
-   and after the cut),
-   and each whole factor against ``factor_plain`` on its plan; then
+   and after the cut; schur's costliest levels with their bands and
+   share of the CUDA cores' peak), and each whole factor against ``factor_plain`` on its plan; then
    ``executor="tck"`` on the same matrix (tck_update, diag_lu, clk_trsm),
    driven the same way, with tck_update's two phases (A: the U blocks in
    waves; B: the tiles) against their plain versions level by level,
@@ -79,7 +81,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (SamePattern_SameRowPerm refactors), each held to the same limits,
    with clk_update's costliest levels, clk_trsm, diag_lu, flk (its
    groups as on lap3d32), and the level executor's trsm and schur
-   against their plain versions on lap3d50's inputs;
+   against their plain versions on lap3d50's inputs (their launches and
+   levels as on lap3d32);
 9. float64 on the card, which runs the level executor:
    ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
    ``condition_number`` on lap3d32u, each held to the same limits; every
@@ -126,6 +129,9 @@ import numpy as np
 #: cores' 34
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
+#: the CUDA cores' rate for each type (the same data sheet), on which the
+#: kernels run their FMAs: the share that schur's levels reach
+CORE_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: kernel against plain version: max |difference| <= REL_TOL * max(1,
 #: max |plain output|). Both compute in float32 from the same input but
 #: sum in other orders (128-long dot products, a 128-step elimination
@@ -209,6 +215,7 @@ def main() -> None:
     for k in (diag_lu.KERNEL, clk.UPDATE, flk.KERNEL, schur.SCHUR,
               solve_gemm.SOLVE_GEMM, tck.UPDATE, rdma.RDMA_FACTOR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
+    check_spills(_build.ptxas_report(schur.SCHUR), "schur_kernel")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
                tck=tck, rdma=rdma, kernels=kernels, entry_launches={})
@@ -346,6 +353,23 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def check_spills(report, name):
+    """Fail unless ptxas lists functions named ``name`` in ``report`` and
+    none of them spills registers."""
+    fn, seen = None, 0
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1]
+        elif "spill stores" in line and fn is not None and name in fn:
+            seen += 1
+            if ", 0 bytes spill stores, 0 bytes spill loads" not in line:
+                fail(f"{name} spills: {fn.strip()}: {line.strip()}")
+    if not seen:
+        fail(f"ptxas lists no {name}")
+    print(f"ptxas: {seen} instantiations of {name}, none spills",
+          flush=True)
 
 
 def drive(ctx, what, A, b, opts, need, zero=(), lu=None, grid=None):
@@ -790,7 +814,7 @@ def check_level(lu, ctx, report, full=False):
             lambda p: schur.schur_plain(p, tp, lvl), [pool])
         per_level.append((ms, lvl))
     if report:
-        print_schur_levels(tp, per_level)
+        print_schur_levels(tp, per_level, plan.bs, lu.dtype)
         print_panel_levels("trsm", per_panel)
         if full:
             print_panel_levels("diag_lu", per_diag, "tiles", small=5)
@@ -1260,7 +1284,7 @@ def tck_phase(ctx, rng, checks, launches):
                   f" ms ({o['bound_by']}); {got['flk']} launches on its "
                   f"path", flush=True)
         if exc == "pallas":
-            c = check_level(lu, ctx, report=False)
+            c = check_level(lu, ctx, report=True)
             for name in ("trsm", "schur"):
                 print_check(f"lap3d50 {name}", c[name], got[name])
 
@@ -1705,19 +1729,35 @@ def print_panel_levels(name, per_launch, unit="panels", small=66, top=6):
         print(f"  {what}: kernel {ms:.3f} ms; {n} {unit}", flush=True)
 
 
-def print_schur_levels(tp, per_level, top=6):
+def print_schur_levels(tp, per_level, bs, dtype, top=6):
     """Where schur's time goes: the costliest levels, with their targets,
-    products and longest per-target chain."""
+    products, longest per-target chain, the band width that
+    ``csrc/chain.cuh`` takes (``flk.band_width``: 4x4 tiles in bands of
+    16, else 4x8) and the share of the CUDA cores' peak for the type
+    (CORE_FLOPS) that 2·bs³ per product reaches."""
+    import torch
+
+    from superlu_dist_tpu_torch.ops.kernels import flk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    name = np.dtype(dtype).name
     h = tp.host
+
+    def share(nprod, ms):
+        return 100 * 2.0 * bs ** 3 * nprod / max(ms * 1e-3, 1e-12) \
+            / CORE_FLOPS[name]
+
     total = sum(ms for ms, _ in per_level)
-    print(f"schur by level (kernel {total:.3f} ms over {tp.nlvl} levels; "
-          f"top {top}):")
+    print(f"schur by level (kernel {total:.3f} ms over {tp.nlvl} levels, "
+          f"{share(len(h['cl']), total):.1f}% of the {name} CUDA cores' "
+          f"peak; top {top}):")
     for ms, lvl in sorted(per_level, reverse=True)[:top]:
         lo, hi = tp.sptr[lvl], tp.sptr[lvl + 1]
         chain = np.diff(h["cptr"][lo:hi + 1])
         print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {hi - lo} targets, "
               f"{int(chain.sum())} L·U products, longest chain "
-              f"{int(chain.max(initial=0))}", flush=True)
+              f"{int(chain.max(initial=0))}; "
+              f"bands of {flk.band_width(bs, int(hi - lo), sms)}, "
+              f"{share(int(chain.sum()), ms):.1f}% of peak", flush=True)
 
 
 def _bound(flops, nbytes, per, dtype=np.float32):

@@ -143,14 +143,23 @@ def build_all(kernels) -> float:
 
 
 def ptxas_report(kernel: CudaKernel) -> str:
-    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of the
-    last build of ``kernel``."""
+    """The ``-Xptxas -v`` lines (each function's name, then its registers,
+    shared memory and spills) of the last build of ``kernel``, the names
+    demangled where ``c++filt`` is found."""
     log = kernel.so_path() + ".log"
     if not os.path.exists(log):
         return ""
     with open(log) as f:
-        return "".join(line for line in f
-                       if "registers" in line or "spill" in line)
+        text = "".join(line for line in f
+                       if "Function properties for" in line
+                       or "registers" in line or "spill" in line)
+    filt = shutil.which("c++filt")
+    if filt and text:
+        done = subprocess.run([filt], input=text, capture_output=True,
+                              text=True)
+        if done.returncode == 0:
+            text = done.stdout
+    return text
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -1,5 +1,7 @@
-// chain.cuh: the staged chain product, shared by flk.cu (`flk`) and
-// rdma.cu (`rdma_schur`, and the launch geometry of `rdma_panel`).
+// chain.cuh: the staged chain product, shared by flk.cu (`flk`),
+// schur.cu (`schur`, in float and double) and rdma.cu (`rdma_schur`, and
+// the launch geometry of `rdma_panel`); schur_band is the Schur update's
+// body that `schur` and `rdma_schur` share.
 //
 // What it computes, for one target block T (bs x bs) and its list of
 // products p < np, each A_p . B_p of two bs x bs blocks:
@@ -38,6 +40,18 @@
 // takes the whole block. A shared-memory budget of two CTAs per SM fixes
 // ST: 3 stages for bands of 64 with a finalize, 4 otherwise.
 //
+// double (schur.cu's float64 `schur`): the same bands and tiles, but a 4
+// x 8 tile of doubles holds acc and prod in 128 registers, and with the
+// chunk's k loop unrolled whole ptxas needs more than 255 a thread and
+// spills (8 bytes at every block size; unrolled by 2 or 4 steps, 12 and
+// 44 bytes). Rolled (UK = 1) it takes 248 registers and spills none, so
+// double takes that. On an H100 80GB HBM3 at 700 W (lap3d32, float64,
+// tools/schur_ab.py) it ran 9.54-9.57 ms per factor against 8.79-8.82
+// unrolled (with the spill) and 9.82-9.91 for 4 x 4 tiles in bands of 16
+// everywhere; 4 x 4 tiles in bands of 32 took 10.60 and in bands of 64
+// (512 threads, at most 128 registers) spilled 56 bytes. Two CTAs fit an
+// SM's shared memory, one its registers.
+//
 // Offsets are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
 
 #pragma once
@@ -61,12 +75,15 @@ constexpr int FIN_U = 3;
 
 // The geometry of one launch: bands of BM whole columns (Band<true>) or
 // rows (Band<false>) of a BS x BS block, a 4 x TN tile per thread, a ring
-// of ST stages sized for either orientation, and (FIN) room for the band
-// as the finalize's operand.
-template <typename T, int BS_, int BM_, int TN, int ST, bool FIN>
+// of ST stages sized for either orientation, (FIN) room for the band as
+// the finalize's operand, and the unroll of a chunk's k loop (UK_ steps
+// of W; 0 unrolls it whole).
+template <typename T, int BS_, int BM_, int TN, int ST, bool FIN,
+          int UK_ = 0>
 struct Chain {
   template <bool LEFT>
   using Band = Panel<T, BS_, LEFT, BM_, TN>;
+  static constexpr int UK = UK_ > 0 ? UK_ : Band<true>::KC / Band<true>::W;
   static constexpr int BS = BS_;
   static constexpr int BM = BM_;
   static constexpr int BANDS = BS / BM;
@@ -140,13 +157,15 @@ __device__ __forceinline__ void chain_band(
     const int p = c / NK;
     const T* st = smem + (c % ST) * G::kStage;
     if (p < np) {
-      mul_chunk<P, P::LDA, P::N>(st, st + P::kA, g, c0, prod);
+      mul_chunk<P, P::LDA, P::N, G::UK>(st, st + P::kA, g, c0, prod);
     } else if constexpr (G::HAS_FIN) {
       const int k0 = (c % NK) * KC;
       if (LEFT)
-        mul_chunk<P, P::LDA, P::N>(st, fin + k0 * P::N, g, c0, prod);
+        mul_chunk<P, P::LDA, P::N, G::UK>(st, fin + k0 * P::N, g, c0,
+                                          prod);
       else
-        mul_chunk<P, G::LDF, P::N>(fin + k0, st + P::kA, g, c0, prod);
+        mul_chunk<P, G::LDF, P::N, G::UK>(fin + k0, st + P::kA, g, c0,
+                                          prod);
     }
     if (c % NK == NK - 1) {   // product p (or the finalize) is complete
 #pragma unroll
@@ -159,6 +178,40 @@ __device__ __forceinline__ void chain_band(
       if (has_fin && p == np - 1) put_fin();   // read after the next barrier
     }
   }
+}
+
+// The Schur update of one (target, band of BM whole columns), the body of
+// schur.cu's `schur` and rdma.cu's `rdma_schur`:
+//   X <- X - sum over p in [p0, p1) of Lb[cl[p]] . Ub[cu[p]]
+// in list order, with X the target block and Lb / Ub arrays of bs x bs
+// blocks (the pool itself, or a rank's broadcast buffers). The band is
+// blockIdx.y; it is loaded once and stored once. No target is a source of
+// the same launch, so X may lie in the array that Lb and Ub point into.
+template <class G, typename T>
+__device__ __forceinline__ void schur_band(T* X, const T* Lb, const T* Ub,
+                                           const int32_t* __restrict__ cl,
+                                           const int32_t* __restrict__ cu,
+                                           int p0, int p1) {
+  using P = typename G::template Band<true>;
+  extern __shared__ float4 smem4[];
+  const int g = threadIdx.x / P::CT;
+  const int c0 = (threadIdx.x % P::CT) * P::W;
+  constexpr int64_t bb = (int64_t)G::BS * G::BS;
+  const int64_t off = (int64_t)blockIdx.y * G::BM;
+  X += off;
+  Ub += off;
+  cl += p0;
+  cu += p0;
+  T acc[4][P::TW];
+  load_tile<P, G::BS>(X, g, c0, acc);
+  chain_band<G, true>(
+      reinterpret_cast<T*>(smem4), p1 - p0, static_cast<const T*>(nullptr),
+      [&](int p, const T*& Ag, const T*& Bg) {
+        Ag = Lb + cl[p] * bb;
+        Bg = Ub + cu[p] * bb;
+      },
+      g, c0, acc);
+  store_tile<P, G::BS>(X, g, c0, acc);
 }
 
 // Launch `kernel` over count x G::BANDS CTAs of G::NT threads with
@@ -176,7 +229,9 @@ int launch(void (*kernel)(KArgs...), int count, cudaStream_t stream,
 
 // go(Chain<...>{}) for the geometry of a launch of `count` targets at
 // block size bs: `wide` < 0 chooses by the rule at the top of this file,
-// 0 forces bands of 16, 1 bands of 64 (bs = 32: the whole block always).
+// 0 forces bands of 16, 1 bands of 64 (bs = 32: the whole block always);
+// double's 4 x 8 tile keeps its chunk's k loop rolled (the top of this
+// file says why).
 template <typename T, bool FIN, typename Go>
 int by_geometry(int bs, int count, int wide, Go go) {
   constexpr int STW = FIN ? 3 : 4;   // stages for bands of 64
@@ -184,14 +239,15 @@ int by_geometry(int bs, int count, int wide, Go go) {
     return wide < 0 ? (int64_t)count * (b / 64) < slu_panel::sm_count()
                     : wide == 0;
   };
+  constexpr int UK = sizeof(T) == 8 ? 1 : 0;   // double's 4 x 8 tile
   switch (bs) {
-    case 32: return go(Chain<T, 32, 32, 8, 4, FIN>{});
+    case 32: return go(Chain<T, 32, 32, 8, 4, FIN, UK>{});
     case 64:
       return narrow(64) ? go(Chain<T, 64, 16, 4, 4, FIN>{})
-                        : go(Chain<T, 64, 64, 8, STW, FIN>{});
+                        : go(Chain<T, 64, 64, 8, STW, FIN, UK>{});
     case 128:
       return narrow(128) ? go(Chain<T, 128, 16, 4, 4, FIN>{})
-                         : go(Chain<T, 128, 64, 8, STW, FIN>{});
+                         : go(Chain<T, 128, 64, 8, STW, FIN, UK>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

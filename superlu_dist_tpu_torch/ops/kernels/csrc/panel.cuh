@@ -19,7 +19,7 @@
 // landed for every thread (the last wait and barrier of the loop). No
 // other CTA reads or writes those rows (columns), a slot appears once in a
 // launch, and the inverses are another array. This is the hazard that
-// makes strip.cuh's FIN_L strips whole rows.
+// makes chain.cuh's FIN_L bands whole rows.
 //
 // Design. The product is out = A . B with A = the band, B = D (LEFT =
 // false) or A = D, B = the band (LEFT = true). Both stream through shared
@@ -158,13 +158,14 @@ __device__ __forceinline__ void stage_chunk(T* st, const T* Ag, const T* Bg,
 
 // acc += A . B over one chunk of KC: this thread's rows g + i * RS of A
 // (row r at A + r * LDA_) and its columns c0 + j * CS .. of B (row k at
-// B + k * LDB_), each output summing its k in ascending order.
-template <class P, int LDA_, int LDB_, typename T>
+// B + k * LDB_), each output summing its k in ascending order; the k loop
+// unrolled by UK steps of W (whole by default).
+template <class P, int LDA_, int LDB_, int UK = P::KC / P::W, typename T>
 __device__ __forceinline__ void mul_chunk(const T* A, const T* B, int g,
                                           int c0, T (&acc)[4][P::TW]) {
   using V = Vec16<T>;
   constexpr int W = P::W, TN = P::TW;
-#pragma unroll
+#pragma unroll (UK)
   for (int kk = 0; kk < P::KC; kk += W) {
     T a[4][W];
 #pragma unroll

@@ -52,18 +52,19 @@
 // pool and once into each peer's broadcast buffer. Phase C groups a
 // level's products by target (host sort, tape order kept within a
 // target): one CTA per (target, band of whole columns) runs chain.cuh's
-// staged chain product from the rank's lB / uB and stores once; a target
-// belongs to one rank, so ranks never race and no atomics touch the
-// blocks. Both take chain.cuh's geometry: bands of 64 when the launch
-// fills the card, else of 16. The solve runs solve_gemm.cu's two passes (rows.cuh): the host
-// cuts each (rank, position) chain into chunks in tape order
-// (sweep.py::chunk_chains, sized per level to fill the card), pass 1 runs
-// one CTA per (chunk, tile of kRT right-hand sides) through rows.cuh's
-// chunk_sum, and pass 2 one CTA per (rank, position, tile) that sums the
-// position's chunks in chunk order and puts the partial once, so the
-// receive counts stay those of the TPU. The owner's CTA of pass 3 adds its
-// partial and then the peers' slots in column order, so a result repeats
-// bit for bit. float32 only, as the TPU kernels are.
+// schur_band (the body of schur.cu's `schur`) from the rank's lB / uB and
+// stores once; a target belongs to one rank, so ranks never race and no
+// atomics touch the blocks. Both take chain.cuh's geometry: bands of 64
+// when the launch fills the card, else of 16. The solve runs
+// solve_gemm.cu's two passes (rows.cuh): the host cuts each (rank,
+// position) chain into chunks in tape order (sweep.py::chunk_chains,
+// sized per level to fill the card), pass 1 runs one CTA per (chunk,
+// tile of kRT right-hand sides) through rows.cuh's chunk_sum, and pass 2
+// one CTA per (rank, position, tile) that sums the position's chunks in
+// chunk order and puts the partial once, so the receive counts stay
+// those of the TPU. The owner's CTA of pass 3 adds its partial and then
+// the peers' slots in column order, so a result repeats bit for bit.
+// float32 only, as the TPU kernels are.
 
 #include "chain.cuh"
 #include "rows.cuh"
@@ -199,8 +200,8 @@ rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
 }
 
 // ---- C: owned Schur products, grouped by target ---------------------------
-// One CTA per (target, band of whole columns): chain.cuh's chain product
-// from the rank's broadcast buffers lB / uB into its pool.
+// One CTA per (target, band of whole columns): chain.cuh's Schur band from
+// the rank's broadcast buffers lB / uB into its pool.
 template <class G>
 __global__ void __launch_bounds__(G::NT)
 rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
@@ -209,29 +210,12 @@ rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
                   const int32_t* __restrict__ cptr,
                   const int32_t* __restrict__ cl,
                   const int32_t* __restrict__ cu) {
-  using P = typename G::template Band<true>;
-  extern __shared__ float4 smem4[];
   const int t = blockIdx.x;
   const int d = rank[t];
-  const int g = threadIdx.x / P::CT;
-  const int c0 = (threadIdx.x % P::CT) * P::W;
-  const int64_t bb = (int64_t)G::BS * G::BS;
-  const int64_t off = (int64_t)blockIdx.y * G::BM;
-  float* X = buf<float>(tab, F_POOL, ndev, d) + tloc[t] * bb + off;
-  const float* lB = buf<float>(tab, F_LB, ndev, d);
-  const float* uB = buf<float>(tab, F_UB, ndev, d);
-  const int p0 = cptr[t];
-  float acc[4][P::TW];
-  slu_panel::load_tile<P, G::BS>(X, g, c0, acc);
-  slu_chain::chain_band<G, true>(
-      reinterpret_cast<float*>(smem4), cptr[t + 1] - p0,
-      static_cast<const float*>(nullptr),
-      [&](int p, const float*& Ag, const float*& Bg) {
-        Ag = lB + (int64_t)cl[p0 + p] * bb;
-        Bg = uB + (int64_t)cu[p0 + p] * bb + off;
-      },
-      g, c0, acc);
-  slu_panel::store_tile<P, G::BS>(X, g, c0, acc);
+  slu_chain::schur_band<G>(
+      buf<float>(tab, F_POOL, ndev, d) + tloc[t] * ((int64_t)G::BS * G::BS),
+      buf<float>(tab, F_LB, ndev, d), buf<float>(tab, F_UB, ndev, d), cl,
+      cu, cptr[t], cptr[t + 1]);
 }
 
 // ---- solve pass 1: one chunk of a rank's chain into its scratch row ------

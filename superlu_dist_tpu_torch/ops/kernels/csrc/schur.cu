@@ -17,64 +17,75 @@
 // windows) off one target; the single-buffered form still lost
 // contributions on shared root targets (pallas_exec.py:407-412). Here the
 // level's triples are grouped by target (a CSR over targets): one CTA owns
-// one strip of one target and sums its products in the plan's order, with
+// one band of one target and sums its products in the plan's order, with
 // no atomics, so a target shared by many steps of the level cannot lose a
-// contribution. A level's targets belong to ancestor steps, so no target
-// is an L or U source of the same level.
+// contribution and a factor repeats bit for bit. A level's targets belong
+// to ancestor steps, so no target is an L or U source of the same level.
 //
 // What bounds them on an H100: operations, 2*bs^3 per block product or
 // panel (FP32 on the CUDA cores, 67 TFLOP/s peak; FP64, which float64
 // factors run, 67 TFLOP/s on the tensor cores, of which these kernels
 // reach at most the CUDA cores' 34).
 //
-// Design: `schur` is strip.cuh's strip update, one CTA of bs threads per
-// (target, strip of 16 scalar columns). `trsm` is panel.cuh's band-times-
-// inverse kernel (shared with clk.cu's clk_trsm): one CTA per (panel, band
-// of whole rows or columns), the band and the inverse staged in shared
+// Design: `schur` is chain.cuh's Schur band (schur_band, shared with
+// rdma.cu's rdma_schur): one CTA per (target, band of whole columns), both
+// operands of each product streamed through one cp.async ring that runs
+// across product boundaries, the band in registers, loaded and stored
+// once, in chain.cuh's geometry (by_geometry; `wide` forces it). A level's
+// chains are short (at most 17 products on lap3d32, 27 on lap3d50), so
+// they are not cut into chunks. `trsm` is panel.cuh's band-times-inverse
+// kernel (shared with clk.cu's clk_trsm): one CTA per (panel, band of
+// whole rows or columns), the band and the inverse staged in shared
 // memory by cp.async. Both are templates on the element type; the _f32
 // and _f64 entries launch the float and double instantiations.
 
-#include "panel.cuh"
-#include "strip.cuh"
+#include "chain.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(slu_strip::kMaxBs)
+template <class G, typename T>
+__global__ void __launch_bounds__(G::NT)
 schur_kernel(T* pool, const int32_t* __restrict__ tslot,
              const int32_t* __restrict__ cptr,
-             const int32_t* __restrict__ cl, const int32_t* __restrict__ cu,
-             int bs) {
+             const int32_t* __restrict__ cl,
+             const int32_t* __restrict__ cu) {
   const int t = blockIdx.x;
-  slu_strip::strip_update<T>(pool, nullptr, nullptr, tslot[t], 0,
-                             slu_strip::FIN_NONE, cl, cu, cptr[t],
-                             cptr[t + 1], bs, blockIdx.y);
+  slu_chain::schur_band<G>(pool + tslot[t] * ((int64_t)G::BS * G::BS), pool,
+                           pool, cl, cu, cptr[t], cptr[t + 1]);
 }
 
+// The Schur update of `count` targets (the level's slice of tslot and
+// cptr; cl, cu whole). `wide` < 0 chooses the band geometry by chain.cuh's
+// rule, 0 / 1 force bands of 16 / 64. Returns the cudaError_t of the
+// launch.
 template <typename T>
 int launch_schur(void* pool, const void* tslot, const void* cptr,
-                 const void* cl, const void* cu, int count, int bs,
+                 const void* cl, const void* cu, int count, int bs, int wide,
                  void* stream) {
   if (count == 0) return 0;
-  const dim3 grid(count, bs / slu_strip::kStrip);
-  schur_kernel<T><<<grid, bs, 0, (cudaStream_t)stream>>>(
-      (T*)pool, (const int32_t*)tslot, (const int32_t*)cptr,
-      (const int32_t*)cl, (const int32_t*)cu, bs);
-  return (int)cudaGetLastError();
+  return slu_chain::by_geometry<T, false>(bs, count, wide, [&](auto geo) {
+    using G = decltype(geo);
+    return slu_chain::launch<G>(
+        schur_kernel<G, T>, count, (cudaStream_t)stream, (T*)pool,
+        (const int32_t*)tslot, (const int32_t*)cptr, (const int32_t*)cl,
+        (const int32_t*)cu);
+  });
 }
 
 }  // namespace
 
 extern "C" int slu_schur_f32(void* pool, const void* tslot, const void* cptr,
                              const void* cl, const void* cu, int count,
-                             int bs, void* stream) {
-  return launch_schur<float>(pool, tslot, cptr, cl, cu, count, bs, stream);
+                             int bs, int wide, void* stream) {
+  return launch_schur<float>(pool, tslot, cptr, cl, cu, count, bs, wide,
+                             stream);
 }
 
 extern "C" int slu_schur_f64(void* pool, const void* tslot, const void* cptr,
                              const void* cl, const void* cu, int count,
-                             int bs, void* stream) {
-  return launch_schur<double>(pool, tslot, cptr, cl, cu, count, bs, stream);
+                             int bs, int wide, void* stream) {
+  return launch_schur<double>(pool, tslot, cptr, cl, cu, count, bs, wide,
+                              stream);
 }
 
 extern "C" int slu_trsm_f32(void* pool, const void* dinv, const void* slots,

@@ -48,7 +48,7 @@
 
 namespace {
 
-using slu_strip::Vec4;
+using slu_panel::Vec16;
 using slu_waves::KC;
 using slu_waves::Ring;
 
@@ -95,8 +95,8 @@ tck_tile_kernel(float* __restrict__ pool,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float v[4];
-      Vec4<float>::ld(T0 + p * bb + (int64_t)(g + i * RS) * BS + c0, v);
-      Vec4<float>::st(tile + (p * BS + g + i * RS) * TNB + c0, v);
+      Vec16<float>::ld(T0 + p * bb + (int64_t)(g + i * RS) * BS + c0, v);
+      Vec16<float>::st(tile + (p * BS + g + i * RS) * TNB + c0, v);
     }
 
   auto load = [&](int c) {
@@ -123,13 +123,13 @@ tck_tile_kernel(float* __restrict__ pool,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float v[4];
-        Vec4<float>::ld(T + (g + i * RS) * TNB + c0, v);
+        Vec16<float>::ld(T + (g + i * RS) * TNB + c0, v);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           v[j] -= prod[i][j];
           prod[i][j] = 0.f;
         }
-        Vec4<float>::st(T + (g + i * RS) * TNB + c0, v);
+        Vec16<float>::st(T + (g + i * RS) * TNB + c0, v);
       }
     }
   }
@@ -137,8 +137,8 @@ tck_tile_kernel(float* __restrict__ pool,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float v[4];
-      Vec4<float>::ld(tile + (p * BS + g + i * RS) * TNB + c0, v);
-      Vec4<float>::st(T0 + p * bb + (int64_t)(g + i * RS) * BS + c0, v);
+      Vec16<float>::ld(tile + (p * BS + g + i * RS) * TNB + c0, v);
+      Vec16<float>::st(T0 + p * bb + (int64_t)(g + i * RS) * BS + c0, v);
     }
 }
 

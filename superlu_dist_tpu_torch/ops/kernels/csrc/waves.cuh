@@ -30,15 +30,14 @@
 
 #pragma once
 
-#include "panel.cuh"
-#include "strip.cuh"
+#include "chain.cuh"
 
 namespace slu_waves {
 
 using slu_panel::cp_async16;
 using slu_panel::cp_async_commit;
 using slu_panel::cp_async_wait;
-using slu_strip::Vec4;
+using slu_panel::Vec16;
 
 constexpr int KC = 32;                  // k per staged chunk
 constexpr int LD = KC + 4;              // padded row of a staged L chunk
@@ -88,11 +87,11 @@ __device__ __forceinline__ void mul_chunk(const float* Ls, const float* Bs,
     float a[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      Vec4<float>::ld(Ls + (g + i * RS) * LD + kk, a[i]);
+      Vec16<float>::ld(Ls + (g + i * RS) * LD + kk, a[i]);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float b[4];
-      Vec4<float>::ld(Bs + (kk + u) * TN + c0, b);
+      Vec16<float>::ld(Bs + (kk + u) * TN + c0, b);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -130,7 +129,7 @@ wave_kernel(float* __restrict__ pool, const float* __restrict__ linv,
   const int64_t bb = (int64_t)BS * BS;
   const int p0 = pptr[t];
   const int np = pptr[t + 1] - p0;
-  const bool fin = tfin[t] == slu_strip::FIN_U;
+  const bool fin = tfin[t] == slu_chain::FIN_U;
   const float* Linv = linv + (int64_t)tstep[t] * bb;
   const int nchunks = (np + (fin ? 1 : 0)) * NK;
   float* T = pool + (int64_t)tslot[t] * bb + s0;
@@ -138,11 +137,11 @@ wave_kernel(float* __restrict__ pool, const float* __restrict__ linv,
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    Vec4<float>::ld(T + (int64_t)(g + i * RS) * BS + c0, acc[i]);
+    Vec16<float>::ld(T + (int64_t)(g + i * RS) * BS + c0, acc[i]);
   if (np == 0) {   // a finalize alone: its operand is the stored strip
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      Vec4<float>::st(fstrip + (g + i * RS) * TN + c0, acc[i]);
+      Vec16<float>::st(fstrip + (g + i * RS) * TN + c0, acc[i]);
   }
 
   // stage chunk c: columns k0.. of product p's L block (of linv(i) for the
@@ -182,13 +181,13 @@ wave_kernel(float* __restrict__ pool, const float* __restrict__ linv,
       if (fin && p == np - 1) {   // read after the next barrier
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          Vec4<float>::st(fstrip + (g + i * RS) * TN + c0, acc[i]);
+          Vec16<float>::st(fstrip + (g + i * RS) * TN + c0, acc[i]);
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    Vec4<float>::st(T + (int64_t)(g + i * RS) * BS + c0, acc[i]);
+    Vec16<float>::st(T + (int64_t)(g + i * RS) * BS + c0, acc[i]);
 }
 
 template <int BS, int TN>

@@ -14,12 +14,13 @@ Per elimination level, on one stream:
    ``clk.clk_trsm``, run the band-times-inverse kernel of
    ``csrc/panel.cuh``: one CTA per band of whole rows, or columns, of a
    panel, the band and the inverse staged in shared memory);
-4. ``schur`` (``csrc/schur.cu``): T −= L·U over the level's Schur
-   triples, grouped by target.
+4. ``schur`` (``csrc/schur.cu`` on ``csrc/chain.cuh``'s staged chain
+   product): T −= L·U over the level's Schur triples, grouped by target.
 
 The TPU's window scheduling and bucket padding (pallas_exec.py:191-342)
 keep two DMA lanes off one target on its sequential grid; here each
-target's triples form one CSR row that one CTA sums in order.
+target's triples form one CSR row that one CTA per band of the target
+sums in order.
 ``blocklu.factor_plain`` is the same composition in plain PyTorch (and
 the independent float64 reference); :func:`schur_plain` and
 :func:`trsm_plain` are its per-phase pieces.
@@ -41,7 +42,7 @@ from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, diag_lu, entry
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 SCHUR = CudaKernel("schur", "schur.cu", {
-    f"slu_schur_{s}": [_V] * 5 + [_I, _I, _V] for s in ("f32", "f64")})
+    f"slu_schur_{s}": [_V] * 5 + [_I, _I, _I, _V] for s in ("f32", "f64")})
 TRSM = CudaKernel("trsm", "schur.cu", {
     f"slu_trsm_{s}": [_V] * 4 + [_I, _I, _I, _V] for s in ("f32", "f64")})
 
@@ -145,8 +146,11 @@ def schur_plain(pool, tp: LevelTapes, level: int) -> None:
     subtract_products(pool, h["cl"][c0:c1], h["cu"][c0:c1], dst)
 
 
-def schur(pool, tp: LevelTapes, level: int) -> None:
-    """T −= Σ L·U over the Schur triples of ``level`` (in place)."""
+def schur(pool, tp: LevelTapes, level: int, wide: int = -1) -> None:
+    """T −= Σ L·U over the Schur triples of ``level`` (in place), one CTA
+    per (target, band of whole columns). ``wide`` < 0 lets the kernel
+    choose its bands (``csrc/chain.cuh``, ``flk.band_width``), 0 / 1
+    force bands of 16 / 64."""
     if pool.device.type == "cpu":
         return schur_plain(pool, tp, level)
     _check_cuda(pool)
@@ -156,7 +160,7 @@ def schur(pool, tp: LevelTapes, level: int) -> None:
     SCHUR.launches += 1
     SCHUR.call(entry("schur", pool), ptr(pool), ptr(tp.tslot[lo:hi]),
                ptr(tp.cptr[lo:hi + 1]), ptr(tp.cl), ptr(tp.cu), hi - lo,
-               pool.shape[-1], stream_ptr(pool.device))
+               pool.shape[-1], wide, stream_ptr(pool.device))
 
 
 def _check_cuda(pool, *invs):

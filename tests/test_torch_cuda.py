@@ -8,6 +8,7 @@ Without a CUDA device every test here skips."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import superlu_dist_tpu_torch as T
@@ -189,6 +190,21 @@ def _level_plain(pool, thresh, tp, nb):
     return pool, linv, uinv, tiny
 
 
+def _level_kernel(pool, thresh, tp, nb, wide):
+    """``schur.factor`` with schur's band geometry forced by ``wide``."""
+    linv, uinv, tiny = _zero_inverses(pool, nb)
+    for level in range(tp.nlvl):
+        d = slice(int(tp.dptr[level]), int(tp.dptr[level + 1]))
+        lp = slice(int(tp.lptr[level]), int(tp.lptr[level + 1]))
+        up = slice(int(tp.uptr[level]), int(tp.uptr[level + 1]))
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[d], tp.dstep[d], thresh,
+                        tiny)
+        schur.trsm(pool, uinv, tp.lslot[lp], tp.lstep[lp], left=False)
+        schur.trsm(pool, linv, tp.uslot[up], tp.ustep[up], left=True)
+        schur.schur(pool, tp, level, wide)
+    return pool, linv, uinv, tiny
+
+
 def _flk_kernel(pool, thresh, tp, nb, wide):
     """``flk.factor`` with the band geometry forced by ``wide``."""
     bs = pool.shape[-1]
@@ -354,9 +370,65 @@ def test_clk_trsm_matches_plain(cuda, bs):
         <= ULPS * np.finfo(np.float32).eps * scale
 
 
+def _adversarial(seed, n=1280):
+    """tests/test_torch_schur.py's random pattern, with many duplicate
+    Schur targets per level."""
+    rng = np.random.default_rng(seed)
+    M = sp.random(n, n, density=0.01, random_state=rng.integers(1 << 30),
+                  format="csc")
+    return sp.csc_matrix(M + M.T + sp.eye(n) * (3.0 * n))
+
+
+@pytest.mark.parametrize("wide", [-1, 0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_schur_matches_plain(cuda, bs, dtype, wide):
+    """``schur`` against ``schur_plain`` level by level, both on the same
+    input (the factor goes on through the plain phases), on lap3d12's
+    level plan and on a random pattern with many duplicate targets per
+    level, with the bands the kernel chooses (``wide`` -1), bands of 16
+    (0) and of 64 (1); 64 ulp of the working type (ULPS) of the output's
+    magnitude, as the plain version sums each product in another order.
+    Before that, two level factors of one pool in those bands are
+    bit-equal: every target sums its products in the tapes' order, with
+    no atomics."""
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    eps = np.finfo(npd).eps
+    for A in (tt.laplacian_3d(12).tocsc(), _adversarial(11)):
+        _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+            dtype=np.dtype(npd).name, block_size=bs, executor="pallas"),
+            device=cuda)
+        plan, tp = lu.plan, lu._ftapes
+        assert np.diff(tp.host["cptr"]).max() > 1   # chains, not lone products
+        pool = blocklu.init_pool(plan, lu._a3_data, npd, cuda)
+        f1, f2 = (_level_kernel(pool.clone(), lu._thresh(), tp, plan.nb,
+                                wide) for _ in range(2))
+        for x, y in zip(f1, f2):
+            assert torch.equal(x, y)
+        linv, uinv, tiny = _zero_inverses(pool, plan.nb)
+        for level in range(tp.nlvl):
+            d = slice(int(tp.dptr[level]), int(tp.dptr[level + 1]))
+            lp = slice(int(tp.lptr[level]), int(tp.lptr[level + 1]))
+            up = slice(int(tp.uptr[level]), int(tp.uptr[level + 1]))
+            diag_lu.diag_lu_plain(pool, linv, uinv, tp.dslot[d].long(),
+                                  tp.dstep[d].long(), lu._thresh(), tiny)
+            schur.trsm_plain(pool, uinv, tp.lslot[lp], tp.lstep[lp], False)
+            schur.trsm_plain(pool, linv, tp.uslot[up], tp.ustep[up], True)
+            got = pool.clone()
+            n0 = schur.SCHUR.launches
+            schur.schur(got, tp, level, wide)
+            schur.schur_plain(pool, tp, level)
+            torch.cuda.synchronize()
+            lo, hi = int(tp.sptr[level]), int(tp.sptr[level + 1])
+            assert schur.SCHUR.launches == n0 + (hi > lo)
+            scale = max(1.0, float(pool.abs().max()))
+            assert float((got - pool).abs().max()) <= ULPS * eps * scale
+
+
 def test_level_executor_arrowhead_matches_plain(cuda):
     """Many steps per level feeding shared ancestor targets, at block size
-    128: each target's strip sums its products in one CTA, so none is
+    128: each band of a target sums its products in one CTA, so none is
     lost."""
     A = tt.laplacian_arrowhead()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
@@ -527,9 +599,9 @@ def _zero_inverses(pool, nb):
 @pytest.mark.parametrize("bs", [32, 64, 128])
 def test_float64_kernels_match_plain(cuda, bs):
     """Every float64 instantiation against its plain version: the level
-    executor's factor (diag_lu, trsm with both flags, schur) through the
-    plain phases, the L+U sweep, and solve_gemm / diag_apply with both
-    flags level by level, at 64 float64 ulp."""
+    executor's factor (diag_lu, trsm with both flags, schur in each band
+    geometry) through the plain phases, the L+U sweep, and solve_gemm /
+    diag_apply with both flags level by level, at 64 float64 ulp."""
     A = tt.laplacian_3d_unsym(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     for k in (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, solve_gemm.SWEEP):
@@ -544,11 +616,14 @@ def test_float64_kernels_match_plain(cuda, bs):
     eps = np.finfo(np.float64).eps
     plan, tp = lu.plan, lu._ftapes
     pool = blocklu.init_pool(plan, lu._a3_data, np.float64, cuda)
-    kern = schur.factor(pool.clone(), lu._thresh(), tp, plan.nb)
     ref = _level_plain(pool.clone(), lu._thresh(), tp, plan.nb)
-    for k, p in zip(kern[:3], ref[:3]):
-        scale = max(1.0, float(p.abs().max()))
-        assert float((k - p).abs().max()) <= ULPS * eps * scale
+    # schur's bands as the kernel chooses them, then of 16 and of 64
+    for kern in [schur.factor(pool.clone(), lu._thresh(), tp, plan.nb)] + [
+            _level_kernel(pool.clone(), lu._thresh(), tp, plan.nb, wide)
+            for wide in (0, 1)]:
+        for k, p in zip(kern[:3], ref[:3]):
+            scale = max(1.0, float(p.abs().max()))
+            assert float((k - p).abs().max()) <= ULPS * eps * scale
     X = torch.randn(plan.nb, plan.bs, 3, device=cuda, dtype=torch.float64)
     Xk = solve_gemm.solve(lu.pool, lu.linv, lu.uinv, lu._ltape, lu._utape,
                           X.clone())
