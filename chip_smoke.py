@@ -8,8 +8,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    engine (g++), which must load;
 2. build every CUDA kernel (one nvcc per source, in parallel) and print
    the build seconds and the ptxas resource lines, each under its
-   function's name; every instantiation of ``schur`` must spill no
-   registers;
+   function's name; every instantiation of ``schur``, and every complex
+   instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm`` and
+   ``diag_apply``, must spill no registers;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
@@ -88,7 +89,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``condition_number`` on lap3d32u, each held to the same limits; every
    float64 kernel (diag_lu, trsm, schur, sweep, solve_gemm, diag_apply)
    against its plain version, each bound taken at the FP64 peak;
-10. the 2D block-cyclic driver with every rank of a 2x2 grid on the card:
+10. complex on the card, which runs the level executor in its complex64
+   and complex128 instantiations: ``gssvx(A, b, Options(dtype=...,
+   block_size=128))`` on ``helmholtz_3d(32)`` (lap3d32's plan) with a
+   complex b, driven like the main path (diag_lu, trsm, schur and sweep
+   must launch in their ``_c64``/``_c128`` entries only, no fused kernel
+   may), a warm call bit-equal to the first with equal refinement steps,
+   every kernel against its plain version level by level (tolerance
+   REL_TOL for complex64, REL_TOL_F64 for complex128, on the modulus) and
+   the whole factor against ``factor_plain`` in complex128, bounds at 8
+   real flops a complex multiply-add; then TRANS and CONJ with
+   ``condition_number`` on a complex unsymmetric matrix of the same
+   pattern (lap3d32u shifted as helmholtz_3d, off-diagonals times seeded
+   unit phases), held in Aᵀ and Aᴴ, rcond in (0, 1], two transposed
+   solves of one b bit-equal, solve_gemm and diag_apply against their
+   plain versions (BSR ``addmm`` as solve_gemm's library call where torch
+   serves it in that dtype); and at block size 64 on ``helmholtz_3d(16)``
+   x against scipy's complex ``spsolve``, ``logdet`` (phase and
+   log-modulus) against ``numpy.linalg.slogdet`` and a ``save_factors`` /
+   ``load_factors`` round trip;
+11. the 2D block-cyclic driver with every rank of a 2x2 grid on the card:
    ``gssvx_dist(A, b, Grid2D(2, 2), Options(dtype="float32",
    block_size=128, dist_executor="rdma"))`` on lap3d32, driven like the
    main path (every entry of rdma_factor and rdma_solve must launch, no
@@ -104,8 +124,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``dist_executor="xla"``, which runs the same entries; and at
    block size 64 on lap3d16 the grids 2x2, 1x4, 4x1 and 2x4, x against
    scipy's;
-11. one JSON line of per-kernel results (the float64 instantiations in
-   rows of their own, with a ``dtype`` field; the tck and RDMA rows with
+12. one JSON line of per-kernel results (the float64, complex64 and
+   complex128 instantiations in rows of their own, with a ``dtype``
+   field; the tck and RDMA rows with
    their launches per entry), the nvidia-smi line, the seconds the run held the
    card, and the final ``{"ok": true, "device": ...}`` line.
 
@@ -127,11 +148,16 @@ import numpy as np
 #: (NVIDIA data sheet): FP32 67 TFLOP/s on the CUDA cores (TF32 is not
 #: FP32); FP64 67 TFLOP/s on the tensor cores (DMMA), twice the CUDA
 #: cores' 34
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "complex64": 67e12,
+              "complex128": 67e12}
 PEAK_BYTES = 3.35e12
 #: the CUDA cores' rate for each type (the same data sheet), on which the
 #: kernels run their FMAs: the share that schur's levels reach
-CORE_FLOPS = {"float32": 67e12, "float64": 34e12}
+CORE_FLOPS = {"float32": 67e12, "float64": 34e12, "complex64": 67e12,
+              "complex128": 34e12}
+#: real operations per real operation count of a block product (2·bs³):
+#: a complex multiply-add is 8 real flops, four times a real one
+FLOP_MUL = {"float32": 1, "float64": 1, "complex64": 4, "complex128": 4}
 #: kernel against plain version: max |difference| <= REL_TOL * max(1,
 #: max |plain output|). Both compute in float32 from the same input but
 #: sum in other orders (128-long dot products, a 128-step elimination
@@ -169,6 +195,10 @@ SOURCE = {"trsm": "panel.cuh", "clk_trsm": "panel.cuh"}
 #: the kernels with a float64 instantiation, which the float64 path runs
 F64_KERNELS = ("diag_lu", "trsm", "schur", "sweep", "solve_gemm",
                "diag_apply")
+#: the kernels with complex instantiations (the same), and the suffix of
+#: their rows and C entries
+COMPLEX_KERNELS = F64_KERNELS
+CSFX = {"complex64": "c64", "complex128": "c128"}
 
 
 def fail(msg: str) -> None:
@@ -216,6 +246,10 @@ def main() -> None:
               solve_gemm.SOLVE_GEMM, tck.UPDATE, rdma.RDMA_FACTOR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     check_spills(_build.ptxas_report(schur.SCHUR), "schur_kernel")
+    for k in (diag_lu.KERNEL, schur.SCHUR, solve_gemm.SOLVE_GEMM):
+        # a complex element type, demangled or mangled (slu_cplx::real_of
+        # names the real instantiations too)
+        check_spills(_build.ptxas_report(k), ("cplx<", "4cplxI"), k.source)
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
                tck=tck, rdma=rdma, kernels=kernels, entry_launches={})
@@ -325,13 +359,18 @@ def main() -> None:
     # ---- 9. float64 on the card ---------------------------------------
     f64_phase(ctx, rng, checks, launches)
 
-    # ---- 10. the 2D grid on one card -----------------------------------
+    # ---- 10. complex on the card ---------------------------------------
+    complex_phase(ctx, rng, checks, launches)
+
+    # ---- 11. the 2D grid on one card -----------------------------------
     dist_phase(ctx, rng, checks, launches)
 
     rows = []
     for name, dtype in [(k, "float32") for k in kernels] + \
-            [(k, "float64") for k in F64_KERNELS]:
-        key = name if dtype == "float32" else f"{name}_f64"
+            [(k, "float64") for k in F64_KERNELS] + \
+            [(k, d) for d in CSFX for k in COMPLEX_KERNELS]:
+        key = name if dtype == "float32" else \
+            f"{name}_{CSFX.get(dtype, 'f64')}"
         c = checks[key]
         row = dict(
             name=key, route="cuda",
@@ -355,20 +394,23 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def check_spills(report, name):
-    """Fail unless ptxas lists functions named ``name`` in ``report`` and
-    none of them spills registers."""
+def check_spills(report, name, what=""):
+    """Fail unless ptxas lists functions whose name holds ``name`` (or
+    one of a tuple of names) in ``report`` and none of them spills
+    registers."""
+    names = (name,) if isinstance(name, str) else name
     fn, seen = None, 0
     for line in report.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for", 1)[1]
-        elif "spill stores" in line and fn is not None and name in fn:
+        elif "spill stores" in line and fn is not None and \
+                any(n in fn for n in names):
             seen += 1
             if ", 0 bytes spill stores, 0 bytes spill loads" not in line:
-                fail(f"{name} spills: {fn.strip()}: {line.strip()}")
+                fail(f"{names[0]} spills: {fn.strip()}: {line.strip()}")
     if not seen:
-        fail(f"ptxas lists no {name}")
-    print(f"ptxas: {seen} instantiations of {name}, none spills",
+        fail(f"ptxas lists no {names[0]} {what}")
+    print(f"ptxas: {seen} functions of {names[0]} {what}, none spills",
           flush=True)
 
 
@@ -390,7 +432,8 @@ def drive(ctx, what, A, b, opts, need, zero=(), lu=None, grid=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ctx["kernels"].items()}
-    op, tag = (A.T, "A^T") if opts.trans != Trans.NOTRANS else (A, "A")
+    op, tag = {Trans.NOTRANS: (A, "A"), Trans.TRANS: (A.T, "A^T"),
+               Trans.CONJ: (A.conj().T, "A^H")}[Trans(opts.trans)]
     resid = float(np.abs(op @ res.x - b).max() / np.abs(b).max())
     berr = float(np.max(res.berr))
     print_phases(what, wall, res.stat)
@@ -537,7 +580,8 @@ class Checker:
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
         scale = max(1.0, max(float(y.abs().max()) for y in want))
         dtype = want[0].dtype
-        rel = REL_TOL_F64 if dtype == self.torch.float64 else REL_TOL
+        rel = REL_TOL_F64 if dtype in (self.torch.float64,
+                                       self.torch.complex128) else REL_TOL
         o["max_abs_err"] = max(o["max_abs_err"], err)
         o["tol"] = max(o["tol"], rel * scale)
         if err > rel * scale:
@@ -562,18 +606,20 @@ def _state(lu, torch, blocklu):
 
 
 def check_whole_factor(what, lu, ctx, pool, tiny):
-    """A whole factor against the float64 right-looking reference on its
-    plan."""
+    """A whole factor against the right-looking reference on its plan,
+    in float64 (complex128 for a complex factor)."""
     blocklu = ctx["blocklu"]
     plan = lu.plan
+    rdt = np.complex128 if lu.dtype.kind == "c" else np.float64
     ref, _, _, _ = blocklu.factor_plain(
-        plan, blocklu.init_pool(plan, lu._a3_data, np.float64, lu.device),
+        plan, blocklu.init_pool(plan, lu._a3_data, rdt, lu.device),
         lu._thresh())
     ns = plan.nslots
     scale = max(1.0, float(ref[:ns].abs().max()))
-    ferr = float((pool[:ns].double() - ref[:ns]).abs().max())
+    ferr = float((pool[:ns].to(ref.dtype) - ref[:ns]).abs().max())
     ftol = FACTOR_ULPS * float(np.finfo(lu.dtype).eps) * scale
-    print(f"bs={plan.bs}: {what} factor vs float64 right-looking reference:"
+    print(f"bs={plan.bs}: {what} factor vs {np.dtype(rdt).name} "
+          "right-looking reference:"
           f" max abs err {ferr:.3e} (tolerance {ftol:.3e}); tiny pivots "
           f"{int(tiny.item())}", flush=True)
     if ferr > ftol:
@@ -892,11 +938,12 @@ def trans_phase(ctx, rng, lu_main, checks):
     return got
 
 
-def check_trans_repeat(what, lu, b):
-    """Two transposed solves of one b give bit-equal x."""
+def check_trans_repeat(what, lu, b, trans=None):
+    """Two transposed solves (``trans``, TRANS by default) of one b give
+    bit-equal x."""
     from superlu_dist_tpu_torch import Trans
-    same = np.array_equal(lu.solve(b, trans=Trans.TRANS),
-                          lu.solve(b, trans=Trans.TRANS))
+    trans = trans or Trans.TRANS
+    same = np.array_equal(lu.solve(b, trans=trans), lu.solve(b, trans=trans))
     print(f"{what}: two transposed solves of one b bit-equal {same}",
           flush=True)
     if not same:
@@ -922,15 +969,18 @@ def check_solve(lu, ctx, lu_main):
     plan = lu.plan
     tu, tl = lu._ttapes
     tapes = ((tu, lu.uinv), (tl, lu.linv))
+    bsr = bsr_served(torch, lu.pool.dtype)
     ck = Checker(torch, plan.bs, ("solve_gemm", "diag_apply"),
-                 library=("solve_gemm", "diag_apply"))
+                 library=("solve_gemm", "diag_apply") if bsr
+                 else ("diag_apply",))
     rng = np.random.default_rng(2)
     X = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
                         dtype=lu.pool.dtype, device=lu.device)
     per_level = []
     for name, (tape, dinv) in zip(("U^T", "L^T"), tapes):
         for lvl in range(tape.nlvl):
-            M = level_bsr(torch, lu.pool, tape, lvl, True, plan.nb)
+            M = level_bsr(torch, lu.pool, tape, lvl, True, plan.nb) if bsr \
+                else None
             if M is not None:
                 X2 = X.view(-1, X.shape[2])
                 C = torch.empty_like(X2)
@@ -956,12 +1006,44 @@ def check_solve(lu, ctx, lu_main):
         print(f"bs={plan.bs} {lu.dtype} {name} transpose=True: "
               f"max_abs_err {o['max_abs_err']:.3e} (tolerance "
               f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
-              f"{o['plain_ms']:.3f} ms, library {o['library_ms']:.3f} "
-              f"ms per solve", flush=True)
+              f"{o['plain_ms']:.3f} ms, library {_ms(o['library_ms'])} "
+              f"per solve", flush=True)
     print_solve_levels(per_level)
     wide_pair(lu, ctx, 32)
     notrans_solve(lu_main, ctx)
     return ck.out
+
+
+#: dtype -> whether torch's BSR ``addmm`` runs on CUDA in it, probed once
+_BSR = {}
+
+
+def bsr_served(torch, dtype):
+    """Whether ``torch.addmm`` of a BSR matrix runs on CUDA in ``dtype``
+    (solve_gemm's library call); probed once on a 2-block matrix, the
+    reason printed when it does not."""
+    if dtype not in _BSR:
+        crow = torch.tensor([0, 1, 1], dtype=torch.int32, device="cuda")
+        col = torch.tensor([1], dtype=torch.int32, device="cuda")
+        V = torch.ones((1, 4, 4), dtype=dtype, device="cuda")
+        X = torch.ones((8, 1), dtype=dtype, device="cuda")
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "Sparse BSR tensor")
+                M = torch.sparse_bsr_tensor(crow, col, V, size=(8, 8))
+                torch.addmm(X, M, X, alpha=-1)
+            torch.cuda.synchronize()
+            _BSR[dtype] = True
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"BSR addmm in {dtype} on CUDA: not served by torch "
+                  f"{torch.__version__} ({str(e).splitlines()[0][:160]}); "
+                  "solve_gemm's library time is none", flush=True)
+            _BSR[dtype] = False
+    return _BSR[dtype]
+
+
+def _ms(v):
+    return "none" if v is None else f"{v:.3f} ms"
 
 
 def compare_level(ck, sg, pool, dinv, X, tape, lvl):
@@ -999,9 +1081,11 @@ def wide_pair(lu, ctx, nrhs):
         fn()
         t[key] += _timed(torch, fn)
 
+    bsr = bsr_served(torch, lu.pool.dtype)
     for tape, dinv in zip(lu._ttapes, (lu.uinv, lu.linv)):
         for lvl in range(tape.nlvl):
-            M = level_bsr(torch, lu.pool, tape, lvl, True, plan.nb)
+            M = level_bsr(torch, lu.pool, tape, lvl, True, plan.nb) if bsr \
+                else None
             if M is not None:
                 X2 = X.view(-1, nrhs)
                 C = torch.empty_like(X2)
@@ -1019,10 +1103,11 @@ def wide_pair(lu, ctx, nrhs):
                 dinv, X, held[0], tape, lvl, True))
     if not bool(torch.isfinite(X).all()):
         fail(f"the transposed solve at nrhs={nrhs} is not finite")
+    addmm = f"{t['addmm']:.3f}" if bsr else "none"
     print(f"bs={plan.bs} {lu.dtype} transposed solve at nrhs={nrhs}: kernel "
           f"pair {t['p1'] + t['p2']:.3f} ms (solve_gemm {t['p1']:.3f}, "
           f"diag_apply {t['p2']:.3f}), library pair "
-          f"{t['addmm'] + t['bmm']:.3f} ms (BSR addmm {t['addmm']:.3f}, bmm "
+          f"{t['addmm'] + t['bmm']:.3f} ms (BSR addmm {addmm}, bmm "
           f"{t['bmm']:.3f}) per solve", flush=True)
 
 
@@ -1329,6 +1414,139 @@ def f64_phase(ctx, rng, checks, launches):
         checks[f"{name}_f64"] = c[name]
         launches[f"{name}_f64"] = got[name]
         print_check(f"{name}_f64", c[name], got[name])
+
+
+def complex_unsym(k, seed=1):
+    """``laplacian_3d_unsym(k)`` with ``helmholtz_3d``'s shift -(2 + 0.5i)
+    on the diagonal and every off-diagonal entry times a seeded unit
+    phase: the 7-point pattern (lap3d32's plan at k = 32), with A, Aᵀ and
+    Aᴴ all different."""
+    import scipy.sparse as sp
+
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d_unsym
+    A = sp.coo_matrix(laplacian_3d_unsym(k, seed=seed)).astype(np.complex128)
+    off = A.row != A.col
+    data = A.data.copy()
+    data[off] *= np.exp(1j * np.random.default_rng(seed).uniform(
+        0, 2 * np.pi, int(off.sum())))
+    data[~off] -= 2.0 + 0.5j
+    return sp.csc_matrix((data, (A.row, A.col)), shape=A.shape)
+
+
+def check_entries(ctx, what, names, sfx):
+    """After a drive: each kernel of ``names`` launched through its
+    ``sfx`` entries only."""
+    for name in names:
+        k = ctx["kernels"][name]
+        got = {e: v for e, v in k.entry_launches.items() if v}
+        if not got or any(not e.endswith(f"_{sfx}") for e in got):
+            fail(f"{what}: {name} launched {got}, not only its _{sfx} "
+                 "instantiation")
+
+
+def complex_phase(ctx, rng, checks, launches):
+    """Phase 10: complex64 and complex128 on the card. helmholtz_3d(32)
+    NOTRANS with a warm call held bit-equal; every complex kernel against
+    its plain version and the factor against factor_plain in complex128;
+    TRANS and CONJ with the condition estimate on complex_unsym(32); then
+    the block size 64 checks on helmholtz_3d(16)."""
+    import tempfile
+
+    import scipy.sparse.linalg as spla
+
+    from superlu_dist_tpu_torch import (Options, Trans, load_factors,
+                                        save_factors)
+    from superlu_dist_tpu_torch.utils.testing import helmholtz_3d
+    torch = ctx["torch"]
+    level = ("diag_lu", "trsm", "schur", "sweep")
+    fused = ("clk_update", "clk_trsm", "tck_update", "flk")
+    A = helmholtz_3d(32).tocsc()
+    Au = complex_unsym(32)
+    n = A.shape[0]
+    for dt, sfx in CSFX.items():
+        b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        opts = Options(dtype=dt, block_size=128)
+        res, lu, got = drive(ctx, dt, A, b, opts, level, fused)
+        check_entries(ctx, dt, level, sfx)
+        if res.stat.counters["executor"] != "pallas" or \
+                lu.pool.dtype != getattr(torch, dt):
+            fail(f"{dt} did not run the level executor in {dt}")
+        plan = lu.plan
+        print(f"{dt}: helmholtz_3d(32) n={n}, {plan.nb} block columns, "
+              f"{plan.nslots} slots, pool {plan.pool_bytes(lu.dtype) / 2**20:.0f}"
+              f" MiB, {res.stat.refine_steps} refinement steps, "
+              f"rcond not asked", flush=True)
+        check_repeat(dt, res, warm_call(ctx, dt, A, b, opts))
+        c = check_level(lu, ctx, report=True, full=True)
+        for name in level:
+            checks[f"{name}_{sfx}"] = c[name]
+            launches[f"{name}_{sfx}"] = got[name]
+            print_check(f"{name}_{sfx}", c[name], got[name])
+        del lu, res, c
+        bu = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        for trans in (Trans.TRANS, Trans.CONJ):
+            topts = Options(dtype=dt, block_size=128, trans=trans,
+                            condition_number=True)
+            what = f"{dt} {trans.name}"
+            res, lut, got = drive(ctx, what, Au, bu, topts,
+                                  ("solve_gemm", "diag_apply") + level,
+                                  fused)
+            check_entries(ctx, what, ("solve_gemm", "diag_apply") + level,
+                          sfx)
+            if res.rcond is None or not 0 < res.rcond <= 1:
+                fail(f"{what}: rcond {res.rcond} not in (0, 1]")
+            print(f"{what}: rcond {res.rcond:.6e}, {res.stat.refine_steps} "
+                  "refinement steps", flush=True)
+            check_trans_repeat(what, lut, bu, trans)
+        c = check_solve(lut, ctx, lut)
+        for name in ("solve_gemm", "diag_apply"):
+            checks[f"{name}_{sfx}"] = c[name]
+            launches[f"{name}_{sfx}"] = got[name]
+            print_check(f"{name}_{sfx}", c[name], got[name])
+        del lut, res, c
+        torch.cuda.empty_cache()
+
+    # block size 64 on helmholtz_3d(16): scipy, slogdet, a checkpoint
+    A2 = helmholtz_3d(16).tocsc()
+    n2 = A2.shape[0]
+    b2 = rng.standard_normal(n2) + 1j * rng.standard_normal(n2)
+    x_ref = spla.spsolve(A2.astype(np.complex128), b2)
+    ds, dl = np.linalg.slogdet(A2.toarray().astype(np.complex128))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    for dt in CSFX:
+        res, lu, _ = drive(ctx, f"bs=64 {dt}", A2, b2,
+                           Options(dtype=dt, block_size=64), level)
+        err = float(np.abs(res.x - x_ref).max() / np.abs(x_ref).max())
+        phase, logabs = lu.logdet()
+        # a rounding per pivot, and the sum's own at its magnitude
+        eps = float(np.finfo(np.dtype(dt)).eps)
+        tol = n2 * eps + 4 * eps * abs(dl)
+        perr, lerr = abs(phase - ds), abs(logabs - dl)
+        print(f"bs=64 {dt}: helmholtz_3d(16) |x - scipy|/|x| {err:.3e} "
+              f"(tolerance 1e-10); logdet phase {phase:.10f} (slogdet "
+              f"{complex(ds):.10f}, err {perr:.3e}), log|det| "
+              f"{logabs:.10f} (slogdet {dl:.10f}, err {lerr:.3e}); "
+              f"tolerance {tol:.3e}", flush=True)
+        if err > 1e-10:
+            fail(f"bs=64 {dt} solution disagrees with scipy")
+        if perr > tol or lerr > tol:
+            fail(f"bs=64 {dt} logdet disagrees with slogdet")
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            path = os.path.join(d, "factors.npz")
+            save_factors(lu, path)
+            lu2 = load_factors(path, device="cuda")
+            for trans, op in ((Trans.NOTRANS, A2), (Trans.CONJ,
+                                                    A2.conj().T)):
+                x, berr = lu2.refine(b2, lu2.solve(b2, trans=trans),
+                                     trans=trans)
+                resid = float(np.abs(op @ x - b2).max() / np.abs(b2).max())
+                print(f"bs=64 {dt} load_factors {trans.name}: berr "
+                      f"{berr.max():.3e}, residual {resid:.3e}", flush=True)
+                if berr.max() > 1e-12 or resid > 1e-10:
+                    fail(f"bs=64 {dt} loaded factors miss the limits in "
+                         f"{trans.name}")
 
 
 #: the single-device factor, sweep and solve kernels, none of which the
@@ -1743,8 +1961,12 @@ def print_schur_levels(tp, per_level, bs, dtype, top=6):
     h = tp.host
 
     def share(nprod, ms):
-        return 100 * 2.0 * bs ** 3 * nprod / max(ms * 1e-3, 1e-12) \
-            / CORE_FLOPS[name]
+        return 100 * 2.0 * FLOP_MUL[name] * bs ** 3 * nprod \
+            / max(ms * 1e-3, 1e-12) / CORE_FLOPS[name]
+
+    def bands(ntgt):   # complex128 takes bands of 16 always (chain.cuh)
+        return 16 if np.dtype(dtype).itemsize == 16 else \
+            flk.band_width(bs, ntgt, sms)
 
     total = sum(ms for ms, _ in per_level)
     print(f"schur by level (kernel {total:.3f} ms over {tp.nlvl} levels, "
@@ -1756,11 +1978,14 @@ def print_schur_levels(tp, per_level, bs, dtype, top=6):
         print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; {hi - lo} targets, "
               f"{int(chain.sum())} L·U products, longest chain "
               f"{int(chain.max(initial=0))}; "
-              f"bands of {flk.band_width(bs, int(hi - lo), sms)}, "
+              f"bands of {bands(int(hi - lo))}, "
               f"{share(int(chain.sum()), ms):.1f}% of peak", flush=True)
 
 
 def _bound(flops, nbytes, per, dtype=np.float32):
+    """``flops`` counts 2·bs³ a block product; a complex one does four
+    times as many real operations (FLOP_MUL)."""
+    flops = flops * FLOP_MUL[np.dtype(dtype).name]
     tf = flops / PEAK_FLOPS[np.dtype(dtype).name]
     tb = nbytes / PEAK_BYTES
     return dict(bound_ms=max(tf, tb) * 1e3,

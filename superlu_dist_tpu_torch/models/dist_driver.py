@@ -21,7 +21,7 @@ Deliberate differences from the JAX package:
   JAX package's two executors equal to roundoff). Any other name raises
   ``ValueError``.
 - float32 only, as the JAX package's RDMA path; float64 and complex
-  (queue 1 items 8b and 4), the transposed solve, ``rcond_1`` and
+  (queue 1 item 8b), the transposed solve, ``rcond_1`` and
   ``condition_number`` (item 8a), ``profile_levels`` (item 8c), sharded
   NRLoc input and several processes (item 10) raise
   ``NotImplementedError`` naming their item.
@@ -62,7 +62,7 @@ def _check_dist(opts: Options, A) -> None:
     """Refuse what the grid does not serve yet (see the module doc)."""
     if opts.dtype in ("complex64", "complex128") or \
             np.iscomplexobj(getattr(A, "data", A)):
-        _todo("complex dtypes", "queue 1 items 4 and 8b")
+        _todo("complex dtypes", _F64_ITEM)
     if opts.dtype != "float32":
         _todo(f"dtype {opts.dtype!r}", _F64_ITEM)
     if opts.dist_executor not in DIST_EXECUTORS:

@@ -21,15 +21,26 @@ Deliberate differences from the JAX package:
   the JAX package never fires.
 - Etree alignment stays on whatever the device, as the JAX package
   keeps it off the TPU, so both build the same plan.
-- The port serves real ``float32`` and ``float64`` on CUDA and on the
-  CPU, every ``Fact`` and ``Trans`` mode, the condition estimate, exact
-  LU and ILU(k) plans (``ilu_level``), every executor name (clk, tck,
-  flk, the level-by-level ``"pallas"`` and ``"xla"``) and the per-level
-  factor profile (:meth:`SparseLU.profile_levels`); the rest (complex
-  dtypes, ``gemm_precision`` below FP32) raises ``NotImplementedError``
-  naming its ROADMAP.md item.
-- The transposed solve (Aᵀx = b, and Aᴴx = b, which is the same for real
-  dtypes) runs the hand-written counterparts of the JAX package's
+- The port serves ``float32``, ``float64``, ``complex64`` and
+  ``complex128`` on CUDA and on the CPU, every ``Fact`` and ``Trans``
+  mode, the condition estimate, exact LU and ILU(k) plans
+  (``ilu_level``), every executor name (clk, tck, flk, the level-by-level
+  ``"pallas"`` and ``"xla"``) and the per-level factor profile
+  (:meth:`SparseLU.profile_levels`); ``gemm_precision`` below FP32 raises
+  ``NotImplementedError`` naming its ROADMAP.md item.
+- Complex runs natively: the pool holds ``complex64``/``complex128``
+  blocks (torch's interleaved layout) and the level executor's kernels
+  take them as their element type, where the JAX package runs planar
+  (re, im) real arithmetic off the CPU, or the real ring embedding on the
+  TPU. Refinement residuals are ``complex128`` (``SLU_SINGLE`` keeps the
+  working precision), a tiny pivot keeps its phase, and Aᴴx = b is solved
+  as x = conj(A⁻ᵀ conj(b)), as the JAX package's native path does.
+  Checkpoints hold the native pool; :func:`load_factors` and
+  :meth:`SparseLU.from_numpy_state` also read the JAX package's planar
+  ``(slots, 2, bs, bs)`` layout, and refuse its ring-embedded one
+  (ROADMAP.md, queue 1 item 15).
+- The transposed solve (Aᵀx = b, and Aᴴx = b through conjugation) runs
+  the hand-written counterparts of the JAX package's
   ``pallas_exec._solve_gemm_kernel`` and ``_diag_apply_kernel`` with
   ``transpose=True`` (``ops/kernels/solve_gemm.py``), where the JAX
   package runs the XLA level loop ``blocklu._solve_core(transpose=True)``
@@ -44,7 +55,8 @@ Deliberate differences from the JAX package:
   without ILU). ``executor="xla"`` and every float64 factor run the level
   executor's kernels, the port's counterpart of the JAX package's
   level-batched XLA executor (the JAX package runs no fused kernel but in
-  float32); ``stat.counters["executor"]`` names what ran. The port has no
+  float32), and so does every complex factor; ``stat.counters["executor"]``
+  names what ran. The port has no
   ``flk_supported`` check and no ``"xla-fallback"``: those exist for the
   TPU's SMEM budget for tapes, and the CUDA kernels read their tapes from
   device memory, so flk serves every plan.
@@ -77,20 +89,33 @@ from ..utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
 from ..utils.stats import Stats
 from ..utils.norms import langs
 
-_DTYPES = {"float32": np.float32, "float64": np.float64}
+_DTYPES = {"float32": np.float32, "float64": np.float64,
+           "complex64": np.complex64, "complex128": np.complex128}
 _TORCH = {np.dtype(np.float32): torch.float32,
-          np.dtype(np.float64): torch.float64}
+          np.dtype(np.float64): torch.float64,
+          np.dtype(np.complex64): torch.complex64,
+          np.dtype(np.complex128): torch.complex128}
+#: the residual dtype of each working dtype under SLU_DOUBLE (the JAX
+#: package's ``_REFINE_DTYPES``)
+_REFINE_DTYPES = {"float32": np.float64, "float64": np.float64,
+                  "complex64": np.complex128, "complex128": np.complex128}
 
 
 def _resolve_refine_dtype(options) -> np.dtype:
-    """Residual dtype: SLU_DOUBLE promotes to float64 (psgssvx_d2 mixed
-    precision), SLU_SINGLE keeps the working precision; an explicit
-    ``options.refine_dtype`` wins."""
+    """Residual dtype: SLU_DOUBLE promotes to float64 or complex128
+    (psgssvx_d2 mixed precision), SLU_SINGLE keeps the working precision;
+    an explicit ``options.refine_dtype`` wins."""
     if options.refine_dtype:
         return np.dtype(options.refine_dtype)
     if options.iter_refine == IterRefine.SLU_SINGLE:
         return np.dtype(_DTYPES[options.dtype])
-    return np.dtype(np.float64)
+    return np.dtype(_REFINE_DTYPES[options.dtype])
+
+
+def _conj(t: torch.Tensor) -> torch.Tensor:
+    """The conjugate of a complex tensor, materialised: a kernel reads the
+    tensor's memory, which a lazy conjugate view does not change."""
+    return torch.conj_physical(t)
 
 
 def _resolve_device(device) -> torch.device:
@@ -115,11 +140,12 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md, {item})")
 
-    if opts.dtype in ("complex64", "complex128") or \
-            np.iscomplexobj(getattr(A, "data", A)):
-        todo("complex dtypes", "queue 1 item 4")
     if opts.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {opts.dtype!r}")
+    if np.iscomplexobj(getattr(A, "data", A)) and \
+            np.dtype(_DTYPES[opts.dtype]).kind != "c":
+        raise ValueError(f"complex values need a complex dtype, not "
+                         f"{opts.dtype!r}")
     if opts.executor not in (None, "clk", "tck", "flk", "pallas", "xla"):
         raise ValueError(f"unknown executor {opts.executor!r}")
     if (opts.gemm_precision or "auto") not in ("auto", "highest"):
@@ -137,13 +163,13 @@ _EXECUTORS = {"clk": (_clk, _clk.build_clk_tapes),
 def _executor(opts: Options) -> str:
     """The executor that runs, as the JAX package chooses it
     (driver.py:630-651, 728-797 there): the level executor for float64
-    whatever ``executor`` names (the JAX package runs no fused kernel but
-    in float32) and for ``executor="xla"`` (the port's counterpart of the
-    level-batched XLA executor); otherwise clk for exact plans and flk
-    for ILU plans unless an executor is named. tck is not rerouted: with
-    an ILU plan ``build_tck_tapes`` raises."""
+    and the complex dtypes whatever ``executor`` names (the JAX package
+    runs no fused kernel but in float32) and for ``executor="xla"`` (the
+    port's counterpart of the level-batched XLA executor); otherwise clk
+    for exact plans and flk for ILU plans unless an executor is named. tck
+    is not rerouted: with an ILU plan ``build_tck_tapes`` raises."""
     exc = opts.executor or "clk"
-    if opts.dtype == "float64" or exc == "xla":
+    if opts.dtype != "float32" or exc == "xla":
         return "pallas"
     if exc == "clk" and opts.ilu_level is not None:
         return "flk"
@@ -493,10 +519,11 @@ class SparseLU:
 
     def _thresh(self) -> float:
         """ReplaceTinyPivot threshold sqrt(eps)·‖A3‖_max, rounded to the
-        factor dtype as the kernels compare in it."""
-        t = (np.sqrt(np.finfo(self.dtype).eps) * self._anorm
+        factor dtype's real type as the kernels compare in it."""
+        fi = np.finfo(self.dtype)
+        t = (np.sqrt(fi.eps) * self._anorm
              if self.options.replace_tiny_pivot else 0.0)
-        return float(self.dtype.type(t))
+        return float(fi.dtype.type(t))
 
     def _device_factor(self, A3: sp.csc_matrix):
         """Assemble the pool on the device and run the executor's factor.
@@ -593,12 +620,16 @@ class SparseLU:
         x[self._t_pc] = self._t_cs.to(r.dtype)[:, None] * y
         return x
 
-    def _lu_solve_t(self, r: torch.Tensor) -> torch.Tensor:
+    def _lu_solve_t(self, r: torch.Tensor, conj: bool = False
+                    ) -> torch.Tensor:
         """x = A⁻ᵀ r, the mirror of :meth:`_lu_solve`: b3[k] =
         Dc[pc[k]]·r[pc[k]] in, the Uᵀ then Lᵀ sweeps in the factor dtype,
         x[prc[k]] = Dr[prc[k]]·y[k] out, all on the device; the result has
-        r's dtype. The transposed tapes are built on the first call and
-        kept with the plan."""
+        r's dtype. With ``conj``, x = A⁻ᴴ r = conj(A⁻ᵀ conj(r)) (the JAX
+        package's native path, driver.py:940-955 there). The transposed
+        tapes are built on the first call and kept with the plan."""
+        if conj and r.is_complex():
+            return _conj(self._lu_solve_t(_conj(r)))
         plan = self.plan
         fdt = _TORCH[self.dtype]
         k = r.shape[1]
@@ -644,23 +675,23 @@ class SparseLU:
         return self._apply(b, self._lu_solve)
 
     def solve_transposed(self, b, conj: bool = False):
-        """Solve Aᵀx = b (Aᴴx = b with ``conj``, the same system for the
-        real dtypes the port serves) with the same factorization: a
-        forward Uᵀ sweep, then a backward Lᵀ sweep with the transposed
-        diagonal inverses."""
-        return self._apply(b, self._lu_solve_t)
+        """Solve Aᵀx = b (Aᴴx = b with ``conj``, the same system for a
+        real dtype) with the same factorization: a forward Uᵀ sweep, then
+        a backward Lᵀ sweep with the transposed diagonal inverses; Aᴴ
+        through conjugation of b and x."""
+        return self._apply(b, lambda r: self._lu_solve_t(r, conj))
 
     def _berr_t(self, x: torch.Tensor, b: torch.Tensor,
                 trans: Trans = Trans.NOTRANS):
         """Componentwise backward error with the safe1/safe2 guards
-        (reference: pdgsrfs.c:189-231) on the device, of the operator A
-        or, for TRANS/CONJ, Aᵀ (real dtypes); returns (berr, r)."""
+        (reference: pdgsrfs.c:189-231) on the device, of the operator A,
+        Aᵀ (TRANS) or Aᴴ (CONJ); returns (berr, r), berr real."""
         A = self._coo_ref
         if trans == Trans.NOTRANS:
             ax = _spmv.spmv(A, x)
             denom = _spmv.abs_spmv(A, x.abs())
         else:
-            ax = _spmv.spmv_t(A, x)
+            ax = _spmv.spmv_t(A, x, conj=trans == Trans.CONJ)
             denom = _spmv.abs_spmv_t(A, x.abs())
         r = b - ax
         denom = denom + b.abs()
@@ -736,7 +767,9 @@ class SparseLU:
 
     def _refine_hostloop(self, xt, bt, eps, trans):
         opts = self.options
-        prev = torch.full((bt.shape[1],), float("inf"), dtype=bt.dtype,
+        conj = trans == Trans.CONJ
+        # berr is real whatever the residual's dtype
+        prev = torch.full((bt.shape[1],), float("inf"), dtype=bt.real.dtype,
                           device=self.device)
         for it in range(opts.max_refine_steps):
             berr, r = self._berr_t(xt, bt, trans)
@@ -744,7 +777,7 @@ class SparseLU:
                     bool((berr > opts.refine_rthresh * prev).all()):
                 return xt, berr, it
             prev = berr
-            xt = xt + self._lu_solve_t(r)
+            xt = xt + self._lu_solve_t(r, conj)
         berr, _ = self._berr_t(xt, bt, trans)
         return xt, berr, opts.max_refine_steps
 
@@ -804,9 +837,11 @@ class SparseLU:
         factor's input values and the level executor (``schur``) runs one
         level per step, timed by CUDA events on the card (a host clock on
         the CPU). Returns one dict per level: level, ms, steps, lpanels,
-        upanels, gemms, gflops_model. The profiled factors become the live
-        ones, so the instance stays solve-ready; a level's ms include its
-        launches' overhead, so read the shape, not the sum."""
+        upanels, gemms, gflops_model (in real operations: a complex
+        multiply-add counts 8, four times a real one). The profiled factors
+        become the live ones, so the instance stays solve-ready; a level's
+        ms include its launches' overhead, so read the shape, not the
+        sum."""
         if getattr(self, "_a3_data", None) is None:
             raise RuntimeError(
                 "profile_levels needs the factorization input values, which "
@@ -823,7 +858,7 @@ class SparseLU:
         tiny = torch.zeros(1, dtype=torch.int32, device=dev)
         thresh = self._thresh()
         cptr = tp.host["cptr"]
-        b3 = float(bs) ** 3
+        b3 = float(bs) ** 3 * (4.0 if self.dtype.kind == "c" else 1.0)
         rows = []
         for lvl in range(tp.nlvl):
             if dev.type == "cuda":
@@ -861,15 +896,19 @@ class SparseLU:
         return d[sel]
 
     def logdet(self):
-        """(sign, log|det A|), the PYTHON/pdbridge.py logdet analog (real
-        dtypes): the diagonal of U, the scalings and the parity of the row
-        permutation (the symmetric column permutation cancels)."""
-        du = self.diag_u().astype(np.float64)
+        """(sign or phase, log|det A|), the PYTHON/pdbridge.py logdet
+        analog: the diagonal of U, the scalings and the parity of the row
+        permutation (the symmetric column permutation cancels). The first
+        is a real sign for a real dtype and the complex phase
+        det A / |det A| for a complex one (the JAX package's logdet)."""
+        cplx = self.dtype.kind == "c"
+        du = self.diag_u().astype(np.complex128 if cplx else np.float64)
         logabs = float(np.sum(np.log(np.abs(du)))
                        - np.sum(np.log(self.row_scale))
                        - np.sum(np.log(self.col_scale)))
-        sign = float(np.prod(du / np.abs(du))) * _perm_sign(self.rowperm)
-        return sign, logabs
+        # real signs multiply exactly; complex phases in complex128
+        phase = np.prod(du / np.abs(du)) * _perm_sign(self.rowperm)
+        return (complex(phase) if cplx else float(phase)), logabs
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "SparseLU":
@@ -881,12 +920,25 @@ class SparseLU:
         accepted and cut), ``anorm``, and the COO of the original A as
         ``a_row``, ``a_col``, ``a_data`` with ``n``. It serves every solve
         (NOTRANS and transposed), ``refine``, ``rcond_1`` and ``logdet``,
-        and a SamePattern* ``refactor``."""
+        and a SamePattern* ``refactor``.
+
+        A complex state's factors may be native ``(rows, bs, bs)`` complex
+        arrays or the JAX package's planar ``(rows, 2, bs, bs)`` real ones
+        (re, im), which the number of dimensions tells apart; a state with
+        ``embed`` true (the TPU's ring embedding of complex64) raises
+        ``NotImplementedError`` (ROADMAP.md, queue 1 item 15)."""
+        if bool(state.get("embed", False)):
+            raise NotImplementedError(
+                "factors in the ring embedding of complex64 (the TPU's "
+                "checkpoint layout) are not ported yet (ROADMAP.md, queue 1 "
+                "item 15)")
         lu = cls._restore(state, device)
         plan, fdt = lu.plan, _TORCH[lu.dtype]
 
         def dev(a, rows):
             a = np.asarray(a)
+            if a.ndim == 4:     # planar complex (rows, 2, bs, bs)
+                a = a[:, 0] + 1j * a[:, 1]
             if a.shape[0] < rows:
                 raise ValueError(f"factor array has {a.shape[0]} rows, "
                                  f"the plan needs {rows}")
@@ -1026,7 +1078,9 @@ def save_factors(lu: SparseLU, path) -> None:
     the JAX package's ``.npz`` layout: its keys, and its bucket-padded
     shapes of ``pool`` (``bucket_fine(nslots + 2, lo=64)`` rows) and of
     ``linv``/``uinv`` (``bucket125(nb) + 1`` rows), so that either package
-    loads the other's checkpoint. Real dtypes only."""
+    loads the other's checkpoint. A complex factor is saved as its native
+    ``(rows, bs, bs)`` complex pool, which the JAX package reads as
+    non-planar."""
     plan = lu.plan
     A = sp.csc_matrix(lu._A_orig)
     npool = _bucket_fine(plan.nslots + 2, lo=64)
@@ -1058,7 +1112,9 @@ def load_factors(path, options: Optional[Options] = None, *,
     checkpoint of either package, without refactoring (the SolveOnly
     path), on ``device`` (default ``cuda``, which raises without CUDA
     unless ``device="cpu"``). The sweep tapes are rebuilt; the transposed
-    tapes are built at the first transposed solve."""
+    tapes are built at the first transposed solve. Complex checkpoints
+    load in both of the JAX package's layouts, native and planar; an
+    embedded one raises (:meth:`SparseLU.from_numpy_state`)."""
     z = np.load(path, allow_pickle=False)
     options = (options or Options()).replace(
         dtype=str(z["dtype"]), block_size=int(z["block_size"]))
@@ -1075,4 +1131,5 @@ def load_factors(path, options: Optional[Options] = None, *,
         colperm=z["colperm"], row_scale=z["row_scale"],
         col_scale=z["col_scale"], expand=expand, plan=plan, pool=z["pool"],
         linv=z["linv"], uinv=z["uinv"], anorm=float(z["anorm"]),
+        embed=bool(z["embed"]) if "embed" in z.files else False,
         a_row=A.row, a_col=A.col, a_data=A.data), device=device)

@@ -52,6 +52,16 @@
 // (512 threads, at most 128 registers) spilled 56 bytes. Two CTAs fit an
 // SM's shared memory, one its registers.
 //
+// complex (schur.cu's complex64 and complex128 `schur`; cplx.cuh's element
+// type, each complex FMA four real ones in a fixed order, so a factor
+// repeats bit for bit). complex64 is 8 bytes an element as double, so it
+// takes double's geometry and its rolled k loop (a 4 x 8 tile of it holds
+// acc and prod in 128 registers, as double's does). complex128 would need
+// 256 registers for a 4 x 8 tile's acc and prod alone, so it takes bands
+// of 16 with 4 x 4 tiles (128 registers for acc and prod, 128 threads a
+// CTA) at every block size and launch, whatever `wide` asks, its k loop
+// rolled (unrolled whole it spilled 60 bytes).
+//
 // Offsets are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
 
 #pragma once
@@ -230,7 +240,8 @@ int launch(void (*kernel)(KArgs...), int count, cudaStream_t stream,
 // go(Chain<...>{}) for the geometry of a launch of `count` targets at
 // block size bs: `wide` < 0 chooses by the rule at the top of this file,
 // 0 forces bands of 16, 1 bands of 64 (bs = 32: the whole block always);
-// double's 4 x 8 tile keeps its chunk's k loop rolled (the top of this
+// double's and complex64's 4 x 8 tile keeps its chunk's k loop rolled, and
+// complex128 takes bands of 16 with 4 x 4 tiles always (the top of this
 // file says why).
 template <typename T, bool FIN, typename Go>
 int by_geometry(int bs, int count, int wide, Go go) {
@@ -239,16 +250,25 @@ int by_geometry(int bs, int count, int wide, Go go) {
     return wide < 0 ? (int64_t)count * (b / 64) < slu_panel::sm_count()
                     : wide == 0;
   };
-  constexpr int UK = sizeof(T) == 8 ? 1 : 0;   // double's 4 x 8 tile
-  switch (bs) {
-    case 32: return go(Chain<T, 32, 32, 8, 4, FIN, UK>{});
-    case 64:
-      return narrow(64) ? go(Chain<T, 64, 16, 4, 4, FIN>{})
-                        : go(Chain<T, 64, 64, 8, STW, FIN, UK>{});
-    case 128:
-      return narrow(128) ? go(Chain<T, 128, 16, 4, 4, FIN>{})
-                         : go(Chain<T, 128, 64, 8, STW, FIN, UK>{});
-    default: return (int)cudaErrorInvalidValue;
+  constexpr int UK = sizeof(T) == 8 ? 1 : 0;   // 8-byte 4 x 8 tiles
+  if constexpr (sizeof(T) == 16) {
+    switch (bs) {
+      case 32: return go(Chain<T, 32, 16, 4, 4, FIN, 1>{});
+      case 64: return go(Chain<T, 64, 16, 4, 4, FIN, 1>{});
+      case 128: return go(Chain<T, 128, 16, 4, 4, FIN, 1>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (bs) {
+      case 32: return go(Chain<T, 32, 32, 8, 4, FIN, UK>{});
+      case 64:
+        return narrow(64) ? go(Chain<T, 64, 16, 4, 4, FIN>{})
+                          : go(Chain<T, 64, 64, 8, STW, FIN, UK>{});
+      case 128:
+        return narrow(128) ? go(Chain<T, 128, 16, 4, 4, FIN>{})
+                           : go(Chain<T, 128, 64, 8, STW, FIN, UK>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -25,7 +25,10 @@
 // bs=128 (the element-by-element form had 640). The tile, then both
 // inverses packed in its place, live in dynamic shared memory (79 KiB in
 // float, 158 KiB in double at bs=128). The kernel is a template on the
-// element type.
+// element type: the _f32, _f64, _c64 and _c128 entries launch float,
+// double, complex64 and complex128 (cplx.cuh; a complex tiny pivot keeps
+// its phase, and complex128 at bs=128 keeps the tile in the pool, as
+// tile_lu.cuh says).
 
 #include "tile_lu.cuh"
 
@@ -37,15 +40,15 @@ template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
 diag_lu_kernel(T* __restrict__ pool, T* __restrict__ linv,
                T* __restrict__ uinv, const int32_t* __restrict__ slots,
-               const int32_t* __restrict__ steps, int bs, T thresh,
-               int32_t* __restrict__ tiny) {
+               const int32_t* __restrict__ steps, int bs,
+               slu_tile::real_t<T> thresh, int32_t* __restrict__ tiny) {
   slu_tile::tile_lu<T>(pool, linv, uinv, slots, steps, bs, thresh, tiny);
 }
 
 template <typename T>
 int launch(void* pool, void* linv, void* uinv, const void* slots,
-           const void* steps, int count, int bs, T thresh, void* tiny,
-           void* stream) {
+           const void* steps, int count, int bs, slu_tile::real_t<T> thresh,
+           void* tiny, void* stream) {
   const size_t smem = slu_tile::tile_lu_smem_bytes<T>(bs);
   cudaError_t err = cudaFuncSetAttribute(
       diag_lu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -74,4 +77,20 @@ extern "C" int slu_diag_lu_f64(void* pool, void* linv, void* uinv,
                                void* stream) {
   return launch<double>(pool, linv, uinv, slots, steps, count, bs, thresh,
                         tiny, stream);
+}
+
+extern "C" int slu_diag_lu_c64(void* pool, void* linv, void* uinv,
+                               const void* slots, const void* steps,
+                               int count, int bs, float thresh, void* tiny,
+                               void* stream) {
+  return launch<slu_tile::cplx<float>>(pool, linv, uinv, slots, steps, count,
+                                       bs, thresh, tiny, stream);
+}
+
+extern "C" int slu_diag_lu_c128(void* pool, void* linv, void* uinv,
+                                const void* slots, const void* steps,
+                                int count, int bs, double thresh, void* tiny,
+                                void* stream) {
+  return launch<slu_tile::cplx<double>>(pool, linv, uinv, slots, steps,
+                                        count, bs, thresh, tiny, stream);
 }

@@ -33,14 +33,19 @@
 // in 16-byte groups spaced N / (TN/W) apart (W elements per 16 bytes), so
 // that the threads of a quarter warp read consecutive 16-byte words of a
 // B row. The arithmetic is IEEE FMA in T on the CUDA cores (no TF32); each
-// output sums its bs products in ascending k. At bs = 128 a launch takes
+// output sums its bs products in ascending k. T is float, double, or
+// cplx.cuh's complex64 and complex128 (each complex FMA four real ones in a
+// fixed order). At bs = 128 a launch takes
 // bands of 64 with 4 x 8 tiles (two bands a block, 256 threads, 100-104
 // KiB of shared memory, two CTAs an SM), or bands of 16 with 4 x 4 tiles
 // (8 bands a block, 128 threads) when the bands of 64 would fill fewer
 // CTAs than the card has SMs: such a launch is latency-bound, and each
 // thread's chain of products is then a quarter as long. bs = 64 chooses
 // the same way between the whole block and bands of 16; bs = 32 takes the
-// whole block.
+// whole block. complex128 (16 bytes an element, 8 to a stage's 128-byte
+// chunk) takes bands of 16 with 4 x 4 tiles at every block size: a 4 x 8
+// tile of it is 128 registers of accumulator alone, and bands of 64 with
+// 4 x 4 tiles run 512 threads, which may hold only 128 registers each.
 //
 // Offsets are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
 
@@ -49,7 +54,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cplx.cuh"
+
 namespace slu_panel {
+
+using slu_cplx::cplx;
 
 // ---------------------------------------------------------------------------
 // cp.async: 16-byte copies from device memory to shared memory through L2
@@ -102,6 +111,32 @@ struct Vec16<double> {
   }
   static __device__ __forceinline__ void st(double* p, const double v[2]) {
     *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
+
+template <>
+struct Vec16<cplx<float>> {
+  static constexpr int W = 2;
+  static __device__ __forceinline__ void ld(const cplx<float>* p,
+                                            cplx<float> v[2]) {
+    slu_cplx::ld16v(p, v);
+  }
+  static __device__ __forceinline__ void st(cplx<float>* p,
+                                            const cplx<float> v[2]) {
+    slu_cplx::st16v(p, v);
+  }
+};
+
+template <>
+struct Vec16<cplx<double>> {
+  static constexpr int W = 1;
+  static __device__ __forceinline__ void ld(const cplx<double>* p,
+                                            cplx<double> v[1]) {
+    slu_cplx::ld16v(p, v);
+  }
+  static __device__ __forceinline__ void st(cplx<double>* p,
+                                            const cplx<double> v[1]) {
+    slu_cplx::st16v(p, v);
   }
 };
 
@@ -179,7 +214,8 @@ __device__ __forceinline__ void mul_chunk(const T* A, const T* B, int g,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i][u] * b[j];
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fma(a[i][u], b[j], acc[i][j]);
     }
   }
 }
@@ -235,7 +271,10 @@ __device__ __forceinline__ void band_product(T* ring, const T* Ag,
                      (c + ST - 1) * P::KC);
     cp_async_commit();
     const T* A = ring + (c % ST) * P::kStage;
-    mul_chunk<P, P::LDA, P::N>(A, A + P::kA, g, c0, acc);
+    // complex keeps the k loop rolled (complex64's 4 x 8 tile, unrolled
+    // whole, spilled 12 bytes)
+    mul_chunk<P, P::LDA, P::N, slu_cplx::is_cplx<T> ? 1 : P::KC / P::W>(
+        A, A + P::kA, g, c0, acc);
   }
 }
 
@@ -291,11 +330,15 @@ inline int sm_count() {
 // At bs >= 64, bands of 64 rows (columns) with 4 x 8 tiles, or, when that
 // gives the card fewer CTAs than SMs, bands of 16 with 4 x 4 tiles: a
 // launch of few panels is latency-bound, and each thread's chain of
-// products is then a quarter (bs = 128) as long.
+// products is then a quarter (bs = 128) as long. complex128 always takes
+// bands of 16 with 4 x 4 tiles (the header says why).
 template <typename T, int BS, bool LEFT>
 int launch_bs(void* pool, const void* dinv, const void* slots,
               const void* steps, int count, cudaStream_t stream) {
-  if constexpr (BS < 64) {
+  if constexpr (sizeof(T) == 16) {
+    return launch_bm<T, BS, LEFT, 16, 4>(pool, dinv, slots, steps, count,
+                                         stream);
+  } else if constexpr (BS < 64) {
     return launch_bm<T, BS, LEFT, BS, 8>(pool, dinv, slots, steps, count,
                                          stream);
   } else {

@@ -10,15 +10,22 @@
 // rows_times is the warp-per-row product of a block with a tile staged in
 // shared memory (rdma.cu's diagonal apply). M is one bs x bs block of the
 // pool or of the diagonal inverses; no launch writes a block that it
-// reads. Every function is a template on the element type T (float or
-// double); the arithmetic is IEEE in T.
+// reads. Every function is a template on the element type T; Map and
+// chunk_sum serve float, double and cplx.cuh's complex64 and complex128
+// (each complex FMA four real ones in a fixed order), rows_times float and
+// double. The arithmetic is IEEE in T (in its real type for complex).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cplx.cuh"
+
 namespace slu_rows {
+
+using slu_cplx::cplx;
+using slu_cplx::ldg;
 
 constexpr int kRT = 8;          // right-hand sides per CTA
 constexpr int kThreads = 256;   // threads per CTA; every block size divides it
@@ -68,21 +75,32 @@ __device__ __forceinline__ void rows_times(const T* __restrict__ M,
 }
 
 // one 16-byte load through the read-only path into kV = 16 / sizeof(T)
-// registers; p is 16-byte aligned
-template <typename T>
-__device__ __forceinline__ void ld16(const T* __restrict__ p, T* v) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-  } else {
-    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
-  }
+// elements; p is 16-byte aligned
+__device__ __forceinline__ void ld16(const float* __restrict__ p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
 }
+__device__ __forceinline__ void ld16(const double* __restrict__ p,
+                                     double* v) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = a.x;
+  v[1] = a.y;
+}
+template <typename R>
+__device__ __forceinline__ void ld16(const cplx<R>* __restrict__ p,
+                                     cplx<R>* v) {
+  slu_cplx::ld16v(p, v, true);
+}
+
+// the right-hand sides per CTA of the level sweeps' tiles: kRT, or 4 for
+// the complex types (complex128's pass 2 would need 49,408 bytes of shared
+// memory at bs = 128 for tiles of 8, over 48 KiB without opting in, and
+// complex64's tiles of 8 spilled at bs = 64)
+template <typename T>
+constexpr int kRTof = slu_cplx::is_cplx<T> ? 4 : kRT;
 
 // How the kThreads threads of a CTA share the product of one bs x bs
 // block M (row major) with a bs x rt tile x (x(k, c) gives its entries).
@@ -129,7 +147,7 @@ struct Map {
           if (c < rt) {
             const T xv = x(k, c);
 #pragma unroll
-            for (int v = 0; v < kV; ++v) acc[v][c] += a[v] * xv;
+            for (int v = 0; v < kV; ++v) acc[v][c] = fma(a[v], xv, acc[v][c]);
           }
         }
       }
@@ -144,7 +162,7 @@ struct Map {
         for (int v = 0; v < kV; ++v) {
 #pragma unroll
           for (int c = 0; c < RT; ++c)
-            if (c < rt) acc[0][c] += a[v] * x(j * kV + v, c);
+            if (c < rt) acc[0][c] = fma(a[v], x(j * kV + v, c), acc[0][c]);
         }
       }
     }
@@ -195,7 +213,7 @@ __device__ __forceinline__ void chunk_sum(const T* __restrict__ pool,
     const T* x = X + (int64_t)csrc[p] * BS * nrhs + c0;
     M::template accumulate<RT>(
         pool + (int64_t)cslot[p] * BS * BS, rt,
-        [&](int k, int c) { return __ldg(x + k * nrhs + c); }, acc);
+        [&](int k, int c) { return ldg(x + k * nrhs + c); }, acc);
   }
   M::template reduce<RT>(acc, rt, dyn_smem<T>(), emit);
 }

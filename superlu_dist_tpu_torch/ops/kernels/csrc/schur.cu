@@ -36,8 +36,11 @@
 // they are not cut into chunks. `trsm` is panel.cuh's band-times-inverse
 // kernel (shared with clk.cu's clk_trsm): one CTA per (panel, band of
 // whole rows or columns), the band and the inverse staged in shared
-// memory by cp.async. Both are templates on the element type; the _f32
-// and _f64 entries launch the float and double instantiations.
+// memory by cp.async. Both are templates on the element type; the _f32,
+// _f64, _c64 and _c128 entries launch the float, double, complex64 and
+// complex128 instantiations (cplx.cuh; complex128 in its own geometry,
+// chain.cuh and panel.cuh say why). A complex product is 8 real flops a
+// multiply-add, four times a real one.
 
 #include "chain.cuh"
 
@@ -100,4 +103,33 @@ extern "C" int slu_trsm_f64(void* pool, const void* dinv, const void* slots,
                             void* stream) {
   return slu_panel::trsm<double>(pool, dinv, slots, steps, count, bs, left,
                                  stream);
+}
+
+extern "C" int slu_schur_c64(void* pool, const void* tslot, const void* cptr,
+                             const void* cl, const void* cu, int count,
+                             int bs, int wide, void* stream) {
+  return launch_schur<slu_cplx::cplx<float>>(pool, tslot, cptr, cl, cu,
+                                             count, bs, wide, stream);
+}
+
+extern "C" int slu_schur_c128(void* pool, const void* tslot,
+                              const void* cptr, const void* cl,
+                              const void* cu, int count, int bs, int wide,
+                              void* stream) {
+  return launch_schur<slu_cplx::cplx<double>>(pool, tslot, cptr, cl, cu,
+                                              count, bs, wide, stream);
+}
+
+extern "C" int slu_trsm_c64(void* pool, const void* dinv, const void* slots,
+                            const void* steps, int count, int bs, int left,
+                            void* stream) {
+  return slu_panel::trsm<slu_cplx::cplx<float>>(pool, dinv, slots, steps,
+                                                count, bs, left, stream);
+}
+
+extern "C" int slu_trsm_c128(void* pool, const void* dinv, const void* slots,
+                             const void* steps, int count, int bs, int left,
+                             void* stream) {
+  return slu_panel::trsm<slu_cplx::cplx<double>>(pool, dinv, slots, steps,
+                                                 count, bs, left, stream);
 }

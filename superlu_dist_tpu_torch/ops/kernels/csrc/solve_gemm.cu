@@ -43,16 +43,18 @@
 // diagonal inverse belong to lower levels or to the level itself, so the
 // two launches per level on one stream keep the sweep's order (the TPU
 // relies on its sequential grid). Per-thread accumulators are sized for
-// one right-hand side and for tiles of kRT = 8 (template RT). Templates on
-// the element type (float, double: IEEE arithmetic in that type), the
-// block size (32, 64, 128), the transpose flag, RT and (pass 2) the
-// diagonal.
+// one right-hand side and for tiles of kRT = 8 (template RT; 4 for
+// complex, rows.cuh's kRTof says why). Templates on the element type
+// (float, double, complex64, complex128: IEEE arithmetic in the real
+// type, cplx.cuh), the block size (32, 64, 128), the transpose flag, RT
+// and (pass 2) the diagonal. The flag means op(M) = M^T for complex too,
+// not the conjugate transpose: the driver solves A^H x = b as
+// conj(x) = A^{-T} conj(b).
 
 #include "rows.cuh"
 
 namespace {
 
-using slu_rows::kRT;
 using slu_rows::kThreads;
 using slu_rows::Map;
 
@@ -192,7 +194,7 @@ void by_rt(const A& a) {
   if (a.nrhs == 1)
     L<T, BS, kTrans, 1>::go(a);
   else
-    L<T, BS, kTrans, kRT>::go(a);
+    L<T, BS, kTrans, slu_rows::kRTof<T>>::go(a);
 }
 
 template <template <typename, int, bool, int> class L, typename T, int BS,
@@ -257,6 +259,24 @@ extern "C" int slu_solve_gemm_f64(const void* pool, const void* X, void* P,
                             transpose, stream);
 }
 
+extern "C" int slu_solve_gemm_c64(const void* pool, const void* X, void* P,
+                                  const void* cptr, const void* cslot,
+                                  const void* csrc, int count, int bs,
+                                  int nrhs, int transpose, void* stream) {
+  return solve_gemm<slu_rows::cplx<float>>(pool, X, P, cptr, cslot, csrc,
+                                           count, bs, nrhs, transpose,
+                                           stream);
+}
+
+extern "C" int slu_solve_gemm_c128(const void* pool, const void* X, void* P,
+                                   const void* cptr, const void* cslot,
+                                   const void* csrc, int count, int bs,
+                                   int nrhs, int transpose, void* stream) {
+  return solve_gemm<slu_rows::cplx<double>>(pool, X, P, cptr, cslot, csrc,
+                                            count, bs, nrhs, transpose,
+                                            stream);
+}
+
 // Pass 2 over `count` rows: Y = X[rows[b]] - sum of P[q - q0] for q in
 // chunkptr[b]..chunkptr[b+1] (no partials when chunkptr is null), then
 // X[rows[b]] = op(dinv[rows[b]]) . Y with `diag`, else X[rows[b]] = Y.
@@ -274,4 +294,22 @@ extern "C" int slu_solve_rows_f64(const void* dinv, void* X, const void* P,
                                   int transpose, int diag, void* stream) {
   return solve_rows<double>(dinv, X, P, rows, chunkptr, q0, count, bs, nrhs,
                             transpose, diag, stream);
+}
+
+extern "C" int slu_solve_rows_c64(const void* dinv, void* X, const void* P,
+                                  const void* rows, const void* chunkptr,
+                                  int q0, int count, int bs, int nrhs,
+                                  int transpose, int diag, void* stream) {
+  return solve_rows<slu_rows::cplx<float>>(dinv, X, P, rows, chunkptr, q0,
+                                           count, bs, nrhs, transpose, diag,
+                                           stream);
+}
+
+extern "C" int slu_solve_rows_c128(const void* dinv, void* X, const void* P,
+                                   const void* rows, const void* chunkptr,
+                                   int q0, int count, int bs, int nrhs,
+                                   int transpose, int diag, void* stream) {
+  return solve_rows<slu_rows::cplx<double>>(dinv, X, P, rows, chunkptr, q0,
+                                            count, bs, nrhs, transpose, diag,
+                                            stream);
 }

@@ -8,8 +8,9 @@
 // What it computes, for the tile g = pool[slots[b]] of CTA b (bs x bs, row
 // major):
 //   Doolittle LU without pivoting; a pivot with |p| < thresh becomes
-//   sign(p)*thresh (+thresh at p == 0) and is counted (ReplaceTinyPivot,
-//   reference pdgstrf2.c). The compact LU goes back into the tile,
+//   sign(p)*thresh (complex: (p/|p|)*thresh; +thresh at p == 0) and is
+//   counted (ReplaceTinyPivot, reference pdgstrf2.c). The compact LU goes
+//   back into the tile,
 //   L^{-1} into linv[steps[b]] and U^{-1} into uinv[steps[b]], and the
 //   count of replaced pivots is added to *tiny.
 //
@@ -43,7 +44,24 @@
 //
 // Shared memory: the tile (then the packed inverses), three padded 32 x 33
 // subtiles (the staged LU, li, ui), two double-buffered factor columns and
-// the pivots: 79 KiB in float, 158 KiB in double at bs = 128.
+// the pivots: 79 KiB in float, 158 KiB in double and complex64 at bs = 128.
+//
+// Complex (cplx.cuh's element type; the threshold stays real, and a tiny
+// pivot keeps its phase) differs in two places:
+// - registers: warp 0's 32 x 32 LU and the subtile's inverses keep their
+//   rows and columns in the padded subtiles in shared memory instead of
+//   32 complex registers a lane (512 threads may hold 128 registers each;
+//   complex64 held there spilled 44 bytes, as double spills 88), and the
+//   trailing update takes a warp's rows in two passes; every sum keeps
+//   its order;
+// - shared memory at bs = 128 in complex128: the tile alone is 256 KiB,
+//   over the 227 KiB
+//   a CTA may have. There the forward LU works on the tile in place in
+//   the pool (device memory, which L2 holds for the CTA), with only the
+//   subtiles, factor columns and pivots in shared memory (61 KiB), and
+//   the sweeps build their packed inverses in place in linv[step], which
+//   the last pass splits into L^{-1} and U^{-1}. tile_in_shared<T>(bs)
+//   tells the two layouts apart.
 //
 // The caller launches kTileThreads threads with tile_lu_smem_bytes<T>(bs)
 // of dynamic shared memory, CTA b for the tile of slots[b], bs in {32,
@@ -55,7 +73,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cplx.cuh"
+
 namespace slu_tile {
+
+using slu_cplx::cplx;
+using slu_cplx::ld16v;
+using slu_cplx::replace_tiny;
+using slu_cplx::shfl;
+template <typename T>
+using real_t = slu_cplx::real_t<T>;
 
 constexpr int kTileThreads = 512;
 constexpr int kWarps = kTileThreads / 32;
@@ -82,11 +109,35 @@ __device__ __forceinline__ void ldv(const double* p, double (&v)[2]) {
   v[0] = x.x;
   v[1] = x.y;
 }
+__device__ __forceinline__ void ldv(const cplx<float>* p,
+                                    cplx<float> (&v)[2]) {
+  ld16v(p, v);
+}
+__device__ __forceinline__ void ldv(const cplx<double>* p,
+                                    cplx<double> (&v)[1]) {
+  ld16v(p, v);
+}
+
+// the shared memory a CTA may have on an H100
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// whether the tile of T at block size bs fits in shared memory beside the
+// rest (else it stays in the pool: complex128 at bs = 128)
+template <typename T>
+__host__ __device__ constexpr bool tile_in_shared(int bs) {
+  return ((size_t)bs * bs + 3 * kSub + 5 * bs) * sizeof(T) <= kMaxSmem;
+}
 
 template <typename T>
-constexpr size_t tile_lu_smem_bytes(int bs) {
-  return ((size_t)bs * bs + 3 * kSub + 5 * bs) * sizeof(T);
+__host__ __device__ constexpr size_t tile_lu_smem_bytes(int bs) {
+  return ((tile_in_shared<T>(bs) ? (size_t)bs * bs : 0) + 3 * kSub +
+          5 * bs) * sizeof(T);
 }
+
+// whether T keeps warp 0's subtile rows and the inverses' columns in
+// shared memory rather than in registers (the complex types)
+template <typename T>
+constexpr bool kRowsShared = slu_cplx::is_cplx<T>;
 
 // (a1) Warp 0: the 32x32 subtile D (row stride ld) is factored in place,
 // lane i holding row i in registers, the pivot row passed by shuffles; S
@@ -94,36 +145,51 @@ constexpr size_t tile_lu_smem_bytes(int bs) {
 // (in lane 0). Not inlined: every panel and block size share the code.
 template <typename T>
 __device__ __noinline__ int subtile_lu(T* __restrict__ D, int ld,
-                                       T* __restrict__ S, T thresh) {
+                                       T* __restrict__ S,
+                                       real_t<T> thresh) {
   const int lane = threadIdx.x;
   int ntiny = 0;
   // rows of D are read across lanes through S: both accesses conflict-free
 #pragma unroll
   for (int i = 0; i < kPb; ++i) S[i * kPad + lane] = D[i * ld + lane];
   __syncwarp();
-  T a[kPb];
-#pragma unroll
-  for (int c = 0; c < kPb; ++c) a[c] = S[lane * kPad + c];
-#pragma unroll
-  for (int j = 0; j < kPb; ++j) {
-    T p = __shfl_sync(kFull, a[j], j);
-    const T ap = fabs(p);
-    if (ap < thresh) {
-      p = ap > T(0) ? copysign(thresh, p) : thresh;
-      if (lane == 0) ++ntiny;
+  if constexpr (kRowsShared<T>) {
+    // lane i updates row i of S in place; row j is read by broadcast
+    T* a = S + lane * kPad;
+    for (int j = 0; j < kPb; ++j) {
+      T p = S[j * kPad + j];
+      if (replace_tiny(p, thresh) && lane == 0) ++ntiny;
+      const T l = a[j] / p;
+      __syncwarp();   // every lane has read the pivot
+      if (lane == j) a[j] = p;
+      if (lane > j) {
+        a[j] = l;
+        for (int c = j + 1; c < kPb; ++c)
+          a[c] = fma(-l, S[j * kPad + c], a[c]);
+      }
+      __syncwarp();
     }
-    const T l = a[j] / p;
-    if (lane == j) a[j] = p;
-    if (lane > j) a[j] = l;
+  } else {
+    T a[kPb];
 #pragma unroll
-    for (int c = j + 1; c < kPb; ++c) {
-      const T u = __shfl_sync(kFull, a[c], j);
-      if (lane > j) a[c] = fma(-l, u, a[c]);
+    for (int c = 0; c < kPb; ++c) a[c] = S[lane * kPad + c];
+#pragma unroll
+    for (int j = 0; j < kPb; ++j) {
+      T p = shfl(kFull, a[j], j);
+      if (replace_tiny(p, thresh) && lane == 0) ++ntiny;
+      const T l = a[j] / p;
+      if (lane == j) a[j] = p;
+      if (lane > j) a[j] = l;
+#pragma unroll
+      for (int c = j + 1; c < kPb; ++c) {
+        const T u = shfl(kFull, a[c], j);
+        if (lane > j) a[c] = fma(-l, u, a[c]);
+      }
     }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < kPb; ++c) S[lane * kPad + c] = a[c];
   }
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < kPb; ++c) S[lane * kPad + c] = a[c];
   __syncwarp();
 #pragma unroll
   for (int i = 0; i < kPb; ++i) D[i * ld + lane] = S[i * kPad + lane];
@@ -139,26 +205,48 @@ __device__ __noinline__ void subtile_inverses(const T* __restrict__ S,
                                               T* __restrict__ LI,
                                               T* __restrict__ UI) {
   const int c = threadIdx.x & 31;
-  T x[kPb];
-#pragma unroll
-  for (int i = 0; i < kPb; ++i) x[i] = i == c ? T(1) : T(0);
-  if (threadIdx.x < 32) {
-#pragma unroll
-    for (int k = 0; k < kPb - 1; ++k)
-#pragma unroll
-      for (int i = k + 1; i < kPb; ++i)
-        x[i] = fma(-S[i * kPad + k], x[k], x[i]);
-#pragma unroll
-    for (int i = 0; i < kPb; ++i) LI[i * kPad + c] = x[i];
-  } else {
-#pragma unroll
-    for (int k = kPb - 1; k >= 0; --k) {
-      x[k] = x[k] / S[k * kPad + k];
-#pragma unroll
-      for (int i = 0; i < k; ++i) x[i] = fma(-S[i * kPad + k], x[k], x[i]);
+  if constexpr (kRowsShared<T>) {
+    // column c of the inverse in place in LI or UI, the same sums in the
+    // same order
+    T* x = (threadIdx.x < 32 ? LI : UI) + c;
+    for (int i = 0; i < kPb; ++i) x[i * kPad] = i == c ? T(1) : T(0);
+    if (threadIdx.x < 32) {
+      for (int k = 0; k < kPb - 1; ++k) {
+        const T xk = x[k * kPad];
+        for (int i = k + 1; i < kPb; ++i)
+          x[i * kPad] = fma(-S[i * kPad + k], xk, x[i * kPad]);
+      }
+    } else {
+      for (int k = kPb - 1; k >= 0; --k) {
+        const T xk = x[k * kPad] / S[k * kPad + k];
+        x[k * kPad] = xk;
+        for (int i = 0; i < k; ++i)
+          x[i * kPad] = fma(-S[i * kPad + k], xk, x[i * kPad]);
+      }
     }
+  } else {
+    T x[kPb];
 #pragma unroll
-    for (int i = 0; i < kPb; ++i) UI[i * kPad + c] = x[i];
+    for (int i = 0; i < kPb; ++i) x[i] = i == c ? T(1) : T(0);
+    if (threadIdx.x < 32) {
+#pragma unroll
+      for (int k = 0; k < kPb - 1; ++k)
+#pragma unroll
+        for (int i = k + 1; i < kPb; ++i)
+          x[i] = fma(-S[i * kPad + k], x[k], x[i]);
+#pragma unroll
+      for (int i = 0; i < kPb; ++i) LI[i * kPad + c] = x[i];
+    } else {
+#pragma unroll
+      for (int k = kPb - 1; k >= 0; --k) {
+        x[k] = x[k] / S[k * kPad + k];
+#pragma unroll
+        for (int i = 0; i < k; ++i)
+          x[i] = fma(-S[i * kPad + k], x[k], x[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kPb; ++i) UI[i * kPad + c] = x[i];
+    }
   }
 }
 
@@ -183,7 +271,9 @@ __device__ __forceinline__ void panel_blocks(T* __restrict__ A,
 #pragma unroll
   for (int q = 0; q < CU; ++q) accU[0][q] = accU[1][q] = T(0);
   constexpr int V = kVec<T>;
-#pragma unroll 2
+  // complex keeps one step of loads in flight (two spilled complex64)
+  constexpr int PU = kRowsShared<T> ? 1 : 2;
+#pragma unroll (PU)
   for (int m0 = 0; m0 < kPb; m0 += V) {
     T al[RL][V];
 #pragma unroll
@@ -220,45 +310,50 @@ __device__ __forceinline__ void panel_blocks(T* __restrict__ A,
 template <typename T, int BS, int O>
 __device__ __forceinline__ void trailing(T* __restrict__ A) {
   constexpr int REST = BS - O - kPb;
-  constexpr int RT = REST / kWarps;
+  constexpr int RW = REST / kWarps;             // this warp's rows
   constexpr int CT = REST / 32;
+  // rows per pass: complex128 takes a warp's rows in two passes
+  constexpr int RT = kRowsShared<T> && RW % 2 == 0 ? RW / 2 : RW;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* L = A + (O + kPb + w * RT) * BS + O;       // this warp's rows, col O
   T* U = A + O * BS + O + kPb + lane;           // U block, this lane
-  T* C = L + kPb + lane;                        // this warp's targets
-  T acc[RT][CT];
+#pragma unroll 1
+  for (int r0 = 0; r0 < RW; r0 += RT) {
+    T* L = A + (O + kPb + w * RW + r0) * BS + O;  // the pass's rows, col O
+    T* C = L + kPb + lane;                        // this pass's targets
+    T acc[RT][CT];
 #pragma unroll
-  for (int q = 0; q < RT; ++q)
+    for (int q = 0; q < RT; ++q)
 #pragma unroll
-    for (int c = 0; c < CT; ++c) acc[q][c] = C[q * BS + 32 * c];
-  constexpr int V = kVec<T>;
-  for (int m0 = 0; m0 < kPb; m0 += V) {
-    T l[RT][V];
+      for (int c = 0; c < CT; ++c) acc[q][c] = C[q * BS + 32 * c];
+    constexpr int V = kVec<T>;
+    for (int m0 = 0; m0 < kPb; m0 += V) {
+      T l[RT][V];
 #pragma unroll
-    for (int q = 0; q < RT; ++q) ldv(L + q * BS + m0, l[q]);
+      for (int q = 0; q < RT; ++q) ldv(L + q * BS + m0, l[q]);
 #pragma unroll
-    for (int mm = 0; mm < V; ++mm) {
-      T u[CT];
+      for (int mm = 0; mm < V; ++mm) {
+        T u[CT];
 #pragma unroll
-      for (int c = 0; c < CT; ++c) u[c] = U[(m0 + mm) * BS + 32 * c];
+        for (int c = 0; c < CT; ++c) u[c] = U[(m0 + mm) * BS + 32 * c];
 #pragma unroll
-      for (int q = 0; q < RT; ++q)
+        for (int q = 0; q < RT; ++q)
 #pragma unroll
-        for (int c = 0; c < CT; ++c)
-          acc[q][c] = fma(-l[q][mm], u[c], acc[q][c]);
+          for (int c = 0; c < CT; ++c)
+            acc[q][c] = fma(-l[q][mm], u[c], acc[q][c]);
+      }
     }
+#pragma unroll
+    for (int q = 0; q < RT; ++q)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) C[q * BS + 32 * c] = acc[q][c];
   }
-#pragma unroll
-  for (int q = 0; q < RT; ++q)
-#pragma unroll
-    for (int c = 0; c < CT; ++c) C[q * BS + 32 * c] = acc[q][c];
   __syncthreads();
 }
 
 // The panels from column O on: 4 CTA barriers per panel, 1 for the last.
 template <typename T, int BS, int O>
-__device__ __forceinline__ void panels(T* A, T* S, T* LI, T* UI, T thresh,
-                                       int& ntiny) {
+__device__ __forceinline__ void panels(T* A, T* S, T* LI, T* UI,
+                                       real_t<T> thresh, int& ntiny) {
   if (threadIdx.x < 32)
     ntiny += subtile_lu<T>(A + O * BS + O, BS, S, thresh);
   if (threadIdx.x < 64) {
@@ -276,22 +371,28 @@ __device__ __forceinline__ void panels(T* A, T* S, T* LI, T* UI, T thresh,
 template <typename T, int BS>
 __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
                                            T* __restrict__ gl,
-                                           T* __restrict__ gu, T thresh,
+                                           T* __restrict__ gu,
+                                           real_t<T> thresh,
                                            int32_t* __restrict__ tiny) {
   extern __shared__ __align__(16) unsigned char tile_lu_smem[];
   constexpr int bb = BS * BS;
   constexpr int msk = BS - 1;
   constexpr int lg = BS == 32 ? 5 : BS == 64 ? 6 : 7;
   static_assert((1 << lg) == BS, "bs is 32, 64 or 128");
-  T* A = reinterpret_cast<T*>(tile_lu_smem);   // the tile, then Z
-  T* S = A + bb;                                // staged subtile LU
+  // the tile in shared memory, or in place in the pool (the header says
+  // when)
+  constexpr bool kSh = tile_in_shared<T>(BS);
+  T* base = reinterpret_cast<T*>(tile_lu_smem);
+  T* A = kSh ? base : g;                        // the tile
+  T* S = kSh ? base + bb : base;                // staged subtile LU
   T* LI = S + kSub;                             // its L^{-1}
   T* UI = LI + kSub;                            // its U^{-1}
   T* cb = UI + kSub;                            // [2][2][BS] factor columns
   T* dg = cb + 4 * BS;                          // [BS] the pivots
   const int tid = threadIdx.x;
 
-  for (int e = tid; e < bb; e += kTileThreads) A[e] = g[e];
+  if constexpr (kSh)
+    for (int e = tid; e < bb; e += kTileThreads) A[e] = g[e];
   int ntiny = 0;
   __syncthreads();
   panels<T, BS, 0>(A, S, LI, UI, thresh, ntiny);
@@ -304,11 +405,12 @@ __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
   // from the rows above (its columns >= j) with column j of C. Each
   // factor column is staged in cb one step ahead, read from the LU stored
   // in g. Warp w % 8 takes rows w % 8 + 8 k, lane + 32 q the columns, over
-  // the chunks of 32 columns that hold active ones only, four rows at a
-  // time (all loads before the stores).
+  // the chunks of 32 columns that hold active ones only, KB rows at a
+  // time (all loads before the stores; four, two for complex).
   const int t = tid & (kTileThreads / 2 - 1);  // thread within its half
   const bool lower = tid < kTileThreads / 2;
-  for (int e = tid; e < bb; e += kTileThreads) g[e] = A[e];
+  if constexpr (kSh)
+    for (int e = tid; e < bb; e += kTileThreads) g[e] = A[e];
   if (t < BS) {
     if (lower) {
       dg[t] = A[t * BS + t];
@@ -317,12 +419,14 @@ __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
       cb[BS + t] = A[t * BS + BS - 1] / A[bb - 1];   // C[t][BS-1]
     }
   }
+  // Z: in the tile's shared memory, or in place in linv[step]
+  T* Z = kSh ? A : gl;
+  constexpr int KB = kRowsShared<T> ? 2 : 4;
   __syncthreads();
   for (int e = tid; e < bb; e += kTileThreads)
-    A[e] = (e >> lg) == (e & msk) ? T(1) : T(0);
+    Z[e] = (e >> lg) == (e & msk) ? T(1) : T(0);
   __syncthreads();
 
-  T* Z = A;
   const int hw = (tid >> 5) & 7, lane = tid & 31;
   for (int s = 0; s < BS - 1; ++s) {
     const int j = lower ? s : BS - 1 - s;
@@ -340,16 +444,16 @@ __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
       const T rj = Z[j * BS + c];
       T* zc = Z + c;
       int i = i0;
-      for (; i + 24 < i1; i += 32) {
-        T fk[4], r[4];
+      for (; i + 8 * (KB - 1) < i1; i += 8 * KB) {
+        T fk[KB], r[KB];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int k = 0; k < KB; ++k) {
           fk[k] = f[i + 8 * k];
           r[k] = zc[(i + 8 * k) * BS];
         }
         if (act)
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
+          for (int k = 0; k < KB; ++k)
             zc[(i + 8 * k) * BS] = fma(-fk[k], rj, r[k]);
       }
       for (; i < i1; i += 8) {
@@ -363,8 +467,9 @@ __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
 
   for (int e = tid; e < bb; e += kTileThreads) {
     const int i = e >> lg, c = e & msk;
-    gl[e] = c < i ? Z[e] : c == i ? T(1) : T(0);
-    gu[e] = c >= i ? Z[e] / dg[i] : T(0);
+    const T z = Z[e];
+    gl[e] = c < i ? z : c == i ? T(1) : T(0);
+    gu[e] = c >= i ? z / dg[i] : T(0);
   }
 }
 
@@ -376,7 +481,7 @@ __device__ __noinline__ void tile_lu(T* __restrict__ pool,
                                      T* __restrict__ uinv,
                                      const int32_t* __restrict__ slots,
                                      const int32_t* __restrict__ steps,
-                                     int bs, T thresh,
+                                     int bs, real_t<T> thresh,
                                      int32_t* __restrict__ tiny) {
   const int64_t bb = (int64_t)bs * bs;
   T* g = pool + slots[blockIdx.x] * bb;

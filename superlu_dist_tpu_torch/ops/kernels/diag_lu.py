@@ -2,9 +2,10 @@
 
 ``diag_lu`` factors a batch of diagonal blocks of the pool in place and
 stores their triangular inverses: on a CUDA tensor through the
-hand-written kernel ``csrc/diag_lu.cu`` (float32 or float64), on a CPU
-tensor through :func:`lu_inv_plain`. Counterpart of the JAX package's
-``flk._lu_tile_blocked`` / ``blocklu.block_lu_inv``.
+hand-written kernel ``csrc/diag_lu.cu`` (float32, float64, complex64 or
+complex128), on a CPU tensor through :func:`lu_inv_plain`. Counterpart of
+the JAX package's ``flk._lu_tile_blocked`` / ``blocklu.block_lu_inv``.
+A complex tiny pivot keeps its phase and the threshold stays real.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import torch
 from ._build import CudaKernel, ptr, stream_ptr
 
 _V = ctypes.c_void_p
+#: the threshold's C type of each entry (the real type of the element)
+_THRESH = {"f32": ctypes.c_float, "f64": ctypes.c_double,
+           "c64": ctypes.c_float, "c128": ctypes.c_double}
 KERNEL = CudaKernel("diag_lu", "diag_lu.cu", {
     f"slu_diag_lu_{sfx}": [_V, _V, _V, _V, _V, ctypes.c_int, ctypes.c_int,
                            th, _V, _V]
-    for sfx, th in (("f32", ctypes.c_float), ("f64", ctypes.c_double))})
+    for sfx, th in _THRESH.items()})
 
 #: block sizes the CUDA kernels take (powers of two; the tile and one
 #: inverse fill 128 KiB of shared memory at 128)
@@ -27,7 +31,10 @@ CUDA_BLOCK_SIZES = (32, 64, 128)
 #: element types of the kernels that the level executor and the solves
 #: run, and the suffix of their C entries (clk, tck and flk take float32
 #: only, as on the TPU)
-CUDA_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+CUDA_DTYPES = {torch.float32: "f32", torch.float64: "f64",
+               torch.complex64: "c64", torch.complex128: "c128"}
+#: how the wrappers' messages name them
+DTYPE_NAMES = "float32, float64, complex64 or complex128"
 
 
 def entry(name: str, t: torch.Tensor) -> str:
@@ -38,18 +45,22 @@ def entry(name: str, t: torch.Tensor) -> str:
 def lu_inv_plain(T: torch.Tensor, thresh: float):
     """Batched no-pivot LU with ReplaceTinyPivot (reference:
     pdgstrf2.c): ``T`` is (batch, bs, bs). A pivot with |p| < thresh
-    becomes sign(p)·thresh, or +thresh at 0, and is counted.
+    becomes sign(p)·thresh, or (p/|p|)·thresh for a complex p (the JAX
+    package's ``blocklu._replace_tiny``), or +thresh at 0, and is counted;
+    ``thresh`` is real.
 
     Returns (LU compact, L⁻¹, U⁻¹, tiny count as an int tensor)."""
     T = T.clone()
     nbat, m, _ = T.shape
-    th = torch.tensor(thresh, dtype=T.dtype, device=T.device)
+    th = torch.tensor(thresh, dtype=T.real.dtype, device=T.device)
     tiny = torch.zeros((), dtype=torch.int64, device=T.device)
     for j in range(m):
         p = T[:, j, j]
         ap = p.abs()
         bad = ap < th
-        p = torch.where(bad, torch.where(ap > 0, torch.copysign(th, p), th),
+        unit = (p / torch.where(ap > 0, ap, 1)) if T.is_complex() \
+            else torch.copysign(torch.ones_like(p), p)
+        p = torch.where(bad, torch.where(ap > 0, unit * th, th).to(T.dtype),
                         p)
         T[:, j, j] = p
         tiny += bad.sum()
@@ -90,8 +101,9 @@ def diag_lu(pool, linv, uinv, slots, steps, thresh: float, tiny) -> None:
 def _launch(pool, linv, uinv, slots, steps, thresh, tiny):
     if len(slots) == 0:
         return
-    KERNEL.launches += 1
-    KERNEL.call(entry("diag_lu", pool), ptr(pool), ptr(linv), ptr(uinv),
+    fn = entry("diag_lu", pool)
+    KERNEL.count(fn)
+    KERNEL.call(fn, ptr(pool), ptr(linv), ptr(uinv),
                 ptr(slots), ptr(steps), len(slots), pool.shape[-1],
                 float(thresh), ptr(tiny), stream_ptr(pool.device))
 
@@ -104,8 +116,8 @@ def _check_cuda(pool, linv, uinv, slots, steps, tiny, bs):
                 or not t.is_contiguous() or t.device != pool.device \
                 or t.shape[-2:] != (bs, bs):
             raise ValueError("diag_lu: pool/linv/uinv must be contiguous "
-                             "(., bs, bs) tensors of one dtype (float32 or "
-                             "float64) on one device")
+                             "(., bs, bs) tensors of one dtype "
+                             f"({DTYPE_NAMES}) on one device")
     for t in (slots, steps):
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != pool.device or t.shape != slots.shape:

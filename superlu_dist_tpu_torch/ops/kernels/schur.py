@@ -37,14 +37,17 @@ import torch
 from ..blocklu import level_order, subtract_products
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, diag_lu, entry
+from .diag_lu import (CUDA_BLOCK_SIZES, CUDA_DTYPES, DTYPE_NAMES, diag_lu,
+                      entry)
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 SCHUR = CudaKernel("schur", "schur.cu", {
-    f"slu_schur_{s}": [_V] * 5 + [_I, _I, _I, _V] for s in ("f32", "f64")})
+    f"slu_schur_{s}": [_V] * 5 + [_I, _I, _I, _V]
+    for s in CUDA_DTYPES.values()})
 TRSM = CudaKernel("trsm", "schur.cu", {
-    f"slu_trsm_{s}": [_V] * 4 + [_I, _I, _I, _V] for s in ("f32", "f64")})
+    f"slu_trsm_{s}": [_V] * 4 + [_I, _I, _I, _V]
+    for s in CUDA_DTYPES.values()})
 
 
 @dataclasses.dataclass
@@ -127,9 +130,10 @@ def trsm(pool, dinv, slots, steps, left: bool) -> None:
     _check_cuda(pool, dinv)
     if len(slots) == 0:
         return
-    TRSM.launches += 1
-    TRSM.call(entry("trsm", pool), ptr(pool), ptr(dinv), ptr(slots), ptr(steps),
-              len(slots), pool.shape[-1], int(left), stream_ptr(pool.device))
+    fn = entry("trsm", pool)
+    TRSM.count(fn)
+    TRSM.call(fn, ptr(pool), ptr(dinv), ptr(slots), ptr(steps), len(slots),
+              pool.shape[-1], int(left), stream_ptr(pool.device))
 
 
 # ---------------------------------------------------------------------------
@@ -150,15 +154,16 @@ def schur(pool, tp: LevelTapes, level: int, wide: int = -1) -> None:
     """T −= Σ L·U over the Schur triples of ``level`` (in place), one CTA
     per (target, band of whole columns). ``wide`` < 0 lets the kernel
     choose its bands (``csrc/chain.cuh``, ``flk.band_width``), 0 / 1
-    force bands of 16 / 64."""
+    force bands of 16 / 64 (complex128 takes bands of 16 always)."""
     if pool.device.type == "cpu":
         return schur_plain(pool, tp, level)
     _check_cuda(pool)
     lo, hi = int(tp.sptr[level]), int(tp.sptr[level + 1])
     if hi == lo:
         return
-    SCHUR.launches += 1
-    SCHUR.call(entry("schur", pool), ptr(pool), ptr(tp.tslot[lo:hi]),
+    fn = entry("schur", pool)
+    SCHUR.count(fn)
+    SCHUR.call(fn, ptr(pool), ptr(tp.tslot[lo:hi]),
                ptr(tp.cptr[lo:hi + 1]), ptr(tp.cl), ptr(tp.cu), hi - lo,
                pool.shape[-1], wide, stream_ptr(pool.device))
 
@@ -173,7 +178,7 @@ def _check_cuda(pool, *invs):
                 or t.shape[-2:] != (bs, bs):
             raise ValueError("schur/trsm: pool and inverses must be "
                              "contiguous (., bs, bs) tensors of one dtype "
-                             "(float32 or float64) on one device")
+                             f"({DTYPE_NAMES}) on one device")
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"schur/trsm: block size {bs} not in "
                          f"{CUDA_BLOCK_SIZES}")

@@ -51,15 +51,15 @@ import torch
 from ..blocklu import trans_schedule
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, entry
+from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, DTYPE_NAMES, entry
 from .sweep import SweepTape, csr_tape
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _ROWS = {f"slu_solve_rows_{s}": [_V] * 5 + [_I] * 6 + [_V]
-         for s in ("f32", "f64")}
+         for s in CUDA_DTYPES.values()}
 _CHUNKS = {f"slu_solve_gemm_{s}": [_V] * 6 + [_I] * 4 + [_V]
-           for s in ("f32", "f64")}
+           for s in CUDA_DTYPES.values()}
 SOLVE_GEMM = CudaKernel("solve_gemm", "solve_gemm.cu", {**_CHUNKS, **_ROWS})
 DIAG_APPLY = CudaKernel("diag_apply", "solve_gemm.cu", _ROWS)
 #: kernel 3, the NOTRANS sweep: both passes with ``transpose=False``
@@ -263,8 +263,8 @@ def _check_cuda(what, blocks, X):
         if t.dtype not in CUDA_DTYPES or t.dtype != X.dtype \
                 or not t.is_contiguous() or t.device != X.device:
             raise ValueError(f"{what}: blocks and X must be contiguous "
-                             "tensors of one dtype (float32 or float64) on "
-                             "one device")
+                             f"tensors of one dtype ({DTYPE_NAMES}) on one "
+                             "device")
     if blocks.shape[-2:] != (bs, bs) or X.dim() != 3 or X.shape[1] != bs:
         raise ValueError(f"{what}: shapes must be blocks (., bs, bs) and X "
                          "(nb, bs, nrhs)")

@@ -5,16 +5,16 @@ Counterpart of the JAX package's ``ops/kernels/spmv.py`` (a COO gather +
 SRC/double/pdgsmv.c). The JAX version is an XLA op, not a TPU kernel, so
 this is plain PyTorch. Each output row is summed in one fixed order, its
 entries' order in the COO, so two calls give bit-equal results on the
-card (an ``index_add_`` adds with atomics on CUDA, in whatever order
-they land, and refinement then takes a different number of steps from
-call to call), and on the CPU the same bits as the JAX package's
-``segment_sum``. The entries are grouped once, when the matrix is built,
-by output row into buckets of rows of similar length, each bucket a
-padded (rows, width) gather whose running sum along the row
-(``cumsum(dim=1)``, one thread per row and column on CUDA) ends in the
-row's sum. Widths are powers of two, so the padding stays under twice
-the entries however uneven the row lengths (a hub row of a circuit
-matrix gets a bucket of its own).
+card, in real and complex dtypes (an ``index_add_`` adds with atomics on
+CUDA, in whatever order they land, and refinement then takes a different
+number of steps from call to call), and on the CPU the same bits as the
+JAX package's ``segment_sum``. The entries are grouped once, when the
+matrix is built, by output row into buckets of rows of similar length,
+each bucket a padded (rows, width) gather whose running sum along the
+row (``cumsum(dim=1)``, one thread per row and column on CUDA) ends in
+the row's sum. Widths are powers of two, so the padding stays under
+twice the entries however uneven the row lengths (a hub row of a
+circuit matrix gets a bucket of its own).
 """
 
 from __future__ import annotations
@@ -110,10 +110,12 @@ def abs_spmv(A: Coo, x):
     return A.by_row(A.vals.abs()[:, None] * x[A.cols])
 
 
-def spmv_t(A: Coo, x):
-    """y = Aᵀ @ x (the residual of a transposed solve; the caller
-    conjugates for Aᴴ)."""
-    return A.by_col(A.vals[:, None] * x[A.rows])
+def spmv_t(A: Coo, x, conj: bool = False):
+    """y = Aᵀ @ x, or Aᴴ @ x with ``conj`` (the residual of a transposed
+    solve; the JAX package conjugates the values, driver.py:1325 there)."""
+    vals = torch.conj_physical(A.vals) if conj and A.vals.is_complex() \
+        else A.vals
+    return A.by_col(vals[:, None] * x[A.rows])
 
 
 def abs_spmv_t(A: Coo, x):

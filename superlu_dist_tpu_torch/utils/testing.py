@@ -43,6 +43,18 @@ def laplacian_3d_unsym(k: int, seed: int = 1) -> sp.csc_matrix:
     return sp.csc_matrix((data, (A.row, A.col)), shape=A.shape)
 
 
+def helmholtz_3d(k: int, kappa2: float = 2.0, sigma: float = 0.5,
+                 dtype=np.complex64) -> sp.csc_matrix:
+    """Complex shifted 3D Helmholtz operator −Δ − (κ² + iσ)I on a k³
+    grid — the production-scale complex benchmark class (the z-precision
+    suite's workload; reference: SRC/complex16/pzgstrf.c). The complex
+    shift makes the operator invertible and genuinely complex-valued."""
+    A = laplacian_3d(k, dtype=np.float64).astype(np.complex128)
+    n = A.shape[0]
+    A = A - sp.identity(n) * (kappa2 + 1j * sigma)
+    return sp.csc_matrix(A, dtype=dtype)
+
+
 def laplacian_arrowhead(k: int = 6, seed: int = 1) -> sp.csc_matrix:
     """``k`` disjoint 16×16-grid Laplacians (two 128-blocks each) and a
     128-wide random coupling border: at block size 128 many elimination

@@ -936,3 +936,199 @@ def test_ilu_refinement_repeats(cuda):
     r2, _ = T.gssvx(A, b, opts, device=cuda)
     assert r1.stat.refine_steps == r2.stat.refine_steps
     assert np.array_equal(r1.x, r2.x)
+
+
+# ---------------------------------------------------------------------------
+# complex64 and complex128: the level executor's kernels in their complex
+# instantiations (csrc/cplx.cuh's element type)
+# ---------------------------------------------------------------------------
+
+CDTYPES = [torch.complex64, torch.complex128]
+CIDS = ["c64", "c128"]
+
+
+def _ceps(dtype):
+    """The unit roundoff of a complex dtype's real type."""
+    return np.finfo(np.complex64 if dtype == torch.complex64
+                    else np.complex128).eps
+
+
+def _complex_unsym(k, seed=1):
+    """``laplacian_3d_unsym(k)`` with helmholtz_3d's shift and every
+    off-diagonal entry times a seeded unit phase: A, Aᵀ and Aᴴ all
+    differ, on the 7-point pattern."""
+    A = sp.coo_matrix(tt.laplacian_3d_unsym(k, seed=seed)).astype(
+        np.complex128)
+    off = A.row != A.col
+    ph = np.exp(1j * np.random.default_rng(seed).uniform(
+        0, 2 * np.pi, int(off.sum())))
+    data = A.data.copy()
+    data[off] *= ph
+    data[~off] -= 2.0 + 0.5j
+    return sp.csc_matrix((data, (A.row, A.col)), shape=A.shape)
+
+
+def _complex_tiles(rng, n, bs, dtype):
+    T_ = (rng.standard_normal((n, bs, bs)) + 1j * rng.standard_normal(
+        (n, bs, bs)) + bs * np.eye(bs))
+    return torch.as_tensor(T_).to(dtype)
+
+
+@pytest.mark.parametrize("ntile", [1, 140], ids=["1tile", "140tiles"])
+@pytest.mark.parametrize("dtype", CDTYPES, ids=CIDS)
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_complex_diag_lu_matches_plain(cuda, bs, dtype, ntile):
+    """diag_lu's complex instantiations against ``lu_inv_plain`` (64 ulp
+    of the real type, of scale), then with three tiny complex pivots,
+    which keep their phase at modulus thresh and are counted. complex128
+    at bs 128 runs the layout with the tile in the pool."""
+    thresh = 1e-3
+    eps = _ceps(dtype)
+    rng = np.random.default_rng(bs + ntile)
+    tiles = _complex_tiles(rng, ntile, bs, dtype).to(cuda)
+    tiny_p = (1e-9 * (1 + 1j), -1e-9j, 0.0)
+    for with_tiny in (False, True):
+        T_ = tiles.clone()
+        if with_tiny:
+            for j, v in zip((5, 9, 12), tiny_p):
+                T_[0, j, :j] = 0
+                T_[0, :j, j] = 0
+                T_[0, j, j] = v
+        slots = torch.as_tensor(rng.permutation(ntile + 3)[:ntile] + 1,
+                                dtype=torch.int32, device=cuda)
+        steps = torch.as_tensor(rng.permutation(ntile), dtype=torch.int32,
+                                device=cuda)
+        pool = torch.zeros(ntile + 4, bs, bs, dtype=dtype, device=cuda)
+        pool[slots.long()] = T_
+        linv = torch.zeros(ntile, bs, bs, dtype=dtype, device=cuda)
+        uinv = torch.zeros_like(linv)
+        tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+        n0 = diag_lu.KERNEL.launches
+        diag_lu.diag_lu(pool, linv, uinv, slots, steps, thresh, tiny)
+        torch.cuda.synchronize()
+        assert diag_lu.KERNEL.launches == n0 + 1
+        LU, li, ui, nt = diag_lu.lu_inv_plain(T_, thresh)
+        assert int(tiny.item()) == int(nt) == (3 if with_tiny else 0)
+        got = (pool[slots.long()], linv[steps.long()], uinv[steps.long()])
+        if with_tiny:
+            for j, v in zip((5, 9, 12), tiny_p):
+                p = complex(got[0][0, j, j])
+                want = thresh * (v / abs(v) if v else 1.0)
+                assert abs(p - want) <= 4 * eps * thresh
+        first = 1 if with_tiny else 0
+        for g, p in zip(got, (LU, li, ui)):
+            if ntile > first:
+                scale = max(1.0, float(p[first:].abs().max()))
+                assert float((g[first:] - p[first:]).abs().max()) \
+                    <= ULPS * eps * scale
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=CIDS)
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_complex_kernels_match_plain(cuda, bs, dtype):
+    """A complex gssvx runs the level executor in its complex
+    instantiations; its factor (diag_lu, trsm with both flags, schur in
+    the bands the kernel chooses and in bands of 16) against the plain
+    phases, then the L+U sweep and solve_gemm / diag_apply with both
+    flags level by level (one and nine right-hand sides), all at 64 ulp
+    of the real type; two factors and two transposed solves bit-equal."""
+    A = _complex_unsym(12)
+    b = np.random.default_rng(0).standard_normal(A.shape[0]) + 0j
+    kern = (diag_lu.KERNEL, schur.SCHUR, schur.TRSM, solve_gemm.SWEEP)
+    for k in kern + (clk.UPDATE, flk.KERNEL):
+        k.reset_counts()
+    name = "complex64" if dtype == torch.complex64 else "complex128"
+    sfx = "c64" if dtype == torch.complex64 else "c128"
+    res, lu = T.gssvx(A, b, T.Options(dtype=name, block_size=bs),
+                      device=cuda)
+    assert res.stat.counters["executor"] == "pallas"
+    assert res.berr.max() < 1e-15
+    assert lu.pool.dtype == dtype
+    for k in kern:
+        assert k.launches > 0, k.name
+        assert all(v == 0 for e, v in k.entry_launches.items()
+                   if not e.endswith(sfx)), k.entry_launches
+    assert clk.UPDATE.launches == flk.KERNEL.launches == 0
+    eps = _ceps(dtype)
+    plan, tp = lu.plan, lu._ftapes
+    pool = blocklu.init_pool(plan, lu._a3_data, lu.dtype, cuda)
+    ref = _level_plain(pool.clone(), lu._thresh(), tp, plan.nb)
+    f1 = schur.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+    f2 = schur.factor(pool.clone(), lu._thresh(), tp, plan.nb)
+    for x, y in zip(f1, f2):
+        assert torch.equal(x, y)
+    for got in (f1, _level_kernel(pool.clone(), lu._thresh(), tp, plan.nb,
+                                  0)):
+        for k, p in zip(got[:3], ref[:3]):
+            scale = max(1.0, float(p.abs().max()))
+            assert float((k - p).abs().max()) <= ULPS * eps * scale
+    for transpose in (False, True):
+        tapes = (((solve_gemm.build_trans_tape(plan, "U", cuda), lu.uinv),
+                  (solve_gemm.build_trans_tape(plan, "L", cuda), lu.linv))
+                 if transpose else ((lu._ltape, lu.linv),
+                                    (lu._utape, lu.uinv)))
+        for nrhs in (1, 9):
+            X = torch.randn(plan.nb, plan.bs, nrhs, device=cuda, dtype=dtype)
+            X0 = X.clone()
+            for tape, dinv in tapes:
+                for level in range(tape.nlvl):
+                    Xp = X.clone()
+                    solve_gemm.solve_level(lu.pool, dinv, X, tape, level,
+                                           transpose)
+                    solve_gemm.solve_level_plain(lu.pool, dinv, Xp, tape,
+                                                 level, transpose)
+                    torch.cuda.synchronize()
+                    scale = max(1.0, float(Xp.abs().max()))
+                    assert float((X - Xp).abs().max()) <= ULPS * eps * scale
+            if transpose:
+                tu, tl = (t for t, _ in tapes)
+                X1, X2 = (solve_gemm.solve_transposed(
+                    lu.pool, lu.uinv, lu.linv, tu, tl, X0.clone())
+                    for _ in range(2))
+                assert torch.equal(X1, X2)
+
+
+def test_complex_gssvx_matches_cpu(cuda):
+    """complex64 and complex128 ``gssvx`` on the card (NOTRANS, TRANS and
+    CONJ with the condition estimate) against the same calls on the CPU:
+    x to 1e-12 relative, berr below 1e-15, rcond to 1e-4 relative in
+    complex64 (the estimate runs unrefined solves, which carry the factor's
+    rounding) and 1e-8 in complex128."""
+    A = _complex_unsym(10, seed=3)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal(A.shape[0]) + 1j * rng.standard_normal(
+        A.shape[0])
+    for dt in ("complex64", "complex128"):
+        for trans, op in ((T.Trans.NOTRANS, A), (T.Trans.TRANS, A.T),
+                          (T.Trans.CONJ, A.conj().T)):
+            opts = T.Options(dtype=dt, block_size=64, trans=trans,
+                             condition_number=True)
+            rg, _ = T.gssvx(A, b, opts, device=cuda)
+            rc, _ = T.gssvx(A, b, opts, device="cpu")
+            assert rg.berr.max() < 1e-15 and rc.berr.max() < 1e-15
+            assert np.abs(rg.x - rc.x).max() <= 1e-12 * np.abs(rc.x).max()
+            assert np.abs(op @ rg.x - b).max() / np.abs(b).max() < 1e-12
+            rtol = 1e-4 if dt == "complex64" else 1e-8
+            assert abs(rg.rcond - rc.rcond) <= rtol * rc.rcond
+
+
+def test_complex_without_instantiation_raises(cuda):
+    """A complex CUDA tensor that reaches a wrapper without a complex
+    instantiation raises; it never falls through to a plain version."""
+    A = _complex_unsym(6)
+    _, lu = T.gssvx(A, np.ones(A.shape[0]) + 0j, T.Options(
+        dtype="complex64", block_size=32), device=cuda)
+    plan = lu.plan
+    pool = lu.pool.clone()
+    ctp = clk.build_clk_tapes(plan, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        clk.clk_trsm(pool, lu.uinv, ctp, 0)
+    with pytest.raises(ValueError, match="float32"):
+        clk.clk_update(pool, lu.linv, ctp, 0)
+    ftp = flk.build_flk_tapes(plan, cuda)
+    with pytest.raises(ValueError):
+        flk.flk_update(pool, lu.linv, lu.uinv, ftp, 0)
+    X = torch.zeros(plan.nb, plan.bs, 1, dtype=torch.complex32, device=cuda)
+    with pytest.raises(ValueError, match="complex128"):
+        solve_gemm.solve(lu.pool.to(torch.complex32), lu.linv, lu.uinv,
+                         lu._ltape, lu._utape, X)

@@ -145,7 +145,7 @@ def test_save_load_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("float64", "8b"), ("complex", "4 and 8b"), ("trans", "8a"),
+    ("float64", "8b"), ("complex", "8b"), ("trans", "8a"),
     ("condition_number", "8a"), ("solve_transposed", "8a"),
     ("rcond_1", "8a"), ("profile_levels", "8c"), ("dist_planning", "10"),
     ("several_cards", "8d")])

@@ -166,7 +166,18 @@ def test_ilu_state_from_jax_solves():
     dict(dtype="complex64"), dict(gemm_precision="bf16"),
 ], ids=["dtype", "gemm_precision"])
 def test_unported_options_raise(kw):
+    """An unported option raises naming its ROADMAP.md item; complex64,
+    refused until it was ported, now factors and solves on the CPU (the
+    level executor, complex128 refinement)."""
     A = tt.laplacian_2d(6).tocsc()
+    if kw.get("dtype") == "complex64":
+        b = np.arange(A.shape[0]) * (1 + 0.5j)
+        res, lu = T.gssvx(A, b, T.Options(block_size=8, **kw), device="cpu")
+        assert lu.pool.dtype == torch.complex64
+        assert res.stat.counters["executor"] == "pallas"
+        assert res.berr.max() <= 1e-15
+        assert np.abs(A @ res.x - b).max() <= 1e-12 * np.abs(b).max()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.SparseLU(A, T.Options(block_size=8, **kw), device="cpu")
 
@@ -219,13 +230,18 @@ def test_formerly_refused_options_run(option, monkeypatch):
 
 def test_float64_on_cuda_raises():
     """float64 on a ``cuda`` device raises only for what is still not
-    served: an unported ``gemm_precision``, complex data or an unknown
-    executor."""
+    served: an unported ``gemm_precision`` or an unknown executor. Complex
+    data passes with a complex dtype (and runs the level executor); with a
+    real dtype it raises, as its imaginary part would be dropped."""
     cuda, A = torch.device("cuda"), sp.eye(4).tocsc()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdrv._check_supported(T.Options(dtype="float64",
                                         gemm_precision="bf16"), cuda, A)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for dt in ("complex64", "complex128"):
+        o = T.Options(dtype=dt)
+        tdrv._check_supported(o, cuda, (A * 1j).tocsc())
+        assert tdrv._executor(o) == "pallas"
+    with pytest.raises(ValueError, match="complex dtype"):
         tdrv._check_supported(T.Options(dtype="float64"), cuda,
                               (A * 1j).tocsc())
     with pytest.raises(ValueError, match="unknown executor"):
