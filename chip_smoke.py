@@ -9,8 +9,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build every CUDA kernel (one nvcc per source, in parallel) and print
    the build seconds and the ptxas resource lines, each under its
    function's name; every instantiation of ``schur``, and every complex
-   instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm`` and
-   ``diag_apply``, must spill no registers;
+   instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm``,
+   ``diag_apply`` and of ``rdma.cu``'s six entries, must spill no
+   registers;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
@@ -123,12 +124,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    call's, one refinement profiled (device busy and idle share);
    ``dist_executor="xla"``, which runs the same entries; and at
    block size 64 on lap3d16 the grids 2x2, 1x4, 4x1 and 2x4, x against
-   scipy's;
+   scipy's; then the grid in the other element types, float64 on lap3d32
+   and complex64 and complex128 on ``helmholtz_3d(32)``, each driven like
+   the main path through its ``_f64``/``_c64``/``_c128`` entries only
+   (every one launched), the receive counters against the tapes, a warm
+   call bit-equal with equal refinement steps, every entry against its
+   plain version level by level (REL_TOL_F64 in float64 and complex128)
+   and the gathered factor against the float64 (complex128) reference;
+   ``DistributedSparseLU.profile_levels`` on the float64 grid (its
+   costliest levels, the solve checked after it); and the transposed
+   grid: TRANS with ``condition_number`` on lap3d32u in float32 and CONJ
+   on its complex twin in complex64 and complex128 (rcond in (0, 1], a
+   warm call and two transposed solves bit-equal, the Uᵀ and Lᵀ sweeps'
+   receive counters
+   against their tapes and the solve entries with ``transpose=1``
+   against their plain versions); ptxas must report no spill in any
+   complex instantiation of ``rdma.cu``;
 12. one JSON line of per-kernel results (the float64, complex64 and
    complex128 instantiations in rows of their own, with a ``dtype``
-   field; the tck and RDMA rows with
-   their launches per entry), the nvidia-smi line, the seconds the run held the
-   card, and the final ``{"ok": true, "device": ...}`` line.
+   field, the RDMA rows among them; the grid's transposed solves as
+   ``rdma_solve_trans_*`` rows with ``"transpose": true``; the tck and
+   RDMA rows with their launches per entry), the nvidia-smi line, the
+   seconds the run held the card, and the final ``{"ok": true, "device":
+   ...}`` line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -246,7 +264,8 @@ def main() -> None:
               solve_gemm.SOLVE_GEMM, tck.UPDATE, rdma.RDMA_FACTOR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     check_spills(_build.ptxas_report(schur.SCHUR), "schur_kernel")
-    for k in (diag_lu.KERNEL, schur.SCHUR, solve_gemm.SOLVE_GEMM):
+    for k in (diag_lu.KERNEL, schur.SCHUR, solve_gemm.SOLVE_GEMM,
+              rdma.RDMA_FACTOR):
         # a complex element type, demangled or mangled (slu_cplx::real_of
         # names the real instantiations too)
         check_spills(_build.ptxas_report(k), ("cplx<", "4cplxI"), k.source)
@@ -364,13 +383,16 @@ def main() -> None:
 
     # ---- 11. the 2D grid on one card -----------------------------------
     dist_phase(ctx, rng, checks, launches)
+    grid_types_phase(ctx, rng, checks, launches)
 
     rows = []
-    for name, dtype in [(k, "float32") for k in kernels] + \
-            [(k, "float64") for k in F64_KERNELS] + \
-            [(k, d) for d in CSFX for k in COMPLEX_KERNELS]:
-        key = name if dtype == "float32" else \
-            f"{name}_{CSFX.get(dtype, 'f64')}"
+    for name, dtype, key in \
+            [(k, "float32", k) for k in kernels] + \
+            [(k, "float64", f"{k}_f64") for k in F64_KERNELS + GRID_NEED] + \
+            [(k, d, f"{k}_{CSFX[d]}") for d in CSFX
+             for k in COMPLEX_KERNELS + GRID_NEED] + \
+            [("rdma_solve", d, f"rdma_solve_trans_{SFX[d]}")
+             for d, _, _ in GRID_TRANS]:
         c = checks[key]
         row = dict(
             name=key, route="cuda",
@@ -381,8 +403,10 @@ def main() -> None:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             per=c["per"], dtype=dtype)
-        if name in ctx["entry_launches"]:
-            row["entry_launches"] = ctx["entry_launches"][name]
+        if key in ctx["entry_launches"]:
+            row["entry_launches"] = ctx["entry_launches"][key]
+        if key.startswith("rdma_solve_trans"):
+            row["transpose"] = True
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         rows.append(row)
@@ -1577,10 +1601,7 @@ def dist_phase(ctx, rng, checks, launches):
     res, lu, got = drive(ctx, "grid 2x2 rdma", A, b, opts, GRID_NEED,
                          SINGLE_DEVICE, grid=grid)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    entries = {k: dict(ctx["kernels"][k].entry_launches) for k in GRID_NEED}
-    for k, e in entries.items():
-        if not all(e.values()):
-            fail(f"an entry of {k} was not launched on the grid path: {e}")
+    entries = grid_entries(ctx, "grid 2x2 rdma", "f32")
     ctx["entry_launches"].update(entries)
     for k in GRID_NEED:
         launches[k] = got[k]
@@ -1605,7 +1626,7 @@ def dist_phase(ctx, rng, checks, launches):
     _, _, gx = drive(ctx, "grid 2x2 xla", A, b,
                      opts.replace(dist_executor="xla"), GRID_NEED,
                      SINGLE_DEVICE, grid=grid)
-    ex = {k: dict(ctx["kernels"][k].entry_launches) for k in GRID_NEED}
+    ex = grid_entries(ctx, "grid 2x2 xla", "f32")
     print(f"grid 2x2 xla: launches per entry {ex}", flush=True)
     if ex != entries:
         fail("dist_executor='xla' did not run the same launches as 'rdma'")
@@ -1624,6 +1645,147 @@ def dist_phase(ctx, rng, checks, launches):
         if err > 1e-10:
             fail(f"{what} solution disagrees with scipy")
         check_recv(lu2, what)
+
+
+def grid_entries(ctx, what, sfx):
+    """After a grid drive: every ``_{sfx}`` entry of rdma_factor and
+    rdma_solve launched and no entry of another element type; returns the
+    launches per entry of that type."""
+    out = {}
+    for k in GRID_NEED:
+        e = ctx["kernels"][k].entry_launches
+        mine = {n: v for n, v in e.items() if n.endswith(f"_{sfx}")}
+        if not all(mine.values()) or any(
+                v for n, v in e.items() if n not in mine):
+            fail(f"{what}: {k} launched {e}, not every _{sfx} entry and "
+                 "only those")
+        out[k] = mine
+    return out
+
+
+#: the grid's element types beside float32: (dtype, matrix)
+GRID_TYPES = (("float64", "lap3d32"), ("complex64", "helmholtz_3d(32)"),
+              ("complex128", "helmholtz_3d(32)"))
+#: the grid's transposed drives: (dtype, trans, matrix)
+GRID_TRANS = (("float32", "TRANS", "lap3d32u"),
+              ("complex64", "CONJ", "complex_unsym(32)"),
+              ("complex128", "CONJ", "complex_unsym(32)"))
+SFX = {"float32": "f32", "float64": "f64", **CSFX}
+
+
+def grid_types_phase(ctx, rng, checks, launches):
+    """Phase 11, the grid in float64, complex64 and complex128 on a 2x2
+    grid of ranks on the card: each driven like the main path through its
+    ``_f64``/``_c64``/``_c128`` entries only, the receive counters against
+    the tapes, a warm call bit-equal to the first with equal refinement
+    steps, every entry against its plain version level by level, the
+    gathered factor against the float64 (complex128) reference; then
+    ``profile_levels`` on the float64 grid; then TRANS with
+    ``condition_number`` on lap3d32u in float32 and CONJ on its complex
+    twin in complex64 and complex128: rcond in (0, 1], a warm call
+    bit-equal to the first, two transposed solves of one b bit-equal,
+    the Uᵀ and Lᵀ sweeps' receive counters
+    against their tapes and each solve entry with its transpose flag
+    against its plain version."""
+    from superlu_dist_tpu_torch import Grid2D, Options, Trans
+    from superlu_dist_tpu_torch.utils.testing import (helmholtz_3d,
+                                                      laplacian_3d,
+                                                      laplacian_3d_unsym)
+    torch = ctx["torch"]
+    grid = Grid2D(2, 2)
+    mats = {"lap3d32": lambda: laplacian_3d(32),
+            "helmholtz_3d(32)": lambda: helmholtz_3d(32).tocsc(),
+            "lap3d32u": lambda: laplacian_3d_unsym(32),
+            "complex_unsym(32)": lambda: complex_unsym(32)}
+
+    def rhs(dt, n):
+        b = rng.standard_normal(n)
+        return b + 1j * rng.standard_normal(n) if dt[0] == "c" else b
+
+    for dt, mat in GRID_TYPES:
+        sfx = SFX[dt]
+        A = mats[mat]()
+        b = rhs(dt, A.shape[0])
+        opts = Options(dtype=dt, block_size=128, dist_executor="rdma")
+        what = f"grid 2x2 {dt}"
+        res, lu, got = drive(ctx, what, A, b, opts, GRID_NEED,
+                             SINGLE_DEVICE, grid=grid)
+        if lu.pool[0].dtype != getattr(torch, dt):
+            fail(f"{what}: the ranks' pools are not {dt}")
+        entries = grid_entries(ctx, what, sfx)
+        for k in GRID_NEED:
+            launches[f"{k}_{sfx}"] = got[k]
+            ctx["entry_launches"][f"{k}_{sfx}"] = entries[k]
+        print(f"{what}: {mat}, {res.stat.refine_steps} refinement steps, "
+              f"tiny pivots {res.stat.tiny_pivots}; launches per entry "
+              f"{entries}", flush=True)
+        check_recv(lu, what)
+        r2 = warm_call(ctx, what, A, b, opts, grid=grid)
+        check_repeat(what, res, r2)
+        st = r2.stat
+        print(f"{what}, second call: device ms FACT "
+              f"{st.device_ms['FACT']:.3f}, SOLVE "
+              f"{st.device_ms['SOLVE']:.3f}, REFINE "
+              f"{st.device_ms['REFINE']:.3f}", flush=True)
+        c = check_dist(lu, ctx)
+        for k in GRID_NEED:
+            checks[f"{k}_{sfx}"] = c[k]
+            print_check(f"{k}_{sfx}", c[k], got[k])
+        pool, _, _ = lu._export_factors()
+        check_whole_factor(f"{what} (gathered)", lu, ctx, pool,
+                           torch.tensor([res.stat.tiny_pivots]))
+        if dt == "float64":
+            grid_profile(lu, A, b)
+        del lu, res, r2, c, pool
+        torch.cuda.empty_cache()
+
+    for dt, tname, mat in GRID_TRANS:
+        sfx = SFX[dt]
+        trans = getattr(Trans, tname)
+        A = mats[mat]()
+        b = rhs(dt, A.shape[0])
+        opts = Options(dtype=dt, block_size=128, dist_executor="rdma",
+                       trans=trans, condition_number=True)
+        what = f"grid 2x2 {dt} {tname}"
+        res, lu, got = drive(ctx, what, A, b, opts, GRID_NEED,
+                             SINGLE_DEVICE, grid=grid)
+        grid_entries(ctx, what, sfx)
+        if res.rcond is None or not 0 < res.rcond <= 1:
+            fail(f"{what}: rcond {res.rcond} not in (0, 1]")
+        print(f"{what}: {mat}, rcond {res.rcond:.6e}, "
+              f"{res.stat.refine_steps} refinement steps", flush=True)
+        check_recv(lu, what)
+        check_repeat(what, res, warm_call(ctx, what, A, b, opts, grid=grid))
+        check_trans_repeat(what, lu, b, trans)
+        c = check_dist(lu, ctx, factor=False, trans=True)["rdma_solve"]
+        key = f"rdma_solve_trans_{sfx}"
+        checks[key] = c
+        launches[key] = got["rdma_solve"]
+        print_check(key, c, got["rdma_solve"])
+        del lu, res, c
+        torch.cuda.empty_cache()
+
+
+def grid_profile(lu, A, b):
+    """``DistributedSparseLU.profile_levels``: the six costliest levels;
+    the solve after it must still meet the limits."""
+    rows = lu.profile_levels()
+    total = sum(r["ms"] for r in rows)
+    print(f"grid profile_levels ({lu.dtype}, bs={lu.plan.bs}): {len(rows)} "
+          f"levels, {total:.3f} ms in all; the six costliest:")
+    for r in sorted(rows, key=lambda r: -r["ms"])[:6]:
+        print(f"  level {r['level']:3d}: {r['ms']:8.3f} ms; {r['steps']} "
+              f"steps, {r['lpanels']} + {r['upanels']} panels, "
+              f"{r['gemms']} Schur products", flush=True)
+    if len(rows) != lu.dplan.nlvl or \
+            sum(r["steps"] for r in rows) != lu.plan.nb:
+        fail("grid profile_levels: rows or steps do not cover the plan")
+    x, berr = lu.refine(b, lu.solve(b))
+    resid = float(np.abs(A @ x - b).max() / np.abs(b).max())
+    print(f"grid profile_levels: the solve after it: berr {berr.max():.3e}, "
+          f"residual {resid:.3e}", flush=True)
+    if berr.max() > 1e-12 or resid > 1e-10:
+        fail("grid profile_levels left factors that miss the limits")
 
 
 def print_grid(lu, peak_mib, entries):
@@ -1649,12 +1811,18 @@ def print_grid(lu, peak_mib, entries):
 
 def check_recv(lu, what):
     """The receive counters that the puts tallied against the TPU's
-    receive tapes: the factor's, and the last solve's L and U sweeps'."""
+    receive tapes: the factor's, the last solve's L and U sweeps', and
+    the last transposed solve's Lᵀ and Uᵀ sweeps' (against their tapes)
+    where one ran."""
     bad = [k for k, v in lu.factor_recv().items()
            if not np.array_equal(v, lu._ft.recv[k])]
-    for got, tp in zip(lu.solve_recv(), (lu._lt, lu._ut)):
-        bad += [f"{tp.which}:{k}" for k, v in got.items()
-                if not np.array_equal(v, tp.recv[k])]
+    solves = [(lu.solve_recv(), (lu._lt, lu._ut))]
+    if lu._ttapes is not None:
+        solves.append((lu.solve_recv(transpose=True), lu._ttapes))
+    for recvs, tapes in solves:
+        for got, tp in zip(recvs, tapes):
+            bad += [f"{tp.which}:{k}" for k, v in got.items()
+                    if not np.array_equal(v, tp.recv[k])]
     print(f"{what}: receive counters equal the tapes: {not bad}", flush=True)
     if bad:
         fail(f"{what}: receive counters differ from the tapes in {bad}")
@@ -1666,7 +1834,8 @@ def compare_state(torch, o, state, kern, plain, of, flat, table):
     list), time both, hold the float buffers to REL_TOL and the receive
     counters to equality, and keep the kernel's copy. ``table`` makes the
     copy's pointer table before the timed call, as a factor or a sweep
-    makes it once. Returns the kernel's copy and its ms."""
+    makes it once. float64 and complex128 buffers are held to
+    REL_TOL_F64. Returns the kernel's copy and its ms."""
     ts = flat(state)
     a = [t.clone() for t in ts]
     p = [t.clone() for t in ts]
@@ -1676,27 +1845,32 @@ def compare_state(torch, o, state, kern, plain, of, flat, table):
     ms = _timed(torch, lambda: kern(sa))
     o["ms"] += ms
     o["plain_ms"] += _timed(torch, lambda: plain(of(p)))
-    fl = [(x, y) for x, y in zip(a, p) if x.is_floating_point()]
+    fl = [(x, y) for x, y in zip(a, p)
+          if x.is_floating_point() or x.is_complex()]
     err = max(float((x - y).abs().max()) for x, y in fl)
     scale = max(1.0, max(float(y.abs().max()) for _, y in fl))
+    rel = REL_TOL_F64 if fl[0][0].dtype in (torch.float64,
+                                            torch.complex128) else REL_TOL
     o["max_abs_err"] = max(o["max_abs_err"], err)
-    o["tol"] = max(o["tol"], REL_TOL * scale)
-    if err > REL_TOL * scale:
-        fail(f"an RDMA entry disagrees with its plain version: {err:.3e} > "
-             f"{REL_TOL * scale:.3e}")
+    o["tol"] = max(o["tol"], rel * scale)
+    if err > rel * scale:
+        fail(f"an RDMA entry ({fl[0][0].dtype}) disagrees with its plain "
+             f"version: {err:.3e} > {rel * scale:.3e}")
     if any(not torch.equal(x, y) for x, y in zip(a, p)
-           if not x.is_floating_point()):
+           if not (x.is_floating_point() or x.is_complex())):
         fail("an RDMA entry's receive counters differ from its plain "
              "version's")
     return sa, ms
 
 
-def check_dist(lu, ctx):
-    """rdma_factor's three entries over one factor and rdma_solve's two
-    over one L+U solve of a right-hand side, each against its plain
+def check_dist(lu, ctx, factor=True, trans=False):
+    """rdma_factor's three entries over one factor (with ``factor``) and
+    rdma_solve's three over the L and U sweeps of one solve of a
+    right-hand side of the factor's dtype (with ``trans``, over the Uᵀ
+    and Lᵀ sweeps of one transposed solve), each against its plain
     version level by level from the same state (the run goes on with the
-    kernel's output). No one PyTorch call computes a distributed factor
-    or sweep, so library_ms stays None."""
+    kernel's output). No one PyTorch call does a rank's level with its
+    puts, so library_ms stays None."""
     from collections import defaultdict
 
     from superlu_dist_tpu_torch.parallel import dist2d
@@ -1711,7 +1885,7 @@ def check_dist(lu, ctx):
     th = lu._thresh()
     st = rdma.new_factor_state(dist2d.init_local_pools(
         plan, lu.dplan, lu._a3_data, lu.dtype, lu.device), ft)
-    for lvl in range(ft.nlvl):
+    for lvl in range(ft.nlvl if factor else 0):
         for entry, kern, plain in (
                 ("rdma_diag", lambda s: rdma.rdma_diag(s, th, ft, lvl),
                  lambda s: rdma.rdma_diag_plain(s, th, ft, lvl)),
@@ -1727,11 +1901,20 @@ def check_dist(lu, ctx):
             if entry in jobs:
                 n = int(jobs[entry][lvl, -1] - jobs[entry][lvl, 0])
                 by_launch[entry].append((ms, n, f"level {lvl}"))
+    del st
     rng = np.random.default_rng(1)
-    B = torch.as_tensor(rng.standard_normal((plan.nb, plan.bs, 1)),
-                        dtype=torch.float32, device=lu.device)
+    fdt = lu.pool[0].dtype
+    B = rng.standard_normal((plan.nb, plan.bs, 1))
+    if fdt.is_complex:
+        B = B + 1j * rng.standard_normal((plan.nb, plan.bs, 1))
+    B = torch.as_tensor(B, device=lu.device).to(fdt)
+    if trans:   # the tapes of the drive's transposed solves
+        lt, ut = lu._ttapes
+        sweeps = [(ut, lu.uinv), (lt, lu.linv)]
+    else:
+        sweeps = [(lu._lt, lu.linv), (lu._ut, lu.uinv)]
     X = [B.clone() for _ in range(ft.ndev)]
-    for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv)):
+    for tp, dinv in sweeps:
         ss = rdma.new_sweep_state(X, tp)
         for lvl in range(tp.nlvl):
             for entry, kern, plain, M in (
@@ -1749,14 +1932,16 @@ def check_dist(lu, ctx):
                     rdma.SweepState.tensors, lambda s: s.table(M))
                 per_entry[entry] += ms
         X = ss.X
-    print("RDMA entries, kernel ms summed over the levels (one factor, one "
-          "L+U solve): " + ", ".join(f"{k} {v:.3f}"
-                                     for k, v in per_entry.items()),
+    print(f"RDMA entries ({fdt}), kernel ms summed over the levels ("
+          + ("one factor, " if factor else "")
+          + ("one transposed solve" if trans else "one L+U solve") + "): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_entry.items()),
           flush=True)
-    print_panel_levels("rdma_panel", by_launch["rdma_panel"], top=3)
-    print_panel_levels("rdma_schur", by_launch["rdma_schur"], "targets",
-                       top=3)
-    for tp in (lu._lt, lu._ut):
+    if factor:
+        print_panel_levels("rdma_panel", by_launch["rdma_panel"], top=3)
+        print_panel_levels("rdma_schur", by_launch["rdma_schur"],
+                           "targets", top=3)
+    for tp, _ in sweeps:
         h = tp.host
         nk = np.diff(h["chunkptr"])
         print(f"grid {tp.which} sweep: {tp.nlvl} levels, "
@@ -1767,7 +1952,10 @@ def check_dist(lu, ctx):
               f"level {int(np.diff(tp.qptr).max(initial=0))}), "
               f"{len(h['d_row'])} solved rows", flush=True)
     out["rdma_factor"].update(grid_factor_bound(lu))
-    out["rdma_solve"].update(grid_solve_bound(lu))
+    out["rdma_solve"].update(grid_solve_bound(
+        lu, tapes=[t for t, _ in sweeps] if trans else None))
+    out["rdma_solve"]["per_entry_ms"] = {
+        k: v for k, v in per_entry.items() if k.startswith("rdma_solve")}
     return out
 
 
@@ -1781,7 +1969,7 @@ def grid_factor_bound(lu):
     broadcast rows read once."""
     plan, ft = lu.plan, lu._ft
     h, bs = ft.host, plan.bs
-    blk = _blk(plan, np.float32)
+    blk = _blk(plan, lu.dtype)
     nprod, npanel = len(h["c_l"]), len(h["b_loc"])
     flops = 2.0 * bs ** 3 * (nprod + npanel) + (4.0 / 3.0) * bs ** 3 * plan.nb
     side = h["b_side"]
@@ -1795,20 +1983,22 @@ def grid_factor_bound(lu):
         rk = np.repeat(h["s_rank"][s], np.diff(h["cptr"][s.start:s.stop + 1]))
         nblk += 2 * (s.stop - s.start) + len(set(zip(rk, h["c_l"][c]))) \
             + len(set(zip(rk, h["c_u"][c])))
-    return _bound(flops, blk * nblk, "factor")
+    return _bound(flops, blk * nblk, "factor", lu.dtype)
 
 
-def grid_solve_bound(lu, nrhs=1):
-    """Least time of one 2D L+U solve of one right-hand side: 2·bs²·nrhs
-    per product and per diagonal inverse (operations); bytes: per sweep
-    each rank's distinct pool blocks and the inverses read once, the
-    partials written, put (non-owners) and read by the owner, the solved
-    rows read by their owner and written into every rank's X."""
+def grid_solve_bound(lu, nrhs=1, tapes=None):
+    """Least time of one 2D L+U solve of one right-hand side (the sweeps
+    of ``tapes``, the L and U sweeps by default; the Uᵀ and Lᵀ sweeps of a
+    transposed solve read the same blocks), in the factor's dtype:
+    2·bs²·nrhs per product and per diagonal inverse (operations); bytes:
+    per sweep each rank's distinct pool blocks and the inverses read once,
+    the partials written, put (non-owners) and read by the owner, the
+    solved rows read by their owner and written into every rank's X."""
     plan = lu.plan
-    blk = _blk(plan, np.float32)
-    xrow = 4.0 * plan.bs * nrhs
+    blk = _blk(plan, lu.dtype)
+    xrow = float(lu.dtype.itemsize) * plan.bs * nrhs
     flops = nbytes = 0.0
-    for tp in (lu._lt, lu._ut):
+    for tp in tapes or (lu._lt, lu._ut):
         h = tp.host
         rk = np.repeat(h["p_rank"], np.diff(h["cptr"]))
         flops += 2.0 * plan.bs ** 2 * nrhs * (len(h["c_loc"]) + plan.nb)
@@ -1816,7 +2006,8 @@ def grid_solve_bound(lu, nrhs=1):
         nsend = int(h["p_send"].sum())
         nbytes += xrow * (2 * len(h["p_pos"]) + 2 * nsend
                           + plan.nb * (1 + tp.ndev))
-    return _bound(flops, nbytes, "solve")
+    return _bound(flops, nbytes, "transposed solve" if tapes else "solve",
+                  lu.dtype)
 
 
 def profile_phase(lu, A, b):

@@ -7,7 +7,16 @@ over the ranks of a :class:`Grid2D`. Each rank holds its own pool, its
 owner-local inverse tables and its receive buffers; the factor and the
 sweeps are the hand-written kernels of ``parallel/dist2d_rdma.py``, whose
 broadcasts are stores into the peers' buffers; refinement computes its
-float64 residuals with the distributed SpMV (``dist2d.dist_spmv``).
+residuals in ``refine_dtype`` (float64 or complex128) with the
+distributed SpMV (``dist2d.dist_spmv``, of A, Aᵀ or Aᴴ).
+
+It serves float32, float64, complex64 and complex128, the NOTRANS, TRANS
+and CONJ solves (``solve(b, trans)``, ``solve_transposed``,
+``Options.trans``, and refinement with the transposed residual),
+``rcond_1`` and ``condition_number``, ``diag_u`` and ``logdet``, every
+``Fact`` reuse mode, ``save_factors`` (which writes a checkpoint that
+loads as a single-device :class:`SparseLU`), ``from_numpy_state`` and
+:meth:`DistributedSparseLU.profile_levels`.
 
 Deliberate differences from the JAX package:
 
@@ -20,15 +29,25 @@ Deliberate differences from the JAX package:
   peers' buffers move the same blocks (``tests/test_rdma.py`` holds the
   JAX package's two executors equal to roundoff). Any other name raises
   ``ValueError``.
-- float32 only, as the JAX package's RDMA path; float64 and complex
-  (queue 1 item 8b), the transposed solve, ``rcond_1`` and
-  ``condition_number`` (item 8a), ``profile_levels`` (item 8c), sharded
-  NRLoc input and several processes (item 10) raise
-  ``NotImplementedError`` naming their item.
+- Every element type runs the RDMA kernels, where the JAX package runs
+  them in float32 only and its XLA grid executor otherwise. Complex is
+  native (the kernels' element type is complex64 or complex128), where
+  the JAX package's TPU meshes take the real ring embedding of complex64;
+  a ring-embedded state raises ``NotImplementedError`` (ROADMAP.md, queue
+  1 item 15). Aᴴx = b is solved as x = conj(A⁻ᵀ conj(b)), as the
+  single-device driver does.
+- ``profile_levels`` times the RDMA factor one level at a time (CUDA
+  events on the card, a host clock on the CPU), and its factors become
+  the live ones, as the single-device driver's do; the JAX package times
+  prefixes of its XLA factor on copies of the pools.
+- Sharded NRLoc input and several processes (queue 1 item 10) raise
+  ``NotImplementedError`` naming their item, and so does a grid over
+  several cards (item 8d).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -41,13 +60,9 @@ from ..parallel.grid import Grid2D
 from ..utils.options import (Fact, IterRefine, Options, Trans,
                              apply_env_overrides)
 from ..utils.stats import Stats
-from .driver import (_TORCH, SolveResult, SparseLU, _parse_trans,
-                     _resolve_device)
+from .driver import (_TORCH, SolveResult, SparseLU, _conj, _resolve_device)
 
-#: the ROADMAP items of what the grid does not serve yet
-_TRANS_ITEM = "queue 1 item 8a"
-_F64_ITEM = "queue 1 item 8b"
-_PROFILE_ITEM = "queue 1 item 8c"
+#: the ROADMAP item of what the grid does not serve yet
 _MULTIPROC_ITEM = "queue 1 item 10"
 
 DIST_EXECUTORS = ("rdma", "xla")
@@ -60,18 +75,9 @@ def _todo(what: str, item: str):
 
 def _check_dist(opts: Options, A) -> None:
     """Refuse what the grid does not serve yet (see the module doc)."""
-    if opts.dtype in ("complex64", "complex128") or \
-            np.iscomplexobj(getattr(A, "data", A)):
-        _todo("complex dtypes", _F64_ITEM)
-    if opts.dtype != "float32":
-        _todo(f"dtype {opts.dtype!r}", _F64_ITEM)
     if opts.dist_executor not in DIST_EXECUTORS:
         raise ValueError(f"unknown dist_executor {opts.dist_executor!r}; "
                          f"expected one of {DIST_EXECUTORS}")
-    if _parse_trans(opts.trans) != Trans.NOTRANS:
-        _todo("the transposed solve (Options.trans)", _TRANS_ITEM)
-    if opts.condition_number:
-        _todo("the condition estimate (condition_number)", _TRANS_ITEM)
     if opts.dist_planning or getattr(A, "local", False):
         _todo("sharded NRLoc input (dist_planning, local chunks)",
               _MULTIPROC_ITEM)
@@ -120,21 +126,35 @@ class DistributedSparseLU(SparseLU):
 
     def _build_tapes(self):
         """Partition the plan over the grid and build the kernels' job
-        lists, once per plan."""
+        lists, once per plan (the transposed sweeps' at the first
+        transposed solve, in ``_ttapes``, which a new plan drops)."""
         plan, dev = self.plan, self.device
         self.dplan = _dist2d.partition_plan(plan, self.grid.nprow,
                                             self.grid.npcol)
         self._ft = _rdma.build_factor_tapes(plan, self.dplan, dev)
         self._lt = _rdma.build_sweep_tapes(plan, self.dplan, "L", dev)
         self._ut = _rdma.build_sweep_tapes(plan, self.dplan, "U", dev)
+        self._ttapes = None
         self._dplan_of = plan
 
     def _build_coo_shards(self):
-        """The COO of the current A, split evenly over the ranks, for the
-        distributed residual (re-made per factorization, so a refactor
-        refines against its own values)."""
-        self._coo_shards = _dist2d.coo_shards(
-            self._A_orig, self.grid.size, self.refine_dtype, self.device)
+        """The COO of the current A, split evenly over the ranks, and the
+        same entries transposed, for the distributed residuals of A and of
+        Aᵀ / Aᴴ (re-made per factorization, so a refactor refines against
+        its own values)."""
+        self._coo_shards, self._coo_shards_t = (
+            _dist2d.coo_shards(self._A_orig, self.grid.size,
+                               self.refine_dtype, self.device, transpose=t)
+            for t in (False, True))
+
+    def _pools0(self) -> list:
+        """The per-rank pools of the factor's input values."""
+        return _dist2d.init_local_pools(self.plan, self.dplan, self._a3_data,
+                                        self.dtype, self.device)
+
+    def _set_factors(self, st):
+        self._fstate = st
+        self.pool, self.linv, self.uinv = st.pool, st.linv, st.uinv
 
     def _device_factor(self, A3: sp.csc_matrix):
         self.pool = self.linv = self.uinv = self._fstate = None
@@ -143,8 +163,7 @@ class DistributedSparseLU(SparseLU):
         with stat.phase("DIST"):
             if self._dplan_of is not plan:
                 self._build_tapes()
-            pools = _dist2d.init_local_pools(plan, self.dplan, A3.data,
-                                             self.dtype, self.device)
+            pools = self._pools0()
             self._build_coo_shards()
         stat.counters.update(self.dplan.comm_volume(
             np.dtype(self.dtype).itemsize))
@@ -153,8 +172,7 @@ class DistributedSparseLU(SparseLU):
         stat.counters["gemm_precision"] = "highest"
         with stat.phase("FACT"):
             st = _rdma.rdma_factor(pools, self._thresh(), self._ft)
-        self._fstate = st
-        self.pool, self.linv, self.uinv = st.pool, st.linv, st.uinv
+        self._set_factors(st)
         # the tiny-pivot sum over the ranks, in rank order
         stat.tiny_pivots += int(sum(int(t.item()) for t in st.tiny))
 
@@ -164,6 +182,49 @@ class DistributedSparseLU(SparseLU):
         them; equal to ``build_rdma_recv_tapes`` of the plan."""
         return _rdma.stacked_recv(self._fstate.recv, self.grid.nprow,
                                   self.grid.npcol, _rdma.FACTOR_RECV)
+
+    def profile_levels(self):
+        """Per-elimination-level device timings of the distributed factor
+        (the JAX package's ``profile_levels``, dist_driver.py:622-686
+        there): the current factors are released, the per-rank pools are
+        rebuilt from the factor's input values and each level's
+        ``rdma_diag``, ``rdma_panel`` and ``rdma_schur`` launches run as
+        one step, timed by CUDA events on the card (a host clock on the
+        CPU). Returns one dict per level: level, ms, steps, lpanels,
+        upanels, gemms, summed over the ranks. The profiled factors
+        become the live ones, so the instance stays solve-ready."""
+        if getattr(self, "_a3_data", None) is None:
+            raise RuntimeError(
+                "profile_levels needs the factorization input values, which "
+                "this instance does not carry (restored from a state) — use "
+                "a freshly factored DistributedSparseLU")
+        self.pool = self.linv = self.uinv = self._fstate = None
+        ft, dev = self._ft, self.device
+        st = _rdma.new_factor_state(self._pools0(), ft)
+        thresh = self._thresh()
+        side, cptr = ft.host["b_side"], ft.host["cptr"]
+        rows = []
+        for lvl in range(ft.nlvl):
+            if dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                _rdma.rdma_factor_level(st, thresh, ft, lvl)
+                ev[1].record()
+                torch.cuda.synchronize(dev)
+                ms = ev[0].elapsed_time(ev[1])
+            else:
+                t0 = time.perf_counter()
+                _rdma.rdma_factor_level(st, thresh, ft, lvl)
+                ms = (time.perf_counter() - t0) * 1e3
+            b = side[ft.bptr[lvl, 0]:ft.bptr[lvl, -1]]
+            rows.append(dict(
+                level=lvl, ms=ms,
+                steps=int(ft.aptr[lvl, -1] - ft.aptr[lvl, 0]),
+                lpanels=int((b == 0).sum()), upanels=int((b == 1).sum()),
+                gemms=int(cptr[ft.sptr[lvl, -1]] - cptr[ft.sptr[lvl, 0]])))
+        self._set_factors(st)
+        self.stat.counters["profiled_levels"] = len(rows)
+        return rows
 
     # -- solves ----------------------------------------------------------
 
@@ -185,39 +246,54 @@ class DistributedSparseLU(SparseLU):
         x[self._t_pc] = self._t_cs.to(r.dtype)[:, None] * y
         return x
 
-    def solve_recv(self) -> tuple:
-        """The last solve's receive counts: for the L and the U sweep a
-        dict of (pr, pc, nlvl) arrays ``rcv_part`` and ``rcv_x``."""
+    def _lu_solve_t(self, r: torch.Tensor, conj: bool = False
+                    ) -> torch.Tensor:
+        """x = A⁻ᵀ r through the transforms of
+        :meth:`SparseLU._lu_solve_t` and the transposed sweeps (Uᵀ with the
+        ranks' uinv, then Lᵀ with their linv); with ``conj``, x = A⁻ᴴ r =
+        conj(A⁻ᵀ conj(r)). The transposed tapes are built on the first
+        call and kept with the plan."""
+        if conj and r.is_complex():
+            return _conj(self._lu_solve_t(_conj(r)))
+        plan = self.plan
+        fdt = _TORCH[self.dtype]
+        k = r.shape[1]
+        if self._ttapes is None:
+            self._ttapes = tuple(_rdma.build_sweep_tapes(
+                plan, self.dplan, w, self.device) for w in ("LT", "UT"))
+        lt, ut = self._ttapes
+        cs = self._t_cs.to(r.dtype)[:, None]
+        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
+        bp[self._t_ridx] = (cs * r[self._t_pc]).to(fdt)
+        X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv, lt, ut,
+                                     bp.view(plan.nb, plan.bs, k))
+        self._solve_recv_t = (rl, ru)
+        y = X.reshape(plan.n_pad, k)[self._t_ridx].to(r.dtype)
+        # x in the factor dtype, as SparseLU._lu_solve_t returns it
+        x = torch.zeros((self.n, k), dtype=fdt, device=self.device)
+        x[self._t_prc] = (self._t_rs.to(r.dtype)[:, None] * y).to(fdt)
+        return x.to(r.dtype)
+
+    def solve_recv(self, transpose: bool = False) -> tuple:
+        """The last solve's receive counts (of the last transposed solve
+        with ``transpose``): for the L and the U sweep (the Lᵀ and the Uᵀ)
+        a dict of (pr, pc, nlvl) arrays ``rcv_part`` and ``rcv_x``."""
         pr, pc = self.grid.nprow, self.grid.npcol
+        got = self._solve_recv_t if transpose else self._solve_recv
         return tuple(_rdma.stacked_recv(r, pr, pc, _rdma.SOLVE_RECV)
-                     for r in self._solve_recv)
-
-    def solve(self, b, trans=Trans.NOTRANS):
-        if _parse_trans(trans) != Trans.NOTRANS:
-            _todo("the transposed solve", _TRANS_ITEM)
-        return super().solve(b)
-
-    def solve_transposed(self, b, conj: bool = False):
-        _todo("the transposed solve", _TRANS_ITEM)
-
-    def _lu_solve_t(self, r):
-        _todo("the transposed solve", _TRANS_ITEM)
-
-    def rcond_1(self) -> float:
-        _todo("the condition estimate (rcond_1)", _TRANS_ITEM)
-
-    def profile_levels(self):
-        _todo("profile_levels", _PROFILE_ITEM)
+                     for r in got)
 
     def _berr_t(self, x: torch.Tensor, b: torch.Tensor,
                 trans: Trans = Trans.NOTRANS):
         """Componentwise backward error of :meth:`SparseLU._berr_t`, with
-        A·x and |A|·|x| by the distributed SpMV over the ranks' COO
-        shards (the JAX package's in-mesh ``berr_of``)."""
-        if trans != Trans.NOTRANS:
-            _todo("the transposed residual", _TRANS_ITEM)
-        r = b - _dist2d.dist_spmv(self._coo_shards, x, self.n)
-        denom = _dist2d.dist_spmv(self._coo_shards, x.abs(), self.n,
+        op(A)·x and |op(A)|·|x| by the distributed SpMV over the ranks'
+        COO shards (the JAX package's in-mesh ``berr_of``), of A, or of
+        the transposed shards for Aᵀ and Aᴴ."""
+        shards = self._coo_shards if trans == Trans.NOTRANS \
+            else self._coo_shards_t
+        r = b - _dist2d.dist_spmv(shards, x, self.n,
+                                  conj=trans == Trans.CONJ)
+        denom = _dist2d.dist_spmv(shards, x.abs(), self.n,
                                   absolute=True) + b.abs()
         nz = self._max_row_nnz() + 1
         safe1 = nz * np.finfo(np.float64).tiny
@@ -283,9 +359,18 @@ class DistributedSparseLU(SparseLU):
         the state of a JAX-package ``DistributedSparseLU``: the fields of
         :meth:`SparseLU.from_numpy_state` (plan, transforms, the COO of A)
         with the per-rank factors ``pool`` of shape (pr, pc, n_local, bs,
-        bs) and ``linv``/``uinv`` of shape (pr, pc, dlen + 1, bs, bs). The
-        plan is partitioned again, and its ``n_local`` and ``dlen`` must
-        agree with the arrays'."""
+        bs) and ``linv``/``uinv`` of shape (pr, pc, dlen + 1, bs, bs), in
+        any of the four dtypes (complex as native complex arrays, the JAX
+        package's grid layout off the TPU). The plan is partitioned again,
+        and its ``n_local`` and ``dlen`` must agree with the arrays'. A
+        state with ``embed`` true (the ring embedding of complex64 on TPU
+        meshes) raises ``NotImplementedError`` (ROADMAP.md, queue 1 item
+        15)."""
+        if bool(state.get("embed", False)):
+            raise NotImplementedError(
+                "grid factors in the ring embedding of complex64 (the TPU "
+                "meshes' layout) are not ported yet (ROADMAP.md, queue 1 "
+                "item 15)")
         options = apply_env_overrides(state.get("options") or Options())
         _check_dist(options, state["a_data"])
         lu = cls._restore(dict(state, options=options),
@@ -321,19 +406,25 @@ def gssvx_dist(A, b, grid: Grid2D, options: Optional[Options] = None, *,
                device=None):
     """Distributed one-call driver: factor A over ``grid``, solve and
     refine. Returns (SolveResult, DistributedSparseLU). ``device``
-    defaults to ``cuda``; ``"cpu"`` runs the plain PyTorch versions."""
+    defaults to ``cuda``; ``"cpu"`` runs the plain PyTorch versions. The
+    solve, the refinement residuals and berr follow ``options.trans`` (A,
+    Aᵀ or Aᴴ, pdgssvx.c:622); ``condition_number`` fills ``rcond``."""
     options = options or Options()
     stat = Stats()
     lu = DistributedSparseLU(A, grid, options=options, stat=stat,
                              device=device)
-    x = lu.solve(np.asarray(b))
+    x = lu.solve(np.asarray(b), trans=options.trans)
     if options.iter_refine != IterRefine.NOREFINE:
-        x, berr = lu.refine(b, x)
+        x, berr = lu.refine(b, x, trans=options.trans)
     else:
         xb = x[:, None] if x.ndim == 1 else x
         bb = np.asarray(b)
         bb = bb[:, None] if bb.ndim == 1 else bb
-        berr, _ = lu._berr(xb, bb)
+        berr, _ = lu._berr(xb, bb, trans=options.trans)
+    rcond = None
+    if options.condition_number:
+        with stat.phase("RCOND"):
+            rcond = lu.rcond_1()
     return SolveResult(x=x, berr=np.atleast_1d(berr), stat=stat,
-                       info=lu.info), lu
+                       info=lu.info, rcond=rcond), lu
 

@@ -17,10 +17,19 @@
 //                          summed into the rank's chunk scratch C;
 //       rdma_solve_sum:    a rank's partial P[pos] = -(its chunks' sums, in
 //                          chunk order), put to the diagonal owner's
-//                          slots[pos * pc + my column] by a non-owner;
-//       rdma_solve_diag:   the owner's x_I = dinv . (X[I] + P[pos] + the
-//                          peers' slots, in column order), put to every
+//                          slots[pos * npeer + my index] by a non-owner;
+//       rdma_solve_diag:   the owner's x_I = op(dinv) . (X[I] + P[pos] +
+//                          the peers' slots, in grid order), put to every
 //                          rank's X[I].
+//     The solve entries take a transpose flag (the TPU kernel has none; the
+//     JAX package solves A^T x = b on its XLA grid executor): op(M) = M^T
+//     for every product and diagonal inverse, and the partials of row J,
+//     which come from blocks (I, J) of grid column J mod pc, gather down
+//     that column (npeer = pr, my index = my grid row) instead of along
+//     the grid row (npeer = pc, my index = my grid column). A transposed
+//     solve runs a U^T sweep with uinv, then an L^T sweep with linv; the
+//     flag never conjugates (the driver solves A^H x = b through
+//     conjugation).
 //
 // On the TPU one pallas_call per rank walks grid=(nlvl,) in order, and
 // counted DMA waits and a dissemination barrier fence each level. Here each
@@ -35,8 +44,10 @@
 // (build_rdma_recv_tapes, and rcv_part / rcv_x of the solve tapes).
 //
 // What bounds them on an H100. The factor: operations, 2*bs^3 per Schur
-// product and per panel, (4/3)*bs^3 per tile, at the FP32 67 TFLOP/s of the
-// CUDA cores; each put moves one bs x bs block more (4 + 4 + 2 + 2 = 12 puts
+// product and per panel, (4/3)*bs^3 per tile (four times as many real
+// operations in complex), at the card's 67 TFLOP/s (FP32 on the CUDA
+// cores; FP64 on the tensor cores, float64's bytes then weigh as much);
+// each put moves one bs x bs block more (4 + 4 + 2 + 2 = 12 puts
 // per step and panel on a 2 x 2 grid), which is bytes far below the
 // operations' time. The sweeps: bytes, each stored block read once per
 // sweep for 2*bs^2*nrhs operations, and the put bytes (a partial per
@@ -63,8 +74,22 @@
 // one CTA per (rank, position, tile) that sums the position's chunks in
 // chunk order and puts the partial once, so the receive counts stay
 // those of the TPU. The owner's CTA of pass 3 adds its partial and then
-// the peers' slots in column order, so a result repeats bit for bit.
-// float32 only, as the TPU kernels are.
+// the peers' slots in grid order into a tile staged in shared memory, and
+// multiplies it by op(dinv) through rows.cuh's Map (solve_gemm.cu's pass
+// 2), so a result repeats bit for bit.
+//
+// Element types. Every entry is instantiated for float, double and
+// cplx.cuh's complex64 and complex128 (the _f32, _f64, _c64 and _c128
+// entries; the TPU kernels are float32 only): the headers are templates
+// on T, the threshold is real_t<T>, puts copy bs * bs * sizeof(T) bytes,
+// the panels and Schur products take chain.cuh's geometry for T (double
+// and complex64 their rolled k loop, complex128 bands of 16 with 4 x 4
+// tiles), the tiles of right-hand sides rows.cuh's kRTof<T>, and the
+// diagonal tile stays in the pool where it does not fit in shared memory
+// (complex128 at bs = 128, tile_lu.cuh's in-pool path: its inverses are
+// in linv/uinv in device memory either way, and the puts copy them from
+// there after a barrier). A complex product is four real FMAs in a fixed
+// order, so complex factors and solves repeat bit for bit too.
 
 #include "chain.cuh"
 #include "rows.cuh"
@@ -74,8 +99,10 @@ namespace {
 
 using slu_rows::kRT;
 using slu_rows::kThreads;
-using slu_rows::rows_times;
+using slu_rows::Map;
 using slu_tile::kTileThreads;
+template <typename T>
+using real_t = slu_cplx::real_t<T>;
 
 // kinds of the factor's pointer table; the counters of a rank are
 // int32[nlvl][4], its tiny-pivot count int32[1]
@@ -91,40 +118,40 @@ __device__ __forceinline__ P* buf(const uint64_t* tab, int kind, int ndev,
   return reinterpret_cast<P*>(tab[kind * ndev + rank]);
 }
 
-// dst[0:n] = src[0:n] by the whole CTA, 16 bytes a thread; n % 4 == 0
-__device__ __forceinline__ void copy_block(float* dst, const float* src,
-                                           int64_t n) {
-  for (int64_t e = threadIdx.x; e < n / 4; e += blockDim.x)
+// dst[0:nbytes] = src[0:nbytes] by the whole CTA, 16 bytes a thread;
+// nbytes % 16 == 0
+__device__ __forceinline__ void copy_bytes(void* dst, const void* src,
+                                           int64_t nbytes) {
+  for (int64_t e = threadIdx.x; e < nbytes / 16; e += blockDim.x)
     reinterpret_cast<float4*>(dst)[e] =
         reinterpret_cast<const float4*>(src)[e];
 }
 
 // ---- A: owned diagonal steps ----------------------------------------------
-__global__ void __launch_bounds__(kTileThreads)
-rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
-                 const int32_t* __restrict__ rank,
-                 const int32_t* __restrict__ loc,
-                 const int32_t* __restrict__ pos,
-                 const int32_t* __restrict__ inv, int bs,
-                 float thresh, int level) {
+// CTA j's inverses, stored by tile_lu into its owner's linv/uinv rows
+// inv[j], copied into the lC / uC rows pos[j] of the grid row / column
+// peers (and its own), each receiver's counter bumped. A function of its
+// own that reads everything again from the kernel's arguments: tile_lu is
+// not inlined, and whatever the kernel kept live across that call would
+// take registers from it (complex64's tile_lu spilled 20 bytes so).
+template <typename T>
+__device__ __noinline__ void put_inverses(const uint64_t* tab, int ndev,
+                                          int pc, const int32_t* rank,
+                                          const int32_t* pos,
+                                          const int32_t* inv, int bs,
+                                          int level) {
   const int j = blockIdx.x;
   const int d = rank[j];
   const int pr = ndev / pc, myr = d / pc, myc = d % pc;
   const int64_t bb = (int64_t)bs * bs;
-  float* linv = buf<float>(tab, F_LINV, ndev, d);
-  float* uinv = buf<float>(tab, F_UINV, ndev, d);
-  // job j is CTA j: tile_lu reads loc[j] and inv[j]
-  slu_tile::tile_lu<float>(buf<float>(tab, F_POOL, ndev, d), linv, uinv,
-                           loc, inv, bs, thresh,
-                           buf<int32_t>(tab, F_TINY, ndev, d));
-  __syncthreads();   // the inverses are stored; read them back
-  const float* gl = linv + inv[j] * bb;
-  const float* gu = uinv + inv[j] * bb;
+  const T* gl = buf<T>(tab, F_LINV, ndev, d) + inv[j] * bb;
+  const T* gu = buf<T>(tab, F_UINV, ndev, d) + inv[j] * bb;
   const int64_t p = pos[j] * bb;
+  const int64_t nbytes = bb * (int64_t)sizeof(T);
   for (int c = 0; c < pc; ++c)       // linv -> lC[pos] along the grid row
-    copy_block(buf<float>(tab, F_LC, ndev, myr * pc + c) + p, gl, bb);
+    copy_bytes(buf<T>(tab, F_LC, ndev, myr * pc + c) + p, gl, nbytes);
   for (int r = 0; r < pr; ++r)       // uinv -> uC[pos] down the column
-    copy_block(buf<float>(tab, F_UC, ndev, r * pc + myc) + p, gu, bb);
+    copy_bytes(buf<T>(tab, F_UC, ndev, r * pc + myc) + p, gu, nbytes);
   if (threadIdx.x == 0) {
     for (int c = 0; c < pc; ++c)
       if (c != myc)
@@ -137,6 +164,24 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+                 const int32_t* __restrict__ rank,
+                 const int32_t* __restrict__ loc,
+                 const int32_t* __restrict__ pos,
+                 const int32_t* __restrict__ inv, int bs,
+                 real_t<T> thresh, int level) {
+  const int d = rank[blockIdx.x];
+  // job j is CTA j: tile_lu reads loc[j] and inv[j]
+  slu_tile::tile_lu<T>(buf<T>(tab, F_POOL, ndev, d),
+                       buf<T>(tab, F_LINV, ndev, d),
+                       buf<T>(tab, F_UINV, ndev, d), loc, inv, bs, thresh,
+                       buf<int32_t>(tab, F_TINY, ndev, d));
+  __syncthreads();   // the inverses are stored; read them back
+  put_inverses<T>(tab, ndev, pc, rank, pos, inv, bs, level);
+}
+
 // ---- B: owned panels ------------------------------------------------------
 // side 0: an L panel, Y = L . uC[pil], put along the grid row into lB[pos];
 // side 1: a U panel, Y = lC[pil] . U, put down the grid column into uB[pos].
@@ -144,11 +189,11 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
 // panel.cuh's band product, stored into the owner's pool and each peer's
 // buffer from registers. Each orientation's body is a function of its own
 // (not inlined), as flk.cu's are.
-template <class G, bool LEFT>
+template <class G, bool LEFT, typename T>
 __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
-                                           int pc, int d, int64_t loc,
-                                           int64_t pos, int64_t pil,
-                                           int level) {
+                                        int pc, int d, int64_t loc,
+                                        int64_t pos, int64_t pil,
+                                        int level) {
   using P = typename G::template Band<LEFT>;
   extern __shared__ float4 smem4[];
   const int pr = ndev / pc, myr = d / pc, myc = d % pc;
@@ -157,12 +202,11 @@ __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
   const int64_t bb = (int64_t)G::BS * G::BS;
   const int64_t off = LEFT ? (int64_t)blockIdx.y * G::BM
                            : (int64_t)blockIdx.y * G::BM * G::BS;
-  float* X = buf<float>(tab, F_POOL, ndev, d) + loc * bb + off;
-  const float* D =
-      buf<float>(tab, LEFT ? F_LC : F_UC, ndev, d) + pil * bb;
-  float acc[4][P::TW];
-  slu_panel::band_product<P>(reinterpret_cast<float*>(smem4),
-                             LEFT ? D : X, LEFT ? X : D, g, c0, acc);
+  T* X = buf<T>(tab, F_POOL, ndev, d) + loc * bb + off;
+  const T* D = buf<T>(tab, LEFT ? F_LC : F_UC, ndev, d) + pil * bb;
+  T acc[4][P::TW];
+  slu_panel::band_product<P>(reinterpret_cast<T*>(smem4), LEFT ? D : X,
+                             LEFT ? X : D, g, c0, acc);
   // every read of the band was a copy that has landed; only now is it
   // written
   slu_panel::store_tile<P, G::BS>(X, g, c0, acc);
@@ -170,8 +214,8 @@ __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
   for (int q = 0; q < npeer; ++q) {
     const int e = LEFT ? q * pc + myc : myr * pc + q;
     slu_panel::store_tile<P, G::BS>(
-        buf<float>(tab, LEFT ? F_UB : F_LB, ndev, e) + pos * bb + off, g,
-        c0, acc);
+        buf<T>(tab, LEFT ? F_UB : F_LB, ndev, e) + pos * bb + off, g, c0,
+        acc);
   }
   if (blockIdx.y == 0 && threadIdx.x == 0)
     for (int q = 0; q < npeer; ++q) {
@@ -182,7 +226,7 @@ __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
     }
 }
 
-template <class G>
+template <class G, typename T>
 __global__ void __launch_bounds__(G::NT)
 rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                   const int32_t* __restrict__ rank,
@@ -192,17 +236,17 @@ rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                   const int32_t* __restrict__ side, int level) {
   const int j = blockIdx.x;
   if (side[j] == 0)
-    panel_band<G, false>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
-                         level);
+    panel_band<G, false, T>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
+                            level);
   else
-    panel_band<G, true>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
-                        level);
+    panel_band<G, true, T>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
+                           level);
 }
 
 // ---- C: owned Schur products, grouped by target ---------------------------
 // One CTA per (target, band of whole columns): chain.cuh's Schur band from
 // the rank's broadcast buffers lB / uB into its pool.
-template <class G>
+template <class G, typename T>
 __global__ void __launch_bounds__(G::NT)
 rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
                   const int32_t* __restrict__ rank,
@@ -213,13 +257,13 @@ rdma_schur_kernel(const uint64_t* __restrict__ tab, int ndev,
   const int t = blockIdx.x;
   const int d = rank[t];
   slu_chain::schur_band<G>(
-      buf<float>(tab, F_POOL, ndev, d) + tloc[t] * ((int64_t)G::BS * G::BS),
-      buf<float>(tab, F_LB, ndev, d), buf<float>(tab, F_UB, ndev, d), cl,
-      cu, cptr[t], cptr[t + 1]);
+      buf<T>(tab, F_POOL, ndev, d) + tloc[t] * ((int64_t)G::BS * G::BS),
+      buf<T>(tab, F_LB, ndev, d), buf<T>(tab, F_UB, ndev, d), cl, cu,
+      cptr[t], cptr[t + 1]);
 }
 
 // ---- solve pass 1: one chunk of a rank's chain into its scratch row ------
-template <int BS, int RT>
+template <typename T, int BS, bool kTrans, int RT>
 __global__ void __launch_bounds__(kThreads, 2)
 rdma_solve_chunks_kernel(const uint64_t* __restrict__ tab, int ndev,
                          const int32_t* __restrict__ qrank,
@@ -230,42 +274,44 @@ rdma_solve_chunks_kernel(const uint64_t* __restrict__ tab, int ndev,
   const int q = blockIdx.x;
   const int d = qrank[q];
   const int c0 = blockIdx.y * RT;
-  float* C = buf<float>(tab, S_C, ndev, d) + (int64_t)qrow[q] * BS * nrhs +
-             c0;
-  slu_rows::chunk_sum<float, BS, false, RT>(
-      buf<float>(tab, S_POOL, ndev, d), buf<float>(tab, S_X, ndev, d),
-      qcptr[q], qcptr[q + 1], cloc, csrc, c0, nrhs,
-      [&](int i, int c, float v) { C[i * nrhs + c] = v; });
+  T* C = buf<T>(tab, S_C, ndev, d) + (int64_t)qrow[q] * BS * nrhs + c0;
+  slu_rows::chunk_sum<T, BS, kTrans, RT>(
+      buf<T>(tab, S_POOL, ndev, d), buf<T>(tab, S_X, ndev, d), qcptr[q],
+      qcptr[q + 1], cloc, csrc, c0, nrhs,
+      [&](int i, int c, T v) { C[i * nrhs + c] = v; });
 }
 
 // ---- solve pass 2: a rank's partial of one row position, and its put -----
+// own[j] is the owner's grid column (its grid row when transposed).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                       const int32_t* __restrict__ rank,
                       const int32_t* __restrict__ pos,
                       const int32_t* __restrict__ send,
-                      const int32_t* __restrict__ dstc,
+                      const int32_t* __restrict__ own,
                       const int32_t* __restrict__ chunkptr,
                       const int32_t* __restrict__ qrow, int bs, int nrhs,
-                      int level) {
+                      int level, int transpose) {
   const int j = blockIdx.x;
   const int d = rank[j];
   const int myr = d / pc, myc = d % pc;
+  const int npeer = transpose ? ndev / pc : pc;
+  const int me = transpose ? myr : myc;
   const int64_t rb = (int64_t)bs * nrhs;
   const int c0 = blockIdx.y * kRT;
   const int rt = min(kRT, nrhs - c0);
   const int nq = chunkptr[j + 1] - chunkptr[j];
-  const float* C = nq ? buf<float>(tab, S_C, ndev, d) +
-                            qrow[chunkptr[j]] * rb + c0
-                      : nullptr;
-  float* P = buf<float>(tab, S_P, ndev, d) + pos[j] * rb + c0;
-  const int owner = myr * pc + dstc[j];
-  float* S = send[j] ? buf<float>(tab, S_SLOTS, ndev, owner) +
-                           ((int64_t)pos[j] * pc + myc) * rb + c0
-                     : nullptr;
+  const T* C =
+      nq ? buf<T>(tab, S_C, ndev, d) + qrow[chunkptr[j]] * rb + c0 : nullptr;
+  T* P = buf<T>(tab, S_P, ndev, d) + pos[j] * rb + c0;
+  const int owner = transpose ? own[j] * pc + myc : myr * pc + own[j];
+  T* S = send[j] ? buf<T>(tab, S_SLOTS, ndev, owner) +
+                       ((int64_t)pos[j] * npeer + me) * rb + c0
+                 : nullptr;
   for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
     const int64_t o = (int64_t)(e / rt) * nrhs + e % rt;
-    float v = 0.0f;
+    T v = T(0);
 #pragma unroll 8
     for (int q = 0; q < nq; ++q) v -= C[q * rb + o];   // loads run ahead
     P[o] = v;
@@ -276,74 +322,51 @@ rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                   R_PART, 1);
 }
 
-template <int BS, int RT>
-int launch_chunks(const uint64_t* tab, int ndev, const int32_t* qrank,
-                  const int32_t* qrow, const int32_t* qcptr,
-                  const int32_t* cloc, const int32_t* csrc, int count,
-                  int nrhs, cudaStream_t stream) {
-  using M = slu_rows::Map<float, BS, false>;
-  constexpr size_t smem = M::template red_elems<RT>() * sizeof(float);
-  static_assert(smem <= 48 * 1024, "shared memory");
-  const dim3 grid(count, (nrhs + RT - 1) / RT);
-  rdma_solve_chunks_kernel<BS, RT><<<grid, kThreads, smem, stream>>>(
-      tab, ndev, qrank, qrow, qcptr, cloc, csrc, nrhs);
-  return (int)cudaGetLastError();
-}
-
-template <int BS>
-int chunks_by_rt(const uint64_t* tab, int ndev, const int32_t* qrank,
-                 const int32_t* qrow, const int32_t* qcptr,
-                 const int32_t* cloc, const int32_t* csrc, int count,
-                 int nrhs, cudaStream_t stream) {
-  return nrhs == 1
-             ? launch_chunks<BS, 1>(tab, ndev, qrank, qrow, qcptr, cloc, csrc,
-                                    count, nrhs, stream)
-             : launch_chunks<BS, kRT>(tab, ndev, qrank, qrow, qcptr, cloc,
-                                      csrc, count, nrhs, stream);
-}
-
-// ---- solve: the owner's diagonal apply and x broadcast --------------------
-__global__ void __launch_bounds__(kThreads)
+// ---- solve pass 3: the owner's diagonal apply and x broadcast -------------
+// The owner's tile t = X[I] + P + the peers' slots (in grid order) is
+// staged in shared memory, then x = op(dinv) . t by rows.cuh's Map, as
+// solve_gemm.cu's rows_kernel applies its diagonal, and x is stored into
+// every rank's X[I].
+template <typename T, int BS, bool kTrans, int RT>
+__global__ void __launch_bounds__(kThreads, 2)
 rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                        const int32_t* __restrict__ rank,
                        const int32_t* __restrict__ row,
                        const int32_t* __restrict__ pos,
-                       const int32_t* __restrict__ inv, int bs, int nrhs,
+                       const int32_t* __restrict__ inv, int nrhs,
                        int level) {
+  using M = Map<T, BS, kTrans>;
   const int j = blockIdx.x;
   const int d = rank[j];
-  const int myc = d % pc;
-  float* tile = slu_rows::dyn_smem<float>();  // kRT x bs, column major
-  float* out = tile + kRT * bs;               // kRT x bs, column major
-  const int64_t rb = (int64_t)bs * nrhs;
-  const int c0 = blockIdx.y * kRT;
-  const int rt = min(kRT, nrhs - c0);
+  const int npeer = kTrans ? ndev / pc : pc;
+  const int me = kTrans ? d / pc : d % pc;
+  const int c0 = blockIdx.y * RT;
+  const int rt = min(RT, nrhs - c0);
+  const int64_t rb = (int64_t)BS * nrhs;
   const int64_t I = row[j];
-  const float* X = buf<float>(tab, S_X, ndev, d) + I * rb + c0;
-  const float* P = buf<float>(tab, S_P, ndev, d) + pos[j] * rb + c0;
-  const float* S = buf<float>(tab, S_SLOTS, ndev, d);
-
-  for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
-    const int r = e / rt, c = e - r * rt;
-    const int64_t o = (int64_t)r * nrhs + c;
-    float v = X[o] + P[o];
-    for (int q = 0; q < pc; ++q)     // the peers' partials, column order
-      if (q != myc) v += S[((int64_t)pos[j] * pc + q) * rb + c0 + o];
-    tile[c * bs + r] = v;
+  T* ys = slu_rows::dyn_smem<T>();     // BS x RT, ys[k * RT + c]
+  T* red = ys + BS * RT;               // the product's partial sums
+  const T* X = buf<T>(tab, S_X, ndev, d) + I * rb + c0;
+  const T* P = buf<T>(tab, S_P, ndev, d) + pos[j] * rb + c0;
+  const T* S = buf<T>(tab, S_SLOTS, ndev, d) + pos[j] * npeer * rb + c0;
+  for (int e = threadIdx.x; e < BS * rt; e += kThreads) {
+    const int i = e / rt, c = e - i * rt;
+    const int64_t o = (int64_t)i * nrhs + c;
+    T v = X[o] + P[o];
+    for (int q = 0; q < npeer; ++q)  // the peers' partials, grid order
+      if (q != me) v += S[q * rb + o];
+    ys[i * RT + c] = v;
   }
   __syncthreads();
-  rows_times(buf<float>(tab, S_DINV, ndev, d) + inv[j] * (int64_t)bs * bs,
-             tile, bs, rt, [&](int r, const float* s) {
-               for (int c = 0; c < rt; ++c) out[c * bs + r] = s[c];
-             });
-  __syncthreads();
-  for (int e2 = 0; e2 < ndev; ++e2) {   // x_I into every rank's X[I]
-    float* Xe = buf<float>(tab, S_X, ndev, e2) + I * rb + c0;
-    for (int e = threadIdx.x; e < bs * rt; e += blockDim.x) {
-      const int r = e / rt, c = e - r * rt;
-      Xe[(int64_t)r * nrhs + c] = out[c * bs + r];
-    }
-  }
+  T acc[M::kOut][RT] = {};
+  M::template accumulate<RT>(
+      buf<T>(tab, S_DINV, ndev, d) + inv[j] * (int64_t)BS * BS, rt,
+      [&](int k, int c) { return ys[k * RT + c]; }, acc);
+  M::template reduce<RT>(acc, rt, red, [&](int i, int c, T v) {
+    const int64_t o = I * rb + c0 + (int64_t)i * nrhs + c;
+    for (int e2 = 0; e2 < ndev; ++e2)   // x_I into every rank's X[I]
+      buf<T>(tab, S_X, ndev, e2)[o] = v;
+  });
   if (blockIdx.y == 0 && threadIdx.x == 0)
     for (int e2 = 0; e2 < ndev; ++e2)
       if (e2 != d)
@@ -351,110 +374,201 @@ rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                       R_X, 1);
 }
 
-}  // namespace
-
-extern "C" int slu_rdma_diag(const void* tab, int ndev, int pc,
-                             const void* rank, const void* loc,
-                             const void* pos, const void* inv, int count,
-                             int bs, float thresh, int level, void* stream) {
-  const size_t smem = slu_tile::tile_lu_smem_bytes<float>(bs);
+// ---- launches ------------------------------------------------------------
+template <typename T>
+int rdma_diag(const void* tab, int ndev, int pc, const void* rank,
+              const void* loc, const void* pos, const void* inv, int count,
+              int bs, real_t<T> thresh, int level, void* stream) {
+  const size_t smem = slu_tile::tile_lu_smem_bytes<T>(bs);
   cudaError_t err = cudaFuncSetAttribute(
-      rdma_diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rdma_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (count == 0) return 0;
-  rdma_diag_kernel<<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
+  rdma_diag_kernel<T><<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
       (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
       (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)inv, bs,
       thresh, level);
   return (int)cudaGetLastError();
 }
 
-extern "C" int slu_rdma_panel(const void* tab, int ndev, int pc,
-                              const void* rank, const void* loc,
-                              const void* pos, const void* pil,
-                              const void* side, int count, int bs, int level,
-                              int wide, void* stream) {
+template <typename T>
+int rdma_panel(const void* tab, int ndev, int pc, const void* rank,
+               const void* loc, const void* pos, const void* pil,
+               const void* side, int count, int bs, int level, int wide,
+               void* stream) {
   if (count == 0) return 0;
   // the band product's ring of panel.cuh's four stages
-  return slu_chain::by_geometry<float, false>(bs, count, wide, [&](auto geo) {
+  return slu_chain::by_geometry<T, false>(bs, count, wide, [&](auto geo) {
     using G = decltype(geo);
     static_assert(G::STAGES == G::template Band<true>::STAGES, "ring");
     return slu_chain::launch<G>(
-        rdma_panel_kernel<G>, count, (cudaStream_t)stream,
+        rdma_panel_kernel<G, T>, count, (cudaStream_t)stream,
         (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
         (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)pil,
         (const int32_t*)side, level);
   });
 }
 
-extern "C" int slu_rdma_schur(const void* tab, int ndev, const void* rank,
-                              const void* tloc, const void* cptr,
-                              const void* cl, const void* cu, int count,
-                              int bs, int wide, void* stream) {
+template <typename T>
+int rdma_schur(const void* tab, int ndev, const void* rank, const void* tloc,
+               const void* cptr, const void* cl, const void* cu, int count,
+               int bs, int wide, void* stream) {
   if (count == 0) return 0;
-  return slu_chain::by_geometry<float, false>(bs, count, wide, [&](auto geo) {
+  return slu_chain::by_geometry<T, false>(bs, count, wide, [&](auto geo) {
     using G = decltype(geo);
     return slu_chain::launch<G>(
-        rdma_schur_kernel<G>, count, (cudaStream_t)stream,
+        rdma_schur_kernel<G, T>, count, (cudaStream_t)stream,
         (const uint64_t*)tab, ndev, (const int32_t*)rank,
         (const int32_t*)tloc, (const int32_t*)cptr, (const int32_t*)cl,
         (const int32_t*)cu);
   });
 }
 
-// Pass 1 of a solve level over `count` chunks (the level's slice of
-// qrank, qrow, qcptr): chunk q's products qcptr[q] .. qcptr[q+1] of
-// cloc/csrc summed into row qrow[q] of rank qrank[q]'s chunk scratch.
-extern "C" int slu_rdma_solve_chunks(const void* tab, int ndev,
-                                     const void* qrank, const void* qrow,
-                                     const void* qcptr, const void* cloc,
-                                     const void* csrc, int count, int bs,
-                                     int nrhs, void* stream) {
-  if (count == 0) return 0;
-  auto go = [&](auto launch) {
-    return launch((const uint64_t*)tab, ndev, (const int32_t*)qrank,
-                  (const int32_t*)qrow, (const int32_t*)qcptr,
-                  (const int32_t*)cloc, (const int32_t*)csrc, count, nrhs,
-                  (cudaStream_t)stream);
-  };
+struct SolveArgs {
+  const uint64_t* tab;
+  int ndev, pc;
+  const int32_t *a, *b, *c, *e, *f;   // the entry's job lists, in order
+  int count, nrhs, level;
+  cudaStream_t stream;
+};
+
+template <typename T, int BS, bool kTrans, int RT>
+struct ChunksLaunch {
+  static void go(const SolveArgs& a) {
+    using M = Map<T, BS, kTrans>;
+    constexpr size_t smem = M::template red_elems<RT>() * sizeof(T);
+    static_assert(smem <= 48 * 1024, "shared memory");
+    const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
+    rdma_solve_chunks_kernel<T, BS, kTrans, RT>
+        <<<grid, kThreads, smem, a.stream>>>(a.tab, a.ndev, a.a, a.b, a.c,
+                                             a.e, a.f, a.nrhs);
+  }
+};
+
+template <typename T, int BS, bool kTrans, int RT>
+struct DiagLaunch {
+  static void go(const SolveArgs& a) {
+    using M = Map<T, BS, kTrans>;
+    constexpr size_t smem =
+        (BS * RT + M::template red_elems<RT>()) * sizeof(T);
+    static_assert(smem <= 48 * 1024, "shared memory");
+    const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
+    rdma_solve_diag_kernel<T, BS, kTrans, RT>
+        <<<grid, kThreads, smem, a.stream>>>(a.tab, a.ndev, a.pc, a.a, a.b,
+                                             a.c, a.e, a.nrhs, a.level);
+  }
+};
+
+// launch L<T, bs, transpose, RT> (RT = 1 for one right-hand side, else
+// rows.cuh's kRTof<T>); returns the launch's cudaError_t
+template <template <typename, int, bool, int> class L, typename T, int BS>
+void by_flags(const SolveArgs& a, int transpose) {
+  constexpr int RT = slu_rows::kRTof<T>;
+  if (transpose)
+    a.nrhs == 1 ? L<T, BS, true, 1>::go(a) : L<T, BS, true, RT>::go(a);
+  else
+    a.nrhs == 1 ? L<T, BS, false, 1>::go(a) : L<T, BS, false, RT>::go(a);
+}
+
+template <template <typename, int, bool, int> class L, typename T>
+int dispatch(const SolveArgs& a, int bs, int transpose) {
+  if (a.count == 0) return 0;
   switch (bs) {
-    case 32: return go(chunks_by_rt<32>);
-    case 64: return go(chunks_by_rt<64>);
-    case 128: return go(chunks_by_rt<128>);
+    case 32: by_flags<L, T, 32>(a, transpose); break;
+    case 64: by_flags<L, T, 64>(a, transpose); break;
+    case 128: by_flags<L, T, 128>(a, transpose); break;
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// Pass 2 over `count` partial jobs (the level's slice of rank, pos, send,
-// dstc, chunkptr): job j's partial is minus the sum of its chunks
-// chunkptr[j] .. chunkptr[j+1] (scratch rows from qrow) in chunk order.
-extern "C" int slu_rdma_solve_sum(const void* tab, int ndev, int pc,
-                                  const void* rank, const void* pos,
-                                  const void* send, const void* dstc,
-                                  const void* chunkptr, const void* qrow,
-                                  int count, int bs, int nrhs, int level,
-                                  void* stream) {
-  if (count == 0) return 0;
-  const dim3 grid(count, (nrhs + kRT - 1) / kRT);
-  rdma_solve_sum_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
-      (const int32_t*)pos, (const int32_t*)send, (const int32_t*)dstc,
-      (const int32_t*)chunkptr, (const int32_t*)qrow, bs, nrhs, level);
   return (int)cudaGetLastError();
 }
 
-extern "C" int slu_rdma_solve_diag(const void* tab, int ndev, int pc,
-                                   const void* rank, const void* row,
-                                   const void* pos, const void* inv,
-                                   int count, int bs, int nrhs, int level,
-                                   void* stream) {
+template <typename T>
+int rdma_solve_sum(const void* tab, int ndev, int pc, const void* rank,
+                   const void* pos, const void* send, const void* own,
+                   const void* chunkptr, const void* qrow, int count, int bs,
+                   int nrhs, int level, int transpose, void* stream) {
   if (count == 0) return 0;
   const dim3 grid(count, (nrhs + kRT - 1) / kRT);
-  const size_t smem = (size_t)2 * kRT * bs * sizeof(float);
-  rdma_solve_diag_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  rdma_solve_sum_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
-      (const int32_t*)row, (const int32_t*)pos, (const int32_t*)inv, bs, nrhs,
-      level);
+      (const int32_t*)pos, (const int32_t*)send, (const int32_t*)own,
+      (const int32_t*)chunkptr, (const int32_t*)qrow, bs, nrhs, level,
+      transpose);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// The entries of one element type T with suffix SFX:
+//   slu_rdma_diag_SFX:  phase A of a level over `count` diagonal jobs;
+//   slu_rdma_panel_SFX: phase B over `count` panel jobs (`wide` < 0
+//     chooses the band geometry, 0 / 1 force bands of 16 / 64);
+//   slu_rdma_schur_SFX: phase C over `count` targets (cl, cu whole);
+//   slu_rdma_solve_chunks_SFX: pass 1 of a solve level over `count`
+//     chunks (the level's slice of qrank, qrow, qcptr): chunk q's products
+//     qcptr[q] .. qcptr[q+1] of cloc/csrc, each op(pool block) . X[src],
+//     summed into row qrow[q] of rank qrank[q]'s chunk scratch;
+//   slu_rdma_solve_sum_SFX: pass 2 over `count` partial jobs (the level's
+//     slice of rank, pos, send, own, chunkptr): job j's partial is minus
+//     the sum of its chunks chunkptr[j] .. chunkptr[j+1] (scratch rows
+//     from qrow) in chunk order;
+//   slu_rdma_solve_diag_SFX: pass 3 over `count` solved rows.
+// Each returns the cudaError_t of its launch.
+#define SLU_RDMA_ENTRIES(SFX, T)                                              \
+  extern "C" int slu_rdma_diag_##SFX(                                         \
+      const void* tab, int ndev, int pc, const void* rank, const void* loc,   \
+      const void* pos, const void* inv, int count, int bs,                    \
+      real_t<T> thresh, int level, void* stream) {                            \
+    return rdma_diag<T>(tab, ndev, pc, rank, loc, pos, inv, count, bs,        \
+                        thresh, level, stream);                               \
+  }                                                                           \
+  extern "C" int slu_rdma_panel_##SFX(                                        \
+      const void* tab, int ndev, int pc, const void* rank, const void* loc,   \
+      const void* pos, const void* pil, const void* side, int count, int bs,  \
+      int level, int wide, void* stream) {                                    \
+    return rdma_panel<T>(tab, ndev, pc, rank, loc, pos, pil, side, count,     \
+                         bs, level, wide, stream);                            \
+  }                                                                           \
+  extern "C" int slu_rdma_schur_##SFX(                                        \
+      const void* tab, int ndev, const void* rank, const void* tloc,          \
+      const void* cptr, const void* cl, const void* cu, int count, int bs,    \
+      int wide, void* stream) {                                               \
+    return rdma_schur<T>(tab, ndev, rank, tloc, cptr, cl, cu, count, bs,      \
+                         wide, stream);                                       \
+  }                                                                           \
+  extern "C" int slu_rdma_solve_chunks_##SFX(                                 \
+      const void* tab, int ndev, const void* qrank, const void* qrow,         \
+      const void* qcptr, const void* cloc, const void* csrc, int count,       \
+      int bs, int nrhs, int transpose, void* stream) {                        \
+    const SolveArgs a{(const uint64_t*)tab, ndev, 0,                          \
+                      (const int32_t*)qrank, (const int32_t*)qrow,            \
+                      (const int32_t*)qcptr, (const int32_t*)cloc,            \
+                      (const int32_t*)csrc, count, nrhs, 0,                   \
+                      (cudaStream_t)stream};                                  \
+    return dispatch<ChunksLaunch, T>(a, bs, transpose);                       \
+  }                                                                           \
+  extern "C" int slu_rdma_solve_sum_##SFX(                                    \
+      const void* tab, int ndev, int pc, const void* rank, const void* pos,   \
+      const void* send, const void* own, const void* chunkptr,                \
+      const void* qrow, int count, int bs, int nrhs, int level,               \
+      int transpose, void* stream) {                                          \
+    return rdma_solve_sum<T>(tab, ndev, pc, rank, pos, send, own, chunkptr,   \
+                             qrow, count, bs, nrhs, level, transpose,         \
+                             stream);                                         \
+  }                                                                           \
+  extern "C" int slu_rdma_solve_diag_##SFX(                                   \
+      const void* tab, int ndev, int pc, const void* rank, const void* row,   \
+      const void* pos, const void* inv, int count, int bs, int nrhs,          \
+      int level, int transpose, void* stream) {                               \
+    const SolveArgs a{(const uint64_t*)tab, ndev, pc,                         \
+                      (const int32_t*)rank, (const int32_t*)row,              \
+                      (const int32_t*)pos, (const int32_t*)inv, nullptr,      \
+                      count, nrhs, level, (cudaStream_t)stream};              \
+    return dispatch<DiagLaunch, T>(a, bs, transpose);                         \
+  }
+
+SLU_RDMA_ENTRIES(f32, float)
+SLU_RDMA_ENTRIES(f64, double)
+SLU_RDMA_ENTRIES(c64, slu_cplx::cplx<float>)
+SLU_RDMA_ENTRIES(c128, slu_cplx::cplx<double>)

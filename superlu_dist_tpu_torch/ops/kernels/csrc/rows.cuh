@@ -7,13 +7,13 @@
 // meeting once in shared memory in a fixed order. chunk_sum is the first
 // pass of a chunked level sweep (solve_gemm.cu's `solve_gemm`, rdma.cu's
 // `rdma_solve_chunks`): the sum of one chunk of a destination's chain.
-// rows_times is the warp-per-row product of a block with a tile staged in
-// shared memory (rdma.cu's diagonal apply). M is one bs x bs block of the
-// pool or of the diagonal inverses; no launch writes a block that it
-// reads. Every function is a template on the element type T; Map and
-// chunk_sum serve float, double and cplx.cuh's complex64 and complex128
-// (each complex FMA four real ones in a fixed order), rows_times float and
-// double. The arithmetic is IEEE in T (in its real type for complex).
+// The diagonal applies (solve_gemm.cu's pass 2, rdma.cu's
+// `rdma_solve_diag`) run Map on a tile staged in shared memory. M is one
+// bs x bs block of the pool or of the diagonal inverses; no launch writes
+// a block that it reads. Every function is a template on the element type
+// T and serves float, double and cplx.cuh's complex64 and complex128 (each
+// complex FMA four real ones in a fixed order). The arithmetic is IEEE in
+// T (in its real type for complex).
 
 #pragma once
 
@@ -30,13 +30,6 @@ using slu_cplx::ldg;
 constexpr int kRT = 8;          // right-hand sides per CTA
 constexpr int kThreads = 256;   // threads per CTA; every block size divides it
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // The dynamic shared memory of a kernel instantiated on T (one raw buffer
 // for every instantiation, since extern arrays of different types may not
 // share a name).
@@ -44,34 +37,6 @@ template <typename T>
 __device__ __forceinline__ T* dyn_smem() {
   extern __shared__ __align__(16) unsigned char slu_rows_smem[];
   return reinterpret_cast<T*>(slu_rows_smem);
-}
-
-// out[r][c] = sum_k M[r][k] * V[c*bs + k] (the product by M): each warp
-// walks rows of M with coalesced loads and reduces across its lanes with
-// shuffles; lane 0 hands each row's sums to emit(r, sums).
-template <typename T, typename Emit>
-__device__ __forceinline__ void rows_times(const T* __restrict__ M,
-                                           const T* V, int bs, int rt,
-                                           Emit emit) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int r = warp; r < bs; r += nw) {
-    T part[kRT];
-#pragma unroll
-    for (int c = 0; c < kRT; ++c) part[c] = T(0);
-    const T* m = M + (int64_t)r * bs;
-    for (int k = lane; k < bs; k += 32) {
-      const T a = __ldg(m + k);
-#pragma unroll
-      for (int c = 0; c < kRT; ++c)
-        if (c < rt) part[c] += a * V[c * bs + k];
-    }
-#pragma unroll
-    for (int c = 0; c < kRT; ++c)
-      if (c < rt) part[c] = warp_sum(part[c]);
-    if (lane == 0) emit(r, part);
-  }
 }
 
 // one 16-byte load through the read-only path into kV = 16 / sizeof(T)

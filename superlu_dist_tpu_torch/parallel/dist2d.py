@@ -12,14 +12,22 @@ Counterpart of the host half of the JAX package's ``parallel/dist2d.py``:
 - :func:`make_coo_shards`, :func:`coo_shards` and :func:`dist_spmv`:
   the refinement's distributed SpMV (pdgsmv analog), a partial product
   per rank, each row summed in a fixed order (``ops/spmv.py``), then a
-  sum over the ranks in rank order. The JAX package's is XLA (a psum
-  over the mesh), not a TPU kernel, so here it is plain PyTorch.
+  sum over the ranks in rank order, of A or (``coo_shards(...,
+  transpose=True)``) of Aᵀ; Aᴴ conjugates the transposed shards' values.
+  The JAX package's is XLA (a psum over the mesh), not a TPU kernel, so
+  here it is plain PyTorch;
+- :func:`sweep_schedule`: the level schedule of each sweep, the plan's L
+  and U sweeps or the transposed Uᵀ and Lᵀ sweeps of
+  ``blocklu.trans_schedule`` (the schedule that the JAX package's
+  ``trans_partition_plan`` distributes: the blocks' owners are unchanged,
+  only the direction flips).
 
-The factor and the solve that run on these lists are
-``parallel/dist2d_rdma.py``. The JAX package's XLA executors
-(``build_dist_factor_fn``, ``build_dist_solve_fn``), its transposed plan
-and solve and its sharded NRLoc input are not ported (ROADMAP.md, queue 1
-items 8a and 10).
+The factor and the solves that run on these lists are
+``parallel/dist2d_rdma.py``, which partitions each sweep's schedule over
+the ranks itself. The JAX package's XLA executors
+(``build_dist_factor_fn``, ``build_dist_solve_fn``,
+``build_dist_trans_solve_fn``) and their packed tapes, and its sharded
+NRLoc input, are not ported (ROADMAP.md, queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops import spmv as _spmv
+from ..ops.blocklu import trans_schedule
 from ..ops.host.symbolic import SymbolicPlan
 
 # local pool layout: slot 0 = zero block (never written), slot 1 = trash
@@ -342,6 +351,20 @@ def partition_plan(plan: SymbolicPlan, pr: int, pc: int) -> DistPlan2D:
     )
 
 
+def sweep_schedule(plan: SymbolicPlan, which: str):
+    """The level schedule of one sweep: ``"L"`` / ``"U"`` the plan's
+    forward L and backward U sweeps, ``"UT"`` / ``"LT"`` the transposed
+    solve's forward Uᵀ and backward Lᵀ sweeps (``blocklu.trans_schedule``).
+    Returns (gptr, gslot, gsrc, gdst, dptr, diag, nlvl): level l's (slot,
+    src, dst) products over ``gptr[l]:gptr[l+1]`` and its solved block
+    rows ``diag[dptr[l]:dptr[l+1]]``."""
+    if which in ("UT", "LT"):
+        return trans_schedule(plan, which[0])
+    p = "lsol" if which == "L" else "usol"
+    return tuple(getattr(plan, f"{p}_{f}") for f in
+                 ("gptr", "gslot", "gsrc", "gdst", "dptr", "diag", "nlvl"))
+
+
 def init_local_pools(plan: SymbolicPlan, dplan: DistPlan2D, a_data, dtype,
                      device) -> list:
     """One ``(n_local, bs, bs)`` pool per rank (rank r·Pc + c at index
@@ -421,23 +444,38 @@ def make_coo_shards(A, ndev: int, dtype):
     return _pad_coo_streams(coo, A.shape[0], ndev, [(coo.data, dtype)])
 
 
-def coo_shards(A, ndev: int, dtype, device) -> list:
+def coo_shards(A, ndev: int, dtype, device, transpose: bool = False
+               ) -> list:
     """The ranks' entries of :func:`make_coo_shards` on ``device``, one
     :class:`ops.spmv.Coo` per rank whose output rows end with the trash
-    row ``n``; each rank's rows are summed in a fixed order."""
+    row ``n``; each rank's rows are summed in a fixed order. With
+    ``transpose`` each rank holds the same entries with rows and columns
+    swapped (the shards of Aᵀ; padding entries still target row ``n``)."""
     n = A.shape[0]
-    return [_spmv.Coo.from_arrays(r, c, v, (n + 1, A.shape[1]), device)
-            for r, c, v in zip(*make_coo_shards(A, ndev, dtype))]
+    out = []
+    for r, c, v in zip(*make_coo_shards(A, ndev, dtype)):
+        if transpose:
+            pad = r == n
+            r, c = np.where(pad, n, c), np.where(pad, 0, r)
+        out.append(_spmv.Coo.from_arrays(r, c, v, (n + 1, n), device))
+    return out
 
 
-def dist_spmv(shards, x, n: int, absolute: bool = False):
+def dist_spmv(shards, x, n: int, absolute: bool = False,
+              conj: bool = False):
     """A·x (|A|·x with ``absolute``) from the ranks' shards of
-    :func:`coo_shards`: each rank's partial product, then their sum over
-    the ranks in rank order (the JAX package's psum over the mesh). ``x``
-    is (n, k) and replicated."""
-    fn = _spmv.abs_spmv if absolute else _spmv.spmv
+    :func:`coo_shards`, or Aᵀ·x from transposed shards (Aᴴ·x with
+    ``conj``, which conjugates the values; |Aᴴ| = |Aᵀ|): each rank's
+    partial product, then their sum over the ranks in rank order (the JAX
+    package's psum over the mesh). ``x`` is (n, k) and replicated."""
     out = None
     for A in shards:
-        part = fn(A, x)
+        if absolute:
+            part = _spmv.abs_spmv(A, x)
+        elif conj and A.vals.is_complex():
+            part = A.by_row(torch.conj_physical(A.vals)[:, None]
+                            * x[A.cols])
+        else:
+            part = _spmv.spmv(A, x)
         out = part if out is None else out + part
     return out[:n]

@@ -31,7 +31,21 @@ the TPU's receive tapes (:func:`build_rdma_recv_tapes`, the solve tapes'
 it (``*_plain``): level by level, rank by rank over the same job lists,
 with the puts as indexed copies into the peers' tensors and each receive
 tallied. On a CPU tensor the wrappers run the plain versions; on a CUDA
-tensor they launch the kernel or raise. float32 only, as on the TPU.
+tensor they launch the kernel or raise.
+
+Every entry serves float32, float64, complex64 and complex128 (the C
+entries ``_f32``, ``_f64``, ``_c64``, ``_c128``; the TPU kernels are
+float32 only, and the JAX package runs its XLA grid executor in the
+other types). A transposed solve (:func:`rdma_solve` on the transposed
+tapes, ``build_sweep_tapes(..., "LT" | "UT", ...)``, whose entries then
+launch with ``transpose=1``) runs a forward Uᵀ sweep with ``uinv`` and a
+backward Lᵀ sweep with ``linv`` over the schedules of
+``dist2d.sweep_schedule``: each product
+and each diagonal inverse is applied transposed, and since the block
+(I, J) that updates row J lies in grid column J mod Pc, a row's partials
+travel down the grid column to the diagonal owner instead of along the
+grid row. The flag never conjugates: the driver solves Aᴴx = b as
+x = conj(A⁻ᵀ conj(b)).
 """
 
 from __future__ import annotations
@@ -44,21 +58,28 @@ import torch
 
 from ..ops.host.symbolic import SymbolicPlan
 from ..ops.kernels._build import CudaKernel, ptr, stream_ptr
-from ..ops.kernels.diag_lu import CUDA_BLOCK_SIZES, lu_inv_plain
+from ..ops.kernels.diag_lu import (CUDA_BLOCK_SIZES, CUDA_DTYPES,
+                                   DTYPE_NAMES, entry, lu_inv_plain)
 from ..ops.kernels.sweep import chunk_chains
-from .dist2d import _ZERO, DistPlan2D
+from .dist2d import _ZERO, DistPlan2D, sweep_schedule
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
+#: the threshold's C type of each entry (the real type of the element)
+_THRESH = {"f32": ctypes.c_float, "f64": ctypes.c_double,
+           "c64": ctypes.c_float, "c128": ctypes.c_double}
 RDMA_FACTOR = CudaKernel("rdma_factor", "rdma.cu", {
-    "slu_rdma_diag": [_V, _I, _I] + [_V] * 4 + [_I, _I, ctypes.c_float, _I,
-                                                _V],
-    "slu_rdma_panel": [_V, _I, _I] + [_V] * 5 + [_I] * 4 + [_V],
-    "slu_rdma_schur": [_V, _I] + [_V] * 5 + [_I] * 3 + [_V]})
+    f"slu_rdma_{name}_{sfx}": args for sfx, th in _THRESH.items()
+    for name, args in (
+        ("diag", [_V, _I, _I] + [_V] * 4 + [_I, _I, th, _I, _V]),
+        ("panel", [_V, _I, _I] + [_V] * 5 + [_I] * 4 + [_V]),
+        ("schur", [_V, _I] + [_V] * 5 + [_I] * 3 + [_V]))})
 RDMA_SOLVE = CudaKernel("rdma_solve", "rdma.cu", {
-    "slu_rdma_solve_chunks": [_V, _I] + [_V] * 5 + [_I] * 3 + [_V],
-    "slu_rdma_solve_sum": [_V, _I, _I] + [_V] * 6 + [_I] * 4 + [_V],
-    "slu_rdma_solve_diag": [_V, _I, _I] + [_V] * 4 + [_I] * 4 + [_V]})
+    f"slu_rdma_solve_{name}_{sfx}": args for sfx in _THRESH
+    for name, args in (
+        ("chunks", [_V, _I] + [_V] * 5 + [_I] * 4 + [_V]),
+        ("sum", [_V, _I, _I] + [_V] * 6 + [_I] * 5 + [_V]),
+        ("diag", [_V, _I, _I] + [_V] * 4 + [_I] * 5 + [_V]))})
 
 #: receive kinds of the factor's counters (rank, level, kind), the TPU's
 #: rcv_li, rcv_ui, rcv_l, rcv_u; of a sweep's, rcv_part and rcv_x
@@ -128,26 +149,25 @@ def build_rdma_recv_tapes(plan: SymbolicPlan, dplan: DistPlan2D) -> dict:
 
 def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
                            which: str):
-    """Per-rank tapes of one RDMA solve sweep ("L" or "U"), the JAX
-    package's layout and pads.
+    """Per-rank tapes of one RDMA solve sweep, the JAX package's layout
+    and pads: ``which`` is "L" or "U" (the TPU's two sweeps), or "UT" /
+    "LT", the transposed solve's sweeps (``dist2d.sweep_schedule``), whose
+    partials of a row gather down its grid column instead of along its
+    grid row (the products into row J are blocks of block column J).
 
     Returns (tapes, consts): tapes is a dict of (pr, pc, ...) int32
-    arrays; consts has nlvl and MAXR (max rows per level, the height of
-    the receive slots and of the partial buffer).
+    arrays (``sdstc`` holds the owner's grid column, or in a transposed
+    sweep its grid row); consts has nlvl and MAXR (max rows per level,
+    the height of the receive slots and of the partial buffer).
     """
     pr, pc, nb = dplan.pr, dplan.pc, dplan.nb
     owner_dev = np.asarray(dplan.owner_dev)
     local_slot = np.asarray(dplan.local_slot)
     dinv_idx = np.asarray(dplan.dinv_idx)
     ndev = pr * pc
-    if which == "L":
-        gptr_g, gslot_g = plan.lsol_gptr, plan.lsol_gslot
-        gsrc_g, gdst_g = plan.lsol_gsrc, plan.lsol_gdst
-        dptr_g, diag_g, nlvl = plan.lsol_dptr, plan.lsol_diag, plan.lsol_nlvl
-    else:
-        gptr_g, gslot_g = plan.usol_gptr, plan.usol_gslot
-        gsrc_g, gdst_g = plan.usol_gsrc, plan.usol_gdst
-        dptr_g, diag_g, nlvl = plan.usol_dptr, plan.usol_diag, plan.usol_nlvl
+    gptr_g, gslot_g, gsrc_g, gdst_g, dptr_g, diag_g, nlvl = \
+        sweep_schedule(plan, which)
+    trans = which.endswith("T")
 
     pos_of_row = np.zeros(nb, dtype=np.int64)
     maxr = 1
@@ -171,16 +191,21 @@ def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
         rows = np.asarray(diag_g[dptr_g[l]:dptr_g[l + 1]], np.int64)
         for I in rows:
             r_own, c_own = int(I % pr), int(I % pc)
-            # every rank in grid row I%pr holds a (possibly zero) partial
-            # for row I: zero it, and non-owners put it
-            for c in range(pc):
-                d = r_own * pc + c
-                s_lists[d][l].append(
-                    (int(pos_of_row[I]), c_own, 1 if c != c_own else 0))
+            # every rank in grid row I%pr (grid column I%pc when
+            # transposed) holds a (possibly zero) partial for row I: zero
+            # it, and non-owners put it
+            if trans:
+                for r in range(pr):
+                    s_lists[r * pc + c_own][l].append(
+                        (int(pos_of_row[I]), r_own, 1 if r != r_own else 0))
+            else:
+                for c in range(pc):
+                    s_lists[r_own * pc + c][l].append(
+                        (int(pos_of_row[I]), c_own, 1 if c != c_own else 0))
             d_own = r_own * pc + c_own
             d_lists[d_own][l].append(
                 (int(I), int(pos_of_row[I]), int(dinv_idx[I])))
-            rcv_part[d_own, l] += pc - 1
+            rcv_part[d_own, l] += (pr if trans else pc) - 1
             for d in range(ndev):
                 if d != d_own:
                     rcv_x[d, l] += 1
@@ -346,7 +371,12 @@ class SweepTapes:
     q_cptr[q+1]``, on rank ``q_rank[q]`` at row ``q_row[q]`` of its chunk
     scratch (a job's chunks take consecutive rows); level l's chunks are
     ``qptr[l]:qptr[l+1]`` and ``maxq`` rows hold any level's chunks of
-    one rank. ``recv`` holds the TPU's ``rcv_part`` and ``rcv_x``."""
+    one rank. ``recv`` holds the receive counts ``rcv_part`` and
+    ``rcv_x`` (the TPU's tapes for "L" and "U"). In a transposed sweep
+    (``which`` "UT" or "LT", ``transpose`` true) ``p_dstc`` is the
+    owner's grid row and a row's ``npeer`` = Pr partials gather down the
+    grid column; otherwise it is the owner's grid column and Pc partials
+    gather along the grid row."""
 
     which: str
     pr: int
@@ -365,11 +395,22 @@ class SweepTapes:
     def ndev(self) -> int:
         return self.pr * self.pc
 
+    @property
+    def transpose(self) -> bool:
+        return self.which.endswith("T")
+
+    @property
+    def npeer(self) -> int:
+        """The ranks that hold partials of one row: Pc, or Pr when
+        transposed."""
+        return self.pr if self.transpose else self.pc
+
 
 def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
                       device, chunk: int | None = None) -> SweepTapes:
-    """The job lists of one sweep of :func:`rdma_solve` from
-    :func:`build_rdma_solve_tapes`: one partial job per entry of a rank's
+    """The job lists of one sweep of :func:`rdma_solve` ("L", "U", or
+    the transposed "UT", "LT") from :func:`build_rdma_solve_tapes`: one
+    partial job per entry of a rank's
     zero/send list, holding that rank's products into the position in
     tape order, cut into chunks of at most ``chunk`` products (when None,
     the level's products over ``sweep.CHUNK_CTAS``); one diagonal job per
@@ -500,7 +541,7 @@ def new_factor_state(pools, ft: FactorTapes) -> FactorState:
 class SweepState:
     """Every rank's buffers of one sweep: the replicated ``X`` (nb, bs,
     nrhs), the partials ``P`` (maxr, bs, nrhs), the receive ``slots``
-    (maxr·Pc, bs, nrhs), the counters ``recv`` (nlvl, 2) int32 and the
+    (maxr·npeer, bs, nrhs), the counters ``recv`` (nlvl, 2) int32 and the
     chunk scratch ``C`` (max(1, maxq), bs, nrhs); ``tables`` keeps the
     device tables of their pointers."""
 
@@ -540,8 +581,8 @@ def new_sweep_state(X, tp: SweepTapes) -> SweepState:
         X=list(X),
         P=[torch.zeros((tp.maxr, bs, k), dtype=dt, device=dev)
            for _ in X],
-        slots=[torch.zeros((tp.maxr * tp.pc, bs, k), dtype=dt, device=dev)
-               for _ in X],
+        slots=[torch.zeros((tp.maxr * tp.npeer, bs, k), dtype=dt,
+                           device=dev) for _ in X],
         recv=[torch.zeros((tp.nlvl, 2), dtype=torch.int32, device=dev)
               for _ in X],
         C=[torch.zeros((max(1, tp.maxq), bs, k), dtype=dt, device=dev)
@@ -568,17 +609,18 @@ def _at(t: torch.Tensor, i: int) -> ctypes.c_void_p:
 
 
 def _check_cuda(what, blocks, others=()):
-    """Every tensor float32 (int32 for counters), contiguous, on one CUDA
-    device; a block size the kernels take."""
-    dev = blocks[0].device
+    """Every block buffer contiguous, on one CUDA device and of one dtype
+    that the kernels take (counters int32); a block size the kernels
+    take."""
+    dev, dt = blocks[0].device, blocks[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     for t in blocks:
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != dev:
+        if t.dtype not in CUDA_DTYPES or t.dtype != dt \
+                or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{what}: every buffer must be a contiguous "
-                             "float32 tensor on one device (the RDMA kernels "
-                             "are float32 only)")
+                             f"tensor of one dtype ({DTYPE_NAMES}) on one "
+                             "device")
     for t in others:
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != dev:
@@ -605,7 +647,8 @@ def _idx(a, device):
 
 def rdma_diag_plain(st: FactorState, thresh: float, ft: FactorTapes,
                     level: int) -> None:
-    """Plain version of :func:`rdma_diag`."""
+    """Plain version of :func:`rdma_diag` (a complex tiny pivot keeps its
+    phase; ``thresh`` is real)."""
     h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.pool[0].device
     for d in range(ft.ndev):
         lo, hi = int(ft.aptr[level, d]), int(ft.aptr[level, d + 1])
@@ -639,10 +682,10 @@ def rdma_diag(st: FactorState, thresh: float, ft: FactorTapes,
     lo, hi = _span(ft.aptr, level)
     if hi == lo:
         return
-    dv = ft.dev
-    RDMA_FACTOR.count("slu_rdma_diag")
+    dv, fn = ft.dev, entry("rdma_diag", st.pool[0])
+    RDMA_FACTOR.count(fn)
     RDMA_FACTOR.call(
-        "slu_rdma_diag", ptr(tab), ft.ndev, ft.pc, _at(dv["a_rank"], lo),
+        fn, ptr(tab), ft.ndev, ft.pc, _at(dv["a_rank"], lo),
         _at(dv["a_loc"], lo), _at(dv["a_pos"], lo), _at(dv["a_inv"], lo),
         hi - lo, ft.bs, float(thresh), level, stream_ptr(st.pool[0].device))
 
@@ -677,17 +720,18 @@ def rdma_panel(st: FactorState, ft: FactorTapes, level: int,
     received U⁻¹ (put into the row peers' ``lB``) and U panels times the
     received L⁻¹ (put into the column peers' ``uB``), one CTA per
     (panel, band). ``wide`` < 0 lets the kernel choose its bands
-    (``csrc/chain.cuh``), 0 / 1 force bands of 16 / 64."""
+    (``csrc/chain.cuh``), 0 / 1 force bands of 16 / 64 (complex128
+    always takes bands of 16)."""
     if st.pool[0].device.type == "cpu":
         return rdma_panel_plain(st, ft, level)
     tab = st.table()
     lo, hi = _span(ft.bptr, level)
     if hi == lo:
         return
-    dv = ft.dev
-    RDMA_FACTOR.count("slu_rdma_panel")
+    dv, fn = ft.dev, entry("rdma_panel", st.pool[0])
+    RDMA_FACTOR.count(fn)
     RDMA_FACTOR.call(
-        "slu_rdma_panel", ptr(tab), ft.ndev, ft.pc, _at(dv["b_rank"], lo),
+        fn, ptr(tab), ft.ndev, ft.pc, _at(dv["b_rank"], lo),
         _at(dv["b_loc"], lo), _at(dv["b_pos"], lo), _at(dv["b_pil"], lo),
         _at(dv["b_side"], lo), hi - lo, ft.bs, level, wide,
         stream_ptr(st.pool[0].device))
@@ -723,39 +767,52 @@ def rdma_schur(st: FactorState, ft: FactorTapes, level: int,
     lo, hi = _span(ft.sptr, level)
     if hi == lo:
         return
-    dv = ft.dev
-    RDMA_FACTOR.count("slu_rdma_schur")
+    dv, fn = ft.dev, entry("rdma_schur", st.pool[0])
+    RDMA_FACTOR.count(fn)
     RDMA_FACTOR.call(
-        "slu_rdma_schur", ptr(tab), ft.ndev, _at(dv["s_rank"], lo),
+        fn, ptr(tab), ft.ndev, _at(dv["s_rank"], lo),
         _at(dv["s_tloc"], lo), _at(dv["cptr"], lo), ptr(dv["c_l"]),
         ptr(dv["c_u"]), hi - lo, ft.bs, wide, stream_ptr(st.pool[0].device))
 
 
-def rdma_factor(pools, thresh: float, ft: FactorTapes) -> FactorState:
+def rdma_factor_level(st: FactorState, thresh: float, ft: FactorTapes,
+                      level: int, plain: bool = False) -> None:
+    """The three phases of one elimination level."""
+    if plain:
+        rdma_diag_plain(st, thresh, ft, level)
+        rdma_panel_plain(st, ft, level)
+        rdma_schur_plain(st, ft, level)
+    else:
+        rdma_diag(st, thresh, ft, level)
+        rdma_panel(st, ft, level)
+        rdma_schur(st, ft, level)
+
+
+def rdma_factor(pools, thresh: float, ft: FactorTapes,
+                plain: bool = False) -> FactorState:
     """Factor the per-rank ``pools`` in place, the three phases level by
     level; returns the factor's buffers (the pools, the owner-local
     inverse tables, the receive counters and the tiny-pivot counts)."""
     st = new_factor_state(pools, ft)
     for level in range(ft.nlvl):
-        rdma_diag(st, thresh, ft, level)
-        rdma_panel(st, ft, level)
-        rdma_schur(st, ft, level)
+        rdma_factor_level(st, thresh, ft, level, plain)
     return st
 
 
 def rdma_factor_plain(pools, thresh: float, ft: FactorTapes) -> FactorState:
     """Plain version of :func:`rdma_factor` on any device."""
-    st = new_factor_state(pools, ft)
-    for level in range(ft.nlvl):
-        rdma_diag_plain(st, thresh, ft, level)
-        rdma_panel_plain(st, ft, level)
-        rdma_schur_plain(st, ft, level)
-    return st
+    return rdma_factor(pools, thresh, ft, plain=True)
 
 
 # ---------------------------------------------------------------------------
 # kernel 12: the sweeps
 # ---------------------------------------------------------------------------
+
+
+def _op(M: torch.Tensor, tp: SweepTapes) -> torch.Tensor:
+    """op(M) of the sweep: the blocks ``M``, transposed (never
+    conjugated) in a transposed sweep."""
+    return M.mT if tp.transpose else M
 
 
 def rdma_solve_chunks_plain(pools, ss: SweepState, tp: SweepTapes,
@@ -775,7 +832,7 @@ def rdma_solve_chunks_plain(pools, ss: SweepState, tp: SweepTapes,
         ss.C[d][rows] = 0
         ss.C[d].index_add_(
             0, _idx(np.repeat(h["q_row"][qs], cnt), dev),
-            pools[d][_idx(h["c_loc"][prods], dev)]
+            _op(pools[d][_idx(h["c_loc"][prods], dev)], tp)
             @ ss.X[d][_idx(h["c_src"][prods], dev)])
 
 
@@ -783,26 +840,36 @@ def rdma_solve_chunks(pools, ss: SweepState, tp: SweepTapes,
                       level: int) -> None:
     """Pass 1 of ``level``: every chunk of every rank's chains summed into
     the rank's chunk scratch, one CTA per (chunk, tile of right-hand
-    sides)."""
+    sides); each product op(pool block)·X[src]."""
     if ss.X[0].device.type == "cpu":
         return rdma_solve_chunks_plain(pools, ss, tp, level)
     tab = ss.table(pools)
     q0, q1 = int(tp.qptr[level]), int(tp.qptr[level + 1])
     if q1 == q0:
         return
-    dv = tp.dev
-    RDMA_SOLVE.count("slu_rdma_solve_chunks")
+    dv, fn = tp.dev, entry("rdma_solve_chunks", ss.X[0])
+    RDMA_SOLVE.count(fn)
     RDMA_SOLVE.call(
-        "slu_rdma_solve_chunks", ptr(tab), tp.ndev, _at(dv["q_rank"], q0),
+        fn, ptr(tab), tp.ndev, _at(dv["q_rank"], q0),
         _at(dv["q_row"], q0), _at(dv["q_cptr"], q0), ptr(dv["c_loc"]),
         ptr(dv["c_src"]), q1 - q0, ss.X[0].shape[1], ss.X[0].shape[2],
-        stream_ptr(ss.X[0].device))
+        int(tp.transpose), stream_ptr(ss.X[0].device))
+
+
+def _owner_slot(tp: SweepTapes, d: int, own):
+    """For rank ``d``'s partials whose owner lies at ``own`` along the
+    sweep's axis: the owners' ranks, and the index of ``d`` among a row's
+    ``npeer`` partial slots."""
+    myr, myc = divmod(d, tp.pc)
+    if tp.transpose:
+        return own * tp.pc + myc, myr
+    return myr * tp.pc + own, myc
 
 
 def rdma_solve_sum_plain(pools, ss: SweepState, tp: SweepTapes,
                          level: int) -> None:
     """Plain version of :func:`rdma_solve_sum`."""
-    h, pc, dev = tp.host, tp.pc, ss.X[0].device
+    h, dev, npeer = tp.host, ss.X[0].device, tp.npeer
     for d in range(tp.ndev):
         lo, hi = int(tp.pptr[level, d]), int(tp.pptr[level, d + 1])
         if hi == lo:
@@ -815,12 +882,11 @@ def rdma_solve_sum_plain(pools, ss: SweepState, tp: SweepTapes,
             ss.P[d].index_add_(0, _idx(dst, dev),
                                ss.C[d][_idx(h["q_row"][k0:k1], dev)],
                                alpha=-1)
-        myr, myc = divmod(d, pc)
         send = h["p_send"][lo:hi] == 1
-        owner = myr * pc + h["p_dstc"][lo:hi]
+        owner, me = _owner_slot(tp, d, h["p_dstc"][lo:hi])
         for e in np.unique(owner[send]):
             p = pos[send & (owner == e)]
-            ss.slots[e][_idx(p * pc + myc, dev)] = ss.P[d][_idx(p, dev)]
+            ss.slots[e][_idx(p * npeer + me, dev)] = ss.P[d][_idx(p, dev)]
             ss.recv[e][level, _PART] += len(p)
 
 
@@ -828,22 +894,22 @@ def rdma_solve_sum(pools, ss: SweepState, tp: SweepTapes,
                    level: int) -> None:
     """Pass 2 of ``level``: every rank's P[pos] = −(its chunks' sums, in
     chunk order) for each row position it holds products into, put by
-    non-owners into the diagonal owner's slots[pos·Pc + own grid
-    column]."""
+    non-owners into the diagonal owner's slots[pos·npeer + own index]
+    (its grid column, or its grid row in a transposed sweep)."""
     if ss.X[0].device.type == "cpu":
         return rdma_solve_sum_plain(pools, ss, tp, level)
     tab = ss.table(pools)
     lo, hi = _span(tp.pptr, level)
     if hi == lo:
         return
-    dv = tp.dev
-    RDMA_SOLVE.count("slu_rdma_solve_sum")
+    dv, fn = tp.dev, entry("rdma_solve_sum", ss.X[0])
+    RDMA_SOLVE.count(fn)
     RDMA_SOLVE.call(
-        "slu_rdma_solve_sum", ptr(tab), tp.ndev, tp.pc,
+        fn, ptr(tab), tp.ndev, tp.pc,
         _at(dv["p_rank"], lo), _at(dv["p_pos"], lo), _at(dv["p_send"], lo),
         _at(dv["p_dstc"], lo), _at(dv["chunkptr"], lo), ptr(dv["q_row"]),
         hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
-        stream_ptr(ss.X[0].device))
+        int(tp.transpose), stream_ptr(ss.X[0].device))
 
 
 def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
@@ -855,10 +921,9 @@ def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
 
 def rdma_solve_gemm(pools, ss: SweepState, tp: SweepTapes,
                     level: int) -> None:
-    """Level ``level``'s partials: every rank's P[pos] = −Σ pool[loc]·X[src]
-    over its products into the row at pos (passes 1 and 2), put by
-    non-owners into the diagonal owner's slots[pos·Pc + own grid
-    column]."""
+    """Level ``level``'s partials: every rank's P[pos] = −Σ op(pool[loc])·
+    X[src] over its products into the row at pos (passes 1 and 2), put
+    by non-owners into the diagonal owner's slots."""
     rdma_solve_chunks(pools, ss, tp, level)
     rdma_solve_sum(pools, ss, tp, level)
 
@@ -866,7 +931,7 @@ def rdma_solve_gemm(pools, ss: SweepState, tp: SweepTapes,
 def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,
                           level: int) -> None:
     """Plain version of :func:`rdma_solve_diag`."""
-    h, pc, dev = tp.host, tp.pc, ss.X[0].device
+    h, dev, npeer = tp.host, ss.X[0].device, tp.npeer
     for d in range(tp.ndev):
         lo, hi = int(tp.dptr[level, d]), int(tp.dptr[level, d + 1])
         if hi == lo:
@@ -874,10 +939,11 @@ def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,
         rows, pos, inv = (_idx(h[k][lo:hi], dev) for k in
                           ("d_row", "d_pos", "d_inv"))
         t = ss.X[d][rows] + ss.P[d][pos]
-        for c in range(pc):            # the peers' partials, column order
-            if c != d % pc:
-                t = t + ss.slots[d][pos * pc + c]
-        x = dinvs[d][inv] @ t
+        me = _owner_slot(tp, d, 0)[1]
+        for q in range(npeer):         # the peers' partials, grid order
+            if q != me:
+                t = t + ss.slots[d][pos * npeer + q]
+        x = _op(dinvs[d][inv], tp) @ t
         for e in range(tp.ndev):       # x into every rank's X
             ss.X[e][rows] = x
             if e != d:
@@ -886,21 +952,21 @@ def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,
 
 def rdma_solve_diag(dinvs, ss: SweepState, tp: SweepTapes,
                     level: int) -> None:
-    """Level ``level``'s solved rows: the owner's x_I = dinv·(X[I] + P +
-    the peers' slots in grid-column order), put into every rank's X[I]."""
+    """Level ``level``'s solved rows: the owner's x_I = op(dinv)·(X[I] +
+    P + the peers' slots in grid order), put into every rank's X[I]."""
     if ss.X[0].device.type == "cpu":
         return rdma_solve_diag_plain(dinvs, ss, tp, level)
     tab = ss.table(dinvs)
     lo, hi = _span(tp.dptr, level)
     if hi == lo:
         return
-    dv = tp.dev
-    RDMA_SOLVE.count("slu_rdma_solve_diag")
+    dv, fn = tp.dev, entry("rdma_solve_diag", ss.X[0])
+    RDMA_SOLVE.count(fn)
     RDMA_SOLVE.call(
-        "slu_rdma_solve_diag", ptr(tab), tp.ndev, tp.pc, _at(dv["d_rank"], lo),
+        fn, ptr(tab), tp.ndev, tp.pc, _at(dv["d_rank"], lo),
         _at(dv["d_row"], lo), _at(dv["d_pos"], lo), _at(dv["d_inv"], lo),
         hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
-        stream_ptr(ss.X[0].device))
+        int(tp.transpose), stream_ptr(ss.X[0].device))
 
 
 def rdma_sweep(pools, dinvs, X, tp: SweepTapes, plain: bool = False):
@@ -918,12 +984,21 @@ def rdma_sweep(pools, dinvs, X, tp: SweepTapes, plain: bool = False):
 def rdma_solve(pools, linvs, uinvs, lt: SweepTapes, ut: SweepTapes, B,
                plain: bool = False):
     """L·U·x = b for the (nb, bs, nrhs) right-hand side ``B``: every rank
-    starts from a copy of B, then the L sweep and the U sweep. Returns
-    (x of shape (nb, bs, nrhs), the L sweep's and the U sweep's receive
-    counters, one (nlvl, 2) tensor per rank each)."""
+    starts from a copy of B, then the L sweep and the U sweep; or, with
+    the transposed tapes ("LT" and "UT"), Uᵀ·Lᵀ·x = b: the Uᵀ sweep with
+    ``uinvs``, then the Lᵀ sweep with ``linvs``. Returns (x of shape (nb,
+    bs, nrhs), the receive counters of the ``lt`` sweep and of the ``ut``
+    sweep, one (nlvl, 2) tensor per rank each)."""
+    if lt.transpose != ut.transpose:
+        raise ValueError("rdma_solve: the L and U tapes must both be "
+                         "transposed or neither")
     X = [B.clone() for _ in range(lt.ndev)]
-    sl = rdma_sweep(pools, linvs, X, lt, plain)
-    su = rdma_sweep(pools, uinvs, X, ut, plain)
+    if lt.transpose:
+        su = rdma_sweep(pools, uinvs, X, ut, plain)
+        sl = rdma_sweep(pools, linvs, X, lt, plain)
+    else:
+        sl = rdma_sweep(pools, linvs, X, lt, plain)
+        su = rdma_sweep(pools, uinvs, X, ut, plain)
     return X[0], sl.recv, su.recv
 
 

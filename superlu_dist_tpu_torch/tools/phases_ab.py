@@ -11,7 +11,10 @@ its ROOT and makes ``CALLS`` warm calls after one cold call of:
   block_size=128))`` on ``laplacian_3d(32)``: FACT, SOLVE and REFINE;
 - the transposed solve, ``Options(..., trans=Trans.TRANS)`` on
   ``laplacian_3d_unsym(32)``: its SOLVE, which ``solve_gemm.cu``'s two
-  passes run.
+  passes run;
+- the 2D grid, ``gssvx_dist(A, b, Grid2D(2, 2), Options(dtype="float32",
+  block_size=128))`` on ``laplacian_3d(32)``: its FACT and SOLVE, which
+  ``rdma.cu`` runs.
 
 Device ms per phase are the driver's CUDA-event phases (``Stats``). It
 prints the card and, per checkout and phase, the median, the quartiles
@@ -27,13 +30,13 @@ import sys
 
 CALLS = 5
 PHASES = (("main", "FACT"), ("main", "SOLVE"), ("main", "REFINE"),
-          ("trans", "SOLVE"))
+          ("trans", "SOLVE"), ("grid", "FACT"), ("grid", "SOLVE"))
 
 _CHILD = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np
-from superlu_dist_tpu_torch import Options, Trans, gssvx
+from superlu_dist_tpu_torch import Grid2D, Options, Trans, gssvx, gssvx_dist
 from superlu_dist_tpu_torch.utils.testing import (laplacian_3d,
                                                   laplacian_3d_unsym)
 out = {}
@@ -41,11 +44,14 @@ for what, A, opts in (
         ("main", laplacian_3d(32), Options(dtype="float32",
                                            block_size=128)),
         ("trans", laplacian_3d_unsym(32),
-         Options(dtype="float32", block_size=128, trans=Trans.TRANS))):
+         Options(dtype="float32", block_size=128, trans=Trans.TRANS)),
+        ("grid", laplacian_3d(32), Options(dtype="float32",
+                                           block_size=128))):
     b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
     runs = []
     for i in range(int(sys.argv[2]) + 1):
-        res, _ = gssvx(A, b, opts)
+        res, _ = (gssvx_dist(A, b, Grid2D(2, 2), opts) if what == "grid"
+                  else gssvx(A, b, opts))
         if i:
             runs.append(dict(res.stat.device_ms))
     out[what] = runs

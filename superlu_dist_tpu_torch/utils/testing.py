@@ -1,8 +1,9 @@
-"""Synthetic test matrices.
+"""Synthetic test matrices and the pdtest residual test.
 
 A copy of the JAX package's generators that the port's tests and
 ``chip_smoke.py`` use, so the two packages see identical inputs from the
-same seed.
+same seed, and of its ``THRESH`` and ``compute_resid`` (the reference's
+TEST/pdtest.c acceptance test), which the card tests use without JAX.
 """
 
 from __future__ import annotations
@@ -224,3 +225,32 @@ def unsymmetric_pattern(n: int, seed: int = 0) -> sp.csc_matrix:
     for i in range(n):
         A[i, perm[i]] = 10.0 + rng.random()
     return sp.csc_matrix(A)
+
+
+#: acceptance threshold for the residual test value
+#: (reference: TEST/pdtest.c:44 ``#define THRESH 20.0``)
+THRESH = 20.0
+
+
+def compute_resid(A, x, b, work_dtype=np.float64) -> float:
+    """Residual test value ‖b−Ax‖∞ / (‖A‖∞·‖x‖∞·n·eps) — must be < THRESH.
+
+    Mirrors ``pdcompute_resid`` (reference: TEST/pdcompute_resid.c:83-151).
+    ``work_dtype`` sets eps: the working precision of the solve being tested
+    (float32 for an unrefined single-precision factorization).
+    """
+    A = sp.csc_matrix(A)
+    x = np.asarray(x, dtype=np.result_type(A.dtype, np.float64))
+    b = np.asarray(b, dtype=x.dtype)
+    n = A.shape[0]
+    wd = np.dtype(work_dtype)
+    if wd.kind == "c":
+        wd = np.dtype(np.float32) if wd.itemsize == 8 else np.dtype(np.float64)
+    eps = np.finfo(wd).eps
+    anorm = np.max(np.abs(A).sum(axis=1))
+    r = b - A @ x
+    rnorm = np.max(np.abs(r))
+    xnorm = np.max(np.abs(x))
+    if anorm == 0 or xnorm == 0:
+        return np.inf if rnorm > 0 else 0.0
+    return float(rnorm / (anorm * xnorm * n * eps))

@@ -753,11 +753,12 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
     plain version level by level on the same state (the factor's panels
     and Schur products in the bands the kernels choose, in bands of 16
     and in bands of 64; the solve on the automatic chunks and on chunks of
-    at most two products, so that chains are cut), within 64 float32 ulp
-    of the output's magnitude (ULPS), the receive counters (which the
-    kernels' puts tally, and the plain versions too) equal to each other
-    and to the TPU's receive tapes, and the solution against the CPU run
-    of the same call (1e-10 relative)."""
+    at most two products, so that chains are cut, and the transposed Uᵀ
+    and Lᵀ sweeps), within 64 float32 ulp of the output's magnitude
+    (ULPS), the receive counters (which the kernels' puts tally, and the
+    plain versions too) equal to each other and to the receive tapes, and
+    the solution against the CPU run of the same call (1e-10 relative).
+    A float32 call launches the ``_f32`` entries only."""
     A = tt.laplacian_3d(12).tocsc()
     b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
     opts = T.Options(dtype="float32", block_size=bs, dist_executor="rdma")
@@ -765,8 +766,8 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
         k.reset_counts()
     rg, lu = T.gssvx_dist(A, b, T.Grid2D(pr, pc), opts, device=cuda)
     for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
-        assert all(v > 0 for v in k.entry_launches.values()), \
-            k.entry_launches
+        assert all((v > 0) == e.endswith("_f32")
+                   for e, v in k.entry_launches.items()), k.entry_launches
     rc, _ = T.gssvx_dist(A, b, T.Grid2D(pr, pc), opts, device="cpu")
     assert rg.berr.max() < 1e-15
     assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
@@ -806,12 +807,15 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
                 close(st.tensors(), ref.tensors())
     tapes2 = [rdma.build_sweep_tapes(plan, lu.dplan, w, cuda, chunk=2)
               for w in "LU"]
+    ttapes = [rdma.build_sweep_tapes(plan, lu.dplan, w, cuda)
+              for w in ("UT", "LT")]
     assert any((np.diff(tp.host["chunkptr"]) > 1).any()
                for tp in (lu._lt, lu._ut))
     for nrhs in (1, 3, 9):
         B = torch.randn(plan.nb, plan.bs, nrhs, device=cuda)
         for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv),
-                         (tapes2[0], lu.linv), (tapes2[1], lu.uinv)):
+                         (tapes2[0], lu.linv), (tapes2[1], lu.uinv),
+                         (ttapes[0], lu.uinv), (ttapes[1], lu.linv)):
             ss = rdma.new_sweep_state([B.clone() for _ in lu.pool], tp)
             for level in range(tp.nlvl):
                 for kern, plain, M in (
@@ -830,6 +834,139 @@ def test_rdma_kernels_match_plain(cuda, bs, pr, pc):
                                           rdma.SOLVE_RECV).items():
                 assert np.array_equal(v, tp.recv[k]), (tp.which, k)
 
+
+
+GDTYPES = {"f64": "float64", "c64": "complex64", "c128": "complex128"}
+
+
+def _grid_matrix(dt):
+    """lap3d12 unsymmetric, or its complex twin with unit phases."""
+    return _complex_unsym(12) if dt.startswith("complex") else \
+        tt.laplacian_3d_unsym(12).tocsc()
+
+
+def _tensor_eps(dtype):
+    return float(np.finfo({torch.float32: np.float32,
+                           torch.float64: np.float64,
+                           torch.complex64: np.complex64,
+                           torch.complex128: np.complex128}[dtype]).eps)
+
+
+@pytest.mark.parametrize("sfx", list(GDTYPES))
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_rdma_types_match_plain(cuda, bs, sfx):
+    """The 2D driver in float64, complex64 and complex128 on a 2x2 and a
+    2x4 grid: a TRANS gssvx_dist with the condition estimate launches
+    every entry of the RDMA factor and solve, through its ``_{sfx}``
+    instantiation only, and agrees with the CPU run (x to 1e-12 relative,
+    rcond to 1e-4 relative in complex64 and 1e-8 otherwise); every entry
+    against its plain version level by level (the factor in the bands the
+    kernels choose and in bands of 16; the L, U, Uᵀ and Lᵀ sweeps with one
+    and five right-hand sides) within 64 ulp of the real type of the
+    output's magnitude; the receive counters of the transposed sweeps
+    equal to their tapes'; two factors and two transposed solves bit-equal
+    (complex128 at bs 128 runs the diagonal tile in the pool)."""
+    from superlu_dist_tpu_torch.parallel import dist2d
+    dt = GDTYPES[sfx]
+    A = _grid_matrix(dt)
+    n = A.shape[0]
+    rng = np.random.default_rng(bs)
+    b = rng.standard_normal(n) + (1j * rng.standard_normal(n)
+                                  if dt.startswith("complex") else 0)
+    for pr, pc in ((2, 2), (2, 4)):
+        opts = T.Options(dtype=dt, block_size=bs, trans=T.Trans.TRANS,
+                         condition_number=True)
+        for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
+            k.reset_counts()
+        rg, lu = T.gssvx_dist(A, b, T.Grid2D(pr, pc), opts, device=cuda)
+        for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
+            assert all((v > 0) == e.endswith(f"_{sfx}")
+                       for e, v in k.entry_launches.items()), \
+                k.entry_launches
+        rc, _ = T.gssvx_dist(A, b, T.Grid2D(pr, pc), opts, device="cpu")
+        assert rg.berr.max() < 1e-15
+        assert np.abs(rg.x - rc.x).max() <= 1e-12 * np.abs(rc.x).max()
+        rtol = 1e-4 if dt == "complex64" else 1e-8
+        assert abs(rg.rcond - rc.rcond) <= rtol * rc.rcond
+        for got, tp in zip(lu.solve_recv(transpose=True), lu._ttapes):
+            for k, v in got.items():
+                assert np.array_equal(v, tp.recv[k]), (tp.which, k)
+    eps = _tensor_eps(lu.pool[0].dtype)
+
+    def close(a, p):
+        torch.cuda.synchronize()
+        for x, y in zip(a, p):
+            if not (x.is_floating_point() or x.is_complex()):
+                assert torch.equal(x, y)
+                continue
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= ULPS * eps * scale
+
+    ft, plan = lu._ft, lu.plan
+    th = lu._thresh()
+    pools0 = dist2d.init_local_pools(plan, lu.dplan, lu._a3_data, lu.dtype,
+                                     cuda)
+    for wide in (-1, 0):
+        st = rdma.new_factor_state([p.clone() for p in pools0], ft)
+        for level in range(ft.nlvl):
+            for kern, plain in (
+                    (lambda s: rdma.rdma_diag(s, th, ft, level),
+                     lambda s: rdma.rdma_diag_plain(s, th, ft, level)),
+                    (lambda s: rdma.rdma_panel(s, ft, level, wide),
+                     lambda s: rdma.rdma_panel_plain(s, ft, level)),
+                    (lambda s: rdma.rdma_schur(s, ft, level, wide),
+                     lambda s: rdma.rdma_schur_plain(s, ft, level))):
+                ref = rdma.FactorState.of(
+                    [t.clone() for t in st.tensors()], ft.ndev)
+                kern(st)
+                plain(ref)
+                close(st.tensors(), ref.tensors())
+    f1, f2 = (rdma.rdma_factor([p.clone() for p in pools0], th, ft)
+              for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(f1.tensors(),
+                                                 f2.tensors()))
+    lt, ut = lu._ttapes
+    for nrhs in (1, 5):
+        B = torch.randn(plan.nb, plan.bs, nrhs, device=cuda,
+                        dtype=lu.pool[0].dtype)
+        for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv),
+                         (ut, lu.uinv), (lt, lu.linv)):
+            ss = rdma.new_sweep_state([B.clone() for _ in lu.pool], tp)
+            for level in range(tp.nlvl):
+                for kern, plain, M in (
+                        (rdma.rdma_solve_chunks,
+                         rdma.rdma_solve_chunks_plain, lu.pool),
+                        (rdma.rdma_solve_sum, rdma.rdma_solve_sum_plain,
+                         lu.pool),
+                        (rdma.rdma_solve_diag, rdma.rdma_solve_diag_plain,
+                         dinv)):
+                    ref = rdma.SweepState.of(
+                        [t.clone() for t in ss.tensors()], tp.ndev)
+                    kern(M, ss, tp, level)
+                    plain(M, ref, tp, level)
+                    close(ss.tensors(), ref.tensors())
+            for k, v in rdma.stacked_recv(ss.recv, pr, pc,
+                                          rdma.SOLVE_RECV).items():
+                assert np.array_equal(v, tp.recv[k]), (tp.which, k)
+        X1, X2 = (rdma.rdma_solve(lu.pool, lu.linv, lu.uinv, lt, ut, B)[0]
+                  for _ in range(2))
+        assert torch.equal(X1, X2)
+
+
+def test_rdma_profile_levels_on_the_card(cuda):
+    """``DistributedSparseLU.profile_levels`` on the card: one row per
+    level timed by CUDA events, every step counted once, and the profiled
+    factors live (the solve meets the limits afterwards)."""
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.asarray(A @ np.random.default_rng(3).standard_normal(A.shape[0]))
+    lu = T.DistributedSparseLU(A, T.Grid2D(2, 2), T.Options(
+        dtype="float64", block_size=64), device=cuda)
+    rows = lu.profile_levels()
+    assert len(rows) == lu.dplan.nlvl
+    assert sum(r["steps"] for r in rows) == lu.plan.nb
+    assert all(r["ms"] > 0 for r in rows)
+    x, berr = lu.refine(b, lu.solve(b))
+    assert berr.max() < 1e-15
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -1132,3 +1269,39 @@ def test_complex_without_instantiation_raises(cuda):
     with pytest.raises(ValueError, match="complex128"):
         solve_gemm.solve(lu.pool.to(torch.complex32), lu.linv, lu.uinv,
                          lu._ltape, lu._utape, X)
+
+
+@pytest.mark.parametrize("equil", ["YES", "NO"])
+@pytest.mark.parametrize("rowperm", ["NOROWPERM", "LARGE_DIAG_MC64"])
+def test_pdtest_cross_product_single_on_the_card(cuda, equil, rowperm):
+    """The single-device leg of ``tests/test_torch_pdtest.py`` on the card:
+    fact (with the reuse staging) × nrhs ∈ {1, 3} in each equil × rowperm
+    cell, float32 at bs 32 (the kernels' smallest block size), each config
+    below THRESH with berr below 1e-10; in the NOROWPERM cells, whose
+    solution fails the residual test in the reference too (that file says
+    why), against the same config on the CPU: both fail the residual test
+    with berr above 0.5, and both replace tiny pivots, as many within 10%
+    (the pivots sit at the float32 threshold, so the card's other
+    summation order moves a few of them across it: 32 against 34)."""
+    from torch_pdtest import FACTS, NRHS, run_config
+    A = tt.unsymmetric_pattern(120, seed=3)
+    for fact in FACTS:
+        for nrhs in NRHS:
+            opts = T.Options(dtype="float32", block_size=32,
+                             equil=getattr(T.Equil, equil),
+                             row_perm=getattr(T.RowPerm, rowperm))
+            res, rt = run_config(T.gssvx, A, opts, fact, nrhs, device=cuda)
+            what = (fact, equil, rowperm, nrhs)
+            if rowperm != "NOROWPERM":
+                assert rt < tt.THRESH, (what, rt)
+                assert float(np.max(res.berr)) < 1e-10, what
+                continue
+            cres, crt = run_config(T.gssvx, A, opts, fact, nrhs,
+                                   device="cpu")
+            assert rt >= tt.THRESH and crt >= tt.THRESH, (what, rt, crt)
+            assert float(np.min(res.berr)) > 0.5, what
+            assert float(np.min(cres.berr)) > 0.5, what
+            nt, cnt = res.stat.tiny_pivots, cres.stat.tiny_pivots
+            # FACTORED factors nothing in its own call, so counts none
+            assert (nt > 0 and cnt > 0) or fact == T.Fact.FACTORED, what
+            assert abs(nt - cnt) <= 0.1 * cnt, (what, nt, cnt)

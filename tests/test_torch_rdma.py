@@ -7,13 +7,16 @@ to roundoff, and runs those kernels in interpret mode only under
 ``slow``, at ~55 s a case).
 
 Tolerances: the factor's per-rank pool, linv and uinv within
-1e-4·max(1, max|JAX pool|): float32, the two executors sum in other
-orders (blocked XLA products, batched torch products), along chains of
-a few dozen products and through the tile inverses. The solve within
-1e-5 relative: float32 sweeps over the same factors."""
+1e-4·max(1, max|JAX pool|) in float32 and complex64: the two executors
+sum in other orders (blocked XLA products, batched torch products), along
+chains of a few dozen products and through the tile inverses; within
+1e-12·max(1, max|JAX pool|) in float64 and complex128 (the same orders
+of summation, ~4,500 float64 ulp). The solves within 1e-5 relative in
+float32 and 1e-12 in float64 and complex128, over the same factors."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import jax.numpy as jnp
@@ -32,10 +35,10 @@ from superlu_dist_tpu_torch.utils.testing import laplacian_2d
 from torch_state import numpy_state
 
 
-def _tiny_diag(A, rows):
+def _tiny_diag(A, rows, v=1e-6):
     A = A.tolil()
     for i in rows:
-        A[i, i] = 1e-6
+        A[i, i] = v
     return A.tocsc()
 
 
@@ -52,29 +55,59 @@ CASES = [("lap2d12", 2, 2), ("lap2d12", 1, 4), ("lap2d12", 4, 2),
          ("lap2d12", 2, 4), ("random_unsym", 2, 2), ("tiny_pivots", 2, 4)]
 
 
+def _complex(A, seed=5):
+    """A with seeded imaginary parts on every entry."""
+    A = sp.csc_matrix(A, dtype=np.complex128)
+    A.data = A.data + 0.5j * np.random.default_rng(seed).standard_normal(
+        A.nnz)
+    return A
+
+
+MATRICES.update({
+    "random_cplx": lambda: _complex(random_sparse(150, density=0.04,
+                                                  seed=7)),
+    # tiny pivots below float64's threshold (sqrt(eps)·max|A|); complex
+    # ones keep their phase
+    "tiny_pivots64": lambda: _tiny_diag(laplacian_2d(12), (0, 37, 90),
+                                        1e-12),
+    "tiny_cplx": lambda: _tiny_diag(_complex(laplacian_2d(12)),
+                                    (0, 37, 90), 1e-12 * (1 + 1j)),
+})
+#: (matrix, grid, dtype) of the factor in the other element types
+TYPED_CASES = [("lap2d12", 2, 2, "float64"),
+               ("tiny_pivots64", 2, 4, "float64"),
+               ("random_cplx", 2, 2, "complex64"),
+               ("random_cplx", 2, 4, "complex128"),
+               ("tiny_cplx", 2, 2, "complex128")]
+TYPE_TOL = {"float32": 1e-4, "complex64": 1e-4, "float64": 1e-12,
+            "complex128": 1e-12}
+
+
 @pytest.fixture(scope="module")
 def factors():
     """Per case: the port's plain factor state and the JAX XLA executor's
     (pools, linvL, uinvL, tiny), from one plan of A."""
     out = {}
 
-    def get(name, pr, pc):
-        key = (name, pr, pc)
+    def get(name, pr, pc, dtype="float32"):
+        key = (name, pr, pc, dtype)
         if key not in out:
             A = MATRICES[name]()
             plan, jplan = block_symbolic(A, BS), j_symbolic(A, BS)
-            thresh = float(np.float32(np.sqrt(np.finfo(np.float32).eps)
-                                      * np.abs(A.data).max()))
+            dt = np.dtype(dtype)
+            rt = np.finfo(dt).dtype
+            thresh = float(rt.type(np.sqrt(np.finfo(dt).eps)
+                                   * np.abs(A.data).max()))
             dp = td.partition_plan(plan, pr, pc)
             ft = tr.build_factor_tapes(plan, dp, "cpu")
             st = tr.rdma_factor_plain(
-                td.init_local_pools(plan, dp, A.data, np.float32, "cpu"), thresh,
+                td.init_local_pools(plan, dp, A.data, dt, "cpu"), thresh,
                 ft)
             jdp = jd.partition_plan(jplan, pr, pc)
             grid = JGrid2D(pr, pc)
             fn = jd.build_dist_factor_fn(jplan, jdp, grid)
-            jout = fn(jd.init_local_pools(jplan, jdp, A, np.float32, grid),
-                      jnp.asarray(thresh, jnp.float32),
+            jout = fn(jd.init_local_pools(jplan, jdp, A, dt, grid),
+                      jnp.asarray(thresh, rt),
                       jd.make_dist_factor_tapes(jdp))
             out[key] = (plan, dp, ft, st,
                         [np.asarray(a) for a in jout[:3]], int(jout[3]))
@@ -88,20 +121,28 @@ def _ranks(ts, pr, pc):
         (pr, pc) + tuple(ts[0].shape))
 
 
-@pytest.mark.parametrize("name,pr,pc", CASES)
-def test_factor_plain_matches_jax_xla(factors, name, pr, pc):
-    plan, dp, ft, st, (jpool, jlinv, juinv), jtiny = factors(name, pr, pc)
-    scale = max(1.0, float(np.abs(jpool).max()))
+@pytest.mark.parametrize(
+    "name,pr,pc,dtype", [c + ("float32",) for c in CASES] + TYPED_CASES,
+    ids=[f"{n}-{r}-{c}" for n, r, c in CASES]
+    + [f"{n}-{r}-{c}-{d}" for n, r, c, d in TYPED_CASES])
+def test_factor_plain_matches_jax_xla(factors, name, pr, pc, dtype):
+    """rdma_diag_plain, rdma_panel_plain and rdma_schur_plain over a whole
+    factor against the JAX package's XLA grid executor, per rank, in each
+    element type (a complex tiny pivot keeps its phase)."""
+    plan, dp, ft, st, (jpool, jlinv, juinv), jtiny = factors(name, pr, pc,
+                                                             dtype)
+    assert st.pool[0].dtype == getattr(torch, dtype)
+    assert jpool.dtype == np.dtype(dtype)
+    tol = TYPE_TOL[dtype] * max(1.0, float(np.abs(jpool).max()))
     # local slot 1 is the trash block, which the XLA executor's masked
     # lanes write and the port's unpadded jobs never touch
     pool = _ranks(st.pool, pr, pc)
-    assert float(np.abs(pool[:, :, 2:] - jpool[:, :, 2:]).max()) \
-        <= TOL * scale
+    assert float(np.abs(pool[:, :, 2:] - jpool[:, :, 2:]).max()) <= tol
     assert not pool[:, :, :2].any()
     for got, ref in ((st.linv, jlinv), (st.uinv, juinv)):
-        assert float(np.abs(_ranks(got, pr, pc) - ref).max()) <= TOL * scale
+        assert float(np.abs(_ranks(got, pr, pc) - ref).max()) <= tol
     assert sum(int(t.item()) for t in st.tiny) == jtiny
-    if name == "tiny_pivots":
+    if name.startswith("tiny"):
         assert jtiny > 0
 
 
@@ -177,12 +218,19 @@ def test_unwritten_inverse_rows_are_zero(factors, name, pr, pc):
             assert torch.isfinite(t).all()
 
 
-@pytest.fixture(scope="module", params=[(2, 2), (2, 4)],
-                ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.fixture(scope="module", params=[
+    (2, 2, "float32"), (2, 4, "float32"), (2, 2, "float64"),
+    (2, 4, "complex128"), (2, 2, "complex64")],
+    ids=lambda g: f"{g[0]}x{g[1]}" + ("" if g[2] == "float32"
+                                      else f"-{g[2]}"))
 def jax_factored(request):
-    pr, pc = request.param
+    """A JAX-package DistributedSparseLU (its XLA grid executor outside
+    float32) and the port's from its numpy state."""
+    pr, pc, dtype = request.param
     A = random_sparse(150, density=0.04, seed=7)
-    opts = dict(dtype="float32", block_size=BS)
+    if dtype.startswith("complex"):
+        A = _complex(A)
+    opts = dict(dtype=dtype, block_size=BS)
     jlu = JDist(A, JGrid2D(pr, pc), J.Options(**opts))
     state = numpy_state(jlu, T.Options(**opts))
     state.update(pool=np.asarray(jlu.pool), linv=np.asarray(jlu.linv),
@@ -192,13 +240,25 @@ def jax_factored(request):
     return jlu, plu
 
 
+def _rhs(plan, nrhs, dtype):
+    rng = np.random.default_rng(nrhs)
+    B = rng.standard_normal((plan.n_pad, nrhs))
+    if np.dtype(dtype).kind == "c":
+        B = B + 1j * rng.standard_normal((plan.n_pad, nrhs))
+    return B.astype(dtype)
+
+
+def _solve_tol(dtype):
+    return 1e-5 if dtype in (np.float32, np.complex64) else 1e-12
+
+
 @pytest.mark.parametrize("nrhs", [1, 3])
 def test_solve_plain_matches_jax_xla(jax_factored, nrhs):
     jlu, plu = jax_factored
     plan = plu.plan
     assert plu.dplan.n_local == jlu.dplan.n_local
-    B = np.random.default_rng(nrhs).standard_normal(
-        (plan.n_pad, nrhs)).astype(np.float32)
+    assert plu.pool[0].dtype == getattr(torch, plu.options.dtype)
+    B = _rhs(plan, nrhs, plu.dtype)
     ref = np.asarray(jlu._solve_fn(nrhs)(jlu.pool, jlu.linv, jlu.uinv,
                                          jlu.stapes, jnp.asarray(B)))
     pr, pc = plu.grid.shape
@@ -212,16 +272,51 @@ def test_solve_plain_matches_jax_xla(jax_factored, nrhs):
             plu.pool, plu.linv, plu.uinv, lt, ut,
             torch.as_tensor(B).view(plan.nb, plan.bs, nrhs))
         got = X.reshape(plan.n_pad, nrhs).numpy()
-        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+        assert np.abs(got - ref).max() <= _solve_tol(plu.dtype) * \
+            np.abs(ref).max()
         for recv, tp in ((rl, lt), (ru, ut)):
             counts = tr.stacked_recv(recv, pr, pc, tr.SOLVE_RECV)
             for k in tr.SOLVE_RECV:
                 assert np.array_equal(counts[k], tp.recv[k]), (tp.which, k)
 
 
+@pytest.mark.parametrize("nrhs", [1, 3])
+def test_trans_solve_plain_matches_jax_xla(jax_factored, nrhs):
+    """The transposed sweeps (Uᵀ with uinv, then Lᵀ with linv; partials
+    gathered down the grid columns) against the JAX package's
+    ``build_dist_trans_solve_fn`` on the same factors, on the driver's
+    chunks and on chunks of at most two products; their receive counts
+    equal their tapes', and a row's partials arrive from Pr − 1 peers."""
+    jlu, plu = jax_factored
+    plan = plu.plan
+    B = _rhs(plan, nrhs, plu.dtype)
+    ref = np.asarray(jlu._trans_solve_fn(nrhs)(
+        jlu.pool, jlu.uinv, jlu.linv, None, None, B))
+    pr, pc = plu.grid.shape
+    for chunk in (None, 2):
+        lt, ut = (tr.build_sweep_tapes(plan, plu.dplan, w, "cpu",
+                                       chunk=chunk) for w in ("LT", "UT"))
+        assert lt.transpose and ut.transpose and lt.npeer == pr
+        X, rl, ru = tr.rdma_solve_plain(
+            plu.pool, plu.linv, plu.uinv, lt, ut,
+            torch.as_tensor(B).view(plan.nb, plan.bs, nrhs))
+        got = X.reshape(plan.n_pad, nrhs).numpy()
+        assert np.abs(got - ref).max() <= _solve_tol(plu.dtype) * \
+            np.abs(ref).max()
+        for recv, tp in ((rl, lt), (ru, ut)):
+            counts = tr.stacked_recv(recv, pr, pc, tr.SOLVE_RECV)
+            for k in tr.SOLVE_RECV:
+                assert np.array_equal(counts[k], tp.recv[k]), (tp.which, k)
+            solved = np.bincount(
+                tp.host["d_rank"], minlength=pr * pc).reshape(pr, pc)
+            assert (tp.recv["rcv_part"].sum(axis=2)
+                    == (pr - 1) * solved).all()
+
+
 def test_from_numpy_state_checks_the_partition(jax_factored):
     jlu, plu = jax_factored
-    state = numpy_state(jlu, T.Options(dtype="float32", block_size=BS))
+    state = numpy_state(jlu, T.Options(dtype=plu.options.dtype,
+                                       block_size=BS))
     state.update(pool=np.asarray(jlu.pool)[:, :, :-1],
                  linv=np.asarray(jlu.linv), uinv=np.asarray(jlu.uinv))
     with pytest.raises(ValueError, match="partition"):
