@@ -140,13 +140,47 @@ Phases (any failure exits non-zero, and no result line is printed):
    against their tapes and the solve entries with ``transpose=1``
    against their plain versions); ptxas must report no spill in any
    complex instantiation of ``rdma.cu``;
-12. one JSON line of per-kernel results (the float64, complex64 and
+12. the batch and the ring embedding:
+   a. ``BatchedSparseLU`` of eight float32 members on lap3d32's pattern
+      (bs 128, member i's values ``A.data·(1 + 0.1·N(0, 1))`` of seed i),
+      driven with every launch count set to 0 just before and read just
+      after: the batched factor must make one member's launches (one per
+      level per phase, the ``_batch`` entries, the member on
+      ``blockIdx.z``), every member's x berr <= 1e-12; the batched FACT,
+      SOLVE and REFINE ms, the refinement steps per member, the warm
+      batched factor beside eight ``SparseLU`` refactors
+      (SamePattern_SameRowPerm, ``executor="pallas"``) of the same
+      members in the same run, one batched refinement profiled (device
+      idle share); each batched kernel (diag_lu, trsm, schur, sweep)
+      level by level bit-equal to its unbatched entry on every member
+      and within REL_TOL of its plain version beyond an allowance, in
+      float32 and complex64, of twice the plain version's own distance
+      from its float64 (complex128) run in the same bs×bs tile of the
+      same member (the sweep: beyond a first-order rounding bound), as
+      these members have tiles with pivot growth;
+   b. the same in float64, 64 members on lap3d16's pattern (bs 64);
+   c. the same in complex64 and complex128, 4 members on
+      helmholtz_3d(16)'s pattern (bs 64);
+   d. ``gssvx_batch`` of laplacian_3d(24), fem3d_delaunay(4000) (3 dof a
+      node), circuit_graph(20000) and kkt_system(10000), on the card and
+      on a 2x2 grid, berr <= 1e-12 for every matrix;
+   e. helmholtz_3d(32) in complex64 through the ring embedding
+      (``SLU_TPU_COMPLEX=embed``): gssvx under clk, flk and the level
+      executor, each in NOTRANS, TRANS and CONJ with the condition
+      estimate (the float32 entries only, rcond in (0, 1]), logdet
+      against the native complex64 factor's, a checkpoint round trip,
+      each executor's float32 kernels against their plain versions on the
+      embedded inputs, the FACT / SOLVE / REFINE ms beside the native
+      complex64 rows; then gssvx_dist on a 2x2 grid the same way
+      (rdma.cu's float32 entries only);
+13. one JSON line of per-kernel results (the float64, complex64 and
    complex128 instantiations in rows of their own, with a ``dtype``
    field, the RDMA rows among them; the grid's transposed solves as
    ``rdma_solve_trans_*`` rows with ``"transpose": true``; the tck and
-   RDMA rows with their launches per entry), the nvidia-smi line, the
-   seconds the run held the card, and the final ``{"ok": true, "device":
-   ...}`` line.
+   RDMA rows with their launches per entry; the batched kernels as
+   ``<kernel>_batch[_f64|_c64|_c128]`` rows with their ``members``), the
+   nvidia-smi line, the seconds the run held the card, and the final
+   ``{"ok": true, "device": ...}`` line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -264,6 +298,7 @@ def main() -> None:
               solve_gemm.SOLVE_GEMM, tck.UPDATE, rdma.RDMA_FACTOR):
         print(f"ptxas {k.source}:\n{_build.ptxas_report(k)}", end="")
     check_spills(_build.ptxas_report(schur.SCHUR), "schur_kernel")
+    check_spills(_build.ptxas_report(schur.SCHUR), "schur_batch_kernel")
     for k in (diag_lu.KERNEL, schur.SCHUR, solve_gemm.SOLVE_GEMM,
               rdma.RDMA_FACTOR):
         # a complex element type, demangled or mangled (slu_cplx::real_of
@@ -271,7 +306,11 @@ def main() -> None:
         check_spills(_build.ptxas_report(k), ("cplx<", "4cplxI"), k.source)
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
-               tck=tck, rdma=rdma, kernels=kernels, entry_launches={})
+               tck=tck, rdma=rdma, kernels=kernels, entry_launches={},
+               batch_kernels={"diag_lu_batch": diag_lu.DIAG_LU_BATCH,
+                              "trsm_batch": schur.TRSM_BATCH,
+                              "schur_batch": schur.SCHUR_BATCH,
+                              "sweep_batch": solve_gemm.SWEEP_BATCH})
 
     # ---- 3. the main path ---------------------------------------------
     A = laplacian_3d(32)
@@ -385,6 +424,10 @@ def main() -> None:
     dist_phase(ctx, rng, checks, launches)
     grid_types_phase(ctx, rng, checks, launches)
 
+    # ---- 12. the batch and the ring embedding ---------------------------
+    batch_phase(ctx, rng, checks, launches)
+    embed_phase(ctx, rng, checks, launches)
+
     rows = []
     for name, dtype, key in \
             [(k, "float32", k) for k in kernels] + \
@@ -410,6 +453,19 @@ def main() -> None:
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         rows.append(row)
+    for dtype, sfx in BATCH_SFX.items():
+        for name, base in BATCH_OF.items():
+            key = name + sfx
+            c = checks[key]
+            rows.append(dict(
+                name=key, route="cuda",
+                source=("superlu_dist_tpu_torch/ops/kernels/csrc/"
+                        f"{SOURCE.get(base, kernels[base].source)}"),
+                replaces=REPLACES[base], launches=launches[key],
+                max_abs_err=c["max_abs_err"], excess=c["excess"],
+                ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                bound_by=c["bound_by"], library_ms=c["library_ms"],
+                per=c["per"], dtype=dtype, members=c["members"]))
     print(json.dumps({"kernels": rows}))
     print(f"smoke held the card {time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")
@@ -573,6 +629,50 @@ def _timed(torch, fn):
     return ev[0].elapsed_time(ev[1])
 
 
+#: the wider type a float32 (complex64) plain version's own error is read
+#: against
+WIDER = {"float32": "float64", "complex64": "complex128"}
+
+
+def own_slack(torch, plain):
+    """The allowance of a batched level kernel in float32 (complex64):
+    twice the plain version's own error, bs×bs tile by tile. The plain
+    version runs again on the same input in float64 (complex128); in
+    each tile of each member the allowance is twice the largest distance
+    between its float32 and its float64 outputs there. A tile with pivot
+    growth makes that distance larger than REL_TOL of scale for any
+    float32 algorithm; every other tile keeps its own, small allowance,
+    so an error of order 1 in it still fails. Returns ``slack(state,
+    want)`` for ``Checker.compare``: None in float64 and complex128,
+    which have no wider type on the card (REL_TOL_F64 holds there)."""
+    def fl(t):
+        return t.is_floating_point() or t.is_complex()
+
+    def slack(state, want):
+        wide = WIDER.get(str(want[0].dtype)[6:])
+        if wide is None:
+            return None
+        wide = getattr(torch, wide)
+        q = [t.to(wide) if fl(t) else t.clone() for t in state]
+        plain(*q)
+        out = []
+        for x, y in zip(want, q):
+            if fl(x) and x.dim() >= 2:
+                # member by member: a float64 copy of a whole stacked pool
+                # is large enough
+                e = torch.stack([(x[m].to(wide) - y[m]).abs().amax(
+                    dim=(-2, -1), keepdim=True) for m in range(x.shape[0])])
+                out.append(2 * e.to(x.real.dtype))
+            elif fl(x):
+                out.append(2 * (x.to(wide) - y).abs().to(x.real.dtype))
+            else:
+                out.append(torch.zeros((), device=x.device))
+            del y
+        del q
+        return out
+    return slack
+
+
 class Checker:
     """Kernel-against-plain comparisons of one factor (or solve): per
     kernel the max abs error, its tolerance and the summed kernel and
@@ -585,32 +685,53 @@ class Checker:
                             library_ms=0.0 if k in library else None)
                     for k in names}
 
-    def compare(self, name, kern, plain, state):
+    def compare(self, name, kern, plain, state, slack=None):
         """Run kernel and plain on copies of ``state``; keep the kernel's
-        copy. Returns it and the kernel's ms."""
+        copy. Returns it and the kernel's ms. ``slack(state, want)``
+        gives, for the plain outputs ``want``, allowances that broadcast
+        to the outputs' shapes (or None): the kernel is then held within
+        the tolerance beyond them (:meth:`record`)."""
         torch = self.torch
         a = [t.clone() for t in state]
         p = [t.clone() for t in state]
         ms = _timed(torch, lambda: kern(*a))
-        self.record(name, ms, _timed(torch, lambda: plain(*p)), a, p)
+        plain_ms = _timed(torch, lambda: plain(*p))
+        self.record(name, ms, plain_ms, a, p, slack and slack(state, p))
         return a, ms
 
-    def record(self, name, ms, plain_ms, got, want):
+    def record(self, name, ms, plain_ms, got, want, slack=None):
         """Add a kernel's and its plain version's ms to ``name`` and hold
-        the kernel's outputs ``got`` to the plain ones ``want``."""
+        the kernel's outputs ``got`` to the plain ones ``want``: within
+        the type's relative tolerance of their scale, beyond the
+        elementwise allowance ``slack`` where it is given. ``excess`` is
+        the worst distance beyond the allowance, ``max_slack`` the
+        largest allowance."""
         o = self.out[name]
         o["ms"] += ms
         o["plain_ms"] += plain_ms
-        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        diffs = [(x - y).abs() for x, y in zip(got, want)]
+        err = max(float(d.max()) for d in diffs)
+        over, big = err, 0.0
+        if slack is not None:
+            if any(self.torch.broadcast_shapes(d.shape, s.shape) != d.shape
+                   for d, s in zip(diffs, slack)):
+                fail(f"{name}: an allowance that does not fit its output")
+            over = max(float((d - s).clamp(min=0).max())
+                       for d, s in zip(diffs, slack))
+            big = max(float(s.max()) for s in slack)
         scale = max(1.0, max(float(y.abs().max()) for y in want))
         dtype = want[0].dtype
         rel = REL_TOL_F64 if dtype in (self.torch.float64,
                                        self.torch.complex128) else REL_TOL
+        tol = rel * scale
         o["max_abs_err"] = max(o["max_abs_err"], err)
-        o["tol"] = max(o["tol"], rel * scale)
-        if err > rel * scale:
+        o["tol"] = max(o["tol"], tol)
+        o["excess"] = max(o.get("excess", 0.0), over)
+        o["max_slack"] = max(o.get("max_slack", 0.0), big)
+        if over > tol:
             fail(f"{name} (bs={self.bs}, {dtype}) disagrees with its "
-                 f"plain version: {err:.3e} > {rel * scale:.3e}")
+                 f"plain version: {over:.3e} > {tol:.3e} (beyond the "
+                 f"allowance where one is given; the largest {big:.3e})")
 
     def library(self, name, fn):
         """One untimed call first: the kernels ran warm on their path, so
@@ -622,7 +743,7 @@ class Checker:
 def _state(lu, torch, blocklu):
     plan, dev = lu.plan, lu.device
     bs, nb = plan.bs, plan.nb
-    pool = blocklu.init_pool(plan, lu._a3_data, lu.dtype, dev)
+    pool = blocklu.init_pool(plan, lu._a3_data, lu._fdtype, dev)
     linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=dev)
     uinv = torch.zeros_like(linv)
     tiny = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -634,14 +755,14 @@ def check_whole_factor(what, lu, ctx, pool, tiny):
     in float64 (complex128 for a complex factor)."""
     blocklu = ctx["blocklu"]
     plan = lu.plan
-    rdt = np.complex128 if lu.dtype.kind == "c" else np.float64
+    rdt = np.complex128 if lu._fdtype.kind == "c" else np.float64
     ref, _, _, _ = blocklu.factor_plain(
         plan, blocklu.init_pool(plan, lu._a3_data, rdt, lu.device),
         lu._thresh())
     ns = plan.nslots
     scale = max(1.0, float(ref[:ns].abs().max()))
     ferr = float((pool[:ns].to(ref.dtype) - ref[:ns]).abs().max())
-    ftol = FACTOR_ULPS * float(np.finfo(lu.dtype).eps) * scale
+    ftol = FACTOR_ULPS * float(np.finfo(lu._fdtype).eps) * scale
     print(f"bs={plan.bs}: {what} factor vs {np.dtype(rdt).name} "
           "right-looking reference:"
           f" max abs err {ferr:.3e} (tolerance {ftol:.3e}); tiny pivots "
@@ -652,7 +773,9 @@ def check_whole_factor(what, lu, ctx, pool, tiny):
 
 def print_check(name, o, launches):
     lib = "none" if o["library_ms"] is None else f"{o['library_ms']:.3f} ms"
-    print(f"{name}: max_abs_err {o['max_abs_err']:.3e} (tolerance "
+    own = (f", {o['excess']:.3e} beyond its allowance (largest "
+           f"{o['max_slack']:.3e})" if o.get("max_slack") else "")
+    print(f"{name}: max_abs_err {o['max_abs_err']:.3e}{own} (tolerance "
           f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
           f"{o['plain_ms']:.3f} ms, library {lib}, bound "
           f"{o['bound_ms']:.4f} ms ({o['bound_by']}) per {o['per']}; "
@@ -725,15 +848,17 @@ def check_kernels(lu, ctx, launches, levels=False):
     return out
 
 
-def diag_library(ck, pool, ds):
+def diag_library(ck, pool, ds, name="diag_lu"):
     """diag_lu's library time on one level: ``lu_factor_ex`` without
     pivoting, then L⁻¹ and U⁻¹ by ``solve_triangular`` against I, each
     reading its triangle of the compact LU: three calls on the gathered
-    tiles, with no tiny-pivot replacement."""
+    tiles (of every member of a stacked pool), with no tiny-pivot
+    replacement; added to ``name``."""
     torch = ck.torch
     if len(ds) == 0:
         return
-    G = pool[ds.long()]
+    G = pool[ds.long()] if pool.dim() == 3 else \
+        pool[:, ds.long()].reshape(-1, *pool.shape[-2:])
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device).expand_as(G)
 
     def lib():
@@ -741,7 +866,7 @@ def diag_library(ck, pool, ds):
         torch.linalg.solve_triangular(LU, eye, upper=False,
                                       unitriangular=True)
         torch.linalg.solve_triangular(LU, eye, upper=True)
-    ck.library("diag_lu", lib)
+    ck.library(name, lib)
 
 
 def check_sweep(lu, ctx, ck):
@@ -797,7 +922,7 @@ def check_tck(lu, ctx, report):
         print_tck_levels(tp, per_level)
     check_whole_factor("tck", lu, ctx, pool, tiny)
     ck.out["tck_update"].update(update_bound(
-        plan, clk.build_clk_tapes(plan, "cpu"), lu.dtype))
+        plan, clk.build_clk_tapes(plan, "cpu"), lu._fdtype))
     return ck.out
 
 
@@ -884,15 +1009,15 @@ def check_level(lu, ctx, report, full=False):
             lambda p: schur.schur_plain(p, tp, lvl), [pool])
         per_level.append((ms, lvl))
     if report:
-        print_schur_levels(tp, per_level, plan.bs, lu.dtype)
+        print_schur_levels(tp, per_level, plan.bs, lu._fdtype)
         print_panel_levels("trsm", per_panel)
         if full:
             print_panel_levels("diag_lu", per_diag, "tiles", small=5)
     check_whole_factor("level executor", lu, ctx, pool, tiny)
-    b = level_bounds(plan, tp, lu.dtype)
+    b = level_bounds(plan, tp, lu._fdtype)
     if full:
         check_sweep(lu, ctx, ck)
-        b.update(diag_bound(plan, lu.dtype), sweep=sweep_bound(plan, lu))
+        b.update(diag_bound(plan, lu._fdtype), sweep=sweep_bound(plan, lu))
     for name, o in ck.out.items():
         o.update(b[name])
     return ck.out
@@ -1024,10 +1149,10 @@ def check_solve(lu, ctx, lu_main):
             del Dg, Xg, C
             X, ms = compare_level(ck, sg, lu.pool, dinv, X, tape, lvl)
             per_level.append(ms + (name, lvl, tape))
-    bounds = solve_bounds(plan, [t for t, _ in tapes], lu.dtype)
+    bounds = solve_bounds(plan, [t for t, _ in tapes], lu._fdtype)
     for name, o in ck.out.items():
         o.update(bounds[name])
-        print(f"bs={plan.bs} {lu.dtype} {name} transpose=True: "
+        print(f"bs={plan.bs} {lu._fdtype} {name} transpose=True: "
               f"max_abs_err {o['max_abs_err']:.3e} (tolerance "
               f"{o['tol']:.3e}); kernel {o['ms']:.3f} ms, plain "
               f"{o['plain_ms']:.3f} ms, library {_ms(o['library_ms'])} "
@@ -1128,7 +1253,7 @@ def wide_pair(lu, ctx, nrhs):
     if not bool(torch.isfinite(X).all()):
         fail(f"the transposed solve at nrhs={nrhs} is not finite")
     addmm = f"{t['addmm']:.3f}" if bsr else "none"
-    print(f"bs={plan.bs} {lu.dtype} transposed solve at nrhs={nrhs}: kernel "
+    print(f"bs={plan.bs} {lu._fdtype} transposed solve at nrhs={nrhs}: kernel "
           f"pair {t['p1'] + t['p2']:.3f} ms (solve_gemm {t['p1']:.3f}, "
           f"diag_apply {t['p2']:.3f}), library pair "
           f"{t['addmm'] + t['bmm']:.3f} ms (BSR addmm {addmm}, bmm "
@@ -1179,7 +1304,7 @@ def notrans_solve(lu, ctx, what=""):
     err = float((X - P).abs().max())
     rel = REL_TOL_F64 if X.dtype == torch.float64 else REL_TOL
     nl = sum(2 * t.nlvl for t, _ in tapes)
-    print(f"bs={plan.bs} {lu.dtype} {what}NOTRANS L+U solve: device "
+    print(f"bs={plan.bs} {lu._fdtype} {what}NOTRANS L+U solve: device "
           f"{' / '.join(f'{m:.3f}' for m in dev)} ms, host launch loop "
           f"{' / '.join(f'{h * 1e3:.3f}' for h in host)} ms (up to {nl} "
           f"launches); max abs difference from the plain levels "
@@ -1497,10 +1622,13 @@ def complex_phase(ctx, rng, checks, launches):
             fail(f"{dt} did not run the level executor in {dt}")
         plan = lu.plan
         print(f"{dt}: helmholtz_3d(32) n={n}, {plan.nb} block columns, "
-              f"{plan.nslots} slots, pool {plan.pool_bytes(lu.dtype) / 2**20:.0f}"
+              f"{plan.nslots} slots, pool {plan.pool_bytes(lu._fdtype) / 2**20:.0f}"
               f" MiB, {res.stat.refine_steps} refinement steps, "
               f"rcond not asked", flush=True)
-        check_repeat(dt, res, warm_call(ctx, dt, A, b, opts))
+        warm = warm_call(ctx, dt, A, b, opts)
+        check_repeat(dt, res, warm)
+        if dt == "complex64":   # beside the embedded rows of phase 12e
+            ctx["native_c64_ms"] = dict(warm.stat.device_ms)
         c = check_level(lu, ctx, report=True, full=True)
         for name in level:
             checks[f"{name}_{sfx}"] = c[name]
@@ -1771,7 +1899,7 @@ def grid_profile(lu, A, b):
     the solve after it must still meet the limits."""
     rows = lu.profile_levels()
     total = sum(r["ms"] for r in rows)
-    print(f"grid profile_levels ({lu.dtype}, bs={lu.plan.bs}): {len(rows)} "
+    print(f"grid profile_levels ({lu._fdtype}, bs={lu.plan.bs}): {len(rows)} "
           f"levels, {total:.3f} ms in all; the six costliest:")
     for r in sorted(rows, key=lambda r: -r["ms"])[:6]:
         print(f"  level {r['level']:3d}: {r['ms']:8.3f} ms; {r['steps']} "
@@ -1884,7 +2012,7 @@ def check_dist(lu, ctx, factor=True, trans=False):
     jobs = {"rdma_panel": ft.bptr, "rdma_schur": ft.sptr}
     th = lu._thresh()
     st = rdma.new_factor_state(dist2d.init_local_pools(
-        plan, lu.dplan, lu._a3_data, lu.dtype, lu.device), ft)
+        plan, lu.dplan, lu._a3_data, lu._fdtype, lu.device), ft)
     for lvl in range(ft.nlvl if factor else 0):
         for entry, kern, plain in (
                 ("rdma_diag", lambda s: rdma.rdma_diag(s, th, ft, lvl),
@@ -1969,7 +2097,7 @@ def grid_factor_bound(lu):
     broadcast rows read once."""
     plan, ft = lu.plan, lu._ft
     h, bs = ft.host, plan.bs
-    blk = _blk(plan, lu.dtype)
+    blk = _blk(plan, lu._fdtype)
     nprod, npanel = len(h["c_l"]), len(h["b_loc"])
     flops = 2.0 * bs ** 3 * (nprod + npanel) + (4.0 / 3.0) * bs ** 3 * plan.nb
     side = h["b_side"]
@@ -1983,7 +2111,7 @@ def grid_factor_bound(lu):
         rk = np.repeat(h["s_rank"][s], np.diff(h["cptr"][s.start:s.stop + 1]))
         nblk += 2 * (s.stop - s.start) + len(set(zip(rk, h["c_l"][c]))) \
             + len(set(zip(rk, h["c_u"][c])))
-    return _bound(flops, blk * nblk, "factor", lu.dtype)
+    return _bound(flops, blk * nblk, "factor", lu._fdtype)
 
 
 def grid_solve_bound(lu, nrhs=1, tapes=None):
@@ -1995,8 +2123,8 @@ def grid_solve_bound(lu, nrhs=1, tapes=None):
     the partials written, put (non-owners) and read by the owner, the
     solved rows read by their owner and written into every rank's X."""
     plan = lu.plan
-    blk = _blk(plan, lu.dtype)
-    xrow = float(lu.dtype.itemsize) * plan.bs * nrhs
+    blk = _blk(plan, lu._fdtype)
+    xrow = float(lu._fdtype.itemsize) * plan.bs * nrhs
     flops = nbytes = 0.0
     for tp in tapes or (lu._lt, lu._ut):
         h = tp.host
@@ -2007,7 +2135,7 @@ def grid_solve_bound(lu, nrhs=1, tapes=None):
         nbytes += xrow * (2 * len(h["p_pos"]) + 2 * nsend
                           + plan.nb * (1 + tp.ndev))
     return _bound(flops, nbytes, "transposed solve" if tapes else "solve",
-                  lu.dtype)
+                  lu._fdtype)
 
 
 def profile_phase(lu, A, b):
@@ -2173,6 +2301,489 @@ def print_schur_levels(tp, per_level, bs, dtype, top=6):
               f"{share(int(chain.sum()), ms):.1f}% of peak", flush=True)
 
 
+# ---- 12. the batch and the ring embedding ---------------------------------
+
+#: the batched kernels (a member axis on the level executor's kernels and
+#: the NOTRANS sweep), each beside the unbatched kernel it runs per member
+BATCH_OF = {"diag_lu_batch": "diag_lu", "trsm_batch": "trsm",
+            "schur_batch": "schur", "sweep_batch": "sweep"}
+#: the suffix of the batched rows of each type
+BATCH_SFX = {"float32": "", "float64": "_f64", "complex64": "_c64",
+             "complex128": "_c128"}
+
+
+def batch_phase(ctx, rng, checks, launches):
+    """Phase 12a-c: ``BatchedSparseLU`` in every type, driven through the
+    user entry point, each batched kernel bit-equal to its unbatched entry
+    on every member and within REL_TOL of its plain version; then 12d,
+    ``gssvx_batch`` on the card and on a 2x2 grid."""
+    from superlu_dist_tpu_torch.utils.testing import (helmholtz_3d,
+                                                      laplacian_3d)
+    batch_case(ctx, "12a batch float32", laplacian_3d(32).tocsc(), 8,
+               "float32", 128, checks, launches, refactors=True,
+               profile=True)
+    batch_case(ctx, "12b batch float64", laplacian_3d(16).tocsc(), 64,
+               "float64", 64, checks, launches)
+    H = helmholtz_3d(16).tocsc()
+    for dt in CSFX:
+        batch_case(ctx, f"12c batch {dt}", H, 4, dt, 64, checks, launches)
+    gssvx_batch_case(ctx, rng)
+
+
+def batch_case(ctx, what, A, count, dtype, bs, checks, launches,
+               refactors=False, profile=False):
+    """``count`` members of A's pattern, member i's values A.data·(1 +
+    0.1·N(0, 1)) of seed i, factored, solved and refined together by
+    ``BatchedSparseLU`` with every launch count set to 0 just before and
+    read just after: the batched factor must make one member's launches
+    (one per level per phase) and no unbatched kernel launch, every
+    member's x berr <= 1e-12. Then the warm batched factor, (with
+    ``refactors``) ``count`` SparseLU refactors of the same members on
+    the level executor in the same run, (with ``profile``) one batched
+    refinement profiled, and every batched kernel against its unbatched
+    entry and its plain version (:func:`check_batch`)."""
+    import scipy.sparse as sp
+
+    from superlu_dist_tpu_torch import (BatchedSparseLU, Fact, Options,
+                                        SparseLU, Stats)
+    from superlu_dist_tpu_torch.utils.norms import backward_error
+    torch, schur = ctx["torch"], ctx["schur"]
+    cplx = np.dtype(dtype).kind == "c"
+    As = []
+    for i in range(count):
+        Ai = A.astype(np.complex128 if cplx else np.float64)
+        Ai.data = Ai.data * (1 + 0.1 * np.random.default_rng(i)
+                             .standard_normal(A.nnz))
+        As.append(sp.csc_matrix(Ai))
+    n = A.shape[0]
+    r = np.random.default_rng(7)
+    Xt = r.standard_normal((count, n))
+    if cplx:
+        Xt = Xt + 1j * r.standard_normal((count, n))
+    B = np.stack([As[i] @ Xt[i] for i in range(count)])
+    bk = ctx["batch_kernels"]
+    for k in list(ctx["kernels"].values()) + list(bk.values()):
+        k.reset_counts()
+    t0 = time.perf_counter()
+    blu = BatchedSparseLU(As, Options(dtype=dtype, block_size=bs),
+                          device="cuda")
+    fact = {k: bk[k].launches for k in bk}
+    X, _ = blu.refine(B, blu.solve(B))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: bk[k].launches for k in bk}
+    proto = {k: ctx["kernels"][BATCH_OF[k]].launches for k in bk}
+    p = blu._proto
+    plan, tp = p.plan, p._ftapes
+    want = {"diag_lu_batch": int((np.diff(tp.dptr) > 0).sum()),
+            "trsm_batch": int((np.diff(tp.lptr) > 0).sum()
+                              + (np.diff(tp.uptr) > 0).sum()),
+            "schur_batch": int((np.diff(tp.sptr) > 0).sum()),
+            "sweep_batch": 0}
+    berr = [backward_error(As[i], X[i], B[i]) for i in range(count)]
+    xerr = float(np.abs(X - Xt).max() / np.abs(Xt).max())
+    st = blu.stat
+    pool_gib = count * plan.pool_bytes(np.dtype(dtype)) / 2**30
+    print(f"{what}: {count} members of n={n} (bs {bs}, {plan.nslots} slots,"
+          f" {plan.n_flevels} levels), pools {pool_gib:.2f} GiB; wall "
+          f"{wall:.2f} s; device ms: factor {st.device_ms['FACT']:.3f}, "
+          f"solve {st.device_ms['SOLVE']:.3f}, refine "
+          f"{st.device_ms['REFINE']:.3f} ({st.refine_steps} steps); "
+          f"refinement steps per member {blu.refine_steps.tolist()}; "
+          f"launches per batched factor {sum(fact.values())} {fact} "
+          f"(one member's factor: {sum(want.values())}); sweep_batch "
+          f"{got['sweep_batch']} launches over the solve and refinement; "
+          f"unbatched launches {proto}; max berr {max(berr):.3e}, "
+          f"|x - x_true|/|x_true| {xerr:.3e}, tiny pivots "
+          f"{blu.tiny.tolist()}", flush=True)
+    if not np.all(np.isfinite(X)) or X.shape != (count, n):
+        fail(f"{what}: solutions not finite or of the wrong shape")
+    if max(berr) > 1e-12:
+        fail(f"{what}: a member's berr {max(berr):.3e} > 1e-12")
+    if fact != want:
+        fail(f"{what}: the batched factor made {fact} launches, one "
+             f"member's factor makes {want}")
+    if any(proto.values()):
+        fail(f"{what}: the batch made unbatched launches {proto} (its "
+             "prototype launches none, its solves only sweep_batch)")
+    if not got["sweep_batch"]:
+        fail(f"{what}: the solves did not run sweep_batch")
+    sfx = BATCH_SFX[dtype]
+    for k in bk:
+        launches[k + sfx] = got[k]
+    # the warm batched factor, timed alone
+    P0 = blu.initial_pools()
+    fact_ms = _timed(torch, lambda: schur.factor_batch(
+        P0, blu.thresh, tp, plan.nb))
+    del P0
+    print(f"{what}: warm batched factor {fact_ms:.3f} ms (L2 flushed), "
+          f"{fact_ms / count:.3f} ms a member", flush=True)
+    if refactors:
+        lu = SparseLU(As[0], Options(dtype=dtype, block_size=bs,
+                                     executor="pallas"), device="cuda")
+        tot, nl = 0.0, 0
+        for i in range(count):
+            for k in ("diag_lu", "trsm", "schur"):
+                ctx["kernels"][k].reset_counts()
+            lu.stat = Stats()
+            lu.stat.device = lu.device
+            lu.refactor(As[i], Fact.SAME_PATTERN_SAME_ROWPERM)
+            tot += lu.stat.device_ms["FACT"]
+            nl += sum(ctx["kernels"][k].launches
+                      for k in ("diag_lu", "trsm", "schur"))
+        print(f"{what}: {count} SparseLU refactors (SamePattern_SameRowPerm,"
+              f" executor='pallas') in the same run: FACT {tot:.3f} ms in "
+              f"all ({tot / count:.3f} each), {nl} launches; the batched "
+              f"factor {st.device_ms['FACT']:.3f} ms (first call), "
+              f"{fact_ms:.3f} (warm), {sum(fact.values())} launches",
+              flush=True)
+        del lu
+    if profile:
+        profile_refine(torch, blu, B, X, f"{what}: batched ")
+    c = check_batch(blu, ctx, what)
+    for k in bk:
+        checks[k + sfx] = c[k]
+        print_check(k + sfx, c[k], launches[k + sfx])
+    del blu, c
+    torch.cuda.empty_cache()
+
+
+def batch_compare(ck, name, kern, plain, single, state, slack=None):
+    """``Checker.compare`` of a batched kernel (``kern``) with its plain
+    version on the stacked ``state`` (beyond the plain version's own
+    error tile by tile, :func:`own_slack`, or beyond the rounding bound
+    ``slack``), then the unbatched
+    entry (``single(m, *member m's state)``) on each member, bit-equal to
+    the batched kernel's output there."""
+    torch = ck.torch
+    got, ms = ck.compare(name, kern, plain, state,
+                         slack=slack or own_slack(torch, plain))
+
+    def member(t, m):
+        return t[m:m + 1] if t.dim() == 1 else t[m]
+    for m in range(state[0].shape[0]):
+        one = [member(t, m).clone() for t in state]
+        single(m, *one)
+        if not all(torch.equal(a, member(g, m)) for a, g in zip(one, got)):
+            fail(f"{name}: member {m} of the batched launch differs from "
+                 "the unbatched entry on that member")
+    return got, ms
+
+
+def sweep_slack(torch, tape, plain):
+    """A first-order bound on how far two float32 (complex64) evaluations
+    of one sweep level, from the same input, can lie apart: each output
+    row X[I] = D·(X[I] − Σ P·X[src]) is within γ·|D|·(|X[I]| + Σ |P|·|X[src]|)
+    of its exact value, γ = (2·bs + the longest chain)·eps, so two are
+    within twice that. The magnitudes are the plain level run in float64
+    on |X|, −|P| and |D|. Returns ``slack(state, want)`` for
+    ``Checker.compare`` (no slack in float64 and complex128, where
+    REL_TOL_F64 holds)."""
+    def slack(state, want):
+        X, P, D = state
+        if X.dtype in (torch.float64, torch.complex128):
+            return None
+        chain = int(np.diff(tape.host["rowptr"]).max(initial=0))
+        gamma = (2 * X.shape[2] + chain) * torch.finfo(X.real.dtype).eps
+        mag = [X.abs().double(), -P.abs().double(), D.abs().double()]
+        plain(*mag)
+        return [2 * gamma * mag[0], torch.zeros_like(P.real),
+                torch.zeros_like(D.real)]
+    return slack
+
+
+def check_batch(blu, ctx, what):
+    """Each batched kernel over one factor (the sweep over one L+U solve
+    of one right-hand side per member) level by level from the members'
+    initial pools: against its plain version (the unbatched plain version
+    member by member) and, on each member, bit-equal to the unbatched
+    entry. library_ms: diag_lu_batch as the three calls of diag_library
+    on every member's tiles of the level, trsm_batch as one torch.bmm of
+    every member's panels of the level; no one call computes schur or the
+    sweep. The bound is the members' count times one member's."""
+    torch, schur, diag_lu, sg = (ctx[k] for k in ("torch", "schur",
+                                                  "diag_lu", "solve_gemm"))
+    p = blu._proto
+    plan, tp = p.plan, p._ftapes
+    bs, nb, count = plan.bs, plan.nb, blu.count
+    P = blu.initial_pools()
+    dev = P.device
+    L = torch.zeros((count, nb, bs, bs), dtype=P.dtype, device=dev)
+    U = torch.zeros_like(L)
+    tiny = torch.zeros(count, dtype=torch.int32, device=dev)
+    th = blu.thresh
+    ck = Checker(torch, bs, tuple(BATCH_OF),
+                 library=("diag_lu_batch", "trsm_batch"))
+    for lvl in range(tp.nlvl):
+        d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
+        ds, dk = tp.dslot[d], tp.dstep[d]
+        diag_library(ck, P, ds, "diag_lu_batch")
+        (P, L, U, tiny), _ = batch_compare(
+            ck, "diag_lu_batch",
+            lambda p_, l_, u_, t_: diag_lu.diag_lu_batch(p_, l_, u_, ds, dk,
+                                                         th, t_),
+            lambda p_, l_, u_, t_: diag_lu.diag_lu_batch_plain(
+                p_, l_, u_, ds.long(), dk.long(), th, t_),
+            lambda m, p_, l_, u_, t_: diag_lu.diag_lu(
+                p_, l_, u_, ds, dk, float(th[m]), t_),
+            [P, L, U, tiny])
+        for left, dinv, sl, sk, ptr in (
+                (False, U, tp.lslot, tp.lstep, tp.lptr),
+                (True, L, tp.uslot, tp.ustep, tp.uptr)):
+            s = slice(int(ptr[lvl]), int(ptr[lvl + 1]))
+            if s.stop > s.start:
+                Xg = P[:, sl[s].long()].reshape(-1, bs, bs)
+                Dg = dinv[:, sk[s].long()].reshape(-1, bs, bs)
+                C = torch.empty_like(Xg)
+                ck.library("trsm_batch",
+                           (lambda: torch.bmm(Dg, Xg, out=C)) if left
+                           else (lambda: torch.bmm(Xg, Dg, out=C)))
+                del Xg, Dg, C
+            (P, _), _ = batch_compare(
+                ck, "trsm_batch",
+                lambda p_, d_: schur.trsm_batch(p_, d_, sl[s], sk[s], left),
+                lambda p_, d_: schur.trsm_batch_plain(p_, d_, sl[s], sk[s],
+                                                      left),
+                lambda m, p_, d_: schur.trsm(p_, d_, sl[s], sk[s], left),
+                [P, dinv])
+        (P,), _ = batch_compare(
+            ck, "schur_batch", lambda p_: schur.schur_batch(p_, tp, lvl),
+            lambda p_: schur.schur_batch_plain(p_, tp, lvl),
+            lambda m, p_: schur.schur(p_, tp, lvl), [P])
+    r = np.random.default_rng(1)
+    X = torch.as_tensor(r.standard_normal((count, nb, bs, 1)),
+                        dtype=P.dtype, device=dev)
+    tl, tu = p._ltape, p._utape
+    sg.solve_batch(P, L, U, tl, tu, X.clone())     # loads, allocates
+    for tape, D in ((tl, L), (tu, U)):
+        for lvl in range(tape.nlvl):
+            def plain(x, p_, d_):
+                for m in range(count):
+                    sg.solve_level_plain(p_[m], d_[m], x[m], tape, lvl,
+                                         False)
+            (X, _, _), _ = batch_compare(
+                ck, "sweep_batch",
+                lambda x, p_, d_: sg.solve_level_batch(p_, d_, x, tape, lvl),
+                plain,
+                lambda m, x, p_, d_: sg.solve_level(p_, d_, x, tape, lvl,
+                                                    False),
+                [X, P, D], slack=sweep_slack(torch, tape, plain))
+    dt = p._fdtype
+    bounds = dict(diag_bound(plan, dt), **level_bounds(plan, tp, dt),
+                  sweep=sweep_bound(plan, p))
+    out = {}
+    for k, base in BATCH_OF.items():
+        o = dict(ck.out[k])
+        b = bounds[base]
+        o.update(b, bound_ms=b["bound_ms"] * count, flops=b["flops"] * count,
+                 bytes=b["bytes"] * count, members=count)
+        out[k] = o
+    print(f"{what}: every batched kernel bit-equal to its unbatched entry "
+          f"on each of the {count} members", flush=True)
+    return out
+
+
+def gssvx_batch_case(ctx, rng):
+    """Phase 12d: ``gssvx_batch`` of four generated matrices (a 3D
+    Laplacian, a 3D FEM mesh with 3 dof a node, a circuit and a KKT
+    system), once on the card and once on a 2x2 grid: every matrix's x to
+    berr <= 1e-12, and the path's kernels launched."""
+    import scipy.sparse as sp
+
+    from superlu_dist_tpu_torch import Grid2D, Options, gssvx_batch
+    from superlu_dist_tpu_torch.utils.testing import (circuit_graph,
+                                                      fem3d_delaunay,
+                                                      kkt_system,
+                                                      laplacian_3d)
+    torch = ctx["torch"]
+    As = {"laplacian_3d(24)": laplacian_3d(24),
+          "fem3d_delaunay(4000)": fem3d_delaunay(4000),
+          "circuit_graph(20000)": circuit_graph(20000),
+          "kkt_system(10000)": kkt_system(10000)}
+    names = list(As)
+    mats = [sp.csc_matrix(A) for A in As.values()]
+    bs_ = [np.asarray(A @ rng.standard_normal(A.shape[0])) for A in mats]
+    print("12d gssvx_batch: " + ", ".join(
+        f"{k} n={A.shape[0]} nnz={A.nnz}" for k, A in zip(names, mats)),
+        flush=True)
+    for grid, need in ((None, ("diag_lu", "clk_update", "clk_trsm",
+                                "sweep")),
+                       (Grid2D(2, 2), GRID_NEED)):
+        where = "the card" if grid is None else "a 2x2 grid"
+        for k in ctx["kernels"].values():
+            k.reset_counts()
+        t0 = time.perf_counter()
+        res, lu = gssvx_batch(mats, bs_, Options(dtype="float32",
+                                                 block_size=128),
+                              grid=grid, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: k.launches for name, k in ctx["kernels"].items()}
+        berr = [float(r.berr.max()) for r in res]
+        print(f"12d gssvx_batch on {where}: composite n={lu.n}, "
+              f"{lu.plan.nslots} slots, executor {lu.executor}; wall "
+              f"{wall:.2f} s; device ms factor "
+              f"{lu.stat.device_ms['FACT']:.3f}; refinement steps "
+              f"{res[0].stat.refine_steps}; berr per matrix "
+              + ", ".join(f"{b:.3e}" for b in berr), flush=True)
+        if max(berr) > 1e-12 or not all(np.all(np.isfinite(r.x))
+                                        for r in res):
+            fail(f"12d gssvx_batch on {where}: berr {max(berr):.3e} > "
+                 "1e-12 or x not finite")
+        for name in need:
+            if got[name] <= 0:
+                fail(f"12d gssvx_batch on {where}: {name} not launched")
+        del res, lu
+        torch.cuda.empty_cache()
+
+
+def embed_phase(ctx, rng, checks, launches):
+    """Phase 12e: helmholtz_3d(32) in complex64 through the ring embedding
+    (``SLU_TPU_COMPLEX=embed``): gssvx under clk (the default), flk and
+    the level executor, each in NOTRANS, TRANS and CONJ with the
+    condition estimate, logdet against the native complex64 factor's, a
+    save_factors / load_factors round trip, and the float32 kernels of
+    each executor against their plain versions on the embedded inputs;
+    then gssvx_dist on a 2x2 grid, which runs rdma.cu's float32 entries,
+    the same way."""
+    import tempfile
+
+    from superlu_dist_tpu_torch import (Grid2D, Options, SparseLU, Stats,
+                                        Trans, load_factors, save_factors)
+    from superlu_dist_tpu_torch.utils.testing import helmholtz_3d
+    torch = ctx["torch"]
+    A = helmholtz_3d(32).tocsc()
+    n = A.shape[0]
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    if os.environ.get("SLU_TPU_COMPLEX"):
+        fail("SLU_TPU_COMPLEX is set before phase 12e")
+    native = SparseLU(A, Options(dtype="complex64", block_size=128),
+                      device="cuda")
+    nphase, nlog = native.logdet()
+    del native
+    eps = float(np.finfo(np.float32).eps)
+    ltol = n * eps + 4 * eps * abs(nlog)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    nat = ctx.get("native_c64_ms", {})
+    os.environ["SLU_TPU_COMPLEX"] = "embed"
+    try:
+        for exc, need in ((None, ("diag_lu", "clk_update", "clk_trsm",
+                                  "sweep")),
+                          ("flk", ("flk", "diag_lu", "sweep")),
+                          ("pallas", ("diag_lu", "trsm", "schur",
+                                      "sweep"))):
+            name = exc or "clk"
+            for trans in (Trans.NOTRANS, Trans.TRANS, Trans.CONJ):
+                what = f"12e embedded complex64 {name} {trans.name}"
+                extra = () if trans == Trans.NOTRANS else ("solve_gemm",
+                                                           "diag_apply")
+                res, lu, _ = drive(ctx, what, A, b, Options(
+                    dtype="complex64", block_size=128, executor=exc,
+                    trans=trans, condition_number=True), need + extra)
+                check_entries(ctx, what, tuple(
+                    k for k in need + extra if k in F64_KERNELS), "f32")
+                if not lu._embed or lu.pool.dtype != torch.float32 or \
+                        lu.executor != name:
+                    fail(f"{what}: not the embedded float32 factor under "
+                         f"{name}")
+                if res.rcond is None or not 0 < res.rcond <= 1:
+                    fail(f"{what}: rcond {res.rcond} not in (0, 1]")
+                if trans == Trans.NOTRANS:
+                    lu_n, st = lu, res.stat
+                print(f"{what}: rcond {res.rcond:.6e}", flush=True)
+            lu_n.stat = Stats()     # one warm NOTRANS solve and refine
+            lu_n.stat.device = lu_n.device
+            lu_n.refine(b, lu_n.solve(b))
+            sw = lu_n.stat
+            print(f"12e embedded {name}: device ms factor "
+                  f"{st.device_ms['FACT']:.3f} (NOTRANS call), solve "
+                  f"{sw.device_ms['SOLVE']:.3f}, refine "
+                  f"{sw.device_ms['REFINE']:.3f} ({sw.refine_steps} steps)"
+                  f" (a warm NOTRANS solve and refine; the calls' SOLVE "
+                  f"{st.device_ms['SOLVE']:.3f} holds rcond's solves)"
+                  f"; native complex64 (phase 10, warm): factor "
+                  f"{nat.get('FACT', float('nan')):.3f}, solve "
+                  f"{nat.get('SOLVE', float('nan')):.3f}, refine "
+                  f"{nat.get('REFINE', float('nan')):.3f}", flush=True)
+            embed_logdet(f"12e embedded {name}", lu_n, nphase, nlog, ltol)
+            with tempfile.TemporaryDirectory(dir=build) as d:
+                path = os.path.join(d, "factors.npz")
+                save_factors(lu_n, path)
+                embed_reload(f"12e embedded {name}", load_factors(
+                    path, device="cuda"), A, b)
+            c = {"clk": check_kernels, "flk": check_flk,
+                 "pallas": check_level}[name](lu_n, ctx, None)
+            for k, o in c.items():
+                print(f"12e embedded {name} {k}: max_abs_err "
+                      f"{o['max_abs_err']:.3e} (tolerance {o['tol']:.3e}); "
+                      f"kernel {o['ms']:.3f} ms, plain {o['plain_ms']:.3f} "
+                      "ms", flush=True)
+            del lu, lu_n, res, c
+            torch.cuda.empty_cache()
+        grid = Grid2D(2, 2)
+        for trans in (Trans.NOTRANS, Trans.TRANS, Trans.CONJ):
+            what = f"12e embedded complex64 2x2 grid {trans.name}"
+            res, lu, _ = drive(ctx, what, A, b, Options(
+                dtype="complex64", block_size=128, trans=trans,
+                condition_number=True), GRID_NEED, SINGLE_DEVICE, grid=grid)
+            grid_entries(ctx, what, "f32")
+            if not lu._embed or lu.pool[0].dtype != torch.float32:
+                fail(f"{what}: not the embedded float32 grid factor")
+            if res.rcond is None or not 0 < res.rcond <= 1:
+                fail(f"{what}: rcond {res.rcond} not in (0, 1]")
+            print(f"{what}: rcond {res.rcond:.6e}", flush=True)
+            if trans == Trans.NOTRANS:
+                lu_n, st = lu, res.stat
+        lu_n.stat = Stats()
+        lu_n.stat.device = lu_n.device
+        lu_n.refine(b, lu_n.solve(b))
+        sw = lu_n.stat
+        print(f"12e embedded 2x2 grid: device ms factor "
+              f"{st.device_ms['FACT']:.3f} (NOTRANS call), solve "
+              f"{sw.device_ms['SOLVE']:.3f}, refine "
+              f"{sw.device_ms['REFINE']:.3f} ({sw.refine_steps} steps) (a "
+              "warm NOTRANS solve and refine)", flush=True)
+        embed_logdet("12e embedded 2x2 grid", lu_n, nphase, nlog, ltol)
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            path = os.path.join(d, "factors.npz")
+            save_factors(lu_n, path)
+            embed_reload("12e embedded 2x2 grid", load_factors(
+                path, device="cuda"), A, b)
+        del lu, lu_n, res
+    finally:
+        del os.environ["SLU_TPU_COMPLEX"]
+    torch.cuda.empty_cache()
+
+
+def embed_logdet(what, lu, nphase, nlog, tol):
+    """An embedded factor's logdet against the native complex64 one's:
+    phase and log|det| within a rounding per pivot and the sum's own."""
+    phase, logabs = lu.logdet()
+    perr, lerr = abs(phase - nphase), abs(logabs - nlog)
+    print(f"{what}: logdet phase {phase:.8f} (native {nphase:.8f}, err "
+          f"{perr:.3e}), log|det| {logabs:.8f} (native {nlog:.8f}, err "
+          f"{lerr:.3e}); tolerance {tol:.3e}", flush=True)
+    if perr > tol or lerr > tol:
+        fail(f"{what}: logdet disagrees with the native complex64 factor")
+
+
+def embed_reload(what, lu, A, b):
+    """A loaded embedded checkpoint solves and refines NOTRANS and CONJ
+    to berr <= 1e-12."""
+    from superlu_dist_tpu_torch import Trans
+    if not lu._embed:
+        fail(f"{what}: the checkpoint did not load as embedded")
+    for trans, op in ((Trans.NOTRANS, A), (Trans.CONJ, A.conj().T)):
+        x, berr = lu.refine(b, lu.solve(b, trans=trans), trans=trans)
+        resid = float(np.abs(op @ x - b).max() / np.abs(b).max())
+        print(f"{what} load_factors {trans.name}: berr {berr.max():.3e}, "
+              f"residual {resid:.3e}", flush=True)
+        if berr.max() > 1e-12 or resid > 1e-10:
+            fail(f"{what}: loaded factors miss the limits in {trans.name}")
+
+
 def _bound(flops, nbytes, per, dtype=np.float32):
     """``flops`` counts 2·bs³ a block product; a complex one does four
     times as many real operations (FLOP_MUL)."""
@@ -2197,11 +2808,11 @@ def work_bounds(plan, tp, lu):
     bs = plan.bs
     h = tp.host
     nl = len(h["lslot"])
-    return {"diag_lu": diag_bound(plan, lu.dtype)["diag_lu"],
-            "clk_update": update_bound(plan, tp, lu.dtype),
+    return {"diag_lu": diag_bound(plan, lu._fdtype)["diag_lu"],
+            "clk_update": update_bound(plan, tp, lu._fdtype),
             "clk_trsm": _bound(2.0 * bs ** 3 * nl,
-                               _blk(plan, lu.dtype) * (2 * nl + plan.nb),
-                               "factor", lu.dtype),
+                               _blk(plan, lu._fdtype) * (2 * nl + plan.nb),
+                               "factor", lu._fdtype),
             "sweep": sweep_bound(plan, lu)}
 
 
@@ -2221,10 +2832,10 @@ def sweep_bound(plan, lu):
     ncon = len(lu._ltape.host["cslot"]) + len(lu._utape.host["cslot"])
     nslots_read = len(np.unique(lu._ltape.host["cslot"])) + \
         len(np.unique(lu._utape.host["cslot"]))
-    esz = np.dtype(lu.dtype).itemsize
+    esz = np.dtype(lu._fdtype).itemsize
     return _bound(2.0 * bs * bs * (ncon + 2 * plan.nb),
-                  _blk(plan, lu.dtype) * (nslots_read + 2 * plan.nb)
-                  + 2 * 2 * esz * plan.n_pad, "solve", lu.dtype)
+                  _blk(plan, lu._fdtype) * (nslots_read + 2 * plan.nb)
+                  + 2 * 2 * esz * plan.n_pad, "solve", lu._fdtype)
 
 
 def update_bound(plan, tp, dtype):

@@ -17,19 +17,34 @@ card::
     from superlu_dist_tpu_torch import Grid2D, gssvx_dist
     res, lu = gssvx_dist(A, b, Grid2D(2, 2), Options(dtype="float32"))
 
+Many systems at once: :class:`BatchedSparseLU` factors and solves N
+matrices of one pattern together, one launch per level per phase for all
+of them; :func:`gssvx_batch` solves heterogeneous ones through a
+block-diagonal composite::
+
+    from superlu_dist_tpu_torch import BatchedSparseLU, gssvx_batch
+    blu = BatchedSparseLU(As, Options(dtype="float32"))
+    X, berr = blu.refine(Bs, blu.solve(Bs))
+    results, lu = gssvx_batch(As, bs, Options(dtype="float32"))
+
 This package imports neither JAX nor ``superlu_dist_tpu``.
 """
 
+from .models.batch import BatchedSparseLU, gssvx_batch
 from .models.dist_driver import DistributedSparseLU, gssvx_dist
 from .models.driver import (SolveResult, SparseLU, gssvx, load_factors,
                             save_factors)
 from .parallel.grid import Grid2D
 from .utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
-                            Options, RowPerm, Trans)
+                            Options, RowPerm, Trans, print_options,
+                            set_default_options, sp_ienv)
 from .utils.stats import Stats
+from .version import __version__, get_version_number
 
 __all__ = ["gssvx", "SparseLU", "SolveResult", "save_factors",
            "load_factors", "gssvx_dist", "DistributedSparseLU", "Grid2D",
+           "BatchedSparseLU", "gssvx_batch",
            "Options", "Stats", "Fact",
            "RowPerm", "ColPerm", "Trans", "IterRefine", "Equil",
-           "DiagScale"]
+           "DiagScale", "set_default_options", "sp_ienv", "print_options",
+           "__version__", "get_version_number"]

@@ -31,11 +31,13 @@ Deliberate differences from the JAX package:
   ``ValueError``.
 - Every element type runs the RDMA kernels, where the JAX package runs
   them in float32 only and its XLA grid executor otherwise. Complex is
-  native (the kernels' element type is complex64 or complex128), where
-  the JAX package's TPU meshes take the real ring embedding of complex64;
-  a ring-embedded state raises ``NotImplementedError`` (ROADMAP.md, queue
-  1 item 15). Aᴴx = b is solved as x = conj(A⁻ᵀ conj(b)), as the
-  single-device driver does.
+  native (the kernels' element type is complex64 or complex128); with
+  ``SLU_TPU_COMPLEX=embed`` complex64 takes the real ring embedding of
+  the JAX package's TPU meshes on the float32 entries (the preprocessing
+  is :class:`SparseLU`'s, the solves embed and read back as its do), and
+  ``from_numpy_state`` reads such a grid state. Aᴴx = b is solved as x =
+  conj(A⁻ᵀ conj(b)), as the single-device driver does (natively, through
+  the transposed sweeps, in the embedding).
 - ``profile_levels`` times the RDMA factor one level at a time (CUDA
   events on the card, a host clock on the CPU), and its factors become
   the live ones, as the single-device driver's do; the JAX package times
@@ -60,7 +62,8 @@ from ..parallel.grid import Grid2D
 from ..utils.options import (Fact, IterRefine, Options, Trans,
                              apply_env_overrides)
 from ..utils.stats import Stats
-from .driver import (_TORCH, SolveResult, SparseLU, _conj, _resolve_device)
+from .driver import (_TORCH, SolveResult, SparseLU, _diag_of_blocks,
+                     _resolve_device)
 
 #: the ROADMAP item of what the grid does not serve yet
 _MULTIPROC_ITEM = "queue 1 item 10"
@@ -150,7 +153,7 @@ class DistributedSparseLU(SparseLU):
     def _pools0(self) -> list:
         """The per-rank pools of the factor's input values."""
         return _dist2d.init_local_pools(self.plan, self.dplan, self._a3_data,
-                                        self.dtype, self.device)
+                                        self._fdtype, self.device)
 
     def _set_factors(self, st):
         self._fstate = st
@@ -166,7 +169,7 @@ class DistributedSparseLU(SparseLU):
             pools = self._pools0()
             self._build_coo_shards()
         stat.counters.update(self.dplan.comm_volume(
-            np.dtype(self.dtype).itemsize))
+            np.dtype(self._fdtype).itemsize))
         stat.counters["executor"] = self.executor = "rdma"
         stat.counters["dist_executor"] = self.options.dist_executor
         stat.counters["gemm_precision"] = "highest"
@@ -228,51 +231,26 @@ class DistributedSparseLU(SparseLU):
 
     # -- solves ----------------------------------------------------------
 
-    def _lu_solve(self, r: torch.Tensor) -> torch.Tensor:
-        """x = A⁻¹ r: the transforms of :meth:`SparseLU._lu_solve`, then
-        the L and U sweeps on every rank's replicated X."""
-        plan = self.plan
-        fdt = _TORCH[self.dtype]
-        k = r.shape[1]
-        rs = self._t_rs.to(r.dtype)[:, None]
-        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
-        bp[self._t_ridx] = (rs * r[self._t_prc]).to(fdt)
+    def _sweeps(self, X: torch.Tensor) -> torch.Tensor:
+        """The L and U sweeps on every rank's replicated X (the transforms
+        are :meth:`SparseLU._lu_solve`'s)."""
         X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv,
-                                     self._lt, self._ut,
-                                     bp.view(plan.nb, plan.bs, k))
+                                     self._lt, self._ut, X)
         self._solve_recv = (rl, ru)
-        y = X.reshape(plan.n_pad, k)[self._t_ridx].to(r.dtype)
-        x = torch.zeros((self.n, k), dtype=r.dtype, device=self.device)
-        x[self._t_pc] = self._t_cs.to(r.dtype)[:, None] * y
-        return x
+        return X
 
-    def _lu_solve_t(self, r: torch.Tensor, conj: bool = False
-                    ) -> torch.Tensor:
-        """x = A⁻ᵀ r through the transforms of
-        :meth:`SparseLU._lu_solve_t` and the transposed sweeps (Uᵀ with the
-        ranks' uinv, then Lᵀ with their linv); with ``conj``, x = A⁻ᴴ r =
-        conj(A⁻ᵀ conj(r)). The transposed tapes are built on the first
-        call and kept with the plan."""
-        if conj and r.is_complex():
-            return _conj(self._lu_solve_t(_conj(r)))
-        plan = self.plan
-        fdt = _TORCH[self.dtype]
-        k = r.shape[1]
+    def _sweeps_t(self, X: torch.Tensor) -> torch.Tensor:
+        """The transposed sweeps (Uᵀ with the ranks' uinv, then Lᵀ with
+        their linv) of :meth:`SparseLU._lu_solve_t`; the transposed tapes
+        are built on the first call and kept with the plan."""
         if self._ttapes is None:
             self._ttapes = tuple(_rdma.build_sweep_tapes(
-                plan, self.dplan, w, self.device) for w in ("LT", "UT"))
+                self.plan, self.dplan, w, self.device) for w in ("LT", "UT"))
         lt, ut = self._ttapes
-        cs = self._t_cs.to(r.dtype)[:, None]
-        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
-        bp[self._t_ridx] = (cs * r[self._t_pc]).to(fdt)
         X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv, lt, ut,
-                                     bp.view(plan.nb, plan.bs, k))
+                                     X)
         self._solve_recv_t = (rl, ru)
-        y = X.reshape(plan.n_pad, k)[self._t_ridx].to(r.dtype)
-        # x in the factor dtype, as SparseLU._lu_solve_t returns it
-        x = torch.zeros((self.n, k), dtype=fdt, device=self.device)
-        x[self._t_prc] = (self._t_rs.to(r.dtype)[:, None] * y).to(fdt)
-        return x.to(r.dtype)
+        return X
 
     def solve_recv(self, transpose: bool = False) -> tuple:
         """The last solve's receive counts (of the last transposed solve
@@ -317,17 +295,16 @@ class DistributedSparseLU(SparseLU):
                 yield e, sel, loc[sel]
 
     def diag_u(self) -> np.ndarray:
-        """Diagonal of U in elimination order, gathered from the owners of
-        the diagonal blocks (reference: pdGetDiagU.c)."""
+        """Diagonal of U in elimination order, from the diagonal blocks
+        gathered from their owners (reference: pdGetDiagU.c); complex from
+        a ring-embedded factor, as :meth:`SparseLU.diag_u` reads it."""
         plan, dev = self.plan, self.device
-        d = torch.empty((plan.nb, plan.bs), dtype=self.pool[0].dtype,
-                        device=dev)
+        blocks = torch.empty((plan.nb, plan.bs, plan.bs),
+                             dtype=self.pool[0].dtype, device=dev)
         for e, sel, loc in self._owned(np.asarray(plan.diag_slot)):
-            d[torch.as_tensor(sel, device=dev)] = torch.diagonal(
-                self.pool[e][torch.as_tensor(loc, device=dev)],
-                dim1=1, dim2=2)
-        d = d.reshape(-1).cpu().numpy()
-        return d[slice(0, self.n) if self._expand is None else self._expand]
+            blocks[torch.as_tensor(sel, device=dev)] = \
+                self.pool[e][torch.as_tensor(loc, device=dev)]
+        return self._diag_sel(_diag_of_blocks(blocks, self._embed))
 
     def _export_factors(self):
         """The per-rank factors gathered into the single-device layout
@@ -361,16 +338,10 @@ class DistributedSparseLU(SparseLU):
         with the per-rank factors ``pool`` of shape (pr, pc, n_local, bs,
         bs) and ``linv``/``uinv`` of shape (pr, pc, dlen + 1, bs, bs), in
         any of the four dtypes (complex as native complex arrays, the JAX
-        package's grid layout off the TPU). The plan is partitioned again,
-        and its ``n_local`` and ``dlen`` must agree with the arrays'. A
-        state with ``embed`` true (the ring embedding of complex64 on TPU
-        meshes) raises ``NotImplementedError`` (ROADMAP.md, queue 1 item
-        15)."""
-        if bool(state.get("embed", False)):
-            raise NotImplementedError(
-                "grid factors in the ring embedding of complex64 (the TPU "
-                "meshes' layout) are not ported yet (ROADMAP.md, queue 1 "
-                "item 15)")
+        package's grid layout off the TPU), or, with ``embed`` true, the
+        float32 factors of the ring embedding of complex64 (the TPU
+        meshes' layout). The plan is partitioned again, and its
+        ``n_local`` and ``dlen`` must agree with the arrays'."""
         options = apply_env_overrides(state.get("options") or Options())
         _check_dist(options, state["a_data"])
         lu = cls._restore(dict(state, options=options),
@@ -389,7 +360,7 @@ class DistributedSparseLU(SparseLU):
                 raise ValueError(f"{name} has shape {a.shape[:3]} + blocks, "
                                  f"the partition needs "
                                  f"{(pr, pc, lu._ft.dlen + 1)}")
-        fdt = _TORCH[lu.dtype]
+        fdt = _TORCH[lu._fdtype]
 
         def ranks(a):
             return [torch.tensor(a[r, c], dtype=fdt, device=lu.device)

@@ -37,8 +37,23 @@ Deliberate differences from the JAX package:
   as x = conj(A⁻ᵀ conj(b)), as the JAX package's native path does.
   Checkpoints hold the native pool; :func:`load_factors` and
   :meth:`SparseLU.from_numpy_state` also read the JAX package's planar
-  ``(slots, 2, bs, bs)`` layout, and refuse its ring-embedded one
-  (ROADMAP.md, queue 1 item 15).
+  ``(slots, 2, bs, bs)`` layout.
+- complex64 also runs in the JAX package's ring embedding a+bi →
+  [[a, −b], [b, a]] when ``SLU_TPU_COMPLEX=embed`` (the JAX package's
+  default on the TPU, and the layout of every complex64 checkpoint it
+  writes there): the embedded matrix of 2n real rows (rows 2k and 2k+1
+  interleaved, the alignment at half the block width) is factored in
+  float32 by the executor that float32 runs (clk, flk, tck or the level
+  executor), the right-hand sides are embedded and the solutions read
+  back, and the transposed sweep of the embedded pool solves Aᴴ natively
+  (embed(A)ᵀ = embed(Aᴴ)), so TRANS is x = conj(A⁻ᴴ conj(b)). The pool is
+  the scalar LU of the 2n matrix, not embed(LU(A)): a diagonal block s =
+  a+bi stores a at (2k, 2k) and the L entry b/a at (2k+1, 2k), so
+  :meth:`SparseLU.diag_u` reads Im(U_kk) as F(2k+1, 2k)·F(2k, 2k), where
+  the JAX package reads F(2k+1, 2k) alone (its driver.py:1777-1784) and
+  its ``logdet`` phase is off. Checkpoints carry ``embed`` both ways. The
+  adaptive plan retry does not run on an embedded plan (its candidates
+  would have to be embedded too).
 - The transposed solve (Aᵀx = b, and Aᴴx = b through conjugation) runs
   the hand-written counterparts of the JAX package's
   ``pallas_exec._solve_gemm_kernel`` and ``_diag_apply_kernel`` with
@@ -112,6 +127,54 @@ def _resolve_refine_dtype(options) -> np.dtype:
     return np.dtype(_REFINE_DTYPES[options.dtype])
 
 
+def _embed_csc(A: sp.spmatrix) -> sp.csc_matrix:
+    """The real ring embedding of a complex matrix: each entry a+bi
+    becomes the block [[a, −b], [b, a]] (rows and columns 2k, 2k+1), in
+    float32 (the JAX package's ``_embed_csc``)."""
+    A = sp.csc_matrix(A)
+    re = np.array([[1.0, 0.0], [0.0, 1.0]], dtype=np.float32)
+    im = np.array([[0.0, -1.0], [1.0, 0.0]], dtype=np.float32)
+    return (sp.kron(A.real, re, format="csc")
+            + sp.kron(A.imag.astype(np.float32), im, format="csc")
+            ).astype(np.float32)
+
+
+def _embed_rows(v: torch.Tensor) -> torch.Tensor:
+    """(n, k) complex → (2n, k) real: rows 2i and 2i+1 hold Re and Im of
+    row i."""
+    r = torch.view_as_real(v)                  # (n, k, 2)
+    return r.transpose(1, 2).reshape(2 * v.shape[0], v.shape[1])
+
+
+def _unembed_rows(y: torch.Tensor) -> torch.Tensor:
+    """(2n, k) real → (n, k) complex, the inverse of :func:`_embed_rows`."""
+    y = y.reshape(y.shape[0] // 2, 2, y.shape[1])
+    return torch.complex(y[:, 0], y[:, 1])
+
+
+def _interleave(base: np.ndarray) -> np.ndarray:
+    """The embedded rows 2i, 2i+1 of each row i of ``base``."""
+    ri = np.empty(2 * len(base), dtype=np.int64)
+    ri[0::2] = 2 * base
+    ri[1::2] = 2 * base + 1
+    return ri
+
+
+def _diag_of_blocks(blocks: torch.Tensor, embed: bool) -> np.ndarray:
+    """The diagonal of U from the diagonal blocks (nb, bs, bs) in
+    elimination order. In the ring embedding the block of a complex pivot
+    s = a+bi holds the scalar LU of [[a, −b], [b, a]]: F(2k, 2k) = a and
+    F(2k+1, 2k) = b/a, so Im(s) = F(2k+1, 2k)·F(2k, 2k)."""
+    d = torch.diagonal(blocks, dim1=1, dim2=2).reshape(-1).cpu().numpy()
+    if not embed:
+        return d
+    bs = blocks.shape[-1]
+    k = torch.arange(0, bs, 2, device=blocks.device)
+    sub = blocks[:, k + 1, k].reshape(-1).cpu().numpy()
+    re = d[0::2]
+    return (re + 1j * (sub * re)).astype(np.complex64)
+
+
 def _conj(t: torch.Tensor) -> torch.Tensor:
     """The conjugate of a complex tensor, materialised: a kernel reads the
     tensor's memory, which a lazy conjugate view does not change."""
@@ -160,16 +223,18 @@ _EXECUTORS = {"clk": (_clk, _clk.build_clk_tapes),
               "pallas": (_schur, _schur.build_level_tapes)}
 
 
-def _executor(opts: Options) -> str:
+def _executor(opts: Options, embed: bool = False) -> str:
     """The executor that runs, as the JAX package chooses it
     (driver.py:630-651, 728-797 there): the level executor for float64
     and the complex dtypes whatever ``executor`` names (the JAX package
     runs no fused kernel but in float32) and for ``executor="xla"`` (the
     port's counterpart of the level-batched XLA executor); otherwise clk
     for exact plans and flk for ILU plans unless an executor is named. tck
-    is not rerouted: with an ILU plan ``build_tck_tapes`` raises."""
+    is not rerouted: with an ILU plan ``build_tck_tapes`` raises. A
+    ring-embedded complex64 factor (``embed``) is float32 and is chosen
+    for as float32 is."""
     exc = opts.executor or "clk"
-    if opts.dtype != "float32" or exc == "xla":
+    if (opts.dtype != "float32" and not embed) or exc == "xla":
         return "pallas"
     if exc == "clk" and opts.ilu_level is not None:
         return "flk"
@@ -332,7 +397,9 @@ class SparseLU:
         self._expand = None
         self._n_e = None
         mode = (opts.align_blocks or "auto").lower()
-        bs = opts.block_size
+        # in matrix columns: the embedding packs two real columns per
+        # complex one (the JAX package's _effective_bs)
+        bs = opts.block_size // (2 if self._embed else 1)
         if mode == "off" or bs < 2:
             return A3
         with stat.phase("COLPERM"):
@@ -360,8 +427,13 @@ class SparseLU:
                 and not hasattr(self, "colperm"):
             raise ValueError(f"{fact} requested but no prior factorization")
         self._A_orig = A
+        # the embedding shapes the alignment (block width in complex
+        # columns), so it is settled before the preprocessing
+        self._embed = self._use_embed()
         A3 = self._preprocess(A, reuse_perms, reuse_colperm)
         self._anorm = float(np.abs(A3.data).max()) if A3.nnz else 1.0
+        if self._embed:
+            A3 = _embed_csc(A3)
 
         with stat.phase("SYMBFAC"):
             if reuse_perms and self.plan is not None:
@@ -376,8 +448,7 @@ class SparseLU:
                 # 5e-12, driver.py:360-368 there)
                 self._ftapes = self._ltape = self._utape = None
                 self._ttapes = None
-        self._rows_idx = self._expand if self._expand is not None \
-            else np.arange(self.n, dtype=np.int64)
+        self._rows_idx = self._row_map(self._expand)
 
         self.plan = plan
         stat.counters["fill_blocks"] = plan.nslots
@@ -385,15 +456,17 @@ class SparseLU:
         from ..utils.profiling import record_schedule_counters
         record_schedule_counters(stat, plan)
         stat.peak_buffer_bytes = max(stat.peak_buffer_bytes,
-                                     plan.pool_bytes(self.dtype))
+                                     plan.pool_bytes(self._fdtype))
 
         self._device_factor(A3)
         stat.ops["FACT"] += plan.factor_flops
 
         # pdgstrf info>0 contract: with tiny-pivot replacement off, an
         # exactly singular leading minor leaves a zero/non-finite U(j,j)
+        # (a batch's prototype holds no factor: its batch reads the tiny
+        # pivots of every member)
         self.info = 0
-        if not self.options.replace_tiny_pivot:
+        if not self.options.replace_tiny_pivot and self.pool is not None:
             du = self.diag_u()
             bad = np.flatnonzero(~np.isfinite(du) | (du == 0))
             if len(bad):
@@ -405,6 +478,34 @@ class SparseLU:
     def _symbolic(self, A3: sp.csc_matrix):
         return block_symbolic(A3, self.options.block_size,
                               ilu_level=self.options.ilu_level)
+
+    #: subclasses that factor complex64 natively whatever the environment
+    #: (the batch) opt out of the ring embedding
+    _embed_ok = True
+    #: whether this factor is the ring embedding of complex64 (settled
+    #: when it factors, or read from a state)
+    _embed = False
+
+    def _use_embed(self) -> bool:
+        """complex64 through the real ring embedding when
+        ``SLU_TPU_COMPLEX=embed`` (read as the JAX package reads it; its
+        default off the TPU, and the port's, is native complex)."""
+        import os
+        return (self._embed_ok and self.dtype == np.complex64
+                and os.environ.get("SLU_TPU_COMPLEX", "") == "embed")
+
+    @property
+    def _fdtype(self) -> np.dtype:
+        """The dtype of the factor pool: float32 in the ring embedding."""
+        return np.dtype(np.float32) if self._embed else self.dtype
+
+    def _row_map(self, expand) -> np.ndarray:
+        """The pool rows where the n rows of a right-hand side land: the
+        alignment's expansion (else the identity), each row as two
+        interleaved real rows in the ring embedding."""
+        base = expand if expand is not None \
+            else np.arange(self.n, dtype=np.int64)
+        return _interleave(base) if self._embed else base
 
     def _eval_candidate(self, A2: sp.csc_matrix, pc: np.ndarray, bs: int,
                         tag: str, flops_cap: float | None = None) -> dict:
@@ -449,7 +550,8 @@ class SparseLU:
         budget overruns, smaller block sizes, keeping the cheapest plan.
         Every decision lands in ``stat.counters['adapt_*']``."""
         opts, stat = self.options, self.stat
-        if (opts.adapt_policy or "auto") == "off" or not self._adapt_ok:
+        if (opts.adapt_policy or "auto") == "off" or not self._adapt_ok \
+                or self._embed:
             return A3, plan
         budget = opts.hbm_budget_gb * 2**30
         pool = plan.pool_bytes(self.dtype)
@@ -519,33 +621,43 @@ class SparseLU:
 
     def _thresh(self) -> float:
         """ReplaceTinyPivot threshold sqrt(eps)·‖A3‖_max, rounded to the
-        factor dtype's real type as the kernels compare in it."""
+        factor dtype's real type as the kernels compare in it (float32 for
+        complex64, embedded or not)."""
         fi = np.finfo(self.dtype)
         t = (np.sqrt(fi.eps) * self._anorm
              if self.options.replace_tiny_pivot else 0.0)
         return float(fi.dtype.type(t))
 
-    def _device_factor(self, A3: sp.csc_matrix):
-        """Assemble the pool on the device and run the executor's factor.
-        The previous factors are released first, so a refactor holds one
-        pool; the tapes of an unchanged plan and executor are kept."""
-        self.pool = self.linv = self.uinv = None
-        stat, plan = self.stat, self.plan
+    def _factor_tapes(self, A3: sp.csc_matrix):
+        """Keep the factor's input values and build the executor's and
+        the sweeps' tapes; those of an unchanged plan and executor are
+        kept."""
+        plan = self.plan
         self._a3_data = np.asarray(A3.data)     # the factor's input values
-        exc = _executor(self.options)
+        exc = _executor(self.options, self._embed)
         if exc != self.executor:
             self._ftapes = None
         self.executor = exc
-        mod, build_tapes = _EXECUTORS[exc]
+        t0 = time.perf_counter()
+        if self._ftapes is None:
+            self._ftapes = _EXECUTORS[exc][1](plan, self.device)
+        if self._ltape is None:
+            self._ltape = _sweep.build_sweep_tape(plan, "L", self.device)
+            self._utape = _sweep.build_sweep_tape(plan, "U", self.device)
+        self.stat.counters["dist_tapes_s"] = round(time.perf_counter() - t0,
+                                                   3)
+
+    def _device_factor(self, A3: sp.csc_matrix):
+        """Assemble the pool on the device and run the executor's factor.
+        The previous factors are released first, so a refactor holds one
+        pool."""
+        self.pool = self.linv = self.uinv = None
+        stat, plan = self.stat, self.plan
         with stat.phase("DIST"):
-            t0 = time.perf_counter()
-            if self._ftapes is None:
-                self._ftapes = build_tapes(plan, self.device)
-            if self._ltape is None:
-                self._ltape = _sweep.build_sweep_tape(plan, "L", self.device)
-                self._utape = _sweep.build_sweep_tape(plan, "U", self.device)
-            stat.counters["dist_tapes_s"] = round(time.perf_counter() - t0, 3)
-            pool = _blocklu.init_pool(plan, A3.data, self.dtype, self.device)
+            self._factor_tapes(A3)
+            pool = _blocklu.init_pool(plan, A3.data, self._fdtype,
+                                      self.device)
+        mod = _EXECUTORS[self.executor][0]
         # FP32 kernels: "auto" resolves to "highest" (no escalation)
         stat.counters["gemm_precision"] = "highest"
         stat.counters["executor"] = self.executor
@@ -603,20 +715,50 @@ class SparseLU:
         if getattr(self, "pool", None) is None:
             raise RuntimeError("factorization incomplete or released")
 
+    def _to_pool_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """The (nb, bs, k) right-hand side in the factor dtype whose rows
+        ``_rows_idx`` hold ``v`` (n, k) (embedded in the ring embedding),
+        the others zero."""
+        plan = self.plan
+        fdt = _TORCH[self._fdtype]
+        k = v.shape[1]
+        if self._embed:
+            v = _embed_rows(v)
+        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
+        bp[self._t_ridx] = v.to(fdt)
+        return bp.view(plan.nb, plan.bs, k)
+
+    def _from_pool_rows(self, X: torch.Tensor, dtype) -> torch.Tensor:
+        """Rows ``_rows_idx`` of a solved (nb, bs, k) X as (n, k) in
+        ``dtype`` (read back from the ring embedding)."""
+        y = X.reshape(self.plan.n_pad, X.shape[-1])[self._t_ridx]
+        return (_unembed_rows(y) if self._embed else y).to(dtype)
+
+    def _sweeps(self, X: torch.Tensor) -> torch.Tensor:
+        """The L then U sweeps in place on the pool-row right-hand side X
+        (the grid overrides this with its ranks' sweeps)."""
+        return _solve_gemm.solve(self.pool, self.linv, self.uinv,
+                                 self._ltape, self._utape, X)
+
+    def _sweeps_t(self, X: torch.Tensor) -> torch.Tensor:
+        """The Uᵀ then Lᵀ sweeps in place on X; the transposed tapes are
+        built on the first call and kept with the plan."""
+        if self._ttapes is None:
+            self._ttapes = tuple(_solve_gemm.build_trans_tape(
+                self.plan, w, self.device) for w in ("U", "L"))
+        tu, tl = self._ttapes
+        return _solve_gemm.solve_transposed(self.pool, self.uinv, self.linv,
+                                            tu, tl, X)
+
     def _lu_solve(self, r: torch.Tensor) -> torch.Tensor:
         """x = A⁻¹ r through the factors: Dr/Pr/Pc transforms, the L and
         U sweeps in the factor dtype, and the back-transform, all on the
         device. ``r`` is (n, k); the result has r's dtype."""
-        plan = self.plan
-        fdt = _TORCH[self.dtype]
-        k = r.shape[1]
         rs = self._t_rs.to(r.dtype)[:, None]
-        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
-        bp[self._t_ridx] = (rs * r[self._t_prc]).to(fdt)
-        X = _solve_gemm.solve(self.pool, self.linv, self.uinv, self._ltape,
-                              self._utape, bp.view(plan.nb, plan.bs, k))
-        y = X.view(plan.n_pad, k)[self._t_ridx].to(r.dtype)
-        x = torch.zeros((self.n, k), dtype=r.dtype, device=self.device)
+        y = self._from_pool_rows(self._sweeps(self._to_pool_rows(
+            rs * r[self._t_prc])), r.dtype)
+        x = torch.zeros((self.n, r.shape[1]), dtype=r.dtype,
+                        device=self.device)
         x[self._t_pc] = self._t_cs.to(r.dtype)[:, None] * y
         return x
 
@@ -627,28 +769,23 @@ class SparseLU:
         x[prc[k]] = Dr[prc[k]]·y[k] out, all on the device; the result has
         r's dtype. With ``conj``, x = A⁻ᴴ r = conj(A⁻ᵀ conj(r)) (the JAX
         package's native path, driver.py:940-955 there). The transposed
-        tapes are built on the first call and kept with the plan."""
-        if conj and r.is_complex():
-            return _conj(self._lu_solve_t(_conj(r)))
-        plan = self.plan
-        fdt = _TORCH[self.dtype]
-        k = r.shape[1]
-        if self._ttapes is None:
-            self._ttapes = tuple(_solve_gemm.build_trans_tape(
-                plan, w, self.device) for w in ("U", "L"))
-        tu, tl = self._ttapes
+        sweep of a ring-embedded pool solves Aᴴ (embed(A)ᵀ = embed(Aᴴ)), so
+        there it is A⁻ᵀ r that goes through conjugation."""
+        if conj != self._embed and r.is_complex():
+            return _conj(self._lu_solve_t(_conj(r), self._embed))
         cs = self._t_cs.to(r.dtype)[:, None]
-        bp = torch.zeros((plan.n_pad, k), dtype=fdt, device=self.device)
-        bp[self._t_ridx] = (cs * r[self._t_pc]).to(fdt)
-        X = _solve_gemm.solve_transposed(self.pool, self.uinv, self.linv, tu,
-                                         tl, bp.view(plan.nb, plan.bs, k))
-        y = X.view(plan.n_pad, k)[self._t_ridx].to(r.dtype)
-        # x comes back in the factor dtype, as the JAX package's
+        y = self._from_pool_rows(self._sweeps_t(self._to_pool_rows(
+            cs * r[self._t_pc])), r.dtype)
+        x = torch.zeros((self.n, r.shape[1]), dtype=r.dtype,
+                        device=self.device)
+        y = self._t_rs.to(r.dtype)[:, None] * y
+        # x rounded to the working dtype, as the JAX package's
         # solve_transposed returns it: TRANS refinement then adds the same
-        # rounded correction and takes the same steps
-        x = torch.zeros((self.n, k), dtype=fdt, device=self.device)
-        x[self._t_prc] = (self._t_rs.to(r.dtype)[:, None] * y).to(fdt)
-        return x.to(r.dtype)
+        # rounded correction and takes the same steps (its embedded path
+        # returns x unrounded)
+        x[self._t_prc] = y if self._embed else \
+            y.to(_TORCH[self.dtype]).to(r.dtype)
+        return x
 
     def _apply(self, b, fn):
         """Run the solve ``fn`` on b in the factor dtype. A torch tensor
@@ -851,14 +988,14 @@ class SparseLU:
         plan, dev = self.plan, self.device
         tp = (self._ftapes if self.executor == "pallas"
               else _schur.build_level_tapes(plan, dev))
-        pool = _blocklu.init_pool(plan, self._a3_data, self.dtype, dev)
+        pool = _blocklu.init_pool(plan, self._a3_data, self._fdtype, dev)
         bs = plan.bs
         linv = torch.zeros((plan.nb, bs, bs), dtype=pool.dtype, device=dev)
         uinv = torch.zeros_like(linv)
         tiny = torch.zeros(1, dtype=torch.int32, device=dev)
         thresh = self._thresh()
         cptr = tp.host["cptr"]
-        b3 = float(bs) ** 3 * (4.0 if self.dtype.kind == "c" else 1.0)
+        b3 = float(bs) ** 3 * (4.0 if self._fdtype.kind == "c" else 1.0)
         rows = []
         for lvl in range(tp.nlvl):
             if dev.type == "cuda":
@@ -886,14 +1023,15 @@ class SparseLU:
         return rows
 
     def diag_u(self) -> np.ndarray:
-        """Diagonal of U in elimination order (reference: pdGetDiagU.c)."""
-        bs, nb = self.plan.bs, self.plan.nb
-        d = self.pool[torch.as_tensor(np.asarray(self.plan.diag_slot,
-                                                 dtype=np.int64),
-                                      device=self.device)]
-        d = torch.diagonal(d, dim1=1, dim2=2).reshape(nb * bs).cpu().numpy()
-        sel = slice(0, self.n) if self._expand is None else self._expand
-        return d[sel]
+        """Diagonal of U in elimination order (reference: pdGetDiagU.c);
+        complex from a ring-embedded pool (:func:`_diag_of_blocks`)."""
+        blocks = self.pool[torch.as_tensor(np.asarray(
+            self.plan.diag_slot, dtype=np.int64), device=self.device)]
+        return self._diag_sel(_diag_of_blocks(blocks, self._embed))
+
+    def _diag_sel(self, d: np.ndarray) -> np.ndarray:
+        """The entries of the matrix's columns among the padded ones."""
+        return d[slice(0, self.n) if self._expand is None else self._expand]
 
     def logdet(self):
         """(sign or phase, log|det A|), the PYTHON/pdbridge.py logdet
@@ -917,23 +1055,20 @@ class SparseLU:
         ``colperm``, ``row_scale``, ``col_scale``, ``expand`` (None
         without alignment), every ``SymbolicPlan`` field under ``plan``
         (a dict), ``pool``, ``linv``, ``uinv`` (bucket-padded rows are
-        accepted and cut), ``anorm``, and the COO of the original A as
+        accepted and cut), ``anorm``, ``embed`` (optional: the factors of
+        a complex64 state are float32 ones of the ring embedding), and the
+        COO of the original A as
         ``a_row``, ``a_col``, ``a_data`` with ``n``. It serves every solve
         (NOTRANS and transposed), ``refine``, ``rcond_1`` and ``logdet``,
         and a SamePattern* ``refactor``.
 
         A complex state's factors may be native ``(rows, bs, bs)`` complex
         arrays or the JAX package's planar ``(rows, 2, bs, bs)`` real ones
-        (re, im), which the number of dimensions tells apart; a state with
-        ``embed`` true (the TPU's ring embedding of complex64) raises
-        ``NotImplementedError`` (ROADMAP.md, queue 1 item 15)."""
-        if bool(state.get("embed", False)):
-            raise NotImplementedError(
-                "factors in the ring embedding of complex64 (the TPU's "
-                "checkpoint layout) are not ported yet (ROADMAP.md, queue 1 "
-                "item 15)")
+        (re, im), which the number of dimensions tells apart; with
+        ``embed`` true (the TPU's ring embedding of complex64) they are
+        the float32 factors of the 2n real rows."""
         lu = cls._restore(state, device)
-        plan, fdt = lu.plan, _TORCH[lu.dtype]
+        plan, fdt = lu.plan, _TORCH[lu._fdtype]
 
         def dev(a, rows):
             a = np.asarray(a)
@@ -951,7 +1086,7 @@ class SparseLU:
         lu._ltape = _sweep.build_sweep_tape(plan, "L", lu.device)
         lu._utape = _sweep.build_sweep_tape(plan, "U", lu.device)
         lu._ttapes = lu._ftapes = None   # built when needed
-        lu.executor = _executor(lu.options)
+        lu.executor = _executor(lu.options, lu._embed)
         return lu
 
     @classmethod
@@ -967,6 +1102,10 @@ class SparseLU:
         lu.n = int(state["n"])
         lu.dtype = np.dtype(_DTYPES[lu.options.dtype])
         lu.refine_dtype = _resolve_refine_dtype(lu.options)
+        lu._embed = bool(state.get("embed", False))
+        if lu._embed and lu.dtype != np.complex64:
+            raise ValueError("a ring-embedded state holds a complex64 "
+                             f"factor, not {lu.dtype.name}")
         lu.plan = SymbolicPlan(**{
             f.name: state["plan"][f.name]
             for f in dataclasses.fields(SymbolicPlan)})
@@ -978,9 +1117,9 @@ class SparseLU:
         exp = state.get("expand")
         lu._expand = None if exp is None or len(exp) == 0 \
             else np.asarray(exp, dtype=np.int64)
-        lu._n_e = plan.n if lu._expand is not None else None
-        lu._rows_idx = lu._expand if lu._expand is not None \
-            else np.arange(lu.n, dtype=np.int64)
+        lu._n_e = (plan.n // (2 if lu._embed else 1)
+                   if lu._expand is not None else None)
+        lu._rows_idx = lu._row_map(lu._expand)
         lu._anorm = float(state.get("anorm", 1.0))
         lu._A_orig = sp.csc_matrix(
             (np.asarray(state["a_data"]),
@@ -1080,7 +1219,8 @@ def save_factors(lu: SparseLU, path) -> None:
     ``linv``/``uinv`` (``bucket125(nb) + 1`` rows), so that either package
     loads the other's checkpoint. A complex factor is saved as its native
     ``(rows, bs, bs)`` complex pool, which the JAX package reads as
-    non-planar."""
+    non-planar; a ring-embedded complex64 one as its float32 pool with
+    ``embed`` set."""
     plan = lu.plan
     A = sp.csc_matrix(lu._A_orig)
     npool = _bucket_fine(plan.nslots + 2, lo=64)
@@ -1099,7 +1239,7 @@ def save_factors(lu: SparseLU, path) -> None:
         dtype=np.asarray(str(lu.options.dtype)),
         block_size=np.asarray(lu.options.block_size),
         anorm=np.asarray(lu._anorm),
-        embed=np.asarray(False),
+        embed=np.asarray(bool(lu._embed)),
         expand=(np.asarray(lu._expand) if lu._expand is not None
                 else np.empty(0, dtype=np.int64)),
         **{"plan_" + f.name: np.asarray(getattr(plan, f.name))
@@ -1113,8 +1253,8 @@ def load_factors(path, options: Optional[Options] = None, *,
     path), on ``device`` (default ``cuda``, which raises without CUDA
     unless ``device="cpu"``). The sweep tapes are rebuilt; the transposed
     tapes are built at the first transposed solve. Complex checkpoints
-    load in both of the JAX package's layouts, native and planar; an
-    embedded one raises (:meth:`SparseLU.from_numpy_state`)."""
+    load in each of the JAX package's layouts: native, planar and the
+    ring embedding of complex64 (:meth:`SparseLU.from_numpy_state`)."""
     z = np.load(path, allow_pickle=False)
     options = (options or Options()).replace(
         dtype=str(z["dtype"]), block_size=int(z["block_size"]))

@@ -29,6 +29,15 @@
 // double, complex64 and complex128 (cplx.cuh; a complex tiny pivot keeps
 // its phase, and complex128 at bs=128 keeps the tile in the pool, as
 // tile_lu.cuh says).
+//
+// The _batch entries factor the same tiles of every member of a stacked
+// pool (members x pool_stride elements, linv and uinv members x
+// inv_stride): the member is blockIdx.z and only moves the pointers (the
+// pool's, the inverses', which hold complex128's in-pool scratch at bs =
+// 128, its threshold and its tiny counter), so each member computes bit
+// for bit what the unbatched entry computes on it alone. One launch takes
+// at most kMaxMembers members (gridDim.z); the caller launches larger
+// batches in chunks of members.
 
 #include "tile_lu.cuh"
 
@@ -58,6 +67,43 @@ int launch(void* pool, void* linv, void* uinv, const void* slots,
   diag_lu_kernel<T><<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
       (T*)pool, (T*)linv, (T*)uinv, (const int32_t*)slots,
       (const int32_t*)steps, bs, thresh, (int32_t*)tiny);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+diag_lu_batch_kernel(T* __restrict__ pool, T* __restrict__ linv,
+                     T* __restrict__ uinv, const int32_t* __restrict__ slots,
+                     const int32_t* __restrict__ steps, int bs,
+                     const slu_tile::real_t<T>* __restrict__ thresh,
+                     int32_t* __restrict__ tiny, int64_t pool_stride,
+                     int64_t inv_stride) {
+  const int64_t m = blockIdx.z;
+  slu_tile::tile_lu<T>(pool + m * pool_stride, linv + m * inv_stride,
+                       uinv + m * inv_stride, slots, steps, bs, thresh[m],
+                       tiny + m);
+}
+
+constexpr int kMaxMembers = 65535;
+
+template <typename T>
+int launch_batch(void* pool, void* linv, void* uinv, const void* slots,
+                 const void* steps, int count, int bs, const void* thresh,
+                 void* tiny, int members, long long pool_stride,
+                 long long inv_stride, void* stream) {
+  if (members < 0 || members > kMaxMembers)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = slu_tile::tile_lu_smem_bytes<T>(bs);
+  cudaError_t err = cudaFuncSetAttribute(
+      diag_lu_batch_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (count == 0 || members == 0) return 0;
+  diag_lu_batch_kernel<T>
+      <<<dim3(count, 1, members), kTileThreads, smem, (cudaStream_t)stream>>>(
+          (T*)pool, (T*)linv, (T*)uinv, (const int32_t*)slots,
+          (const int32_t*)steps, bs, (const slu_tile::real_t<T>*)thresh,
+          (int32_t*)tiny, pool_stride, inv_stride);
   return (int)cudaGetLastError();
 }
 
@@ -94,3 +140,21 @@ extern "C" int slu_diag_lu_c128(void* pool, void* linv, void* uinv,
   return launch<slu_tile::cplx<double>>(pool, linv, uinv, slots, steps,
                                         count, bs, thresh, tiny, stream);
 }
+
+// The stacked form: `thresh` is a device array of `members` thresholds (the
+// element's real type), `tiny` of `members` int32 counters.
+#define SLU_DIAG_LU_BATCH(SFX, T)                                           \
+  extern "C" int slu_diag_lu_batch_##SFX(                                   \
+      void* pool, void* linv, void* uinv, const void* slots,                \
+      const void* steps, int count, int bs, const void* thresh, void* tiny, \
+      int members, long long pool_stride, long long inv_stride,             \
+      void* stream) {                                                       \
+    return launch_batch<T>(pool, linv, uinv, slots, steps, count, bs,       \
+                           thresh, tiny, members, pool_stride, inv_stride,  \
+                           stream);                                         \
+  }
+
+SLU_DIAG_LU_BATCH(f32, float)
+SLU_DIAG_LU_BATCH(f64, double)
+SLU_DIAG_LU_BATCH(c64, slu_tile::cplx<float>)
+SLU_DIAG_LU_BATCH(c128, slu_tile::cplx<double>)

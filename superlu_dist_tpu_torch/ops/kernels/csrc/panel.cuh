@@ -278,11 +278,13 @@ __device__ __forceinline__ void band_product(T* ring, const T* Ag,
   }
 }
 
+// One CTA's band of panel slots[blockIdx.x]: X <- X . D (LEFT false) or
+// D . X (LEFT true), the band blockIdx.y.
 template <typename T, int BS, bool LEFT, int BM, int TN>
-__global__ void __launch_bounds__(Panel<T, BS, LEFT, BM, TN>::NT)
-band_times_inverse(T* pool, const T* __restrict__ dinv,
-                   const int32_t* __restrict__ slots,
-                   const int32_t* __restrict__ steps) {
+__device__ __forceinline__ void band_inverse(T* pool,
+                                             const T* __restrict__ dinv,
+                                             const int32_t* __restrict__ slots,
+                                             const int32_t* __restrict__ steps) {
   using P = Panel<T, BS, LEFT, BM, TN>;
   extern __shared__ float4 smem4[];
   const int g = threadIdx.x / P::CT;
@@ -302,17 +304,58 @@ band_times_inverse(T* pool, const T* __restrict__ dinv,
 }
 
 template <typename T, int BS, bool LEFT, int BM, int TN>
+__global__ void __launch_bounds__(Panel<T, BS, LEFT, BM, TN>::NT)
+band_times_inverse(T* pool, const T* __restrict__ dinv,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ steps) {
+  band_inverse<T, BS, LEFT, BM, TN>(pool, dinv, slots, steps);
+}
+
+// The same over the members of a stacked pool: member blockIdx.z's pool and
+// inverses start member * pool_stride and member * inv_stride elements in;
+// the member moves the pointers only.
+template <typename T, int BS, bool LEFT, int BM, int TN>
+__global__ void __launch_bounds__(Panel<T, BS, LEFT, BM, TN>::NT)
+band_times_inverse_batch(T* pool, const T* __restrict__ dinv,
+                         const int32_t* __restrict__ slots,
+                         const int32_t* __restrict__ steps,
+                         int64_t pool_stride, int64_t inv_stride) {
+  const int64_t m = blockIdx.z;
+  band_inverse<T, BS, LEFT, BM, TN>(pool + m * pool_stride,
+                                    dinv + m * inv_stride, slots, steps);
+}
+
+// A launch's members: `count` 0 is the unbatched launch (no z axis).
+struct Members {
+  int count = 0;
+  int64_t pool_stride = 0, inv_stride = 0;
+};
+
+template <typename T, int BS, bool LEFT, int BM, int TN>
 int launch_bm(void* pool, const void* dinv, const void* slots,
-              const void* steps, int count, cudaStream_t stream) {
+              const void* steps, int count, cudaStream_t stream,
+              const Members& mb) {
   using P = Panel<T, BS, LEFT, BM, TN>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      band_times_inverse<T, BS, LEFT, BM, TN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
-  if (e != cudaSuccess) return (int)e;
-  band_times_inverse<T, BS, LEFT, BM, TN>
-      <<<dim3((unsigned)count, BS / BM), P::NT, P::kBytes, stream>>>(
-          (T*)pool, (const T*)dinv, (const int32_t*)slots,
-          (const int32_t*)steps);
+  if (mb.count == 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        band_times_inverse<T, BS, LEFT, BM, TN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    band_times_inverse<T, BS, LEFT, BM, TN>
+        <<<dim3((unsigned)count, BS / BM), P::NT, P::kBytes, stream>>>(
+            (T*)pool, (const T*)dinv, (const int32_t*)slots,
+            (const int32_t*)steps);
+  } else {
+    const cudaError_t e = cudaFuncSetAttribute(
+        band_times_inverse_batch<T, BS, LEFT, BM, TN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    band_times_inverse_batch<T, BS, LEFT, BM, TN>
+        <<<dim3((unsigned)count, BS / BM, (unsigned)mb.count), P::NT,
+           P::kBytes, stream>>>((T*)pool, (const T*)dinv,
+                                (const int32_t*)slots, (const int32_t*)steps,
+                                mb.pool_stride, mb.inv_stride);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -332,49 +375,57 @@ inline int sm_count() {
 // launch of few panels is latency-bound, and each thread's chain of
 // products is then a quarter (bs = 128) as long. complex128 always takes
 // bands of 16 with 4 x 4 tiles (the header says why).
+// The geometry is chosen from `count`, the panels of one member, so a
+// member of a batched launch runs the unbatched launch's geometry.
 template <typename T, int BS, bool LEFT>
 int launch_bs(void* pool, const void* dinv, const void* slots,
-              const void* steps, int count, cudaStream_t stream) {
+              const void* steps, int count, cudaStream_t stream,
+              const Members& mb) {
   if constexpr (sizeof(T) == 16) {
     return launch_bm<T, BS, LEFT, 16, 4>(pool, dinv, slots, steps, count,
-                                         stream);
+                                         stream, mb);
   } else if constexpr (BS < 64) {
     return launch_bm<T, BS, LEFT, BS, 8>(pool, dinv, slots, steps, count,
-                                         stream);
+                                         stream, mb);
   } else {
     if ((int64_t)count * (BS / 64) < sm_count())
       return launch_bm<T, BS, LEFT, 16, 4>(pool, dinv, slots, steps, count,
-                                           stream);
+                                           stream, mb);
     return launch_bm<T, BS, LEFT, 64, 8>(pool, dinv, slots, steps, count,
-                                         stream);
+                                         stream, mb);
   }
 }
 
 template <typename T, bool LEFT>
 int launch_left(void* pool, const void* dinv, const void* slots,
-                const void* steps, int count, int bs, cudaStream_t stream) {
+                const void* steps, int count, int bs, cudaStream_t stream,
+                const Members& mb) {
   switch (bs) {
     case 32: return launch_bs<T, 32, LEFT>(pool, dinv, slots, steps, count,
-                                           stream);
+                                           stream, mb);
     case 64: return launch_bs<T, 64, LEFT>(pool, dinv, slots, steps, count,
-                                           stream);
+                                           stream, mb);
     case 128: return launch_bs<T, 128, LEFT>(pool, dinv, slots, steps,
-                                             count, stream);
+                                             count, stream, mb);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The panel TRSM over `count` (slot, step) pairs (int32 device arrays):
 // X <- X . dinv[step] (left = 0) or dinv[step] . X (left != 0). Returns
-// the cudaError_t of the launch (a refused launch never runs).
+// the cudaError_t of the launch (a refused launch never runs). With
+// mb.count > 0 the same over mb.count members of a stacked pool
+// (gridDim.z, at most 65,535).
 template <typename T>
 int trsm(void* pool, const void* dinv, const void* slots, const void* steps,
-         int count, int bs, int left, void* stream) {
+         int count, int bs, int left, void* stream, const Members& mb = {}) {
+  if (mb.count < 0 || mb.count > 65535) return (int)cudaErrorInvalidValue;
   if (count == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  return left ? launch_left<T, true>(pool, dinv, slots, steps, count, bs, s)
-              : launch_left<T, false>(pool, dinv, slots, steps, count, bs,
-                                      s);
+  return left ? launch_left<T, true>(pool, dinv, slots, steps, count, bs, s,
+                                     mb)
+              : launch_left<T, false>(pool, dinv, slots, steps, count, bs, s,
+                                      mb);
 }
 
 }  // namespace slu_panel

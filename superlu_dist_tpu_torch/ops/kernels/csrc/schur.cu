@@ -41,6 +41,13 @@
 // complex128 instantiations (cplx.cuh; complex128 in its own geometry,
 // chain.cuh and panel.cuh say why). A complex product is 8 real flops a
 // multiply-add, four times a real one.
+//
+// The _batch entries run one level over every member of a stacked pool
+// (member m's pool starts m * pool_stride elements in, its inverses m *
+// inv_stride), with one set of lists for all members: the member is
+// blockIdx.z (at most 65,535 a launch) and only moves the pointers, and
+// the geometry is chosen from one member's count, so each member computes
+// bit for bit what the unbatched entry computes on it alone.
 
 #include "chain.cuh"
 
@@ -72,6 +79,41 @@ int launch_schur(void* pool, const void* tslot, const void* cptr,
         schur_kernel<G, T>, count, (cudaStream_t)stream, (T*)pool,
         (const int32_t*)tslot, (const int32_t*)cptr, (const int32_t*)cl,
         (const int32_t*)cu);
+  });
+}
+
+template <class G, typename T>
+__global__ void __launch_bounds__(G::NT)
+schur_batch_kernel(T* pool, int64_t pool_stride,
+                   const int32_t* __restrict__ tslot,
+                   const int32_t* __restrict__ cptr,
+                   const int32_t* __restrict__ cl,
+                   const int32_t* __restrict__ cu) {
+  const int t = blockIdx.x;
+  T* mp = pool + (int64_t)blockIdx.z * pool_stride;
+  slu_chain::schur_band<G>(mp + tslot[t] * ((int64_t)G::BS * G::BS), mp, mp,
+                           cl, cu, cptr[t], cptr[t + 1]);
+}
+
+template <typename T>
+int launch_schur_batch(void* pool, const void* tslot, const void* cptr,
+                       const void* cl, const void* cu, int count, int bs,
+                       int members, long long pool_stride, void* stream) {
+  if (members < 0 || members > 65535) return (int)cudaErrorInvalidValue;
+  if (count == 0 || members == 0) return 0;
+  // the bands slu_schur_* choose when not forced (wide < 0), so that each
+  // member computes what the unbatched entry computes on it alone
+  return slu_chain::by_geometry<T, false>(bs, count, -1, [&](auto geo) {
+    using G = decltype(geo);
+    const auto kernel = schur_batch_kernel<G, T>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((unsigned)count, G::BANDS, (unsigned)members), G::NT,
+             G::kBytes, (cudaStream_t)stream>>>(
+        (T*)pool, (int64_t)pool_stride, (const int32_t*)tslot,
+        (const int32_t*)cptr, (const int32_t*)cl, (const int32_t*)cu);
+    return (int)cudaGetLastError();
   });
 }
 
@@ -133,3 +175,27 @@ extern "C" int slu_trsm_c128(void* pool, const void* dinv, const void* slots,
   return slu_panel::trsm<slu_cplx::cplx<double>>(pool, dinv, slots, steps,
                                                  count, bs, left, stream);
 }
+
+#define SLU_SCHUR_BATCH(SFX, T)                                               \
+  extern "C" int slu_schur_batch_##SFX(                                       \
+      void* pool, const void* tslot, const void* cptr, const void* cl,        \
+      const void* cu, int count, int bs, int members, long long pool_stride,  \
+      void* stream) {                                                         \
+    return launch_schur_batch<T>(pool, tslot, cptr, cl, cu, count, bs,        \
+                                 members, pool_stride, stream);               \
+  }                                                                           \
+  extern "C" int slu_trsm_batch_##SFX(                                        \
+      void* pool, const void* dinv, const void* slots, const void* steps,     \
+      int count, int bs, int left, int members, long long pool_stride,        \
+      long long inv_stride, void* stream) {                                   \
+    if (members == 0) return 0;                                               \
+    return slu_panel::trsm<T>(                                                \
+        pool, dinv, slots, steps, count, bs, left, stream,                    \
+        slu_panel::Members{members, (int64_t)pool_stride,                     \
+                           (int64_t)inv_stride});                             \
+  }
+
+SLU_SCHUR_BATCH(f32, float)
+SLU_SCHUR_BATCH(f64, double)
+SLU_SCHUR_BATCH(c64, slu_cplx::cplx<float>)
+SLU_SCHUR_BATCH(c128, slu_cplx::cplx<double>)

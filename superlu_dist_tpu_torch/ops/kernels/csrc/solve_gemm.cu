@@ -50,6 +50,13 @@
 // and (pass 2) the diagonal. The flag means op(M) = M^T for complex too,
 // not the conjugate transpose: the driver solves A^H x = b as
 // conj(x) = A^{-T} conj(b).
+//
+// The _batch entries run one level's pass over every member of a stacked
+// batch with one set of tapes: member m's pool, diagonal inverses, X and
+// scratch P start m times their stride in (int64 element offsets). The
+// member is blockIdx.z (at most 65,535 a launch) and only moves the
+// pointers, so each member computes bit for bit what the unbatched entry
+// computes on it alone.
 
 #include "rows.cuh"
 
@@ -60,11 +67,13 @@ using slu_rows::Map;
 
 // ---- pass 1: a chunk's products into its partial sum ---------------------
 template <typename T, int BS, bool kTrans, int RT>
-__global__ void __launch_bounds__(kThreads, 2)
-chunk_kernel(const T* __restrict__ pool, const T* __restrict__ X,
-             T* __restrict__ P, const int32_t* __restrict__ cptr,
-             const int32_t* __restrict__ cslot,
-             const int32_t* __restrict__ csrc, int nrhs) {
+__device__ __forceinline__ void chunk_body(const T* __restrict__ pool,
+                                           const T* __restrict__ X,
+                                           T* __restrict__ P,
+                                           const int32_t* __restrict__ cptr,
+                                           const int32_t* __restrict__ cslot,
+                                           const int32_t* __restrict__ csrc,
+                                           int nrhs) {
   const int q = blockIdx.x;
   const int c0 = blockIdx.y * RT;
   T* Pq = P + (int64_t)q * BS * nrhs + c0;
@@ -73,12 +82,35 @@ chunk_kernel(const T* __restrict__ pool, const T* __restrict__ X,
       [&](int i, int c, T v) { Pq[i * nrhs + c] = v; });
 }
 
+template <typename T, int BS, bool kTrans, int RT>
+__global__ void __launch_bounds__(kThreads, 2)
+chunk_kernel(const T* __restrict__ pool, const T* __restrict__ X,
+             T* __restrict__ P, const int32_t* __restrict__ cptr,
+             const int32_t* __restrict__ cslot,
+             const int32_t* __restrict__ csrc, int nrhs) {
+  chunk_body<T, BS, kTrans, RT>(pool, X, P, cptr, cslot, csrc, nrhs);
+}
+
+template <typename T, int BS, bool kTrans, int RT>
+__global__ void __launch_bounds__(kThreads, 2)
+chunk_batch_kernel(const T* __restrict__ pool, const T* __restrict__ X,
+                   T* __restrict__ P, const int32_t* __restrict__ cptr,
+                   const int32_t* __restrict__ cslot,
+                   const int32_t* __restrict__ csrc, int nrhs, int64_t ps,
+                   int64_t xs, int64_t qs) {
+  const int64_t m = blockIdx.z;
+  chunk_body<T, BS, kTrans, RT>(pool + m * ps, X + m * xs, P + m * qs, cptr,
+                                cslot, csrc, nrhs);
+}
+
 // ---- pass 2: a row's partials, then its diagonal --------------------------
 template <typename T, int BS, bool kTrans, int RT, bool kDiag>
-__global__ void __launch_bounds__(kThreads, 2)
-rows_kernel(const T* __restrict__ dinv, T* __restrict__ X,
-            const T* __restrict__ P, const int32_t* __restrict__ rows,
-            const int32_t* __restrict__ chunkptr, int q0, int nrhs) {
+__device__ __forceinline__ void rows_body(const T* __restrict__ dinv,
+                                          T* __restrict__ X,
+                                          const T* __restrict__ P,
+                                          const int32_t* __restrict__ rows,
+                                          const int32_t* __restrict__ chunkptr,
+                                          int q0, int nrhs) {
   using M = Map<T, BS, kTrans>;
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * RT;
@@ -133,6 +165,26 @@ rows_kernel(const T* __restrict__ dinv, T* __restrict__ X,
   }
 }
 
+template <typename T, int BS, bool kTrans, int RT, bool kDiag>
+__global__ void __launch_bounds__(kThreads, 2)
+rows_kernel(const T* __restrict__ dinv, T* __restrict__ X,
+            const T* __restrict__ P, const int32_t* __restrict__ rows,
+            const int32_t* __restrict__ chunkptr, int q0, int nrhs) {
+  rows_body<T, BS, kTrans, RT, kDiag>(dinv, X, P, rows, chunkptr, q0, nrhs);
+}
+
+template <typename T, int BS, bool kTrans, int RT, bool kDiag>
+__global__ void __launch_bounds__(kThreads, 2)
+rows_batch_kernel(const T* __restrict__ dinv, T* __restrict__ X,
+                  const T* __restrict__ P, const int32_t* __restrict__ rows,
+                  const int32_t* __restrict__ chunkptr, int q0, int nrhs,
+                  int64_t is, int64_t xs, int64_t qs) {
+  const int64_t m = blockIdx.z;
+  rows_body<T, BS, kTrans, RT, kDiag>(dinv ? dinv + m * is : nullptr,
+                                      X + m * xs, P ? P + m * qs : nullptr,
+                                      rows, chunkptr, q0, nrhs);
+}
+
 // ---- launches ------------------------------------------------------------
 struct ChunkArgs {
   const void* pool;
@@ -143,6 +195,10 @@ struct ChunkArgs {
   const int32_t* csrc;
   int count, nrhs;
   cudaStream_t stream;
+  // a batched launch: members > 0 (gridDim.z) and the members' strides
+  // of pool, X and P
+  int members;
+  int64_t ps, xs, qs;
 };
 
 struct RowArgs {
@@ -153,6 +209,10 @@ struct RowArgs {
   const int32_t* chunkptr;
   int q0, count, nrhs, diag;
   cudaStream_t stream;
+  // a batched launch: members > 0 (gridDim.z) and the members' strides
+  // of dinv, X and P
+  int members;
+  int64_t is, xs, qs;
 };
 
 template <typename T, int BS, bool kTrans, int RT>
@@ -161,10 +221,18 @@ struct ChunkLaunch {
     using M = Map<T, BS, kTrans>;
     constexpr size_t smem = M::template red_elems<RT>() * sizeof(T);
     static_assert(smem <= 48 * 1024, "shared memory");
-    const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
-    chunk_kernel<T, BS, kTrans, RT><<<grid, kThreads, smem, a.stream>>>(
-        (const T*)a.pool, (const T*)a.X, (T*)a.P, a.cptr, a.cslot, a.csrc,
-        a.nrhs);
+    if (a.members == 0) {
+      const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
+      chunk_kernel<T, BS, kTrans, RT><<<grid, kThreads, smem, a.stream>>>(
+          (const T*)a.pool, (const T*)a.X, (T*)a.P, a.cptr, a.cslot, a.csrc,
+          a.nrhs);
+    } else {
+      const dim3 grid(a.count, (a.nrhs + RT - 1) / RT, a.members);
+      chunk_batch_kernel<T, BS, kTrans, RT>
+          <<<grid, kThreads, smem, a.stream>>>(
+              (const T*)a.pool, (const T*)a.X, (T*)a.P, a.cptr, a.cslot,
+              a.csrc, a.nrhs, a.ps, a.xs, a.qs);
+    }
   }
 };
 
@@ -175,16 +243,31 @@ struct RowLaunch {
     constexpr size_t smem =
         (BS * RT + M::template red_elems<RT>()) * sizeof(T);
     static_assert(smem <= 48 * 1024, "shared memory");
-    const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
-    if (a.diag)
-      rows_kernel<T, BS, kTrans, RT, true><<<grid, kThreads, smem, a.stream>>>(
-          (const T*)a.dinv, (T*)a.X, (const T*)a.P, a.rows, a.chunkptr, a.q0,
-          a.nrhs);
-    else
-      rows_kernel<T, BS, kTrans, RT, false><<<grid, kThreads, smem,
-                                              a.stream>>>(
-          (const T*)a.dinv, (T*)a.X, (const T*)a.P, a.rows, a.chunkptr, a.q0,
-          a.nrhs);
+    if (a.members == 0) {
+      const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
+      if (a.diag)
+        rows_kernel<T, BS, kTrans, RT, true>
+            <<<grid, kThreads, smem, a.stream>>>(
+                (const T*)a.dinv, (T*)a.X, (const T*)a.P, a.rows, a.chunkptr,
+                a.q0, a.nrhs);
+      else
+        rows_kernel<T, BS, kTrans, RT, false>
+            <<<grid, kThreads, smem, a.stream>>>(
+                (const T*)a.dinv, (T*)a.X, (const T*)a.P, a.rows, a.chunkptr,
+                a.q0, a.nrhs);
+    } else {
+      const dim3 grid(a.count, (a.nrhs + RT - 1) / RT, a.members);
+      if (a.diag)
+        rows_batch_kernel<T, BS, kTrans, RT, true>
+            <<<grid, kThreads, smem, a.stream>>>(
+                (const T*)a.dinv, (T*)a.X, (const T*)a.P, a.rows, a.chunkptr,
+                a.q0, a.nrhs, a.is, a.xs, a.qs);
+      else
+        rows_batch_kernel<T, BS, kTrans, RT, false>
+            <<<grid, kThreads, smem, a.stream>>>(
+                (const T*)a.dinv, (T*)a.X, (const T*)a.P, a.rows, a.chunkptr,
+                a.q0, a.nrhs, a.is, a.xs, a.qs);
+    }
   }
 };
 
@@ -225,7 +308,21 @@ int solve_gemm(const void* pool, const void* X, void* P, const void* cptr,
                const void* cslot, const void* csrc, int count, int bs,
                int nrhs, int transpose, void* stream) {
   const ChunkArgs a{pool, X, P, (const int32_t*)cptr, (const int32_t*)cslot,
-                    (const int32_t*)csrc, count, nrhs, (cudaStream_t)stream};
+                    (const int32_t*)csrc, count, nrhs, (cudaStream_t)stream,
+                    0, 0, 0, 0};
+  return dispatch<ChunkLaunch, T>(a, bs, transpose);
+}
+
+template <typename T>
+int solve_gemm_batch(const void* pool, const void* X, void* P,
+                     const void* cptr, const void* cslot, const void* csrc,
+                     int count, int bs, int nrhs, int transpose, int members,
+                     long long ps, long long xs, long long qs, void* stream) {
+  if (members < 0 || members > 65535) return (int)cudaErrorInvalidValue;
+  if (members == 0) return 0;
+  const ChunkArgs a{pool, X, P, (const int32_t*)cptr, (const int32_t*)cslot,
+                    (const int32_t*)csrc, count, nrhs, (cudaStream_t)stream,
+                    members, ps, xs, qs};
   return dispatch<ChunkLaunch, T>(a, bs, transpose);
 }
 
@@ -234,7 +331,21 @@ int solve_rows(const void* dinv, void* X, const void* P, const void* rows,
                const void* chunkptr, int q0, int count, int bs, int nrhs,
                int transpose, int diag, void* stream) {
   const RowArgs a{dinv, X, P, (const int32_t*)rows, (const int32_t*)chunkptr,
-                  q0, count, nrhs, diag, (cudaStream_t)stream};
+                  q0, count, nrhs, diag, (cudaStream_t)stream, 0, 0, 0, 0};
+  return dispatch<RowLaunch, T>(a, bs, transpose);
+}
+
+template <typename T>
+int solve_rows_batch(const void* dinv, void* X, const void* P,
+                     const void* rows, const void* chunkptr, int q0,
+                     int count, int bs, int nrhs, int transpose, int diag,
+                     int members, long long is, long long xs, long long qs,
+                     void* stream) {
+  if (members < 0 || members > 65535) return (int)cudaErrorInvalidValue;
+  if (members == 0) return 0;
+  const RowArgs a{dinv, X, P, (const int32_t*)rows, (const int32_t*)chunkptr,
+                  q0, count, nrhs, diag, (cudaStream_t)stream,
+                  members, is, xs, qs};
   return dispatch<RowLaunch, T>(a, bs, transpose);
 }
 
@@ -313,3 +424,30 @@ extern "C" int slu_solve_rows_c128(const void* dinv, void* X, const void* P,
                                             count, bs, nrhs, transpose, diag,
                                             stream);
 }
+
+// The stacked forms of the two passes: `members` members, member m's
+// pool (pass 1) or diagonal inverses (pass 2) m * ps (is) elements in, its
+// X m * xs and its P m * qs; the tapes are shared.
+#define SLU_SOLVE_BATCH(SFX, T)                                               \
+  extern "C" int slu_solve_gemm_batch_##SFX(                                  \
+      const void* pool, const void* X, void* P, const void* cptr,             \
+      const void* cslot, const void* csrc, int count, int bs, int nrhs,       \
+      int transpose, int members, long long ps, long long xs, long long qs,   \
+      void* stream) {                                                         \
+    return solve_gemm_batch<T>(pool, X, P, cptr, cslot, csrc, count, bs,      \
+                               nrhs, transpose, members, ps, xs, qs, stream); \
+  }                                                                           \
+  extern "C" int slu_solve_rows_batch_##SFX(                                  \
+      const void* dinv, void* X, const void* P, const void* rows,             \
+      const void* chunkptr, int q0, int count, int bs, int nrhs,              \
+      int transpose, int diag, int members, long long is, long long xs,       \
+      long long qs, void* stream) {                                           \
+    return solve_rows_batch<T>(dinv, X, P, rows, chunkptr, q0, count, bs,     \
+                               nrhs, transpose, diag, members, is, xs, qs,    \
+                               stream);                                       \
+  }
+
+SLU_SOLVE_BATCH(f32, float)
+SLU_SOLVE_BATCH(f64, double)
+SLU_SOLVE_BATCH(c64, slu_rows::cplx<float>)
+SLU_SOLVE_BATCH(c128, slu_rows::cplx<double>)

@@ -6,6 +6,8 @@ hand-written kernel ``csrc/diag_lu.cu`` (float32, float64, complex64 or
 complex128), on a CPU tensor through :func:`lu_inv_plain`. Counterpart of
 the JAX package's ``flk._lu_tile_blocked`` / ``blocklu.block_lu_inv``.
 A complex tiny pivot keeps its phase and the threshold stays real.
+:func:`diag_lu_batch` does the same on every member of a stacked pool in
+one launch (the ``_batch`` entries, the member on ``blockIdx.z``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,15 @@ KERNEL = CudaKernel("diag_lu", "diag_lu.cu", {
     f"slu_diag_lu_{sfx}": [_V, _V, _V, _V, _V, ctypes.c_int, ctypes.c_int,
                            th, _V, _V]
     for sfx, th in _THRESH.items()})
+
+_LL = ctypes.c_longlong
+DIAG_LU_BATCH = CudaKernel("diag_lu_batch", "diag_lu.cu", {
+    f"slu_diag_lu_batch_{sfx}": [_V] * 5 + [ctypes.c_int] * 2 + [_V, _V]
+    + [ctypes.c_int, _LL, _LL, _V] for sfx in _THRESH})
+
+#: the most members one batched launch takes (``gridDim.z``); a larger
+#: batch launches in chunks of members
+MAX_MEMBERS = 65535
 
 #: block sizes the CUDA kernels take (powers of two; the tile and one
 #: inverse fill 128 KiB of shared memory at 128)
@@ -128,3 +139,69 @@ def _check_cuda(pool, linv, uinv, slots, steps, tiny, bs):
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"diag_lu: block size {bs} not in "
                          f"{CUDA_BLOCK_SIZES}")
+
+
+# ---------------------------------------------------------------------------
+# the stacked form: every member of a batch in one launch
+# ---------------------------------------------------------------------------
+
+
+def diag_lu_batch_plain(pool, linv, uinv, slots, steps, thresh, tiny):
+    """Plain version of :func:`diag_lu_batch`: :func:`diag_lu_plain` on
+    each member."""
+    for m in range(pool.shape[0]):
+        diag_lu_plain(pool[m], linv[m], uinv[m], slots, steps,
+                      float(thresh[m]), tiny[m:m + 1])
+
+
+def diag_lu_batch(pool, linv, uinv, slots, steps, thresh, tiny) -> None:
+    """:func:`diag_lu` on every member of a stacked pool: ``pool`` is
+    (members, rows, bs, bs), ``linv``/``uinv`` (members, nb, bs, bs),
+    ``thresh`` the members' thresholds (a tensor of the element's real
+    type) and ``tiny`` their int32 counters, both of shape (members,);
+    ``slots``/``steps`` are shared. One launch per chunk of
+    :data:`MAX_MEMBERS` members, each member computing what
+    :func:`diag_lu` computes on it alone."""
+    if pool.device.type == "cpu":
+        return diag_lu_batch_plain(pool, linv, uinv, slots, steps, thresh,
+                                   tiny)
+    bs = pool.shape[-1]
+    _check_cuda(pool, linv, uinv, slots, steps, tiny, bs)
+    check_members(pool, linv, uinv)
+    members = pool.shape[0]
+    if thresh.shape != (members,) or thresh.dtype != pool.real.dtype \
+            or thresh.device != pool.device or tiny.shape != (members,) \
+            or not thresh.is_contiguous() or not tiny.is_contiguous():
+        raise ValueError("diag_lu_batch: thresh and tiny must be contiguous "
+                         "(members,) device tensors, thresh of the real type")
+    if len(slots) == 0:
+        return
+    fn = entry("diag_lu_batch", pool)
+    ps, vs = pool[0].numel(), linv[0].numel()
+    for m0, cnt in member_chunks(members):
+        DIAG_LU_BATCH.count(fn)
+        DIAG_LU_BATCH.call(
+            fn, at(pool, m0 * ps), at(linv, m0 * vs), at(uinv, m0 * vs),
+            ptr(slots), ptr(steps), len(slots), bs, at(thresh, m0),
+            at(tiny, m0), cnt, ps, vs, stream_ptr(pool.device))
+
+
+def member_chunks(members: int):
+    """(first member, members) of each launch of a batch."""
+    return [(m0, min(MAX_MEMBERS, members - m0))
+            for m0 in range(0, members, MAX_MEMBERS)]
+
+
+def at(t: torch.Tensor, elems: int) -> ctypes.c_void_p:
+    """The address ``elems`` elements into ``t`` (Python ints: no 32-bit
+    overflow past 2³¹ elements)."""
+    return ctypes.c_void_p(t.data_ptr() + elems * t.element_size())
+
+
+def check_members(*ts):
+    """Stacked tensors of one member count, each member contiguous."""
+    m = ts[0].shape[0]
+    for t in ts:
+        if t.dim() != 4 or t.shape[0] != m or not t.is_contiguous():
+            raise ValueError("batched kernels take contiguous (members, "
+                             "rows, ., .) tensors of one member count")

@@ -24,6 +24,12 @@ sums in order.
 ``blocklu.factor_plain`` is the same composition in plain PyTorch (and
 the independent float64 reference); :func:`schur_plain` and
 :func:`trsm_plain` are its per-phase pieces.
+
+:func:`factor_batch` runs the four phases over every member of a stacked
+pool (the counterpart of the JAX package's ``jax.vmap`` of its level core
+in ``models/batch.py``): one launch per level per phase for all members,
+the member on ``blockIdx.z`` of the ``_batch`` entries, one set of tapes,
+a threshold and a tiny counter per member.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ import torch
 from ..blocklu import level_order, subtract_products
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import (CUDA_BLOCK_SIZES, CUDA_DTYPES, DTYPE_NAMES, diag_lu,
-                      entry)
+from .diag_lu import (CUDA_BLOCK_SIZES, CUDA_DTYPES, DTYPE_NAMES, at,
+                      check_members, diag_lu, diag_lu_batch, entry,
+                      member_chunks)
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +54,13 @@ SCHUR = CudaKernel("schur", "schur.cu", {
     for s in CUDA_DTYPES.values()})
 TRSM = CudaKernel("trsm", "schur.cu", {
     f"slu_trsm_{s}": [_V] * 4 + [_I, _I, _I, _V]
+    for s in CUDA_DTYPES.values()})
+_LL = ctypes.c_longlong
+SCHUR_BATCH = CudaKernel("schur_batch", "schur.cu", {
+    f"slu_schur_batch_{s}": [_V] * 5 + [_I] * 3 + [_LL, _V]
+    for s in CUDA_DTYPES.values()})
+TRSM_BATCH = CudaKernel("trsm_batch", "schur.cu", {
+    f"slu_trsm_batch_{s}": [_V] * 4 + [_I] * 4 + [_LL, _LL, _V]
     for s in CUDA_DTYPES.values()})
 
 
@@ -210,4 +224,91 @@ def factor(pool, thresh: float, tp: LevelTapes, nb: int):
     tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
     for level in range(tp.nlvl):
         factor_level(pool, linv, uinv, tiny, thresh, tp, level)
+    return pool, linv, uinv, tiny
+
+
+# ---------------------------------------------------------------------------
+# the stacked form: every member of a batch per launch
+# ---------------------------------------------------------------------------
+
+
+def trsm_batch_plain(pool, dinv, slots, steps, left: bool) -> None:
+    """Plain version of :func:`trsm_batch`: :func:`trsm_plain` on each
+    member."""
+    for m in range(pool.shape[0]):
+        trsm_plain(pool[m], dinv[m], slots, steps, left)
+
+
+def trsm_batch(pool, dinv, slots, steps, left: bool) -> None:
+    """:func:`trsm` on every member of a stacked ``pool`` (members, rows,
+    bs, bs) with its ``dinv`` (members, nb, bs, bs) and shared
+    ``slots``/``steps``: one launch per chunk of members."""
+    if pool.device.type == "cpu":
+        return trsm_batch_plain(pool, dinv, slots, steps, left)
+    _check_cuda(pool, dinv)
+    check_members(pool, dinv)
+    if len(slots) == 0:
+        return
+    fn = entry("trsm_batch", pool)
+    ps, vs = pool[0].numel(), dinv[0].numel()
+    for m0, cnt in member_chunks(pool.shape[0]):
+        TRSM_BATCH.count(fn)
+        TRSM_BATCH.call(fn, at(pool, m0 * ps), at(dinv, m0 * vs), ptr(slots),
+                        ptr(steps), len(slots), pool.shape[-1], int(left),
+                        cnt, ps, vs, stream_ptr(pool.device))
+
+
+def schur_batch_plain(pool, tp: LevelTapes, level: int) -> None:
+    """Plain version of :func:`schur_batch`: :func:`schur_plain` on each
+    member."""
+    for m in range(pool.shape[0]):
+        schur_plain(pool[m], tp, level)
+
+
+def schur_batch(pool, tp: LevelTapes, level: int) -> None:
+    """:func:`schur` on every member of a stacked ``pool`` (members, rows,
+    bs, bs): one launch per chunk of members, the bands chosen from one
+    member's targets as :func:`schur` chooses them when not forced."""
+    if pool.device.type == "cpu":
+        return schur_batch_plain(pool, tp, level)
+    _check_cuda(pool)
+    check_members(pool)
+    lo, hi = int(tp.sptr[level]), int(tp.sptr[level + 1])
+    if hi == lo:
+        return
+    fn = entry("schur_batch", pool)
+    ps = pool[0].numel()
+    for m0, cnt in member_chunks(pool.shape[0]):
+        SCHUR_BATCH.count(fn)
+        SCHUR_BATCH.call(fn, at(pool, m0 * ps), ptr(tp.tslot[lo:hi]),
+                         ptr(tp.cptr[lo:hi + 1]), ptr(tp.cl), ptr(tp.cu),
+                         hi - lo, pool.shape[-1], cnt, ps,
+                         stream_ptr(pool.device))
+
+
+def factor_level_batch(pool, linv, uinv, tiny, thresh, tp: LevelTapes,
+                       level: int) -> None:
+    """The four phases of one elimination level on every member."""
+    d = slice(int(tp.dptr[level]), int(tp.dptr[level + 1]))
+    lp = slice(int(tp.lptr[level]), int(tp.lptr[level + 1]))
+    up = slice(int(tp.uptr[level]), int(tp.uptr[level + 1]))
+    diag_lu_batch(pool, linv, uinv, tp.dslot[d], tp.dstep[d], thresh, tiny)
+    trsm_batch(pool, uinv, tp.lslot[lp], tp.lstep[lp], left=False)
+    trsm_batch(pool, linv, tp.uslot[up], tp.ustep[up], left=True)
+    schur_batch(pool, tp, level)
+
+
+def factor_batch(pool, thresh, tp: LevelTapes, nb: int):
+    """Factor every member of the stacked ``pool`` (members, rows, bs, bs)
+    in place, member m with threshold ``thresh[m]`` (a tensor of the
+    element's real type on the pool's device). Returns (pool, linv, uinv,
+    tiny): linv/uinv of shape (members, nb, bs, bs) and tiny an int32
+    tensor (members,)."""
+    members, bs = pool.shape[0], pool.shape[-1]
+    linv = torch.zeros((members, nb, bs, bs), dtype=pool.dtype,
+                       device=pool.device)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(members, dtype=torch.int32, device=pool.device)
+    for level in range(tp.nlvl):
+        factor_level_batch(pool, linv, uinv, tiny, thresh, tp, level)
     return pool, linv, uinv, tiny

@@ -35,6 +35,12 @@ tensors once per solve and takes each level's arguments from
   :func:`build_trans_tape`, which keep the JAX package's level of every
   block row (``blocklu.trans_schedule``).
 
+:func:`solve_batch` is the NOTRANS solve of every member of a stacked
+batch (pools, inverses and right-hand sides stacked on a leading member
+axis, one set of tapes): the same two passes per level through the
+``_batch`` entries, the member on ``blockIdx.z``, one launch per pass per
+level for all members, counted on SWEEP_BATCH.
+
 Launch counters: with ``transpose=False`` both passes count on SWEEP
 (kernel 3); with ``transpose=True`` pass 1 counts on SOLVE_GEMM and pass
 2 on DIAG_APPLY; the standalone :func:`solve_gemm` counts both its passes
@@ -51,7 +57,8 @@ import torch
 from ..blocklu import trans_schedule
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .diag_lu import CUDA_BLOCK_SIZES, CUDA_DTYPES, DTYPE_NAMES, entry
+from .diag_lu import (CUDA_BLOCK_SIZES, CUDA_DTYPES, DTYPE_NAMES, at,
+                      check_members, entry, member_chunks)
 from .sweep import SweepTape, csr_tape
 
 _V = ctypes.c_void_p
@@ -64,6 +71,13 @@ SOLVE_GEMM = CudaKernel("solve_gemm", "solve_gemm.cu", {**_CHUNKS, **_ROWS})
 DIAG_APPLY = CudaKernel("diag_apply", "solve_gemm.cu", _ROWS)
 #: kernel 3, the NOTRANS sweep: both passes with ``transpose=False``
 SWEEP = CudaKernel("sweep", "solve_gemm.cu", {**_CHUNKS, **_ROWS})
+_LL = ctypes.c_longlong
+#: kernel 3 over the members of a batch (``solve_batch``)
+SWEEP_BATCH = CudaKernel("sweep_batch", "solve_gemm.cu", {
+    **{f"slu_solve_gemm_batch_{s}": [_V] * 6 + [_I] * 5 + [_LL] * 3 + [_V]
+       for s in CUDA_DTYPES.values()},
+    **{f"slu_solve_rows_batch_{s}": [_V] * 5 + [_I] * 7 + [_LL] * 3 + [_V]
+       for s in CUDA_DTYPES.values()}})
 
 
 def build_trans_tape(plan: SymbolicPlan, which: str, device) -> SweepTape:
@@ -274,3 +288,77 @@ def _check_cuda(what, blocks, X):
     if blocks.data_ptr() % 16:
         raise ValueError(f"{what}: the blocks must start on 16 bytes (the "
                          "kernels read them in 16-byte words)")
+
+
+# ---------------------------------------------------------------------------
+# the stacked form: the NOTRANS solve of every member of a batch
+# ---------------------------------------------------------------------------
+
+
+def solve_batch(pool, linv, uinv, tl: SweepTape, tu: SweepTape, X):
+    """:func:`solve` on every member in place: ``pool`` (members, rows, bs,
+    bs), ``linv``/``uinv`` (members, nb, bs, bs), ``X`` (members, nb, bs,
+    nrhs), the tapes shared. On the card each level's two passes are one
+    launch each (per chunk of members) for all members, each member
+    computing bit for bit what :func:`solve` computes on it alone. Returns
+    X."""
+    for tape, dinv in ((tl, linv), (tu, uinv)):
+        if X.device.type != "cpu":
+            _check_batch(pool, dinv, X)
+        for level in range(tape.nlvl):
+            _level_batch(pool, dinv, X, tape, level)
+    return X
+
+
+def solve_level_batch(pool, dinv, X, tape: SweepTape, level: int) -> None:
+    """One level of :func:`solve_batch`'s sweeps (:func:`solve_level` with
+    ``transpose=False``) on every member, in place on X."""
+    if X.device.type != "cpu":
+        _check_batch(pool, dinv, X)
+    _level_batch(pool, dinv, X, tape, level)
+
+
+def _check_batch(pool, dinv, X):
+    check_members(pool, dinv, X)
+    _check_cuda("solve_batch", pool[0], X[0])
+    _check_cuda("solve_batch", dinv[0], X[0])
+
+
+def _level_batch(pool, dinv, X, tape: SweepTape, level: int) -> None:
+    """Both passes of ``level`` on every member: the plain level member by
+    member on the CPU; on the card one launch a pass per chunk of members
+    (counted on SWEEP_BATCH)."""
+    if X.device.type == "cpu":
+        for m in range(X.shape[0]):
+            solve_level_plain(pool[m], dinv[m], X[m], tape, level, False)
+        return
+    cp, nq, rows, chp, q0, nr = tape.launch_levels()[level]
+    bs, nrhs = X.shape[2], X.shape[3]
+    n1, n2 = entry("solve_gemm_batch", X), entry("solve_rows_batch", X)
+    P = _scratch_batch(tape, X)
+    ps, vs, xs, qs = (t[0].numel() for t in (pool, dinv, X, P))
+    cs, cr = tape.cslot.data_ptr(), tape.csrc.data_ptr()
+    stream = stream_ptr(X.device)
+    for m0, cnt in member_chunks(X.shape[0]):
+        xp, qp = at(X, m0 * xs), at(P, m0 * qs)
+        if nq:
+            SWEEP_BATCH.count(n1)
+            SWEEP_BATCH.call(n1, at(pool, m0 * ps), xp, qp, cp, cs, cr, nq,
+                             bs, nrhs, 0, cnt, ps, xs, qs, stream)
+        if nr:
+            SWEEP_BATCH.count(n2)
+            SWEEP_BATCH.call(n2, at(dinv, m0 * vs), xp, qp if nq else None,
+                             rows, chp if nq else None, q0, nr, bs, nrhs, 0,
+                             1, cnt, vs, xs, qs, stream)
+
+
+def _scratch_batch(tape: SweepTape, X):
+    """The members' buffers of chunk sums (members, most chunks of one
+    level, bs, nrhs), made once per (dtype, width, device, members)."""
+    key = (X.dtype, X.shape[3], X.device, X.shape[0])
+    P = tape.scratch.get(key)
+    if P is None:
+        P = tape.scratch[key] = torch.empty(
+            (X.shape[0], max(tape.max_chunks, 1)) + tuple(X.shape[2:]),
+            dtype=X.dtype, device=X.device)
+    return P

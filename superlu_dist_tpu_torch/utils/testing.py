@@ -4,12 +4,15 @@ A copy of the JAX package's generators that the port's tests and
 ``chip_smoke.py`` use, so the two packages see identical inputs from the
 same seed, and of its ``THRESH`` and ``compute_resid`` (the reference's
 TEST/pdtest.c acceptance test), which the card tests use without JAX.
+``backward_error`` lives in ``utils/norms.py`` and is re-exported here.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+from .norms import backward_error  # noqa: F401  (re-exported)
 
 
 def laplacian_2d(k: int, dtype=np.float64) -> sp.csc_matrix:
@@ -254,3 +257,4 @@ def compute_resid(A, x, b, work_dtype=np.float64) -> float:
     if anorm == 0 or xnorm == 0:
         return np.inf if rnorm > 0 else 0.0
     return float(rnorm / (anorm * xnorm * n * eps))
+

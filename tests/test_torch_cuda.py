@@ -1305,3 +1305,196 @@ def test_pdtest_cross_product_single_on_the_card(cuda, equil, rowperm):
             # FACTORED factors nothing in its own call, so counts none
             assert (nt > 0 and cnt > 0) or fact == T.Fact.FACTORED, what
             assert abs(nt - cnt) <= 0.1 * cnt, (what, nt, cnt)
+
+
+# ---------------------------------------------------------------------------
+# the batch: the level executor's kernels and the sweep with a member axis
+# ---------------------------------------------------------------------------
+
+BATCH_DTYPES = [torch.float32, torch.float64, torch.complex64,
+                torch.complex128]
+
+
+def _batch_members(lu, count, seed=0):
+    """``count`` pools on ``lu``'s plan: its input values, each entry
+    times (1 + 0.1·N(0, 1)) of the member's seed (member 0 unchanged)."""
+    pools = []
+    for m in range(count):
+        v = lu._a3_data.copy()
+        if m:
+            v = v * (1 + 0.1 * np.random.default_rng(seed + m)
+                     .standard_normal(len(v)))
+        pools.append(blocklu.init_pool(lu.plan, v, lu.dtype, lu.device))
+    return torch.stack(pools)
+
+
+@pytest.mark.parametrize("dtype", BATCH_DTYPES, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("bs", [32, 64])
+def test_batch_kernels_bit_equal_unbatched(cuda, bs, dtype):
+    """``schur.factor_batch`` (diag_lu, trsm and schur with a member axis)
+    and ``solve_gemm.solve_batch`` on three members: each member's pool,
+    inverses, tiny count and solution bit-equal to the unbatched entries
+    on that member alone, with one launch per level per phase for all
+    members (the unbatched factor's count, made once)."""
+    name = str(dtype)[6:]
+    A = tt.helmholtz_3d(8).tocsc() if dtype.is_complex \
+        else tt.laplacian_3d(10).tocsc()
+    lu = T.SparseLU(A, T.Options(dtype=name, block_size=bs,
+                                 executor="pallas"), device=cuda)
+    plan, tp = lu.plan, lu._ftapes
+    P = _batch_members(lu, 3)
+    th = lu._thresh()
+    thresh = torch.full((3,), th, dtype=P.real.dtype, device=cuda)
+    kernels = (diag_lu.KERNEL, schur.SCHUR, schur.TRSM,
+               diag_lu.DIAG_LU_BATCH, schur.SCHUR_BATCH, schur.TRSM_BATCH)
+    for k in kernels:
+        k.reset_counts()
+    Pb, Lb, Ub, tb = schur.factor_batch(P.clone(), thresh, tp, plan.nb)
+    batched = [k.launches for k in kernels[3:]]
+    singles = [schur.factor(P[m].clone(), th, tp, plan.nb) for m in range(3)]
+    assert batched == [k.launches // 3 for k in kernels[:3]]
+    assert all(batched)
+    for m, (p1, l1, u1, t1) in enumerate(singles):
+        assert torch.equal(Pb[m], p1) and torch.equal(Lb[m], l1)
+        assert torch.equal(Ub[m], u1) and int(tb[m]) == int(t1.item())
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.standard_normal((3, plan.nb, bs, 2)),
+                        dtype=dtype, device=cuda)
+    solve_gemm.SWEEP_BATCH.reset_counts()
+    Xb = solve_gemm.solve_batch(Pb, Lb, Ub, lu._ltape, lu._utape, X.clone())
+    assert solve_gemm.SWEEP_BATCH.launches > 0
+    for m, (p1, l1, u1, _) in enumerate(singles):
+        x1 = solve_gemm.solve(p1, l1, u1, lu._ltape, lu._utape, X[m].clone())
+        assert torch.equal(Xb[m], x1)
+
+
+def test_batch_member_past_2_31_elements(cuda):
+    """A stacked float32 pool of three members of 66,000 slots at bs 128
+    (3.2·10⁹ elements, 13 GB): the last member starts past 2³¹ elements.
+    diag_lu and trsm with the member axis on a few of its slots (the
+    last one among them) agree with the plain versions, and the members
+    before it are left as they were."""
+    bs, slots, m = 128, 66_000, 3
+    assert 2 * slots * bs * bs > 2 ** 31
+    P = torch.zeros((m, slots, bs, bs), dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(2)
+    used = torch.tensor([0, 17, slots - 1], dtype=torch.int32, device=cuda)
+    panel = torch.tensor([5, slots - 2], dtype=torch.int32, device=cuda)
+    g = torch.as_tensor(rng.standard_normal((m, 5, bs, bs)),
+                        dtype=torch.float32, device=cuda)
+    g[:, :3] += bs * torch.eye(bs, device=cuda)
+    P[:, used.long()] = g[:, :3]
+    P[:, panel.long()] = g[:, 3:]
+    before = P[:2].clone()
+    linv = torch.zeros((m, 3, bs, bs), dtype=torch.float32, device=cuda)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(m, dtype=torch.int32, device=cuda)
+    th = torch.full((m,), 1e-6, dtype=torch.float32, device=cuda)
+    steps = torch.arange(3, dtype=torch.int32, device=cuda)
+    last = P[m - 1].clone()
+    li, ui = linv[m - 1].clone(), uinv[m - 1].clone()
+    diag_lu.diag_lu_batch(P, linv, uinv, used, steps, th, tiny)
+    diag_lu.diag_lu_plain(last, li, ui, used.long(), steps.long(), 1e-6,
+                          torch.zeros(1, dtype=torch.int32, device=cuda))
+    eps = float(np.finfo(np.float32).eps)
+
+    def close(a, b):      # 64 ulp of scale, as test_diag_lu_matches_plain
+        return float((a - b).abs().max()) <= ULPS * eps * max(1.0, float(
+            b.abs().max()))
+
+    assert close(P[m - 1][used.long()], last[used.long()])
+    assert close(linv[m - 1], li) and close(uinv[m - 1], ui)
+    pan = steps[:2]
+    schur.trsm_batch(P, uinv, panel, pan, left=False)
+    schur.trsm_plain(last, ui, panel.long(), pan.long(), left=False)
+    assert close(P[m - 1][panel.long()], last[panel.long()])
+    # members 0 and 1 went through the same launches on their own data
+    assert not torch.equal(P[:2], before)
+    del P, before, g
+
+
+def test_batch_launches_in_chunks_of_members(cuda):
+    """65,537 members (past gridDim.z's 65,535): diag_lu and trsm with the
+    member axis launch twice, and every member, the last one included,
+    agrees with the plain versions."""
+    bs, m = 32, 65_537
+    rng = np.random.default_rng(4)
+    P = torch.as_tensor(rng.standard_normal((m, 2, bs, bs)),
+                        dtype=torch.float32, device=cuda)
+    P[:, 0] += bs * torch.eye(bs, device=cuda)
+    P0 = P.clone()
+    linv = torch.zeros((m, 1, bs, bs), dtype=torch.float32, device=cuda)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(m, dtype=torch.int32, device=cuda)
+    th = torch.full((m,), 1e-6, dtype=torch.float32, device=cuda)
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    diag_lu.DIAG_LU_BATCH.reset_counts()
+    schur.TRSM_BATCH.reset_counts()
+    diag_lu.diag_lu_batch(P, linv, uinv, z, z, th, tiny)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    schur.trsm_batch(P, uinv, one, z, left=False)
+    assert diag_lu.DIAG_LU_BATCH.launches == 2
+    assert schur.TRSM_BATCH.launches == 2
+    LU, li, ui, _ = diag_lu.lu_inv_plain(P0[:, 0], 1e-6)
+    eps = float(np.finfo(np.float32).eps)
+    want = P0[:, 1] @ ui
+    for got, ref in ((P[:, 0], LU), (linv[:, 0], li), (uinv[:, 0], ui),
+                     (P[:, 1], want)):
+        assert float((got - ref).abs().max()) <= ULPS * eps * max(
+            1.0, float(ref.abs().max()))
+    assert int(tiny.sum()) == 0
+
+
+def test_batched_sparse_lu_matches_cpu(cuda):
+    """``BatchedSparseLU`` on the card against the same batch on the CPU
+    (the plain versions): per-member factors within the float32 rule,
+    refined X within 1e-10 and berr <= 1e-12 for every member, and the
+    factor's launches those of one member's factor."""
+    A0 = tt.laplacian_3d(10).tocsc()
+    As = []
+    for i in range(4):
+        A = A0.copy()
+        A.data = A.data * (1 + 0.1 * np.random.default_rng(i)
+                           .standard_normal(A.nnz))
+        As.append(A)
+    n = A0.shape[0]
+    B = np.stack([np.random.default_rng(20 + i).standard_normal(n)
+                  for i in range(4)])
+    o = T.Options(dtype="float32", block_size=64)
+    diag_lu.DIAG_LU_BATCH.reset_counts()
+    g = T.BatchedSparseLU(As, o, device=cuda)
+    c = T.BatchedSparseLU(As, o, device="cpu")
+    ns = g.plan.nslots
+    pg, pc = g.pool_b[:, :ns].cpu(), c.pool_b[:, :ns]
+    assert float((pg - pc).abs().max()) <= 1e-4 * max(1.0, float(
+        pc.abs().max()))
+    assert diag_lu.DIAG_LU_BATCH.launches == g.plan.n_flevels
+    Xg, bg = g.refine(B, g.solve(B))
+    Xc, bc = c.refine(B, c.solve(B))
+    assert bg.max() <= 1e-12 and bc.max() <= 1e-12
+    assert np.abs(Xg - Xc).max() <= 1e-10 * np.abs(Xc).max()
+
+
+@pytest.mark.parametrize("executor", [None, "flk", "pallas", "tck"])
+def test_embedded_gssvx_matches_cpu(cuda, executor, monkeypatch):
+    """complex64 in the ring embedding (``SLU_TPU_COMPLEX=embed``) on the
+    card through each float32 executor: NOTRANS, TRANS and CONJ refined
+    to berr <= 1e-12 and within 1e-10 of the CPU run, logdet's phase
+    within 1e-4 of numpy's slogdet."""
+    monkeypatch.setenv("SLU_TPU_COMPLEX", "embed")
+    A = tt.helmholtz_3d(8).tocsc()
+    n = A.shape[0]
+    rng = np.random.default_rng(3)
+    xt = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    o = T.Options(dtype="complex64", block_size=64, executor=executor)
+    sign, logabs = np.linalg.slogdet(A.toarray())
+    for tr, op in (("NOTRANS", A), ("TRANS", A.T), ("CONJ", A.conj().T)):
+        b = op @ xt
+        oo = o.replace(trans=getattr(T.Trans, tr))
+        rg, lg = T.gssvx(A, b, oo, device=cuda)
+        rc, _ = T.gssvx(A, b, oo, device="cpu")
+        assert lg._embed and lg.pool.dtype == torch.float32
+        assert rg.berr.max() <= 1e-12
+        assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
+    s, la = lg.logdet()
+    assert abs(s - sign) <= 1e-4 and abs(la - logabs) <= 1e-4 * abs(logabs)

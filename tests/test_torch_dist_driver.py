@@ -24,6 +24,7 @@ import superlu_dist_tpu as J
 from superlu_dist_tpu.models.dist_driver import DistributedSparseLU as JDist
 from superlu_dist_tpu.models.dist_driver import gssvx_dist as j_gssvx_dist
 from superlu_dist_tpu.parallel.grid import Grid2D as JGrid2D
+from superlu_dist_tpu.parallel.grid import Grid3D as JGrid3D
 from superlu_dist_tpu.utils.testing import random_sparse
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.utils.testing import laplacian_2d
@@ -149,7 +150,7 @@ def test_save_load_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("dist_planning", "10"), ("several_cards", "8d"), ("embedded", "15")])
+    ("dist_planning", "10"), ("several_cards", "8d"), ("grid3d", "9")])
 def test_not_ported_raises_naming_its_item(what, item):
     A = laplacian_2d(6).tocsc()
     b = np.ones(A.shape[0])
@@ -162,17 +163,9 @@ def test_not_ported_raises_naming_its_item(what, item):
         elif what == "several_cards":
             T.Grid2D(1, 2, devices=["cpu", "meta"])
         else:
-            # a JAX-package grid state in the ring embedding of complex64
-            # (the TPU meshes' layout) still raises
-            jlu = JDist(A, JGrid2D(2, 2), J.Options(dtype="complex64",
-                                                    block_size=BS))
-            state = numpy_state(jlu, T.Options(dtype="complex64",
-                                               block_size=BS))
-            state.update(pool=np.asarray(jlu.pool),
-                         linv=np.asarray(jlu.linv),
-                         uinv=np.asarray(jlu.uinv), embed=True)
-            T.DistributedSparseLU.from_numpy_state(state, grid,
-                                                   device="cpu")
+            # the batch's composite on a 3D grid
+            T.gssvx_batch([A], [b], _opts(T), grid=JGrid3D(2, 2, 2),
+                          device="cpu")
 
 
 def _complex(A, seed=5):

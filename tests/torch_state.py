@@ -24,4 +24,5 @@ def numpy_state(jlu, options) -> dict:
         plan={f.name: getattr(jlu.plan, f.name)
               for f in dataclasses.fields(jlu.plan)},
         pool=np.asarray(pool), linv=np.asarray(linv), uinv=np.asarray(uinv),
-        anorm=float(jlu._anorm), a_row=A.row, a_col=A.col, a_data=A.data)
+        anorm=float(jlu._anorm), a_row=A.row, a_col=A.col, a_data=A.data,
+        embed=bool(getattr(jlu, "_embed", False)))
