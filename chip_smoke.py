@@ -10,15 +10,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    the build seconds and the ptxas resource lines, each under its
    function's name; every instantiation of ``schur``, and every complex
    instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm``,
-   ``diag_apply`` and of ``rdma.cu``'s six entries, must spill no
+   ``diag_apply`` and of ``rdma.cu``'s six entries, and every bf16-pass
+   instantiation of ``clk.cu`` (``wave_kernel`` and
+   ``band_times_inverse`` with their BF16 flag set), must spill no
    registers;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
    just before and read just after; berr <= 1e-12 and
    ||Ax - b||inf / ||b||inf <= 1e-10 are required and every kernel of
-   the path must have been launched; a second, warm call is timed the
-   same way, and one refinement is profiled (device busy and idle share);
+   the path must have been launched: on the card ``gemm_precision="auto"``
+   factors bf16-first, so the path is diag_lu, clk_update_bf16,
+   clk_trsm_bf16 and the sweep (the FP32 clk entries must not launch,
+   the counter must read "default" and no escalation may fire); a
+   second, warm call is timed the same way, and one refinement is
+   profiled (device busy and idle share); then the same call at
+   ``gemm_precision="highest"``, driven the same way (the FP32 clk
+   entries only), whose launches the FP32 clk rows report;
 4. every clk-path kernel against its plain PyTorch version on the card,
    level by level on the main path's own inputs (both get the same input;
    the run goes on with the kernel's output), timed with CUDA events,
@@ -173,12 +181,36 @@ Phases (any failure exits non-zero, and no result line is printed):
       embedded inputs, the FACT / SOLVE / REFINE ms beside the native
       complex64 rows; then gssvx_dist on a 2x2 grid the same way
       (rdma.cu's float32 entries only);
-13. one JSON line of per-kernel results (the float64, complex64 and
+13. the pass precision (gemm_precision; the phases that pin FP32 clk
+   behaviour above, 6, 8's clk rows and 12e, run ``"highest"``): both
+   bf16 entries against their plain versions at "default" level by level
+   on the main path's inputs (clk_update_bf16 within BF16_TOL, four bf16
+   ulps of scale, clk_trsm_bf16 within REL_TOL, each over the factor
+   closer to the bf16 plain version than the FP32 plain pass is, by ten
+   times; their costliest levels, bounds at the dense bf16 tensor-core
+   peak); the main path's warm FACT / SOLVE / REFINE under "auto" and
+   "highest" in turns (SamePattern_SameRowPerm refactors: the resolved
+   precision, whether the escalation fired, the refinement steps, berr)
+   and clk's kernels inside one warm factor at each precision, with
+   which of the two makes FACT + REFINE shorter; the same on lap3d50
+   (run inside phase 8 on its plan, the bf16 entries against their
+   plain versions there too; there the bf16 factor's refinement may
+   stall and escalate, and the counter and the FP32 launches must then
+   say so) and the bf16 entries at bs 64 on lap3d16
+   (phase 7); the ring-embedded complex64 helmholtz_3d(32) under "auto"
+   (the bf16 entries only); and one escalation: ``aniso2d(128)``, whose
+   bf16 factor leaves refinement stalled, must re-factor at "highest"
+   (``precision_escalated``, both passes' entries launched, berr <=
+   1e-12), a SamePattern_SameRowPerm refactor must then run the FP32
+   entries only, and an explicit "bf16" factor must not escalate;
+14. one JSON line of per-kernel results (the float64, complex64 and
    complex128 instantiations in rows of their own, with a ``dtype``
    field, the RDMA rows among them; the grid's transposed solves as
    ``rdma_solve_trans_*`` rows with ``"transpose": true``; the tck and
    RDMA rows with their launches per entry; the batched kernels as
-   ``<kernel>_batch[_f64|_c64|_c128]`` rows with their ``members``), the
+   ``<kernel>_batch[_f64|_c64|_c128]`` rows with their ``members``; the
+   clk rows with their ``precision``, the bf16 pass as
+   ``clk_update_bf16`` and ``clk_trsm_bf16``), the
    nvidia-smi line, the seconds the run held the card, and the final
    ``{"ok": true, "device": ...}`` line.
 
@@ -218,6 +250,25 @@ FLOP_MUL = {"float32": 1, "float64": 1, "complex64": 4, "complex128": 4}
 #: instantiations are held to REL_TOL_F64, ~4,500 float64 ulp.
 REL_TOL = 1e-4
 REL_TOL_F64 = 1e-12
+#: clk's bf16 pass (gemm_precision "default") against its plain version:
+#: both round the same float32 operands to bf16 (nearest even) and sum
+#: exact products in float32, in other orders. clk_trsm_bf16's operands
+#: are its inputs, so it is held to REL_TOL. In clk_update_bf16 a U block
+#: finalized in the level, and the target sum that a finalize reads, are
+#: rounded to bf16 again: where the two orders leave such a value within a
+#: few float32 ulps of the midpoint of two bf16 values (about one value in
+#: 2^14), they round it apart, which moves the outputs that read it by up
+#: to a bf16 ulp (2^-8) of that product. So clk_update_bf16 is held to
+#: BF16_TOL of scale (four bf16 ulps), which a wrong index or fragment
+#: exceeds by orders of magnitude. And each bf16 kernel's summed distance
+#: from its bf16 plain version must stay below BF16_FRACTION of the FP32
+#: plain pass's distance from it: the kernel computes the low pass, not
+#: the FP32 one.
+BF16_TOL = 2.0 ** -6
+BF16_FRACTION = 0.1
+#: the dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet), the
+#: bound of the bf16 pass's operations
+BF16_PEAK_FLOPS = 989e12
 #: a whole factor against the float64 right-looking reference: 512
 #: float32 ulp at the pool scale, the tolerance tests/test_clk.py gives
 #: random patterns (the top separator blocks of lap3d32 sum hundreds of
@@ -229,6 +280,9 @@ REPLACES = {
     "diag_lu": "superlu_dist_tpu/ops/kernels/flk.py:339",
     "clk_update": "superlu_dist_tpu/ops/kernels/clk.py:248",
     "clk_trsm": "superlu_dist_tpu/ops/kernels/clk.py:248",
+    # the same TPU kernel at precision "default" (its dot(), clk.py:257)
+    "clk_update_bf16": "superlu_dist_tpu/ops/kernels/clk.py:248",
+    "clk_trsm_bf16": "superlu_dist_tpu/ops/kernels/clk.py:248",
     "sweep": "superlu_dist_tpu/ops/kernels/pallas_exec.py:680",
     "flk": "superlu_dist_tpu/ops/kernels/flk.py:434",
     # _schur_kernel_db (on the executor's path) and _schur_kernel compute
@@ -243,7 +297,13 @@ REPLACES = {
 }
 ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
 #: where a kernel's body lives when it is not in the source that builds it
-SOURCE = {"trsm": "panel.cuh", "clk_trsm": "panel.cuh"}
+SOURCE = {"trsm": "panel.cuh", "clk_trsm": "panel.cuh",
+          "clk_trsm_bf16": "panel.cuh"}
+#: the pass precision of each clk row (the others run the working type)
+PRECISION = {"clk_update": "highest", "clk_trsm": "highest",
+             "clk_update_bf16": "default", "clk_trsm_bf16": "default"}
+#: clk's bf16-pass kernels, and their FP32 counterparts
+BF16_KERNELS = ("clk_update_bf16", "clk_trsm_bf16")
 #: the kernels with a float64 instantiation, which the float64 path runs
 F64_KERNELS = ("diag_lu", "trsm", "schur", "sweep", "solve_gemm",
                "diag_apply")
@@ -286,7 +346,8 @@ def main() -> None:
     print("native host engine: loaded", flush=True)
 
     kernels = {"diag_lu": diag_lu.KERNEL, "clk_update": clk.UPDATE,
-               "clk_trsm": clk.TRSM, "sweep": solve_gemm.SWEEP,
+               "clk_trsm": clk.TRSM, "clk_update_bf16": clk.UPDATE_BF16,
+               "clk_trsm_bf16": clk.TRSM_BF16, "sweep": solve_gemm.SWEEP,
                "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM,
                "solve_gemm": solve_gemm.SOLVE_GEMM,
                "diag_apply": solve_gemm.DIAG_APPLY,
@@ -304,6 +365,10 @@ def main() -> None:
         # a complex element type, demangled or mangled (slu_cplx::real_of
         # names the real instantiations too)
         check_spills(_build.ptxas_report(k), ("cplx<", "4cplxI"), k.source)
+    # the bf16 pass's instantiations (wave_kernel and band_times_inverse
+    # with BF16 = true, the last template argument), demangled or mangled
+    check_spills(_build.ptxas_report(clk.UPDATE), ("true>(", "Lb1EEv"),
+                 "clk.cu (the bf16 pass)")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
                tck=tck, rdma=rdma, kernels=kernels, entry_launches={},
@@ -319,7 +384,14 @@ def main() -> None:
     b = np.asarray(A @ rng.standard_normal(n))
     opts = Options(dtype="float32", block_size=128)
     res, lu, launches = drive(ctx, "main path", A, b, opts,
-                              ("diag_lu", "clk_update", "clk_trsm", "sweep"))
+                              ("diag_lu", "clk_update_bf16", "clk_trsm_bf16",
+                               "sweep"), ("clk_update", "clk_trsm"))
+    if res.stat.counters["gemm_precision"] != "default" or \
+            "precision_escalated" in res.stat.counters:
+        fail(f"main path: gemm_precision "
+             f"{res.stat.counters['gemm_precision']}, escalated "
+             f"{res.stat.counters.get('precision_escalated')}: not the "
+             "bf16-first factor")
     plan = lu.plan
     print(f"main path: lap3d32 n={n} aligned to {plan.n} rows, "
           f"{plan.nb} block columns, {plan.nslots} slots, pool "
@@ -329,9 +401,17 @@ def main() -> None:
           f"{plan.factor_flops / 1e9:.1f} GFLOP (padded block model)")
     warm_call(ctx, "main path", A, b, opts)
     profile_refine(torch, lu, b, res.x)
+    # the FP32 pass of the same path, whose launches the FP32 clk rows take
+    _, lu_hi, got = drive(ctx, "main path at highest", A, b,
+                          opts.replace(gemm_precision="highest"),
+                          ("diag_lu", "clk_update", "clk_trsm", "sweep"),
+                          BF16_KERNELS)
+    launches["clk_update"] = got["clk_update"]
+    launches["clk_trsm"] = got["clk_trsm"]
 
     # ---- 4. clk-path kernels against plain versions --------------------
-    checks = check_kernels(lu, ctx, launches)
+    checks = check_kernels(lu_hi, ctx, launches)
+    del lu_hi
 
     # ---- 5. the flk, ILU(1), level and tck executors -------------------
     paths = {
@@ -407,6 +487,8 @@ def main() -> None:
         c64 = {"clk": check_kernels, "flk": check_flk, "pallas": check_level,
                "tck": check_tck, "xla": check_level}[executor](lu2, ctx,
                                                                 None)
+        if executor == "clk":
+            c64.update(check_bf16(lu2, ctx))
         for name, c in c64.items():
             print(f"bs=64 {name}: max_abs_err {c['max_abs_err']:.3e} "
                   f"(tolerance {c['tol']:.3e})", flush=True)
@@ -428,6 +510,9 @@ def main() -> None:
     batch_phase(ctx, rng, checks, launches)
     embed_phase(ctx, rng, checks, launches)
 
+    # ---- 13. the pass precision ---------------------------------------
+    precision_phase(ctx, rng, checks, launches, A, b, opts, lu)
+
     rows = []
     for name, dtype, key in \
             [(k, "float32", k) for k in kernels] + \
@@ -448,6 +533,8 @@ def main() -> None:
             per=c["per"], dtype=dtype)
         if key in ctx["entry_launches"]:
             row["entry_launches"] = ctx["entry_launches"][key]
+        if key in PRECISION:
+            row["precision"] = PRECISION[key]
         if key.startswith("rdma_solve_trans"):
             row["transpose"] = True
         if name in ALSO_REPLACES:
@@ -699,13 +786,13 @@ class Checker:
         self.record(name, ms, plain_ms, a, p, slack and slack(state, p))
         return a, ms
 
-    def record(self, name, ms, plain_ms, got, want, slack=None):
+    def record(self, name, ms, plain_ms, got, want, slack=None, rel=None):
         """Add a kernel's and its plain version's ms to ``name`` and hold
         the kernel's outputs ``got`` to the plain ones ``want``: within
-        the type's relative tolerance of their scale, beyond the
-        elementwise allowance ``slack`` where it is given. ``excess`` is
-        the worst distance beyond the allowance, ``max_slack`` the
-        largest allowance."""
+        the type's relative tolerance of their scale (``rel`` where it is
+        given), beyond the elementwise allowance ``slack`` where it is
+        given. ``excess`` is the worst distance beyond the allowance,
+        ``max_slack`` the largest allowance."""
         o = self.out[name]
         o["ms"] += ms
         o["plain_ms"] += plain_ms
@@ -721,8 +808,10 @@ class Checker:
             big = max(float(s.max()) for s in slack)
         scale = max(1.0, max(float(y.abs().max()) for y in want))
         dtype = want[0].dtype
-        rel = REL_TOL_F64 if dtype in (self.torch.float64,
-                                       self.torch.complex128) else REL_TOL
+        if rel is None:
+            rel = REL_TOL_F64 if dtype in (self.torch.float64,
+                                           self.torch.complex128) \
+                else REL_TOL
         tol = rel * scale
         o["max_abs_err"] = max(o["max_abs_err"], err)
         o["tol"] = max(o["tol"], tol)
@@ -1033,8 +1122,10 @@ def trans_phase(ctx, rng, lu_main, checks):
     A = laplacian_3d_unsym(32)
     n = A.shape[0]
     b = rng.standard_normal(n)
+    # the FP32 pass, as before the bf16 pass existed: the FP32 clk
+    # kernels, rcond's and the refinement's steps (phase 13 runs bf16-first)
     opts = Options(dtype="float32", block_size=128, trans=Trans.TRANS,
-                   condition_number=True)
+                   condition_number=True, gemm_precision="highest")
     res, lu, got = drive(ctx, "trans", A, b, opts, (
         "solve_gemm", "diag_apply", "diag_lu", "clk_update", "clk_trsm",
         "sweep"))
@@ -1062,7 +1153,7 @@ def trans_phase(ctx, rng, lu_main, checks):
         M.data = M.data * (1.0 + 0.05 * pr.standard_normal(M.nnz))
         return M
 
-    ropts = Options(dtype="float32", block_size=128, trans=Trans.TRANS)
+    ropts = opts.replace(condition_number=False)
     A2, plan0 = perturb(A), lu.plan
     r, lu, _ = drive(ctx, "SamePattern_SameRowPerm", A2, b, ropts.replace(
         fact=Fact.SAME_PATTERN_SAME_ROWPERM), ("clk_update", "diag_lu",
@@ -1402,8 +1493,9 @@ def trans_bs64(ctx, rng):
     A = laplacian_3d_unsym(16).tocsc()
     n = A.shape[0]
     b = rng.standard_normal(n)
+    # the FP32 pass: logdet is held to the CPU factor's at 1e-8
     opts = Options(dtype="float32", block_size=64, trans=Trans.TRANS,
-                   condition_number=True)
+                   condition_number=True, gemm_precision="highest")
     res, lu, _ = drive(ctx, "bs=64 trans", A, b, opts,
                        ("solve_gemm", "diag_apply"))
     x_ref = spla.spsolve(sp.csc_matrix(A.T), b)
@@ -1496,9 +1588,11 @@ def tck_phase(ctx, rng, checks, launches):
              ("clk_update", "tck_update", "schur")),
             ("pallas", ("schur", "trsm", "diag_lu", "sweep"),
              ("clk_update", "tck_update", "flk"))):
+        # clk's FP32 pass (its rows; phase 13's bf16 pass follows below)
         _, lu, got = drive(ctx, f"{exc} lap3d50", A, b,
-                           opts.replace(executor=exc, fact=ssr), need, zero,
-                           lu=lu)
+                           opts.replace(executor=exc, fact=ssr,
+                                        gemm_precision="highest"),
+                           need, zero + BF16_KERNELS, lu=lu)
         if lu.plan is not plan:
             fail(f"{exc} lap3d50: the refactor rebuilt the plan")
         if exc == "clk":
@@ -1510,6 +1604,7 @@ def tck_phase(ctx, rng, checks, launches):
                   f" ms ({o['bound_by']})", flush=True)
             print_check("lap3d50 clk_trsm", c["clk_trsm"], got["clk_trsm"])
             print_check("lap3d50 diag_lu", c["diag_lu"], got["diag_lu"])
+            precision_lap3d50(ctx, A, b, opts.replace(executor="clk"), lu)
         if exc == "flk":
             o = check_flk(lu, ctx, report=True)["flk"]
             print(f"lap3d50 flk: max_abs_err {o['max_abs_err']:.3e} "
@@ -2189,7 +2284,7 @@ def print_tck_levels(tp, per_level, top=6):
               f"{int(tcnt[b0:b1].max(initial=0))}", flush=True)
 
 
-def print_update_levels(tp, per_level, bs, top=6):
+def print_update_levels(tp, per_level, bs, top=6, name="clk_update"):
     """Where clk_update's time goes: the costliest levels, with their
     columns, waves (one launch each), targets and CTAs (a target has bs/16
     strips) over the level's waves, L·U products, the longest product list
@@ -2198,7 +2293,7 @@ def print_update_levels(tp, per_level, bs, top=6):
     h = tp.host
     cnt = np.diff(h["pptr"])
     total = sum(ms for ms, _ in per_level)
-    print(f"clk_update by level (kernel {total:.3f} ms over {tp.nlvl} "
+    print(f"{name} by level (kernel {total:.3f} ms over {tp.nlvl} "
           f"levels, {int(tp.lwave[-1])} waves; top {top}):")
     for ms, lvl in sorted(per_level, reverse=True)[:top]:
         w0, w1 = int(tp.lwave[lvl]), int(tp.lwave[lvl + 1])
@@ -2679,9 +2774,12 @@ def embed_phase(ctx, rng, checks, launches):
                 what = f"12e embedded complex64 {name} {trans.name}"
                 extra = () if trans == Trans.NOTRANS else ("solve_gemm",
                                                            "diag_apply")
+                # the FP32 pass (logdet is held to the native factor's at
+                # float32 rounding); phase 13 drives the bf16 pass
                 res, lu, _ = drive(ctx, what, A, b, Options(
                     dtype="complex64", block_size=128, executor=exc,
-                    trans=trans, condition_number=True), need + extra)
+                    trans=trans, condition_number=True,
+                    gemm_precision="highest"), need + extra)
                 check_entries(ctx, what, tuple(
                     k for k in need + extra if k in F64_KERNELS), "f32")
                 if not lu._embed or lu.pool.dtype != torch.float32 or \
@@ -2784,11 +2882,12 @@ def embed_reload(what, lu, A, b):
             fail(f"{what}: loaded factors miss the limits in {trans.name}")
 
 
-def _bound(flops, nbytes, per, dtype=np.float32):
+def _bound(flops, nbytes, per, dtype=np.float32, peak=None):
     """``flops`` counts 2·bs³ a block product; a complex one does four
-    times as many real operations (FLOP_MUL)."""
+    times as many real operations (FLOP_MUL). ``peak`` replaces the
+    type's peak (the bf16 pass's tensor cores)."""
     flops = flops * FLOP_MUL[np.dtype(dtype).name]
-    tf = flops / PEAK_FLOPS[np.dtype(dtype).name]
+    tf = flops / (peak or PEAK_FLOPS[np.dtype(dtype).name])
     tb = nbytes / PEAK_BYTES
     return dict(bound_ms=max(tf, tb) * 1e3,
                 bound_by="operations" if tf >= tb else "bytes",
@@ -2917,6 +3016,278 @@ def level_bounds(plan, tp, dtype):
             "trsm": _bound(2.0 * bs ** 3 * npanel,
                            blk * (2 * npanel + 2 * plan.nb), "factor",
                            dtype)}
+
+
+# ---------------------------------------------------------------------------
+# 13. the pass precision: clk's bf16 pass and the escalation
+# ---------------------------------------------------------------------------
+
+
+def check_bf16(lu, ctx, report=False):
+    """clk's bf16 pass (``slu_clk_waves_bf16``, ``slu_clk_trsm_bf16``)
+    against its plain version at "default" on ``lu``'s plan, level by
+    level: both get the same input and the factor goes on with the
+    kernel's output (diag_lu runs as the kernel between them). Each is held
+    to its tolerance (BF16_TOL for the update, REL_TOL for the TRSM), and
+    over the factor its summed distance from the bf16 plain version to
+    BF16_FRACTION of the FP32 plain pass's (the plain version at
+    "highest" on the same input). library_ms: clk_trsm_bf16 as one
+    ``torch.bmm`` per level on the level's L blocks and U inverses cast
+    to bf16 beforehand (cuBLAS's bf16 product, bf16 out); none for
+    clk_update_bf16, as for clk_update. With ``report`` it prints the
+    update's costliest levels."""
+    torch, clk, diag_lu = ctx["torch"], ctx["clk"], ctx["diag_lu"]
+    plan, tp = lu.plan, lu._ftapes
+    th = lu._thresh()
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
+    ck = Checker(torch, plan.bs, BF16_KERNELS, library=("clk_trsm_bf16",))
+    dist = {k: [0.0, 0.0] for k in BF16_KERNELS}
+
+    def step(name, kern, plain, rel):
+        a, p, h = pool.clone(), pool.clone(), pool.clone()
+        ms = _timed(torch, lambda: kern(a))
+        plain_ms = _timed(torch, lambda: plain(p, "default"))
+        plain(h, "highest")
+        ck.record(name, ms, plain_ms, [a], [p], rel=rel)
+        dist[name][0] += float((a - p).abs().sum())
+        dist[name][1] += float((h - p).abs().sum())
+        del p, h
+        return a, ms
+
+    per_level = []
+    for lvl in range(tp.nlvl):
+        pool, ms = step(
+            "clk_update_bf16",
+            lambda p: clk.clk_update(p, linv, tp, lvl, "default"),
+            lambda p, pr: clk.clk_update_plain(p, linv, tp, lvl, pr),
+            BF16_TOL)
+        per_level.append((ms, lvl))
+        lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        th, tiny)
+        lo, hi = int(tp.lptr[lvl]), int(tp.lptr[lvl + 1])
+        if hi > lo:
+            Lg = pool[tp.lslot[lo:hi].long()].to(torch.bfloat16)
+            Ug = uinv[tp.lstep[lo:hi].long()].to(torch.bfloat16)
+            C = torch.empty_like(Lg)
+            ck.library("clk_trsm_bf16", lambda: torch.bmm(Lg, Ug, out=C))
+            del Lg, Ug, C
+        pool, _ = step(
+            "clk_trsm_bf16",
+            lambda p: clk.clk_trsm(p, uinv, tp, lvl, "default"),
+            lambda p, pr: clk.clk_trsm_plain(p, uinv, tp, lvl, pr), REL_TOL)
+    if report:
+        print_update_levels(tp, per_level, plan.bs, name="clk_update_bf16")
+    out = ck.out
+    b = bf16_bounds(plan, tp, lu)
+    for name, (kern, fp32) in dist.items():
+        o = out[name]
+        o.update(b[name], dist=kern, fp32_dist=fp32)
+        if fp32 > 0 and kern > BF16_FRACTION * fp32:
+            fail(f"{name} (bs={plan.bs}): summed distance {kern:.3e} from "
+                 f"its bf16 plain version, not below {BF16_FRACTION} of the "
+                 f"FP32 pass's {fp32:.3e}: not the low pass")
+    return out
+
+
+def bf16_bounds(plan, tp, lu):
+    """The bf16 pass's least time: the FP32 pass's operations (2·bs³ a
+    block product) at the dense bf16 tensor-core peak, and its bytes (the
+    float32 pool and inverses, each input read once and each output
+    written once) at the memory rate."""
+    w = work_bounds(plan, tp, lu)
+    return {f"{k}_bf16": _bound(w[k]["flops"], w[k]["bytes"], "factor",
+                                peak=BF16_PEAK_FLOPS)
+            for k in ("clk_update", "clk_trsm")}
+
+
+def clk_kernel_ms(ctx, lu, precision):
+    """Device ms of clk's three kernels inside one warm factor of ``lu``'s
+    values at ``precision``, in the factor's own order (CUDA events
+    around each launch, no flush, one synchronisation at the end)."""
+    torch, clk, diag_lu = ctx["torch"], ctx["clk"], ctx["diag_lu"]
+    tp = lu._ftapes
+    th = lu._thresh()
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
+    marks = []
+    for lvl in range(tp.nlvl):
+        d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
+        for name, fn in (
+                ("clk_update", lambda: clk.clk_update(pool, linv, tp, lvl,
+                                                      precision)),
+                ("diag_lu", lambda: diag_lu.diag_lu(
+                    pool, linv, uinv, tp.dslot[d], tp.dstep[d], th, tiny)),
+                ("clk_trsm", lambda: clk.clk_trsm(pool, uinv, tp, lvl,
+                                                  precision))):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            marks.append((name, ev))
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(("clk_update", "diag_lu", "clk_trsm"), 0.0)
+    for name, ev in marks:
+        ms[name] += ev[0].elapsed_time(ev[1])
+    return ms
+
+
+def precision_compare(ctx, what, A, b, opts, lu):
+    """The warm factor and refinement of ``lu``'s plan under "auto"
+    (bf16-first) and "highest", by SamePattern_SameRowPerm refactors in
+    turns (auto, highest, highest, auto): per call the resolved precision,
+    whether the escalation fired, FACT / SOLVE / REFINE device ms (FACT
+    holds both factors of an escalation), the refinement steps, berr and
+    the residual (each held to the limits); then clk's kernels inside one
+    warm factor at each precision; and which of the two makes FACT +
+    REFINE shorter. An escalation's sticky "highest" is cleared before
+    each "auto" call, so that each pays a fresh bf16-first attempt, as a
+    new SparseLU of the matrix does."""
+    from superlu_dist_tpu_torch import Fact, gssvx
+    torch = ctx["torch"]
+    ssr = Fact.SAME_PATTERN_SAME_ROWPERM
+    fr = {"auto": [], "highest": []}
+    for prec in ("auto", "highest", "highest", "auto"):
+        lu._prec_sticky = False
+        res, _ = gssvx(A, b, opts.replace(fact=ssr, gemm_precision=prec),
+                       lu=lu)
+        torch.cuda.synchronize()
+        st, dm = res.stat, res.stat.device_ms
+        berr = float(np.max(res.berr))
+        resid = float(np.abs(A @ res.x - b).max() / np.abs(b).max())
+        fr[prec].append(dm["FACT"] + dm["REFINE"])
+        print(f"{what} {prec}: gemm_precision "
+              f"{st.counters['gemm_precision']}, escalated "
+              f"{bool(st.counters.get('precision_escalated'))}; device ms "
+              f"FACT {dm['FACT']:.3f}, SOLVE {dm['SOLVE']:.3f}, REFINE "
+              f"{dm['REFINE']:.3f} ({st.refine_steps} steps), FACT + REFINE "
+              f"{dm['FACT'] + dm['REFINE']:.3f}; berr {berr:.3e}, residual "
+              f"{resid:.3e}", flush=True)
+        if berr > 1e-12 or resid > 1e-10:
+            fail(f"{what} {prec}: berr {berr:.3e}, residual {resid:.3e}")
+    for prec in ("default", "highest"):
+        k = clk_kernel_ms(ctx, lu, prec)
+        print(f"{what}: clk inside one warm factor at {prec}: clk_update "
+              f"{k['clk_update']:.3f} ms, diag_lu {k['diag_lu']:.3f} ms, "
+              f"clk_trsm {k['clk_trsm']:.3f} ms (sum "
+              f"{sum(k.values()):.3f})", flush=True)
+    a, h = float(np.mean(fr["auto"])), float(np.mean(fr["highest"]))
+    print(f"{what}: FACT + REFINE (mean of two warm calls) auto {a:.3f} ms, "
+          f"highest {h:.3f} ms: bf16-first is "
+          f"{'shorter' if a < h else 'longer'} by {abs(a - h):.3f} ms",
+          flush=True)
+
+
+def precision_lap3d50(ctx, A, b, opts, lu):
+    """Phase 13 on lap3d50 (called from phase 8 on its plan): clk under
+    "auto" by a SamePattern_SameRowPerm refactor, driven like the main
+    path (the bf16 kernels must launch; where the bf16 factor's
+    refinement stalls, the escalation's FP32 factor too, and the counter
+    must then read "highest"), the bf16 pass against its plain version
+    level by level, and the warm comparison with "highest"."""
+    from superlu_dist_tpu_torch import Fact
+    res, lu, got = drive(ctx, "clk lap3d50 auto", A, b, opts.replace(
+        fact=Fact.SAME_PATTERN_SAME_ROWPERM, gemm_precision="auto"), (
+        "clk_update_bf16", "clk_trsm_bf16", "diag_lu", "sweep"),
+        ("tck_update", "flk", "schur"), lu=lu)
+    c = res.stat.counters
+    esc = c.get("precision_escalated") == 1
+    print(f"clk lap3d50 auto: escalated {esc}, gemm_precision "
+          f"{c['gemm_precision']}", flush=True)
+    if (c["gemm_precision"] == "highest") != esc or \
+            (got["clk_update"] > 0) != esc or (got["clk_trsm"] > 0) != esc:
+        fail("clk lap3d50 auto: the counter or the FP32 launches disagree "
+             "with the escalation")
+    c = check_bf16(lu, ctx, report=True)
+    for name, o in c.items():
+        print_check(f"lap3d50 {name}", o, got[name])
+        print(f"lap3d50 {name}: summed distance from the bf16 plain "
+              f"version {o['dist']:.3e}, the FP32 pass's {o['fp32_dist']:.3e}",
+              flush=True)
+    precision_compare(ctx, "lap3d50 clk", A, b, opts, lu)
+
+
+def precision_phase(ctx, rng, checks, launches, A, b, opts, lu):
+    """Phase 13: the bf16 pass on the main path (lap3d32, ``lu`` from
+    phase 3): both bf16 kernels against their plain versions level by
+    level (their rows), the warm comparison of "auto" and "highest", the
+    ring-embedded complex64 factor under "auto", and one escalation."""
+    from superlu_dist_tpu_torch import Options
+    from superlu_dist_tpu_torch.utils.testing import helmholtz_3d
+    c = check_bf16(lu, ctx, report=True)
+    checks.update(c)
+    for name, o in c.items():
+        print_check(name, o, launches[name])
+        print(f"{name}: summed distance from the bf16 plain version "
+              f"{o['dist']:.3e}, the FP32 pass's {o['fp32_dist']:.3e} "
+              f"(at most {BF16_FRACTION} of it)", flush=True)
+    precision_compare(ctx, "main path lap3d32", A, b, opts, lu)
+
+    Ah = helmholtz_3d(32).tocsc()
+    bh = rng.standard_normal(Ah.shape[0]) + \
+        1j * rng.standard_normal(Ah.shape[0])
+    os.environ["SLU_TPU_COMPLEX"] = "embed"
+    try:
+        res, lu_e, _ = drive(
+            ctx, "13 embedded complex64 helmholtz_3d(32) auto", Ah, bh,
+            Options(dtype="complex64", block_size=128), (
+                "clk_update_bf16", "clk_trsm_bf16", "diag_lu", "sweep"),
+            ("clk_update", "clk_trsm"))
+    finally:
+        del os.environ["SLU_TPU_COMPLEX"]
+    if not lu_e._embed or res.stat.counters["gemm_precision"] != "default":
+        fail("13 embedded complex64: not the embedded bf16-first factor")
+    del lu_e, res
+    escalation_phase(ctx, rng)
+
+
+def escalation_phase(ctx, rng):
+    """Phase 13, the escalation on the card: ``aniso2d(128)`` (n = 16,384,
+    anisotropy 1e-3), whose bf16 factor leaves refinement stalled (berr
+    4.6e-3 after two steps, on the CPU's plain versions). gssvx under "auto"
+    must escalate: ``precision_escalated`` 1, ``gemm_precision``
+    "highest", both passes' clk kernels launched, berr ≤ 1e-12; a
+    SamePattern_SameRowPerm refactor then factors at "highest" directly
+    (the sticky choice: the FP32 kernels only); and an explicit "bf16"
+    factor never escalates."""
+    from superlu_dist_tpu_torch import Fact, Options, SparseLU
+    from superlu_dist_tpu_torch.utils.testing import aniso2d
+    A = aniso2d(128).tocsc()
+    n = A.shape[0]
+    b = np.asarray(A @ np.random.default_rng(1).standard_normal(n))
+    opts = Options(dtype="float32", block_size=128)
+    res, lu, got = drive(ctx, "13 escalation aniso2d(128)", A, b, opts, (
+        "clk_update_bf16", "clk_trsm_bf16", "clk_update", "clk_trsm",
+        "diag_lu", "sweep"))
+    st = res.stat
+    print(f"13 escalation aniso2d(128): precision_escalated "
+          f"{st.counters.get('precision_escalated')}, gemm_precision "
+          f"{st.counters['gemm_precision']}, sticky {lu._prec_sticky}; "
+          f"FACT (both factors) {st.device_ms['FACT']:.3f} ms", flush=True)
+    if st.counters.get("precision_escalated") != 1 or \
+            st.counters["gemm_precision"] != "highest" or not lu._prec_sticky:
+        fail("13 escalation aniso2d(128): the stalled bf16 factor did not "
+             "escalate to a sticky \"highest\"")
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.05 * rng.standard_normal(A2.nnz))
+    b2 = np.asarray(A2 @ rng.standard_normal(n))
+    res, lu, _ = drive(ctx, "13 escalation aniso2d(128), SamePattern_"
+                       "SameRowPerm refactor", A2, b2, opts.replace(
+                           fact=Fact.SAME_PATTERN_SAME_ROWPERM),
+                       ("clk_update", "clk_trsm", "diag_lu", "sweep"),
+                       BF16_KERNELS, lu=lu)
+    if res.stat.counters["gemm_precision"] != "highest" or \
+            "precision_escalated" in res.stat.counters:
+        fail("13 escalation: the refactor did not start at \"highest\"")
+    del lu, res
+    lb = SparseLU(A, opts.replace(gemm_precision="bf16"), device="cuda")
+    x, berr = lb.refine(b, lb.solve(b))
+    print(f"13 explicit bf16 on aniso2d(128): berr {np.max(berr):.3e} after "
+          f"{lb.stat.refine_steps} steps, gemm_precision "
+          f"{lb.stat.counters['gemm_precision']}, escalated "
+          f"{lb.stat.counters.get('precision_escalated')}", flush=True)
+    if lb._gemm_prec_used != "default" or \
+            "precision_escalated" in lb.stat.counters:
+        fail("13 explicit bf16: escalated")
 
 
 if __name__ == "__main__":

@@ -80,6 +80,11 @@ class BatchedSparseLU:
     ``linv_b`` and ``uinv_b`` stack the members' factors on a leading axis
     of ``count``; ``row_scales``/``col_scales`` are (count, n)."""
 
+    #: the batch factors on the level executor's kernels at full
+    #: precision ("highest", whatever ``gemm_precision`` says, as the JAX
+    #: package's batch runs no fused kernel) and never escalates
+    _escalate_ok = False
+
     def __init__(self, As: Sequence[sp.spmatrix],
                  options: Optional[Options] = None, *, device=None):
         if not As:
@@ -138,6 +143,7 @@ class BatchedSparseLU:
         self.tiny = tiny.cpu().numpy()
         self.stat.tiny_pivots += int(self.tiny.sum())
         self.stat.counters["executor"] = "pallas"
+        self.stat.counters["gemm_precision"] = "highest"
         self.stat.counters["batch_count"] = self.count
         rdt = _TORCH[p.refine_dtype]
         prc = p.rowperm[p.colperm]

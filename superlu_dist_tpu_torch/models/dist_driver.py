@@ -109,8 +109,12 @@ class DistributedSparseLU(SparseLU):
     inverse tables."""
 
     #: the plan is kept as built, as the JAX package's distributed driver
-    #: does; alignment stays on and no precision escalation runs
+    #: does; alignment stays on
     _adapt_ok = False
+    #: no precision escalation runs: the grid's factor is FP32 (or the
+    #: working type), and reports "highest" (the JAX package's
+    #: dist_driver.py:202)
+    _escalate_ok = False
 
     def __init__(self, A, grid: Grid2D, options: Optional[Options] = None,
                  stat: Optional[Stats] = None, *, device=None):

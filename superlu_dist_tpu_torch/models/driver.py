@@ -16,9 +16,27 @@ Deliberate differences from the JAX package:
   (not an ``Options`` field). It defaults to ``cuda``; without CUDA the
   entry points raise unless the caller passes ``device="cpu"``, which
   runs every kernel's plain PyTorch version.
-- The kernels compute in IEEE FP32, so ``gemm_precision="auto"``
-  resolves to ``"highest"`` and the low-precision-first escalation of
-  the JAX package never fires.
+- The pass precision of the factor's products (``gemm_precision``)
+  resolves as the JAX package resolves it (:func:`_resolve_precision`):
+  ``"auto"`` factors bf16-first (``"default"``: one bf16 pass with
+  float32 accumulation, on the tensor cores) when refinement is
+  configured, and ``"highest"`` (IEEE FP32, or the working type) under
+  ``NOREFINE`` (ADVICE.md item 1, matched on purpose); ``"bf16"`` and
+  ``"default"`` force the low pass; ``"highest"`` opts out. If
+  refinement stalls above 1000·eps after a low-pass factor under
+  ``"auto"``, :meth:`SparseLU.refine` re-factors at ``"highest"``, counts
+  ``precision_escalated`` and keeps ``"highest"`` for later refactors.
+  ``"auto"`` arms the low pass only on CUDA, the counterpart of the JAX
+  package's Pallas path; on the CPU it resolves to ``"highest"``, as the
+  JAX package's CPU (XLA) path runs, and an explicit ``"bf16"`` runs the
+  plain versions' bf16 products. Only clk (and the ring-embedded
+  complex64 factor that runs it) has a low pass: the level executor,
+  float64 and native complex report ``"highest"``, as the JAX package's
+  non-fused executors do; tck and flk resolve ``"auto"`` to ``"highest"``
+  and refuse an explicit low pass (ROADMAP.md item 2b), where the JAX
+  package runs them bf16-first. The port reads no
+  ``SLU_TPU_CLK_GEMM_PRECISION``, so nothing overrides the precision the
+  counter reports (ADVICE.md item 3, diverged from on purpose).
 - Etree alignment stays on whatever the device, as the JAX package
   keeps it off the TPU, so both build the same plan.
 - The port serves ``float32``, ``float64``, ``complex64`` and
@@ -26,8 +44,7 @@ Deliberate differences from the JAX package:
   mode, the condition estimate, exact LU and ILU(k) plans
   (``ilu_level``), every executor name (clk, tck, flk, the level-by-level
   ``"pallas"`` and ``"xla"``) and the per-level factor profile
-  (:meth:`SparseLU.profile_levels`); ``gemm_precision`` below FP32 raises
-  ``NotImplementedError`` naming its ROADMAP.md item.
+  (:meth:`SparseLU.profile_levels`).
 - Complex runs natively: the pool holds ``complex64``/``complex128``
   blocks (torch's interleaved layout) and the level executor's kernels
   take them as their element type, where the JAX package runs planar
@@ -80,7 +97,9 @@ Deliberate differences from the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import types
 from typing import Optional
 
 import numpy as np
@@ -211,8 +230,46 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
                          f"{opts.dtype!r}")
     if opts.executor not in (None, "clk", "tck", "flk", "pallas", "xla"):
         raise ValueError(f"unknown executor {opts.executor!r}")
-    if (opts.gemm_precision or "auto") not in ("auto", "highest"):
-        todo(f"gemm_precision={opts.gemm_precision!r}", "queue 1 item 2")
+    exc = _executor(opts, opts.dtype == "complex64" and _embed_env())
+    if exc in ("tck", "flk") and \
+            _resolve_precision(opts, device, exc) == "default":
+        todo(f"gemm_precision={opts.gemm_precision!r} on {exc}",
+             "queue 1 item 2b")
+
+
+def _embed_env() -> bool:
+    """``SLU_TPU_COMPLEX=embed``: complex64 factors its real ring
+    embedding (read as the JAX package reads it)."""
+    return os.environ.get("SLU_TPU_COMPLEX", "") == "embed"
+
+
+def _auto_low_pass(device: torch.device) -> bool:
+    """Whether ``gemm_precision="auto"`` may arm the low pass on
+    ``device``: on CUDA, the counterpart of the JAX package's Pallas path
+    (its ``_use_pallas``); not on the CPU, whose plain versions stand for
+    the JAX package's CPU (XLA) path, which factors at full precision."""
+    return device.type == "cuda"
+
+
+def _resolve_precision(opts: Options, device: torch.device, executor: str,
+                       sticky: bool = False) -> str:
+    """The pass precision of the factor's products, in the JAX package's
+    strings (its driver.py:714-727, 781-795): "default" (one bf16 pass,
+    float32 accumulation) or "highest". "auto" is "default" when
+    refinement is configured, on a device where :func:`_auto_low_pass`
+    arms it, unless an escalation made "highest" ``sticky``; "bf16" and
+    "default" are "default"; anything else is "highest". Only clk takes
+    the low pass (tck and flk are item 2b: "auto" stays "highest" there);
+    the level executor (``"pallas"``: "xla", float64, native complex) is
+    always "highest"."""
+    if executor not in ("clk", "tck", "flk"):
+        return "highest"
+    req = opts.gemm_precision or "auto"
+    if req == "auto":
+        armed = (not sticky and opts.iter_refine != IterRefine.NOREFINE
+                 and _auto_low_pass(device))
+        return "default" if armed and executor == "clk" else "highest"
+    return "default" if req in ("bf16", "default") else "highest"
 
 
 #: the factor module of each executor (each has ``factor(pool, thresh,
@@ -490,9 +547,8 @@ class SparseLU:
         """complex64 through the real ring embedding when
         ``SLU_TPU_COMPLEX=embed`` (read as the JAX package reads it; its
         default off the TPU, and the port's, is native complex)."""
-        import os
-        return (self._embed_ok and self.dtype == np.complex64
-                and os.environ.get("SLU_TPU_COMPLEX", "") == "embed")
+        return self._embed_ok and self.dtype == np.complex64 and \
+            _embed_env()
 
     @property
     def _fdtype(self) -> np.dtype:
@@ -658,8 +714,10 @@ class SparseLU:
             pool = _blocklu.init_pool(plan, A3.data, self._fdtype,
                                       self.device)
         mod = _EXECUTORS[self.executor][0]
-        # FP32 kernels: "auto" resolves to "highest" (no escalation)
-        stat.counters["gemm_precision"] = "highest"
+        prec = self._prec_override or _resolve_precision(
+            self.options, self.device, self.executor, self._prec_sticky)
+        self._gemm_prec_used = prec
+        stat.counters["gemm_precision"] = prec
         stat.counters["executor"] = self.executor
         if self.executor == "clk":
             stat.counters["clk_jobs"] = len(self._ftapes.host["job_src"])
@@ -669,11 +727,48 @@ class SparseLU:
             c = self._ftapes.host["counts"]
             stat.counters["tck_jobs"] = (c["gemm"] + c["finu"] + c["diag"]
                                          + c["trsm"] + 2 * c["tiles"])
+        # only clk has a low pass (the others resolve to "highest")
+        kw = {"precision": prec} if self.executor == "clk" else {}
         with stat.phase("FACT"):
             pool, linv, uinv, tiny = mod.factor(pool, self._thresh(),
-                                                self._ftapes, plan.nb)
+                                                self._ftapes, plan.nb, **kw)
         self.pool, self.linv, self.uinv = pool, linv, uinv
         stat.tiny_pivots += int(tiny.item())
+
+    #: the pass precision of the live factor ("highest" for a factor this
+    #: instance did not compute, such as a restored state)
+    _gemm_prec_used = "highest"
+    #: set by an escalation: "auto" then resolves to "highest" for good
+    _prec_sticky = False
+    #: the precision an escalation's re-factor forces
+    _prec_override = None
+    #: the drivers that re-run their factor from stored values at another
+    #: precision (the distributed one does not, as in the JAX package)
+    _escalate_ok = True
+
+    def _should_escalate(self, berr) -> bool:
+        """True when a low-pass factor under "auto" left refinement
+        stalled above 1000·eps of the residual dtype (the JAX package's
+        ``_should_escalate``, driver.py:1547-1559 there: psgssvx_d2's
+        escalate-one-precision policy)."""
+        if not self._escalate_ok:
+            return False
+        if (self.options.gemm_precision or "auto") != "auto":
+            return False
+        if self._gemm_prec_used != "default":
+            return False
+        eps = float(np.finfo(self.refine_dtype).eps)
+        return bool(np.max(berr) > 1000.0 * eps)
+
+    def _refactor_values(self, precision: str) -> None:
+        """Re-run the numeric factor on the stored input values with the
+        products forced to ``precision`` (same plan, permutations and
+        tapes); its time falls under FACT."""
+        self._prec_override = precision
+        try:
+            self._device_factor(types.SimpleNamespace(data=self._a3_data))
+        finally:
+            self._prec_override = None
 
     def refactor(self, A_new, fact: Fact = Fact.SAME_PATTERN_SAME_ROWPERM
                  ) -> "SparseLU":
@@ -854,10 +949,30 @@ class SparseLU:
         return int(self._A_orig.getnnz(axis=1).max())
 
     def refine(self, b, x0, trans=Trans.NOTRANS):
+        """Iterative refinement with the JAX package's precision
+        escalation (its driver.py:1561-1573, psgssvx_d2's pattern): when a
+        low-pass factor under ``gemm_precision="auto"`` leaves refinement
+        stalled above 1000·eps (:meth:`_should_escalate`), the factor is
+        re-run at ``"highest"`` on the stored input values (timed under
+        FACT), ``"highest"`` stays for later refactors, the counter
+        ``precision_escalated`` is set, and refinement runs again from the
+        stalled x. An explicit ``"bf16"`` never escalates. The port reads
+        no ``SLU_TPU_CLK_GEMM_PRECISION``, so the re-factor runs at the
+        precision the counter reports (ADVICE.md item 3, where the JAX
+        package lets that variable override it). Returns (x, berr) as
+        numpy arrays."""
+        x, berr = self._refine_impl(b, x0, trans)
+        if self._should_escalate(berr):
+            self.stat.counters["precision_escalated"] = 1
+            self._prec_sticky = True     # refactors skip the low pass
+            self._refactor_values("highest")
+            x, berr = self._refine_impl(b, x, trans)
+        return x, berr
+
+    def _refine_impl(self, b, x0, trans=Trans.NOTRANS):
         """Iterative refinement, the ``pdgsrfs`` analog (pdgsrfs.c:
-        129-251), with residuals in ``refine_dtype`` on the device. The FP32
-        factor is never re-run at another precision. Returns (x, berr) as
-        numpy arrays.
+        129-251), with residuals in ``refine_dtype`` on the device.
+        Returns (x, berr) as numpy arrays.
 
         NOTRANS keeps the JAX package's fused loop exactly: the first step
         always runs; after it, refinement goes on while some berr > eps,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -160,6 +161,26 @@ def ptxas_report(kernel: CudaKernel) -> str:
         if done.returncode == 0:
             text = done.stdout
     return text
+
+
+def sass(so: str) -> dict:
+    """The instructions of each kernel in the library ``so``, by name
+    (anonymous-namespace tags cut), addresses and encodings cut, as
+    ``cuobjdump -sass`` prints them; {} where the toolkit has no
+    ``cuobjdump``."""
+    cob = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(cob):
+        return {}
+    out = subprocess.run([cob, "-sass", so], capture_output=True,
+                         text=True).stdout
+    fns = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name, body = part.split("\n", 1)
+        fns[re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", name.strip())] = [
+            re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split(";")[0].strip()
+            for line in body.splitlines()
+            if re.search(r"/\*[0-9a-f]{4}\*/", line)]
+    return fns
 
 
 def ptr(t) -> ctypes.c_void_p:

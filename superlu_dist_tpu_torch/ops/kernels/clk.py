@@ -28,6 +28,20 @@ the wave subtracts that wave's products in ascending j and, if its sum is
 complete, is finalized. A target's sum therefore runs by source wave,
 then ascending j, where ``clk_update_plain`` (the reference, the JAX
 kernel's order) runs by ascending j.
+
+``precision`` is the pass precision of the update's and the TRSM's
+products (the JAX package's ``gemm_precision`` as the driver resolves
+it): ``"highest"`` runs them in IEEE FP32 (``slu_clk_waves_f32``,
+``slu_clk_trsm_f32``); ``"default"`` in one bf16 pass with float32
+accumulation, as the TPU kernel's ``dot`` at precision ``"default"``
+(clk.py:257-259 there), on the tensor cores (``slu_clk_waves_bf16``,
+``slu_clk_trsm_bf16``, counted on ``UPDATE_BF16`` and ``TRSM_BF16``). It
+rounds exactly the operands the TPU kernel rounds: linv and the U strip
+in the finalize, L and the finalized U in the update, L and uinv in the
+TRSM; the sums and the pool stay float32, and ``diag_lu`` is always full
+precision. The plain versions round the same operands to bf16 (nearest
+even) and multiply in float32, exactly, so they differ from the kernels
+only in the order of the sums.
 """
 
 from __future__ import annotations
@@ -43,7 +57,7 @@ from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
 from .flk import FIN_NONE, FIN_U
-from .schur import trsm_plain
+from .schur import check_precision, matmul_at, trsm_plain
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +65,16 @@ UPDATE = CudaKernel("clk_update", "clk.cu", {
     "slu_clk_waves_f32": [_V] * 9 + [_I, _I, _V]})
 TRSM = CudaKernel("clk_trsm", "clk.cu", {
     "slu_clk_trsm_f32": [_V, _V, _V, _V, _I, _I, _V]})
+#: the same kernels' bf16 pass (precision "default"), counted apart
+UPDATE_BF16 = CudaKernel("clk_update_bf16", "clk.cu", {
+    "slu_clk_waves_bf16": [_V] * 9 + [_I, _I, _V]})
+TRSM_BF16 = CudaKernel("clk_trsm_bf16", "clk.cu", {
+    "slu_clk_trsm_bf16": [_V, _V, _V, _V, _I, _I, _V]})
+#: the kernel and the C entry of each pass
+_UPDATE = {"highest": (UPDATE, "slu_clk_waves_f32"),
+           "default": (UPDATE_BF16, "slu_clk_waves_bf16")}
+_TRSM = {"highest": (TRSM, "slu_clk_trsm_f32"),
+         "default": (TRSM_BF16, "slu_clk_trsm_bf16")}
 
 
 @dataclasses.dataclass
@@ -217,31 +241,38 @@ def _waves(h, nlvl, lev, job_col, d_job, d_l, pos, nslots):
 # ---------------------------------------------------------------------------
 
 
-def clk_update_plain(pool, linv, tp: ClkTapes, level: int) -> None:
+def clk_update_plain(pool, linv, tp: ClkTapes, level: int,
+                     precision: str = "highest") -> None:
     """Plain version of :func:`clk_update`, in the reference order: per
     column, each U(j,k) in ascending j is finalized and then multiplies
     every L block of column j."""
+    check_precision(precision)
     h = tp.host
     dev = pool.device
     for k in h["ucols"][tp.uptr[level]:tp.uptr[level + 1]]:
         base, q0 = int(h["col_base"][k]), int(h["col_job0"][k])
         for t in range(int(h["col_dpos"][k])):
             q = q0 + t
-            U = linv[int(h["job_src"][q])] @ pool[base + t]
+            U = matmul_at(linv[int(h["job_src"][q])], pool[base + t],
+                          precision)
             pool[base + t] = U
             lm, a0 = int(h["job_lm"][q]), int(h["job_la0"][q])
             if lm:
                 d0 = int(h["job_dst0"][q])
                 tgt = torch.as_tensor(h["dst"][d0:d0 + lm], device=dev)
-                pool.index_add_(0, tgt, pool[a0:a0 + lm] @ U, alpha=-1)
+                pool.index_add_(0, tgt,
+                                matmul_at(pool[a0:a0 + lm], U, precision),
+                                alpha=-1)
 
 
-def clk_update_waves_plain(pool, linv, tp: ClkTapes, level: int) -> None:
+def clk_update_waves_plain(pool, linv, tp: ClkTapes, level: int,
+                           precision: str = "highest") -> None:
     """:func:`clk_update` by the wave tapes, in the kernel's order: per
     wave, every target subtracts its products in list order, then the
     FIN_U targets are finalized. It checks the tapes on the CPU, and is
     the plain version of tck's phase A (``tck.tck_waves_plain``) on tck's
     wave tapes."""
+    check_precision(precision)
     h = tp.host
     dev = pool.device
     for w in range(int(tp.lwave[level]), int(tp.lwave[level + 1])):
@@ -254,33 +285,38 @@ def clk_update_waves_plain(pool, linv, tp: ClkTapes, level: int) -> None:
             L = pool[torch.as_tensor(h["cl"][p0:p1], device=dev)]
             U = pool[torch.as_tensor(h["cu"][p0:p1], device=dev)]
             T.index_add_(0, torch.as_tensor(row, device=dev),
-                         torch.matmul(L, U), alpha=-1)
+                         matmul_at(L, U, precision), alpha=-1)
         fin = torch.as_tensor(h["tfin"][t0:t1] == FIN_U, device=dev)
         if bool(fin.any()):
             st = torch.as_tensor(h["tstep"][t0:t1], device=dev)[fin]
-            T[fin] = torch.matmul(linv[st], T[fin])
+            T[fin] = matmul_at(linv[st], T[fin], precision)
         pool[ts] = T
 
 
-def clk_update(pool, linv, tp: ClkTapes, level: int) -> None:
-    """Left-looking update of the columns of ``level`` (in place)."""
+def clk_update(pool, linv, tp: ClkTapes, level: int,
+               precision: str = "highest") -> None:
+    """Left-looking update of the columns of ``level`` (in place), its
+    products at ``precision``."""
+    check_precision(precision)
     if pool.device.type == "cpu":
-        return clk_update_plain(pool, linv, tp, level)
+        return clk_update_plain(pool, linv, tp, level, precision)
     _check_cuda(pool, linv, pool.shape[-1])
-    _launch_update(pool, linv, tp, level)
+    _launch_update(pool, linv, tp, level, precision)
 
 
-def _launch_update(pool, linv, tp: ClkTapes, level: int) -> None:
-    """One launch per wave of ``level``, issued by the C entry from the
-    host array ``wptr``."""
+def _launch_update(pool, linv, tp: ClkTapes, level: int,
+                   precision: str = "highest") -> None:
+    """One launch per wave of ``level``, issued by the C entry of
+    ``precision``'s pass from the host array ``wptr``."""
     w0, w1 = int(tp.lwave[level]), int(tp.lwave[level + 1])
     if w1 == w0:
         return
-    UPDATE.launches += w1 - w0
-    UPDATE.call("slu_clk_waves_f32", ptr(pool), ptr(linv), ptr(tp.tslot),
-                ptr(tp.tstep), ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl),
-                ptr(tp.cu), ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0),
-                w1 - w0, pool.shape[-1], stream_ptr(pool.device))
+    kernel, fn = _UPDATE[precision]
+    kernel.count(fn, w1 - w0)
+    kernel.call(fn, ptr(pool), ptr(linv), ptr(tp.tslot), ptr(tp.tstep),
+                ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl), ptr(tp.cu),
+                ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0), w1 - w0,
+                pool.shape[-1], stream_ptr(pool.device))
 
 
 # ---------------------------------------------------------------------------
@@ -288,28 +324,35 @@ def _launch_update(pool, linv, tp: ClkTapes, level: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def clk_trsm_plain(pool, uinv, tp: ClkTapes, level: int) -> None:
+def clk_trsm_plain(pool, uinv, tp: ClkTapes, level: int,
+                   precision: str = "highest") -> None:
     """Plain version of :func:`clk_trsm`."""
     lo, hi = int(tp.lptr[level]), int(tp.lptr[level + 1])
-    trsm_plain(pool, uinv, tp.lslot[lo:hi], tp.lstep[lo:hi], left=False)
+    trsm_plain(pool, uinv, tp.lslot[lo:hi], tp.lstep[lo:hi], left=False,
+               precision=precision)
 
 
-def clk_trsm(pool, uinv, tp: ClkTapes, level: int) -> None:
-    """L(i,k) ← L(i,k)·uinv(k) for the L blocks of ``level`` (in place)."""
+def clk_trsm(pool, uinv, tp: ClkTapes, level: int,
+             precision: str = "highest") -> None:
+    """L(i,k) ← L(i,k)·uinv(k) for the L blocks of ``level`` (in place),
+    the products at ``precision``."""
+    check_precision(precision)
     if pool.device.type == "cpu":
-        return clk_trsm_plain(pool, uinv, tp, level)
+        return clk_trsm_plain(pool, uinv, tp, level, precision)
     _check_cuda(pool, uinv, pool.shape[-1])
-    _launch_trsm(pool, uinv, tp, level)
+    _launch_trsm(pool, uinv, tp, level, precision)
 
 
-def _launch_trsm(pool, uinv, tp: ClkTapes, level: int) -> None:
+def _launch_trsm(pool, uinv, tp: ClkTapes, level: int,
+                 precision: str = "highest") -> None:
     lo, hi = int(tp.lptr[level]), int(tp.lptr[level + 1])
     if hi == lo:
         return
-    TRSM.launches += 1
-    TRSM.call("slu_clk_trsm_f32", ptr(pool), ptr(uinv),
-              ptr(tp.lslot[lo:hi]), ptr(tp.lstep[lo:hi]), hi - lo,
-              pool.shape[-1], stream_ptr(pool.device))
+    kernel, fn = _TRSM[precision]
+    kernel.count(fn)
+    kernel.call(fn, ptr(pool), ptr(uinv), ptr(tp.lslot[lo:hi]),
+                ptr(tp.lstep[lo:hi]), hi - lo, pool.shape[-1],
+                stream_ptr(pool.device))
 
 
 def _check_cuda(pool, inv, bs):
@@ -330,21 +373,24 @@ def _check_cuda(pool, inv, bs):
 
 
 def factor_level(pool, linv, uinv, tiny, thresh, tp: ClkTapes,
-                 level: int) -> None:
-    """The three phases of one elimination level."""
+                 level: int, precision: str = "highest") -> None:
+    """The three phases of one elimination level; the update's and the
+    TRSM's products at ``precision``, diag_lu in full precision."""
     lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
-    clk_update(pool, linv, tp, level)
+    clk_update(pool, linv, tp, level, precision)
     diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi], thresh, tiny)
-    clk_trsm(pool, uinv, tp, level)
+    clk_trsm(pool, uinv, tp, level, precision)
 
 
-def factor(pool, thresh: float, tp: ClkTapes, nb: int):
-    """Factor ``pool`` in place. Returns (pool, linv, uinv, tiny) with
-    linv/uinv of shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
+def factor(pool, thresh: float, tp: ClkTapes, nb: int,
+           precision: str = "highest"):
+    """Factor ``pool`` in place, the products at ``precision`` (see the
+    module docstring). Returns (pool, linv, uinv, tiny) with linv/uinv of
+    shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
     bs = pool.shape[-1]
     linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
     uinv = torch.zeros_like(linv)
     tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
     for level in range(tp.nlvl):
-        factor_level(pool, linv, uinv, tiny, thresh, tp, level)
+        factor_level(pool, linv, uinv, tiny, thresh, tp, level, precision)
     return pool, linv, uinv, tiny

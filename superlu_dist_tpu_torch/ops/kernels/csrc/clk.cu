@@ -36,6 +36,15 @@
 // and the inverse streamed through a cp.async ring, the band written back
 // in place once all of it has been read. Offsets are computed in 64 bits
 // (slot * bs^2 passes 2^31 near n = 885k).
+//
+// The _bf16 entries are the low pass of gemm_precision "default" (the TPU
+// kernel's dot() at precision "default", clk.py:257-259 there: the U
+// finalize, the pair GEMM and the L-part TRSM in one bf16 pass with
+// float32 accumulation): the same kernels with their BF16 flag set, the
+// products on the tensor cores (mma.cuh). Bounded by the same operations
+// at the bf16 tensor-core peak (989 TFLOP/s dense), about a fifteenth of
+// the FP32 bound; this first version builds its fragments from the
+// float32 chunks with scalar shared-memory loads, which bound it instead.
 
 #include "panel.cuh"
 #include "waves.cuh"
@@ -60,6 +69,17 @@ extern "C" int slu_clk_waves_f32(void* pool, const void* linv,
                                   cu, wptr, nwaves, bs, stream);
 }
 
+// slu_clk_waves_f32 in the bf16 pass.
+extern "C" int slu_clk_waves_bf16(void* pool, const void* linv,
+                                  const void* tslot, const void* tstep,
+                                  const void* tfin, const void* pptr,
+                                  const void* cl, const void* cu,
+                                  const void* wptr, int nwaves, int bs,
+                                  void* stream) {
+  return slu_waves::waves_f32<TN, true>(pool, linv, tslot, tstep, tfin, pptr,
+                                        cl, cu, wptr, nwaves, bs, stream);
+}
+
 // L(i,k) <- L(i,k) . uinv(k) over the level's L blocks: the same function
 // as schur.cu's trsm with left = 0, launched and counted apart.
 extern "C" int slu_clk_trsm_f32(void* pool, const void* uinv,
@@ -67,4 +87,12 @@ extern "C" int slu_clk_trsm_f32(void* pool, const void* uinv,
                                 int count, int bs, void* stream) {
   return slu_panel::trsm<float>(pool, uinv, lslots, lsteps, count, bs, 0,
                                 stream);
+}
+
+// slu_clk_trsm_f32 in the bf16 pass.
+extern "C" int slu_clk_trsm_bf16(void* pool, const void* uinv,
+                                 const void* lslots, const void* lsteps,
+                                 int count, int bs, void* stream) {
+  return slu_panel::trsm<float, true>(pool, uinv, lslots, lsteps, count, bs,
+                                      0, stream);
 }

@@ -48,6 +48,16 @@
 // 4 x 4 tiles run 512 threads, which may hold only 128 registers each.
 //
 // Offsets are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
+//
+// The bf16 pass (BF16 = true, float and X <- X . D only: clk's L-part
+// TRSM at gemm_precision "default"): the same ring and band ownership,
+// the product on the tensor cores through mma.cuh's m16n8k16 bf16 tiles
+// with float32 accumulation. Each warp owns 2 x 4 tiles of 16 x 8 of the
+// band (1 x 4 in bands of 16), the same outputs per thread as the FP32
+// tile; the staged rows of B are N + 4 floats apart, so that a B
+// fragment's four k rows fall in distinct banks. BF16 = false compiles to
+// the kernels above, unchanged; schur.cu's trsm and trsm_batch and
+// rdma.cu's panels keep full precision, as the JAX package's do.
 
 #pragma once
 
@@ -55,6 +65,7 @@
 #include <stdint.h>
 
 #include "cplx.cuh"
+#include "mma.cuh"
 
 namespace slu_panel {
 
@@ -169,10 +180,10 @@ struct Panel {
 
 // Stage chunk k0 of a product out = A . B into `st`: columns k0 .. k0+KC
 // of A (element (r, k) at Ag[r * BS + k], r < M; rows padded to LDA) and
-// rows k0 .. k0+KC of B (element (k, q) at Bg[k * BS + q], q < N). A null
-// operand is not staged (it is read from elsewhere). Every thread of the
-// CTA issues its copies.
-template <class P, typename T>
+// rows k0 .. k0+KC of B (element (k, q) at Bg[k * BS + q], q < N; staged
+// rows LDB elements apart). A null operand is not staged (it is read from
+// elsewhere). Every thread of the CTA issues its copies.
+template <class P, int LDB = P::N, typename T>
 __device__ __forceinline__ void stage_chunk(T* st, const T* Ag, const T* Bg,
                                             int k0) {
   constexpr int W = P::W, KC = P::KC, M = P::M, N = P::N, NT = P::NT;
@@ -186,7 +197,7 @@ __device__ __forceinline__ void stage_chunk(T* st, const T* Ag, const T* Bg,
     T* bs = st + P::kA;
     for (int e = tid; e < KC * (N / W); e += NT) {
       const int r = e / (N / W), q = (e % (N / W)) * W;
-      cp_async16(bs + r * N + q, Bg + (int64_t)(k0 + r) * P::BSZ + q);
+      cp_async16(bs + r * LDB + q, Bg + (int64_t)(k0 + r) * P::BSZ + q);
     }
   }
 }
@@ -278,37 +289,110 @@ __device__ __forceinline__ void band_product(T* ring, const T* Ag,
   }
 }
 
+// The bf16 pass's geometry of a float Panel P: a warp's WM x WN tiles of
+// 16 x 8, WC warps along a row of the band, the staged rows of B LDB
+// floats apart (4 mod 16: distinct banks for a B fragment's k rows).
+template <class P>
+struct PanelMma {
+  static constexpr int LDB = P::N + 4;
+  static constexpr int kStage = P::kA + P::KC * LDB;
+  static constexpr size_t kBytes = (size_t)P::STAGES * kStage * sizeof(float);
+  static constexpr int WM = P::TW == 8 ? 2 : 1;   // m16 tiles of a warp
+  static constexpr int WN = P::TW / WM;           // n8 tiles of a warp
+  static constexpr int WC = P::N / (8 * WN);      // warps along a row
+  static_assert(WC >= 1 && WC * (P::M / (16 * WM)) * 32 == P::NT &&
+                    P::KC % 16 == 0,
+                "one warp per 16 WM x 8 WN tile of the band");
+  static_assert(kBytes <= 113 * 1024, "shared memory: two CTAs per SM");
+};
+
+// acc = A . B for one band in the bf16 pass: band_product's ring and
+// order, this warp's tiles at rows r0 + 16 i, columns c0 + 8 j.
+template <class P>
+__device__ __forceinline__ void band_product_mma(
+    float* ring, const float* Ag, const float* Bg, int r0, int c0,
+    float (&acc)[PanelMma<P>::WM][PanelMma<P>::WN][4]) {
+  using Q = PanelMma<P>;
+  constexpr int ST = P::STAGES;
+  constexpr int NK = P::BSZ / P::KC;   // stages per product
+#pragma unroll
+  for (int c = 0; c < ST - 1; ++c) {
+    if (c < NK)
+      stage_chunk<P, Q::LDB>(ring + c * Q::kStage, Ag, Bg, c * P::KC);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < Q::WM; ++i)
+#pragma unroll
+    for (int j = 0; j < Q::WN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int c = 0; c < NK; ++c) {
+    cp_async_wait<ST - 2>();   // chunk c has landed
+    __syncthreads();           // ... for every thread; stage c-1 is free
+    if (c + ST - 1 < NK)
+      stage_chunk<P, Q::LDB>(ring + ((c + ST - 1) % ST) * Q::kStage, Ag, Bg,
+                             (c + ST - 1) * P::KC);
+    cp_async_commit();
+    const float* A = ring + (c % ST) * Q::kStage;
+    slu_mma::mma_chunk<P::KC, P::LDA, Q::LDB, Q::WM, Q::WN>(A, A + P::kA, r0,
+                                                            c0, acc);
+  }
+}
+
 // One CTA's band of panel slots[blockIdx.x]: X <- X . D (LEFT false) or
-// D . X (LEFT true), the band blockIdx.y.
-template <typename T, int BS, bool LEFT, int BM, int TN>
+// D . X (LEFT true), the band blockIdx.y; with BF16, the bf16 pass.
+template <typename T, int BS, bool LEFT, int BM, int TN, bool BF16 = false>
 __device__ __forceinline__ void band_inverse(T* pool,
                                              const T* __restrict__ dinv,
                                              const int32_t* __restrict__ slots,
                                              const int32_t* __restrict__ steps) {
   using P = Panel<T, BS, LEFT, BM, TN>;
   extern __shared__ float4 smem4[];
-  const int g = threadIdx.x / P::CT;
-  const int c0 = (threadIdx.x % P::CT) * P::W;
-  const int64_t bb = (int64_t)BS * BS;
-  const int64_t band = blockIdx.y;
-  // element (r, q) of the band is X[r * BS + q]
-  T* X = pool + (int64_t)slots[blockIdx.x] * bb +
-         (LEFT ? band * BM : band * BM * BS);
-  const T* D = dinv + (int64_t)steps[blockIdx.x] * bb;
-  T acc[4][TN];
-  band_product<P>(reinterpret_cast<T*>(smem4), LEFT ? D : X, LEFT ? X : D,
-                  g, c0, acc);
-  // every read of the band was a copy that has landed (the last wait);
-  // only now is it written
-  store_tile<P, BS>(X, g, c0, acc);
+  if constexpr (BF16) {
+    static_assert(sizeof(T) == sizeof(float), "the bf16 pass is float's");
+    using Q = PanelMma<P>;
+    const int warp = threadIdx.x >> 5;
+    const int r0 = (warp / Q::WC) * 16 * Q::WM;
+    const int c0 = (warp % Q::WC) * 8 * Q::WN;
+    const int64_t bb = (int64_t)BS * BS;
+    const int64_t band = blockIdx.y;
+    T* X = pool + (int64_t)slots[blockIdx.x] * bb +
+           (LEFT ? band * BM : band * BM * BS);
+    const T* D = dinv + (int64_t)steps[blockIdx.x] * bb;
+    float acc[Q::WM][Q::WN][4];
+    band_product_mma<P>(reinterpret_cast<float*>(smem4), LEFT ? D : X,
+                        LEFT ? X : D, r0, c0, acc);
+    // as below: the band is written only after its last copy landed
+#pragma unroll
+    for (int i = 0; i < Q::WM; ++i)
+#pragma unroll
+      for (int j = 0; j < Q::WN; ++j)
+        slu_mma::store_c<BS>(X, r0 + 16 * i, c0 + 8 * j, acc[i][j]);
+  } else {
+    const int g = threadIdx.x / P::CT;
+    const int c0 = (threadIdx.x % P::CT) * P::W;
+    const int64_t bb = (int64_t)BS * BS;
+    const int64_t band = blockIdx.y;
+    // element (r, q) of the band is X[r * BS + q]
+    T* X = pool + (int64_t)slots[blockIdx.x] * bb +
+           (LEFT ? band * BM : band * BM * BS);
+    const T* D = dinv + (int64_t)steps[blockIdx.x] * bb;
+    T acc[4][TN];
+    band_product<P>(reinterpret_cast<T*>(smem4), LEFT ? D : X,
+                    LEFT ? X : D, g, c0, acc);
+    // every read of the band was a copy that has landed (the last wait);
+    // only now is it written
+    store_tile<P, BS>(X, g, c0, acc);
+  }
 }
 
-template <typename T, int BS, bool LEFT, int BM, int TN>
+template <typename T, int BS, bool LEFT, int BM, int TN, bool BF16 = false>
 __global__ void __launch_bounds__(Panel<T, BS, LEFT, BM, TN>::NT)
 band_times_inverse(T* pool, const T* __restrict__ dinv,
                    const int32_t* __restrict__ slots,
                    const int32_t* __restrict__ steps) {
-  band_inverse<T, BS, LEFT, BM, TN>(pool, dinv, slots, steps);
+  band_inverse<T, BS, LEFT, BM, TN, BF16>(pool, dinv, slots, steps);
 }
 
 // The same over the members of a stacked pool: member blockIdx.z's pool and
@@ -331,12 +415,23 @@ struct Members {
   int64_t pool_stride = 0, inv_stride = 0;
 };
 
-template <typename T, int BS, bool LEFT, int BM, int TN>
+template <typename T, int BS, bool LEFT, int BM, int TN, bool BF16 = false>
 int launch_bm(void* pool, const void* dinv, const void* slots,
               const void* steps, int count, cudaStream_t stream,
               const Members& mb) {
   using P = Panel<T, BS, LEFT, BM, TN>;
-  if (mb.count == 0) {
+  if constexpr (BF16) {
+    if (mb.count != 0) return (int)cudaErrorInvalidValue;
+    constexpr size_t bytes = PanelMma<P>::kBytes;
+    const cudaError_t e = cudaFuncSetAttribute(
+        band_times_inverse<T, BS, LEFT, BM, TN, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    band_times_inverse<T, BS, LEFT, BM, TN, true>
+        <<<dim3((unsigned)count, BS / BM), P::NT, bytes, stream>>>(
+            (T*)pool, (const T*)dinv, (const int32_t*)slots,
+            (const int32_t*)steps);
+  } else if (mb.count == 0) {
     const cudaError_t e = cudaFuncSetAttribute(
         band_times_inverse<T, BS, LEFT, BM, TN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
@@ -376,8 +471,9 @@ inline int sm_count() {
 // products is then a quarter (bs = 128) as long. complex128 always takes
 // bands of 16 with 4 x 4 tiles (the header says why).
 // The geometry is chosen from `count`, the panels of one member, so a
-// member of a batched launch runs the unbatched launch's geometry.
-template <typename T, int BS, bool LEFT>
+// member of a batched launch runs the unbatched launch's geometry (and the
+// bf16 pass the FP32 pass's).
+template <typename T, int BS, bool LEFT, bool BF16 = false>
 int launch_bs(void* pool, const void* dinv, const void* slots,
               const void* steps, int count, cudaStream_t stream,
               const Members& mb) {
@@ -385,28 +481,28 @@ int launch_bs(void* pool, const void* dinv, const void* slots,
     return launch_bm<T, BS, LEFT, 16, 4>(pool, dinv, slots, steps, count,
                                          stream, mb);
   } else if constexpr (BS < 64) {
-    return launch_bm<T, BS, LEFT, BS, 8>(pool, dinv, slots, steps, count,
-                                         stream, mb);
+    return launch_bm<T, BS, LEFT, BS, 8, BF16>(pool, dinv, slots, steps,
+                                               count, stream, mb);
   } else {
     if ((int64_t)count * (BS / 64) < sm_count())
-      return launch_bm<T, BS, LEFT, 16, 4>(pool, dinv, slots, steps, count,
-                                           stream, mb);
-    return launch_bm<T, BS, LEFT, 64, 8>(pool, dinv, slots, steps, count,
-                                         stream, mb);
+      return launch_bm<T, BS, LEFT, 16, 4, BF16>(pool, dinv, slots, steps,
+                                                 count, stream, mb);
+    return launch_bm<T, BS, LEFT, 64, 8, BF16>(pool, dinv, slots, steps,
+                                               count, stream, mb);
   }
 }
 
-template <typename T, bool LEFT>
+template <typename T, bool LEFT, bool BF16 = false>
 int launch_left(void* pool, const void* dinv, const void* slots,
                 const void* steps, int count, int bs, cudaStream_t stream,
                 const Members& mb) {
   switch (bs) {
-    case 32: return launch_bs<T, 32, LEFT>(pool, dinv, slots, steps, count,
-                                           stream, mb);
-    case 64: return launch_bs<T, 64, LEFT>(pool, dinv, slots, steps, count,
-                                           stream, mb);
-    case 128: return launch_bs<T, 128, LEFT>(pool, dinv, slots, steps,
-                                             count, stream, mb);
+    case 32: return launch_bs<T, 32, LEFT, BF16>(pool, dinv, slots, steps,
+                                                 count, stream, mb);
+    case 64: return launch_bs<T, 64, LEFT, BF16>(pool, dinv, slots, steps,
+                                                 count, stream, mb);
+    case 128: return launch_bs<T, 128, LEFT, BF16>(pool, dinv, slots, steps,
+                                                   count, stream, mb);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -415,17 +511,24 @@ int launch_left(void* pool, const void* dinv, const void* slots,
 // X <- X . dinv[step] (left = 0) or dinv[step] . X (left != 0). Returns
 // the cudaError_t of the launch (a refused launch never runs). With
 // mb.count > 0 the same over mb.count members of a stacked pool
-// (gridDim.z, at most 65,535).
-template <typename T>
+// (gridDim.z, at most 65,535). BF16 runs the bf16 pass, which serves
+// left = 0 without members alone (clk's L panels).
+template <typename T, bool BF16 = false>
 int trsm(void* pool, const void* dinv, const void* slots, const void* steps,
          int count, int bs, int left, void* stream, const Members& mb = {}) {
   if (mb.count < 0 || mb.count > 65535) return (int)cudaErrorInvalidValue;
   if (count == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  return left ? launch_left<T, true>(pool, dinv, slots, steps, count, bs, s,
-                                     mb)
-              : launch_left<T, false>(pool, dinv, slots, steps, count, bs, s,
-                                      mb);
+  if constexpr (BF16) {
+    if (left || mb.count != 0) return (int)cudaErrorInvalidValue;
+    return launch_left<T, false, true>(pool, dinv, slots, steps, count, bs,
+                                       s, mb);
+  } else {
+    return left ? launch_left<T, true>(pool, dinv, slots, steps, count, bs,
+                                       s, mb)
+                : launch_left<T, false>(pool, dinv, slots, steps, count, bs,
+                                        s, mb);
+  }
 }
 
 }  // namespace slu_panel

@@ -129,11 +129,45 @@ def build_level_tapes(plan: SymbolicPlan, device) -> LevelTapes:
 # ---------------------------------------------------------------------------
 
 
-def trsm_plain(pool, dinv, slots, steps, left: bool) -> None:
-    """Plain version of :func:`trsm`."""
+#: the pass precisions of the products (the JAX package's
+#: ``precision`` values): "highest" in the working type; "default" one
+#: bf16 pass with float32 accumulation (float32 only: clk's low pass)
+PRECISIONS = ("highest", "default")
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, not "
+                         f"{precision!r}")
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), back in its float type."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def matmul_at(a: torch.Tensor, b: torch.Tensor,
+              precision: str = "highest") -> torch.Tensor:
+    """a @ b at ``precision``: at "default" both operands are rounded to
+    bf16 and multiplied in float32, where each product of two bf16 values
+    is exact, as a tensor core's bf16 pass with float32 accumulation
+    computes it up to the order of the sums (TF32 stays off)."""
+    if precision == "default":
+        if a.dtype != torch.float32 or b.dtype != torch.float32:
+            raise ValueError("the bf16 pass takes float32 operands")
+        return _bf16(a) @ _bf16(b)
+    return a @ b
+
+
+def trsm_plain(pool, dinv, slots, steps, left: bool,
+               precision: str = "highest") -> None:
+    """Plain version of :func:`trsm` (and of ``clk.clk_trsm``, whose
+    products may run at ``precision``)."""
+    check_precision(precision)
     if len(slots):
         s, k = slots.long(), steps.long()
-        pool[s] = dinv[k] @ pool[s] if left else pool[s] @ dinv[k]
+        pool[s] = (matmul_at(dinv[k], pool[s], precision) if left
+                   else matmul_at(pool[s], dinv[k], precision))
 
 
 def trsm(pool, dinv, slots, steps, left: bool) -> None:

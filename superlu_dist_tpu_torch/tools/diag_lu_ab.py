@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import re
 import subprocess
 import sys
 
@@ -43,23 +42,6 @@ def _build_lib(src: str, tag: str):
                                               ctypes.c_void_p, ctypes.c_void_p]
         f.restype = ctypes.c_int
     return lib, so
-
-
-def _sass(so: str) -> dict:
-    """Instructions of each kernel in ``so``, addresses and encodings cut."""
-    cob = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    if not os.path.exists(cob):
-        return {}
-    out = subprocess.run([cob, "-sass", so], capture_output=True,
-                         text=True).stdout
-    fns = {}
-    for part in re.split(r"\n\s*Function : ", out)[1:]:
-        name, body = part.split("\n", 1)
-        fns[re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", name.strip())] = [
-            re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split(";")[0].strip()
-            for line in body.splitlines()
-            if re.search(r"/\*[0-9a-f]{4}\*/", line)]
-    return fns
 
 
 def _rel(got, want) -> float:
@@ -146,7 +128,7 @@ def main(old_src: str, new_src: str) -> None:
             for ntile in (130, 8):
                 print(_case(libs, bs, dt, sfx, ntile, flush, stream),
                       flush=True)
-    a, b = _sass(libs["old"][1]), _sass(libs["new"][1])
+    a, b = _build.sass(libs["old"][1]), _build.sass(libs["new"][1])
     for name in sorted(a):
         print(f"SASS {name}: {len(a[name])} / {len(b.get(name, []))} "
               "instructions, " + ("identical" if a[name] == b.get(name)

@@ -54,7 +54,9 @@ def _factor_plain(pool, thresh, tp, nb):
 def test_factor_and_sweeps_match_plain(cuda, bs):
     A = tt.laplacian_3d(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
-    res, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs),
+    # the FP32 pass (the card's "auto" is bf16-first)
+    res, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs,
+                                      gemm_precision="highest"),
                       device=cuda)
     assert res.berr.max() < 1e-15
     plan, tp = lu.plan, lu._ftapes
@@ -486,8 +488,9 @@ def test_trans_gssvx_with_rcond_matches_cpu(cuda):
     summation orders)."""
     A = tt.laplacian_3d_unsym(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
+    # the FP32 pass on both devices (the card's "auto" is bf16-first)
     opts = T.Options(dtype="float32", block_size=64, trans=T.Trans.TRANS,
-                     condition_number=True)
+                     condition_number=True, gemm_precision="highest")
     solve_gemm.SOLVE_GEMM.launches = solve_gemm.DIAG_APPLY.launches = 0
     rg, lu = T.gssvx(A, b, opts, device=cuda)
     assert solve_gemm.SOLVE_GEMM.launches > 0
@@ -1287,9 +1290,12 @@ def test_pdtest_cross_product_single_on_the_card(cuda, equil, rowperm):
     A = tt.unsymmetric_pattern(120, seed=3)
     for fact in FACTS:
         for nrhs in NRHS:
+            # the FP32 pass on both devices (the card's "auto" is
+            # bf16-first, and escalates in the NOROWPERM cells)
             opts = T.Options(dtype="float32", block_size=32,
                              equil=getattr(T.Equil, equil),
-                             row_perm=getattr(T.RowPerm, rowperm))
+                             row_perm=getattr(T.RowPerm, rowperm),
+                             gemm_precision="highest")
             res, rt = run_config(T.gssvx, A, opts, fact, nrhs, device=cuda)
             what = (fact, equil, rowperm, nrhs)
             if rowperm != "NOROWPERM":
@@ -1486,7 +1492,9 @@ def test_embedded_gssvx_matches_cpu(cuda, executor, monkeypatch):
     n = A.shape[0]
     rng = np.random.default_rng(3)
     xt = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-    o = T.Options(dtype="complex64", block_size=64, executor=executor)
+    # the FP32 pass (logdet is held to slogdet at float32 rounding)
+    o = T.Options(dtype="complex64", block_size=64, executor=executor,
+                  gemm_precision="highest")
     sign, logabs = np.linalg.slogdet(A.toarray())
     for tr, op in (("NOTRANS", A), ("TRANS", A.T), ("CONJ", A.conj().T)):
         b = op @ xt
@@ -1498,3 +1506,138 @@ def test_embedded_gssvx_matches_cpu(cuda, executor, monkeypatch):
         assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
     s, la = lg.logdet()
     assert abs(s - sign) <= 1e-4 and abs(la - logabs) <= 1e-4 * abs(logabs)
+
+
+# ---------------------------------------------------------------------------
+# clk's bf16 pass (gemm_precision "default") and the escalation
+# ---------------------------------------------------------------------------
+
+#: clk_update_bf16 against its plain version: chip_smoke.py's BF16_TOL
+#: (four bf16 ulps of scale; a sum that the two order differently can round
+#: to the other neighbouring bf16 value inside the level), and the summed
+#: distance below a tenth of the FP32 pass's (BF16_FRACTION)
+BF16_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_clk_bf16_entries_match_plain(cuda, bs, mat):
+    """slu_clk_waves_bf16 and slu_clk_trsm_bf16 against clk_update_plain
+    and clk_trsm_plain at "default", level by level from the same pool
+    (random patterns: values that bf16 does not hold exactly): the update
+    within BF16_TOL of scale, the TRSM (whose operands are its inputs)
+    within ULPS; each closer to the bf16 plain version than the FP32 pass
+    is, by ten times; one launch per wave and per level with L blocks,
+    and none of the FP32 entries."""
+    if mat == "lap3d12":
+        A = tt.laplacian_3d(12).tocsc()
+        _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+            dtype="float32", block_size=bs), device=cuda)
+        plan, data = lu.plan, lu._a3_data
+    else:
+        A = _sym_random(6 * bs, 0.004 * int(mat[-1]), int(mat[-1]))
+        plan, data = block_symbolic(A, bs), A.data
+    tp = clk.build_clk_tapes(plan, cuda)
+    pool = blocklu.init_pool(plan, data, np.float32, cuda)
+    linv = torch.zeros((plan.nb, bs, bs), device=cuda)
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+    eps = np.finfo(np.float32).eps
+    for k in (clk.UPDATE, clk.TRSM, clk.UPDATE_BF16, clk.TRSM_BF16):
+        k.reset_counts()
+    dist = {"update": [0.0, 0.0], "trsm": [0.0, 0.0]}
+    ntrsm = 0
+    for level in range(tp.nlvl):
+        for what, kern, plain, tol in (
+                ("update", lambda p: clk.clk_update(p, linv, tp, level,
+                                                    "default"),
+                 lambda p, pr: clk.clk_update_plain(p, linv, tp, level, pr),
+                 BF16_TOL),
+                ("trsm", lambda p: clk.clk_trsm(p, uinv, tp, level,
+                                                "default"),
+                 lambda p, pr: clk.clk_trsm_plain(p, uinv, tp, level, pr),
+                 ULPS * eps)):
+            ref, hi = pool.clone(), pool.clone()
+            kern(pool)
+            plain(ref, "default")
+            plain(hi, "highest")
+            torch.cuda.synchronize()
+            scale = max(1.0, float(ref.abs().max()))
+            assert float((pool - ref).abs().max()) <= tol * scale, \
+                (what, level)
+            dist[what][0] += float((pool - ref).abs().sum())
+            dist[what][1] += float((hi - ref).abs().sum())
+            if what == "update":
+                lo, hi_ = int(tp.dptr[level]), int(tp.dptr[level + 1])
+                diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi_],
+                                tp.dstep[lo:hi_], 0.0, tiny)
+        ntrsm += int(tp.lptr[level + 1] > tp.lptr[level])
+    for kern, fp32 in dist.values():
+        assert fp32 > 0 and kern <= 0.1 * fp32
+    assert clk.UPDATE_BF16.launches == int(tp.lwave[-1]) > 0
+    assert clk.TRSM_BF16.launches == ntrsm > 0
+    assert clk.UPDATE.launches == clk.TRSM.launches == 0
+
+
+def test_bf16_first_gssvx_on_the_card(cuda):
+    """On CUDA "auto" factors bf16-first: gssvx reports "default", runs
+    the bf16 entries only and refines to berr <= 1e-12, within 1e-10 of
+    the CPU's "highest" solution; "highest" runs the FP32 entries only,
+    and its factor is the one that "auto" escalates to."""
+    A = tt.laplacian_3d(16).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    kernels = (clk.UPDATE, clk.TRSM, clk.UPDATE_BF16, clk.TRSM_BF16)
+    rc, _ = T.gssvx(A, b, T.Options(dtype="float32", block_size=64),
+                    device="cpu")
+    assert rc.stat.counters["gemm_precision"] == "highest"
+    for prec, want in (("auto", "default"), ("highest", "highest")):
+        for k in kernels:
+            k.reset_counts()
+        rg, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=64,
+                                         gemm_precision=prec), device=cuda)
+        assert rg.stat.counters["gemm_precision"] == want
+        assert "precision_escalated" not in rg.stat.counters
+        low = want == "default"
+        assert (clk.UPDATE_BF16.launches > 0) == low
+        assert (clk.TRSM_BF16.launches > 0) == low
+        assert (clk.UPDATE.launches > 0) != low
+        assert (clk.TRSM.launches > 0) != low
+        assert rg.berr.max() <= 1e-12
+        assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
+        assert np.abs(A @ rg.x - b).max() <= 1e-10 * np.abs(b).max()
+        if low:
+            lo = lu
+    hi_pool = lu.pool.clone()
+    lo._refactor_values("highest")
+    assert torch.equal(lo.pool, hi_pool)
+
+
+def test_escalation_on_the_card(cuda):
+    """aniso2d(128) at bs 128 (anisotropy 1e-3): the bf16 factor leaves
+    refinement stalled (on the CPU's plain versions at berr 4.6e-3 after
+    two steps), so "auto" re-factors at "highest" (precision_escalated,
+    berr <= 1e-12), and a SamePattern_SameRowPerm refactor starts there
+    (the FP32 entries only); an explicit "bf16" never escalates. (At
+    k = 64 this right-hand side's bf16 refinement converges slowly, in
+    20 steps, and does not stall.)"""
+    A = tt.aniso2d(128).tocsc()
+    b = np.asarray(A @ np.random.default_rng(1).standard_normal(A.shape[0]))
+    o = T.Options(dtype="float32", block_size=128)
+    res, lu = T.gssvx(A, b, o, device=cuda)
+    assert res.stat.counters["precision_escalated"] == 1
+    assert res.stat.counters["gemm_precision"] == "highest"
+    assert res.berr.max() <= 1e-12
+    for k in (clk.UPDATE, clk.UPDATE_BF16):
+        k.reset_counts()
+    A2 = A.copy()
+    A2.data = A2.data * 1.25
+    res, lu = T.gssvx(A2, b, o.replace(fact=T.Fact.SAME_PATTERN_SAME_ROWPERM),
+                      lu=lu)
+    assert res.stat.counters["gemm_precision"] == "highest"
+    assert "precision_escalated" not in res.stat.counters
+    assert clk.UPDATE.launches > 0 and clk.UPDATE_BF16.launches == 0
+    assert res.berr.max() <= 1e-12
+    lb = T.SparseLU(A, o.replace(gemm_precision="bf16"), device=cuda)
+    _, berr = lb.refine(b, lb.solve(b))
+    assert "precision_escalated" not in lb.stat.counters
+    assert lb._gemm_prec_used == "default" and berr.max() > 1e-12

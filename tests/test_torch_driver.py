@@ -166,9 +166,11 @@ def test_ilu_state_from_jax_solves():
     dict(dtype="complex64"), dict(gemm_precision="bf16"),
 ], ids=["dtype", "gemm_precision"])
 def test_unported_options_raise(kw):
-    """An unported option raises naming its ROADMAP.md item; complex64,
-    refused until it was ported, now factors and solves on the CPU (the
-    level executor, complex128 refinement)."""
+    """Options the port refused until they were ported now run on the
+    CPU: complex64 factors and solves (the level executor, complex128
+    refinement), and ``gemm_precision="bf16"`` factors clk's products in
+    one bf16 pass (the plain versions' rounding) and refines to f64
+    quality, in more steps than a "highest" factor."""
     A = tt.laplacian_2d(6).tocsc()
     if kw.get("dtype") == "complex64":
         b = np.arange(A.shape[0]) * (1 + 0.5j)
@@ -178,8 +180,20 @@ def test_unported_options_raise(kw):
         assert res.berr.max() <= 1e-15
         assert np.abs(A @ res.x - b).max() <= 1e-12 * np.abs(b).max()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.SparseLU(A, T.Options(block_size=8, **kw), device="cpu")
+    A.data = A.data * (1.0 + 0.1 * np.random.default_rng(1).standard_normal(
+        A.nnz))
+    b = np.arange(A.shape[0]) + 1.0
+    res, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=8, **kw),
+                      device="cpu")
+    hi, _ = T.gssvx(A, b, T.Options(dtype="float32", block_size=8),
+                    device="cpu")
+    assert res.stat.counters["executor"] == "clk"
+    assert res.stat.counters["gemm_precision"] == "default"
+    assert hi.stat.counters["gemm_precision"] == "highest"
+    assert "precision_escalated" not in res.stat.counters
+    assert res.berr.max() <= 1e-15
+    assert np.abs(A @ res.x - b).max() <= 1e-12 * np.abs(b).max()
+    assert res.stat.refine_steps > hi.stat.refine_steps
 
 
 @pytest.mark.parametrize("option", ["trans", "fact", "condition_number",
@@ -229,14 +243,23 @@ def test_formerly_refused_options_run(option, monkeypatch):
 
 
 def test_float64_on_cuda_raises():
-    """float64 on a ``cuda`` device raises only for what is still not
-    served: an unported ``gemm_precision`` or an unknown executor. Complex
-    data passes with a complex dtype (and runs the level executor); with a
-    real dtype it raises, as its imaginary part would be dropped."""
+    """float64 on a ``cuda`` device raises only for an unknown executor:
+    ``gemm_precision="bf16"`` resolves to "highest" there (the level
+    executor has no low pass), while a float32 low pass on tck or flk
+    raises naming ROADMAP.md item 2b. Complex data passes with a complex
+    dtype (and runs the level executor); with a real dtype it raises, as
+    its imaginary part would be dropped."""
     cuda, A = torch.device("cuda"), sp.eye(4).tocsc()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdrv._check_supported(T.Options(dtype="float64",
-                                        gemm_precision="bf16"), cuda, A)
+    o = T.Options(dtype="float64", gemm_precision="bf16")
+    tdrv._check_supported(o, cuda, A)
+    assert tdrv._resolve_precision(o, cuda, tdrv._executor(o)) == "highest"
+    for kw in (dict(executor="tck"), dict(executor="flk"),
+               dict(ilu_level=1)):
+        with pytest.raises(NotImplementedError, match="item 2b"):
+            tdrv._check_supported(T.Options(dtype="float32",
+                                            gemm_precision="bf16", **kw),
+                                  cuda, A)
+        tdrv._check_supported(T.Options(dtype="float32", **kw), cuda, A)
     for dt in ("complex64", "complex128"):
         o = T.Options(dtype=dt)
         tdrv._check_supported(o, cuda, (A * 1j).tocsc())
