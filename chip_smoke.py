@@ -148,6 +148,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    against their tapes and the solve entries with ``transpose=1``
    against their plain versions); ptxas must report no spill in any
    complex instantiation of ``rdma.cu``;
+   and then the 3D communication-avoiding driver with every rank of a
+   ``Grid3D(2, 2, 2)`` on the card: ``gssvx3d(A, b, grid,
+   Options(dtype="float32", block_size=128, col_perm=MY_PERMC,
+   user_colperm=geometric_nd((32, 32, 32)), anc25d=...))`` on lap3d32
+   (the JAX package's production 3D case, whose plan must come out
+   aligned) under ``"replicated"`` and ``"zsplit"``, each driven like
+   the main path (every ``_f32`` entry of rdma_factor and rdma_solve
+   launched, no single-device kernel), x against the single-device
+   port's on the same ordering (1e-10), berr and refinement steps, the
+   receive counters against the 3D receive tapes, the DIST counters
+   against the partition, a warm call bit-equal to the first (its FACT /
+   SOLVE / REFINE ms), every entry against its plain version level by
+   level on the 3D tapes (each entry's ms, the ancestor reduction's and
+   zsplit's delta's), the gathered factor against the float64 reference,
+   and zsplit's x against replicated's;
 12. the batch and the ring embedding:
    a. ``BatchedSparseLU`` of eight float32 members on lap3d32's pattern
       (bs 128, member i's values ``A.data·(1 + 0.1·N(0, 1))`` of seed i),
@@ -207,7 +222,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    complex128 instantiations in rows of their own, with a ``dtype``
    field, the RDMA rows among them; the grid's transposed solves as
    ``rdma_solve_trans_*`` rows with ``"transpose": true``; the tck and
-   RDMA rows with their launches per entry; the batched kernels as
+   RDMA rows with their launches per entry; the 3D grid's as
+   ``rdma_factor_3d_<mode>`` and ``rdma_solve_3d_<mode>`` rows with
+   ``"grid": "2x2x2"`` and their ``anc25d``; the batched kernels as
    ``<kernel>_batch[_f64|_c64|_c128]`` rows with their ``members``; the
    clk rows with their ``precision``, the bf16 pass as
    ``clk_update_bf16`` and ``clk_trsm_bf16``), the
@@ -334,6 +351,7 @@ def main() -> None:
                                                     schur, solve_gemm, sweep,
                                                     tck)
     from superlu_dist_tpu_torch.parallel import dist2d_rdma as rdma
+    from superlu_dist_tpu_torch.parallel import dist3d
     from superlu_dist_tpu_torch.utils.testing import laplacian_3d
 
     smi = subprocess.run(
@@ -502,9 +520,11 @@ def main() -> None:
     # ---- 10. complex on the card ---------------------------------------
     complex_phase(ctx, rng, checks, launches)
 
-    # ---- 11. the 2D grid on one card -----------------------------------
+    # ---- 11. the 2D and 3D grids on one card ----------------------------
     dist_phase(ctx, rng, checks, launches)
     grid_types_phase(ctx, rng, checks, launches)
+
+    dist3d_phase(ctx, rng, checks, launches)
 
     # ---- 12. the batch and the ring embedding ---------------------------
     batch_phase(ctx, rng, checks, launches)
@@ -540,6 +560,20 @@ def main() -> None:
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         rows.append(row)
+    for mode in dist3d.ANC25D:
+        for name in GRID_NEED:
+            key = f"{name}_3d_{mode}"
+            c = checks[key]
+            rows.append(dict(
+                name=key, route="cuda",
+                source=("superlu_dist_tpu_torch/ops/kernels/csrc/"
+                        f"{kernels[name].source}"),
+                replaces=REPLACES[name], launches=launches[key],
+                max_abs_err=c["max_abs_err"], ms=c["ms"],
+                plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                bound_by=c["bound_by"], library_ms=c["library_ms"],
+                per=c["per"], dtype="float32", grid="2x2x2", anc25d=mode,
+                entry_launches=ctx["entry_launches"][key]))
     for dtype, sfx in BATCH_SFX.items():
         for name, base in BATCH_OF.items():
             key = name + sfx
@@ -581,13 +615,20 @@ def check_spills(report, name, what=""):
           flush=True)
 
 
+def on_grid(A, b, grid, opts):
+    """``gssvx_dist`` over a 2D grid, ``gssvx3d`` over a 3D one."""
+    from superlu_dist_tpu_torch import gssvx3d, gssvx_dist
+    return (gssvx3d if len(grid.shape) == 3 else gssvx_dist)(A, b, grid,
+                                                             opts)
+
+
 def drive(ctx, what, A, b, opts, need, zero=(), lu=None, grid=None):
-    """One ``gssvx`` call (``gssvx_dist`` over ``grid``) with every launch
-    count set to 0 just before and read just after; checks the accuracy
-    limits (in Aᵀ under ``opts.trans``), that every kernel of ``need``
-    launched and that none of ``zero`` did. ``lu`` is passed on for the
-    reuse modes."""
-    from superlu_dist_tpu_torch import Trans, gssvx, gssvx_dist
+    """One ``gssvx`` call (``gssvx_dist`` or ``gssvx3d`` over ``grid``)
+    with every launch count set to 0 just before and read just after;
+    checks the accuracy limits (in Aᵀ under ``opts.trans``), that every
+    kernel of ``need`` launched and that none of ``zero`` did. ``lu`` is
+    passed on for the reuse modes."""
+    from superlu_dist_tpu_torch import Trans, gssvx
     torch = ctx["torch"]
     for k in ctx["kernels"].values():
         k.reset_counts()
@@ -595,7 +636,7 @@ def drive(ctx, what, A, b, opts, need, zero=(), lu=None, grid=None):
     if grid is None:
         res, lu = gssvx(A, b, opts, lu=lu)
     else:
-        res, lu = gssvx_dist(A, b, grid, opts)
+        res, lu = on_grid(A, b, grid, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ctx["kernels"].items()}
@@ -624,10 +665,10 @@ def warm_call(ctx, what, A, b, opts, grid=None):
     """The same call again, with kernels loaded and allocator warm: the
     first call's phases also hold one-time module loads. Returns its
     result."""
-    from superlu_dist_tpu_torch import gssvx, gssvx_dist
+    from superlu_dist_tpu_torch import gssvx
     t0 = time.perf_counter()
-    res, _ = gssvx(A, b, opts) if grid is None else gssvx_dist(A, b, grid,
-                                                               opts)
+    res, _ = gssvx(A, b, opts) if grid is None else on_grid(A, b, grid,
+                                                            opts)
     ctx["torch"].cuda.synchronize()
     print_phases(f"{what}, second call", time.perf_counter() - t0, res.stat)
     if float(np.max(res.berr)) > 1e-12:
@@ -1989,6 +2030,116 @@ def grid_types_phase(ctx, rng, checks, launches):
         torch.cuda.empty_cache()
 
 
+def dist3d_phase(ctx, rng, checks, launches):
+    """Phase 11's end, the 3D communication-avoiding driver with every
+    rank of a Grid3D(2, 2, 2) on the card, on the JAX package's production
+    3D case
+    (its tests/test_anc25d.py): lap3d32 at block size 128, ordered by
+    ``geometric_nd((32, 32, 32))`` through ``col_perm=MY_PERMC`` (the
+    plan must come out aligned), in float32 under ``anc25d="replicated"``
+    and ``"zsplit"``. Each mode is driven like the main path (every
+    ``_f32`` entry of rdma_factor and rdma_solve launched, no single-
+    device kernel); x against the single-device port's on the same
+    ordering, berr and the refinement steps; the receive counters against
+    the 3D receive tapes; the DIST counters against the partition; a warm
+    call bit-equal to the first, whose FACT / SOLVE / REFINE ms are
+    printed; every entry against its plain version level by level on the
+    3D tapes, with each entry's ms, the ancestor reduction's and zsplit's
+    delta's ms; and the gathered factor against the float64 reference.
+    Then zsplit's x against replicated's."""
+    from superlu_dist_tpu_torch import ColPerm, Grid3D, Options, gssvx
+    from superlu_dist_tpu_torch.ops.host.ordering import geometric_nd
+    from superlu_dist_tpu_torch.parallel.dist3d import ANC25D
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d
+    torch = ctx["torch"]
+    k = 32
+    A = laplacian_3d(k)
+    n = A.shape[0]
+    b = np.asarray(A @ rng.standard_normal(n))
+    base = Options(dtype="float32", block_size=128, col_perm=ColPerm.MY_PERMC,
+                   user_colperm=geometric_nd((k, k, k)))
+    one, _ = gssvx(A, b, base.replace(gemm_precision="highest"))
+    grid = Grid3D(2, 2, 2)
+    xs, anc = {}, {}
+    for mode in ANC25D:
+        what = f"grid 2x2x2 {mode}"
+        opts = base.replace(anc25d=mode)
+        torch.cuda.reset_peak_memory_stats()
+        res, lu, got = drive(ctx, what, A, b, opts, GRID_NEED,
+                             SINGLE_DEVICE, grid=grid)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if lu._expand is None:
+            fail(f"{what}: the plan is not aligned")
+        entries = grid_entries(ctx, what, "f32")
+        for name in GRID_NEED:
+            launches[f"{name}_3d_{mode}"] = got[name]
+            ctx["entry_launches"][f"{name}_3d_{mode}"] = entries[name]
+        err = float(np.abs(res.x - one.x).max() / np.abs(one.x).max())
+        dp, st = lu.dplan, res.stat
+        print(f"{what}: lap3d32 aligned to {lu.plan.n} rows, {lu.plan.nb} "
+              f"block columns; layers' steps "
+              f"{[int((dp.step_layer == z).sum()) for z in range(dp.pz)]}, "
+              f"top {int((dp.step_layer < 0).sum())} steps; {dp.max_p1} "
+              f"subtree + {dp.ntop} top levels; n_local {dp.n_local}, "
+              f"max_anc {dp.max_anc}, max_tact {dp.max_tact}; peak device "
+              f"memory {peak:.0f} MiB; |x - single device|/|x| {err:.3e} "
+              f"(tolerance 1e-10); {st.refine_steps} refinement steps "
+              f"(single device {one.stat.refine_steps}); tiny pivots "
+              f"{st.tiny_pivots}; launches per entry {entries}", flush=True)
+        if err > 1e-10:
+            fail(f"{what}: x disagrees with the single-device port's")
+        check_recv(lu, what)
+        check_dist3d_counters(lu, st, what)
+        anc[mode] = st.counters["anc_reduce_bytes"]
+        r2 = warm_call(ctx, what, A, b, opts, grid=grid)
+        check_repeat(what, res, r2)
+        w = r2.stat
+        print(f"{what}, second call: device ms FACT "
+              f"{w.device_ms['FACT']:.3f}, SOLVE {w.device_ms['SOLVE']:.3f},"
+              f" REFINE {w.device_ms['REFINE']:.3f} ({w.refine_steps} "
+              f"steps)", flush=True)
+        c = check_dist(lu, ctx)
+        for name in GRID_NEED:
+            key = f"{name}_3d_{mode}"
+            checks[key] = c[name]
+            print_check(key, c[name], got[name])
+        pool, _, _ = lu._export_factors()
+        check_whole_factor(f"{what} (gathered)", lu, ctx, pool,
+                           torch.tensor([res.stat.tiny_pivots]))
+        xs[mode] = res.x
+        del lu, res, r2, c, pool
+        torch.cuda.empty_cache()
+    err = float(np.abs(xs["zsplit"] - xs["replicated"]).max()
+                / np.abs(xs["replicated"]).max())
+    print(f"grid 2x2x2: |x zsplit - x replicated|/|x| {err:.3e} (tolerance "
+          f"1e-10); anc_reduce_bytes {anc}", flush=True)
+    if err > 1e-10 or not anc["zsplit"] > anc["replicated"]:
+        fail("grid 2x2x2: the two anc25d modes disagree")
+
+
+def check_dist3d_counters(lu, st, what):
+    """The DIST counters of a 3D drive against its partition: the steps
+    of the layers and of the top add up to the plan's, the comm volume is
+    the partition's, and zsplit reports its z-sum bytes."""
+    dp = lu.dplan
+    want = dict(dp.comm_volume(np.dtype(lu._fdtype).itemsize),
+                anc_steps=float((dp.step_layer < 0).sum()),
+                **{f"layer{z}_steps": float((dp.step_layer == z).sum())
+                   for z in range(dp.pz)})
+    if dp.anc25d == "zsplit":
+        want["anc25d_zsplit_psum_bytes"] = int(
+            dp.ntop * (dp.max_tact + 1) * dp.bs ** 2
+            * np.dtype(lu._fdtype).itemsize)
+    got = {k: st.counters.get(k) for k in want}
+    steps = got["anc_steps"] + sum(got[f"layer{z}_steps"]
+                                   for z in range(dp.pz))
+    print(f"{what}: DIST counters {got}", flush=True)
+    if got != want or steps != lu.plan.nb or (
+            dp.anc25d == "zsplit") != ("anc25d_zsplit_psum_bytes"
+                                       in st.counters):
+        fail(f"{what}: DIST counters {got}, the partition's {want}")
+
+
 def grid_profile(lu, A, b):
     """``DistributedSparseLU.profile_levels``: the six costliest levels;
     the solve after it must still meet the limits."""
@@ -2092,11 +2243,14 @@ def check_dist(lu, ctx, factor=True, trans=False):
     right-hand side of the factor's dtype (with ``trans``, over the Uᵀ
     and Lᵀ sweeps of one transposed solve), each against its plain
     version level by level from the same state (the run goes on with the
-    kernel's output). No one PyTorch call does a rank's level with its
-    puts, so library_ms stays None."""
+    kernel's output). On a 3D grid the ancestor reduction runs before the
+    first top level and zsplit's delta after each top level, on the
+    kernel's state only (the plain version starts from a copy of it), each
+    timed apart. No one PyTorch call does a rank's level with its puts, so
+    library_ms stays None."""
     from collections import defaultdict
 
-    from superlu_dist_tpu_torch.parallel import dist2d
+    from superlu_dist_tpu_torch.parallel import dist3d
     torch, rdma = ctx["torch"], ctx["rdma"]
     plan, ft = lu.plan, lu._ft
     out = {k: dict(max_abs_err=0.0, tol=0.0, ms=0.0, plain_ms=0.0,
@@ -2106,9 +2260,12 @@ def check_dist(lu, ctx, factor=True, trans=False):
     by_launch = defaultdict(list)
     jobs = {"rdma_panel": ft.bptr, "rdma_schur": ft.sptr}
     th = lu._thresh()
-    st = rdma.new_factor_state(dist2d.init_local_pools(
-        plan, lu.dplan, lu._a3_data, lu._fdtype, lu.device), ft)
+    st = rdma.new_factor_state(lu._pools0(), ft)
+    layered = isinstance(ft, dist3d.FactorTapes3D)
     for lvl in range(ft.nlvl if factor else 0):
+        if layered and lvl == ft.max_p1:
+            per_entry["ancestor_reduce"] += _timed(
+                torch, lambda: dist3d.before_level(st, ft, lvl))
         for entry, kern, plain in (
                 ("rdma_diag", lambda s: rdma.rdma_diag(s, th, ft, lvl),
                  lambda s: rdma.rdma_diag_plain(s, th, ft, lvl)),
@@ -2124,6 +2281,9 @@ def check_dist(lu, ctx, factor=True, trans=False):
             if entry in jobs:
                 n = int(jobs[entry][lvl, -1] - jobs[entry][lvl, 0])
                 by_launch[entry].append((ms, n, f"level {lvl}"))
+        if layered and ft.zsplit and lvl >= ft.max_p1:
+            per_entry["zsplit_delta"] += _timed(
+                torch, lambda: dist3d.after_level(st, ft, lvl))
     del st
     rng = np.random.default_rng(1)
     fdt = lu.pool[0].dtype
@@ -2179,6 +2339,9 @@ def check_dist(lu, ctx, factor=True, trans=False):
         lu, tapes=[t for t, _ in sweeps] if trans else None))
     out["rdma_solve"]["per_entry_ms"] = {
         k: v for k, v in per_entry.items() if k.startswith("rdma_solve")}
+    out["rdma_factor"]["per_entry_ms"] = {
+        k: v for k, v in per_entry.items()
+        if not k.startswith("rdma_solve")}
     return out
 
 
@@ -2189,14 +2352,18 @@ def grid_factor_bound(lu):
     panel read, written and put into its Pc (L) or Pr (U) buffer rows,
     each rank's inverses read once per level by its panels, and per level
     and rank the distinct targets read and written and the distinct
-    broadcast rows read once."""
+    broadcast rows read once. On a 3D grid every job of the tapes counts:
+    a replicated top's tiles, panels and Schur products once per layer,
+    as the run does them (zsplit's Schur products once); the ancestor
+    reduction and zsplit's delta, torch ops between the launches, are
+    not in it."""
     plan, ft = lu.plan, lu._ft
     h, bs = ft.host, plan.bs
     blk = _blk(plan, lu._fdtype)
-    nprod, npanel = len(h["c_l"]), len(h["b_loc"])
-    flops = 2.0 * bs ** 3 * (nprod + npanel) + (4.0 / 3.0) * bs ** 3 * plan.nb
+    nprod, npanel, ntile = len(h["c_l"]), len(h["b_loc"]), len(h["a_loc"])
+    flops = 2.0 * bs ** 3 * (nprod + npanel) + (4.0 / 3.0) * bs ** 3 * ntile
     side = h["b_side"]
-    nblk = plan.nb * (4 + ft.pr + ft.pc) + int(
+    nblk = ntile * (4 + ft.pr + ft.pc) + int(
         ((side == 0) * (2 + ft.pc) + (side == 1) * (2 + ft.pr)).sum())
     for lvl in range(ft.nlvl):
         b = slice(ft.bptr[lvl, 0], ft.bptr[lvl, -1])

@@ -17,6 +17,12 @@ card::
     from superlu_dist_tpu_torch import Grid2D, gssvx_dist
     res, lu = gssvx_dist(A, b, Grid2D(2, 2), Options(dtype="float32"))
 
+and the 3D communication-avoiding driver every rank of a Pz × Pr × Pc
+grid::
+
+    from superlu_dist_tpu_torch import Grid3D, gssvx3d
+    res, lu = gssvx3d(A, b, Grid3D(2, 2, 2), Options(dtype="float32"))
+
 Many systems at once: :class:`BatchedSparseLU` factors and solves N
 matrices of one pattern together, one launch per level per phase for all
 of them; :func:`gssvx_batch` solves heterogeneous ones through a
@@ -32,9 +38,10 @@ This package imports neither JAX nor ``superlu_dist_tpu``.
 
 from .models.batch import BatchedSparseLU, gssvx_batch
 from .models.dist_driver import DistributedSparseLU, gssvx_dist
+from .models.driver3d import Distributed3DSparseLU, gssvx3d
 from .models.driver import (SolveResult, SparseLU, gssvx, load_factors,
                             save_factors)
-from .parallel.grid import Grid2D
+from .parallel.grid import Grid2D, Grid3D
 from .utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                             Options, RowPerm, Trans, print_options,
                             set_default_options, sp_ienv)
@@ -43,6 +50,7 @@ from .version import __version__, get_version_number
 
 __all__ = ["gssvx", "SparseLU", "SolveResult", "save_factors",
            "load_factors", "gssvx_dist", "DistributedSparseLU", "Grid2D",
+           "gssvx3d", "Distributed3DSparseLU", "Grid3D",
            "BatchedSparseLU", "gssvx_batch",
            "Options", "Stats", "Fact",
            "RowPerm", "ColPerm", "Trans", "IterRefine", "Equil",

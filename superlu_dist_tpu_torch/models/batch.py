@@ -18,9 +18,10 @@ Port of the JAX package's ``models/batch.py``, with its two paths:
    matrices are each equilibrated, statically pivoted and ordered (the
    dequil_batch / dpivot_batch / get_perm_c_batch pipeline,
    pdgssvx3d_csc_batch.c:80-503), assembled into one block-diagonal
-   system and factored in one call by :class:`SparseLU`, or by
-   :class:`DistributedSparseLU` over a ``Grid2D``; the solutions are split
-   back per matrix.
+   system and factored in one call by :class:`SparseLU`, by
+   :class:`DistributedSparseLU` over a ``Grid2D``, or by
+   :class:`Distributed3DSparseLU` over a ``Grid3D``; the solutions are
+   split back per matrix.
 
 Deliberate differences from the JAX package:
 
@@ -34,7 +35,6 @@ Deliberate differences from the JAX package:
 - The refinement residuals of every member run on the device at once,
   through one block-diagonal COO (``ops/spmv.py``), with the JAX
   package's stop rule (every berr ≤ 4·eps, or ``max_refine_steps``).
-- A ``Grid3D`` raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -52,14 +52,12 @@ from ..ops.host import mc64 as _mc64
 from ..ops.host import ordering as _ordering
 from ..ops.kernels import schur as _schur
 from ..ops.kernels import solve_gemm as _solve_gemm
+from ..parallel.grid import Grid3D
 from ..utils.norms import backward_error
 from ..utils.options import (ColPerm, Equil, IterRefine, Options, RowPerm,
                              apply_env_overrides)
 from ..utils.stats import Stats
 from .driver import _TORCH, SolveResult, SparseLU
-
-#: the ROADMAP item of the 3D grid
-_GRID3D_ITEM = "queue 1 item 9"
 
 
 class _Prototype(SparseLU):
@@ -258,10 +256,6 @@ class BatchedSparseLU:
         return (X[:, :, 0] if squeeze else X), berr.cpu().numpy()
 
 
-def _grid3d(grid) -> bool:
-    return grid is not None and len(getattr(grid, "shape", ())) == 3
-
-
 def gssvx_batch(As: Sequence[sp.spmatrix], Bs: Sequence[np.ndarray],
                 options: Optional[Options] = None, grid=None, *,
                 device=None):
@@ -270,14 +264,11 @@ def gssvx_batch(As: Sequence[sp.spmatrix], Bs: Sequence[np.ndarray],
     Each matrix is equilibrated, matched (MC64) and ordered on its own
     (options' fact/ordering axes, pdgssvx3d_csc_batch.c:110-217), so the
     composite needs no further permutation; it is factored by
-    :class:`SparseLU` on ``device``, or by :class:`DistributedSparseLU`
-    over ``grid`` (a ``Grid2D``). The solutions are split back per matrix
-    and refined together. Returns (list of SolveResult, the composite's
-    LU). A batch with any complex member is solved in complex128."""
-    if _grid3d(grid):
-        raise NotImplementedError(
-            f"gssvx_batch over a 3D grid {grid!r} is not ported yet "
-            f"(ROADMAP.md, {_GRID3D_ITEM})")
+    :class:`SparseLU` on ``device``, by :class:`DistributedSparseLU` over
+    ``grid`` (a ``Grid2D``) or by :class:`Distributed3DSparseLU` over a
+    ``Grid3D``. The solutions are split back per matrix and refined
+    together. Returns (list of SolveResult, the composite's LU). A batch
+    with any complex member is solved in complex128."""
     options = apply_env_overrides(options or Options())
     count = len(As)
     if count != len(Bs):
@@ -312,6 +303,9 @@ def gssvx_batch(As: Sequence[sp.spmatrix], Bs: Sequence[np.ndarray],
         col_perm=ColPerm.NATURAL, iter_refine=IterRefine.NOREFINE)
     if grid is None:
         lu = SparseLU(A_big, composite, device=device)
+    elif isinstance(grid, Grid3D):
+        from .driver3d import Distributed3DSparseLU
+        lu = Distributed3DSparseLU(A_big, grid, composite, device=device)
     else:
         from .dist_driver import DistributedSparseLU
         lu = DistributedSparseLU(A_big, grid, composite, device=device)

@@ -108,6 +108,8 @@ class DistributedSparseLU(SparseLU):
     ``(n_local, bs, bs)`` pool and its ``(dlen + 1, bs, bs)`` owner-local
     inverse tables."""
 
+    #: the grid this driver partitions over
+    _grid_type = Grid2D
     #: the plan is kept as built, as the JAX package's distributed driver
     #: does; alignment stays on
     _adapt_ok = False
@@ -118,6 +120,9 @@ class DistributedSparseLU(SparseLU):
 
     def __init__(self, A, grid: Grid2D, options: Optional[Options] = None,
                  stat: Optional[Stats] = None, *, device=None):
+        if not isinstance(grid, self._grid_type):
+            raise TypeError(f"{type(self).__name__} takes a "
+                            f"{self._grid_type.__name__}, not {grid!r}")
         self.grid = grid
         self._dplan_of = None
         _check_dist(apply_env_overrides(options or Options()), A)
@@ -135,14 +140,23 @@ class DistributedSparseLU(SparseLU):
         """Partition the plan over the grid and build the kernels' job
         lists, once per plan (the transposed sweeps' at the first
         transposed solve, in ``_ttapes``, which a new plan drops)."""
-        plan, dev = self.plan, self.device
-        self.dplan = _dist2d.partition_plan(plan, self.grid.nprow,
-                                            self.grid.npcol)
-        self._ft = _rdma.build_factor_tapes(plan, self.dplan, dev)
-        self._lt = _rdma.build_sweep_tapes(plan, self.dplan, "L", dev)
-        self._ut = _rdma.build_sweep_tapes(plan, self.dplan, "U", dev)
+        self.dplan = self._partition()
+        self._ft = self._factor_tapes()
+        self._lt, self._ut = (self._sweep_tapes(w) for w in "LU")
         self._ttapes = None
-        self._dplan_of = plan
+        self._dplan_of = self.plan
+
+    def _partition(self):
+        return _dist2d.partition_plan(self.plan, self.grid.nprow,
+                                      self.grid.npcol)
+
+    def _factor_tapes(self):
+        return _rdma.build_factor_tapes(self.plan, self.dplan, self.device)
+
+    def _sweep_tapes(self, which: str):
+        """The job lists of sweep ``which`` ("L", "U", "LT", "UT")."""
+        return _rdma.build_sweep_tapes(self.plan, self.dplan, which,
+                                       self.device)
 
     def _build_coo_shards(self):
         """The COO of the current A, split evenly over the ranks, and the
@@ -163,6 +177,36 @@ class DistributedSparseLU(SparseLU):
         self._fstate = st
         self.pool, self.linv, self.uinv = st.pool, st.linv, st.uinv
 
+    def _dist_counters(self) -> dict:
+        """The partition's counters of the DIST phase."""
+        return self.dplan.comm_volume(np.dtype(self._fdtype).itemsize)
+
+    def _run_factor(self, pools):
+        """Factor ``pools``; returns the factor's state and its tiny-pivot
+        count (the sum over the ranks) as a device scalar."""
+        st = _rdma.rdma_factor(pools, self._thresh(), self._ft)
+        return st, torch.stack(st.tiny).sum()
+
+    def _factor_level(self, st, thresh, level: int) -> None:
+        """One level of the factor (:meth:`profile_levels`)."""
+        _rdma.rdma_factor_level(st, thresh, self._ft, level)
+
+    def _level_row(self, level: int) -> dict:
+        """A :meth:`profile_levels` row's counts of ``level``: steps,
+        panels and Schur products, summed over the ranks."""
+        ft = self._ft
+        b = ft.host["b_side"][ft.bptr[level, 0]:ft.bptr[level, -1]]
+        cptr = ft.host["cptr"]
+        return dict(steps=int(ft.aptr[level, -1] - ft.aptr[level, 0]),
+                    lpanels=int((b == 0).sum()), upanels=int((b == 1).sum()),
+                    gemms=int(cptr[ft.sptr[level, -1]]
+                              - cptr[ft.sptr[level, 0]]))
+
+    def _recv(self, recv, names) -> dict:
+        """Per-rank counters by kind, shaped as the grid and the levels."""
+        return _rdma.stacked_recv(recv, self.grid.nprow, self.grid.npcol,
+                                  names, getattr(self.grid, "npdep", 1))
+
     def _device_factor(self, A3: sp.csc_matrix):
         self.pool = self.linv = self.uinv = self._fstate = None
         stat, plan = self.stat, self.plan
@@ -172,23 +216,20 @@ class DistributedSparseLU(SparseLU):
                 self._build_tapes()
             pools = self._pools0()
             self._build_coo_shards()
-        stat.counters.update(self.dplan.comm_volume(
-            np.dtype(self._fdtype).itemsize))
+        stat.counters.update(self._dist_counters())
         stat.counters["executor"] = self.executor = "rdma"
         stat.counters["dist_executor"] = self.options.dist_executor
         stat.counters["gemm_precision"] = "highest"
         with stat.phase("FACT"):
-            st = _rdma.rdma_factor(pools, self._thresh(), self._ft)
+            st, tiny = self._run_factor(pools)
         self._set_factors(st)
-        # the tiny-pivot sum over the ranks, in rank order
-        stat.tiny_pivots += int(sum(int(t.item()) for t in st.tiny))
+        stat.tiny_pivots += int(tiny)
 
     def factor_recv(self) -> dict:
         """The factor's receive counts as (pr, pc, nlvl) arrays by kind
         (``rcv_li``, ``rcv_ui``, ``rcv_l``, ``rcv_u``), as the puts tallied
         them; equal to ``build_rdma_recv_tapes`` of the plan."""
-        return _rdma.stacked_recv(self._fstate.recv, self.grid.nprow,
-                                  self.grid.npcol, _rdma.FACTOR_RECV)
+        return self._recv(self._fstate.recv, _rdma.FACTOR_RECV)
 
     def profile_levels(self):
         """Per-elimination-level device timings of the distributed factor
@@ -209,26 +250,20 @@ class DistributedSparseLU(SparseLU):
         ft, dev = self._ft, self.device
         st = _rdma.new_factor_state(self._pools0(), ft)
         thresh = self._thresh()
-        side, cptr = ft.host["b_side"], ft.host["cptr"]
         rows = []
         for lvl in range(ft.nlvl):
             if dev.type == "cuda":
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
-                _rdma.rdma_factor_level(st, thresh, ft, lvl)
+                self._factor_level(st, thresh, lvl)
                 ev[1].record()
                 torch.cuda.synchronize(dev)
                 ms = ev[0].elapsed_time(ev[1])
             else:
                 t0 = time.perf_counter()
-                _rdma.rdma_factor_level(st, thresh, ft, lvl)
+                self._factor_level(st, thresh, lvl)
                 ms = (time.perf_counter() - t0) * 1e3
-            b = side[ft.bptr[lvl, 0]:ft.bptr[lvl, -1]]
-            rows.append(dict(
-                level=lvl, ms=ms,
-                steps=int(ft.aptr[lvl, -1] - ft.aptr[lvl, 0]),
-                lpanels=int((b == 0).sum()), upanels=int((b == 1).sum()),
-                gemms=int(cptr[ft.sptr[lvl, -1]] - cptr[ft.sptr[lvl, 0]])))
+            rows.append(dict(level=lvl, ms=ms, **self._level_row(lvl)))
         self._set_factors(st)
         self.stat.counters["profiled_levels"] = len(rows)
         return rows
@@ -248,8 +283,7 @@ class DistributedSparseLU(SparseLU):
         their linv) of :meth:`SparseLU._lu_solve_t`; the transposed tapes
         are built on the first call and kept with the plan."""
         if self._ttapes is None:
-            self._ttapes = tuple(_rdma.build_sweep_tapes(
-                self.plan, self.dplan, w, self.device) for w in ("LT", "UT"))
+            self._ttapes = tuple(self._sweep_tapes(w) for w in ("LT", "UT"))
         lt, ut = self._ttapes
         X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv, lt, ut,
                                      X)
@@ -260,10 +294,8 @@ class DistributedSparseLU(SparseLU):
         """The last solve's receive counts (of the last transposed solve
         with ``transpose``): for the L and the U sweep (the Lᵀ and the Uᵀ)
         a dict of (pr, pc, nlvl) arrays ``rcv_part`` and ``rcv_x``."""
-        pr, pc = self.grid.nprow, self.grid.npcol
         got = self._solve_recv_t if transpose else self._solve_recv
-        return tuple(_rdma.stacked_recv(r, pr, pc, _rdma.SOLVE_RECV)
-                     for r in got)
+        return tuple(self._recv(r, _rdma.SOLVE_RECV) for r in got)
 
     def _berr_t(self, x: torch.Tensor, b: torch.Tensor,
                 trans: Trans = Trans.NOTRANS):
@@ -287,12 +319,21 @@ class DistributedSparseLU(SparseLU):
 
     # -- extras ----------------------------------------------------------
 
+    def _slot_owner(self):
+        """Each global slot's rank and local slot."""
+        return np.asarray(self.dplan.owner_dev), \
+            np.asarray(self.dplan.local_slot)
+
+    def _inv_rows(self) -> np.ndarray:
+        """Each step's row in the inverse tables of its diagonal block's
+        rank."""
+        return np.asarray(self.dplan.dinv_idx)
+
     def _owned(self, slots):
         """For global slots ``slots``: each rank's (positions in
         ``slots``, local slots) of the ones it owns."""
-        dp = self.dplan
-        own = np.asarray(dp.owner_dev)[slots]
-        loc = np.asarray(dp.local_slot)[slots]
+        own, loc = self._slot_owner()
+        own, loc = own[slots], loc[slots]
         for e in range(self.grid.size):
             sel = np.flatnonzero(own == e)
             if len(sel):
@@ -316,7 +357,7 @@ class DistributedSparseLU(SparseLU):
         nslots and nslots + 1; inverses by elimination step), so that
         ``save_factors`` writes a checkpoint that loads as a single-device
         :class:`SparseLU`."""
-        plan, dp, dev = self.plan, self.dplan, self.device
+        plan, dev = self.plan, self.device
         bs, nb = plan.bs, plan.nb
         pool = torch.zeros((plan.nslots + 2, bs, bs),
                            dtype=self.pool[0].dtype, device=dev)
@@ -325,7 +366,7 @@ class DistributedSparseLU(SparseLU):
                 self.pool[e][torch.as_tensor(loc, device=dev)]
         linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=dev)
         uinv = torch.zeros_like(linv)
-        idx = np.asarray(dp.dinv_idx)
+        idx = self._inv_rows()
         for e, sel, _ in self._owned(np.asarray(plan.diag_slot)):
             s = torch.as_tensor(sel, device=dev)
             i = torch.as_tensor(idx[sel], device=dev)
@@ -384,10 +425,15 @@ def gssvx_dist(A, b, grid: Grid2D, options: Optional[Options] = None, *,
     defaults to ``cuda``; ``"cpu"`` runs the plain PyTorch versions. The
     solve, the refinement residuals and berr follow ``options.trans`` (A,
     Aᵀ or Aᴴ, pdgssvx.c:622); ``condition_number`` fills ``rcond``."""
+    return _gssvx_on(DistributedSparseLU, A, b, grid, options, device)
+
+
+def _gssvx_on(cls, A, b, grid, options, device):
+    """Factor A over ``grid`` with the driver ``cls``, solve and refine
+    (:func:`gssvx_dist`)."""
     options = options or Options()
     stat = Stats()
-    lu = DistributedSparseLU(A, grid, options=options, stat=stat,
-                             device=device)
+    lu = cls(A, grid, options=options, stat=stat, device=device)
     x = lu.solve(np.asarray(b), trans=options.trans)
     if options.iter_refine != IterRefine.NOREFINE:
         x, berr = lu.refine(b, x, trans=options.trans)

@@ -31,6 +31,18 @@
 //     flag never conjugates (the driver solves A^H x = b through
 //     conjugation).
 //
+// Layers. The same entries run the 3D grid's factor and sweeps
+// (parallel/dist3d.py): rank d = (z * pr + r) * pc + c of a pz x pr x pc
+// grid, ndev = pz * pr * pc ranks in one pointer table. Every entry takes
+// pr beside pc; a factor's puts stay inside the layer of the producing
+// rank (its peers are offset by (d / (pr * pc)) * pr * pc), since each
+// layer factors its own subtrees and the ancestors are reduced over the
+// layers by the host between phases. In a sweep the partials of a row
+// come from every layer: npeer = pz * pc (pz * pr transposed), a rank's
+// index among them z * pc + c (z * pr + r), own[j] is the owner's index
+// of that kind, and the owner sums its peers' slots in that (z, c) or
+// (z, r) order. With pz = 1 each formula is the 2D one.
+//
 // On the TPU one pallas_call per rank walks grid=(nlvl,) in order, and
 // counted DMA waits and a dissemination barrier fence each level. Here each
 // phase of each level is one launch on one stream that covers the jobs of
@@ -118,6 +130,19 @@ __device__ __forceinline__ P* buf(const uint64_t* tab, int kind, int ndev,
   return reinterpret_cast<P*>(tab[kind * ndev + rank]);
 }
 
+// rank d's place in its layer of a pr x pc grid: the layer's first rank,
+// its layer z, its grid row and column
+struct Place {
+  int base, z, r, c;
+  __device__ __forceinline__ Place(int d, int pr, int pc) {
+    const int lay = pr * pc;
+    z = d / lay;
+    base = z * lay;
+    r = (d - base) / pc;
+    c = d % pc;
+  }
+};
+
 // dst[0:nbytes] = src[0:nbytes] by the whole CTA, 16 bytes a thread;
 // nbytes % 16 == 0
 __device__ __forceinline__ void copy_bytes(void* dst, const void* src,
@@ -136,37 +161,39 @@ __device__ __forceinline__ void copy_bytes(void* dst, const void* src,
 // take registers from it (complex64's tile_lu spilled 20 bytes so).
 template <typename T>
 __device__ __noinline__ void put_inverses(const uint64_t* tab, int ndev,
-                                          int pc, const int32_t* rank,
+                                          int pr, int pc,
+                                          const int32_t* rank,
                                           const int32_t* pos,
                                           const int32_t* inv, int bs,
                                           int level) {
   const int j = blockIdx.x;
   const int d = rank[j];
-  const int pr = ndev / pc, myr = d / pc, myc = d % pc;
+  const Place me(d, pr, pc);
   const int64_t bb = (int64_t)bs * bs;
   const T* gl = buf<T>(tab, F_LINV, ndev, d) + inv[j] * bb;
   const T* gu = buf<T>(tab, F_UINV, ndev, d) + inv[j] * bb;
   const int64_t p = pos[j] * bb;
   const int64_t nbytes = bb * (int64_t)sizeof(T);
+  const int row = me.base + me.r * pc, col = me.base + me.c;
   for (int c = 0; c < pc; ++c)       // linv -> lC[pos] along the grid row
-    copy_bytes(buf<T>(tab, F_LC, ndev, myr * pc + c) + p, gl, nbytes);
+    copy_bytes(buf<T>(tab, F_LC, ndev, row + c) + p, gl, nbytes);
   for (int r = 0; r < pr; ++r)       // uinv -> uC[pos] down the column
-    copy_bytes(buf<T>(tab, F_UC, ndev, r * pc + myc) + p, gu, nbytes);
+    copy_bytes(buf<T>(tab, F_UC, ndev, col + r * pc) + p, gu, nbytes);
   if (threadIdx.x == 0) {
     for (int c = 0; c < pc; ++c)
-      if (c != myc)
-        atomicAdd(buf<int32_t>(tab, F_CNT, ndev, myr * pc + c) +
+      if (c != me.c)
+        atomicAdd(buf<int32_t>(tab, F_CNT, ndev, row + c) +
                       level * R_NFACTOR + R_LI, 1);
     for (int r = 0; r < pr; ++r)
-      if (r != myr)
-        atomicAdd(buf<int32_t>(tab, F_CNT, ndev, r * pc + myc) +
+      if (r != me.r)
+        atomicAdd(buf<int32_t>(tab, F_CNT, ndev, col + r * pc) +
                       level * R_NFACTOR + R_UI, 1);
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
-rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pr, int pc,
                  const int32_t* __restrict__ rank,
                  const int32_t* __restrict__ loc,
                  const int32_t* __restrict__ pos,
@@ -179,7 +206,7 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                        buf<T>(tab, F_UINV, ndev, d), loc, inv, bs, thresh,
                        buf<int32_t>(tab, F_TINY, ndev, d));
   __syncthreads();   // the inverses are stored; read them back
-  put_inverses<T>(tab, ndev, pc, rank, pos, inv, bs, level);
+  put_inverses<T>(tab, ndev, pr, pc, rank, pos, inv, bs, level);
 }
 
 // ---- B: owned panels ------------------------------------------------------
@@ -191,12 +218,12 @@ rdma_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
 // (not inlined), as flk.cu's are.
 template <class G, bool LEFT, typename T>
 __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
-                                        int pc, int d, int64_t loc,
+                                        int pr, int pc, int d, int64_t loc,
                                         int64_t pos, int64_t pil,
                                         int level) {
   using P = typename G::template Band<LEFT>;
   extern __shared__ float4 smem4[];
-  const int pr = ndev / pc, myr = d / pc, myc = d % pc;
+  const Place me(d, pr, pc);
   const int g = threadIdx.x / P::CT;
   const int c0 = (threadIdx.x % P::CT) * P::W;
   const int64_t bb = (int64_t)G::BS * G::BS;
@@ -212,15 +239,15 @@ __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
   slu_panel::store_tile<P, G::BS>(X, g, c0, acc);
   const int npeer = LEFT ? pr : pc;
   for (int q = 0; q < npeer; ++q) {
-    const int e = LEFT ? q * pc + myc : myr * pc + q;
+    const int e = me.base + (LEFT ? q * pc + me.c : me.r * pc + q);
     slu_panel::store_tile<P, G::BS>(
         buf<T>(tab, LEFT ? F_UB : F_LB, ndev, e) + pos * bb + off, g, c0,
         acc);
   }
   if (blockIdx.y == 0 && threadIdx.x == 0)
     for (int q = 0; q < npeer; ++q) {
-      if (q == (LEFT ? myr : myc)) continue;
-      const int e = LEFT ? q * pc + myc : myr * pc + q;
+      if (q == (LEFT ? me.r : me.c)) continue;
+      const int e = me.base + (LEFT ? q * pc + me.c : me.r * pc + q);
       atomicAdd(buf<int32_t>(tab, F_CNT, ndev, e) + level * R_NFACTOR +
                     (LEFT ? R_U : R_L), 1);
     }
@@ -228,7 +255,8 @@ __device__ __noinline__ void panel_band(const uint64_t* tab, int ndev,
 
 template <class G, typename T>
 __global__ void __launch_bounds__(G::NT)
-rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pr,
+                  int pc,
                   const int32_t* __restrict__ rank,
                   const int32_t* __restrict__ loc,
                   const int32_t* __restrict__ pos,
@@ -236,11 +264,11 @@ rdma_panel_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                   const int32_t* __restrict__ side, int level) {
   const int j = blockIdx.x;
   if (side[j] == 0)
-    panel_band<G, false, T>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
-                            level);
+    panel_band<G, false, T>(tab, ndev, pr, pc, rank[j], loc[j], pos[j],
+                            pil[j], level);
   else
-    panel_band<G, true, T>(tab, ndev, pc, rank[j], loc[j], pos[j], pil[j],
-                           level);
+    panel_band<G, true, T>(tab, ndev, pr, pc, rank[j], loc[j], pos[j],
+                           pil[j], level);
 }
 
 // ---- C: owned Schur products, grouped by target ---------------------------
@@ -282,10 +310,12 @@ rdma_solve_chunks_kernel(const uint64_t* __restrict__ tab, int ndev,
 }
 
 // ---- solve pass 2: a rank's partial of one row position, and its put -----
-// own[j] is the owner's grid column (its grid row when transposed).
+// own[j] is the owner's index among the row's npeer partials: z * pc + its
+// grid column (z * pr + its grid row when transposed), z its layer.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pr,
+                      int pc,
                       const int32_t* __restrict__ rank,
                       const int32_t* __restrict__ pos,
                       const int32_t* __restrict__ send,
@@ -295,9 +325,10 @@ rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
                       int level, int transpose) {
   const int j = blockIdx.x;
   const int d = rank[j];
-  const int myr = d / pc, myc = d % pc;
-  const int npeer = transpose ? ndev / pc : pc;
-  const int me = transpose ? myr : myc;
+  const Place pl(d, pr, pc);
+  const int pz = ndev / (pr * pc);
+  const int npeer = pz * (transpose ? pr : pc);
+  const int me = transpose ? pl.z * pr + pl.r : pl.z * pc + pl.c;
   const int64_t rb = (int64_t)bs * nrhs;
   const int c0 = blockIdx.y * kRT;
   const int rt = min(kRT, nrhs - c0);
@@ -305,7 +336,9 @@ rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
   const T* C =
       nq ? buf<T>(tab, S_C, ndev, d) + qrow[chunkptr[j]] * rb + c0 : nullptr;
   T* P = buf<T>(tab, S_P, ndev, d) + pos[j] * rb + c0;
-  const int owner = transpose ? own[j] * pc + myc : myr * pc + own[j];
+  const int owner =
+      transpose ? (own[j] / pr) * pr * pc + (own[j] % pr) * pc + pl.c
+                : (own[j] / pc) * pr * pc + pl.r * pc + own[j] % pc;
   T* S = send[j] ? buf<T>(tab, S_SLOTS, ndev, owner) +
                        ((int64_t)pos[j] * npeer + me) * rb + c0
                  : nullptr;
@@ -329,7 +362,8 @@ rdma_solve_sum_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
 // every rank's X[I].
 template <typename T, int BS, bool kTrans, int RT>
 __global__ void __launch_bounds__(kThreads, 2)
-rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
+rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pr,
+                       int pc,
                        const int32_t* __restrict__ rank,
                        const int32_t* __restrict__ row,
                        const int32_t* __restrict__ pos,
@@ -338,8 +372,9 @@ rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
   using M = Map<T, BS, kTrans>;
   const int j = blockIdx.x;
   const int d = rank[j];
-  const int npeer = kTrans ? ndev / pc : pc;
-  const int me = kTrans ? d / pc : d % pc;
+  const Place pl(d, pr, pc);
+  const int npeer = ndev / (pr * pc) * (kTrans ? pr : pc);
+  const int me = kTrans ? pl.z * pr + pl.r : pl.z * pc + pl.c;
   const int c0 = blockIdx.y * RT;
   const int rt = min(RT, nrhs - c0);
   const int64_t rb = (int64_t)BS * nrhs;
@@ -353,7 +388,7 @@ rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
     const int i = e / rt, c = e - i * rt;
     const int64_t o = (int64_t)i * nrhs + c;
     T v = X[o] + P[o];
-    for (int q = 0; q < npeer; ++q)  // the peers' partials, grid order
+    for (int q = 0; q < npeer; ++q)  // the peers' partials, (z, c) order
       if (q != me) v += S[q * rb + o];
     ys[i * RT + c] = v;
   }
@@ -376,7 +411,7 @@ rdma_solve_diag_kernel(const uint64_t* __restrict__ tab, int ndev, int pc,
 
 // ---- launches ------------------------------------------------------------
 template <typename T>
-int rdma_diag(const void* tab, int ndev, int pc, const void* rank,
+int rdma_diag(const void* tab, int ndev, int pr, int pc, const void* rank,
               const void* loc, const void* pos, const void* inv, int count,
               int bs, real_t<T> thresh, int level, void* stream) {
   const size_t smem = slu_tile::tile_lu_smem_bytes<T>(bs);
@@ -386,14 +421,14 @@ int rdma_diag(const void* tab, int ndev, int pc, const void* rank,
   if (err != cudaSuccess) return (int)err;
   if (count == 0) return 0;
   rdma_diag_kernel<T><<<count, kTileThreads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+      (const uint64_t*)tab, ndev, pr, pc, (const int32_t*)rank,
       (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)inv, bs,
       thresh, level);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int rdma_panel(const void* tab, int ndev, int pc, const void* rank,
+int rdma_panel(const void* tab, int ndev, int pr, int pc, const void* rank,
                const void* loc, const void* pos, const void* pil,
                const void* side, int count, int bs, int level, int wide,
                void* stream) {
@@ -404,7 +439,7 @@ int rdma_panel(const void* tab, int ndev, int pc, const void* rank,
     static_assert(G::STAGES == G::template Band<true>::STAGES, "ring");
     return slu_chain::launch<G>(
         rdma_panel_kernel<G, T>, count, (cudaStream_t)stream,
-        (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+        (const uint64_t*)tab, ndev, pr, pc, (const int32_t*)rank,
         (const int32_t*)loc, (const int32_t*)pos, (const int32_t*)pil,
         (const int32_t*)side, level);
   });
@@ -427,7 +462,7 @@ int rdma_schur(const void* tab, int ndev, const void* rank, const void* tloc,
 
 struct SolveArgs {
   const uint64_t* tab;
-  int ndev, pc;
+  int ndev, pr, pc;
   const int32_t *a, *b, *c, *e, *f;   // the entry's job lists, in order
   int count, nrhs, level;
   cudaStream_t stream;
@@ -455,8 +490,9 @@ struct DiagLaunch {
     static_assert(smem <= 48 * 1024, "shared memory");
     const dim3 grid(a.count, (a.nrhs + RT - 1) / RT);
     rdma_solve_diag_kernel<T, BS, kTrans, RT>
-        <<<grid, kThreads, smem, a.stream>>>(a.tab, a.ndev, a.pc, a.a, a.b,
-                                             a.c, a.e, a.nrhs, a.level);
+        <<<grid, kThreads, smem, a.stream>>>(a.tab, a.ndev, a.pr, a.pc, a.a,
+                                             a.b, a.c, a.e, a.nrhs,
+                                             a.level);
   }
 };
 
@@ -484,14 +520,15 @@ int dispatch(const SolveArgs& a, int bs, int transpose) {
 }
 
 template <typename T>
-int rdma_solve_sum(const void* tab, int ndev, int pc, const void* rank,
-                   const void* pos, const void* send, const void* own,
-                   const void* chunkptr, const void* qrow, int count, int bs,
-                   int nrhs, int level, int transpose, void* stream) {
+int rdma_solve_sum(const void* tab, int ndev, int pr, int pc,
+                   const void* rank, const void* pos, const void* send,
+                   const void* own, const void* chunkptr, const void* qrow,
+                   int count, int bs, int nrhs, int level, int transpose,
+                   void* stream) {
   if (count == 0) return 0;
   const dim3 grid(count, (nrhs + kRT - 1) / kRT);
   rdma_solve_sum_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)tab, ndev, pc, (const int32_t*)rank,
+      (const uint64_t*)tab, ndev, pr, pc, (const int32_t*)rank,
       (const int32_t*)pos, (const int32_t*)send, (const int32_t*)own,
       (const int32_t*)chunkptr, (const int32_t*)qrow, bs, nrhs, level,
       transpose);
@@ -500,7 +537,8 @@ int rdma_solve_sum(const void* tab, int ndev, int pc, const void* rank,
 
 }  // namespace
 
-// The entries of one element type T with suffix SFX:
+// The entries of one element type T with suffix SFX, over the ndev ranks
+// of a pz x pr x pc grid (pz = ndev / (pr * pc); a 2D grid is pz = 1):
 //   slu_rdma_diag_SFX:  phase A of a level over `count` diagonal jobs;
 //   slu_rdma_panel_SFX: phase B over `count` panel jobs (`wide` < 0
 //     chooses the band geometry, 0 / 1 force bands of 16 / 64);
@@ -517,18 +555,18 @@ int rdma_solve_sum(const void* tab, int ndev, int pc, const void* rank,
 // Each returns the cudaError_t of its launch.
 #define SLU_RDMA_ENTRIES(SFX, T)                                              \
   extern "C" int slu_rdma_diag_##SFX(                                         \
-      const void* tab, int ndev, int pc, const void* rank, const void* loc,   \
-      const void* pos, const void* inv, int count, int bs,                    \
+      const void* tab, int ndev, int pr, int pc, const void* rank,            \
+      const void* loc, const void* pos, const void* inv, int count, int bs,   \
       real_t<T> thresh, int level, void* stream) {                            \
-    return rdma_diag<T>(tab, ndev, pc, rank, loc, pos, inv, count, bs,        \
+    return rdma_diag<T>(tab, ndev, pr, pc, rank, loc, pos, inv, count, bs,    \
                         thresh, level, stream);                               \
   }                                                                           \
   extern "C" int slu_rdma_panel_##SFX(                                        \
-      const void* tab, int ndev, int pc, const void* rank, const void* loc,   \
-      const void* pos, const void* pil, const void* side, int count, int bs,  \
-      int level, int wide, void* stream) {                                    \
-    return rdma_panel<T>(tab, ndev, pc, rank, loc, pos, pil, side, count,     \
-                         bs, level, wide, stream);                            \
+      const void* tab, int ndev, int pr, int pc, const void* rank,            \
+      const void* loc, const void* pos, const void* pil, const void* side,    \
+      int count, int bs, int level, int wide, void* stream) {                 \
+    return rdma_panel<T>(tab, ndev, pr, pc, rank, loc, pos, pil, side,        \
+                         count, bs, level, wide, stream);                     \
   }                                                                           \
   extern "C" int slu_rdma_schur_##SFX(                                        \
       const void* tab, int ndev, const void* rank, const void* tloc,          \
@@ -541,7 +579,7 @@ int rdma_solve_sum(const void* tab, int ndev, int pc, const void* rank,
       const void* tab, int ndev, const void* qrank, const void* qrow,         \
       const void* qcptr, const void* cloc, const void* csrc, int count,       \
       int bs, int nrhs, int transpose, void* stream) {                        \
-    const SolveArgs a{(const uint64_t*)tab, ndev, 0,                          \
+    const SolveArgs a{(const uint64_t*)tab, ndev, 0, 0,                       \
                       (const int32_t*)qrank, (const int32_t*)qrow,            \
                       (const int32_t*)qcptr, (const int32_t*)cloc,            \
                       (const int32_t*)csrc, count, nrhs, 0,                   \
@@ -549,19 +587,19 @@ int rdma_solve_sum(const void* tab, int ndev, int pc, const void* rank,
     return dispatch<ChunksLaunch, T>(a, bs, transpose);                       \
   }                                                                           \
   extern "C" int slu_rdma_solve_sum_##SFX(                                    \
-      const void* tab, int ndev, int pc, const void* rank, const void* pos,   \
-      const void* send, const void* own, const void* chunkptr,                \
-      const void* qrow, int count, int bs, int nrhs, int level,               \
-      int transpose, void* stream) {                                          \
-    return rdma_solve_sum<T>(tab, ndev, pc, rank, pos, send, own, chunkptr,   \
-                             qrow, count, bs, nrhs, level, transpose,         \
-                             stream);                                         \
+      const void* tab, int ndev, int pr, int pc, const void* rank,            \
+      const void* pos, const void* send, const void* own,                     \
+      const void* chunkptr, const void* qrow, int count, int bs, int nrhs,    \
+      int level, int transpose, void* stream) {                               \
+    return rdma_solve_sum<T>(tab, ndev, pr, pc, rank, pos, send, own,         \
+                             chunkptr, qrow, count, bs, nrhs, level,          \
+                             transpose, stream);                              \
   }                                                                           \
   extern "C" int slu_rdma_solve_diag_##SFX(                                   \
-      const void* tab, int ndev, int pc, const void* rank, const void* row,   \
-      const void* pos, const void* inv, int count, int bs, int nrhs,          \
-      int level, int transpose, void* stream) {                               \
-    const SolveArgs a{(const uint64_t*)tab, ndev, pc,                         \
+      const void* tab, int ndev, int pr, int pc, const void* rank,            \
+      const void* row, const void* pos, const void* inv, int count, int bs,   \
+      int nrhs, int level, int transpose, void* stream) {                     \
+    const SolveArgs a{(const uint64_t*)tab, ndev, pr, pc,                     \
                       (const int32_t*)rank, (const int32_t*)row,              \
                       (const int32_t*)pos, (const int32_t*)inv, nullptr,      \
                       count, nrhs, level, (cudaStream_t)stream};              \

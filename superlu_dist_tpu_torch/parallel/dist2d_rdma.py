@@ -46,6 +46,13 @@ and each diagonal inverse is applied transposed, and since the block
 travel down the grid column to the diagonal owner instead of along the
 grid row. The flag never conjugates: the driver solves Aᴴx = b as
 x = conj(A⁻ᵀ conj(b)).
+
+The tapes and buffers cover the ranks of ``pz`` layers of a Pr × Pc grid
+(``FactorTapes.pz``, ``SweepTapes.pz``; 1 for the 2D grid): rank
+(z·Pr + r)·Pc + c. A factor's puts stay inside the producing rank's
+layer; a sweep gathers a row's partials from every layer, ``npeer`` =
+Pz·Pc of them (Pz·Pr transposed), in (z, c) order. ``parallel/dist3d.py``
+builds such tapes for the 3D grid.
 """
 
 from __future__ import annotations
@@ -71,15 +78,15 @@ _THRESH = {"f32": ctypes.c_float, "f64": ctypes.c_double,
 RDMA_FACTOR = CudaKernel("rdma_factor", "rdma.cu", {
     f"slu_rdma_{name}_{sfx}": args for sfx, th in _THRESH.items()
     for name, args in (
-        ("diag", [_V, _I, _I] + [_V] * 4 + [_I, _I, th, _I, _V]),
-        ("panel", [_V, _I, _I] + [_V] * 5 + [_I] * 4 + [_V]),
+        ("diag", [_V, _I, _I, _I] + [_V] * 4 + [_I, _I, th, _I, _V]),
+        ("panel", [_V, _I, _I, _I] + [_V] * 5 + [_I] * 4 + [_V]),
         ("schur", [_V, _I] + [_V] * 5 + [_I] * 3 + [_V]))})
 RDMA_SOLVE = CudaKernel("rdma_solve", "rdma.cu", {
     f"slu_rdma_solve_{name}_{sfx}": args for sfx in _THRESH
     for name, args in (
         ("chunks", [_V, _I] + [_V] * 5 + [_I] * 4 + [_V]),
-        ("sum", [_V, _I, _I] + [_V] * 6 + [_I] * 5 + [_V]),
-        ("diag", [_V, _I, _I] + [_V] * 4 + [_I] * 5 + [_V]))})
+        ("sum", [_V, _I, _I, _I] + [_V] * 6 + [_I] * 5 + [_V]),
+        ("diag", [_V, _I, _I, _I] + [_V] * 4 + [_I] * 5 + [_V]))})
 
 #: receive kinds of the factor's counters (rank, level, kind), the TPU's
 #: rcv_li, rcv_ui, rcv_l, rcv_u; of a sweep's, rcv_part and rcv_x
@@ -102,18 +109,31 @@ def build_rdma_recv_tapes(plan: SymbolicPlan, dplan: DistPlan2D) -> dict:
     - rcv_li: linv blocks arriving from row-peer step owners
     - rcv_l / rcv_u: panel blocks arriving from row / column peers
     """
-    pr, pc, nlvl = dplan.pr, dplan.pc, dplan.nlvl
     step_level = np.asarray(plan.step_level)
+    return factor_recv_counts(plan, dplan.pr, dplan.pc, [
+        np.flatnonzero(step_level == l) for l in range(dplan.nlvl)])
+
+
+def factor_recv_counts(plan: SymbolicPlan, pr: int, pc: int,
+                       steps_of_level) -> dict:
+    """The receive counts of :func:`build_rdma_recv_tapes` for a Pr × Pc
+    grid that eliminates the steps ``steps_of_level[l]`` at level l (the
+    plan's levels on the 2D grid, one layer's combined schedule on the 3D
+    grid)."""
+    nlvl = len(steps_of_level)
     scol = np.asarray(plan.slot_col)
     srow = np.asarray(plan.slot_row)
-    nb = plan.nb
+    step_level = np.full(plan.nb, -1, np.int64)
+    for l, ks in enumerate(steps_of_level):
+        step_level[np.asarray(ks, np.int64)] = l
+    steps = np.flatnonzero(step_level >= 0)
 
     rcv_ui = np.zeros((pr, pc, nlvl), np.int64)
     rcv_li = np.zeros((pr, pc, nlvl), np.int64)
     rcv_l = np.zeros((pr, pc, nlvl), np.int64)
     rcv_u = np.zeros((pr, pc, nlvl), np.int64)
 
-    for k in range(nb):
+    for k in steps:
         l = step_level[k]
         rk, ck = k % pr, k % pc
         # uinv(k) -> (r, ck) for all r != rk ; linv(k) -> (rk, c) != ck
@@ -126,7 +146,7 @@ def build_rdma_recv_tapes(plan: SymbolicPlan, dplan: DistPlan2D) -> dict:
 
     # L blocks (i, k): owner (i%pr, k%pc) puts to (i%pr, c!=k%pc)
     # U blocks (k, j): owner (k%pr, j%pc) puts to (r!=k%pr, j%pc)
-    for k in range(nb):
+    for k in steps:
         l = step_level[k]
         lo, hi = plan.l_ptr[k], plan.l_ptr[k + 1]
         for s in np.asarray(plan.l_slots[lo:hi]):
@@ -160,11 +180,26 @@ def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
     sweep its grid row); consts has nlvl and MAXR (max rows per level,
     the height of the receive slots and of the partial buffer).
     """
-    pr, pc, nb = dplan.pr, dplan.pc, dplan.nb
-    owner_dev = np.asarray(dplan.owner_dev)
-    local_slot = np.asarray(dplan.local_slot)
-    dinv_idx = np.asarray(dplan.dinv_idx)
-    ndev = pr * pc
+    return solve_tapes(plan, which, 1, dplan.pr, dplan.pc,
+                       np.asarray(dplan.owner_dev),
+                       np.asarray(dplan.local_slot),
+                       np.zeros(plan.nb, np.int64),
+                       np.asarray(dplan.dinv_idx), (dplan.pr, dplan.pc))
+
+
+def solve_tapes(plan: SymbolicPlan, which: str, pz: int, pr: int, pc: int,
+                slot_rank, slot_local, row_layer, dinv_idx, lead):
+    """The tapes of :func:`build_rdma_solve_tapes` on ``pz`` layers of a
+    Pr × Pc grid: slot s's products run on rank ``slot_rank[s]`` at local
+    slot ``slot_local[s]``; block row I is solved by rank (row_layer[I],
+    I mod Pr, I mod Pc) with its inverses at row ``dinv_idx[I]`` of that
+    rank's tables. Every rank of the row's grid row (grid column when
+    transposed) on every layer holds a partial of it, the owner's index
+    among them (``sdstc``) z·Pc + its grid column (z·Pr + its grid row).
+    The arrays' leading dimensions are ``lead`` (the ranks' grid
+    shape)."""
+    nb = plan.nb
+    ndev, lay = pz * pr * pc, pr * pc
     gptr_g, gslot_g, gsrc_g, gdst_g, dptr_g, diag_g, nlvl = \
         sweep_schedule(plan, which)
     trans = which.endswith("T")
@@ -185,27 +220,31 @@ def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
     for l in range(nlvl):
         for t in range(gptr_g[l], gptr_g[l + 1]):
             s = int(gslot_g[t])
-            g_lists[owner_dev[s]][l].append(
-                (int(local_slot[s]), int(gsrc_g[t]),
+            g_lists[slot_rank[s]][l].append(
+                (int(slot_local[s]), int(gsrc_g[t]),
                  int(pos_of_row[gdst_g[t]])))
         rows = np.asarray(diag_g[dptr_g[l]:dptr_g[l + 1]], np.int64)
         for I in rows:
             r_own, c_own = int(I % pr), int(I % pc)
+            z_own = int(row_layer[I])
             # every rank in grid row I%pr (grid column I%pc when
-            # transposed) holds a (possibly zero) partial for row I: zero
-            # it, and non-owners put it
-            if trans:
-                for r in range(pr):
-                    s_lists[r * pc + c_own][l].append(
-                        (int(pos_of_row[I]), r_own, 1 if r != r_own else 0))
-            else:
-                for c in range(pc):
-                    s_lists[r_own * pc + c][l].append(
-                        (int(pos_of_row[I]), c_own, 1 if c != c_own else 0))
-            d_own = r_own * pc + c_own
+            # transposed) of every layer holds a (possibly zero) partial
+            # for row I: zero it, and non-owners put it
+            for z in range(pz):
+                if trans:
+                    for r in range(pr):
+                        s_lists[z * lay + r * pc + c_own][l].append(
+                            (int(pos_of_row[I]), z_own * pr + r_own,
+                             1 if (z, r) != (z_own, r_own) else 0))
+                else:
+                    for c in range(pc):
+                        s_lists[z * lay + r_own * pc + c][l].append(
+                            (int(pos_of_row[I]), z_own * pc + c_own,
+                             1 if (z, c) != (z_own, c_own) else 0))
+            d_own = z_own * lay + r_own * pc + c_own
             d_lists[d_own][l].append(
                 (int(I), int(pos_of_row[I]), int(dinv_idx[I])))
-            rcv_part[d_own, l] += (pr if trans else pc) - 1
+            rcv_part[d_own, l] += pz * (pr if trans else pc) - 1
             for d in range(ndev):
                 if d != d_own:
                     rcv_x[d, l] += 1
@@ -225,8 +264,8 @@ def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
                     for f in range(nfields):
                         out[f][d, p0] = item[f]
                     p0 += 1
-        return (ptr_.reshape(pr, pc, nlvl + 1).astype(np.int32),
-                [o.reshape(pr, pc, maxlen) for o in out])
+        return (ptr_.reshape(*lead, nlvl + 1).astype(np.int32),
+                [o.reshape(*lead, maxlen) for o in out])
 
     gp, (gloc, gsrc, gdpos) = pack(g_lists, 3, [_ZERO, nb, maxr])
     sp_, (spos, sdstc, ssend) = pack(s_lists, 3, [maxr, 0, 0])
@@ -235,8 +274,8 @@ def build_rdma_solve_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
     tapes = dict(gp=gp, gloc=gloc, gsrc=gsrc, gdpos=gdpos,
                  sp=sp_, spos=spos, sdstc=sdstc, ssend=ssend,
                  dp=dp, drow=drow, dpos=dpos_a, dinv=dinv,
-                 rcv_part=rcv_part.reshape(pr, pc, nlvl).astype(np.int32),
-                 rcv_x=rcv_x.reshape(pr, pc, nlvl).astype(np.int32))
+                 rcv_part=rcv_part.reshape(*lead, nlvl).astype(np.int32),
+                 rcv_x=rcv_x.reshape(*lead, nlvl).astype(np.int32))
     return tapes, dict(nlvl=nlvl, maxr=maxr)
 
 
@@ -293,10 +332,12 @@ class FactorTapes:
     host: dict
     dev: dict
     recv: dict
+    #: layers of the Pr × Pc grid (the 3D grid's Pz; 1 in 2D)
+    pz: int = 1
 
     @property
     def ndev(self) -> int:
-        return self.pr * self.pc
+        return self.pz * self.pr * self.pc
 
 
 def build_factor_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
@@ -306,19 +347,30 @@ def build_factor_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
     slot, buffer position, position of the step, side 0 = L / 1 = U), and
     phase C's products grouped by target (stable: tape order within a
     target)."""
-    pr, pc, nlvl = dplan.pr, dplan.pc, dplan.nlvl
-    ndev = pr * pc
+    return factor_tapes(dplan, dplan.dpos, dplan.gtloc, dplan.nlvl, device,
+                        build_rdma_recv_tapes(plan, dplan))
+
+
+def factor_tapes(dplan, dpos, gtloc, nlvl: int, device, recv,
+                 pz: int = 1) -> FactorTapes:
+    """The job lists of :func:`build_factor_tapes` from a partition's
+    per-rank tapes over ``pz`` layers (``dplan``'s ``dptr``, ``dloc``,
+    ``lptr`` ... ``gupos``, stacked over the ranks), with the steps'
+    positions in their level ``dpos`` and the Schur targets' local slots
+    ``gtloc`` given apart."""
+    pr, pc = dplan.pr, dplan.pc
+    ndev = pz * pr * pc
 
     def flat(a):
         return np.asarray(a).reshape(ndev, -1).astype(np.int64)
 
     dptr, lptr, uptr, gptr = (flat(getattr(dplan, n)) for n in
                               ("dptr", "lptr", "uptr", "gptr"))
-    dloc, dpos = flat(dplan.dloc), flat(dplan.dpos)
+    dloc, dpos = flat(dplan.dloc), flat(dpos)
     lloc, lpos, lpil = flat(dplan.lloc), flat(dplan.lpos), flat(dplan.lpil)
     uloc, upos, upil = flat(dplan.uloc), flat(dplan.upos), flat(dplan.upil)
     glpos, gupos, gtloc = (flat(dplan.glpos), flat(dplan.gupos),
-                           flat(dplan.gtloc))
+                           flat(gtloc))
     a_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
     b_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
     s_l = [[[] for _ in range(nlvl)] for _ in range(ndev)]
@@ -355,15 +407,16 @@ def build_factor_tapes(plan: SymbolicPlan, dplan: DistPlan2D,
         dlen=int(np.asarray(dplan.dstep).shape[-1]), max_dlvl=dplan.max_dlvl,
         max_lbuf=dplan.max_lbuf, max_ubuf=dplan.max_ubuf, aptr=aptr,
         bptr=bptr, sptr=sptr, host=host,
-        dev={k: _dev(v, device) for k, v in host.items()},
-        recv=build_rdma_recv_tapes(plan, dplan))
+        dev={k: _dev(v, device) for k, v in host.items()}, recv=recv,
+        pz=pz)
 
 
 @dataclasses.dataclass
 class SweepTapes:
     """One RDMA sweep's jobs, unpadded. Level l's partial jobs of rank d
     are ``[pptr[l, d], pptr[l, d + 1])`` of ``p_*`` (position, send flag,
-    the owner's grid column), with their products ``c_loc``/``c_src`` over
+    the owner's index among the row's partials: z·Pc + its grid column, z
+    its layer), with their products ``c_loc``/``c_src`` over
     ``cptr``; its diagonal jobs ``[dptr[l, d], dptr[l, d + 1])`` of ``d_*``
     (block row, position, inverse row). Each partial job's chain is cut
     into chunks in tape order (``sweep.chunk_chains``): job j's chunks are
@@ -373,10 +426,10 @@ class SweepTapes:
     ``qptr[l]:qptr[l+1]`` and ``maxq`` rows hold any level's chunks of
     one rank. ``recv`` holds the receive counts ``rcv_part`` and
     ``rcv_x`` (the TPU's tapes for "L" and "U"). In a transposed sweep
-    (``which`` "UT" or "LT", ``transpose`` true) ``p_dstc`` is the
-    owner's grid row and a row's ``npeer`` = Pr partials gather down the
-    grid column; otherwise it is the owner's grid column and Pc partials
-    gather along the grid row."""
+    (``which`` "UT" or "LT", ``transpose`` true) ``p_dstc`` is z·Pr + the
+    owner's grid row and a row's ``npeer`` = Pz·Pr partials gather down
+    the grid column of every layer; otherwise z·Pc + its grid column and
+    Pz·Pc partials gather along the grid row of every layer."""
 
     which: str
     pr: int
@@ -390,10 +443,12 @@ class SweepTapes:
     host: dict
     dev: dict
     recv: dict
+    #: layers of the Pr × Pc grid (the 3D grid's Pz; 1 in 2D)
+    pz: int = 1
 
     @property
     def ndev(self) -> int:
-        return self.pr * self.pc
+        return self.pz * self.pr * self.pc
 
     @property
     def transpose(self) -> bool:
@@ -401,9 +456,9 @@ class SweepTapes:
 
     @property
     def npeer(self) -> int:
-        """The ranks that hold partials of one row: Pc, or Pr when
+        """The ranks that hold partials of one row: Pz·Pc, or Pz·Pr when
         transposed."""
-        return self.pr if self.transpose else self.pc
+        return self.pz * (self.pr if self.transpose else self.pc)
 
 
 def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
@@ -416,8 +471,14 @@ def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
     the level's products over ``sweep.CHUNK_CTAS``); one diagonal job per
     solved row on its owner."""
     t, c = build_rdma_solve_tapes(plan, dplan, which)
-    pr, pc = dplan.pr, dplan.pc
-    ndev, nlvl = pr * pc, c["nlvl"]
+    return sweep_tapes(t, c, which, 1, dplan.pr, dplan.pc, device, chunk)
+
+
+def sweep_tapes(t, c, which: str, pz: int, pr: int, pc: int, device,
+                chunk: int | None = None) -> SweepTapes:
+    """The job lists of :func:`build_sweep_tapes` from the tapes ``t``
+    and constants ``c`` of :func:`solve_tapes` on ``pz`` layers."""
+    ndev, nlvl = pz * pr * pc, c["nlvl"]
 
     def flat(a):
         return np.asarray(a).reshape(ndev, -1).astype(np.int64)
@@ -469,7 +530,7 @@ def build_sweep_tapes(plan: SymbolicPlan, dplan: DistPlan2D, which: str,
                       pptr=pptr, dptr=dptr_, qptr=qptr,
                       maxq=int(q_row.max(initial=-1)) + 1, host=host,
                       dev={k: _dev(v, device) for k, v in host.items()},
-                      recv={k: t[k] for k in SOLVE_RECV})
+                      recv={k: t[k] for k in SOLVE_RECV}, pz=pz)
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +693,14 @@ def _check_cuda(what, blocks, others=()):
                          f"{CUDA_BLOCK_SIZES}")
 
 
+def _place(d: int, pr: int, pc: int):
+    """Rank ``d``'s layer's first rank, its grid row and its grid
+    column."""
+    base = d - d % (pr * pc)
+    myr, myc = divmod(d - base, pc)
+    return base, myr, myc
+
+
 def _span(ptr_, level):
     return int(ptr_[level, 0]), int(ptr_[level, -1])
 
@@ -661,15 +730,15 @@ def rdma_diag_plain(st: FactorState, thresh: float, ft: FactorTapes,
         st.linv[d][inv] = li
         st.uinv[d][inv] = ui
         st.tiny[d] += nt.to(torch.int32)
-        myr, myc = divmod(d, pc)
+        base, myr, myc = _place(d, pr, pc)
         for c in range(pc):            # linv along the grid row
-            st.lC[myr * pc + c][pos] = li
+            st.lC[base + myr * pc + c][pos] = li
             if c != myc:
-                st.recv[myr * pc + c][level, _LI] += hi - lo
+                st.recv[base + myr * pc + c][level, _LI] += hi - lo
         for r in range(pr):            # uinv down the grid column
-            st.uC[r * pc + myc][pos] = ui
+            st.uC[base + r * pc + myc][pos] = ui
             if r != myr:
-                st.recv[r * pc + myc][level, _UI] += hi - lo
+                st.recv[base + r * pc + myc][level, _UI] += hi - lo
 
 
 def rdma_diag(st: FactorState, thresh: float, ft: FactorTapes,
@@ -685,7 +754,7 @@ def rdma_diag(st: FactorState, thresh: float, ft: FactorTapes,
     dv, fn = ft.dev, entry("rdma_diag", st.pool[0])
     RDMA_FACTOR.count(fn)
     RDMA_FACTOR.call(
-        fn, ptr(tab), ft.ndev, ft.pc, _at(dv["a_rank"], lo),
+        fn, ptr(tab), ft.ndev, ft.pr, ft.pc, _at(dv["a_rank"], lo),
         _at(dv["a_loc"], lo), _at(dv["a_pos"], lo), _at(dv["a_inv"], lo),
         hi - lo, ft.bs, float(thresh), level, stream_ptr(st.pool[0].device))
 
@@ -695,11 +764,13 @@ def rdma_panel_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
     h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.pool[0].device
     for d in range(ft.ndev):
         lo, hi = int(ft.bptr[level, d]), int(ft.bptr[level, d + 1])
-        myr, myc = divmod(d, pc)
+        base, myr, myc = _place(d, pr, pc)
         side = h["b_side"][lo:hi]
         for s, inv, buf, peers, kind in (
-                (0, st.uC[d], st.lB, [myr * pc + c for c in range(pc)], _L),
-                (1, st.lC[d], st.uB, [r * pc + myc for r in range(pr)], _U)):
+                (0, st.uC[d], st.lB,
+                 [base + myr * pc + c for c in range(pc)], _L),
+                (1, st.lC[d], st.uB,
+                 [base + r * pc + myc for r in range(pr)], _U)):
             sel = np.flatnonzero(side == s) + lo
             if not len(sel):
                 continue
@@ -731,7 +802,7 @@ def rdma_panel(st: FactorState, ft: FactorTapes, level: int,
     dv, fn = ft.dev, entry("rdma_panel", st.pool[0])
     RDMA_FACTOR.count(fn)
     RDMA_FACTOR.call(
-        fn, ptr(tab), ft.ndev, ft.pc, _at(dv["b_rank"], lo),
+        fn, ptr(tab), ft.ndev, ft.pr, ft.pc, _at(dv["b_rank"], lo),
         _at(dv["b_loc"], lo), _at(dv["b_pos"], lo), _at(dv["b_pil"], lo),
         _at(dv["b_side"], lo), hi - lo, ft.bs, level, wide,
         stream_ptr(st.pool[0].device))
@@ -857,13 +928,16 @@ def rdma_solve_chunks(pools, ss: SweepState, tp: SweepTapes,
 
 
 def _owner_slot(tp: SweepTapes, d: int, own):
-    """For rank ``d``'s partials whose owner lies at ``own`` along the
-    sweep's axis: the owners' ranks, and the index of ``d`` among a row's
-    ``npeer`` partial slots."""
-    myr, myc = divmod(d, tp.pc)
+    """For rank ``d``'s partials whose owner has index ``own`` among a
+    row's ``npeer`` partial slots (z·Pc + its grid column, or z·Pr + its
+    grid row in a transposed sweep): the owners' ranks, and the index of
+    ``d`` among those slots."""
+    pr, pc = tp.pr, tp.pc
+    base, myr, myc = _place(d, pr, pc)
+    z = base // (pr * pc)
     if tp.transpose:
-        return own * tp.pc + myc, myr
-    return myr * tp.pc + own, myc
+        return (own // pr) * pr * pc + (own % pr) * pc + myc, z * pr + myr
+    return (own // pc) * pr * pc + myr * pc + own % pc, z * pc + myc
 
 
 def rdma_solve_sum_plain(pools, ss: SweepState, tp: SweepTapes,
@@ -905,7 +979,7 @@ def rdma_solve_sum(pools, ss: SweepState, tp: SweepTapes,
     dv, fn = tp.dev, entry("rdma_solve_sum", ss.X[0])
     RDMA_SOLVE.count(fn)
     RDMA_SOLVE.call(
-        fn, ptr(tab), tp.ndev, tp.pc,
+        fn, ptr(tab), tp.ndev, tp.pr, tp.pc,
         _at(dv["p_rank"], lo), _at(dv["p_pos"], lo), _at(dv["p_send"], lo),
         _at(dv["p_dstc"], lo), _at(dv["chunkptr"], lo), ptr(dv["q_row"]),
         hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
@@ -940,7 +1014,7 @@ def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,
                           ("d_row", "d_pos", "d_inv"))
         t = ss.X[d][rows] + ss.P[d][pos]
         me = _owner_slot(tp, d, 0)[1]
-        for q in range(npeer):         # the peers' partials, grid order
+        for q in range(npeer):         # the peers' partials, (z, c) order
             if q != me:
                 t = t + ss.slots[d][pos * npeer + q]
         x = _op(dinvs[d][inv], tp) @ t
@@ -963,7 +1037,7 @@ def rdma_solve_diag(dinvs, ss: SweepState, tp: SweepTapes,
     dv, fn = tp.dev, entry("rdma_solve_diag", ss.X[0])
     RDMA_SOLVE.count(fn)
     RDMA_SOLVE.call(
-        fn, ptr(tab), tp.ndev, tp.pc, _at(dv["d_rank"], lo),
+        fn, ptr(tab), tp.ndev, tp.pr, tp.pc, _at(dv["d_rank"], lo),
         _at(dv["d_row"], lo), _at(dv["d_pos"], lo), _at(dv["d_inv"], lo),
         hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
         int(tp.transpose), stream_ptr(ss.X[0].device))
@@ -1007,8 +1081,9 @@ def rdma_solve_plain(pools, linvs, uinvs, lt, ut, B):
     return rdma_solve(pools, linvs, uinvs, lt, ut, B, plain=True)
 
 
-def stacked_recv(recv: list, pr: int, pc: int, names) -> dict:
+def stacked_recv(recv: list, pr: int, pc: int, names, pz: int = 1) -> dict:
     """Per-rank (nlvl, kinds) counters as the TPU tapes' (pr, pc, nlvl)
-    arrays, by kind name."""
+    arrays (on ``pz`` > 1 layers (pz, pr, pc, nlvl)), by kind name."""
     a = torch.stack([r.cpu() for r in recv]).numpy()
-    return {n: a[:, :, i].reshape(pr, pc, -1) for i, n in enumerate(names)}
+    lead = (pz, pr, pc) if pz > 1 else (pr, pc)
+    return {n: a[:, :, i].reshape(*lead, -1) for i, n in enumerate(names)}

@@ -1,26 +1,45 @@
-"""The 2D process grid of the distributed driver.
+"""The 2D and 3D process grids of the distributed drivers.
 
 Counterpart of the JAX package's ``parallel/grid.py`` (``superlu_gridinit``
 analog, reference: SRC/prec-independent/superlu_grid.c:37-230). There the
 grid is a ``jax.sharding.Mesh`` whose axes carry the collectives; here it
-is a map from each rank (r, c) of the Pr × Pc grid to a torch device, and
-one process drives every rank (the JAX package's 2D driver is single-
-controller too). Every rank sits on the driver's device: the card by
-default, the CPU in the tests. Ranks on several cards are not served yet
-(ROADMAP.md, queue 1 item 8d).
+is a map from each rank (r, c) of the Pr × Pc grid, or (z, r, c) of the
+Pz × Pr × Pc grid, to a torch device, and one process drives every rank
+(the JAX package's drivers are single-controller too). Every rank sits on
+the driver's device: the card by default, the CPU in the tests. Ranks on
+several cards are not served yet (ROADMAP.md, queue 1 item 8d).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 #: the ROADMAP item that serves a grid spread over several cards
 SEVERAL_CARDS = "queue 1 item 8d"
 
 
-class Grid2D:
+class _Grid:
+    """What both grids share: ``devices`` (None, or one device per rank,
+    all the same) and the device every rank runs on."""
+
+    devices = None
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    def rank_device(self, default) -> torch.device:
+        """The device every rank runs on: the grid's own, else
+        ``default`` (the driver's)."""
+        if self.devices is None:
+            return torch.device(default)
+        return self.devices[0]
+
+
+class Grid2D(_Grid):
     """Pr × Pc logical process grid. ``devices`` optionally names the
     device of each rank, rank r·Pc + c first; they must all be one
     device. Without ``devices`` every rank takes the driver's device."""
@@ -32,38 +51,59 @@ class Grid2D:
                              "and one column")
         self.nprow = nprow
         self.npcol = npcol
-        self.devices = None
-        if devices is not None:
-            devices = [torch.device(d) for d in devices]
-            if nprow * npcol > len(devices):
-                raise ValueError(
-                    f"grid {nprow}x{npcol} needs {nprow * npcol} devices, "
-                    f"have {len(devices)}")
-            devices = devices[: nprow * npcol]
-            if len(set(map(_canonical, devices))) > 1:
-                raise NotImplementedError(
-                    f"ranks on several devices ({sorted(set(map(str, devices)))})"
-                    f" are not ported yet (ROADMAP.md, {SEVERAL_CARDS}): "
-                    "every rank of a grid runs on one device")
-            self.devices = devices
+        self.devices = _one_device(self.shape, devices)
 
     @property
     def shape(self):
         return (self.nprow, self.npcol)
 
-    @property
-    def size(self) -> int:
-        return self.nprow * self.npcol
-
-    def rank_device(self, default) -> torch.device:
-        """The device every rank runs on: the grid's own, else
-        ``default`` (the driver's)."""
-        if self.devices is None:
-            return torch.device(default)
-        return self.devices[0]
-
     def __repr__(self):
         return f"Grid2D({self.nprow}x{self.npcol})"
+
+
+class Grid3D(_Grid):
+    """Pz × Pr × Pc grid (``superlu_gridinit3d`` analog, the JAX
+    package's ``Grid3D``): Pz layers of a Pr × Pc grid, rank (z·Pr + r)·Pc
+    + c. Each layer factors its own subtrees of the elimination forest and
+    the ancestors are reduced over the layers (``parallel/dist3d.py``).
+    ``devices`` as for :class:`Grid2D`: every rank sits on one device."""
+
+    def __init__(self, npdep: int, nprow: int, npcol: int,
+                 devices: Optional[Sequence] = None):
+        if min(npdep, nprow, npcol) < 1:
+            raise ValueError(f"grid {npdep}x{nprow}x{npcol} needs at least "
+                             "one layer, row and column")
+        self.npdep = npdep
+        self.nprow = nprow
+        self.npcol = npcol
+        self.devices = _one_device(self.shape, devices)
+
+    @property
+    def shape(self):
+        return (self.npdep, self.nprow, self.npcol)
+
+    def __repr__(self):
+        return f"Grid3D({self.npdep}x{self.nprow}x{self.npcol})"
+
+
+def _one_device(shape, devices):
+    """The grid's devices (None for the driver's), which must all be one
+    device."""
+    if devices is None:
+        return None
+    devices = [torch.device(d) for d in devices]
+    need = int(np.prod(shape))
+    dims = "x".join(map(str, shape))
+    if need > len(devices):
+        raise ValueError(f"grid {dims} needs {need} devices, have "
+                         f"{len(devices)}")
+    devices = devices[:need]
+    if len(set(map(_canonical, devices))) > 1:
+        raise NotImplementedError(
+            f"ranks on several devices ({sorted(set(map(str, devices)))})"
+            f" are not ported yet (ROADMAP.md, {SEVERAL_CARDS}): "
+            "every rank of a grid runs on one device")
+    return devices
 
 
 def _canonical(d: torch.device) -> str:

@@ -21,7 +21,6 @@ import superlu_dist_tpu as J
 from superlu_dist_tpu.models.batch import BatchedSparseLU as JBatch
 from superlu_dist_tpu.models.batch import gssvx_batch as j_gssvx_batch
 from superlu_dist_tpu.parallel.grid import Grid2D as JGrid2D
-from superlu_dist_tpu.parallel.grid import Grid3D as JGrid3D
 from superlu_dist_tpu.utils.testing import random_sparse
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu
@@ -237,12 +236,16 @@ def test_gssvx_batch_complex_member():
 
 
 def test_gssvx_batch_grid3d_raises():
-    """A 3D grid names its ROADMAP item (the port's only refusal here)."""
+    """A 3D grid whose ranks sit on several devices names its ROADMAP item
+    (8d, the port's only refusal of a 3D grid here; on one device the
+    composite runs on ``Distributed3DSparseLU``,
+    tests/test_torch_dist3d.py)."""
     As, Bs, _ = _heterogeneous()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 item 9"):
+                       match="ROADMAP.md, queue 1 item 8d"):
         T.gssvx_batch(As, Bs, T.Options(dtype="float32", block_size=16),
-                      grid=JGrid3D(2, 2, 2), device="cpu")
+                      grid=T.Grid3D(2, 1, 1, devices=["cpu", "meta"]),
+                      device="cpu")
 
 
 def test_package_surface_matches_jax():

@@ -956,6 +956,132 @@ def test_rdma_types_match_plain(cuda, bs, sfx):
         assert torch.equal(X1, X2)
 
 
+@pytest.mark.parametrize("mode", ["replicated", "zsplit"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_rdma3d_kernels_match_plain(cuda, bs, mode):
+    """The 3D driver on the card (Grid3D(2, 2, 2) and (2, 1, 2), both
+    anc25d modes): a float32 gssvx3d launches every ``_f32`` entry of the
+    RDMA factor and solve and no other, agrees with the CPU run (1e-10
+    relative), and its receive counters equal the 3D tapes; then every
+    entry against its plain version level by level on the 3D tapes (the
+    ancestor reduction and zsplit's delta between the levels, the same on
+    both), in the bands the kernels choose and in bands of 16, and the
+    L, U, Uᵀ and Lᵀ sweeps (partials from every layer) with one and three
+    right-hand sides, within 64 float32 ulp of the output's magnitude;
+    the sweeps' receive counts equal their tapes; two factors bit-equal."""
+    from superlu_dist_tpu_torch.parallel import dist3d
+    A = tt.laplacian_3d(12).tocsc()
+    b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
+    opts = T.Options(dtype="float32", block_size=bs, anc25d=mode)
+    eps = np.finfo(np.float32).eps
+
+    def close(a, p):
+        torch.cuda.synchronize()
+        for x, y in zip(a, p):
+            if not x.is_floating_point():
+                assert torch.equal(x, y)
+                continue
+            scale = max(1.0, float(y.abs().max()))
+            assert float((x - y).abs().max()) <= ULPS * eps * scale
+
+    for grid in ((2, 2, 2), (2, 1, 2)):
+        for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
+            k.reset_counts()
+        rg, lu = T.gssvx3d(A, b, T.Grid3D(*grid), opts, device=cuda)
+        for k in (rdma.RDMA_FACTOR, rdma.RDMA_SOLVE):
+            assert all((v > 0) == e.endswith("_f32")
+                       for e, v in k.entry_launches.items()), \
+                k.entry_launches
+        rc, _ = T.gssvx3d(A, b, T.Grid3D(*grid), opts, device="cpu")
+        assert rg.berr.max() < 1e-15
+        assert np.abs(rg.x - rc.x).max() <= 1e-10 * np.abs(rc.x).max()
+        assert rg.stat.tiny_pivots == rc.stat.tiny_pivots
+        for k, v in lu.factor_recv().items():
+            assert np.array_equal(v, lu._ft.recv[k]), k
+        for got, tp in zip(lu.solve_recv(), (lu._lt, lu._ut)):
+            for k, v in got.items():
+                assert np.array_equal(v, tp.recv[k]), (tp.which, k)
+    ft, plan, th = lu._ft, lu.plan, lu._thresh()
+    assert ft.zsplit == (mode == "zsplit")
+    for wide in (-1, 0):
+        st = rdma.new_factor_state(lu._pools0(), ft)
+        for level in range(ft.nlvl):
+            dist3d.before_level(st, ft, level)
+            for kern, plain in (
+                    (lambda s: rdma.rdma_diag(s, th, ft, level),
+                     lambda s: rdma.rdma_diag_plain(s, th, ft, level)),
+                    (lambda s: rdma.rdma_panel(s, ft, level, wide),
+                     lambda s: rdma.rdma_panel_plain(s, ft, level)),
+                    (lambda s: rdma.rdma_schur(s, ft, level, wide),
+                     lambda s: rdma.rdma_schur_plain(s, ft, level))):
+                ref = rdma.FactorState.of(
+                    [t.clone() for t in st.tensors()], ft.ndev)
+                kern(st)
+                plain(ref)
+                close(st.tensors(), ref.tensors())
+            dist3d.after_level(st, ft, level)
+    f1, f2 = (dist3d.rdma_factor3d(lu._pools0(), th, ft)[0]
+              for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(f1.tensors(),
+                                                 f2.tensors()))
+    lu.solve_transposed(b)
+    lt, ut = lu._ttapes
+    for nrhs in (1, 3):
+        B = torch.randn(plan.nb, plan.bs, nrhs, device=cuda)
+        for tp, dinv in ((lu._lt, lu.linv), (lu._ut, lu.uinv),
+                         (ut, lu.uinv), (lt, lu.linv)):
+            assert tp.pz == 2 and tp.npeer == 2 * (tp.pr if tp.transpose
+                                                   else tp.pc)
+            ss = rdma.new_sweep_state([B.clone() for _ in lu.pool], tp)
+            for level in range(tp.nlvl):
+                for kern, plain, M in (
+                        (rdma.rdma_solve_chunks,
+                         rdma.rdma_solve_chunks_plain, lu.pool),
+                        (rdma.rdma_solve_sum, rdma.rdma_solve_sum_plain,
+                         lu.pool),
+                        (rdma.rdma_solve_diag, rdma.rdma_solve_diag_plain,
+                         dinv)):
+                    ref = rdma.SweepState.of(
+                        [t.clone() for t in ss.tensors()], tp.ndev)
+                    kern(M, ss, tp, level)
+                    plain(M, ref, tp, level)
+                    close(ss.tensors(), ref.tensors())
+            for k, v in rdma.stacked_recv(ss.recv, tp.pr, tp.pc,
+                                          rdma.SOLVE_RECV, tp.pz).items():
+                assert np.array_equal(v, tp.recv[k]), (tp.which, k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "complex128"])
+def test_rdma3d_one_layer_bit_equal_to_2d(cuda, dtype):
+    """Grid3D(1, 2, 2) on the card runs the 2D grid's launches: its
+    factors and x bit-equal to gssvx_dist on Grid2D(2, 2); and a
+    Grid3D(2, 2, 2) gssvx3d in float64, complex64 and complex128 through
+    those entries against its CPU run (1e-12 relative; complex64 1e-10)."""
+    A = _grid_matrix(dtype) if dtype != "float32" else \
+        tt.laplacian_3d(12).tocsc()
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal(A.shape[0]) + (
+        1j * rng.standard_normal(A.shape[0]) if dtype[0] == "c" else 0)
+    opts = T.Options(dtype=dtype, block_size=64)
+    r3, l3 = T.gssvx3d(A, b, T.Grid3D(1, 2, 2), opts, device=cuda)
+    r2, l2 = T.gssvx_dist(A, b, T.Grid2D(2, 2), opts, device=cuda)
+    assert np.array_equal(r3.x, r2.x)
+    assert all(torch.equal(p, q) for p, q in zip(l3.pool, l2.pool))
+    if dtype == "float32":
+        return
+    for dt in ("float64", "complex64", "complex128"):
+        A = _grid_matrix(dt)
+        b = rng.standard_normal(A.shape[0]) + (
+            1j * rng.standard_normal(A.shape[0]) if dt[0] == "c" else 0)
+        o = T.Options(dtype=dt, block_size=64, anc25d="zsplit")
+        rg, lu = T.gssvx3d(A, b, T.Grid3D(2, 2, 2), o, device=cuda)
+        rc, _ = T.gssvx3d(A, b, T.Grid3D(2, 2, 2), o, device="cpu")
+        assert lu.pool[0].dtype == getattr(torch, dt)
+        tol = 1e-10 if dt == "complex64" else 1e-12
+        assert np.abs(rg.x - rc.x).max() <= tol * np.abs(rc.x).max()
+        assert rg.berr.max() <= 1e-12
+
+
 def test_rdma_profile_levels_on_the_card(cuda):
     """``DistributedSparseLU.profile_levels`` on the card: one row per
     level timed by CUDA events, every step counted once, and the profiled

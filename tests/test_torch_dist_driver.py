@@ -24,7 +24,6 @@ import superlu_dist_tpu as J
 from superlu_dist_tpu.models.dist_driver import DistributedSparseLU as JDist
 from superlu_dist_tpu.models.dist_driver import gssvx_dist as j_gssvx_dist
 from superlu_dist_tpu.parallel.grid import Grid2D as JGrid2D
-from superlu_dist_tpu.parallel.grid import Grid3D as JGrid3D
 from superlu_dist_tpu.utils.testing import random_sparse
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.utils.testing import laplacian_2d
@@ -150,7 +149,8 @@ def test_save_load_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("dist_planning", "10"), ("several_cards", "8d"), ("grid3d", "9")])
+    ("dist_planning", "10"), ("several_cards", "8d"), ("grid3d", "8d"),
+    ("grid3d_dist_planning", "10")])
 def test_not_ported_raises_naming_its_item(what, item):
     A = laplacian_2d(6).tocsc()
     b = np.ones(A.shape[0])
@@ -162,10 +162,15 @@ def test_not_ported_raises_naming_its_item(what, item):
                          device="cpu")
         elif what == "several_cards":
             T.Grid2D(1, 2, devices=["cpu", "meta"])
+        elif what == "grid3d":
+            # the batch's composite on a 3D grid whose ranks sit on
+            # several devices
+            T.gssvx_batch([A], [b], _opts(T), grid=T.Grid3D(
+                2, 1, 1, devices=["cpu", "meta"]), device="cpu")
         else:
-            # the batch's composite on a 3D grid
-            T.gssvx_batch([A], [b], _opts(T), grid=JGrid3D(2, 2, 2),
-                          device="cpu")
+            # the batch's composite on a 3D grid, with sharded planning
+            T.gssvx_batch([A], [b], _opts(T, dist_planning=True),
+                          grid=T.Grid3D(2, 2, 2), device="cpu")
 
 
 def _complex(A, seed=5):
