@@ -218,7 +218,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``precision_escalated``, both passes' entries launched, berr <=
    1e-12), a SamePattern_SameRowPerm refactor must then run the FP32
    entries only, and an explicit "bf16" factor must not escalate;
-14. one JSON line of per-kernel results (the float64, complex64 and
+14. the package surface from outside the process, at the main path's
+   width (lap3d32, bs 128, float32, "auto", refined): lap3d32 written by
+   ``utils.testing.write_hb`` (.rua) and ``scipy.io.mmwrite`` (.mtx) reads
+   back as one matrix through ``utils.io.read_matrix``; the C bridge
+   (``libsuperlu_dist_tpu_torch``, ``superlu_dist_tpu_torch.h``) linked
+   into a plain C program (``ops/host/native/bridge_solve.c``, run with
+   only PYTHONPATH set: the checkout and site-packages) that reads the
+   .rua, factors on the card, solves A x = A·1 with refinement and writes
+   x, held to the in-process ``SparseLU`` x within 1e-12 (relative
+   ∞-norm; bit-equality printed), with the link's ``sysconfig`` values,
+   the subprocess's wall and its first calls' seconds; a fresh
+   interpreter's gssvx under ``SLU_TPU_XPROF``, whose trace must hold the
+   slu:FACT / SOLVE / REFINE spans and device-kernel events of diag_lu.cu,
+   clk.cu and solve_gemm.cu (its first-call phase times printed);
+   ``python -m superlu_dist_tpu_torch.utils.prewarm`` on the .rua
+   (``build_s`` at most 5 s, everything being built; ``escalation_warm_s``
+   > 0 after the bf16-first factor); and ``SLU_TPU_CHECKLU`` /
+   ``SLU_TPU_WRITELU`` on lap3d12 in float32 under "auto" and "highest"
+   (two factors' dumps equal by ``compare_lu``, the FP32 factor's
+   residual below 1e-4, the bf16-first one's below the bf16 unit
+   roundoff 2^-8);
+15. one JSON line of per-kernel results (the float64, complex64 and
    complex128 instantiations in rows of their own, with a ``dtype``
    field, the RDMA rows among them; the grid's transposed solves as
    ``rdma_solve_trans_*`` rows with ``"transpose": true``; the tck and
@@ -345,6 +366,7 @@ def main() -> None:
     import scipy.sparse.linalg as spla
 
     from superlu_dist_tpu_torch import Options
+    from superlu_dist_tpu_torch.ops.kernels import cuda_kernels
     from superlu_dist_tpu_torch.ops import blocklu
     from superlu_dist_tpu_torch.ops.host.native import get_lib
     from superlu_dist_tpu_torch.ops.kernels import (_build, clk, diag_lu, flk,
@@ -363,15 +385,10 @@ def main() -> None:
         fail("the native host engine did not load")
     print("native host engine: loaded", flush=True)
 
-    kernels = {"diag_lu": diag_lu.KERNEL, "clk_update": clk.UPDATE,
-               "clk_trsm": clk.TRSM, "clk_update_bf16": clk.UPDATE_BF16,
-               "clk_trsm_bf16": clk.TRSM_BF16, "sweep": solve_gemm.SWEEP,
-               "flk": flk.KERNEL, "schur": schur.SCHUR, "trsm": schur.TRSM,
-               "solve_gemm": solve_gemm.SOLVE_GEMM,
-               "diag_apply": solve_gemm.DIAG_APPLY,
-               "tck_update": tck.UPDATE, "rdma_factor": rdma.RDMA_FACTOR,
-               "rdma_solve": rdma.RDMA_SOLVE}
-    build_s = _build.build_all(list(kernels.values()))
+    # the port's one list of kernels (the driver's, which prewarm builds)
+    every = cuda_kernels()
+    kernels = {k: v for k, v in every.items() if k not in BATCH_OF}
+    build_s = _build.build_all(list(every.values()))
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for k in (diag_lu.KERNEL, clk.UPDATE, flk.KERNEL, schur.SCHUR,
               solve_gemm.SOLVE_GEMM, tck.UPDATE, rdma.RDMA_FACTOR):
@@ -390,10 +407,7 @@ def main() -> None:
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
                tck=tck, rdma=rdma, kernels=kernels, entry_launches={},
-               batch_kernels={"diag_lu_batch": diag_lu.DIAG_LU_BATCH,
-                              "trsm_batch": schur.TRSM_BATCH,
-                              "schur_batch": schur.SCHUR_BATCH,
-                              "sweep_batch": solve_gemm.SWEEP_BATCH})
+               batch_kernels={k: every[k] for k in BATCH_OF})
 
     # ---- 3. the main path ---------------------------------------------
     A = laplacian_3d(32)
@@ -532,6 +546,9 @@ def main() -> None:
 
     # ---- 13. the pass precision ---------------------------------------
     precision_phase(ctx, rng, checks, launches, A, b, opts, lu)
+
+    # ---- 14. the package surface from outside the process -------------
+    surface_phase(smi)
 
     rows = []
     for name, dtype, key in \
@@ -3455,6 +3472,228 @@ def escalation_phase(ctx, rng):
     if lb._gemm_prec_used != "default" or \
             "precision_escalated" in lb.stat.counters:
         fail("13 explicit bf16: escalated")
+
+
+#: the C consumer's options: the main path's dtype and block size, on the
+#: card (no "device" key)
+BRIDGE_OPTIONS = '{"dtype": "float32", "block_size": 128}'
+
+#: a fresh interpreter's gssvx on a matrix file, under SLU_TPU_XPROF: its
+#: first-call phases as one JSON line
+TRACE_RUN = r"""
+import time
+t0 = time.perf_counter()
+import json, sys
+import numpy as np
+from superlu_dist_tpu_torch import Options, gssvx
+from superlu_dist_tpu_torch.utils.io import read_matrix
+import_s = time.perf_counter() - t0
+A = read_matrix(sys.argv[1])
+b = np.asarray(A @ np.ones(A.shape[0]))
+res, lu = gssvx(A, b, Options(dtype="float32", block_size=128))
+st = res.stat
+print(json.dumps(dict(
+    import_s=import_s, berr=float(np.max(res.berr)), steps=st.refine_steps,
+    gemm_precision=st.counters["gemm_precision"],
+    escalated=st.counters.get("precision_escalated", 0),
+    host_s={k: st.utime[k] for k in ("FACT", "SOLVE", "REFINE")},
+    device_ms={k: st.device_ms[k] for k in ("FACT", "SOLVE", "REFINE")})))
+"""
+
+#: the device-kernel names (``__global__`` functions) by which a trace of
+#: the main path shows each of its kernels: diag_lu.cu's, clk.cu's update
+#: waves (waves.cuh) and panel TRSM (panel.cuh), solve_gemm.cu's two passes
+TRACE_KERNELS = {"diag_lu": ("diag_lu_kernel",),
+                 "clk": ("wave_kernel", "band_times_inverse"),
+                 "solve_gemm": ("chunk_kernel", "rows_kernel")}
+
+
+def _subprocess(what, cmd, env, cwd, timeout=600):
+    """Run ``cmd``; fail unless it exits 0. Returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, env=env, cwd=cwd, capture_output=True,
+                             text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"14 {what}: no exit within {timeout} s")
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"14 {what} exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-4000:]}")
+    return out.stdout, wall
+
+
+def surface_phase(smi):
+    """Phase 14: the package surface from outside the process, at the
+    main path's width (lap3d32, bs 128, float32, "auto", refined).
+
+    1. the readers: lap3d32 written by ``utils.testing.write_hb`` (.rua) and
+       ``scipy.io.mmwrite`` (.mtx) reads back from both as one matrix;
+    2. the C bridge: ``libsuperlu_dist_tpu_torch`` built and a plain C
+       program (``bridge_solve.c``) compiled against it and the header,
+       run with only PYTHONPATH set (the checkout and site-packages): it
+       reads the .rua, factors on the card, solves A x = A·1 with
+       refinement and writes x, which must match the in-process
+       ``SparseLU`` x to 1e-12 (relative ∞-norm; bit-equality printed);
+    3. a fresh interpreter's gssvx under ``SLU_TPU_XPROF``: the written
+       trace must hold the slu:FACT / SOLVE / REFINE spans and device
+       kernels of diag_lu.cu, clk.cu and solve_gemm.cu;
+    4. ``python -m superlu_dist_tpu_torch.utils.prewarm`` on the .rua:
+       ``build_s`` small (everything is built), ``escalation_warm_s`` > 0
+       (the factor ran bf16-first);
+    5. ``SLU_TPU_CHECKLU`` / ``SLU_TPU_WRITELU`` on lap3d12 in float32,
+       bf16-first ("auto") and FP32 ("highest"): two factors' dumps
+       compare equal, and the residual is below 1e-4 for the FP32 factor
+       and below 2^-8 (the bf16 unit roundoff) for the bf16-first one."""
+    import tempfile
+
+    import scipy.io
+
+    from superlu_dist_tpu_torch import Options, SparseLU
+    from superlu_dist_tpu_torch.utils import cbridge, debug
+    from superlu_dist_tpu_torch.utils.io import read_matrix
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d, write_hb
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "build")
+    os.makedirs(build, exist_ok=True)
+    site = [p for p in sys.path if "site-packages" in p]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root] + site)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        # ---- 1. readers
+        A = laplacian_3d(32).astype(np.float32)
+        rua, mtx = os.path.join(d, "lap3d32.rua"), os.path.join(d, "l.mtx")
+        write_hb(rua, A)
+        scipy.io.mmwrite(mtx, A)
+        t0 = time.perf_counter()
+        Ah = read_matrix(rua)
+        t_hb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Am = read_matrix(mtx)
+        t_mm = time.perf_counter() - t0
+        if (Ah != Am).nnz or (Ah != A).nnz or Ah.shape != A.shape:
+            fail("14 readers: the .rua and .mtx of lap3d32 read back as "
+                 "different matrices")
+        print(f"14 readers: lap3d32 n={Ah.shape[0]} nnz={Ah.nnz} from .rua "
+              f"in {t_hb:.2f} s and .mtx in {t_mm:.2f} s (host), the same "
+              f"matrix ({smi})", flush=True)
+
+        # ---- 2. the C bridge on the card
+        link = cbridge.python_link()
+        print(f"14 bridge link: LIBDIR={link['LIBDIR']} LDVERSION="
+              f"{link['LDVERSION']} Py_ENABLE_SHARED="
+              f"{link['Py_ENABLE_SHARED']} flags {' '.join(link['flags'])} "
+              f"({smi})", flush=True)
+        t0 = time.perf_counter()
+        exe = cbridge.compile_program(cbridge.consumer_source(),
+                                      os.path.join(d, "bridge_solve"))
+        t_build = time.perf_counter() - t0
+        xbin = os.path.join(d, "x.bin")
+        out, wall = _subprocess("C bridge", [exe, rua, BRIDGE_OPTIONS, xbin],
+                                env, d)
+        line = [ln for ln in out.splitlines() if ln.startswith("CBRIDGE OK")]
+        if not line:
+            fail(f"14 C bridge printed no CBRIDGE OK line:\n{out}")
+        print(f"14 C bridge: {line[0]} (consumer built in {t_build:.1f} s, "
+              f"subprocess wall {wall:.2f} s; {smi})", flush=True)
+        xc = np.fromfile(xbin)
+        lu = SparseLU(Ah, Options(dtype="float32", block_size=128))
+        b = np.asarray(Ah @ np.ones(Ah.shape[0]))
+        x, berr = lu.refine(b, lu.solve(b))
+        st = lu.stat
+        rel = float(np.abs(xc - x).max() / np.abs(x).max()) \
+            if xc.shape == x.shape else float("inf")
+        print(f"14 C bridge x against the in-process SparseLU x: relative "
+              f"{rel:.3e} (tolerance 1e-12), bit-equal "
+              f"{bool(np.array_equal(xc, x))}; in-process gemm_precision "
+              f"{st.counters['gemm_precision']}, {st.refine_steps} "
+              f"refinement steps, berr {float(np.max(berr)):.3e} ({smi})",
+              flush=True)
+        if not rel <= 1e-12:
+            fail("14 C bridge: x differs from the in-process port's")
+        del lu
+
+        # ---- 3. the SLU_TPU_XPROF trace of a fresh interpreter
+        tdir = os.path.join(d, "trace")
+        out, wall = _subprocess(
+            "SLU_TPU_XPROF gssvx", [sys.executable, "-c", TRACE_RUN, rua],
+            dict(env, SLU_TPU_XPROF=tdir), d)
+        first = json.loads(out.strip().splitlines()[-1])
+        print(f"14 fresh-process gssvx under SLU_TPU_XPROF (first call, "
+              f"profiler on; {smi}): wall {wall:.2f} s, {json.dumps(first)}",
+              flush=True)
+        files = [f for f in os.listdir(tdir) if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            fail(f"14 SLU_TPU_XPROF wrote {files}, not one trace")
+        with open(os.path.join(tdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        spans = [f"slu:{p}" for p in ("FACT", "SOLVE", "REFINE")]
+        kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        found = {g: {k: sum(k in nm for nm in kern) for k in ks}
+                 for g, ks in TRACE_KERNELS.items()}
+        print(f"14 trace: {len(events)} events, {len(kern)} device-kernel "
+              f"events, spans {[s_ for s_ in spans if s_ in names]}, kernel "
+              f"events by name {found} ({smi})", flush=True)
+        if not all(s_ in names for s_ in spans):
+            fail("14 trace: a slu: phase span is missing")
+        if not all(v > 0 for g in found.values() for v in g.values()):
+            fail("14 trace: a kernel of the main path has no device event")
+
+        # ---- 4. prewarm
+        out, wall = _subprocess(
+            "prewarm", [sys.executable, "-m",
+                        "superlu_dist_tpu_torch.utils.prewarm", rua,
+                        "--block-size", "128", "--dtype", "float32"],
+            env, root)
+        info = json.loads(out.strip().splitlines()[-1])
+        rest = wall - sum(info[k] for k in ("build_s", "factor_s", "solve_s",
+                                            "escalation_warm_s"))
+        print(f"14 prewarm (subprocess wall {wall:.2f} s, {rest:.2f} s of it "
+              f"outside the timed work: interpreter start, imports, read; "
+              f"{smi}): {json.dumps(info)}", flush=True)
+        if info["build_s"] > 5.0:
+            fail("14 prewarm: build_s above 5 s with every library built")
+        if not info["escalation_warm_s"] > 0:
+            fail("14 prewarm: no escalation warm-up after a bf16-first "
+                 "factor")
+
+        # ---- 5. CHECKLU / WRITELU
+        A12 = laplacian_3d(12)
+        keep = {k: os.environ.get(k)
+                for k in ("SLU_TPU_CHECKLU", "SLU_TPU_WRITELU")}
+        os.environ["SLU_TPU_CHECKLU"] = "1"
+        try:
+            for prec in ("auto", "highest"):
+                dumps, resid = [], []
+                for i in range(2):
+                    dumps.append(os.path.join(d, f"lu_{prec}_{i}.npz"))
+                    os.environ["SLU_TPU_WRITELU"] = dumps[-1]
+                    lu = SparseLU(A12, Options(dtype="float32",
+                                               gemm_precision=prec))
+                    resid.append(lu.stat.counters["checklu_max_resid"])
+                same = debug.compare_lu(*dumps)
+                print(f"14 CHECKLU lap3d12 float32 {prec} (gemm_precision "
+                      f"{lu.stat.counters['gemm_precision']}): "
+                      f"checklu_max_resid {resid[0]:.3e}, {resid[1]:.3e}; "
+                      f"WRITELU dumps compare_lu {same} ({smi})", flush=True)
+                if not same or not all(np.isfinite(resid)):
+                    fail(f"14 CHECKLU/WRITELU {prec}: dumps differ or the "
+                         "residual is not finite")
+                # FP32 products: 1e-4; bf16 products (an 8-bit
+                # significand): below the bf16 unit roundoff 2^-8
+                if max(resid) >= (1e-4 if prec == "highest" else 2.0 ** -8):
+                    fail(f"14 CHECKLU {prec}: the factor's residual is not "
+                         "below its bound")
+        finally:
+            for k, v in keep.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    print(f"14 package surface phase: {time.perf_counter() - t_phase:.1f} s "
+          f"wall ({smi})", flush=True)
 
 
 if __name__ == "__main__":

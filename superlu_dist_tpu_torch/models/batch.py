@@ -143,6 +143,19 @@ class BatchedSparseLU:
         self.stat.counters["executor"] = "pallas"
         self.stat.counters["gemm_precision"] = "highest"
         self.stat.counters["batch_count"] = self.count
+        # the debug hooks audit the first member's factor, as the JAX
+        # package's run on its prototype's factor of As[0]; the counter
+        # lands in the batch's Stats too (the JAX package's prototype
+        # shares them)
+        p.pool, p.linv, p.uinv = self.pool_b[0], self.linv_b[0], \
+            self.uinv_b[0]
+        try:
+            p._debug_hooks()
+        finally:
+            p.pool = p.linv = p.uinv = None
+        if "checklu_max_resid" in p.stat.counters:
+            self.stat.counters["checklu_max_resid"] = \
+                p.stat.counters["checklu_max_resid"]
         rdt = _TORCH[p.refine_dtype]
         prc = p.rowperm[p.colperm]
         self._t_rs = torch.as_tensor(self.row_scales[:, prc], dtype=rdt,

@@ -528,9 +528,30 @@ class SparseLU:
             bad = np.flatnonzero(~np.isfinite(du) | (du == 0))
             if len(bad):
                 self.info = int(bad[0]) + 1
+        if self.pool is not None:
+            self._debug_hooks(A3)
 
         self._coo_ref = _spmv.coo_arrays(A, self.refine_dtype, self.device)
         self._transforms()
+
+    def _debug_hooks(self, A3=None) -> None:
+        """The env-gated factor audits (the reference's CHECKLU and
+        WRITELU/LUFILE debug hooks; the JAX package's driver.py:406-418),
+        run after every factor that holds its pool: ``SLU_TPU_CHECKLU=1``
+        records ‖L·U − A3‖ / ‖A3‖ in ``stat.counters["checklu_max_resid"]``
+        (a dense product: small matrices only; a grid's sharded pool
+        raises, as the JAX package's does), and ``SLU_TPU_WRITELU=<path>``
+        dumps the factors (``utils.debug.dump_lu``)."""
+        check = os.environ.get("SLU_TPU_CHECKLU", "") == "1"
+        path = os.environ.get("SLU_TPU_WRITELU", "")
+        if not (check or path):
+            return
+        from ..utils import debug
+        if check:
+            self.stat.counters["checklu_max_resid"] = float(
+                debug.check_factorization(self, A3))
+        if path:
+            debug.dump_lu(self, path)
 
     def _symbolic(self, A3: sp.csc_matrix):
         return block_symbolic(A3, self.options.block_size,

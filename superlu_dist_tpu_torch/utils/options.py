@@ -262,8 +262,12 @@ _SPEC_FIELDS = {
 
 #: Environment variables without an Options field (read where used):
 #:   SLU_TPU_NATIVE         0 | 1            (C++ host engine)
+#:   SLU_TPU_CHECKLU        1                (verify L·U vs A after factor,
+#:                                            reference env CHECKLU)
+#:   SLU_TPU_WRITELU        path             (dump factor pool, ref WRITELU)
+#:   SLU_TPU_XPROF          logdir           (process-wide profiler trace)
 #:   SLU_TPU_SYMB_THREADS   N                (parallel symbolic threads)
-_ENV_ONLY = ("NATIVE", "SYMB_THREADS")
+_ENV_ONLY = ("NATIVE", "CHECKLU", "WRITELU", "XPROF", "SYMB_THREADS")
 
 
 def sp_ienv(spec: str, options: Optional[Options] = None):

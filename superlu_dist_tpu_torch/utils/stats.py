@@ -41,17 +41,20 @@ class Stats:
     @contextlib.contextmanager
     def phase(self, name: str):
         """Time one phase. The span shows in a ``torch.profiler`` trace as
-        ``slu:<name>``. On a CUDA device the phase is also timed by CUDA
-        events into ``device_ms``, and the host timer synchronizes before
-        it stops, so the phase owns the device work it queued."""
+        ``slu:<name>`` (and as the NVTX range ``slu_<name>`` on a CUDA
+        device: ``profiling.annotate``, which also starts the
+        ``SLU_TPU_XPROF`` trace). On a CUDA device the phase is also timed
+        by CUDA events into ``device_ms``, and the host timer synchronizes
+        before it stops, so the phase owns the device work it queued."""
         import torch
+        from .profiling import annotate
         cuda = self.device is not None and self.device.type == "cuda"
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(f"slu:{name}"):
+            with annotate(name, cuda):
                 yield self
                 if cuda:
                     ev[1].record()

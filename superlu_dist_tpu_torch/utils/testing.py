@@ -3,16 +3,24 @@
 A copy of the JAX package's generators that the port's tests and
 ``chip_smoke.py`` use, so the two packages see identical inputs from the
 same seed, and of its ``THRESH`` and ``compute_resid`` (the reference's
-TEST/pdtest.c acceptance test), which the card tests use without JAX.
-``backward_error`` lives in ``utils/norms.py`` and is re-exported here.
+TEST/pdtest.c acceptance test), which the card tests use without JAX,
+and of ``reference_matrix`` (the reference's fixture files, read by
+``utils/io.py``). ``backward_error`` lives in ``utils/norms.py`` and is
+re-exported here.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import scipy.sparse as sp
 
 from .norms import backward_error  # noqa: F401  (re-exported)
+
+#: the reference's EXAMPLE fixtures (g4.rua, g20.rua, big.rua, cg20.cua),
+#: read only where ``SLU_TPU_REFERENCE_EXAMPLES`` names their directory
+REFERENCE_EXAMPLE_DIR = os.environ.get("SLU_TPU_REFERENCE_EXAMPLES")
 
 
 def laplacian_2d(k: int, dtype=np.float64) -> sp.csc_matrix:
@@ -228,6 +236,51 @@ def unsymmetric_pattern(n: int, seed: int = 0) -> sp.csc_matrix:
     for i in range(n):
         A[i, perm[i]] = 10.0 + rng.random()
     return sp.csc_matrix(A)
+
+
+def reference_matrix(name: str):
+    """Load a fixture matrix from ``REFERENCE_EXAMPLE_DIR``, or None where
+    that is unset or does not hold ``name``."""
+    if REFERENCE_EXAMPLE_DIR is None:
+        return None
+    path = os.path.join(REFERENCE_EXAMPLE_DIR, name)
+    if not os.path.exists(path):
+        return None
+    from .io import read_matrix
+    return read_matrix(path)
+
+
+def _fixed(vals, fmt: str, per_line: int) -> list:
+    """Lines of ``vals``, each ``fmt``-formatted, ``per_line`` a line."""
+    return ["".join(fmt % v for v in vals[i:i + per_line])
+            for i in range(0, len(vals), per_line)]
+
+
+def write_hb(path, A, mxtype: str = "RUA", rb: bool = False) -> None:
+    """Write CSC ``A`` as a Harwell-Boeing file (with ``rb``, as a
+    Rutherford-Boeing one) that keeps the format's fixed field widths:
+    pointers and indices (10I8), values (3E25.16, which round-trips
+    float64). ``scipy.io.hb_write`` writes its values one character
+    narrower than the format it declares, which ``utils/io.py`` (as the
+    reference's dreadhb) refuses. For a symmetric ``mxtype`` ``A`` holds
+    the lower triangle; a complex one writes (re, im) pairs."""
+    A = sp.csc_matrix(A)
+    ptr = _fixed(A.indptr + 1, "%8d", 10)
+    ind = _fixed(A.indices + 1, "%8d", 10)
+    data = A.data
+    if mxtype[0] in "Cc":
+        data = np.column_stack([data.real, data.imag]).reshape(-1)
+    val = _fixed(np.asarray(data, dtype=np.float64), "%25.16E", 3)
+    counts = (f"{len(ptr) + len(ind) + len(val):14d}{len(ptr):14d}"
+              f"{len(ind):14d}{len(val):14d}")
+    fmts = f"{'(10I8)':<16}{'(10I8)':<16}{'(3E25.16)':<20}"
+    lines = [f"{'test matrix':<72}{'KEY':<8}",
+             counts if rb else counts + f"{0:14d}",
+             f"{mxtype:<14}{A.shape[0]:14d}{A.shape[1]:14d}{A.nnz:14d}"
+             f"{0:14d}",
+             fmts if rb else fmts + f"{'':<20}"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ptr + ind + val) + "\n")
 
 
 #: acceptance threshold for the residual test value

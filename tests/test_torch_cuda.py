@@ -1767,3 +1767,104 @@ def test_escalation_on_the_card(cuda):
     _, berr = lb.refine(b, lb.solve(b))
     assert "precision_escalated" not in lb.stat.counters
     assert lb._gemm_prec_used == "default" and berr.max() > 1e-12
+
+
+# ---- the package surface on the card ----------------------------------
+
+
+def _surface_env():
+    import os
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    site = [p for p in sys.path if "site-packages" in p]
+    return repo, dict(os.environ, PYTHONPATH=os.pathsep.join([repo] + site))
+
+
+def test_cbridge_consumer_on_the_card(cuda, tmp_path):
+    """A plain C program through the bridge factors on the card (no
+    "device" key), and its refined x is the in-process port's, bit for
+    bit (the card's refinement repeats bit for bit)."""
+    import subprocess
+
+    from superlu_dist_tpu_torch.utils import cbridge
+    from superlu_dist_tpu_torch.utils.io import read_matrix
+    repo, env = _surface_env()
+    path = tmp_path / "lap12.rua"
+    tt.write_hb(path, tt.laplacian_3d(12).astype(np.float32))
+    exe = cbridge.compile_program(cbridge.consumer_source(),
+                                  str(tmp_path / "bridge_solve"))
+    out = subprocess.run([exe, str(path), '{"dtype": "float32"}',
+                          str(tmp_path / "x.bin")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, (out.stdout, out.stderr[-3000:])
+    assert "CBRIDGE OK" in out.stdout
+    A = read_matrix(path)
+    lu = T.SparseLU(A, T.Options(dtype="float32"), device=cuda)
+    assert lu.stat.counters["gemm_precision"] == "default"
+    b = np.asarray(A @ np.ones(A.shape[0]))
+    x, _ = lu.refine(b, lu.solve(b))
+    assert np.array_equal(np.fromfile(tmp_path / "x.bin"), x)
+
+
+def test_checklu_writelu_on_the_card(cuda, tmp_path, monkeypatch):
+    """The env hooks on a card factor: the FP32 factor's L·U residual
+    below 1e-4, and two factors' dumps equal."""
+    from superlu_dist_tpu_torch.utils import debug
+    A = tt.laplacian_3d(12)
+    monkeypatch.setenv("SLU_TPU_CHECKLU", "1")
+    for prec in ("auto", "highest"):
+        paths = []
+        for i in range(2):
+            paths.append(tmp_path / f"{prec}{i}.npz")
+            monkeypatch.setenv("SLU_TPU_WRITELU", str(paths[-1]))
+            lu = T.SparseLU(A, T.Options(dtype="float32",
+                                         gemm_precision=prec), device=cuda)
+            r = lu.stat.counters["checklu_max_resid"]
+            assert np.isfinite(r)
+            if prec == "highest":
+                assert r < 1e-4
+        assert debug.compare_lu(*paths)
+        z = np.load(paths[0])
+        assert np.array_equal(z["pool"], lu.pool.cpu().numpy())
+
+
+def test_prewarm_on_the_card(cuda):
+    """prewarm builds every kernel library and warms the escalation's
+    "highest" factor after a bf16-first one."""
+    from superlu_dist_tpu_torch.utils.prewarm import prewarm
+    info = prewarm(tt.laplacian_3d(12), T.Options(dtype="float32"),
+                   device=cuda)
+    assert info["escalation_warm_s"] > 0
+    again = prewarm(tt.laplacian_3d(12), T.Options(
+        dtype="float32", gemm_precision="highest"), device=cuda)
+    assert again["escalation_warm_s"] == 0
+    assert again["build_s"] < 5.0
+
+
+def test_xprof_trace_on_the_card(cuda, tmp_path):
+    """A fresh interpreter's gssvx under SLU_TPU_XPROF writes a trace with
+    the phase spans and the main path's kernels as device events."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo, env = _surface_env()
+    code = ("import numpy as np\n"
+            "from superlu_dist_tpu_torch import Options, gssvx\n"
+            "from superlu_dist_tpu_torch.utils.testing import laplacian_3d\n"
+            "A = laplacian_3d(12)\n"
+            "gssvx(A, np.ones(A.shape[0]), Options(dtype='float32'))\n")
+    env["SLU_TPU_XPROF"] = str(tmp_path / "trace")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    (f,) = [p for p in os.listdir(tmp_path / "trace")
+            if p.endswith(".pt.trace.json")]
+    with open(tmp_path / "trace" / f) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"slu:FACT", "slu:SOLVE", "slu:REFINE"} <= names
+    kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    for k in ("diag_lu_kernel", "wave_kernel", "band_times_inverse",
+              "chunk_kernel", "rows_kernel"):
+        assert any(k in nm for nm in kern), k

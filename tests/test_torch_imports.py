@@ -34,17 +34,53 @@ def test_no_jax_import(path):
 
 
 NATIVE = sorted(p for p in (ROOT / "superlu_dist_tpu_torch").rglob("*")
-                if p.suffix in (".cpp", ".cu", ".h", ".cuh"))
+                if p.suffix in (".c", ".cpp", ".cu", ".h", ".cuh"))
 #: what a C/C++ source would name to reach Python modules of the JAX side
-NATIVE_FORBIDDEN = re.compile(
-    r"\bsuperlu_dist_tpu\.[A-Za-z_]|\bjax(lib)?\b|PyImport_")
+NATIVE_FORBIDDEN = re.compile(r"\bsuperlu_dist_tpu\.[A-Za-z_]|\bjax(lib)?\b")
+#: a call into CPython's import machinery, with its first argument
+PY_IMPORT = re.compile(r"\bPyImport_(\w+)\s*\(\s*([^,)]*)")
+
+
+def _native_names(text: str) -> list:
+    """What a C/C++ source names that it must not: the JAX side's
+    modules, and any import but ``PyImport_ImportModule`` of a string
+    literal that is ``numpy`` or a module of ``superlu_dist_tpu_torch``
+    (the C bridge embeds CPython and imports the port's
+    ``utils.cbridge``)."""
+    bad = [m.group(0) for m in NATIVE_FORBIDDEN.finditer(text)]
+    for fn, arg in PY_IMPORT.findall(text):
+        lit = re.fullmatch(r'"([^"]*)"', arg.strip())
+        name = lit.group(1) if lit else None
+        if fn != "ImportModule" or name is None or not (
+                name == "numpy" or name.startswith("superlu_dist_tpu_torch.")):
+            bad.append(f"PyImport_{fn}({arg.strip()})")
+    return bad
 
 
 @pytest.mark.parametrize("path", NATIVE,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_native_source_names_no_jax_module(path):
-    bad = [m.group(0) for m in NATIVE_FORBIDDEN.finditer(path.read_text())]
+    bad = _native_names(path.read_text())
     assert not bad, f"{path} names {bad}"
+
+
+@pytest.mark.parametrize("text,ok", [
+    ('mod = PyImport_ImportModule("superlu_dist_tpu_torch.utils.cbridge");',
+     True),
+    ('np = PyImport_ImportModule("numpy");', True),
+    ('#include "superlu_dist_tpu_torch.h"', True),
+    ('mod = PyImport_ImportModule("superlu_dist_tpu.utils.cbridge");', False),
+    ('mod = PyImport_ImportModule("jax");', False),
+    ('mod = PyImport_ImportModule("scipy");', False),
+    ('mod = PyImport_ImportModule(name);', False),
+    ('mod = PyImport_Import(name);', False),
+    ('#include "superlu_dist_tpu.h"', False),
+])
+def test_native_check_catches_imports(text, ok):
+    """The native check passes the bridge's own imports and catches an
+    import of the JAX package's bridge, of any other module, or of a
+    name it cannot read."""
+    assert (not _native_names(text)) == ok, _native_names(text)
 
 
 def test_import_leaves_jax_unloaded():
@@ -57,7 +93,12 @@ def test_import_leaves_jax_unloaded():
             "superlu_dist_tpu_torch.ops.kernels.tck, "
             "superlu_dist_tpu_torch.parallel.dist2d, "
             "superlu_dist_tpu_torch.parallel.dist2d_rdma, "
-            "superlu_dist_tpu_torch.models.dist_driver; "
+            "superlu_dist_tpu_torch.models.dist_driver, "
+            "superlu_dist_tpu_torch.utils.io, "
+            "superlu_dist_tpu_torch.utils.debug, "
+            "superlu_dist_tpu_torch.utils.prewarm, "
+            "superlu_dist_tpu_torch.utils.cbridge, "
+            "superlu_dist_tpu_torch.utils.profiling; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'superlu_dist_tpu' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
