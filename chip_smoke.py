@@ -12,8 +12,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm``,
    ``diag_apply`` and of ``rdma.cu``'s six entries, and every bf16-pass
    instantiation of ``clk.cu`` (``wave_kernel`` and
-   ``band_times_inverse`` with their BF16 flag set), must spill no
-   registers;
+   ``band_times_inverse`` with their BF16 flag set), of ``tck.cu``
+   (``tck_tile_mma_kernel``) and of ``flk.cu`` (on ``chain.cuh``'s
+   ``ChainMma``), must spill no registers;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
@@ -38,7 +39,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    against ``sweep_level_plain``; then the whole clk factor against the
    independent right-looking float64 reference ``blocklu.factor_plain``;
 5. the other factor executors on the same matrix, each driven and
-   checked like the main path: ``executor="flk"`` (flk and diag_lu, no
+   checked like the main path, flk, ILU(1) and tck at
+   ``gemm_precision="highest"`` (their FP32 entries; phase 13b drives
+   their bf16 pass): ``executor="flk"`` (flk and diag_lu, no
    clk_update), ILU(1) (flk; its slots and refinement steps printed) and
    ``executor="pallas"`` (diag_lu, trsm, schur), ILU(1)'s two calls held
    to bit-equal x and equal refinement steps, both flk passes launched;
@@ -76,10 +79,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``save_factors`` / ``load_factors`` round trip;
 7. the same checks at the Options default block size 64 on
    ``laplacian_3d(16)``, whose solution (by each executor, ``"tck"`` and
-   ``"xla"`` included) is held against scipy's;
+   ``"xla"`` included, under "auto") is held against scipy's, with the
+   bf16 entries of clk, tck and flk against their plain versions too;
 8. the tiled column factor at full width:
    ``gssvx(A, b, Options(dtype="float32", block_size=128,
-   executor="tck"))`` on ``laplacian_3d(50)`` (n = 125,000, the matrix
+   executor="tck", gemm_precision="highest"))`` on ``laplacian_3d(50)``
+   (n = 125,000, the matrix
    with many columns taller than the TPU clk's 104-block panel), driven
    like the main path (tck_update, diag_lu, clk_trsm and sweep must
    launch, clk_update, flk and schur must not), a warm call,
@@ -92,7 +97,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    with clk_update's costliest levels, clk_trsm, diag_lu, flk (its
    groups as on lap3d32), and the level executor's trsm and schur
    against their plain versions on lap3d50's inputs (their launches and
-   levels as on lap3d32);
+   levels as on lap3d32), and flk's warm comparison of "auto" and
+   "highest" there (as phase 13b's);
 9. float64 on the card, which runs the level executor:
    ``Options(dtype="float64", block_size=128)`` on lap3d32, and TRANS +
    ``condition_number`` on lap3d32u, each held to the same limits; every
@@ -164,7 +170,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    zsplit's delta's), the gathered factor against the float64 reference,
    and zsplit's x against replicated's;
 12. the batch and the ring embedding:
-   a. ``BatchedSparseLU`` of eight float32 members on lap3d32's pattern
+   a. ``BatchedSparseLU`` of four float32 members on lap3d32's pattern
       (bs 128, member i's values ``A.data·(1 + 0.1·N(0, 1))`` of seed i),
       driven with every launch count set to 0 just before and read just
       after: the batched factor must make one member's launches (one per
@@ -196,8 +202,9 @@ Phases (any failure exits non-zero, and no result line is printed):
       embedded inputs, the FACT / SOLVE / REFINE ms beside the native
       complex64 rows; then gssvx_dist on a 2x2 grid the same way
       (rdma.cu's float32 entries only);
-13. the pass precision (gemm_precision; the phases that pin FP32 clk
-   behaviour above, 6, 8's clk rows and 12e, run ``"highest"``): both
+13. the pass precision (gemm_precision; the phases that pin FP32
+   behaviour above, 5's flk, ILU(1) and tck, 6, 8's rows and 12e, run
+   ``"highest"``): both
    bf16 entries against their plain versions at "default" level by level
    on the main path's inputs (clk_update_bf16 within BF16_TOL, four bf16
    ulps of scale, clk_trsm_bf16 within REL_TOL, each over the factor
@@ -218,6 +225,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``precision_escalated``, both passes' entries launched, berr <=
    1e-12), a SamePattern_SameRowPerm refactor must then run the FP32
    entries only, and an explicit "bf16" factor must not escalate;
+   13b. tck's and flk's bf16 pass (ROADMAP.md item 2b) on lap3d32:
+   gssvx under "auto" through tck, flk and ILU(1) (SamePattern_SameRowPerm
+   refactors of phase 5's plans), driven like the main path
+   (tck_update_bf16 and clk_trsm_bf16, or flk_bf16, must launch; the FP32
+   entries only after an escalation, which the counter must report),
+   each twice with bit-equal x and equal refinement steps;
+   tck_update_bf16 and flk_bf16 against their plain versions at
+   "default" level by level (BF16_TOL, and closer to the bf16 plain
+   version than the FP32 pass is, by ten times; their costliest levels
+   and groups, bounds at the dense bf16 tensor-core peak); and per
+   executor FACT / SOLVE / REFINE, the steps, berr and the escalation
+   under "auto" and "highest" in turns, with the executor's kernels
+   inside one warm factor at each precision;
 14. the package surface from outside the process, at the main path's
    width (lap3d32, bs 128, float32, "auto", refined): lap3d32 written by
    ``utils.testing.write_hb`` (.rua) and ``scipy.io.mmwrite`` (.mtx) reads
@@ -247,8 +267,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``rdma_factor_3d_<mode>`` and ``rdma_solve_3d_<mode>`` rows with
    ``"grid": "2x2x2"`` and their ``anc25d``; the batched kernels as
    ``<kernel>_batch[_f64|_c64|_c128]`` rows with their ``members``; the
-   clk rows with their ``precision``, the bf16 pass as
-   ``clk_update_bf16`` and ``clk_trsm_bf16``), the
+   fused executors' rows with their ``precision``, the bf16 pass as
+   ``clk_update_bf16``, ``clk_trsm_bf16``, ``tck_update_bf16`` and
+   ``flk_bf16``), the
    nvidia-smi line, the seconds the run held the card, and the final
    ``{"ok": true, "device": ...}`` line.
 
@@ -315,6 +336,10 @@ FACTOR_ULPS = 512
 
 #: the TPU kernel each port kernel replaces (file:line of its body)
 REPLACES = {
+    # tck's and flk's TPU kernels at precision "default" (their dot(),
+    # tck.py:226 and flk.py:439 there)
+    "tck_update_bf16": "superlu_dist_tpu/ops/kernels/tck.py:220",
+    "flk_bf16": "superlu_dist_tpu/ops/kernels/flk.py:434",
     "diag_lu": "superlu_dist_tpu/ops/kernels/flk.py:339",
     "clk_update": "superlu_dist_tpu/ops/kernels/clk.py:248",
     "clk_trsm": "superlu_dist_tpu/ops/kernels/clk.py:248",
@@ -337,11 +362,20 @@ ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
 #: where a kernel's body lives when it is not in the source that builds it
 SOURCE = {"trsm": "panel.cuh", "clk_trsm": "panel.cuh",
           "clk_trsm_bf16": "panel.cuh"}
-#: the pass precision of each clk row (the others run the working type)
+#: the pass precision of each fused executor's row (the others run the
+#: working type)
 PRECISION = {"clk_update": "highest", "clk_trsm": "highest",
-             "clk_update_bf16": "default", "clk_trsm_bf16": "default"}
+             "clk_update_bf16": "default", "clk_trsm_bf16": "default",
+             "tck_update": "highest", "flk": "highest",
+             "tck_update_bf16": "default", "flk_bf16": "default"}
 #: clk's bf16-pass kernels, and their FP32 counterparts
 BF16_KERNELS = ("clk_update_bf16", "clk_trsm_bf16")
+#: tck's and flk's bf16-pass kernels (their TRSM jobs are clk_trsm_bf16)
+FUSED_BF16 = ("tck_update_bf16", "flk_bf16")
+#: each fused bf16 kernel's FP32 entries (which launch only after an
+#: escalation) and the executor whose path it serves
+FUSED_OF = {"tck_update_bf16": (("tck_update", "clk_trsm"), "tck"),
+            "flk_bf16": (("flk",), "flk")}
 #: the kernels with a float64 instantiation, which the float64 path runs
 F64_KERNELS = ("diag_lu", "trsm", "schur", "sweep", "solve_gemm",
                "diag_apply")
@@ -404,6 +438,12 @@ def main() -> None:
     # with BF16 = true, the last template argument), demangled or mangled
     check_spills(_build.ptxas_report(clk.UPDATE), ("true>(", "Lb1EEv"),
                  "clk.cu (the bf16 pass)")
+    # tck's phase B and flk's chain in the bf16 pass (tck.cu's wave_kernel
+    # with BF16 = true is clk.cu's, checked above)
+    check_spills(_build.ptxas_report(tck.UPDATE), "tck_tile_mma",
+                 "tck.cu (the bf16 pass)")
+    check_spills(_build.ptxas_report(flk.KERNEL), "ChainMma",
+                 "flk.cu (the bf16 pass)")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
                tck=tck, rdma=rdma, kernels=kernels, entry_launches={},
@@ -446,19 +486,25 @@ def main() -> None:
     del lu_hi
 
     # ---- 5. the flk, ILU(1), level and tck executors -------------------
+    # the FP32 pass of flk, ILU(1) and tck (their rows; "auto" factors
+    # them bf16-first on the card, which phase 13b drives)
+    low = BF16_KERNELS + FUSED_BF16
     paths = {
-        "flk": (Options(dtype="float32", block_size=128, executor="flk"),
-                ("flk", "diag_lu", "sweep"), ("clk_update",)),
+        "flk": (Options(dtype="float32", block_size=128, executor="flk",
+                        gemm_precision="highest"),
+                ("flk", "diag_lu", "sweep"), ("clk_update",) + low),
         "ilu1": (Options(dtype="float32", block_size=128, ilu_level=1,
-                         max_refine_steps=60, refine_rthresh=1.0),
-                 ("flk", "diag_lu", "sweep"), ("clk_update",)),
+                         max_refine_steps=60, refine_rthresh=1.0,
+                         gemm_precision="highest"),
+                 ("flk", "diag_lu", "sweep"), ("clk_update",) + low),
         "pallas": (Options(dtype="float32", block_size=128,
                            executor="pallas"),
                    ("schur", "trsm", "diag_lu", "sweep"),
-                   ("clk_update", "flk")),
-        "tck": (Options(dtype="float32", block_size=128, executor="tck"),
+                   ("clk_update", "flk") + low),
+        "tck": (Options(dtype="float32", block_size=128, executor="tck",
+                        gemm_precision="highest"),
                 ("tck_update", "diag_lu", "clk_trsm", "sweep"),
-                ("clk_update", "flk", "schur")),
+                ("clk_update", "flk", "schur") + low),
     }
     lus, got = {}, {}
     for name, (o, need, zero) in paths.items():
@@ -496,6 +542,7 @@ def main() -> None:
           f"{checks['clk_update']['ms']:.3f} ms; {got['tck']['tck_update']}"
           f" launches on its path", flush=True)
     profile_phase(lus["pallas"], A, b)
+    del lus["pallas"]
 
     # ---- 6. the transposed path, the condition estimate, reuse ---------
     got = trans_phase(ctx, rng, lu, checks)
@@ -521,6 +568,8 @@ def main() -> None:
                                                                 None)
         if executor == "clk":
             c64.update(check_bf16(lu2, ctx))
+        if executor in ("tck", "flk"):
+            c64.update(check_fused_bf16(lu2, ctx))
         for name, c in c64.items():
             print(f"bs=64 {name}: max_abs_err {c['max_abs_err']:.3e} "
                   f"(tolerance {c['tol']:.3e})", flush=True)
@@ -546,6 +595,8 @@ def main() -> None:
 
     # ---- 13. the pass precision ---------------------------------------
     precision_phase(ctx, rng, checks, launches, A, b, opts, lu)
+    fused_precision_phase(ctx, checks, launches, A, b, lus)
+    del lus
 
     # ---- 14. the package surface from outside the process -------------
     surface_phase(smi)
@@ -1608,10 +1659,12 @@ def tck_phase(ctx, rng, checks, launches):
     A = laplacian_3d(50)
     n = A.shape[0]
     b = np.asarray(A @ rng.standard_normal(n))
-    opts = Options(dtype="float32", block_size=128, executor="tck")
+    # the FP32 pass (its rows)
+    opts = Options(dtype="float32", block_size=128, executor="tck",
+                   gemm_precision="highest")
     res, lu, got = drive(ctx, "tck lap3d50", A, b, opts, (
         "tck_update", "diag_lu", "clk_trsm", "sweep"),
-        ("clk_update", "flk", "schur"))
+        ("clk_update", "flk", "schur") + BF16_KERNELS + FUSED_BF16)
     launches["tck_update"] = got["tck_update"]
     ctx["entry_launches"]["tck_update"] = dict(
         ctx["tck"].UPDATE.entry_launches)
@@ -1646,11 +1699,11 @@ def tck_phase(ctx, rng, checks, launches):
              ("clk_update", "tck_update", "schur")),
             ("pallas", ("schur", "trsm", "diag_lu", "sweep"),
              ("clk_update", "tck_update", "flk"))):
-        # clk's FP32 pass (its rows; phase 13's bf16 pass follows below)
+        # the FP32 pass (the rows; phase 13's bf16 pass follows below)
         _, lu, got = drive(ctx, f"{exc} lap3d50", A, b,
                            opts.replace(executor=exc, fact=ssr,
                                         gemm_precision="highest"),
-                           need, zero + BF16_KERNELS, lu=lu)
+                           need, zero + BF16_KERNELS + FUSED_BF16, lu=lu)
         if lu.plan is not plan:
             fail(f"{exc} lap3d50: the refactor rebuilt the plan")
         if exc == "clk":
@@ -1670,6 +1723,9 @@ def tck_phase(ctx, rng, checks, launches):
                   f"plain {o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f}"
                   f" ms ({o['bound_by']}); {got['flk']} launches on its "
                   f"path", flush=True)
+            # phase 13b on lap3d50: flk bf16-first against "highest"
+            precision_compare(ctx, "lap3d50 flk", A, b,
+                              opts.replace(executor="flk"), lu)
         if exc == "pallas":
             c = check_level(lu, ctx, report=True)
             for name in ("trsm", "schur"):
@@ -2439,7 +2495,7 @@ def profile_phase(lu, A, b):
              "misses the limits")
 
 
-def print_tck_levels(tp, per_level, top=6):
+def print_tck_levels(tp, per_level, top=6, name="tck_update"):
     """Where tck_update's time goes: the costliest levels, each with
     phase A (waves, U targets, L·U products, critical path: the longest
     per-wave lists summed) and phase B (tiles, their rows, L·U products,
@@ -2448,7 +2504,7 @@ def print_tck_levels(tp, per_level, top=6):
     cnt = np.diff(h["pptr"])
     tcnt = h["tiles"][:, 3] - h["tiles"][:, 2]
     total = sum(r[0] for r in per_level)
-    print(f"tck_update by level (kernel {total:.3f} ms over {tp.nlvl} "
+    print(f"{name} by level (kernel {total:.3f} ms over {tp.nlvl} "
           f"levels: phase A {sum(r[1] for r in per_level):.3f} ms in "
           f"{int(tp.lwave[-1])} waves, phase B "
           f"{sum(r[2] for r in per_level):.3f} ms in {len(tcnt)} tiles; top "
@@ -2494,7 +2550,7 @@ def print_update_levels(tp, per_level, bs, top=6, name="clk_update"):
               flush=True)
 
 
-def print_flk_groups(tp, per_group, bs, top=6):
+def print_flk_groups(tp, per_group, bs, top=6, name="flk"):
     """Where flk's time goes: the critical path (the sum over the groups
     of the longest chain, and of the longest chunk after the cut), then
     the costliest target groups, with their targets, products, longest
@@ -2515,7 +2571,7 @@ def print_flk_groups(tp, per_group, bs, top=6):
                per_group)
     crit_q = sum(longest(qlen, tp.qptr[g], tp.qptr[g + 1]) for _, g in
                  per_group)
-    print(f"flk by target group (kernel {total:.3f} ms over "
+    print(f"{name} by target group (kernel {total:.3f} ms over "
           f"{len(per_group)} groups, {len(qlen)} chunks, "
           f"{len(h['mtgt'])} pass-2 targets; critical path {crit} chained "
           f"products, {crit_q} after the cut; top {top}):")
@@ -2598,7 +2654,7 @@ def batch_phase(ctx, rng, checks, launches):
     ``gssvx_batch`` on the card and on a 2x2 grid."""
     from superlu_dist_tpu_torch.utils.testing import (helmholtz_3d,
                                                       laplacian_3d)
-    batch_case(ctx, "12a batch float32", laplacian_3d(32).tocsc(), 8,
+    batch_case(ctx, "12a batch float32", laplacian_3d(32).tocsc(), 4,
                "float32", 128, checks, launches, refactors=True,
                profile=True)
     batch_case(ctx, "12b batch float64", laplacian_3d(16).tocsc(), 64,
@@ -3285,33 +3341,45 @@ def bf16_bounds(plan, tp, lu):
             for k in ("clk_update", "clk_trsm")}
 
 
-def clk_kernel_ms(ctx, lu, precision):
-    """Device ms of clk's three kernels inside one warm factor of ``lu``'s
-    values at ``precision``, in the factor's own order (CUDA events
-    around each launch, no flush, one synchronisation at the end)."""
-    torch, clk, diag_lu = ctx["torch"], ctx["clk"], ctx["diag_lu"]
+def factor_kernel_ms(ctx, lu, precision):
+    """Device ms of the fused executor's kernels (clk, tck or flk:
+    ``lu.executor``) inside one warm factor of ``lu``'s values at
+    ``precision``, in the factor's own order (CUDA events around each
+    launch, no flush, one synchronisation at the end), summed by kernel:
+    per level clk_update, diag_lu, clk_trsm; tck_update, diag_lu,
+    clk_trsm; or flk (both groups) and diag_lu."""
+    torch, clk, tck, flk, diag_lu = (ctx[k] for k in (
+        "torch", "clk", "tck", "flk", "diag_lu"))
     tp = lu._ftapes
     th = lu._thresh()
     pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
     marks = []
     for lvl in range(tp.nlvl):
         d = slice(int(tp.dptr[lvl]), int(tp.dptr[lvl + 1]))
-        for name, fn in (
-                ("clk_update", lambda: clk.clk_update(pool, linv, tp, lvl,
-                                                      precision)),
-                ("diag_lu", lambda: diag_lu.diag_lu(
-                    pool, linv, uinv, tp.dslot[d], tp.dstep[d], th, tiny)),
-                ("clk_trsm", lambda: clk.clk_trsm(pool, uinv, tp, lvl,
-                                                  precision))):
+        diag = ("diag_lu", lambda: diag_lu.diag_lu(
+            pool, linv, uinv, tp.dslot[d], tp.dstep[d], th, tiny))
+        trsm = ("clk_trsm", lambda: clk.clk_trsm(pool, uinv, tp, lvl,
+                                                 precision))
+        steps = {
+            "clk": (("clk_update", lambda: clk.clk_update(
+                pool, linv, tp, lvl, precision)), diag, trsm),
+            "tck": (("tck_update", lambda: tck.tck_update(
+                pool, linv, tp, lvl, precision)), diag, trsm),
+            "flk": (("flk", lambda: flk.flk_update(
+                pool, linv, uinv, tp, 2 * lvl, precision=precision)), diag,
+                    ("flk", lambda: flk.flk_update(
+                        pool, linv, uinv, tp, 2 * lvl + 1,
+                        precision=precision)))}[lu.executor]
+        for name, fn in steps:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             fn()
             ev[1].record()
             marks.append((name, ev))
     torch.cuda.synchronize()
-    ms = dict.fromkeys(("clk_update", "diag_lu", "clk_trsm"), 0.0)
+    ms = {}
     for name, ev in marks:
-        ms[name] += ev[0].elapsed_time(ev[1])
+        ms[name] = ms.get(name, 0.0) + ev[0].elapsed_time(ev[1])
     return ms
 
 
@@ -3321,9 +3389,9 @@ def precision_compare(ctx, what, A, b, opts, lu):
     turns (auto, highest, highest, auto): per call the resolved precision,
     whether the escalation fired, FACT / SOLVE / REFINE device ms (FACT
     holds both factors of an escalation), the refinement steps, berr and
-    the residual (each held to the limits); then clk's kernels inside one
-    warm factor at each precision; and which of the two makes FACT +
-    REFINE shorter. An escalation's sticky "highest" is cleared before
+    the residual (each held to the limits); then the executor's kernels
+    (clk's, tck's or flk's) inside one warm factor at each precision; and
+    which of the two makes FACT + REFINE shorter. An escalation's sticky "highest" is cleared before
     each "auto" call, so that each pays a fresh bf16-first attempt, as a
     new SparseLU of the matrix does."""
     from superlu_dist_tpu_torch import Fact, gssvx
@@ -3349,16 +3417,153 @@ def precision_compare(ctx, what, A, b, opts, lu):
         if berr > 1e-12 or resid > 1e-10:
             fail(f"{what} {prec}: berr {berr:.3e}, residual {resid:.3e}")
     for prec in ("default", "highest"):
-        k = clk_kernel_ms(ctx, lu, prec)
-        print(f"{what}: clk inside one warm factor at {prec}: clk_update "
-              f"{k['clk_update']:.3f} ms, diag_lu {k['diag_lu']:.3f} ms, "
-              f"clk_trsm {k['clk_trsm']:.3f} ms (sum "
-              f"{sum(k.values()):.3f})", flush=True)
+        k = factor_kernel_ms(ctx, lu, prec)
+        each = ", ".join(f"{name} {v:.3f} ms" for name, v in k.items())
+        print(f"{what}: {lu.executor} inside one warm factor at {prec}: "
+              f"{each} (sum {sum(k.values()):.3f})", flush=True)
     a, h = float(np.mean(fr["auto"])), float(np.mean(fr["highest"]))
     print(f"{what}: FACT + REFINE (mean of two warm calls) auto {a:.3f} ms, "
           f"highest {h:.3f} ms: bf16-first is "
           f"{'shorter' if a < h else 'longer'} by {abs(a - h):.3f} ms",
           flush=True)
+
+
+def check_fused_bf16(lu, ctx, report=False):
+    """tck's or flk's bf16 pass (``lu.executor``: ``slu_tck_waves_bf16``
+    and ``slu_tck_tiles_bf16``, or ``slu_flk_chunks_bf16`` and
+    ``slu_flk_sum_bf16``) against its plain version at "default" on
+    ``lu``'s plan, tck phase by phase and flk group by group, level by
+    level: both get the same input and the factor goes on with the
+    kernel's output (diag_lu, and for tck clk_trsm_bf16, run as kernels
+    between them). Held to BF16_TOL (a finalize inside a launch rounds a
+    sum that the two order differently), and over the factor its summed
+    distance from the bf16 plain version to BF16_FRACTION of the FP32
+    plain pass's. No one PyTorch call computes either (library_ms None).
+    With ``report`` it prints the costliest levels (tck) or groups
+    (flk)."""
+    torch, tck, flk, clk, diag_lu = (ctx[k] for k in (
+        "torch", "tck", "flk", "clk", "diag_lu"))
+    plan, tp = lu.plan, lu._ftapes
+    th = lu._thresh()
+    name = "tck_update_bf16" if lu.executor == "tck" else "flk_bf16"
+    ck = Checker(torch, plan.bs, (name,))
+    pool, linv, uinv, tiny = _state(lu, torch, ctx["blocklu"])
+    dist = [0.0, 0.0]
+
+    def step(kern, plain):
+        nonlocal pool
+        a, p, h = pool.clone(), pool.clone(), pool.clone()
+        ms = _timed(torch, lambda: kern(a))
+        plain_ms = _timed(torch, lambda: plain(p, "default"))
+        plain(h, "highest")
+        ck.record(name, ms, plain_ms, [a], [p], rel=BF16_TOL)
+        dist[0] += float((a - p).abs().sum())
+        dist[1] += float((h - p).abs().sum())
+        pool = a
+        return ms
+
+    per = []
+    for lvl in range(tp.nlvl):
+        lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
+        if name == "tck_update_bf16":
+            ms_a = step(lambda p: tck.tck_waves(p, linv, tp, lvl, "default"),
+                        lambda p, pr: tck.tck_waves_plain(p, linv, tp, lvl,
+                                                          pr))
+            ms_b = step(lambda p: tck.tck_tiles(p, tp, lvl, "default"),
+                        lambda p, pr: tck.tck_tiles_plain(p, tp, lvl, pr))
+            per.append((ms_a + ms_b, ms_a, ms_b, lvl))
+            diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
+                            tp.dstep[lo:hi], th, tiny)
+            clk.clk_trsm(pool, uinv, tp, lvl, "default")
+            continue
+        for g in (2 * lvl, 2 * lvl + 1):
+            per.append((step(
+                lambda p: flk.flk_update(p, linv, uinv, tp, g,
+                                         precision="default"),
+                lambda p, pr: flk.flk_update_plain(p, linv, uinv, tp, g,
+                                                   pr)), g))
+            if g == 2 * lvl:
+                diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
+                                tp.dstep[lo:hi], th, tiny)
+    if report and name == "tck_update_bf16":
+        print_tck_levels(tp, per, name=name)
+    elif report:
+        print_flk_groups(tp, per, plan.bs, name=name)
+    o = ck.out[name]
+    o.update(fused_bf16_bound(plan, tp, lu, ctx), dist=dist[0],
+             fp32_dist=dist[1])
+    if dist[1] > 0 and dist[0] > BF16_FRACTION * dist[1]:
+        fail(f"{name} (bs={plan.bs}): summed distance {dist[0]:.3e} from "
+             f"its bf16 plain version, not below {BF16_FRACTION} of the "
+             f"FP32 pass's {dist[1]:.3e}: not the low pass")
+    return ck.out
+
+
+def fused_bf16_bound(plan, tp, lu, ctx):
+    """tck's or flk's bf16 pass: the FP32 pass's operations (2·bs³ a
+    block product and a finalize, tck's from the clk tapes of the same
+    plan, as it computes clk_update's function) at the dense bf16
+    tensor-core peak, and its bytes at the memory rate (as
+    :func:`bf16_bounds` for clk)."""
+    w = (update_bound(plan, ctx["clk"].build_clk_tapes(plan, "cpu"),
+                      np.float32) if lu.executor == "tck"
+         else flk_bounds(plan, tp, ctx["flk"]))
+    return _bound(w["flops"], w["bytes"], "factor", peak=BF16_PEAK_FLOPS)
+
+
+def fused_precision_phase(ctx, checks, launches, A, b, lus):
+    """Phase 13b: tck's and flk's bf16 pass (ROADMAP.md item 2b) on
+    lap3d32, on the plans of phase 5 (``lus``, factored there at
+    "highest"): gssvx under "auto" through tck, flk and ILU(1) by
+    SamePattern_SameRowPerm refactors, driven like the main path (the
+    bf16 entries must launch, the FP32 ones only after an escalation,
+    which the counter must then report; the tck and flk calls' launches
+    are those rows'), each twice with bit-equal x and equal refinement
+    steps; tck_update_bf16 and flk_bf16 against their plain versions
+    level by level (their rows); and per executor the warm comparison of
+    "auto" and "highest" (:func:`precision_compare`: FACT, SOLVE and
+    REFINE, the steps, berr, the escalation, and the executor's kernels
+    inside one warm factor at each precision)."""
+    from superlu_dist_tpu_torch import Fact
+    ssr = Fact.SAME_PATTERN_SAME_ROWPERM
+    for name, key, need in (
+            ("tck", "tck_update_bf16",
+             ("tck_update_bf16", "clk_trsm_bf16", "diag_lu", "sweep")),
+            ("flk", "flk_bf16", ("flk_bf16", "diag_lu", "sweep")),
+            ("ilu1", "flk_bf16", ("flk_bf16", "diag_lu", "sweep"))):
+        lu = lus[name]
+        what = f"13b {name} lap3d32 auto"
+        opts = lu.options.replace(fact=ssr, gemm_precision="auto")
+        fp32 = FUSED_OF[key][0]
+        r1, lu, got = drive(ctx, what, A, b, opts, need,
+                            ("clk_update", "schur"), lu=lu)
+        c = r1.stat.counters
+        esc = c.get("precision_escalated") == 1
+        print(f"{what}: gemm_precision {c['gemm_precision']}, escalated "
+              f"{esc}, {r1.stat.refine_steps} refinement steps", flush=True)
+        if (c["gemm_precision"] == "highest") != esc or \
+                any((got[k] > 0) != esc for k in fp32):
+            fail(f"{what}: the counter or the FP32 launches disagree with "
+                 "the escalation")
+        if name != "ilu1":
+            launches[key] = got[key]
+            e = ctx["entry_launches"][key] = dict(
+                ctx["kernels"][key].entry_launches)
+            if not all(e.values()):
+                fail(f"an entry of {key} was not launched on its path: {e}")
+        lu._prec_sticky = False
+        r2, lu, _ = drive(ctx, f"{what}, second call", A, b, opts, need,
+                          lu=lu)
+        check_repeat(what, r1, r2)
+        if name != "ilu1":
+            c = check_fused_bf16(lu, ctx, report=True)
+            checks.update(c)
+            o = c[key]
+            print_check(key, o, launches[key])
+            print(f"{key}: summed distance from the bf16 plain version "
+                  f"{o['dist']:.3e}, the FP32 pass's {o['fp32_dist']:.3e} "
+                  f"(at most {BF16_FRACTION} of it)", flush=True)
+        precision_compare(ctx, f"13b {name} lap3d32", A, b, opts, lu)
 
 
 def precision_lap3d50(ctx, A, b, opts, lu):

@@ -29,12 +29,11 @@ Deliberate differences from the JAX package:
   ``"auto"`` arms the low pass only on CUDA, the counterpart of the JAX
   package's Pallas path; on the CPU it resolves to ``"highest"``, as the
   JAX package's CPU (XLA) path runs, and an explicit ``"bf16"`` runs the
-  plain versions' bf16 products. Only clk (and the ring-embedded
-  complex64 factor that runs it) has a low pass: the level executor,
-  float64 and native complex report ``"highest"``, as the JAX package's
-  non-fused executors do; tck and flk resolve ``"auto"`` to ``"highest"``
-  and refuse an explicit low pass (ROADMAP.md item 2b), where the JAX
-  package runs them bf16-first. The port reads no
+  plain versions' bf16 products. The fused executors clk, tck and flk
+  (ILU(k) plans run flk), and the ring-embedded complex64 factor that
+  runs one of them, have the low pass; the level executor, float64 and
+  native complex report ``"highest"``, as the JAX package's non-fused
+  executors do. The port reads no
   ``SLU_TPU_CLK_GEMM_PRECISION``, so nothing overrides the precision the
   counter reports (ADVICE.md item 3, diverged from on purpose).
 - Etree alignment stays on whatever the device, as the JAX package
@@ -217,11 +216,8 @@ def _resolve_device(device) -> torch.device:
 
 
 def _check_supported(opts: Options, device: torch.device, A) -> None:
-    """Refuse what this slice of the port does not serve yet."""
-    def todo(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, {item})")
-
+    """Refuse a dtype, a value type or an executor that the port does
+    not know (every one it knows runs on ``device``)."""
     if opts.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {opts.dtype!r}")
     if np.iscomplexobj(getattr(A, "data", A)) and \
@@ -230,11 +226,6 @@ def _check_supported(opts: Options, device: torch.device, A) -> None:
                          f"{opts.dtype!r}")
     if opts.executor not in (None, "clk", "tck", "flk", "pallas", "xla"):
         raise ValueError(f"unknown executor {opts.executor!r}")
-    exc = _executor(opts, opts.dtype == "complex64" and _embed_env())
-    if exc in ("tck", "flk") and \
-            _resolve_precision(opts, device, exc) == "default":
-        todo(f"gemm_precision={opts.gemm_precision!r} on {exc}",
-             "queue 1 item 2b")
 
 
 def _embed_env() -> bool:
@@ -258,17 +249,16 @@ def _resolve_precision(opts: Options, device: torch.device, executor: str,
     float32 accumulation) or "highest". "auto" is "default" when
     refinement is configured, on a device where :func:`_auto_low_pass`
     arms it, unless an escalation made "highest" ``sticky``; "bf16" and
-    "default" are "default"; anything else is "highest". Only clk takes
-    the low pass (tck and flk are item 2b: "auto" stays "highest" there);
-    the level executor (``"pallas"``: "xla", float64, native complex) is
-    always "highest"."""
+    "default" are "default"; anything else is "highest". The fused
+    executors (clk, tck, flk) take the low pass; the level executor
+    (``"pallas"``: "xla", float64, native complex) is always "highest"."""
     if executor not in ("clk", "tck", "flk"):
         return "highest"
     req = opts.gemm_precision or "auto"
     if req == "auto":
         armed = (not sticky and opts.iter_refine != IterRefine.NOREFINE
                  and _auto_low_pass(device))
-        return "default" if armed and executor == "clk" else "highest"
+        return "default" if armed else "highest"
     return "default" if req in ("bf16", "default") else "highest"
 
 
@@ -748,8 +738,9 @@ class SparseLU:
             c = self._ftapes.host["counts"]
             stat.counters["tck_jobs"] = (c["gemm"] + c["finu"] + c["diag"]
                                          + c["trsm"] + 2 * c["tiles"])
-        # only clk has a low pass (the others resolve to "highest")
-        kw = {"precision": prec} if self.executor == "clk" else {}
+        # the fused executors take the pass precision; the level executor
+        # has no low pass (it resolves to "highest")
+        kw = {"precision": prec} if self.executor != "pallas" else {}
         with stat.phase("FACT"):
             pool, linv, uinv, tiny = mod.factor(pool, self._thresh(),
                                                 self._ftapes, plan.nb, **kw)

@@ -153,12 +153,15 @@ def factor_plain(plan: SymbolicPlan, pool: torch.Tensor, thresh: float):
     return pool, linv, uinv, tiny
 
 
-def subtract_products(pool: torch.Tensor, gl, gu, gt) -> None:
+def subtract_products(pool: torch.Tensor, gl, gu, gt,
+                      matmul=torch.matmul) -> None:
     """pool[gt[i]] −= pool[gl[i]]·pool[gu[i]] for every i, in order of i
-    (host index arrays; gathered in batches of ``SCHUR_CHUNK``)."""
+    (host index arrays; gathered in batches of ``SCHUR_CHUNK``), each
+    batch's products by ``matmul``."""
     dev = pool.device
     for c in range(0, len(gt), SCHUR_CHUNK):
         def idx(a):
             return torch.as_tensor(np.asarray(a[c:c + SCHUR_CHUNK],
                                               dtype=np.int64), device=dev)
-        pool.index_add_(0, idx(gt), pool[idx(gl)] @ pool[idx(gu)], alpha=-1)
+        pool.index_add_(0, idx(gt), matmul(pool[idx(gl)], pool[idx(gu)]),
+                        alpha=-1)

@@ -1,13 +1,15 @@
 // mma.cuh: bf16 tensor-core products with float32 accumulation, for the
-// low pass of the clk factor (waves.cuh's update, panel.cuh's band
-// product): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on
-// fragments built from float32 operands staged in shared memory.
+// low pass of the fused factors (waves.cuh's update, panel.cuh's band
+// product, tck.cu's tiles, chain.cuh's chain product in flk.cu):
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on fragments built
+// from float32 operands staged in shared memory.
 //
-// Replaces: the precision="default" dots of the TPU kernel
+// Replaces: the precision="default" dots of the TPU kernels
 // (superlu_dist_tpu/ops/kernels/clk.py::_clk_kernel, its dot() at
-// clk.py:257-259): one bf16 pass with float32 accumulation, which the JAX
-// package arms when refinement is configured and escalates from when
-// refinement stalls.
+// clk.py:257-259; tck.py::_tck_kernel, tck.py:226-228;
+// flk.py::_flk_kernel, flk.py:439-441): one bf16 pass with float32
+// accumulation, which the JAX package arms when refinement is configured
+// and escalates from when refinement stalls.
 //
 // Each operand is rounded to bf16 (round to nearest even, as
 // __floats2bfloat162_rn does and as torch's .to(torch.bfloat16) does)
@@ -76,6 +78,20 @@ __device__ __forceinline__ void frag_b(const float* B, int k0, int c0,
   b[1] = pack_bf16(p[8 * LDB], p[9 * LDB]);
 }
 
+// The B fragment of rows (k) k0 .. k0+15 and columns c0 .. c0+7 of a
+// (k, n) float matrix held transposed in shared memory: element (k, n) at
+// Bt[n * LDT + k], LDT even (with LDT = 4 mod 32 the pairs of a half
+// warp fall in distinct banks).
+template <int LDT>
+__device__ __forceinline__ void frag_bt(const float* Bt, int k0, int c0,
+                                        uint32_t (&b)[2]) {
+  const float* p = Bt + (c0 + lane_gid()) * LDT + k0 + 2 * lane_tig();
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  const float2 v = *reinterpret_cast<const float2*>(p + 8);
+  b[0] = pack_bf16(u.x, u.y);
+  b[1] = pack_bf16(v.x, v.y);
+}
+
 // This lane's share of the 16 x 8 tile at (r0, c0) of a row-major float
 // matrix with leading dimension LD (device or shared memory), in the C
 // layout; 8-byte aligned pairs.
@@ -100,12 +116,24 @@ __device__ __forceinline__ void store_c(float* X, int r0, int c0,
   *reinterpret_cast<float2*>(p + 8 * (int64_t)LD) = make_float2(c[2], c[3]);
 }
 
+// The same tile stored transposed: element (r, c) at Xt[c * LDT + r].
+template <int LDT>
+__device__ __forceinline__ void store_ct(float* Xt, int r0, int c0,
+                                         const float (&c)[4]) {
+  float* p = Xt + (c0 + 2 * lane_tig()) * LDT + r0 + lane_gid();
+  p[0] = c[0];
+  p[LDT] = c[1];
+  p[8] = c[2];
+  p[LDT + 8] = c[3];
+}
+
 // acc += A . B over a chunk of KC (a multiple of 16) k: this warp's WM x
 // WN tiles of 16 x 8 at rows r0 + 16 i, columns c0 + 8 j; A row major
-// (leading dimension LDA), B (k, n) row major (leading dimension LDB),
-// both in shared memory. Each output's k run in steps of 16 in ascending
-// order, each step summed by the tensor core.
-template <int KC, int LDA, int LDB, int WM, int WN>
+// (leading dimension LDA), B (k, n) row major (leading dimension LDB), or
+// with BT held transposed (frag_bt, leading dimension LDB), both in
+// shared memory. Each output's k run in steps of 16 in ascending order,
+// each step summed by the tensor core.
+template <int KC, int LDA, int LDB, int WM, int WN, bool BT = false>
 __device__ __forceinline__ void mma_chunk(const float* A, const float* B,
                                           int r0, int c0,
                                           float (&acc)[WM][WN][4]) {
@@ -119,7 +147,10 @@ __device__ __forceinline__ void mma_chunk(const float* A, const float* B,
 #pragma unroll
     for (int j = 0; j < WN; ++j) {
       uint32_t b[2];
-      frag_b<LDB>(B, k, c0 + 8 * j, b);
+      if constexpr (BT)
+        frag_bt<LDB>(B, k, c0 + 8 * j, b);
+      else
+        frag_b<LDB>(B, k, c0 + 8 * j, b);
 #pragma unroll
       for (int i = 0; i < WM; ++i) mma_bf16(acc[i][j], a[i], b);
     }

@@ -54,7 +54,8 @@
 // the product on the tensor cores through mma.cuh's m16n8k16 bf16 tiles
 // with float32 accumulation. Each warp owns 2 x 4 tiles of 16 x 8 of the
 // band (1 x 4 in bands of 16), the same outputs per thread as the FP32
-// tile; the staged rows of B are N + 4 floats apart, so that a B
+// tile (chain.cuh's bf16 pass, flk's, adds 2 x 2 in a band of 16
+// columns); the staged rows of B are N + 4 floats apart, so that a B
 // fragment's four k rows fall in distinct banks. BF16 = false compiles to
 // the kernels above, unchanged; schur.cu's trsm and trsm_batch and
 // rdma.cu's panels keep full precision, as the JAX package's do.
@@ -290,15 +291,17 @@ __device__ __forceinline__ void band_product(T* ring, const T* Ag,
 }
 
 // The bf16 pass's geometry of a float Panel P: a warp's WM x WN tiles of
-// 16 x 8, WC warps along a row of the band, the staged rows of B LDB
-// floats apart (4 mod 16: distinct banks for a B fragment's k rows).
+// 16 x 8 (the 4 x TW outputs of each of its threads: 2 x 4 for a 4 x 8
+// tile, 1 x 4 for a 4 x 4 one, 2 x 2 in a band only 16 wide), WC warps
+// along a row of the band, the staged rows of B LDB floats apart (4 mod
+// 16: distinct banks for a B fragment's k rows).
 template <class P>
 struct PanelMma {
   static constexpr int LDB = P::N + 4;
   static constexpr int kStage = P::kA + P::KC * LDB;
   static constexpr size_t kBytes = (size_t)P::STAGES * kStage * sizeof(float);
-  static constexpr int WM = P::TW == 8 ? 2 : 1;   // m16 tiles of a warp
-  static constexpr int WN = P::TW / WM;           // n8 tiles of a warp
+  static constexpr int WN = P::N >= 32 ? 4 : P::N / 8;   // n8 tiles of a warp
+  static constexpr int WM = P::TW / WN;                   // m16 tiles of a warp
   static constexpr int WC = P::N / (8 * WN);      // warps along a row
   static_assert(WC >= 1 && WC * (P::M / (16 * WM)) * 32 == P::NT &&
                     P::KC % 16 == 0,

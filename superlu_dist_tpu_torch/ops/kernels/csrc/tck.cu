@@ -43,6 +43,22 @@
 //     CTAs share an SM; the launch takes the ring plus its tallest tile.
 // Nothing that a launch reads is written in it: phase B reads final U
 // blocks and L blocks of lower levels, and writes only its tiles.
+//
+// The _bf16 entries are the low pass of gemm_precision "default" (the TPU
+// kernel's dot() at precision "default", tck.py:226-228 there: the U
+// finalize :306, the update products :311 and :346 and the L finalize
+// :323, in one bf16 pass with float32 accumulation). Phase A is
+// waves.cuh's bf16 pass (clk.cu's slu_clk_waves_bf16); phase B
+// (tck_tile_mma_kernel) keeps the tiles, the ring and the order, with the
+// products on the tensor cores through mma.cuh's m16n8k16 bf16 tiles:
+// warp w owns rows 32w .. 32w + 31 of every tile position (two m16 by two
+// n8 tiles, in the C layout), so a tile still needs no barrier of its own;
+// the staged U chunks keep rows of TNB + 4 floats (distinct banks for a B
+// fragment's k rows). Operands are rounded to bf16 as their fragments are
+// built; the tile, the sums and the pool stay float32. The TRSM jobs are
+// clk.cu's slu_clk_trsm_bf16. With the padded ring a tile of 20 rows at
+// bs = 64 (tck.py::tile_rows) takes 117,248 bytes, one CTA an SM; at bs 32
+// and 128 the tallest tiles keep two.
 
 #include "waves.cuh"
 
@@ -61,10 +77,11 @@ constexpr int STB = 3;
 constexpr int kTileFields = 4;          // slot0, rows, q0, q1
 constexpr int kMaxSmem = 227 * 1024;    // opt-in shared memory of a CTA
 
-// the ring, then the tile of `rows` positions (BS x TNB each)
-template <int BS>
+// the ring (U chunk rows UL floats apart), then the tile of `rows`
+// positions (BS x TNB each)
+template <int BS, int UL = TNB>
 size_t tile_smem_bytes(int rows) {
-  return (size_t)(Ring<BS, TNB, STB>::kFloats + rows * BS * TNB) *
+  return (size_t)(Ring<BS, TNB, STB, UL>::kFloats + rows * BS * TNB) *
          sizeof(float);
 }
 
@@ -142,20 +159,137 @@ tck_tile_kernel(float* __restrict__ pool,
     }
 }
 
+// tck_tile_kernel in the bf16 pass (the header says how it is laid out).
 template <int BS>
+__global__ void __launch_bounds__(Ring<BS, TNB, STB>::kThreads)
+tck_tile_mma_kernel(float* __restrict__ pool,
+                    const int32_t* __restrict__ tiles,
+                    const int32_t* __restrict__ bl,
+                    const int32_t* __restrict__ bu,
+                    const int32_t* __restrict__ bd, int t0) {
+  constexpr int UL = slu_waves::kMmaUL<TNB>;
+  using S = Ring<BS, TNB, STB, UL>;
+  static_assert(TNB == 16 && S::kThreads == BS,
+                "a warp per 32 rows of a strip of 16 columns");
+  constexpr int NK = S::NK;
+  constexpr int TP = BS * TNB;           // floats of a tile position
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* tile = smem + S::kFloats;       // rows x BS x TNB
+  const int32_t* tr = tiles + (int64_t)kTileFields * (t0 + blockIdx.x);
+  const int64_t bb = (int64_t)BS * BS;
+  const int s0 = blockIdx.y * TNB;
+  const int r0 = (threadIdx.x >> 5) * 32;
+  const int rows = tr[1], q0 = tr[2];
+  const int nchunks = (tr[3] - q0) * NK;
+  float* T0 = pool + (int64_t)tr[0] * bb + s0;
+
+  // this warp's tiles of every tile position
+  for (int p = 0; p < rows; ++p)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v[4];
+        slu_mma::load_c<BS>(T0 + p * bb, r0 + 16 * i, 8 * j, v);
+        slu_mma::store_c<TNB>(tile + p * TP, r0 + 16 * i, 8 * j, v);
+      }
+
+  auto load = [&](int c) {
+    const int q = q0 + c / NK;
+    slu_waves::stage<BS, TNB, UL>(smem + (c % STB) * S::kStage,
+                                  pool + (int64_t)bl[q] * bb,
+                                  pool + (int64_t)bu[q] * bb + s0,
+                                  (c % NK) * KC);
+  };
+#pragma unroll
+  for (int c = 0; c < STB - 1; ++c) {
+    if (c < nchunks) load(c);
+    slu_waves::cp_async_commit();
+  }
+  float prod[2][2][4] = {};
+  for (int c = 0; c < nchunks; ++c) {
+    slu_waves::cp_async_wait<STB - 2>();   // chunk c has landed
+    __syncthreads();               // ... for every thread; stage c-1 is free
+    if (c + STB - 1 < nchunks) load(c + STB - 1);
+    slu_waves::cp_async_commit();
+    const float* Ls = smem + (c % STB) * S::kStage;
+    slu_mma::mma_chunk<KC, slu_waves::LD, UL, 2, 2>(Ls, Ls + S::kL, r0, 0,
+                                                    prod);
+    if (c % NK == NK - 1) {   // the product is complete: into its position
+      float* T = tile + bd[q0 + c / NK] * TP;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v[4];
+          slu_mma::load_c<TNB>(T, r0 + 16 * i, 8 * j, v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[e] -= prod[i][j][e];
+            prod[i][j][e] = 0.f;
+          }
+          slu_mma::store_c<TNB>(T, r0 + 16 * i, 8 * j, v);
+        }
+    }
+  }
+  for (int p = 0; p < rows; ++p)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v[4];
+        slu_mma::load_c<TNB>(tile + p * TP, r0 + 16 * i, 8 * j, v);
+        slu_mma::store_c<BS>(T0 + p * bb, r0 + 16 * i, 8 * j, v);
+      }
+}
+
+template <int BS, bool BF16 = false>
 int launch_tiles(float* pool, const int32_t* tiles, const int32_t* bl,
                  const int32_t* bu, const int32_t* bd, int t0, int count,
                  int hmax, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes<BS>(hmax);
+  const size_t smem = BF16
+      ? tile_smem_bytes<BS, slu_waves::kMmaUL<TNB>>(hmax)
+      : tile_smem_bytes<BS>(hmax);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      tck_tile_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  tck_tile_kernel<BS><<<dim3((unsigned)count, BS / TNB),
-                        Ring<BS, TNB, STB>::kThreads, smem, stream>>>(
-      pool, tiles, bl, bu, bd, t0);
+  const dim3 grid((unsigned)count, BS / TNB);
+  constexpr int nt = Ring<BS, TNB, STB>::kThreads;
+  cudaError_t e;
+  if constexpr (BF16) {
+    e = cudaFuncSetAttribute(tck_tile_mma_kernel<BS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    tck_tile_mma_kernel<BS><<<grid, nt, smem, stream>>>(pool, tiles, bl, bu,
+                                                        bd, t0);
+  } else {
+    e = cudaFuncSetAttribute(tck_tile_kernel<BS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    tck_tile_kernel<BS><<<grid, nt, smem, stream>>>(pool, tiles, bl, bu, bd,
+                                                    t0);
+  }
   return (int)cudaGetLastError();
+}
+
+// Phase B of one level in the FP32 kernel, or with BF16 its bf16 pass.
+template <bool BF16>
+int tiles_f32(void* pool, const void* tiles, const void* bl, const void* bu,
+              const void* bd, int t0, int count, int hmax, int bs,
+              void* stream) {
+  if (count == 0) return 0;
+  auto go = [&](auto launch) {
+    return launch((float*)pool, (const int32_t*)tiles, (const int32_t*)bl,
+                  (const int32_t*)bu, (const int32_t*)bd, t0, count, hmax,
+                  (cudaStream_t)stream);
+  };
+  switch (bs) {
+    case 32: return go(launch_tiles<32, BF16>);
+    case 64: return go(launch_tiles<64, BF16>);
+    case 128: return go(launch_tiles<128, BF16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -178,16 +312,26 @@ extern "C" int slu_tck_tiles_f32(void* pool, const void* tiles,
                                  const void* bl, const void* bu,
                                  const void* bd, int t0, int count, int hmax,
                                  int bs, void* stream) {
-  if (count == 0) return 0;
-  auto go = [&](auto launch) {
-    return launch((float*)pool, (const int32_t*)tiles, (const int32_t*)bl,
-                  (const int32_t*)bu, (const int32_t*)bd, t0, count, hmax,
-                  (cudaStream_t)stream);
-  };
-  switch (bs) {
-    case 32: return go(launch_tiles<32>);
-    case 64: return go(launch_tiles<64>);
-    case 128: return go(launch_tiles<128>);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return tiles_f32<false>(pool, tiles, bl, bu, bd, t0, count, hmax, bs,
+                          stream);
+}
+
+// slu_tck_waves_f32 in the bf16 pass.
+extern "C" int slu_tck_waves_bf16(void* pool, const void* linv,
+                                  const void* tslot, const void* tstep,
+                                  const void* tfin, const void* pptr,
+                                  const void* cl, const void* cu,
+                                  const void* wptr, int nwaves, int bs,
+                                  void* stream) {
+  return slu_waves::waves_f32<TN, true>(pool, linv, tslot, tstep, tfin, pptr,
+                                        cl, cu, wptr, nwaves, bs, stream);
+}
+
+// slu_tck_tiles_f32 in the bf16 pass.
+extern "C" int slu_tck_tiles_bf16(void* pool, const void* tiles,
+                                  const void* bl, const void* bu,
+                                  const void* bd, int t0, int count, int hmax,
+                                  int bs, void* stream) {
+  return tiles_f32<true>(pool, tiles, bl, bu, bd, t0, count, hmax, bs,
+                         stream);
 }

@@ -26,6 +26,20 @@ staged chain product. Every chain is cut into chunks in plan order
 whose bands would not fill the card (:func:`group_chunk`); pass 1 (``slu_flk_chunks_f32``) runs one CTA per (chunk, band) and
 finishes the targets of one chunk, pass 2 (``slu_flk_sum_f32``) adds the
 chunks of the others in chunk order and finalizes them.
+
+``precision`` is the pass precision of the chain's products and the
+panel finalizes, as for clk (``clk.py``): ``"highest"`` runs them in IEEE
+FP32 (``slu_flk_chunks_f32``, ``slu_flk_sum_f32``, counted on
+``KERNEL``); ``"default"`` in one bf16 pass with float32 accumulation, as
+the TPU kernel's ``dot`` at precision ``"default"`` (flk.py:439-441
+there: the chain product and both panel finalizes), on the tensor cores
+(``slu_flk_chunks_bf16``, ``slu_flk_sum_bf16``, counted on
+``KERNEL_BF16``). Each product rounds both its blocks, and a finalize the
+summed target and the inverse; pass 1's scratch rows and pass 2's sums
+stay float32, and ``diag_lu`` is always full precision (flk.py:360-362
+there). The plain versions round the same operands to bf16 and multiply
+in float32, so they differ from the kernels only in the order of the
+sums.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from ..blocklu import SCHUR_CHUNK, level_order, subtract_products
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .schur import check_precision, matmul_at
 from .sweep import CHUNK_CTAS, chunk_chains
 
 _V = ctypes.c_void_p
@@ -47,6 +62,14 @@ _I = ctypes.c_int
 KERNEL = CudaKernel("flk", "flk.cu", {
     "slu_flk_chunks_f32": [_V] * 12 + [_I, _I, _I, _V],
     "slu_flk_sum_f32": [_V] * 10 + [_I, _I, _I, _V]})
+#: the same kernel's bf16 pass (precision "default"), counted apart
+KERNEL_BF16 = CudaKernel("flk_bf16", "flk.cu", {
+    "slu_flk_chunks_bf16": [_V] * 12 + [_I, _I, _I, _V],
+    "slu_flk_sum_bf16": [_V] * 10 + [_I, _I, _I, _V]})
+#: the kernel and the C entries (pass 1, pass 2) of each pass
+_PASS = {"highest": (KERNEL, "slu_flk_chunks_f32", "slu_flk_sum_f32"),
+         "default": (KERNEL_BF16, "slu_flk_chunks_bf16",
+                     "slu_flk_sum_bf16")}
 
 # finalize codes (the JAX package's values; FIN_DIAG is diag_lu)
 FIN_NONE = 0
@@ -210,8 +233,10 @@ def _chunk_tapes(cptr, tptr, bs, chunk):
                 mtgt=mtgt, mrow=qrow[chunkptr[mtgt]], mcnt=nk[mtgt])
 
 
-def flk_update_plain(pool, linv, uinv, tp: FlkTapes, group: int) -> None:
+def flk_update_plain(pool, linv, uinv, tp: FlkTapes, group: int,
+                     precision: str = "highest") -> None:
     """Plain version of :func:`flk_update`."""
+    check_precision(precision)
     h = tp.host
     lo, hi = int(tp.tptr[group]), int(tp.tptr[group + 1])
     if hi == lo:
@@ -219,17 +244,20 @@ def flk_update_plain(pool, linv, uinv, tp: FlkTapes, group: int) -> None:
     c0, c1 = int(h["cptr"][lo]), int(h["cptr"][hi])
     tslot = h["tslot"][lo:hi]
     dst = np.repeat(tslot, np.diff(h["cptr"][lo:hi + 1]))
-    subtract_products(pool, h["cl"][c0:c1], h["cu"][c0:c1], dst)
-    _finalize(pool, linv, uinv, h, np.arange(lo, hi))
+    subtract_products(pool, h["cl"][c0:c1], h["cu"][c0:c1], dst,
+                      lambda a, b: matmul_at(a, b, precision))
+    _finalize(pool, linv, uinv, h, np.arange(lo, hi), precision)
 
 
-def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes,
-                            group: int) -> None:
+def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes, group: int,
+                            precision: str = "highest") -> None:
     """The two passes of :func:`flk_update` over the tapes' chunks in
     plain PyTorch (the CPU tests hold the chunk fields with it): pass 1
     finishes the targets of one chunk and sums each chunk of the others,
     negated, into its scratch row; pass 2 adds a target's rows in chunk
-    order and finalizes it."""
+    order and finalizes it; the products and finalizes at
+    ``precision``."""
+    check_precision(precision)
     h = tp.host
     q0, q1 = int(tp.qptr[group]), int(tp.qptr[group + 1])
     if q1 == q0:
@@ -240,16 +268,19 @@ def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes,
     prods = np.arange(h["qcptr"][q0], h["qcptr"][q1])
     one = h["qrow"][pq] < 0
     subtract_products(pool, h["cl"][prods[one]], h["cu"][prods[one]],
-                      h["tslot"][h["qtgt"][pq[one]]])
+                      h["tslot"][h["qtgt"][pq[one]]],
+                      lambda a, b: matmul_at(a, b, precision))
     scratch = torch.zeros((int(tp.nrow[group]), bs, bs), dtype=pool.dtype,
                           device=dev)
     for c in range(0, int((~one).sum()), SCHUR_CHUNK):
         p = prods[~one][c:c + SCHUR_CHUNK]
         scratch.index_add_(0, _idx(h["qrow"][pq[~one][c:c + SCHUR_CHUNK]],
                                    dev),
-                           pool[_idx(h["cl"][p], dev)]
-                           @ pool[_idx(h["cu"][p], dev)], alpha=-1)
-    _finalize(pool, linv, uinv, h, h["qtgt"][qs[h["qrow"][qs] < 0]])
+                           matmul_at(pool[_idx(h["cl"][p], dev)],
+                                     pool[_idx(h["cu"][p], dev)], precision),
+                           alpha=-1)
+    _finalize(pool, linv, uinv, h, h["qtgt"][qs[h["qrow"][qs] < 0]],
+              precision)
     m0, m1 = int(tp.mptr[group]), int(tp.mptr[group + 1])
     if m1 == m0:
         return
@@ -258,31 +289,34 @@ def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes,
         has = cnt > k
         s = _idx(h["tslot"][mt[has]], dev)
         pool[s] += scratch[_idx(h["mrow"][m0:m1][has] + k, dev)]
-    _finalize(pool, linv, uinv, h, mt)
+    _finalize(pool, linv, uinv, h, mt, precision)
 
 
 def _idx(a, device):
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
 
-def _finalize(pool, linv, uinv, h, tgt):
-    """T·uinv[step] (FIN_L) and linv[step]·T (FIN_U) for targets ``tgt``."""
+def _finalize(pool, linv, uinv, h, tgt, precision="highest"):
+    """T·uinv[step] (FIN_L) and linv[step]·T (FIN_U) for targets ``tgt``,
+    at ``precision``."""
     for code in (FIN_L, FIN_U):
         t = tgt[h["tfin"][tgt] == code]
         if len(t):
             s = _idx(h["tslot"][t], pool.device)
             k = _idx(h["tstep"][t], pool.device)
-            pool[s] = pool[s] @ uinv[k] if code == FIN_L \
-                else linv[k] @ pool[s]
+            pool[s] = matmul_at(pool[s], uinv[k], precision) \
+                if code == FIN_L else matmul_at(linv[k], pool[s], precision)
 
 
 def flk_update(pool, linv, uinv, tp: FlkTapes, group: int,
-               wide: int = -1) -> None:
-    """Accumulate and finalize the targets of ``group`` (in place).
-    ``wide`` < 0 lets the kernel choose its bands (``csrc/chain.cuh``),
-    0 / 1 force bands of 16 / 64 (``tools/flk_ab.py``)."""
+               wide: int = -1, precision: str = "highest") -> None:
+    """Accumulate and finalize the targets of ``group`` (in place), the
+    products and finalizes at ``precision``. ``wide`` < 0 lets the kernel
+    choose its bands (``csrc/chain.cuh``), 0 / 1 force bands of 16 / 64
+    (``tools/flk_ab.py``)."""
+    check_precision(precision)
     if pool.device.type == "cpu":
-        return flk_update_plain(pool, linv, uinv, tp, group)
+        return flk_update_plain(pool, linv, uinv, tp, group, precision)
     _check_cuda(pool, linv, uinv)
     q0, q1 = int(tp.qptr[group]), int(tp.qptr[group + 1])
     if q1 == q0:
@@ -292,15 +326,16 @@ def flk_update(pool, linv, uinv, tp: FlkTapes, group: int,
     scratch = torch.empty((nrow, bs, bs), dtype=pool.dtype,
                           device=pool.device) if nrow else None
     sp = ptr(scratch) if nrow else None
-    KERNEL.count("slu_flk_chunks_f32")
-    KERNEL.call("slu_flk_chunks_f32", ptr(pool), ptr(linv), ptr(uinv), sp,
+    kernel, chunks, sums = _PASS[precision]
+    kernel.count(chunks)
+    kernel.call(chunks, ptr(pool), ptr(linv), ptr(uinv), sp,
                 ptr(tp.qtgt[q0:]), ptr(tp.qrow[q0:]), ptr(tp.qcptr[q0:]),
                 ptr(tp.tslot), ptr(tp.tstep), ptr(tp.tfin), ptr(tp.cl),
                 ptr(tp.cu), q1 - q0, bs, wide, stream)
     m0, m1 = int(tp.mptr[group]), int(tp.mptr[group + 1])
     if m1 > m0:
-        KERNEL.count("slu_flk_sum_f32")
-        KERNEL.call("slu_flk_sum_f32", ptr(pool), ptr(linv), ptr(uinv), sp,
+        kernel.count(sums)
+        kernel.call(sums, ptr(pool), ptr(linv), ptr(uinv), sp,
                     ptr(tp.mtgt[m0:]), ptr(tp.mrow[m0:]), ptr(tp.mcnt[m0:]),
                     ptr(tp.tslot), ptr(tp.tstep), ptr(tp.tfin), m1 - m0, bs,
                     wide, stream)
@@ -320,21 +355,24 @@ def _check_cuda(pool, *invs):
 
 
 def factor_level(pool, linv, uinv, tiny, thresh, tp: FlkTapes,
-                 level: int) -> None:
-    """The three phases of one elimination level."""
+                 level: int, precision: str = "highest") -> None:
+    """The three phases of one elimination level; flk's products and
+    finalizes at ``precision``, diag_lu in full precision."""
     lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
-    flk_update(pool, linv, uinv, tp, 2 * level)
+    flk_update(pool, linv, uinv, tp, 2 * level, precision=precision)
     diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi], thresh, tiny)
-    flk_update(pool, linv, uinv, tp, 2 * level + 1)
+    flk_update(pool, linv, uinv, tp, 2 * level + 1, precision=precision)
 
 
-def factor(pool, thresh: float, tp: FlkTapes, nb: int):
-    """Factor ``pool`` in place. Returns (pool, linv, uinv, tiny) with
-    linv/uinv of shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
+def factor(pool, thresh: float, tp: FlkTapes, nb: int,
+           precision: str = "highest"):
+    """Factor ``pool`` in place, the products at ``precision`` (see the
+    module docstring). Returns (pool, linv, uinv, tiny) with linv/uinv of
+    shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
     bs = pool.shape[-1]
     linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
     uinv = torch.zeros_like(linv)
     tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
     for level in range(tp.nlvl):
-        factor_level(pool, linv, uinv, tiny, thresh, tp, level)
+        factor_level(pool, linv, uinv, tiny, thresh, tp, level, precision)
     return pool, linv, uinv, tiny

@@ -28,6 +28,16 @@ each block column. Per elimination level, on one stream:
 2. ``diag_lu`` on the level's diagonal blocks (its DIAG jobs);
 3. ``clk_trsm``: L(i,k) ← L(i,k)·uinv(k) (its TRSM jobs).
 
+``precision`` is the pass precision of the update's and the TRSM's
+products, as for clk (``clk.py`` says what each pass rounds):
+``"highest"`` runs them in IEEE FP32 (``slu_tck_waves_f32``,
+``slu_tck_tiles_f32``, ``slu_clk_trsm_f32``); ``"default"`` in one bf16
+pass with float32 accumulation, as the TPU kernel's ``dot`` at precision
+``"default"`` (tck.py:226-228 there: the U finalize, the update products
+and the L-part TRSM), on the tensor cores (``slu_tck_waves_bf16``,
+``slu_tck_tiles_bf16``, counted on ``UPDATE_BF16``; the TRSM on
+``clk.TRSM_BF16``). ``diag_lu`` is always full precision.
+
 Columns of one level depend only on columns of lower levels, which
 replaces the TPU kernel's sequential grid. Without that grid the TPU's
 segments, bucket padding, NOP pads and pool-end shift have no counterpart,
@@ -49,6 +59,7 @@ from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .clk import _waves, clk_trsm, clk_update_waves_plain
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .schur import check_precision, matmul_at
 from .sweep import CHUNK_CTAS
 
 _V = ctypes.c_void_p
@@ -56,6 +67,14 @@ _I = ctypes.c_int
 UPDATE = CudaKernel("tck_update", "tck.cu", {
     "slu_tck_waves_f32": [_V] * 9 + [_I, _I, _V],
     "slu_tck_tiles_f32": [_V] * 5 + [_I] * 4 + [_V]})
+#: the same kernels' bf16 pass (precision "default"), counted apart
+UPDATE_BF16 = CudaKernel("tck_update_bf16", "tck.cu", {
+    "slu_tck_waves_bf16": [_V] * 9 + [_I, _I, _V],
+    "slu_tck_tiles_bf16": [_V] * 5 + [_I] * 4 + [_V]})
+#: the kernel and the C entries (phase A, phase B) of each pass
+_PASS = {"highest": (UPDATE, "slu_tck_waves_f32", "slu_tck_tiles_f32"),
+         "default": (UPDATE_BF16, "slu_tck_waves_bf16",
+                     "slu_tck_tiles_bf16")}
 
 MC = 8            # L blocks per GEMM chunk in the job count (the TPU's MC)
 TC = 8            # L blocks per TRSM job in the job count (its TC)
@@ -71,11 +90,13 @@ CTA_SMEM_MAX = 227 * 1024
 PLAIN_BATCH = 256
 
 
-def ring_bytes(bs: int) -> int:
+def ring_bytes(bs: int, precision: str = "highest") -> int:
     """Shared memory of waves.cuh's cp.async ring at block size ``bs``:
     STAGES chunks of a bs x KC L chunk (rows padded by 4) and KC x TN of
-    the U strip."""
-    return STAGES * (bs * (KC + 4) + KC * TN) * 4
+    the U strip (rows padded by 4 in the bf16 pass, ``precision``
+    "default")."""
+    ul = TN + 4 if precision == "default" else TN
+    return STAGES * (bs * (KC + 4) + KC * ul) * 4
 
 
 def tile_rows(bs: int) -> int:
@@ -83,7 +104,9 @@ def tile_rows(bs: int) -> int:
     rows of ``bs x TN`` floats that fit in ``TILE_SMEM`` beside the ring,
     so that two CTAs share an SM (46 at bs 32, 20 at 64, 6 at 128; taller
     tiles, up to the 227 KiB of one CTA, were no faster on an H100:
-    ``tools/tck_ab.py``)."""
+    ``tools/tck_ab.py``). The bf16 pass's ring is wider (``ring_bytes``
+    at "default"): with it the 20 rows at bs 64 take one CTA an SM, the
+    tallest tiles at bs 32 and 128 still two."""
     return max(1, (TILE_SMEM - ring_bytes(bs)) // (bs * TN * 4))
 
 
@@ -170,8 +193,7 @@ def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
     p_lm = lm[p_src]
     nd = int(p_lm.sum())
     d_pair = np.repeat(np.arange(npair), p_lm)
-    d_m = np.arange(nd) - np.repeat(np.concatenate(
-        [[0], np.cumsum(p_lm)[:-1]]), p_lm)
+    d_m = np.arange(nd) - np.repeat(np.cumsum(p_lm) - p_lm, p_lm)
     d_col, d_t, d_src = p_col[d_pair], p_t[d_pair], p_src[d_pair]
     d_row = srow[la0[d_src] + d_m]
     key = scol * nb + srow
@@ -220,7 +242,7 @@ def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
     perm = np.concatenate([np.arange(a, c) for a, c in zip(q0, q1)]) \
         if nq else np.zeros(0, dtype=np.int64)
     cnt = q1 - q0
-    q0 = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    q0 = np.cumsum(cnt) - cnt
     tiles = np.stack([colptr[t_col] + t_lo, t_hi - t_lo + 1, q0, q0 + cnt],
                      axis=1)
     bd = b_pos[perm] - np.repeat(t_lo, cnt)
@@ -310,16 +332,19 @@ def _tpu_counts(ncol, dpos, d_col, d_t, d_m, d_pos, w, mc, nb) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def tck_waves_plain(pool, linv, tp: TckTapes, level: int) -> None:
+def tck_waves_plain(pool, linv, tp: TckTapes, level: int,
+                    precision: str = "highest") -> None:
     """Plain version of :func:`tck_waves`: clk's wave order on tck's
     phase-A tapes (``clk.clk_update_waves_plain``)."""
-    clk_update_waves_plain(pool, linv, tp, level)
+    clk_update_waves_plain(pool, linv, tp, level, precision)
 
 
-def tck_tiles_plain(pool, tp: TckTapes, level: int) -> None:
+def tck_tiles_plain(pool, tp: TckTapes, level: int,
+                    precision: str = "highest") -> None:
     """Plain version of :func:`tck_tiles`: the level's products in tape
     order, each target summing its products in ascending source j, then L
-    block (in batches of ``PLAIN_BATCH``)."""
+    block (in batches of ``PLAIN_BATCH``), at ``precision``."""
+    check_precision(precision)
     h = tp.host
     lo, hi = int(tp.tptr[level]), int(tp.tptr[level + 1])
     if hi == lo:
@@ -333,54 +358,62 @@ def tck_tiles_plain(pool, tp: TckTapes, level: int) -> None:
         L = pool[torch.as_tensor(h["bl"][a:e], device=dev)]
         U = pool[torch.as_tensor(h["bu"][a:e], device=dev)]
         pool.index_add_(0, torch.as_tensor(dst[a - q0:e - q0], device=dev),
-                        torch.matmul(L, U), alpha=-1)
+                        matmul_at(L, U, precision), alpha=-1)
 
 
-def tck_update_plain(pool, linv, tp: TckTapes, level: int) -> None:
+def tck_update_plain(pool, linv, tp: TckTapes, level: int,
+                     precision: str = "highest") -> None:
     """Plain version of :func:`tck_update`: phase A, then phase B."""
-    tck_waves_plain(pool, linv, tp, level)
-    tck_tiles_plain(pool, tp, level)
+    tck_waves_plain(pool, linv, tp, level, precision)
+    tck_tiles_plain(pool, tp, level, precision)
 
 
-def tck_waves(pool, linv, tp: TckTapes, level: int) -> None:
+def tck_waves(pool, linv, tp: TckTapes, level: int,
+              precision: str = "highest") -> None:
     """Phase A of ``level``: its U blocks in source-ready waves (in
-    place), one launch per wave."""
+    place), one launch per wave, the products at ``precision``."""
+    check_precision(precision)
     if pool.device.type == "cpu":
-        return tck_waves_plain(pool, linv, tp, level)
-    _check_cuda(pool, linv, pool.shape[-1], tp.w)
+        return tck_waves_plain(pool, linv, tp, level, precision)
+    _check_cuda(pool, linv, pool.shape[-1], tp.w, precision)
     w0, w1 = int(tp.lwave[level]), int(tp.lwave[level + 1])
     if w1 == w0:
         return
-    UPDATE.count("slu_tck_waves_f32", w1 - w0)
-    UPDATE.call("slu_tck_waves_f32", ptr(pool), ptr(linv), ptr(tp.tslot),
-                ptr(tp.tstep), ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl),
-                ptr(tp.cu), ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0),
-                w1 - w0, pool.shape[-1], stream_ptr(pool.device))
-
-
-def tck_tiles(pool, tp: TckTapes, level: int) -> None:
-    """Phase B of ``level``: its diagonal and L positions, tile by tile
-    (in place), one launch."""
-    if pool.device.type == "cpu":
-        return tck_tiles_plain(pool, tp, level)
-    _check_cuda(pool, pool, pool.shape[-1], tp.w)
-    lo, hi = int(tp.tptr[level]), int(tp.tptr[level + 1])
-    if hi == lo:
-        return
-    UPDATE.count("slu_tck_tiles_f32")
-    UPDATE.call("slu_tck_tiles_f32", ptr(pool), ptr(tp.tiles), ptr(tp.bl),
-                ptr(tp.bu), ptr(tp.bd), lo, hi - lo, int(tp.hmax[level]),
+    kernel, fn, _ = _PASS[precision]
+    kernel.count(fn, w1 - w0)
+    kernel.call(fn, ptr(pool), ptr(linv), ptr(tp.tslot), ptr(tp.tstep),
+                ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl), ptr(tp.cu),
+                ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0), w1 - w0,
                 pool.shape[-1], stream_ptr(pool.device))
 
 
-def tck_update(pool, linv, tp: TckTapes, level: int) -> None:
+def tck_tiles(pool, tp: TckTapes, level: int,
+              precision: str = "highest") -> None:
+    """Phase B of ``level``: its diagonal and L positions, tile by tile
+    (in place), one launch, the products at ``precision``."""
+    check_precision(precision)
+    if pool.device.type == "cpu":
+        return tck_tiles_plain(pool, tp, level, precision)
+    _check_cuda(pool, pool, pool.shape[-1], tp.w, precision)
+    lo, hi = int(tp.tptr[level]), int(tp.tptr[level + 1])
+    if hi == lo:
+        return
+    kernel, _, fn = _PASS[precision]
+    kernel.count(fn)
+    kernel.call(fn, ptr(pool), ptr(tp.tiles), ptr(tp.bl), ptr(tp.bu),
+                ptr(tp.bd), lo, hi - lo, int(tp.hmax[level]),
+                pool.shape[-1], stream_ptr(pool.device))
+
+
+def tck_update(pool, linv, tp: TckTapes, level: int,
+               precision: str = "highest") -> None:
     """Tiled left-looking update of the columns of ``level`` (in place):
-    phase A, then phase B."""
-    tck_waves(pool, linv, tp, level)
-    tck_tiles(pool, tp, level)
+    phase A, then phase B, the products at ``precision``."""
+    tck_waves(pool, linv, tp, level, precision)
+    tck_tiles(pool, tp, level, precision)
 
 
-def _check_cuda(pool, linv, bs, w):
+def _check_cuda(pool, linv, bs, w, precision="highest"):
     if pool.device.type != "cuda":
         raise ValueError(f"tck: unsupported device {pool.device}")
     for t in (pool, linv):
@@ -390,7 +423,7 @@ def _check_cuda(pool, linv, bs, w):
                              "float32 (., bs, bs) tensors on one device")
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"tck: block size {bs} not in {CUDA_BLOCK_SIZES}")
-    if ring_bytes(bs) + w * bs * TN * 4 > CTA_SMEM_MAX:
+    if ring_bytes(bs, precision) + w * bs * TN * 4 > CTA_SMEM_MAX:
         raise ValueError(f"tck: tiles of {w} rows exceed a CTA's shared "
                          f"memory at block size {bs}")
 
@@ -401,21 +434,24 @@ def _check_cuda(pool, linv, bs, w):
 
 
 def factor_level(pool, linv, uinv, tiny, thresh, tp: TckTapes,
-                 level: int) -> None:
-    """The three phases of one elimination level."""
+                 level: int, precision: str = "highest") -> None:
+    """The three phases of one elimination level; the update's and the
+    TRSM's products at ``precision``, diag_lu in full precision."""
     lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
-    tck_update(pool, linv, tp, level)
+    tck_update(pool, linv, tp, level, precision)
     diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi], thresh, tiny)
-    clk_trsm(pool, uinv, tp, level)
+    clk_trsm(pool, uinv, tp, level, precision)
 
 
-def factor(pool, thresh: float, tp: TckTapes, nb: int):
-    """Factor ``pool`` in place. Returns (pool, linv, uinv, tiny) with
-    linv/uinv of shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
+def factor(pool, thresh: float, tp: TckTapes, nb: int,
+           precision: str = "highest"):
+    """Factor ``pool`` in place, the products at ``precision`` (see the
+    module docstring). Returns (pool, linv, uinv, tiny) with linv/uinv of
+    shape (nb, bs, bs) and tiny an int32 tensor (1,)."""
     bs = pool.shape[-1]
     linv = torch.zeros((nb, bs, bs), dtype=pool.dtype, device=pool.device)
     uinv = torch.zeros_like(linv)
     tiny = torch.zeros(1, dtype=torch.int32, device=pool.device)
     for level in range(tp.nlvl):
-        factor_level(pool, linv, uinv, tiny, thresh, tp, level)
+        factor_level(pool, linv, uinv, tiny, thresh, tp, level, precision)
     return pool, linv, uinv, tiny

@@ -532,8 +532,10 @@ def test_tck_matches_plain(cuda, bs):
     A = tt.laplacian_3d(12).tocsc()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     tck.UPDATE.launches = 0
+    # the FP32 pass ("auto" factors bf16-first on the card)
     res, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs,
-                                      executor="tck"), device=cuda)
+                                      executor="tck",
+                                      gemm_precision="highest"), device=cuda)
     assert res.berr.max() < 1e-15 and tck.UPDATE.launches > 0
     assert res.stat.counters["executor"] == "tck"
     plan = lu.plan
@@ -1767,6 +1769,156 @@ def test_escalation_on_the_card(cuda):
     _, berr = lb.refine(b, lb.solve(b))
     assert "precision_escalated" not in lb.stat.counters
     assert lb._gemm_prec_used == "default" and berr.max() > 1e-12
+
+
+# ---------------------------------------------------------------------------
+# tck's and flk's bf16 pass (ROADMAP.md item 2b)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_plan(cuda, mat, bs, executor):
+    """The plan and input values of ``mat`` at block size ``bs``: lap3d12
+    as ``executor`` plans it on the card, or a random symmetric pattern
+    (values that bf16 does not hold exactly)."""
+    if mat == "lap3d12":
+        A = tt.laplacian_3d(12).tocsc()
+        _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
+            dtype="float32", block_size=bs, executor=executor), device=cuda)
+        return lu.plan, lu._a3_data
+    A = _sym_random(6 * bs, 0.004 * int(mat[-1]), int(mat[-1]))
+    return block_symbolic(A, bs), A.data
+
+
+def _bf16_step(pool, kern, plain, tol, dist):
+    """Run the kernel on ``pool`` and its plain version at "default" and
+    at "highest" on copies; hold the kernel within ``tol`` of scale of
+    the bf16 plain version and add both distances to ``dist``."""
+    ref, hi = pool.clone(), pool.clone()
+    kern(pool)
+    plain(ref, "default")
+    plain(hi, "highest")
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((pool - ref).abs().max()) <= tol * scale
+    dist[0] += float((pool - ref).abs().sum())
+    dist[1] += float((hi - ref).abs().sum())
+
+
+@pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_tck_bf16_entries_match_plain(cuda, bs, mat):
+    """slu_tck_waves_bf16 and slu_tck_tiles_bf16 against tck_waves_plain
+    and tck_tiles_plain at "default", level by level from the same pool,
+    on the kernel's own tile heights and on 3-row tiles: within BF16_TOL
+    of scale (a finalize inside phase A re-rounds sums that the two order
+    differently), each phase closer to the bf16 plain version than the
+    FP32 pass is, by ten times; one launch per wave and per level with
+    tiles, and none of the FP32 entries."""
+    plan, data = _bf16_plan(cuda, mat, bs, "tck")
+    for w in (None, 3):
+        tp = tck.build_tck_tapes(plan, cuda, w=w)
+        pool = blocklu.init_pool(plan, data, np.float32, cuda)
+        linv, uinv, tiny = _zero_inverses(pool, plan.nb)
+        for k in (tck.UPDATE, tck.UPDATE_BF16):
+            k.reset_counts()
+        dist = {"a": [0.0, 0.0], "b": [0.0, 0.0]}
+        ntiles = 0
+        for level in range(tp.nlvl):
+            _bf16_step(pool, lambda p: tck.tck_waves(p, linv, tp, level,
+                                                     "default"),
+                       lambda p, pr: tck.tck_waves_plain(p, linv, tp, level,
+                                                         pr),
+                       BF16_TOL, dist["a"])
+            _bf16_step(pool, lambda p: tck.tck_tiles(p, tp, level,
+                                                     "default"),
+                       lambda p, pr: tck.tck_tiles_plain(p, tp, level, pr),
+                       BF16_TOL, dist["b"])
+            ntiles += int(tp.tptr[level + 1] > tp.tptr[level])
+            lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+            diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
+                            tp.dstep[lo:hi], 0.0, tiny)
+            clk.clk_trsm(pool, uinv, tp, level, "default")
+        for kern, fp32 in dist.values():
+            assert fp32 > 0 and kern <= 0.1 * fp32
+        e = tck.UPDATE_BF16.entry_launches
+        assert e["slu_tck_waves_bf16"] == int(tp.lwave[-1]) > 0
+        assert e["slu_tck_tiles_bf16"] == ntiles > 0
+        assert tck.UPDATE.launches == 0
+
+
+@pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_flk_bf16_entries_match_plain(cuda, bs, mat):
+    """slu_flk_chunks_bf16 and slu_flk_sum_bf16 against flk_update_plain
+    at "default", group by group from the same pool, on the automatic
+    chunks and on chunks of one product (pass 2 on diagonal, L and U
+    targets), each in the bands the kernel chooses, bands of 16 and bands
+    of 64: within BF16_TOL of scale (a finalize rounds a sum that the two
+    order differently), closer to the bf16 plain version than the FP32
+    pass is, by ten times; both entries launched, the FP32 ones not."""
+    plan, data = _bf16_plan(cuda, mat, bs, "flk")
+    for chunk in (None, 1):
+        tp = flk.build_flk_tapes(plan, cuda, chunk=chunk)
+        for wide in (-1, 0, 1):
+            pool = blocklu.init_pool(plan, data, np.float32, cuda)
+            linv, uinv, tiny = _zero_inverses(pool, plan.nb)
+            for k in (flk.KERNEL, flk.KERNEL_BF16):
+                k.reset_counts()
+            dist = [0.0, 0.0]
+            for level in range(tp.nlvl):
+                for g in (2 * level, 2 * level + 1):
+                    _bf16_step(pool, lambda p: flk.flk_update(
+                        p, linv, uinv, tp, g, wide, "default"),
+                        lambda p, pr: flk.flk_update_plain(
+                            p, linv, uinv, tp, g, pr), BF16_TOL, dist)
+                    if g == 2 * level:
+                        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+                        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
+                                        tp.dstep[lo:hi], 0.0, tiny)
+            assert dist[1] > 0 and dist[0] <= 0.1 * dist[1]
+            e = flk.KERNEL_BF16.entry_launches
+            assert all(v > 0 for v in e.values()), e
+            assert flk.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("kw", [dict(executor="tck"), dict(executor="flk"),
+                                dict(ilu_level=1, max_refine_steps=60,
+                                     refine_rthresh=1.0)],
+                         ids=["tck", "flk", "ilu1"])
+def test_bf16_first_fused_gssvx_on_the_card(cuda, kw):
+    """On CUDA "auto" factors tck, flk and ILU(1) bf16-first: gssvx
+    reports "default" (or "highest" with precision_escalated after a
+    stall), launches the bf16 entries (the FP32 ones only for an
+    escalation), refines to berr <= 1e-12 and a residual <= 1e-10, and a
+    second call gives a bit-equal x in as many steps; "highest" runs the
+    FP32 entries only, and its factor is the one that an escalation's
+    re-factor computes, bit for bit."""
+    A = tt.laplacian_3d(16).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    tckish = kw.get("executor") == "tck"
+    fp32, low = ((tck.UPDATE, tck.UPDATE_BF16) if tckish
+                 else (flk.KERNEL, flk.KERNEL_BF16))
+    runs = {}
+    for prec in ("auto", "auto", "highest"):
+        for k in (fp32, low):
+            k.reset_counts()
+        o = T.Options(dtype="float32", block_size=64, gemm_precision=prec,
+                      **kw)
+        rg, lu = T.gssvx(A, b, o, device=cuda)
+        esc = rg.stat.counters.get("precision_escalated") == 1
+        want = "default" if prec == "auto" and not esc else "highest"
+        assert rg.stat.counters["gemm_precision"] == want
+        assert (low.launches > 0) == (prec == "auto")
+        assert (fp32.launches > 0) == (prec == "highest" or esc)
+        assert rg.berr.max() <= 1e-12
+        assert np.abs(A @ rg.x - b).max() <= 1e-10 * np.abs(b).max()
+        runs.setdefault(prec, []).append((rg, lu))
+    (r1, lo), (r2, _) = runs["auto"]
+    assert np.array_equal(r1.x, r2.x)
+    assert r1.stat.refine_steps == r2.stat.refine_steps
+    hi_pool = runs["highest"][0][1].pool.clone()
+    lo._refactor_values("highest")
+    assert torch.equal(lo.pool, hi_pool)
 
 
 # ---- the package surface on the card ----------------------------------

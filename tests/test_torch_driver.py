@@ -246,20 +246,20 @@ def test_float64_on_cuda_raises():
     """float64 on a ``cuda`` device raises only for an unknown executor:
     ``gemm_precision="bf16"`` resolves to "highest" there (the level
     executor has no low pass), while a float32 low pass on tck or flk
-    raises naming ROADMAP.md item 2b. Complex data passes with a complex
-    dtype (and runs the level executor); with a real dtype it raises, as
-    its imaginary part would be dropped."""
+    (ROADMAP.md item 2b, ported) passes and resolves to "default". Complex
+    data passes with a complex dtype (and runs the level executor); with a
+    real dtype it raises, as its imaginary part would be dropped."""
     cuda, A = torch.device("cuda"), sp.eye(4).tocsc()
     o = T.Options(dtype="float64", gemm_precision="bf16")
     tdrv._check_supported(o, cuda, A)
     assert tdrv._resolve_precision(o, cuda, tdrv._executor(o)) == "highest"
     for kw in (dict(executor="tck"), dict(executor="flk"),
                dict(ilu_level=1)):
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            tdrv._check_supported(T.Options(dtype="float32",
-                                            gemm_precision="bf16", **kw),
-                                  cuda, A)
-        tdrv._check_supported(T.Options(dtype="float32", **kw), cuda, A)
+        for prec in ("bf16", "auto"):
+            o = T.Options(dtype="float32", gemm_precision=prec, **kw)
+            tdrv._check_supported(o, cuda, A)
+            assert tdrv._resolve_precision(o, cuda, tdrv._executor(o)) \
+                == "default"
     for dt in ("complex64", "complex128"):
         o = T.Options(dtype=dt)
         tdrv._check_supported(o, cuda, (A * 1j).tocsc())

@@ -165,17 +165,25 @@ def test_grid_and_batch_report_highest(armed):
 
 
 def test_tck_flk_low_pass_is_item_2b(armed):
-    """tck and flk have no low pass yet: "auto" resolves to "highest" on
-    them, and an explicit low pass raises naming ROADMAP.md item 2b (an
-    ILU plan goes to flk)."""
+    """ROADMAP.md item 2b: tck and flk (and ILU(1), whose plan runs flk)
+    take the low pass as clk does, as the JAX package's Pallas path
+    factors them (its driver.py:714-727, 764-776): "auto", "bf16" and
+    "default" resolve to "default"; "highest" and NOREFINE to
+    "highest"."""
     A = tt.laplacian_2d(12)
-    for kw in (dict(executor="tck"), dict(executor="flk"),
-               dict(ilu_level=1)):
-        lu = _lu(A, **kw)
-        assert lu.stat.counters["gemm_precision"] == "highest"
-        for prec in ("bf16", "default"):
-            with pytest.raises(NotImplementedError, match="item 2b"):
-                _lu(A, gemm_precision=prec, **kw)
+    for kw, exc in ((dict(executor="tck"), "tck"),
+                    (dict(executor="flk"), "flk"),
+                    (dict(ilu_level=1), "flk")):
+        for prec in ("auto", "bf16", "default"):
+            lu = _lu(A, gemm_precision=prec, **kw)
+            assert lu.executor == exc
+            assert lu.stat.counters["gemm_precision"] == "default"
+            assert lu._gemm_prec_used == "default"
+        for hi in (dict(gemm_precision="highest"),
+                   dict(iter_refine=T.IterRefine.NOREFINE)):
+            lu = _lu(A, **hi, **kw)
+            assert lu.executor == exc
+            assert lu.stat.counters["gemm_precision"] == "highest"
 
 
 def test_no_environment_override(armed, monkeypatch):
@@ -371,9 +379,8 @@ def test_embedded_complex64_under_armed_rule(armed, monkeypatch):
 def test_counter_matches_jax(armed, monkeypatch, kw):
     """The resolved precision against the JAX package's for the same
     Options on its Pallas path (``SLU_TPU_FORCE_PALLAS=interpret``):
-    equal for clk and the level executor. tck and flk (item 2b) diverge
-    on purpose: the JAX package factors them bf16-first under "auto",
-    the port at "highest", and an explicit low pass raises."""
+    equal for every executor, tck, flk and ILU(1) included, and the same
+    executor named."""
     monkeypatch.setenv("SLU_TPU_FORCE_PALLAS", "interpret")
     A = tt.laplacian_2d(12)
     kw = dict(kw)
@@ -385,12 +392,9 @@ def test_counter_matches_jax(armed, monkeypatch, kw):
     if "iter_refine" in tkw:
         tkw["iter_refine"] = T.IterRefine.NOREFINE
     lu = T.SparseLU(A, T.Options(**tkw), device="cpu")
-    if lu.executor in ("tck", "flk"):
+    assert lu._gemm_prec_used == jlu._gemm_prec_used
+    assert lu.stat.counters["gemm_precision"] == jlu._gemm_prec_used
+    if kw.get("executor") in ("tck", "flk") or "ilu_level" in kw:
         assert jlu._gemm_prec_used == "default"
-        assert lu._gemm_prec_used == "highest"
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            T.SparseLU(A, T.Options(**tkw, gemm_precision="bf16"),
-                       device="cpu")
-    else:
-        assert lu._gemm_prec_used == jlu._gemm_prec_used
-        assert lu.stat.counters["gemm_precision"] == jlu._gemm_prec_used
+        assert lu.executor == ("tck" if kw.get("executor") == "tck"
+                               else "flk")

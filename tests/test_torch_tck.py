@@ -205,3 +205,21 @@ def test_gssvx_tck_matches_jax(make, bs, monkeypatch):
     assert rt.berr.max() <= 1e-12 and rj.berr.max() <= 1e-12
     assert np.abs(rt.x - rj.x).max() <= 1e-10 * np.abs(rj.x).max()
     assert np.abs(A @ rt.x - b).max() / np.abs(b).max() < 1e-10
+
+
+@pytest.mark.parametrize("bs", [32, 64])
+def test_tck_one_block_column(bs):
+    """A matrix of one block column (lap3d4 at bs 64, n = 64) has no U
+    block and no product: the tapes are empty, and ``executor="tck"``
+    solves it as clk does, bit for bit."""
+    A = laplacian_3d(4).tocsc()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    rt, lu = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs,
+                                      executor="tck"), device="cpu")
+    rc, _ = T.gssvx(A, b, T.Options(dtype="float32", block_size=bs,
+                                    executor="clk"), device="cpu")
+    tp = lu._ftapes
+    if lu.plan.nb == 1:
+        assert len(tp.host["tiles"]) == 0 and int(tp.lwave[-1]) == 0
+    assert rt.berr.max() <= 1e-12
+    assert np.array_equal(rt.x, rc.x)
