@@ -259,7 +259,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    (two factors' dumps equal by ``compare_lu``, the FP32 factor's
    residual below 1e-4, the bf16-first one's below the bf16 unit
    roundoff 2^-8);
-15. one JSON line of per-kernel results (the float64, complex64 and
+15. two processes on the one card (``multiproc_phase``): the smoke
+   starts two children of itself (``--child``), joined by
+   ``multihost.initialize`` (gloo on 127.0.0.1), each owning half the
+   ranks of the grid on ``cuda`` at the main path's width (lap3d32, bs
+   128, float32); in turn: a. ``gssvx_dist`` on ``Grid2D(2, 2)`` with the
+   whole A given to both; b. the same with ``local=True`` chunks of half
+   the rows each; c. b under ``dist_planning`` with the user ordering
+   ``geometric_nd((32, 32, 32))`` (MY_PERMC), no equilibration and no
+   row permutation; d. ``gssvx3d`` on ``Grid3D(2, 2, 2)``, one layer a
+   process, ``anc25d="replicated"``, as c; e. a SamePattern_SameRowPerm
+   refactor of a and ``save_factors`` (written by process 0). Each child
+   counts launches from 0 per case (every ``_f32`` entry of rdma_factor
+   and rdma_solve must launch, no single-device kernel), holds the
+   receive counters to the tapes and berr <= 1e-12, and reports FACT /
+   SOLVE / REFINE device ms, its fences (count and ms) and sha256
+   digests of x and of its ranks' pools. The parent runs the same cases
+   in one process first (c and d with ``align_blocks="off"``, which
+   builds the distributed plan) and holds both children's digests, and
+   the checkpoint's arrays, to its own; it prints the per-process times
+   beside the one-process ones. A child that fails or outlives its
+   timeout fails the phase;
+16. one JSON line of per-kernel results (the float64, complex64 and
    complex128 instantiations in rows of their own, with a ``dtype``
    field, the RDMA rows among them; the grid's transposed solves as
    ``rdma_solve_trans_*`` rows with ``"transpose": true``; the tck and
@@ -601,6 +622,9 @@ def main() -> None:
     # ---- 14. the package surface from outside the process -------------
     surface_phase(smi)
 
+    # ---- 15. two processes on the one card ------------------------------
+    two = multiproc_phase(smi)
+
     rows = []
     for name, dtype, key in \
             [(k, "float32", k) for k in kernels] + \
@@ -625,6 +649,9 @@ def main() -> None:
             row["precision"] = PRECISION[key]
         if key.startswith("rdma_solve_trans"):
             row["transpose"] = True
+        if key in two:
+            # each child's launches per entry over phase 15's cases
+            row["two_process_launches"] = two[key]
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         rows.append(row)
@@ -3901,5 +3928,242 @@ def surface_phase(smi):
           f"wall ({smi})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: two processes on the one card
+# ---------------------------------------------------------------------------
+
+#: phase 15's cases, in the order each process runs them
+MP_CASES = ("a", "b", "c", "d", "e")
+#: seconds a child of phase 15 may take
+MP_TIMEOUT = 420
+
+
+def mp_system():
+    """Phase 15's matrix (lap3d32), right-hand side, the refactor's
+    matrix and its right-hand side."""
+    from superlu_dist_tpu_torch.utils.testing import laplacian_3d
+    A = laplacian_3d(32).tocsc()
+    n = A.shape[0]
+    b = np.asarray(A @ np.random.default_rng(15).standard_normal(n))
+    A2 = A.copy()
+    A2.data = A2.data * 1.5
+    b2 = np.asarray(A2 @ np.random.default_rng(16).standard_normal(n))
+    return A, b, A2, b2
+
+
+def mp_options(case, one_process):
+    """Options of case ``case``; c and d plan from the user ordering with
+    neither scaling nor row permutation, and in one process without
+    alignment (the distributed plan is never aligned)."""
+    from superlu_dist_tpu_torch import ColPerm, Equil, Options, RowPerm
+    from superlu_dist_tpu_torch.ops.host.ordering import geometric_nd
+    opts = Options(dtype="float32", block_size=128, dist_executor="rdma")
+    if case in ("c", "d"):
+        opts = opts.replace(
+            dist_planning=True, equil=Equil.NO, row_perm=RowPerm.NOROWPERM,
+            col_perm=ColPerm.MY_PERMC,
+            user_colperm=geometric_nd((32, 32, 32)),
+            anc25d="replicated")
+        if one_process:
+            opts = opts.replace(align_blocks="off")
+    return opts
+
+
+def mp_run(case, A, b, A2, b2, pid, state, ckpt):
+    """Run case ``case`` in this process (``pid`` None: alone; else
+    process ``pid`` of two, whose input for b, c and d is its half of the
+    rows); returns (SolveResult, the driver)."""
+    import scipy.sparse as sp
+    from superlu_dist_tpu_torch import (Fact, Grid2D, Grid3D, NRLocMatrix,
+                                        Stats, gssvx3d, gssvx_dist,
+                                        save_factors)
+    from superlu_dist_tpu_torch.models.driver import SolveResult
+    opts = mp_options(case, pid is None)
+    if case == "e":
+        lu = state["a"]
+        lu.stat = Stats()           # the refactor's own phases
+        lu.stat.device = lu.device
+        lu.refactor(A2, fact=Fact.SAME_PATTERN_SAME_ROWPERM)
+        x, berr = lu.refine(b2, lu.solve(b2))
+        save_factors(lu, ckpt)
+        return SolveResult(x=x, berr=berr, stat=lu.stat), lu
+    M = A
+    if pid is not None and case != "a":
+        n, half = A.shape[0], A.shape[0] // 2
+        lo, hi = (0, half) if pid == 0 else (half, n)
+        M = NRLocMatrix([(lo, sp.csr_matrix(A)[lo:hi])], n, local=True)
+    if case == "d":
+        return gssvx3d(M, b, Grid3D(2, 2, 2), opts)
+    return gssvx_dist(M, b, Grid2D(2, 2), opts)
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def mp_cases(pid, ckpt):
+    """Run phase 15's cases in this process; returns per case: device ms
+    of FACT / SOLVE / REFINE, refinement steps, berr, fences, launches
+    per entry of the grid's kernels and of the others, and digests of x
+    and of each process share's pools (``pools`` by share)."""
+    import torch
+    from superlu_dist_tpu_torch.ops.kernels import cuda_kernels
+    from superlu_dist_tpu_torch.parallel import window
+    kernels = cuda_kernels()
+    A, b, A2, b2 = mp_system()
+    state, out = {}, {}
+    for case in MP_CASES:
+        for k in kernels.values():
+            k.reset_counts()
+        window.FENCES.reset()
+        window.ALLOCS.reset()
+        t0 = time.perf_counter()
+        res, lu = mp_run(case, A, b, A2, b2, pid, state, ckpt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        state[case] = lu
+        op = (A2, b2) if case == "e" else (A, b)
+        resid = float(np.abs(op[0] @ res.x - op[1]).max()
+                      / np.abs(op[1]).max())
+        st = res.stat
+        pools = [p.cpu().numpy() for p in lu.pool]
+        half = len(pools) // 2
+        rec = dict(
+            wall_s=wall, berr=float(np.max(res.berr)), resid=resid,
+            steps=st.refine_steps, fences=window.FENCES.count,
+            fence_ms=window.FENCES.seconds * 1e3,
+            allocs=window.ALLOCS.count,
+            alloc_ms=window.ALLOCS.seconds * 1e3,
+            fact_fences=st.counters.get("fact_window_fences", 0),
+            fact_fence_ms=st.counters.get("fact_window_fence_ms", 0.0),
+            fact_alloc_ms=st.counters.get("fact_window_alloc_ms", 0.0),
+            fact_ms=st.device_ms["FACT"], solve_ms=st.device_ms["SOLVE"],
+            refine_ms=st.device_ms["REFINE"], x=_digest(res.x),
+            pools=[_digest(*pools[:half]), _digest(*pools[half:])],
+            entries={n: v for g in GRID_NEED
+                     for n, v in kernels[g].entry_launches.items()},
+            others={n: k.launches for n, k in kernels.items()
+                    if n not in GRID_NEED and k.launches})
+        bad = [k for k, v in lu.factor_recv().items()
+               if not np.array_equal(v, lu._ft.recv[k])]
+        for got, tp in zip(lu.solve_recv(), (lu._lt, lu._ut)):
+            bad += [f"{tp.which}:{k}" for k, v in got.items()
+                    if not np.array_equal(v, tp.recv[k])]
+        rec["recv_ok"] = not bad
+        out[case] = rec
+    return out
+
+
+def multiproc_child(pid: int, port: str, outdir: str) -> None:
+    """A child of phase 15: process ``pid`` of two on the one card."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from superlu_dist_tpu_torch.parallel import multihost
+    if not torch.cuda.is_available():
+        fail("the child of phase 15 has no CUDA device")
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=2,
+                         process_id=pid)
+    out = mp_cases(pid, os.path.join(outdir, "two.npz"))
+    multihost.barrier()
+    with open(os.path.join(outdir, f"child{pid}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"child {pid} done", flush=True)
+
+
+def _mp_line(tag, r):
+    return (f"{tag}: FACT {r['fact_ms']:.3f} ms, SOLVE {r['solve_ms']:.3f} "
+            f"ms, REFINE {r['refine_ms']:.3f} ms ({r['steps']} steps), "
+            f"fences {r['fences']} ({r['fence_ms']:.3f} ms; in FACT "
+            f"{r['fact_fences']}, {r['fact_fence_ms']:.3f} ms), shared "
+            f"allocations {r['allocs']} ({r['alloc_ms']:.3f} ms; in FACT "
+            f"{r['fact_alloc_ms']:.3f} ms), wall {r['wall_s']:.2f} s, berr "
+            f"{r['berr']:.3e}")
+
+
+def multiproc_phase(smi):
+    """Phase 15 (see the module doc). Returns each child's launches per
+    entry of rdma_factor and rdma_solve over its cases, by row name."""
+    import socket
+    import tempfile
+    t_phase = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="slu_smoke15_")
+    one = mp_cases(None, os.path.join(outdir, "one.npz"))
+    for case in MP_CASES:
+        print(_mp_line(f"15{case} one process", one[case]), flush=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, TMPDIR=outdir)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", str(pid),
+         str(port), outdir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"15: a child outlived {MP_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        print(f"15 child {pid} (exit {p.returncode}), its output's end:\n"
+              + "\n".join(text.splitlines()[-12:]), flush=True)
+        if p.returncode != 0:
+            fail(f"15: child {pid} failed")
+    kids = []
+    for pid in range(2):
+        with open(os.path.join(outdir, f"child{pid}.json")) as f:
+            kids.append(json.load(f))
+    launched = {}
+    for case in MP_CASES:
+        ref = one[case]
+        for pid, kid in enumerate(kids):
+            r = kid[case]
+            print(_mp_line(f"15{case} process {pid} of 2", r), flush=True)
+            f32 = {n: v for n, v in r["entries"].items()
+                   if n.endswith("_f32")}
+            if not all(f32.values()) or r["others"]:
+                fail(f"15{case} process {pid}: launched {r['entries']} "
+                     f"and {r['others']}: not every _f32 entry of the "
+                     "grid's kernels, or a single-device kernel")
+            if r["berr"] > 1e-12 or r["resid"] > 1e-10 or not r["recv_ok"]:
+                fail(f"15{case} process {pid}: berr {r['berr']:.3e}, "
+                     f"residual {r['resid']:.3e}, receive counters equal "
+                     f"the tapes {r['recv_ok']}")
+            same = r["x"] == ref["x"] and r["pools"][pid] ==                 ref["pools"][pid] and r["steps"] == ref["steps"]
+            print(f"15{case} process {pid}: x {r['x']}, its pools "
+                  f"{r['pools'][pid]}; one process: x {ref['x']}, the "
+                  f"share's pools {ref['pools'][pid]}; equal {same}",
+                  flush=True)
+            if not same:
+                fail(f"15{case} process {pid}: x, pools or refinement "
+                     "steps differ from the one-process run")
+            for n, v in r["entries"].items():
+                g = "rdma_factor" if "solve" not in n else "rdma_solve"
+                launched.setdefault(g, [0, 0])[pid] += v
+    ckpt = [np.load(os.path.join(outdir, f)) for f in ("one.npz",
+                                                       "two.npz")]
+    differ = [k for k in ckpt[0].files
+              if not np.array_equal(ckpt[0][k], ckpt[1][k])]
+    print(f"15e checkpoint of two processes equals one process's, array "
+          f"for array: {not differ}", flush=True)
+    if differ or sorted(ckpt[0].files) != sorted(ckpt[1].files):
+        fail(f"15e: the checkpoints differ in {differ}")
+    print(f"15 two processes on one card: {time.perf_counter() - t_phase:.1f}"
+          f" s wall, the children {wall:.1f} s ({smi})", flush=True)
+    return {g: v for g, v in launched.items()}
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--child"]:
+        multiproc_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -33,6 +33,15 @@ block-diagonal composite::
     X, berr = blu.refine(Bs, blu.solve(Bs))
     results, lu = gssvx_batch(As, bs, Options(dtype="float32"))
 
+Row-distributed input (``NRLocMatrix``, the ``NRformat_loc`` analog)
+goes to every driver; a grid's ranks may be split over several processes
+on the one card (``parallel/multihost.py``)::
+
+    from superlu_dist_tpu_torch.parallel import multihost
+    multihost.initialize("127.0.0.1:29500", num_processes=2, process_id=pid)
+    res, lu = gssvx_dist(NRLocMatrix([(lo, A_rows)], n, local=True), b,
+                         Grid2D(2, 2), Options(dtype="float32"))
+
 This package imports neither JAX nor ``superlu_dist_tpu``.
 """
 
@@ -45,11 +54,12 @@ from .parallel.grid import Grid2D, Grid3D
 from .utils.options import (ColPerm, DiagScale, Equil, Fact, IterRefine,
                             Options, RowPerm, Trans, print_options,
                             set_default_options, sp_ienv)
+from .utils.nrloc import NRLocMatrix
 from .utils.stats import Stats
 from .version import __version__, get_version_number
 
 __all__ = ["gssvx", "SparseLU", "SolveResult", "save_factors",
-           "load_factors", "gssvx_dist", "DistributedSparseLU", "Grid2D",
+           "load_factors", "NRLocMatrix", "gssvx_dist", "DistributedSparseLU", "Grid2D",
            "gssvx3d", "Distributed3DSparseLU", "Grid3D",
            "BatchedSparseLU", "gssvx_batch",
            "Options", "Stats", "Fact",

@@ -18,12 +18,23 @@ and CONJ solves (``solve(b, trans)``, ``solve_transposed``,
 loads as a single-device :class:`SparseLU`), ``from_numpy_state`` and
 :meth:`DistributedSparseLU.profile_levels`.
 
+Several processes (``parallel/multihost.py``, after
+``multihost.initialize``) split the grid's ranks, each a contiguous share
+on the one card: process 0 preprocesses and plans, then broadcasts
+(:class:`multihost.PreprocessOnce`); every process factors and solves its
+own ranks' jobs, storing into the others' buffers through the window
+(``parallel/window.py``); sharded NRLoc input (``local=True`` chunks)
+stays distributed (:class:`ShardedNRLocInput`), and with ``dist_planning``
+no process ever holds the global values or pattern. The factors and x
+are bit-equal to a single process's on the same grid.
+
 Deliberate differences from the JAX package:
 
-- One process drives every rank, and every rank sits on one device: the
-  card (``device`` defaults to ``cuda``), or the CPU, where the plain
-  PyTorch versions run. A grid over several cards raises
-  ``NotImplementedError`` (ROADMAP.md, queue 1 item 8d).
+- Every rank sits on one device: the card (``device`` defaults to
+  ``cuda``), or the CPU, where the plain PyTorch versions run, in one
+  process or split over several. A grid over several cards raises
+  ``NotImplementedError`` (ROADMAP.md, queue 1 item 8d), and so do
+  processes on different cards.
 - ``dist_executor="rdma"`` and ``"xla"`` (the default) run the same two
   kernels: inside one process a psum over the ranks and a put into the
   peers' buffers move the same blocks (``tests/test_rdma.py`` holds the
@@ -42,13 +53,15 @@ Deliberate differences from the JAX package:
   events on the card, a host clock on the CPU), and its factors become
   the live ones, as the single-device driver's do; the JAX package times
   prefixes of its XLA factor on copies of the pools.
-- Sharded NRLoc input and several processes (queue 1 item 10) raise
-  ``NotImplementedError`` naming their item, and so does a grid over
-  several cards (item 8d).
+- The refinement's SpMV shards hold whole rows (``dist2d.coo_shards``),
+  where the JAX package's hold equal slices of A's COO: its sums are then
+  the same bits from the whole A and from NRLoc chunks, in one process or
+  several.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -58,36 +71,207 @@ import torch
 
 from ..parallel import dist2d as _dist2d
 from ..parallel import dist2d_rdma as _rdma
-from ..parallel.grid import Grid2D
-from ..utils.options import (Fact, IterRefine, Options, Trans,
+from ..parallel import multihost as _mh
+from ..parallel import window as _window
+from ..parallel.grid import SEVERAL_CARDS, Grid2D
+from ..utils.options import (IterRefine, Options, Trans,
                              apply_env_overrides)
 from ..utils.stats import Stats
 from .driver import (_TORCH, SolveResult, SparseLU, _diag_of_blocks,
                      _resolve_device)
 
-#: the ROADMAP item of what the grid does not serve yet
-_MULTIPROC_ITEM = "queue 1 item 10"
-
 DIST_EXECUTORS = ("rdma", "xla")
 
 
-def _todo(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} on a process grid is not ported yet (ROADMAP.md, {item})")
-
-
-def _check_dist(opts: Options, A) -> None:
-    """Refuse what the grid does not serve yet (see the module doc)."""
+def _check_dist(opts: Options) -> None:
+    """Refuse an executor name that the grid does not know."""
     if opts.dist_executor not in DIST_EXECUTORS:
         raise ValueError(f"unknown dist_executor {opts.dist_executor!r}; "
                          f"expected one of {DIST_EXECUTORS}")
-    if opts.dist_planning or getattr(A, "local", False):
-        _todo("sharded NRLoc input (dist_planning, local chunks)",
-              _MULTIPROC_ITEM)
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        _todo("a grid over several processes", _MULTIPROC_ITEM)
+
+
+def _check_processes(grid, device: torch.device) -> None:
+    """A grid split over processes: its ranks must split evenly, and
+    every process must sit on the same card (a collective)."""
+    grid.owned_ranks()
+    if _mh.process_count() > 1 and \
+            len(set(_mh.allgather_obj(_mh.device_key(device)))) > 1:
+        raise NotImplementedError(
+            "processes of one grid on several cards are not ported yet "
+            f"(ROADMAP.md, {SEVERAL_CARDS}): every process of a grid "
+            "runs on one card")
+
+
+class ShardedNRLocInput:
+    """Mixin shared by the 2D and 3D grid drivers (the JAX package's):
+    sharded NRLoc input (``local=True`` chunks, one set per process)
+    stays distributed. Values gather ONLY to process 0 (the
+    pdgssvx.c:768-794 gather role for rowperm/symbolic); the pools are
+    built straight from the local chunks (``_pools0``, dReDistribute_A
+    analog), whose entries every process stores into their owners' pools
+    through the window. Host paths that need global values raise clear
+    errors instead."""
+
+    _nrloc = None
+
+    def _sharded(self) -> bool:
+        return self._nrloc is not None and _mh.process_count() > 1
+
+    def _dist_planning_active(self) -> bool:
+        return (self.options.dist_planning and self._nrloc is not None
+                and _mh.process_count() > 1)
+
+    def _validate_dist_planning(self) -> None:
+        from ..utils.options import ColPerm, Equil, RowPerm
+        o = self.options
+        if (o.equil != Equil.NO
+                or o.row_perm not in (RowPerm.NOROWPERM, RowPerm.MY_PERMR)
+                or o.col_perm not in (ColPerm.NATURAL, ColPerm.MY_PERMC)
+                or o.ilu_level is not None
+                or "complex" in str(o.dtype)):
+            raise ValueError(
+                "dist_planning requires equil=NO, row_perm in "
+                "{NOROWPERM, MY_PERMR}, col_perm in {NATURAL, MY_PERMC} "
+                "a real dtype, and complete LU — equilibration/MC64/"
+                "fill-reducing orderings read global values, and the "
+                "complex ring embedding reshapes the block pattern "
+                "(the reference's "
+                "parallel-symbolic path has the same contract: it runs "
+                "under a ParMETIS-supplied ordering, "
+                "get_perm_c_parmetis.c:255)")
+
+    def _ingest_input(self, A):
+        from ..utils.nrloc import NRLocMatrix
+        self._nrloc = None
+        if isinstance(A, NRLocMatrix) and A.local:
+            if _mh.process_count() == 1:
+                raise ValueError("local=True NRLoc input requires "
+                                 "multi-process execution")
+            self._nrloc = A
+            if self.options.dist_planning:
+                # distributed planning: NO process assembles global
+                # values or the scalar pattern — not even process 0.
+                # Everything downstream works from local chunks + the
+                # allgathered block keys (see _symbolic).
+                self._validate_dist_planning()
+                return A.to_partial_csc()
+            # full precision with a dtype every process agrees on
+            # regardless of its local nnz
+            gdt = (np.complex128 if "complex" in self.options.dtype
+                   else np.float64)
+            rows, cols, vals = A.to_coo_arrays(gdt)
+            Ag = _dist2d.gather_values_to0(rows, cols, vals, A.n, gdt)
+            # process 0 preprocesses on the gathered matrix; the others
+            # keep only their local rows (O(local nnz) host memory)
+            return Ag if _mh.process_index() == 0 else A.to_partial_csc()
+        return super()._ingest_input(A)
+
+    def _preprocess(self, A, reuse_perms: bool = False,
+                    reuse_colperm: bool = False):
+        """Sharded-input preprocessing, all fact_t staging modes
+        (DOFACT / SamePattern / SamePattern_SameRowPerm — the reference
+        supports the full staging with distributed input,
+        pdgssvx.c:506-2783): process 0 works on the gathered matrix and
+        broadcasts; the others consume the broadcast and never build a
+        global A3 — their pools come from local chunks in ``_pools0``."""
+        if self._dist_planning_active():
+            # every process runs the same cheap transforms locally — no
+            # broadcast, no global matrix anywhere (psymbfact discipline)
+            from ..utils.options import ColPerm, DiagScale, RowPerm
+            n = self.n
+            self.row_scale = np.ones(n)
+            self.col_scale = np.ones(n)
+            o = self.options
+            self.rowperm = (np.asarray(o.user_rowperm, dtype=np.int64)
+                            if o.row_perm == RowPerm.MY_PERMR
+                            and o.user_rowperm is not None
+                            else np.arange(n, dtype=np.int64))
+            self.colperm = (np.asarray(o.user_colperm, dtype=np.int64)
+                            if o.col_perm == ColPerm.MY_PERMC
+                            and o.user_colperm is not None
+                            else np.arange(n, dtype=np.int64))
+            self.equed = DiagScale.NOEQUIL
+            self._expand = None
+            self._n_e = None
+            # global norm extras from local chunks (O(1) scalars each)
+            vals = np.abs(self._A_orig.data) if self._A_orig.nnz else \
+                np.zeros(1)
+            local = (float(vals.max(initial=0.0)),
+                     int(self._A_orig.getnnz(axis=1).max(initial=0)),
+                     np.asarray(np.abs(self._A_orig).sum(axis=0)).ravel())
+            gathered = _mh.allgather_obj(local)
+            self._anorm_global = max(g[0] for g in gathered) or 1.0
+            self._nz_global = max(g[1] for g in gathered)
+            self._anorm1_global = float(
+                np.sum([g[2] for g in gathered], axis=0).max())
+            return self._A_orig
+        if self._sharded():
+            if _mh.process_index() != 0:
+                if reuse_perms:
+                    # SamePattern_SameRowPerm: scales/perms are reused
+                    # wholesale; only the new matrix's norm extras arrive
+                    extras = _mh.bcast_obj()
+                else:
+                    # DOFACT / SamePattern: fresh scales + perms
+                    (self.row_scale, self.col_scale, self.rowperm,
+                     self.colperm, self._expand, self._n_e, self.equed,
+                     extras) = _mh.bcast_obj()
+                self._anorm_global = extras["anorm"]
+                self._anorm1_global = extras["anorm1"]
+                self._nz_global = extras["nz"]
+                return sp.csc_matrix((self.n, self.n))
+            if reuse_perms:
+                # process 0: rebuild A3 from the gathered values with the
+                # stored transforms, then broadcast the norm extras the
+                # other processes need for a consistent pivot threshold
+                A3 = super()._preprocess(A, reuse_perms, reuse_colperm)
+                extras = dict(
+                    anorm=float(np.abs(A3.data).max()) if A3.nnz else 1.0,
+                    anorm1=float(np.abs(A).sum(axis=0).max()),
+                    nz=int(A.getnnz(axis=1).max()))
+                _mh.bcast_obj(extras)
+                self._anorm_global = extras["anorm"]
+                self._anorm1_global = extras["anorm1"]
+                self._nz_global = extras["nz"]
+                return A3
+        return super()._preprocess(A, reuse_perms, reuse_colperm)
+
+    def _symbolic(self, A3):
+        if self._dist_planning_active():
+            # each process contributes only its chunk's BLOCK keys
+            # (O(a_blocks) total — the scalar pattern never moves);
+            # every process then derives the identical plan locally
+            from ..ops.host.symbolic import block_symbolic_from_keys
+            bs = self.options.block_size
+            nb = max(1, -(-self.n // bs))
+            P = sp.coo_matrix(self._A_orig)
+            ipc = np.empty(self.n, dtype=np.int64)
+            ipc[self.colperm] = np.arange(self.n)
+            irp = np.empty(self.n, dtype=np.int64)
+            irp[self.rowperm] = np.arange(self.n)
+            r3 = ipc[irp[P.row]]
+            c3 = ipc[P.col]
+            keys = np.unique((r3 // bs) * nb + (c3 // bs))
+            a_keys = np.unique(np.concatenate(_mh.allgather_obj(keys)))
+            self.stat.counters["dist_planning_blocks"] = int(len(a_keys))
+            self.stat.counters["dist_planning_local_keys"] = int(len(keys))
+            return block_symbolic_from_keys(self.n, bs, a_keys)
+        return super()._symbolic(A3)
+
+    def _refine_hostloop(self, xt, bt, eps, trans):
+        if self._sharded():
+            raise NotImplementedError(
+                "host-loop refinement needs global A values; with sharded "
+                "NRLoc input use real dtypes (in-mesh fused refinement) "
+                "or pass a gathered matrix")
+        return super()._refine_hostloop(xt, bt, eps, trans)
+
+    def _berr(self, x, b, trans=Trans.NOTRANS):
+        if self._sharded():
+            raise NotImplementedError(
+                "componentwise berr on the host needs global A; with "
+                "sharded NRLoc input run refine() (in-mesh berr) instead")
+        return super()._berr(x, b, trans)
 
 
 def _grid_device(grid: Grid2D, device) -> torch.device:
@@ -101,7 +285,7 @@ def _grid_device(grid: Grid2D, device) -> torch.device:
     return dev
 
 
-class DistributedSparseLU(SparseLU):
+class DistributedSparseLU(ShardedNRLocInput, _mh.PreprocessOnce, SparseLU):
     """2D block-cyclic distributed factorization (pdgssvx analog) over
     the ranks of ``grid``. ``pool``, ``linv`` and ``uinv`` are lists with
     one tensor per rank (rank r·Pc + c at index r·Pc + c): the rank's
@@ -125,14 +309,34 @@ class DistributedSparseLU(SparseLU):
                             f"{self._grid_type.__name__}, not {grid!r}")
         self.grid = grid
         self._dplan_of = None
-        _check_dist(apply_env_overrides(options or Options()), A)
-        super().__init__(A, options=options, stat=stat,
-                         device=_grid_device(grid, device))
+        self._fstate = None
+        _check_dist(apply_env_overrides(options or Options()))
+        dev = _grid_device(grid, device)
+        _check_processes(grid, dev)
+        super().__init__(A, options=options, stat=stat, device=dev)
 
-    def refactor(self, A_new, fact: Fact = Fact.SAME_PATTERN_SAME_ROWPERM
-                 ) -> "DistributedSparseLU":
-        _check_dist(self.options, A_new)
-        return super().refactor(A_new, fact)
+    def _window(self) -> _window.Window:
+        """A window over the grid's ranks (a collective)."""
+        return _window.Window(self.grid.size, self.device)
+
+    @contextlib.contextmanager
+    def _fences(self, what: str):
+        """Count the window fences and shared allocations of the enclosed
+        work in ``stat.counters`` (``{what}_window_fences``,
+        ``{what}_window_fence_ms``, ``{what}_window_allocs``,
+        ``{what}_window_alloc_ms``; ``what`` is "fact" for the factor,
+        "solve" for the sweeps and the SpMVs) when the ranks are split
+        over processes."""
+        tallies = {"fence": _window.FENCES, "alloc": _window.ALLOCS}
+        before = {k: (t.count, t.seconds) for k, t in tallies.items()}
+        yield
+        if _mh.process_count() > 1:
+            ctr = self.stat.counters
+            for k, t in tallies.items():
+                c0, s0 = before[k]
+                n, ms = f"{what}_window_{k}s", f"{what}_window_{k}_ms"
+                ctr[n] = ctr.get(n, 0) + t.count - c0
+                ctr[ms] = ctr.get(ms, 0.0) + (t.seconds - s0) * 1e3
 
     # -- the factor on the grid ------------------------------------------
 
@@ -159,19 +363,47 @@ class DistributedSparseLU(SparseLU):
                                        self.device)
 
     def _build_coo_shards(self):
-        """The COO of the current A, split evenly over the ranks, and the
-        same entries transposed, for the distributed residuals of A and of
-        Aᵀ / Aᴴ (re-made per factorization, so a refactor refines against
-        its own values)."""
+        """The COO of the current A split over the ranks in runs of whole
+        rows, and of whole columns, for the distributed residuals of A and
+        of Aᵀ / Aᴴ (re-made per factorization, so a refactor refines
+        against its own values); this process's ranks' only when the ranks
+        are split over processes, from its own chunks when the input is
+        sharded (which refines NOTRANS only, as the JAX package does)."""
+        ndev, own = self.grid.size, self.grid.owned_ranks()
+        self._spmv_win = self._window()
+        if self._sharded():
+            self._coo_shards = _dist2d.make_coo_shards_nrloc(
+                self._nrloc.chunks, self.n, ndev, own, self.refine_dtype,
+                self.device)
+            self._coo_shards_t = None
+            return
         self._coo_shards, self._coo_shards_t = (
-            _dist2d.coo_shards(self._A_orig, self.grid.size,
-                               self.refine_dtype, self.device, transpose=t)
+            _dist2d.coo_shards(self._A_orig, ndev, self.refine_dtype,
+                               self.device, transpose=t, ranks=own)
             for t in (False, True))
 
-    def _pools0(self) -> list:
-        """The per-rank pools of the factor's input values."""
+    def _nrloc_entries(self, offsets):
+        """This process's entries of a sharded input mapped to their
+        owners by ``offsets`` (``dist2d.nrloc_entry_offsets`` or its 3D
+        twin); process 0 adds the padding diagonal."""
+        return offsets(self.plan, self.dplan, self._nrloc.chunks,
+                       self.row_scale, self.col_scale, self.rowperm,
+                       self.colperm, self._expand, self._n_e, self.n,
+                       embed=self._embed,
+                       with_identity=_mh.process_index() == 0)
+
+    def _pools0(self, win=None) -> list:
+        """The per-rank pools of the factor's input values, tensors of
+        the window ``win`` (a new one when None): this process's ranks'
+        from A3, or every rank's from this process's chunks of a sharded
+        input."""
+        win = win or self._window()
+        if self._sharded():
+            dev, off, val = self._nrloc_entries(_dist2d.nrloc_entry_offsets)
+            return _dist2d.init_local_pools_nrloc(
+                self.plan, self.dplan, win, dev, off, val, self._fdtype)
         return _dist2d.init_local_pools(self.plan, self.dplan, self._a3_data,
-                                        self._fdtype, self.device)
+                                        self._fdtype, self.device, win)
 
     def _set_factors(self, st):
         self._fstate = st
@@ -181,10 +413,11 @@ class DistributedSparseLU(SparseLU):
         """The partition's counters of the DIST phase."""
         return self.dplan.comm_volume(np.dtype(self._fdtype).itemsize)
 
-    def _run_factor(self, pools):
-        """Factor ``pools``; returns the factor's state and its tiny-pivot
-        count (the sum over the ranks) as a device scalar."""
-        st = _rdma.rdma_factor(pools, self._thresh(), self._ft)
+    def _run_factor(self, pools, win):
+        """Factor ``pools`` (tensors of the window ``win``); returns the
+        factor's state and its tiny-pivot count (the sum over the ranks)
+        as a device scalar."""
+        st = _rdma.rdma_factor(pools, self._thresh(), self._ft, win=win)
         return st, torch.stack(st.tiny).sum()
 
     def _factor_level(self, st, thresh, level: int) -> None:
@@ -207,21 +440,28 @@ class DistributedSparseLU(SparseLU):
         return _rdma.stacked_recv(recv, self.grid.nprow, self.grid.npcol,
                                   names, getattr(self.grid, "npdep", 1))
 
-    def _device_factor(self, A3: sp.csc_matrix):
+    def _release_factors(self):
+        """Drop the factors, and their window (a collective)."""
+        if self._fstate is not None:
+            self._fstate.win.close()
         self.pool = self.linv = self.uinv = self._fstate = None
+
+    def _device_factor(self, A3: sp.csc_matrix):
+        self._release_factors()
         stat, plan = self.stat, self.plan
         self._a3_data = np.asarray(A3.data)
         with stat.phase("DIST"):
             if self._dplan_of is not plan:
                 self._build_tapes()
-            pools = self._pools0()
+            win = self._window()
+            pools = self._pools0(win)
             self._build_coo_shards()
         stat.counters.update(self._dist_counters())
         stat.counters["executor"] = self.executor = "rdma"
         stat.counters["dist_executor"] = self.options.dist_executor
         stat.counters["gemm_precision"] = "highest"
-        with stat.phase("FACT"):
-            st, tiny = self._run_factor(pools)
+        with stat.phase("FACT"), self._fences("fact"):
+            st, tiny = self._run_factor(pools, win)
         self._set_factors(st)
         stat.tiny_pivots += int(tiny)
 
@@ -246,9 +486,9 @@ class DistributedSparseLU(SparseLU):
                 "profile_levels needs the factorization input values, which "
                 "this instance does not carry (restored from a state) — use "
                 "a freshly factored DistributedSparseLU")
-        self.pool = self.linv = self.uinv = self._fstate = None
-        ft, dev = self._ft, self.device
-        st = _rdma.new_factor_state(self._pools0(), ft)
+        self._release_factors()
+        ft, dev, win = self._ft, self.device, self._window()
+        st = _rdma.new_factor_state(self._pools0(win), ft, win)
         thresh = self._thresh()
         rows = []
         for lvl in range(ft.nlvl):
@@ -264,6 +504,7 @@ class DistributedSparseLU(SparseLU):
                 self._factor_level(st, thresh, lvl)
                 ms = (time.perf_counter() - t0) * 1e3
             rows.append(dict(level=lvl, ms=ms, **self._level_row(lvl)))
+        st.win.fence()      # every rank's factors final, as rdma_factor's
         self._set_factors(st)
         self.stat.counters["profiled_levels"] = len(rows)
         return rows
@@ -273,8 +514,9 @@ class DistributedSparseLU(SparseLU):
     def _sweeps(self, X: torch.Tensor) -> torch.Tensor:
         """The L and U sweeps on every rank's replicated X (the transforms
         are :meth:`SparseLU._lu_solve`'s)."""
-        X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv,
-                                     self._lt, self._ut, X)
+        with self._fences("solve"):
+            X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv,
+                                         self._lt, self._ut, X)
         self._solve_recv = (rl, ru)
         return X
 
@@ -285,8 +527,9 @@ class DistributedSparseLU(SparseLU):
         if self._ttapes is None:
             self._ttapes = tuple(self._sweep_tapes(w) for w in ("LT", "UT"))
         lt, ut = self._ttapes
-        X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv, lt, ut,
-                                     X)
+        with self._fences("solve"):
+            X, rl, ru = _rdma.rdma_solve(self.pool, self.linv, self.uinv,
+                                         lt, ut, X)
         self._solve_recv_t = (rl, ru)
         return X
 
@@ -305,10 +548,13 @@ class DistributedSparseLU(SparseLU):
         the transposed shards for Aᵀ and Aᴴ."""
         shards = self._coo_shards if trans == Trans.NOTRANS \
             else self._coo_shards_t
-        r = b - _dist2d.dist_spmv(shards, x, self.n,
-                                  conj=trans == Trans.CONJ)
-        denom = _dist2d.dist_spmv(shards, x.abs(), self.n,
-                                  absolute=True) + b.abs()
+        with self._fences("solve"):
+            r = b - _dist2d.dist_spmv(shards, x, self.n,
+                                      conj=trans == Trans.CONJ,
+                                      win=self._spmv_win)
+            denom = _dist2d.dist_spmv(shards, x.abs(), self.n,
+                                      absolute=True,
+                                      win=self._spmv_win) + b.abs()
         nz = self._max_row_nnz() + 1
         safe1 = nz * np.finfo(np.float64).tiny
         safe2 = safe1 / np.finfo(np.float64).eps
@@ -388,10 +634,12 @@ class DistributedSparseLU(SparseLU):
         meshes' layout). The plan is partitioned again, and its
         ``n_local`` and ``dlen`` must agree with the arrays'."""
         options = apply_env_overrides(state.get("options") or Options())
-        _check_dist(options, state["a_data"])
-        lu = cls._restore(dict(state, options=options),
-                          _grid_device(grid, device))
+        _check_dist(options)
+        dev = _grid_device(grid, device)
+        _check_processes(grid, dev)
+        lu = cls._restore(dict(state, options=options), dev)
         lu.grid = grid
+        lu._fstate = None
         lu._build_tapes()
         pool = np.asarray(state["pool"])
         linv, uinv = np.asarray(state["linv"]), np.asarray(state["uinv"])
@@ -405,14 +653,17 @@ class DistributedSparseLU(SparseLU):
                 raise ValueError(f"{name} has shape {a.shape[:3]} + blocks, "
                                  f"the partition needs "
                                  f"{(pr, pc, lu._ft.dlen + 1)}")
-        fdt = _TORCH[lu._fdtype]
+        fdt, win = _TORCH[lu._fdtype], lu._window()
 
         def ranks(a):
-            return [torch.tensor(a[r, c], dtype=fdt, device=lu.device)
-                    for r in range(pr) for c in range(pc)]
+            a = a.reshape((pr * pc,) + a.shape[2:])
+            out = win.alloc(a.shape[1:], fdt)
+            for d in win.ranks:
+                out[d].copy_(torch.tensor(a[d], dtype=fdt))
+            return out
 
         lu.pool, lu.linv, lu.uinv = ranks(pool), ranks(linv), ranks(uinv)
-        lu._fstate = None
+        win.fence()
         lu.executor = "rdma"
         lu._build_coo_shards()
         return lu

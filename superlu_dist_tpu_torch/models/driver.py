@@ -351,11 +351,12 @@ class SparseLU:
                  stat: Optional[Stats] = None, *, device=None):
         self.options = apply_env_overrides(options or Options())
         self.device = _resolve_device(device)
+        self.stat = stat or Stats()
+        A = self._ingest_input(A)
         _check_supported(self.options, self.device, A)
         # the kernels and every reference product run in full FP32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.stat = stat or Stats()
         self.stat.device = self.device
         A = sp.csc_matrix(A)
         if A.shape[0] != A.shape[1]:
@@ -369,6 +370,15 @@ class SparseLU:
     # ------------------------------------------------------------------
     # preprocessing + factorization
     # ------------------------------------------------------------------
+
+    def _ingest_input(self, A):
+        """Input normalization hook. The single-device driver gathers
+        NRLoc chunks on the host (the dGatherNRformat_loc3d role); the
+        distributed drivers override it to keep partial input sharded."""
+        from ..utils.nrloc import NRLocMatrix
+        if isinstance(A, NRLocMatrix):
+            return A.to_global()
+        return A
 
     def _preprocess(self, A: sp.spmatrix, reuse_perms: bool = False,
                     reuse_colperm: bool = False) -> sp.csc_matrix:
@@ -478,7 +488,12 @@ class SparseLU:
         # columns), so it is settled before the preprocessing
         self._embed = self._use_embed()
         A3 = self._preprocess(A, reuse_perms, reuse_colperm)
-        self._anorm = float(np.abs(A3.data).max()) if A3.nnz else 1.0
+        # the processes of a sharded input receive the global norm by
+        # broadcast (their A3 is partial or empty)
+        if getattr(self, "_anorm_global", None) is not None:
+            self._anorm = self._anorm_global
+        else:
+            self._anorm = float(np.abs(A3.data).max()) if A3.nnz else 1.0
         if self._embed:
             A3 = _embed_csc(A3)
 
@@ -795,6 +810,8 @@ class SparseLU:
         raise."""
         if fact not in (Fact.SAME_PATTERN, Fact.SAME_PATTERN_SAME_ROWPERM):
             raise ValueError("refactor expects a SamePattern* mode")
+        # NRLoc chunks are gathered or kept sharded as at construction
+        A_new = self._ingest_input(A_new)
         _check_supported(self.options, self.device, A_new)
         self._factor(sp.csc_matrix(A_new), fact)
         return self
@@ -958,6 +975,11 @@ class SparseLU:
         return berr.cpu().numpy(), r.cpu().numpy()
 
     def _max_row_nnz(self) -> int:
+        """The largest row count of A (the berr guards' safe1/safe2); the
+        processes of a sharded input take the broadcast global one, which
+        every process must share."""
+        if getattr(self, "_nz_global", None) is not None:
+            return self._nz_global
         return int(self._A_orig.getnnz(axis=1).max())
 
     def refine(self, b, x0, trans=Trans.NOTRANS):
@@ -1059,7 +1081,9 @@ class SparseLU:
         the steps and ``'rcond_converged'`` whether a test fired before
         the cap."""
         n = self.n
-        anorm = langs("1", self._A_orig)
+        anorm = (self._anorm1_global
+                 if getattr(self, "_anorm1_global", None) is not None
+                 else langs("1", self._A_orig))
         if anorm == 0:
             return 0.0
         x = np.full(n, 1.0 / n)
@@ -1347,14 +1371,28 @@ def save_factors(lu: SparseLU, path) -> None:
     loads the other's checkpoint. A complex factor is saved as its native
     ``(rows, bs, bs)`` complex pool, which the JAX package reads as
     non-planar; a ring-embedded complex64 one as its float32 pool with
-    ``embed`` set."""
+    ``embed`` set. A grid split over several processes gathers its ranks'
+    factors through the window and writes from process 0 only; a
+    ``dist_planning`` session refuses, as no process holds the A that the
+    checkpoint embeds for refinement."""
+    from ..parallel import multihost as _mh
     plan = lu.plan
-    A = sp.csc_matrix(lu._A_orig)
+    if getattr(lu, "_nrloc", None) is not None and \
+            getattr(lu.options, "dist_planning", False):
+        raise NotImplementedError(
+            "save_factors from a dist_planning session is not supported: "
+            "NO process holds the global A this checkpoint embeds for "
+            "refinement (that is the point of dist_planning) — gather "
+            "mode or a single-process session can checkpoint")
     npool = _bucket_fine(plan.nslots + 2, lo=64)
     ninv = _bucket125(plan.nb) + 1
     # the distributed driver gathers its per-rank factors into this layout
     pool, linv, uinv = (lu._export_factors() if hasattr(lu, "_export_factors")
                         else (lu.pool, lu.linv, lu.uinv))
+    if _mh.process_count() > 1 and _mh.process_index() != 0:
+        # only process 0 holds the global A of a sharded input
+        return
+    A = sp.csc_matrix(lu._A_orig)
     np.savez_compressed(
         path,
         pool=_padded(pool, npool), linv=_padded(linv, ninv),

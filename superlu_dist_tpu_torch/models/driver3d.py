@@ -4,9 +4,9 @@ grid).
 Port of the JAX package's ``models/driver3d.py``: the host pipeline of
 :class:`SparseLU` (equilibrate → MC64 → column ordering → etree alignment
 → block symbolic), then the factor and the solves of
-``parallel/dist3d.py`` over the ranks of a :class:`Grid3D`, all in one
-process on one device: each layer factors its subtrees of the
-elimination forest on the 2D grid's hand-written kernels
+``parallel/dist3d.py`` over the ranks of a :class:`Grid3D`, all on one
+device, in one process or split over several: each layer factors its
+subtrees of the elimination forest on the 2D grid's hand-written kernels
 (``csrc/rdma.cu``), the ancestors are reduced over the layers, and every
 layer factors the top on its replicas (``anc25d="replicated"``) or each
 layer its share of the top's Schur products (``"zsplit"``). It is
@@ -18,7 +18,11 @@ distributed SpMV whose COO shards cover all Pz·Pr·Pc ranks, summed in
 rank order; ``rcond_1`` and ``condition_number``; the ``Fact`` modes and
 ``refactor``; ``diag_u``, ``logdet`` and ``save_factors`` (the canonical
 single-device layout, ancestors from layer 0);
-:meth:`Distributed3DSparseLU.profile_levels`.
+:meth:`Distributed3DSparseLU.profile_levels`; and, as the 2D driver,
+grids whose ranks are split over several processes on the one card,
+sharded NRLoc input and ``dist_planning`` (its mixins
+``ShardedNRLocInput`` and ``multihost.PreprocessOnce``), the reductions
+over the layers on the process that owns each layer-0 rank.
 
 As in the JAX package, the plan is kept as built and alignment stays on
 (its ``_align_standdown`` returns False; this port's single-device driver
@@ -31,9 +35,8 @@ Deliberate differences from the JAX package:
   reads F(2k+1, 2k) alone (its driver3d.py:425-428), which is b/a, not b.
 - ``from_numpy_state`` of a 3D grid state raises: ``save_factors`` writes
   the single-device checkpoint, which ``load_factors`` reads.
-- Sharded NRLoc input, ``dist_planning`` and several processes raise
-  ``NotImplementedError`` naming ROADMAP.md queue 1 item 10, ranks on
-  several cards item 8d.
+- Ranks on several cards raise ``NotImplementedError`` naming ROADMAP.md
+  queue 1 item 8d.
 """
 
 from __future__ import annotations
@@ -86,10 +89,18 @@ class Distributed3DSparseLU(DistributedSparseLU):
         return _dist3d.build_sweep_tapes3d(self.plan, self.dplan, which,
                                            self.device)
 
-    def _pools0(self) -> list:
+    def _pools0(self, win=None) -> list:
+        win = win or self._window()
+        extra = self._ft.ndelta
+        if self._sharded():
+            dev, off, val = self._nrloc_entries(
+                _dist3d.nrloc_entry_offsets3d)
+            return _dist3d.init_local_pools3d_nrloc(
+                self.plan, self.dplan, win, dev, off, val, self._fdtype,
+                extra=extra)
         return _dist3d.init_local_pools3d(
             self.plan, self.dplan, self._a3_data, self._fdtype, self.device,
-            extra=self._ft.ndelta)
+            extra=extra, win=win)
 
     def _dist_counters(self) -> dict:
         """The JAX package's DIST counters (its driver3d.py:58-101):
@@ -107,8 +118,9 @@ class Distributed3DSparseLU(DistributedSparseLU):
 
     # -- the factor ------------------------------------------------------
 
-    def _run_factor(self, pools):
-        return _dist3d.rdma_factor3d(pools, self._thresh(), self._ft)
+    def _run_factor(self, pools, win):
+        return _dist3d.rdma_factor3d(pools, self._thresh(), self._ft,
+                                     win=win)
 
     def _factor_level(self, st, thresh, level: int) -> None:
         _dist3d.factor_level3d(st, thresh, self._ft, level)

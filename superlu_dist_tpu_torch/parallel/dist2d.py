@@ -9,13 +9,23 @@ Counterpart of the host half of the JAX package's ``parallel/dist2d.py``:
   package's numpy code, field for field;
 - :func:`init_local_pools` scatters A into one ``(n_local, bs, bs)`` pool
   per rank (local slot 0 is the zero block, slot 1 the trash block);
-- :func:`make_coo_shards`, :func:`coo_shards` and :func:`dist_spmv`:
-  the refinement's distributed SpMV (pdgsmv analog), a partial product
-  per rank, each row summed in a fixed order (``ops/spmv.py``), then a
-  sum over the ranks in rank order, of A or (``coo_shards(...,
-  transpose=True)``) of Aᵀ; Aᴴ conjugates the transposed shards' values.
-  The JAX package's is XLA (a psum over the mesh), not a TPU kernel, so
-  here it is plain PyTorch;
+- sharded NRLoc input (the dReDistribute_A analog, pddistribute.c:
+  66-433): :func:`gather_values_to0`, :func:`nrloc_slot_entries`,
+  :func:`nrloc_entry_offsets` and :func:`init_local_pools_nrloc`, which
+  stores each process's entries into their owners' pools through the
+  window (``parallel/window.py``);
+- :func:`coo_shards`, :func:`make_coo_shards_nrloc` and
+  :func:`dist_spmv`: the refinement's distributed SpMV (pdgsmv analog), a
+  partial product per rank, each row summed in a fixed order
+  (``ops/spmv.py``), then a sum over the ranks in rank order, of A or
+  (``coo_shards(..., transpose=True)``) of Aᵀ; Aᴴ conjugates the
+  transposed shards' values. Each rank holds whole rows of A (whole
+  columns in the transposed shards) in column (row) order, so every
+  output row is one rank's fixed-order sum: the result is the same bits
+  whichever rank holds a row, the single-device SpMV's, in one process or
+  split over several, from the whole A or from NRLoc chunks. The JAX
+  package's is XLA (a psum over the mesh, over equal slices of A's COO),
+  not a TPU kernel, so here it is plain PyTorch;
 - :func:`sweep_schedule`: the level schedule of each sweep, the plan's L
   and U sweeps or the transposed Uᵀ and Lᵀ sweeps of
   ``blocklu.trans_schedule`` (the schedule that the JAX package's
@@ -26,8 +36,8 @@ The factor and the solves that run on these lists are
 ``parallel/dist2d_rdma.py``, which partitions each sweep's schedule over
 the ranks itself. The JAX package's XLA executors
 (``build_dist_factor_fn``, ``build_dist_solve_fn``,
-``build_dist_trans_solve_fn``) and their packed tapes, and its sharded
-NRLoc input, are not ported (ROADMAP.md, queue 1 item 10).
+``build_dist_trans_solve_fn``) and their packed tapes are not ported: the
+RDMA kernels serve every executor name.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from ..ops import spmv as _spmv
 from ..ops.blocklu import trans_schedule
 from ..ops.host.symbolic import SymbolicPlan
+from . import multihost as _mh
 
 # local pool layout: slot 0 = zero block (never written), slot 1 = trash
 _ZERO = 0
@@ -366,39 +377,212 @@ def sweep_schedule(plan: SymbolicPlan, which: str):
 
 
 def init_local_pools(plan: SymbolicPlan, dplan: DistPlan2D, a_data, dtype,
-                     device) -> list:
+                     device, win=None) -> list:
     """One ``(n_local, bs, bs)`` pool per rank (rank r·Pc + c at index
     r·Pc + c), scattered on the host rank by rank and copied to
     ``device`` (the dReDistribute_A analog, pddistribute.c:66-433): peak
     host memory is one rank's shard plus the sorted value stream, never
     the whole distributed pool. ``a_data`` is in the CSC data order of the
     matrix the plan was built from (as ``blocklu.init_pool`` takes it);
-    padding diagonal entries get 1.0."""
-    bs = plan.bs
-    bb = bs * bs
+    padding diagonal entries get 1.0. With a window (``parallel/
+    window.py``) the pools are its tensors and this process fills its own
+    ranks' only."""
+    dev, off, vals = init_entries(plan, np.asarray(dplan.owner_dev),
+                                  np.asarray(dplan.local_slot), a_data,
+                                  dtype)
+    return fill_pools(dev, off, vals, dplan.pr * dplan.pc, dplan.n_local,
+                      plan.bs, dtype, device, win)
+
+
+def init_entries(plan: SymbolicPlan, slot_rank, slot_local, a_data, dtype):
+    """The pool entries of ``a_data`` (the CSC data of the matrix the plan
+    was built from, then 1.0 on the padding diagonal): (rank, offset in
+    the rank's flat pool, value), for a partition that puts global slot s
+    at local slot ``slot_local[s]`` of rank ``slot_rank[s]``."""
+    bb = plan.bs * plan.bs
     nnz = len(a_data)
     idx = np.asarray(plan.init_idx)
     gslot = idx // bb
-    rem = idx % bb
-    dev = np.asarray(dplan.owner_dev)[gslot]
-    off = np.asarray(dplan.local_slot)[gslot] * bb + rem
+    off = slot_local[gslot] * bb + idx % bb
     vals = np.concatenate([np.asarray(a_data, dtype=dtype),
                            np.ones(len(idx) - nnz, dtype=dtype)]) \
         if len(idx) > nnz else np.asarray(a_data, dtype=dtype)
+    return slot_rank[gslot], off, vals
 
-    # group entries by owner rank
+
+def _rank_flats(dev, off, vals, ranks, rows: int, bb: int, dtype):
+    """Each rank of ``ranks`` with its flat pool of ``rows`` blocks, its
+    entries added in stream order on the host (one rank's shard at a
+    time)."""
     order = np.argsort(dev, kind="stable")
     dev_s, off_s, val_s = dev[order], off[order], vals[order]
-    ndev = dplan.pr * dplan.pc
-    dptr = np.searchsorted(dev_s, np.arange(ndev + 1))
-    pools = []
-    for d in range(ndev):
-        flat = np.zeros(dplan.n_local * bb, dtype=dtype)
-        lo, hi = dptr[d], dptr[d + 1]
+    for d in ranks:
+        lo, hi = np.searchsorted(dev_s, [d, d + 1])
+        flat = np.zeros(rows * bb, dtype=dtype)
         np.add.at(flat, off_s[lo:hi], val_s[lo:hi])
-        pools.append(torch.from_numpy(
-            flat.reshape(dplan.n_local, bs, bs)).to(device))
+        yield d, flat
+
+
+def fill_pools(dev, off, vals, ndev: int, rows: int, bs: int, dtype,
+               device, win=None) -> list:
+    """One ``(rows, bs, bs)`` pool per rank from the entries (rank, flat
+    offset, value), every rank's on ``device``; or, with a window, its
+    tensors, of which this process fills its own ranks'."""
+    if win is None:
+        return [torch.from_numpy(f.reshape(rows, bs, bs)).to(device)
+                for _, f in _rank_flats(dev, off, vals, range(ndev), rows,
+                                        bs * bs, dtype)]
+    pools = win.alloc((rows, bs, bs), _torch_dtype(dtype))
+    for d, f in _rank_flats(dev, off, vals, win.ranks, rows, bs * bs, dtype):
+        pools[d].copy_(torch.from_numpy(f.reshape(rows, bs, bs)))
     return pools
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
+def scatter_pools(dev, off, vals, rows: int, bs: int, dtype, win) -> list:
+    """The window's ``(rows, bs, bs)`` pools of every rank from this
+    process's entries (rank, flat offset, value), which may belong to any
+    rank: the processes take turns, each adding its entries into their
+    owners' pools (the alltoall of dReDistribute_A as stores into the
+    peers' buffers). No position holds two entries, so the pools are the
+    ones that one stream of every entry gives."""
+    pools = win.alloc((rows, bs, bs), _torch_dtype(dtype))
+    dev = np.asarray(dev, np.int64)
+    for _ in win.each_turn():
+        for d in np.unique(dev):
+            sel = dev == d
+            pools[int(d)].view(-1).index_add_(
+                0, torch.as_tensor(off[sel], device=win.device),
+                torch.as_tensor(vals[sel], device=win.device))
+    return pools
+
+
+# ---------------------------------------------------------------------------
+# sharded NRLoc input (dReDistribute_A, reference: pddistribute.c:66-433)
+# ---------------------------------------------------------------------------
+#
+# With ``local=True`` chunks every process holds only its own rows. The
+# values reach their owners' pools without any process holding the
+# global matrix: each process maps its local entries to (owner rank, pool
+# offset) with the broadcast transforms and the (pattern-only) plan, and
+# stores them into the owners' pools through the window.
+
+
+def gather_values_to0(rows, cols, vals, n, dtype):
+    """Every process's COO stream gathered to process 0 only (the
+    preprocessing host: the pdgssvx.c:768-794 global-gather role). Returns
+    the global csc on process 0, None elsewhere."""
+    got = _mh.gather_obj((np.asarray(rows, np.int64),
+                          np.asarray(cols, np.int64),
+                          np.asarray(vals, dtype)))
+    if _mh.process_index() != 0:
+        return None
+    r, c, v = (np.concatenate(a) for a in zip(*got))
+    return sp.csc_matrix((v, (r, c)), shape=(n, n))
+
+
+def nrloc_slot_entries(plan: SymbolicPlan, chunks,
+                       row_scale, col_scale, rowperm, colperm,
+                       expand, n_e, n, *, embed=False,
+                       with_identity=False):
+    """Map local NRLoc entries (global row coords) to
+    (pool slot, row-in-block, col-in-block, scaled value) — the
+    grid-independent half of dReDistribute_A (the 2D/3D wrappers map
+    slots to their grid's owners). ``with_identity`` adds the
+    unit-diagonal entries of expansion/block padding (contributed by
+    ONE process).
+
+    A3[r, c] = (Dr·A·Dc)[rowperm[colperm[r]], colperm[c]], then the
+    alignment expansion re = expand[r], then (for a ring-embedded
+    complex64 factor) the embedding doubling."""
+    bs = plan.bs
+    inv_rp = np.empty_like(rowperm)
+    inv_rp[rowperm] = np.arange(len(rowperm))
+    inv_cp = np.empty_like(colperm)
+    inv_cp[colperm] = np.arange(len(colperm))
+
+    from ..utils.nrloc import NRLocMatrix
+    i, j, v = NRLocMatrix(chunks, n, local=True).to_coo_arrays()
+    v = row_scale[i] * v * col_scale[j]
+    r = inv_cp[inv_rp[i]]
+    c = inv_cp[j]
+    if expand is not None:
+        r = np.asarray(expand)[r]
+        c = np.asarray(expand)[c]
+    dim = n_e if expand is not None else n
+
+    if embed:
+        # a+bi -> [[a,-b],[b,a]] at (2r, 2c)
+        re, im = np.real(v), np.imag(v)
+        r = np.concatenate([2 * r, 2 * r + 1, 2 * r, 2 * r + 1])
+        c0 = c
+        c = np.concatenate([2 * c0, 2 * c0 + 1, 2 * c0 + 1, 2 * c0])
+        v = np.concatenate([re, re, -im, im])
+        dim *= 2
+
+    if with_identity:
+        # expansion pads + block pads hold a decoupled unit diagonal
+        n_pad = plan.nb * bs
+        ident = []
+        if expand is not None:
+            present = np.zeros(dim, dtype=bool)
+            base = np.asarray(expand)
+            if embed:
+                present[2 * base] = True
+                present[2 * base + 1] = True
+            else:
+                present[base] = True
+            ident.append(np.flatnonzero(~present))
+        if n_pad > dim:
+            ident.append(np.arange(dim, n_pad, dtype=np.int64))
+        if ident:
+            p = np.concatenate(ident)
+            r = np.concatenate([r, p])
+            c = np.concatenate([c, p])
+            v = np.concatenate([v, np.ones(len(p), v.dtype)])
+
+    # block coords -> slot: one vectorized binary search over the
+    # lexicographic (col, row) slot order (slots are column-major)
+    bi, bj = r // bs, c // bs
+    scol = np.asarray(plan.slot_col)
+    srow = np.asarray(plan.slot_row)
+    keys = bj * (plan.nb + 1) + bi
+    skeys = scol.astype(np.int64) * (plan.nb + 1) + srow.astype(np.int64)
+    slot = np.searchsorted(skeys, keys)
+    ok = (slot < len(skeys)) & (skeys[np.minimum(slot, len(skeys) - 1)]
+                                == keys)
+    if not np.all(ok):
+        raise ValueError("NRLoc entry outside the symbolic pattern")
+    return slot, r % bs, c % bs, v
+
+
+def nrloc_entry_offsets(plan: SymbolicPlan, dplan: DistPlan2D, chunks,
+                        row_scale, col_scale, rowperm, colperm,
+                        expand, n_e, n, *, embed=False,
+                        with_identity=False):
+    """2D-grid owner mapping over :func:`nrloc_slot_entries`: returns
+    (owner rank, flat pool offset, scaled value)."""
+    bs = plan.bs
+    bb = bs * bs
+    slot, ri, ci, v = nrloc_slot_entries(
+        plan, chunks, row_scale, col_scale, rowperm, colperm,
+        expand, n_e, n, embed=embed, with_identity=with_identity)
+    dev = np.asarray(dplan.owner_dev)[slot]
+    off = (np.asarray(dplan.local_slot)[slot] * bb
+           + ri.astype(np.int64) * bs + ci)
+    return dev.astype(np.int32), off.astype(np.int64), v
+
+
+def init_local_pools_nrloc(plan: SymbolicPlan, dplan: DistPlan2D, win,
+                           dev, off, vals, dtype) -> list:
+    """The ranks' pools in the window ``win`` from every process's entry
+    streams of :func:`nrloc_entry_offsets` (:func:`scatter_pools`). No
+    process holds global values on its host."""
+    return scatter_pools(dev, off, np.asarray(vals, dtype), dplan.n_local,
+                         plan.bs, dtype, win)
 
 
 # ---------------------------------------------------------------------------
@@ -406,76 +590,86 @@ def init_local_pools(plan: SymbolicPlan, dplan: DistPlan2D, a_data, dtype,
 # ---------------------------------------------------------------------------
 
 
-def _coo_bucket(nnz: int) -> int:
-    """The JAX package's ``spmv._coo_bucket``: the smallest value ≥ nnz of
-    the form 2^k·{1, 1.25, 1.5, 1.75} (at least 8)."""
-    x = max(int(nnz), 8)
-    k = max(0, int(np.floor(np.log2(x))))
-    for base in (1.0, 1.25, 1.5, 1.75, 2.0):
-        cand = int(np.ceil((2 ** k) * base))
-        if cand >= x:
-            return cand
-    return 2 ** (k + 1)
-
-
-def _pad_coo_streams(coo, n, ndev, value_streams):
-    """Bucket the per-rank stream length, pad with trash-row entries
-    (row ``n``, value 0) and reshape to (ndev, m), as the JAX package
-    does."""
-    nnz = coo.nnz
-    m = _coo_bucket(-(-max(nnz, 1) // ndev))
-    rows = np.full(ndev * m, n, dtype=np.int32)
-    cols = np.zeros(ndev * m, dtype=np.int32)
-    rows[:nnz] = coo.row
-    cols[:nnz] = coo.col
-    outs = [rows.reshape(ndev, m), cols.reshape(ndev, m)]
-    for data, dtype in value_streams:
-        v = np.zeros(ndev * m, dtype=dtype)
-        v[:nnz] = data.astype(dtype)
-        outs.append(v.reshape(ndev, m))
-    return tuple(outs)
-
-
-def make_coo_shards(A, ndev: int, dtype):
-    """Partition the COO of ``A`` into ``ndev`` equal entry chunks
-    (pdgsmv_init analog). Returns (rows, cols, vals) of shape (ndev, m);
-    padding entries target the trash row ``n`` with value 0."""
-    coo = sp.coo_matrix(A)
-    return _pad_coo_streams(coo, A.shape[0], ndev, [(coo.data, dtype)])
-
-
-def coo_shards(A, ndev: int, dtype, device, transpose: bool = False
-               ) -> list:
-    """The ranks' entries of :func:`make_coo_shards` on ``device``, one
-    :class:`ops.spmv.Coo` per rank whose output rows end with the trash
-    row ``n``; each rank's rows are summed in a fixed order. With
-    ``transpose`` each rank holds the same entries with rows and columns
-    swapped (the shards of Aᵀ; padding entries still target row ``n``)."""
+def _line_shards(A, parts, ranks, dtype, device, transpose):
+    """``A``'s whole rows (whole columns with ``transpose``, as the rows
+    of Aᵀ) split into ``parts`` runs of about equal entries, run i on rank
+    ``ranks[i]``: one :class:`ops.spmv.Coo` per rank of an (n, n) output,
+    each line's entries in ascending order of the other index."""
     n = A.shape[0]
-    out = []
-    for r, c, v in zip(*make_coo_shards(A, ndev, dtype)):
-        if transpose:
-            pad = r == n
-            r, c = np.where(pad, n, c), np.where(pad, 0, r)
-        out.append(_spmv.Coo.from_arrays(r, c, v, (n + 1, n), device))
+    M = sp.csc_matrix(A) if transpose else sp.csr_matrix(A)
+    M.sort_indices()
+    ptr_ = M.indptr
+    cut = np.searchsorted(ptr_, np.arange(parts + 1) * ptr_[-1] / parts)
+    cut[0], cut[-1] = 0, n
+    out = {}
+    for i, d in enumerate(ranks):
+        lo, hi = ptr_[cut[i]], ptr_[cut[i + 1]]
+        major = np.repeat(np.arange(cut[i], cut[i + 1]),
+                          np.diff(ptr_[cut[i]:cut[i + 1] + 1]))
+        out[d] = _spmv.Coo.from_arrays(
+            major, M.indices[lo:hi], np.asarray(M.data[lo:hi], dtype),
+            (n, n), device)
     return out
 
 
+def coo_shards(A, ndev: int, dtype, device, transpose: bool = False,
+               ranks=None) -> list:
+    """The refinement's shards of ``A`` on ``device``: its rows split
+    into ``ndev`` runs of whole rows with about equal entries, one
+    :class:`ops.spmv.Coo` per rank (rank order = row order). With
+    ``transpose`` the shards of Aᵀ: A's whole columns, each as a row of
+    Aᵀ. ``ranks`` (default all) are the ranks whose shards are built; the
+    others are None (another process's)."""
+    got = _line_shards(A, ndev, range(ndev), dtype, device, transpose)
+    keep = range(ndev) if ranks is None else ranks
+    return [got[d] if d in keep else None for d in range(ndev)]
+
+
+def make_coo_shards_nrloc(chunks, n: int, ndev: int, ranks, dtype,
+                          device) -> list:
+    """The refinement's shards from this process's NRLoc ``chunks`` only
+    (pdgsmv_init from local data, no global COO anywhere): its rows split
+    over its own ``ranks`` as :func:`coo_shards` splits A; the other
+    ranks' entries are None."""
+    from ..utils.nrloc import NRLocMatrix
+    local = NRLocMatrix(chunks, n, local=True).to_partial_csc()
+    got = _line_shards(local, len(ranks), list(ranks), dtype, device, False)
+    return [got.get(d) for d in range(ndev)]
+
+
+def _partial(A, x, absolute: bool, conj: bool):
+    if absolute:
+        return _spmv.abs_spmv(A, x)
+    if conj and A.vals.is_complex():
+        return A.by_row(torch.conj_physical(A.vals)[:, None] * x[A.cols])
+    return _spmv.spmv(A, x)
+
+
 def dist_spmv(shards, x, n: int, absolute: bool = False,
-              conj: bool = False):
+              conj: bool = False, win=None):
     """A·x (|A|·x with ``absolute``) from the ranks' shards of
     :func:`coo_shards`, or Aᵀ·x from transposed shards (Aᴴ·x with
     ``conj``, which conjugates the values; |Aᴴ| = |Aᵀ|): each rank's
     partial product, then their sum over the ranks in rank order (the JAX
-    package's psum over the mesh). ``x`` is (n, k) and replicated."""
-    out = None
-    for A in shards:
-        if absolute:
-            part = _spmv.abs_spmv(A, x)
-        elif conj and A.vals.is_complex():
-            part = A.by_row(torch.conj_physical(A.vals)[:, None]
-                            * x[A.cols])
-        else:
-            part = _spmv.spmv(A, x)
-        out = part if out is None else out + part
+    package's psum over the mesh). ``x`` is (n, k) and replicated. With
+    the ranks split over processes (``win``, whose process holds its own
+    ranks' shards), each process puts its ranks' partials into the
+    window, and after a fence every process sums all of them in rank
+    order: the same sum, the same bits on every process."""
+    if win is None or not win.shared:
+        out = None
+        for A in shards:
+            part = _partial(A, x, absolute, conj)
+            out = part if out is None else out + part
+        return out[:n]
+    mine = {d: _partial(shards[d], x, absolute, conj) for d in win.ranks}
+    part = mine[win.lo]
+    parts = win.scratch(("spmv",) + tuple(part.shape), part.shape,
+                        part.dtype)
+    for d, p in mine.items():
+        parts[d].copy_(p)
+    win.fence()
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
     return out[:n]

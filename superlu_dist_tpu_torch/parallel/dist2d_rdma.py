@@ -6,9 +6,9 @@ Pallas kernel per rank (``_rdma_kernel``: the whole factor;
 ``_rdma_solve_kernel``: one L or U sweep) walks the elimination levels as
 its sequential grid, broadcasts blocks by remote DMA into the peers'
 buffers and fences each level by counted receive waits and a barrier.
-Here every rank of the grid lives in one process, and each phase of each
-level is one launch that covers the jobs of all ranks
-(``csrc/rdma.cu``):
+Here the ranks of the grid live in one process (or split over several,
+below), and each phase of each level is one launch that covers the jobs
+of all the process's ranks (``csrc/rdma.cu``):
 
 - :func:`rdma_factor`: per level ``rdma_diag`` (owned diagonal tiles, linv
   put along the grid row into ``lC``, uinv down the column into ``uC``),
@@ -47,6 +47,22 @@ travel down the grid column to the diagonal owner instead of along the
 grid row. The flag never conjugates: the driver solves Aᴴx = b as
 x = conj(A⁻ᵀ conj(b)).
 
+The ranks may be split over several processes on the one card
+(``parallel/multihost.py``): each process owns a contiguous share of the
+ranks, allocates their buffers in a :class:`window.Window` that maps the
+other processes' buffers into its pointer tables, and launches each phase
+over its own ranks' jobs only, ``[ptr[level, d0], ptr[level, d1])`` of a
+job list (contiguous, as the lists are level-major and rank-major); its
+puts then store into the other processes' buffers unchanged. A fence
+(the stream synchronized, then a barrier) follows every phase whose puts
+cross processes: ``rdma_diag`` and ``rdma_panel`` of the factor,
+``rdma_solve_sum`` and ``rdma_solve_diag`` of a sweep. ``rdma_schur`` and
+``rdma_solve_chunks`` write their own rank's buffers only, and the
+fence of the next phase that puts covers them. The plain versions loop
+over the own ranks in the window's turns (:meth:`window.Window.turns`).
+Each job reads the same inputs and sums in the same order as in one
+process, so the factors and x are bit-equal to a single process's.
+
 The tapes and buffers cover the ranks of ``pz`` layers of a Pr × Pc grid
 (``FactorTapes.pz``, ``SweepTapes.pz``; 1 for the 2D grid): rank
 (z·Pr + r)·Pc + c. A factor's puts stay inside the producing rank's
@@ -69,6 +85,7 @@ from ..ops.kernels.diag_lu import (CUDA_BLOCK_SIZES, CUDA_DTYPES,
                                    DTYPE_NAMES, entry, lu_inv_plain)
 from ..ops.kernels.sweep import chunk_chains
 from .dist2d import _ZERO, DistPlan2D, sweep_schedule
+from .window import Window
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -545,7 +562,8 @@ class FactorState:
     d-tape position, the broadcast buffers ``lC``/``uC`` (max_dlvl, bs,
     bs) and ``lB`` (max_lbuf, ...), ``uB`` (max_ubuf, ...), the receive
     counters ``recv`` (nlvl, 4) int32 and ``tiny`` (1,) int32; ``tables``
-    keeps the device tables of their pointers."""
+    keeps the device tables of their pointers, ``win`` the window that
+    holds them."""
 
     pool: list
     linv: list
@@ -557,8 +575,14 @@ class FactorState:
     recv: list
     tiny: list
     tables: dict = dataclasses.field(default_factory=dict, repr=False)
+    win: Window = dataclasses.field(default=None, repr=False)
 
     KINDS = ("pool", "linv", "uinv", "lC", "uC", "lB", "uB", "recv", "tiny")
+
+    def __post_init__(self):
+        # buffers given without their window are one process's
+        if self.win is None:
+            self.win = Window(len(self.pool), self.pool[0].device)
 
     def tensors(self) -> list:
         return [t for k in self.KINDS for t in getattr(self, k)]
@@ -580,22 +604,25 @@ class FactorState:
                           self.recv + self.tiny))
 
 
-def new_factor_state(pools, ft: FactorTapes) -> FactorState:
+def new_factor_state(pools, ft: FactorTapes, win: Window = None
+                     ) -> FactorState:
     """Zeroed buffers beside the given per-rank pools (the inverse tables
     are zero where no step writes: the solve reads them as the JAX
-    package's do)."""
+    package's do), allocated in ``win``, whose tensors the pools must be
+    when the ranks are split over processes (a window of its own under
+    one process)."""
     bs, dev, dt = ft.bs, pools[0].device, pools[0].dtype
+    win = win or Window(ft.ndev, dev)
 
     def z(rows, shape=None, dtype=dt):
-        return [torch.zeros(shape or (rows, bs, bs), dtype=dtype, device=dev)
-                for _ in range(ft.ndev)]
+        return win.alloc(shape or (rows, bs, bs), dtype)
 
     return FactorState(pool=list(pools), linv=z(ft.dlen + 1),
                        uinv=z(ft.dlen + 1), lC=z(ft.max_dlvl),
                        uC=z(ft.max_dlvl), lB=z(ft.max_lbuf),
                        uB=z(ft.max_ubuf),
                        recv=z(0, (ft.nlvl, 4), torch.int32),
-                       tiny=z(0, (1,), torch.int32))
+                       tiny=z(0, (1,), torch.int32), win=win)
 
 
 @dataclasses.dataclass
@@ -604,7 +631,8 @@ class SweepState:
     nrhs), the partials ``P`` (maxr, bs, nrhs), the receive ``slots``
     (maxr·npeer, bs, nrhs), the counters ``recv`` (nlvl, 2) int32 and the
     chunk scratch ``C`` (max(1, maxq), bs, nrhs); ``tables`` keeps the
-    device tables of their pointers."""
+    device tables of their pointers, ``win`` the window that holds
+    them."""
 
     X: list
     P: list
@@ -612,8 +640,14 @@ class SweepState:
     recv: list
     C: list
     tables: dict = dataclasses.field(default_factory=dict, repr=False)
+    win: Window = dataclasses.field(default=None, repr=False)
 
     KINDS = ("X", "P", "slots", "recv", "C")
+
+    def __post_init__(self):
+        # buffers given without their window are one process's
+        if self.win is None:
+            self.win = Window(len(self.X), self.X[0].device)
 
     def tensors(self) -> list:
         return [t for k in self.KINDS for t in getattr(self, k)]
@@ -635,19 +669,18 @@ class SweepState:
                           + self.slots + self.C, self.recv))
 
 
-def new_sweep_state(X, tp: SweepTapes) -> SweepState:
+def new_sweep_state(X, tp: SweepTapes, win: Window = None) -> SweepState:
+    """Zeroed buffers of one sweep beside the per-rank ``X``, allocated in
+    ``win`` (whose tensors X must be when the ranks are split over
+    processes)."""
     _, bs, k = X[0].shape
     dev, dt = X[0].device, X[0].dtype
+    win = win or Window(tp.ndev, dev)
     return SweepState(
-        X=list(X),
-        P=[torch.zeros((tp.maxr, bs, k), dtype=dt, device=dev)
-           for _ in X],
-        slots=[torch.zeros((tp.maxr * tp.npeer, bs, k), dtype=dt,
-                           device=dev) for _ in X],
-        recv=[torch.zeros((tp.nlvl, 2), dtype=torch.int32, device=dev)
-              for _ in X],
-        C=[torch.zeros((max(1, tp.maxq), bs, k), dtype=dt, device=dev)
-           for _ in X])
+        X=list(X), P=win.alloc((tp.maxr, bs, k), dt),
+        slots=win.alloc((tp.maxr * tp.npeer, bs, k), dt),
+        recv=win.alloc((tp.nlvl, 2), torch.int32),
+        C=win.alloc((max(1, tp.maxq), bs, k), dt), win=win)
 
 
 def _table(cache: dict, lists, check) -> torch.Tensor:
@@ -701,8 +734,10 @@ def _place(d: int, pr: int, pc: int):
     return base, myr, myc
 
 
-def _span(ptr_, level):
-    return int(ptr_[level, 0]), int(ptr_[level, -1])
+def _span(ptr_, level, win: Window):
+    """Level ``level``'s jobs of this process's ranks in a job list with
+    pointers ``ptr_`` (nlvl, ndev + 1)."""
+    return int(ptr_[level, win.lo]), int(ptr_[level, win.hi])
 
 
 def _idx(a, device):
@@ -718,8 +753,8 @@ def rdma_diag_plain(st: FactorState, thresh: float, ft: FactorTapes,
                     level: int) -> None:
     """Plain version of :func:`rdma_diag` (a complex tiny pivot keeps its
     phase; ``thresh`` is real)."""
-    h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.pool[0].device
-    for d in range(ft.ndev):
+    h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.win.device
+    for d in st.win.turns():
         lo, hi = int(ft.aptr[level, d]), int(ft.aptr[level, d + 1])
         if hi == lo:
             continue
@@ -745,24 +780,24 @@ def rdma_diag(st: FactorState, thresh: float, ft: FactorTapes,
               level: int) -> None:
     """Phase A of ``level``: tile LU and inverses of every rank's owned
     diagonal steps, the inverses put into the peers' ``lC``/``uC``."""
-    if st.pool[0].device.type == "cpu":
+    if st.win.device.type == "cpu":
         return rdma_diag_plain(st, thresh, ft, level)
     tab = st.table()
-    lo, hi = _span(ft.aptr, level)
-    if hi == lo:
-        return
-    dv, fn = ft.dev, entry("rdma_diag", st.pool[0])
-    RDMA_FACTOR.count(fn)
-    RDMA_FACTOR.call(
-        fn, ptr(tab), ft.ndev, ft.pr, ft.pc, _at(dv["a_rank"], lo),
-        _at(dv["a_loc"], lo), _at(dv["a_pos"], lo), _at(dv["a_inv"], lo),
-        hi - lo, ft.bs, float(thresh), level, stream_ptr(st.pool[0].device))
+    lo, hi = _span(ft.aptr, level, st.win)
+    if hi > lo:
+        dv, fn = ft.dev, entry("rdma_diag", st.pool[0])
+        RDMA_FACTOR.count(fn)
+        RDMA_FACTOR.call(
+            fn, ptr(tab), ft.ndev, ft.pr, ft.pc, _at(dv["a_rank"], lo),
+            _at(dv["a_loc"], lo), _at(dv["a_pos"], lo), _at(dv["a_inv"], lo),
+            hi - lo, ft.bs, float(thresh), level, stream_ptr(st.win.device))
+    st.win.fence()
 
 
 def rdma_panel_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
     """Plain version of :func:`rdma_panel`."""
-    h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.pool[0].device
-    for d in range(ft.ndev):
+    h, pc, pr, dev = ft.host, ft.pc, ft.pr, st.win.device
+    for d in st.win.turns():
         lo, hi = int(ft.bptr[level, d]), int(ft.bptr[level, d + 1])
         base, myr, myc = _place(d, pr, pc)
         side = h["b_side"][lo:hi]
@@ -793,19 +828,19 @@ def rdma_panel(st: FactorState, ft: FactorTapes, level: int,
     (panel, band). ``wide`` < 0 lets the kernel choose its bands
     (``csrc/chain.cuh``), 0 / 1 force bands of 16 / 64 (complex128
     always takes bands of 16)."""
-    if st.pool[0].device.type == "cpu":
+    if st.win.device.type == "cpu":
         return rdma_panel_plain(st, ft, level)
     tab = st.table()
-    lo, hi = _span(ft.bptr, level)
-    if hi == lo:
-        return
-    dv, fn = ft.dev, entry("rdma_panel", st.pool[0])
-    RDMA_FACTOR.count(fn)
-    RDMA_FACTOR.call(
-        fn, ptr(tab), ft.ndev, ft.pr, ft.pc, _at(dv["b_rank"], lo),
-        _at(dv["b_loc"], lo), _at(dv["b_pos"], lo), _at(dv["b_pil"], lo),
-        _at(dv["b_side"], lo), hi - lo, ft.bs, level, wide,
-        stream_ptr(st.pool[0].device))
+    lo, hi = _span(ft.bptr, level, st.win)
+    if hi > lo:
+        dv, fn = ft.dev, entry("rdma_panel", st.pool[0])
+        RDMA_FACTOR.count(fn)
+        RDMA_FACTOR.call(
+            fn, ptr(tab), ft.ndev, ft.pr, ft.pc, _at(dv["b_rank"], lo),
+            _at(dv["b_loc"], lo), _at(dv["b_pos"], lo), _at(dv["b_pil"], lo),
+            _at(dv["b_side"], lo), hi - lo, ft.bs, level, wide,
+            stream_ptr(st.win.device))
+    st.win.fence()
 
 
 #: Schur products per gathered batch in :func:`rdma_schur_plain`
@@ -814,8 +849,8 @@ SCHUR_CHUNK = 256
 
 def rdma_schur_plain(st: FactorState, ft: FactorTapes, level: int) -> None:
     """Plain version of :func:`rdma_schur`."""
-    h, dev = ft.host, st.pool[0].device
-    for d in range(ft.ndev):
+    h, dev = ft.host, st.win.device
+    for d in st.win.turns():
         lo, hi = int(ft.sptr[level, d]), int(ft.sptr[level, d + 1])
         c0, c1 = int(h["cptr"][lo]), int(h["cptr"][hi])
         dst = np.repeat(h["s_tloc"][lo:hi], np.diff(h["cptr"][lo:hi + 1]))
@@ -832,10 +867,10 @@ def rdma_schur(st: FactorState, ft: FactorTapes, level: int,
     """Phase C of ``level``: T −= Σ lB[lpos]·uB[upos] into every rank's
     owned targets, one CTA per (target, band); ``wide`` as in
     :func:`rdma_panel`."""
-    if st.pool[0].device.type == "cpu":
+    if st.win.device.type == "cpu":
         return rdma_schur_plain(st, ft, level)
     tab = st.table()
-    lo, hi = _span(ft.sptr, level)
+    lo, hi = _span(ft.sptr, level, st.win)
     if hi == lo:
         return
     dv, fn = ft.dev, entry("rdma_schur", st.pool[0])
@@ -843,7 +878,7 @@ def rdma_schur(st: FactorState, ft: FactorTapes, level: int,
     RDMA_FACTOR.call(
         fn, ptr(tab), ft.ndev, _at(dv["s_rank"], lo),
         _at(dv["s_tloc"], lo), _at(dv["cptr"], lo), ptr(dv["c_l"]),
-        ptr(dv["c_u"]), hi - lo, ft.bs, wide, stream_ptr(st.pool[0].device))
+        ptr(dv["c_u"]), hi - lo, ft.bs, wide, stream_ptr(st.win.device))
 
 
 def rdma_factor_level(st: FactorState, thresh: float, ft: FactorTapes,
@@ -860,13 +895,17 @@ def rdma_factor_level(st: FactorState, thresh: float, ft: FactorTapes,
 
 
 def rdma_factor(pools, thresh: float, ft: FactorTapes,
-                plain: bool = False) -> FactorState:
+                plain: bool = False, win: Window = None) -> FactorState:
     """Factor the per-rank ``pools`` in place, the three phases level by
     level; returns the factor's buffers (the pools, the owner-local
-    inverse tables, the receive counters and the tiny-pivot counts)."""
-    st = new_factor_state(pools, ft)
+    inverse tables, the receive counters and the tiny-pivot counts). With
+    the ranks split over processes the pools are tensors of ``win``, and
+    the factor ends with a fence, after which every rank's buffers are
+    final."""
+    st = new_factor_state(pools, ft, win)
     for level in range(ft.nlvl):
         rdma_factor_level(st, thresh, ft, level, plain)
+    st.win.fence()
     return st
 
 
@@ -890,9 +929,9 @@ def rdma_solve_chunks_plain(pools, ss: SweepState, tp: SweepTapes,
                             level: int) -> None:
     """Plain version of :func:`rdma_solve_chunks`: each chunk's products
     summed in tape order into its scratch row."""
-    h, dev = tp.host, ss.X[0].device
+    h, dev = tp.host, ss.win.device
     q0, q1 = int(tp.qptr[level]), int(tp.qptr[level + 1])
-    for d in range(tp.ndev):
+    for d in ss.win.turns():
         qs = q0 + np.flatnonzero(h["q_rank"][q0:q1] == d)
         if not len(qs):
             continue
@@ -912,10 +951,11 @@ def rdma_solve_chunks(pools, ss: SweepState, tp: SweepTapes,
     """Pass 1 of ``level``: every chunk of every rank's chains summed into
     the rank's chunk scratch, one CTA per (chunk, tile of right-hand
     sides); each product op(pool block)·X[src]."""
-    if ss.X[0].device.type == "cpu":
+    if ss.win.device.type == "cpu":
         return rdma_solve_chunks_plain(pools, ss, tp, level)
     tab = ss.table(pools)
-    q0, q1 = int(tp.qptr[level]), int(tp.qptr[level + 1])
+    q0, q1 = (int(tp.host["chunkptr"][j])
+              for j in _span(tp.pptr, level, ss.win))
     if q1 == q0:
         return
     dv, fn = tp.dev, entry("rdma_solve_chunks", ss.X[0])
@@ -943,8 +983,8 @@ def _owner_slot(tp: SweepTapes, d: int, own):
 def rdma_solve_sum_plain(pools, ss: SweepState, tp: SweepTapes,
                          level: int) -> None:
     """Plain version of :func:`rdma_solve_sum`."""
-    h, dev, npeer = tp.host, ss.X[0].device, tp.npeer
-    for d in range(tp.ndev):
+    h, dev, npeer = tp.host, ss.win.device, tp.npeer
+    for d in ss.win.turns():
         lo, hi = int(tp.pptr[level, d]), int(tp.pptr[level, d + 1])
         if hi == lo:
             continue
@@ -970,20 +1010,21 @@ def rdma_solve_sum(pools, ss: SweepState, tp: SweepTapes,
     chunk order) for each row position it holds products into, put by
     non-owners into the diagonal owner's slots[pos·npeer + own index]
     (its grid column, or its grid row in a transposed sweep)."""
-    if ss.X[0].device.type == "cpu":
+    if ss.win.device.type == "cpu":
         return rdma_solve_sum_plain(pools, ss, tp, level)
     tab = ss.table(pools)
-    lo, hi = _span(tp.pptr, level)
-    if hi == lo:
-        return
-    dv, fn = tp.dev, entry("rdma_solve_sum", ss.X[0])
-    RDMA_SOLVE.count(fn)
-    RDMA_SOLVE.call(
-        fn, ptr(tab), tp.ndev, tp.pr, tp.pc,
-        _at(dv["p_rank"], lo), _at(dv["p_pos"], lo), _at(dv["p_send"], lo),
-        _at(dv["p_dstc"], lo), _at(dv["chunkptr"], lo), ptr(dv["q_row"]),
-        hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
-        int(tp.transpose), stream_ptr(ss.X[0].device))
+    lo, hi = _span(tp.pptr, level, ss.win)
+    if hi > lo:
+        dv, fn = tp.dev, entry("rdma_solve_sum", ss.X[0])
+        RDMA_SOLVE.count(fn)
+        RDMA_SOLVE.call(
+            fn, ptr(tab), tp.ndev, tp.pr, tp.pc,
+            _at(dv["p_rank"], lo), _at(dv["p_pos"], lo),
+            _at(dv["p_send"], lo), _at(dv["p_dstc"], lo),
+            _at(dv["chunkptr"], lo), ptr(dv["q_row"]), hi - lo,
+            ss.X[0].shape[1], ss.X[0].shape[2], level, int(tp.transpose),
+            stream_ptr(ss.win.device))
+    ss.win.fence()
 
 
 def rdma_solve_gemm_plain(pools, ss: SweepState, tp: SweepTapes,
@@ -1005,8 +1046,8 @@ def rdma_solve_gemm(pools, ss: SweepState, tp: SweepTapes,
 def rdma_solve_diag_plain(dinvs, ss: SweepState, tp: SweepTapes,
                           level: int) -> None:
     """Plain version of :func:`rdma_solve_diag`."""
-    h, dev, npeer = tp.host, ss.X[0].device, tp.npeer
-    for d in range(tp.ndev):
+    h, dev, npeer = tp.host, ss.win.device, tp.npeer
+    for d in ss.win.turns():
         lo, hi = int(tp.dptr[level, d]), int(tp.dptr[level, d + 1])
         if hi == lo:
             continue
@@ -1028,25 +1069,28 @@ def rdma_solve_diag(dinvs, ss: SweepState, tp: SweepTapes,
                     level: int) -> None:
     """Level ``level``'s solved rows: the owner's x_I = op(dinv)·(X[I] +
     P + the peers' slots in grid order), put into every rank's X[I]."""
-    if ss.X[0].device.type == "cpu":
+    if ss.win.device.type == "cpu":
         return rdma_solve_diag_plain(dinvs, ss, tp, level)
     tab = ss.table(dinvs)
-    lo, hi = _span(tp.dptr, level)
-    if hi == lo:
-        return
-    dv, fn = tp.dev, entry("rdma_solve_diag", ss.X[0])
-    RDMA_SOLVE.count(fn)
-    RDMA_SOLVE.call(
-        fn, ptr(tab), tp.ndev, tp.pr, tp.pc, _at(dv["d_rank"], lo),
-        _at(dv["d_row"], lo), _at(dv["d_pos"], lo), _at(dv["d_inv"], lo),
-        hi - lo, ss.X[0].shape[1], ss.X[0].shape[2], level,
-        int(tp.transpose), stream_ptr(ss.X[0].device))
+    lo, hi = _span(tp.dptr, level, ss.win)
+    if hi > lo:
+        dv, fn = tp.dev, entry("rdma_solve_diag", ss.X[0])
+        RDMA_SOLVE.count(fn)
+        RDMA_SOLVE.call(
+            fn, ptr(tab), tp.ndev, tp.pr, tp.pc, _at(dv["d_rank"], lo),
+            _at(dv["d_row"], lo), _at(dv["d_pos"], lo),
+            _at(dv["d_inv"], lo), hi - lo, ss.X[0].shape[1],
+            ss.X[0].shape[2], level, int(tp.transpose),
+            stream_ptr(ss.win.device))
+    ss.win.fence()
 
 
-def rdma_sweep(pools, dinvs, X, tp: SweepTapes, plain: bool = False):
+def rdma_sweep(pools, dinvs, X, tp: SweepTapes, plain: bool = False,
+               win: Window = None):
     """One sweep over the per-rank replicated ``X`` (each (nb, bs, nrhs),
-    updated in place); returns the sweep's state (X and the counters)."""
-    ss = new_sweep_state(X, tp)
+    updated in place; tensors of ``win`` when the ranks are split over
+    processes); returns the sweep's state (X and the counters)."""
+    ss = new_sweep_state(X, tp, win)
     gemm = rdma_solve_gemm_plain if plain else rdma_solve_gemm
     diag = rdma_solve_diag_plain if plain else rdma_solve_diag
     for level in range(tp.nlvl):
@@ -1056,24 +1100,31 @@ def rdma_sweep(pools, dinvs, X, tp: SweepTapes, plain: bool = False):
 
 
 def rdma_solve(pools, linvs, uinvs, lt: SweepTapes, ut: SweepTapes, B,
-               plain: bool = False):
+               plain: bool = False, win: Window = None):
     """L·U·x = b for the (nb, bs, nrhs) right-hand side ``B``: every rank
     starts from a copy of B, then the L sweep and the U sweep; or, with
     the transposed tapes ("LT" and "UT"), Uᵀ·Lᵀ·x = b: the Uᵀ sweep with
     ``uinvs``, then the Lᵀ sweep with ``linvs``. Returns (x of shape (nb,
     bs, nrhs), the receive counters of the ``lt`` sweep and of the ``ut``
-    sweep, one (nlvl, 2) tensor per rank each)."""
+    sweep, one (nlvl, 2) tensor per rank each). The buffers of both
+    sweeps are allocated in ``win`` (a window of their own when None),
+    every process copies B into its own ranks' X, and a fence precedes the
+    first level."""
     if lt.transpose != ut.transpose:
         raise ValueError("rdma_solve: the L and U tapes must both be "
                          "transposed or neither")
-    X = [B.clone() for _ in range(lt.ndev)]
+    win = win or Window(lt.ndev, B.device)
+    X = win.alloc(B.shape, B.dtype)
+    for d in win.ranks:
+        X[d].copy_(B)
+    win.fence()
     if lt.transpose:
-        su = rdma_sweep(pools, uinvs, X, ut, plain)
-        sl = rdma_sweep(pools, linvs, X, lt, plain)
+        su = rdma_sweep(pools, uinvs, X, ut, plain, win)
+        sl = rdma_sweep(pools, linvs, X, lt, plain, win)
     else:
-        sl = rdma_sweep(pools, linvs, X, lt, plain)
-        su = rdma_sweep(pools, uinvs, X, ut, plain)
-    return X[0], sl.recv, su.recv
+        sl = rdma_sweep(pools, linvs, X, lt, plain, win)
+        su = rdma_sweep(pools, uinvs, X, ut, plain, win)
+    return X[win.lo], sl.recv, su.recv
 
 
 def rdma_solve_plain(pools, linvs, uinvs, lt, ut, B):

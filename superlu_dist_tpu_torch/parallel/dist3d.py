@@ -1,5 +1,6 @@
 """The 3D communication-avoiding factorization (pdgstrf3d analog) on one
-device: every rank of a Pz × Pr × Pc grid in one process.
+device: every rank of a Pz × Pr × Pc grid in one process, or split over
+several (below).
 
 Counterpart of the JAX package's ``parallel/dist3d.py``. The elimination
 forest is split into Pz groups of independent subtrees and a shared
@@ -46,6 +47,16 @@ kernels (``csrc/rdma.cu``, ``parallel/dist2d_rdma.py``) over tapes of
 The inverse tables stay with the ranks that computed them: a subtree
 step's on its owner, a top step's on its owner in every layer; the solve
 reads a row's from the rank that solves it.
+
+With the ranks split over processes (``parallel/multihost.py``; a share
+of whole layers each when Pz is a multiple of the processes), the kernels
+run as on the 2D grid (``dist2d_rdma``), and the reductions over the
+layers run on the process that owns the layer-0 rank of each (r, c): it
+sums the layers' rows through the window (``parallel/window.py``) in
+layer order and writes the sum to every layer's copy, between two
+fences. Sharded NRLoc input maps its entries with
+:func:`nrloc_entry_offsets3d` and stores them into their owners' pools
+(:func:`init_local_pools3d_nrloc`).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import torch
 
 from ..ops.blocklu import trans_schedule
 from ..ops.host.symbolic import SymbolicPlan
+from . import dist2d as _dist2d
 from . import dist2d_rdma as _rdma
 
 _ZERO = 0
@@ -622,37 +634,48 @@ def inverse_rows(plan: SymbolicPlan, dplan: DistPlan3D) -> np.ndarray:
 
 
 def init_local_pools3d(plan: SymbolicPlan, dplan: DistPlan3D, a_data,
-                       dtype, device, extra: int = 0) -> list:
+                       dtype, device, extra: int = 0, win=None) -> list:
     """One ``(n_local + extra, bs, bs)`` pool per rank, rank (z·Pr + r)·Pc
     + c at that index, scattered on the host rank by rank (the
     ``init_local_pools3d`` of the JAX package): an ancestor replica gets
     A's values on layer 0 only, so the reduction over the layers counts
     each value once. ``a_data`` is in the CSC data order of the matrix the
     plan was built from; padding diagonal entries get 1.0; the ``extra``
-    rows (zsplit's delta rows) start at zero."""
+    rows (zsplit's delta rows) start at zero. With a window the pools are
+    its tensors and this process fills its own ranks' only."""
+    dev, off, vals = _dist2d.init_entries(
+        plan, slot_ranks(plan, dplan), np.asarray(dplan.slot_local), a_data,
+        dtype)
+    return _dist2d.fill_pools(dev, off, vals,
+                              dplan.pz * dplan.pr * dplan.pc,
+                              dplan.n_local + extra, plan.bs, dtype, device,
+                              win)
+
+
+def nrloc_entry_offsets3d(plan: SymbolicPlan, dplan: DistPlan3D, chunks,
+                          row_scale, col_scale, rowperm, colperm,
+                          expand, n_e, n, *, embed=False,
+                          with_identity=False):
+    """3D-grid owner mapping over dist2d.nrloc_slot_entries: ancestor
+    slots land on their layer-0 replica (init convention of
+    init_local_pools3d — the z reduction then counts each value once)."""
     bs = plan.bs
     bb = bs * bs
-    nnz = len(a_data)
-    idx = np.asarray(plan.init_idx)
-    gslot = idx // bb
-    rem = idx % bb
-    dev = slot_ranks(plan, dplan)[gslot]
-    off = np.asarray(dplan.slot_local)[gslot] * bb + rem
-    vals = np.concatenate([np.asarray(a_data, dtype=dtype),
-                           np.ones(len(idx) - nnz, dtype=dtype)]) \
-        if len(idx) > nnz else np.asarray(a_data, dtype=dtype)
-    order = np.argsort(dev, kind="stable")
-    dev_s, off_s, val_s = dev[order], off[order], vals[order]
-    ndev = dplan.pz * dplan.pr * dplan.pc
-    dptr = np.searchsorted(dev_s, np.arange(ndev + 1))
-    rows = dplan.n_local + extra
-    pools = []
-    for d in range(ndev):
-        flat = np.zeros(rows * bb, dtype=dtype)
-        lo, hi = dptr[d], dptr[d + 1]
-        np.add.at(flat, off_s[lo:hi], val_s[lo:hi])
-        pools.append(torch.from_numpy(flat.reshape(rows, bs, bs)).to(device))
-    return pools
+    slot, ri, ci, v = _dist2d.nrloc_slot_entries(
+        plan, chunks, row_scale, col_scale, rowperm, colperm,
+        expand, n_e, n, embed=embed, with_identity=with_identity)
+    dev = slot_ranks(plan, dplan)[slot].astype(np.int32)
+    off = (np.asarray(dplan.slot_local)[slot] * bb
+           + ri.astype(np.int64) * bs + ci)
+    return dev, off.astype(np.int64), v
+
+
+def init_local_pools3d_nrloc(plan: SymbolicPlan, dplan: DistPlan3D, win,
+                             dev, off, vals, dtype, extra: int = 0) -> list:
+    """3D analog of dist2d.init_local_pools_nrloc: the window's ``(n_local
+    + extra, bs, bs)`` pools from every process's entry streams."""
+    return _dist2d.scatter_pools(dev, off, np.asarray(vals, dtype),
+                                 dplan.n_local + extra, plan.bs, dtype, win)
 
 
 # ---------------------------------------------------------------------------
@@ -750,6 +773,15 @@ def _layers(ft: FactorTapes3D, d2: int) -> list:
     return [z * lay + d2 for z in range(ft.pz)]
 
 
+def _reduced_here(st: _rdma.FactorState, d2s):
+    """The ranks d2 of a layer among ``d2s`` whose reduction over the
+    layers this process runs (it owns their layer-0 rank), between two
+    fences of the window."""
+    st.win.fence()
+    yield from (d2 for d2 in d2s if st.win.lo <= d2 < st.win.hi)
+    st.win.fence()
+
+
 def ancestor_reduce(st: _rdma.FactorState, ft: FactorTapes3D) -> None:
     """The ``dreduceAllAncestors3d`` analog between the phases: for each
     (r, c), the ancestor slots [2, 2 + max_anc) summed over the layers in
@@ -757,7 +789,7 @@ def ancestor_reduce(st: _rdma.FactorState, ft: FactorTapes3D) -> None:
     if ft.pz == 1 or ft.max_anc == 0:
         return
     anc = slice(_RESERVED, _RESERVED + ft.max_anc)
-    for d2 in range(ft.pr * ft.pc):
+    for d2 in _reduced_here(st, range(ft.pr * ft.pc)):
         ranks = _layers(ft, d2)
         acc = st.pool[ranks[0]][anc].clone()
         for e in ranks[1:]:
@@ -773,7 +805,9 @@ def apply_delta(st: _rdma.FactorState, ft: FactorTapes3D,
     layer's touched ancestor slots (``t2loc`` order), the rows zeroed for
     the next level."""
     n0 = ft.n_local
-    for d2, slots, m in ft.t2.get(level, ()):
+    t2 = {d2: (slots, m) for d2, slots, m in ft.t2.get(level, ())}
+    for d2 in _reduced_here(st, sorted(t2)):
+        slots, m = t2[d2]
         ranks = _layers(ft, d2)
         acc = st.pool[ranks[0]][n0:n0 + m].clone()
         for e in ranks[1:]:
@@ -815,18 +849,21 @@ def _tiny(st: _rdma.FactorState) -> torch.Tensor:
 
 
 def rdma_factor3d(pools, thresh: float, ft: FactorTapes3D,
-                  plain: bool = False):
+                  plain: bool = False, win=None):
     """Factor the per-rank ``pools`` (with ``ft.ndelta`` delta rows each)
     in place: the subtree levels, the ancestor reduction, the top levels.
     Returns the factor's buffers and the tiny-pivot count as a device
     scalar: the subtree steps' replacements plus the top's divided by Pz
-    (every layer factors each top tile, as the JAX package counts)."""
-    st = _rdma.new_factor_state(pools, ft)
+    (every layer factors each top tile, as the JAX package counts). With
+    the ranks split over processes the pools are tensors of ``win``, and
+    the factor ends with a fence."""
+    st = _rdma.new_factor_state(pools, ft, win)
     tiny1 = None
     for level in range(ft.nlvl):
         if level == ft.max_p1:
             tiny1 = _tiny(st)
         factor_level3d(st, thresh, ft, level, plain)
+    st.win.fence()
     total = _tiny(st)
     if tiny1 is None:
         return st, total

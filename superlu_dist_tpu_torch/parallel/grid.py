@@ -4,10 +4,15 @@ Counterpart of the JAX package's ``parallel/grid.py`` (``superlu_gridinit``
 analog, reference: SRC/prec-independent/superlu_grid.c:37-230). There the
 grid is a ``jax.sharding.Mesh`` whose axes carry the collectives; here it
 is a map from each rank (r, c) of the Pr × Pc grid, or (z, r, c) of the
-Pz × Pr × Pc grid, to a torch device, and one process drives every rank
-(the JAX package's drivers are single-controller too). Every rank sits on
-the driver's device: the card by default, the CPU in the tests. Ranks on
-several cards are not served yet (ROADMAP.md, queue 1 item 8d).
+Pz × Pr × Pc grid, to a torch device. Every rank sits on the driver's
+device: the card by default, the CPU in the tests. One process drives
+every rank, or the ranks are split over the P processes of a
+``torch.distributed`` group (``parallel/multihost.py``): rank d belongs
+to process d // (size / P), a contiguous share, as the JAX package's
+mesh orders devices process-major (so ``Grid3D(2, 2, 2)`` over two
+processes gives each one layer). Every process of a grid sits on the one
+card; ranks on several cards are not served yet (ROADMAP.md, queue 1
+item 8d).
 """
 
 from __future__ import annotations
@@ -30,6 +35,14 @@ class _Grid:
     @property
     def size(self) -> int:
         return int(np.prod(self.shape))
+
+    def owned_ranks(self) -> range:
+        """The ranks this process drives (all of them in one process)."""
+        return range(*process_share(self.size))
+
+    def process_of(self, rank: int) -> int:
+        """The process that drives ``rank``."""
+        return rank // (self.size // _processes(self.size))
 
     def rank_device(self, default) -> torch.device:
         """The device every rank runs on: the grid's own, else
@@ -104,6 +117,25 @@ def _one_device(shape, devices):
             f" are not ported yet (ROADMAP.md, {SEVERAL_CARDS}): "
             "every rank of a grid runs on one device")
     return devices
+
+
+def _processes(size: int) -> int:
+    """The processes that split a grid of ``size`` ranks, which must
+    divide it."""
+    from .multihost import process_count
+    nproc = process_count()
+    if size % nproc:
+        raise ValueError(f"a grid of {size} ranks does not split evenly "
+                         f"over {nproc} processes")
+    return nproc
+
+
+def process_share(size: int) -> tuple:
+    """This process's ranks [lo, hi) of a grid of ``size`` ranks."""
+    from .multihost import process_index
+    per = size // _processes(size)
+    lo = process_index() * per
+    return lo, lo + per
 
 
 def _canonical(d: torch.device) -> str:

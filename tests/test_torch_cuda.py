@@ -2020,3 +2020,29 @@ def test_xprof_trace_on_the_card(cuda, tmp_path):
     for k in ("diag_lu_kernel", "wave_kernel", "band_times_inverse",
               "chunk_kernel", "rows_kernel"):
         assert any(k in nm for nm in kern), k
+
+
+@pytest.mark.parametrize("scenario", ["mesh2d", "planning3d"])
+def test_two_processes_on_one_card(cuda, tmp_path, scenario):
+    """Two processes of ``tests/torch_multihost.py`` split the grid's
+    ranks on the card (CUDA IPC windows, host fences): x, refinement
+    steps and every rank's pools bit-equal to one process's on the card,
+    the receive counters equal to the tapes (in the workers)."""
+    import torch_multihost as tm
+    with tm.Workers(tmp_path, scenario, "cuda", timeout=300) as w:
+        if scenario == "mesh2d":
+            A, xt, b = tm.system(12)
+            lu = T.DistributedSparseLU(A, T.Grid2D(2, 4),
+                                       tm._opts("cuda"), device=cuda)
+        else:
+            A, xt, b = tm.system(10)
+            lu = T.Distributed3DSparseLU(
+                A, T.Grid3D(2, 2, 2),
+                tm._planning_opts("cuda").replace(align_blocks="off"),
+                device=cuda)
+        x, _ = lu.refine(b, lu.solve(b))
+        got = w.results()
+    for r in got:
+        assert np.array_equal(r["x"], x)
+        assert int(r["steps"]) == lu.stat.refine_steps
+        assert np.array_equal(r["pools"], tm.pools_of(lu))

@@ -53,9 +53,6 @@ def test_pools_and_coo_shards_equal_jax(case, pr, pc):
     assert len(pools) == pr * pc
     got = np.stack([p.numpy() for p in pools]).reshape(jpools.shape)
     assert np.array_equal(got, jpools)
-    for a, b in zip(td.make_coo_shards(A, pr * pc, np.float64),
-                    jd.make_coo_shards(A, pr * pc, np.float64)):
-        assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("pr,pc", GRIDS)

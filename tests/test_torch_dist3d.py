@@ -453,14 +453,22 @@ def test_one_layer_is_bit_equal_to_the_2d_grid(dtype):
 @pytest.mark.parametrize("what,item", [("dist_planning", "10"),
                                        ("several_cards", "8d")])
 def test_not_ported_raises_naming_its_item(what, item):
+    """Item 8d still raises naming its item. Item 10 is ported: in one
+    process ``dist_planning`` runs the ordinary plan, as the JAX package's
+    does, so that case holds x to the JAX package's."""
     A, b = _system("float32", k=6)
+    if what == "dist_planning":
+        res, lu = T.gssvx3d(A, b, T.Grid3D(2, 2, 2),
+                            _opts(T, dist_planning=True), device="cpu")
+        jres, jlu = j_gssvx3d(A, b, JGrid3D(2, 2, 2),
+                              _opts(J, dist_planning=True))
+        assert np.array_equal(lu.colperm, jlu.colperm)
+        assert np.array_equal(lu.dplan.step_layer, jlu.dplan.step_layer)
+        assert np.abs(res.x - jres.x).max() <= 1e-10 * np.abs(jres.x).max()
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md, queue 1 items? {item}"):
-        if what == "dist_planning":
-            T.gssvx3d(A, b, T.Grid3D(2, 2, 2), _opts(T, dist_planning=True),
-                      device="cpu")
-        else:
-            T.Grid3D(2, 1, 2, devices=["cpu", "meta", "cpu", "cpu"])
+        T.Grid3D(2, 1, 2, devices=["cpu", "meta", "cpu", "cpu"])
 
 
 def test_refuses_what_it_does_not_take():
