@@ -11,8 +11,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    function's name; every instantiation of ``schur``, and every complex
    instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm``,
    ``diag_apply`` and of ``rdma.cu``'s six entries, and every bf16-pass
-   instantiation of ``clk.cu`` (``wave_kernel`` and
-   ``band_times_inverse`` with their BF16 flag set), of ``tck.cu``
+   instantiation of ``clk.cu`` (``waves.cuh``'s ``wave_mma_kernel``, and
+   ``band_times_inverse`` with its BF16 flag set), of ``tck.cu``
    (``tck_tile_mma_kernel``) and of ``flk.cu`` (on ``chain.cuh``'s
    ``ChainMma``), must spill no registers;
 3. the main path through the user entry point:
@@ -299,6 +299,7 @@ Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -455,12 +456,15 @@ def main() -> None:
         # a complex element type, demangled or mangled (slu_cplx::real_of
         # names the real instantiations too)
         check_spills(_build.ptxas_report(k), ("cplx<", "4cplxI"), k.source)
-    # the bf16 pass's instantiations (wave_kernel and band_times_inverse
-    # with BF16 = true, the last template argument), demangled or mangled
+    # the bf16 pass's instantiations: waves.cuh's wave_mma_kernel (every
+    # block size and strip width), and band_times_inverse with BF16 = true
+    # (the last template argument), demangled or mangled
+    check_spills(_build.ptxas_report(clk.UPDATE), "wave_mma_kernel",
+                 "clk.cu (the bf16 waves)")
     check_spills(_build.ptxas_report(clk.UPDATE), ("true>(", "Lb1EEv"),
                  "clk.cu (the bf16 pass)")
-    # tck's phase B and flk's chain in the bf16 pass (tck.cu's wave_kernel
-    # with BF16 = true is clk.cu's, checked above)
+    # tck's phase B and flk's chain in the bf16 pass (tck.cu's
+    # wave_mma_kernel is clk.cu's, checked above)
     check_spills(_build.ptxas_report(tck.UPDATE), "tck_tile_mma",
                  "tck.cu (the bf16 pass)")
     check_spills(_build.ptxas_report(flk.KERNEL), "ChainMma",
@@ -2544,7 +2548,8 @@ def print_tck_levels(tp, per_level, top=6, name="tck_update"):
         b0, b1 = int(tp.tptr[lvl]), int(tp.tptr[lvl + 1])
         print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; phase A {ms_a:.3f} "
               f"ms: {w1 - w0} waves, {t1 - t0} U targets, "
-              f"{int(cnt[t0:t1].sum())} L·U products, critical path {crit};"
+              f"{int(cnt[t0:t1].sum())} L·U products, critical path {crit} "
+              f"({1e3 * ms_a / max(crit, 1):.2f} us a product);"
               f" phase B {ms_b:.3f} ms: {b1 - b0} tiles of up to "
               f"{int(h['trows'][lvl])} rows (tallest {int(tp.hmax[lvl])}), "
               f"{int(tcnt[b0:b1].sum())} L·U products, longest tile "
@@ -2554,26 +2559,39 @@ def print_tck_levels(tp, per_level, top=6, name="tck_update"):
 def print_update_levels(tp, per_level, bs, top=6, name="clk_update"):
     """Where clk_update's time goes: the costliest levels, with their
     columns, waves (one launch each), targets and CTAs (a target has bs/16
-    strips) over the level's waves, L·U products, the longest product list
-    of one wave's target, and the critical path (the longest lists summed
-    over the waves) with the time per product on it."""
+    strips; in the bf16 pass bs over each wave's strip width) over the
+    level's waves, L·U products, the longest product list of one wave's
+    target, and the critical path (the longest lists summed over the
+    waves) with the time per product on it; in the bf16 pass also the
+    waves of each (strip width, ring depth) that the host chose."""
     h = tp.host
     cnt = np.diff(h["pptr"])
+    bf16 = name.endswith("_bf16")
     total = sum(ms for ms, _ in per_level)
     print(f"{name} by level (kernel {total:.3f} ms over {tp.nlvl} "
           f"levels, {int(tp.lwave[-1])} waves; top {top}):")
     for ms, lvl in sorted(per_level, reverse=True)[:top]:
         w0, w1 = int(tp.lwave[lvl]), int(tp.lwave[lvl + 1])
         t0, t1 = int(tp.wptr[w0]), int(tp.wptr[w1])
-        longest = [int(cnt[tp.wptr[w]:tp.wptr[w + 1]].max())
+        longest = [int(cnt[tp.wptr[w]:tp.wptr[w + 1]].max(initial=0))
                    for w in range(w0, w1)]
         crit = sum(longest)
+        ctas, geo = (t1 - t0) * (bs // 16), ""
+        if bf16:
+            from superlu_dist_tpu_torch.ops.kernels.clk import wave_geoms
+            g = wave_geoms(tp, bs)[w0:w1]
+            ntgt = np.diff(np.asarray(tp.wptr[w0:w1 + 1]))
+            ctas = int((ntgt * (bs // (g >> 8))).sum())
+            kinds = collections.Counter(
+                (int(c) >> 8, int(c) & 255) for c in g)
+            geo = "; geometry (strip width x ring depth: waves) " + ", ".join(
+                f"{tn}x{st}: {n}" for (tn, st), n in sorted(kinds.items()))
         print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; "
               f"{int(tp.uptr[lvl + 1] - tp.uptr[lvl])} columns, {w1 - w0} "
-              f"waves, {t1 - t0} targets ({(t1 - t0) * (bs // 16)} CTAs), "
+              f"waves, {t1 - t0} targets ({ctas} CTAs), "
               f"{int(cnt[t0:t1].sum())} L·U products, longest per-wave "
               f"list {max(longest, default=0)}, critical path {crit} "
-              f"products ({1e3 * ms / max(crit, 1):.2f} us each)",
+              f"products ({1e3 * ms / max(crit, 1):.2f} us each){geo}",
               flush=True)
 
 
@@ -3734,9 +3752,10 @@ print(json.dumps(dict(
 
 #: the device-kernel names (``__global__`` functions) by which a trace of
 #: the main path shows each of its kernels: diag_lu.cu's, clk.cu's update
-#: waves (waves.cuh) and panel TRSM (panel.cuh), solve_gemm.cu's two passes
+#: waves in the bf16 pass (waves.cuh) and panel TRSM (panel.cuh),
+#: solve_gemm.cu's two passes
 TRACE_KERNELS = {"diag_lu": ("diag_lu_kernel",),
-                 "clk": ("wave_kernel", "band_times_inverse"),
+                 "clk": ("wave_mma_kernel", "band_times_inverse"),
                  "solve_gemm": ("chunk_kernel", "rows_kernel")}
 
 

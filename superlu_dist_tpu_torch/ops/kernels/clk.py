@@ -66,8 +66,9 @@ UPDATE = CudaKernel("clk_update", "clk.cu", {
 TRSM = CudaKernel("clk_trsm", "clk.cu", {
     "slu_clk_trsm_f32": [_V, _V, _V, _V, _I, _I, _V]})
 #: the same kernels' bf16 pass (precision "default"), counted apart
+_L = ctypes.c_int64
 UPDATE_BF16 = CudaKernel("clk_update_bf16", "clk.cu", {
-    "slu_clk_waves_bf16": [_V] * 9 + [_I, _I, _V]})
+    "slu_clk_waves_bf16": [_V] * 10 + [_I, _I, _L, _L, _V]})
 TRSM_BF16 = CudaKernel("clk_trsm_bf16", "clk.cu", {
     "slu_clk_trsm_bf16": [_V, _V, _V, _V, _I, _I, _V]})
 #: the kernel and the C entry of each pass
@@ -75,6 +76,21 @@ _UPDATE = {"highest": (UPDATE, "slu_clk_waves_f32"),
            "default": (UPDATE_BF16, "slu_clk_waves_bf16")}
 _TRSM = {"highest": (TRSM, "slu_clk_trsm_f32"),
          "default": (TRSM_BF16, "slu_clk_trsm_bf16")}
+
+#: the bf16 wave kernel (``csrc/waves.cuh``'s ``WaveMma``): k per staged
+#: chunk, the strip widths it takes, the depth of a ring where a wave fills
+#: the card (the FP32 kernel's) and the deepest ring it takes; a wide strip
+#: must still give WAVE_FILL CTAs an SM (on an H100 at bs 128, 1 and 2
+#: were slower on lap3d32's longest lists, 8 on lap3d50's widest waves:
+#: ``tools/clk_strip_ab.py --bf16``)
+WAVE_KC = 32
+WAVE_WIDTHS = (16, 32, 64)
+WAVE_SHALLOW, WAVE_DEEP = 3, 8
+WAVE_FILL = 4
+#: an H100's SMs (as ``sweep.CHUNK_CTAS`` takes them), and the most shared
+#: memory one CTA may take
+SMS = 132
+CTA_SMEM_MAX = 227 * 1024
 
 
 @dataclasses.dataclass
@@ -241,6 +257,60 @@ def _waves(h, nlvl, lev, job_col, d_job, d_l, pos, nslots):
 # ---------------------------------------------------------------------------
 
 
+def wave_stage_bytes(bs: int, tn: int) -> int:
+    """One stage of the bf16 wave kernel's ring at block size ``bs`` and
+    strip width ``tn``: an L chunk (bs rows of KC floats), a U chunk (KC
+    rows of tn floats), both unpadded as the tensor maps write them, and
+    its two mbarriers."""
+    return (bs * WAVE_KC + WAVE_KC * tn) * 4 + 16
+
+
+def wave_mma_bytes(bs: int, tn: int, stages: int) -> int:
+    """Shared memory of the bf16 wave kernel (``WaveMma::bytes``):
+    ``stages`` ring stages, 1024 bytes to align the ring to the swizzle's
+    period, and the finalize operand (tn rows of bs + 8 bf16)."""
+    return stages * wave_stage_bytes(bs, tn) + 1024 + tn * (bs + 8) * 2
+
+
+def wave_max_stages(bs: int, tn: int) -> int:
+    """The deepest ring the bf16 wave kernel takes (``WaveMma::
+    kMaxStages``): WAVE_DEEP, or fewer where CTA_SMEM_MAX holds fewer."""
+    return min(WAVE_DEEP, (CTA_SMEM_MAX - 1024 - tn * (bs + 8) * 2)
+               // wave_stage_bytes(bs, tn))
+
+
+def wave_geom(bs: int, ntargets: int, sms: int = SMS) -> tuple:
+    """(strip width, ring depth) of a bf16 wave of ``ntargets`` targets:
+    where strips of 16 columns would leave SMs idle, strips of 16 and the
+    deepest ring; else the widest strip whose CTAs still give WAVE_FILL an
+    SM (each L chunk then enters fewer SMs), at the FP32 kernel's depth."""
+    if ntargets * (bs // 16) < sms:
+        return 16, wave_max_stages(bs, 16)
+    tn = max(w for w in WAVE_WIDTHS if w == 16 or (
+        w <= bs and ntargets * (bs // w) >= WAVE_FILL * sms))
+    return tn, WAVE_SHALLOW
+
+
+def wave_geom_choices(bs: int) -> list:
+    """Every (strip width, ring depth) that :func:`wave_geom` may give at
+    block size ``bs``."""
+    return sorted({wave_geom(bs, n)
+                   for n in range(1, 2 * WAVE_FILL * SMS + 1)})
+
+
+def wave_geoms(tp, bs: int) -> np.ndarray:
+    """The geometry code (strip width << 8 | ring depth) of every wave of
+    ``tp`` (clk's tapes, or tck's phase-A tapes) at block size ``bs``, by
+    :func:`wave_geom` (cached in ``tp.host``)."""
+    key = f"wave_geoms{bs}"
+    if key not in tp.host:
+        cnt = np.diff(np.asarray(tp.wptr))
+        tp.host[key] = np.array(
+            [(tn << 8) | st for tn, st in (wave_geom(bs, int(n))
+                                           for n in cnt)], dtype=np.int32)
+    return tp.host[key]
+
+
 def clk_update_plain(pool, linv, tp: ClkTapes, level: int,
                      precision: str = "highest") -> None:
     """Plain version of :func:`clk_update`, in the reference order: per
@@ -301,22 +371,38 @@ def clk_update(pool, linv, tp: ClkTapes, level: int,
     if pool.device.type == "cpu":
         return clk_update_plain(pool, linv, tp, level, precision)
     _check_cuda(pool, linv, pool.shape[-1])
-    _launch_update(pool, linv, tp, level, precision)
+    launch_waves(*_UPDATE[precision], pool, linv, tp, level)
 
 
-def _launch_update(pool, linv, tp: ClkTapes, level: int,
-                   precision: str = "highest") -> None:
-    """One launch per wave of ``level``, issued by the C entry of
-    ``precision``'s pass from the host array ``wptr``."""
+def launch_waves(kernel, fn, pool, linv, tp, level: int,
+                 geom: tuple | None = None) -> None:
+    """One launch per wave of ``level`` on the tapes ``tp`` (clk's, or
+    tck's phase A), issued by the C entry ``fn`` of ``kernel`` from the
+    host array ``wptr``; a bf16 entry also takes each wave's geometry
+    (:func:`wave_geoms`, or ``geom`` = (strip width, ring depth) forced on
+    every wave, as the card tests force each one) and the pool's and
+    linv's block counts (its tensor maps' extents)."""
     w0, w1 = int(tp.lwave[level]), int(tp.lwave[level + 1])
+    bs = pool.shape[-1]
+    if geom is not None:
+        tn, st = geom
+        if not fn.endswith("_bf16") or tn not in WAVE_WIDTHS or tn > bs \
+                or not 2 <= st <= wave_max_stages(bs, tn):
+            raise ValueError(f"{fn}: no wave geometry {geom} at block size "
+                             f"{bs}")
     if w1 == w0:
         return
-    kernel, fn = _UPDATE[precision]
     kernel.count(fn, w1 - w0)
-    kernel.call(fn, ptr(pool), ptr(linv), ptr(tp.tslot), ptr(tp.tstep),
-                ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl), ptr(tp.cu),
-                ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0), w1 - w0,
-                pool.shape[-1], stream_ptr(pool.device))
+    args = [ptr(pool), ptr(linv), ptr(tp.tslot), ptr(tp.tstep),
+            ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl), ptr(tp.cu),
+            ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0)]
+    if not fn.endswith("_bf16"):
+        kernel.call(fn, *args, w1 - w0, bs, stream_ptr(pool.device))
+        return
+    g = wave_geoms(tp, bs)[w0:w1] if geom is None else np.full(
+        w1 - w0, (geom[0] << 8) | geom[1], dtype=np.int32)
+    kernel.call(fn, *args, ctypes.c_void_p(g.ctypes.data), w1 - w0, bs,
+                pool.shape[0], linv.shape[0], stream_ptr(pool.device))
 
 
 # ---------------------------------------------------------------------------

@@ -40,11 +40,13 @@
 // The _bf16 entries are the low pass of gemm_precision "default" (the TPU
 // kernel's dot() at precision "default", clk.py:257-259 there: the U
 // finalize, the pair GEMM and the L-part TRSM in one bf16 pass with
-// float32 accumulation): the same kernels with their BF16 flag set, the
-// products on the tensor cores (mma.cuh). Bounded by the same operations
-// at the bf16 tensor-core peak (989 TFLOP/s dense), about a fifteenth of
-// the FP32 bound; this first version builds its fragments from the
-// float32 chunks with scalar shared-memory loads, which bound it instead.
+// float32 accumulation), the products on the tensor cores (mma.cuh).
+// Bounded by the bytes of its pool blocks (their operations at the bf16
+// tensor-core peak, 989 TFLOP/s dense, take about a sixth of that).
+// clk_update's is waves.cuh's wave_mma_kernel: a producer warp, bulk
+// copies on mbarriers, and per wave the strip width and ring depth that
+// the host chooses (clk.py::wave_geoms); clk_trsm's is the band kernel's
+// BF16 flag.
 
 #include "panel.cuh"
 #include "waves.cuh"
@@ -69,15 +71,18 @@ extern "C" int slu_clk_waves_f32(void* pool, const void* linv,
                                   cu, wptr, nwaves, bs, stream);
 }
 
-// slu_clk_waves_f32 in the bf16 pass.
+// slu_clk_waves_f32 in the bf16 pass, wave w at the geometry geom[w]
+// (a host array: strip width << 8 | ring depth); the pool holds `nslots`
+// blocks and linv `ninv`.
 extern "C" int slu_clk_waves_bf16(void* pool, const void* linv,
                                   const void* tslot, const void* tstep,
                                   const void* tfin, const void* pptr,
                                   const void* cl, const void* cu,
-                                  const void* wptr, int nwaves, int bs,
-                                  void* stream) {
-  return slu_waves::waves_f32<TN, true>(pool, linv, tslot, tstep, tfin, pptr,
-                                        cl, cu, wptr, nwaves, bs, stream);
+                                  const void* wptr, const void* geom,
+                                  int nwaves, int bs, int64_t nslots,
+                                  int64_t ninv, void* stream) {
+  return slu_waves::waves_bf16(pool, linv, tslot, tstep, tfin, pptr, cl, cu,
+                               wptr, geom, nwaves, bs, nslots, ninv, stream);
 }
 
 // L(i,k) <- L(i,k) . uinv(k) over the level's L blocks: the same function

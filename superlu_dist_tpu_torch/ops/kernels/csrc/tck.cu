@@ -48,17 +48,18 @@
 // kernel's dot() at precision "default", tck.py:226-228 there: the U
 // finalize :306, the update products :311 and :346 and the L finalize
 // :323, in one bf16 pass with float32 accumulation). Phase A is
-// waves.cuh's bf16 pass (clk.cu's slu_clk_waves_bf16); phase B
-// (tck_tile_mma_kernel) keeps the tiles, the ring and the order, with the
-// products on the tensor cores through mma.cuh's m16n8k16 bf16 tiles:
-// warp w owns rows 32w .. 32w + 31 of every tile position (two m16 by two
-// n8 tiles, in the C layout), so a tile still needs no barrier of its own;
-// the staged U chunks keep rows of TNB + 4 floats (distinct banks for a B
-// fragment's k rows). Operands are rounded to bf16 as their fragments are
-// built; the tile, the sums and the pool stay float32. The TRSM jobs are
-// clk.cu's slu_clk_trsm_bf16. With the padded ring a tile of 20 rows at
-// bs = 64 (tck.py::tile_rows) takes 117,248 bytes, one CTA an SM; at bs 32
-// and 128 the tallest tiles keep two.
+// waves.cuh's wave_mma_kernel (clk.cu's slu_clk_waves_bf16, each wave at
+// the geometry that the host chooses); phase B (tck_tile_mma_kernel) keeps
+// the tiles, the ring and the order, with the products on the tensor
+// cores through mma.cuh's m16n8k16 bf16 tiles: warp w owns rows 32w ..
+// 32w + 31 of every tile position (two m16 by two n8 tiles, in the C
+// layout), so a tile still needs no barrier of its own; the staged U
+// chunks keep rows of TNB + 4 floats (distinct banks for a B fragment's k
+// rows). Operands are rounded to bf16 as their fragments are built; the
+// tile, the sums and the pool stay float32. The TRSM jobs are clk.cu's
+// slu_clk_trsm_bf16. With the padded ring a tile of 20 rows at bs = 64
+// (tck.py::tile_rows) takes 117,248 bytes, one CTA an SM; at bs 32 and
+// 128 the tallest tiles keep two.
 
 #include "waves.cuh"
 
@@ -316,15 +317,18 @@ extern "C" int slu_tck_tiles_f32(void* pool, const void* tiles,
                           stream);
 }
 
-// slu_tck_waves_f32 in the bf16 pass.
+// slu_tck_waves_f32 in the bf16 pass, wave w at the geometry geom[w]
+// (a host array: strip width << 8 | ring depth); the pool holds `nslots`
+// blocks and linv `ninv`.
 extern "C" int slu_tck_waves_bf16(void* pool, const void* linv,
                                   const void* tslot, const void* tstep,
                                   const void* tfin, const void* pptr,
                                   const void* cl, const void* cu,
-                                  const void* wptr, int nwaves, int bs,
-                                  void* stream) {
-  return slu_waves::waves_f32<TN, true>(pool, linv, tslot, tstep, tfin, pptr,
-                                        cl, cu, wptr, nwaves, bs, stream);
+                                  const void* wptr, const void* geom,
+                                  int nwaves, int bs, int64_t nslots,
+                                  int64_t ninv, void* stream) {
+  return slu_waves::waves_bf16(pool, linv, tslot, tstep, tfin, pptr, cl, cu,
+                               wptr, geom, nwaves, bs, nslots, ninv, stream);
 }
 
 // slu_tck_tiles_f32 in the bf16 pass.

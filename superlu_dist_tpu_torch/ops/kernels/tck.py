@@ -57,7 +57,7 @@ import torch
 from ..blocklu import level_order
 from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
-from .clk import _waves, clk_trsm, clk_update_waves_plain
+from .clk import _waves, clk_trsm, clk_update_waves_plain, launch_waves
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
 from .schur import check_precision, matmul_at
 from .sweep import CHUNK_CTAS
@@ -69,7 +69,8 @@ UPDATE = CudaKernel("tck_update", "tck.cu", {
     "slu_tck_tiles_f32": [_V] * 5 + [_I] * 4 + [_V]})
 #: the same kernels' bf16 pass (precision "default"), counted apart
 UPDATE_BF16 = CudaKernel("tck_update_bf16", "tck.cu", {
-    "slu_tck_waves_bf16": [_V] * 9 + [_I, _I, _V],
+    "slu_tck_waves_bf16": [_V] * 10 + [_I, _I, ctypes.c_int64,
+                                       ctypes.c_int64, _V],
     "slu_tck_tiles_bf16": [_V] * 5 + [_I] * 4 + [_V]})
 #: the kernel and the C entries (phase A, phase B) of each pass
 _PASS = {"highest": (UPDATE, "slu_tck_waves_f32", "slu_tck_tiles_f32"),
@@ -371,20 +372,14 @@ def tck_update_plain(pool, linv, tp: TckTapes, level: int,
 def tck_waves(pool, linv, tp: TckTapes, level: int,
               precision: str = "highest") -> None:
     """Phase A of ``level``: its U blocks in source-ready waves (in
-    place), one launch per wave, the products at ``precision``."""
+    place), one launch per wave (``clk.launch_waves``), the products at
+    ``precision``."""
     check_precision(precision)
     if pool.device.type == "cpu":
         return tck_waves_plain(pool, linv, tp, level, precision)
     _check_cuda(pool, linv, pool.shape[-1], tp.w, precision)
-    w0, w1 = int(tp.lwave[level]), int(tp.lwave[level + 1])
-    if w1 == w0:
-        return
     kernel, fn, _ = _PASS[precision]
-    kernel.count(fn, w1 - w0)
-    kernel.call(fn, ptr(pool), ptr(linv), ptr(tp.tslot), ptr(tp.tstep),
-                ptr(tp.tfin), ptr(tp.pptr), ptr(tp.cl), ptr(tp.cu),
-                ctypes.c_void_p(tp.wptr.ctypes.data + 8 * w0), w1 - w0,
-                pool.shape[-1], stream_ptr(pool.device))
+    launch_waves(kernel, fn, pool, linv, tp, level)
 
 
 def tck_tiles(pool, tp: TckTapes, level: int,

@@ -1647,16 +1647,46 @@ def test_embedded_gssvx_matches_cpu(cuda, executor, monkeypatch):
 BF16_TOL = 2.0 ** -6
 
 
+def _wave_geoms(bs):
+    """None (the launcher's own choice per wave), then every geometry
+    (strip width, ring depth) that it may choose at ``bs``, forced."""
+    return [None] + clk.wave_geom_choices(bs)
+
+
+def _clk_waves(pool, linv, tp, level, geom):
+    """clk_update at "default" (geom None), or its bf16 entry with the
+    wave geometry ``geom`` forced on every wave."""
+    if geom is None:
+        clk.clk_update(pool, linv, tp, level, "default")
+    else:
+        clk.launch_waves(clk.UPDATE_BF16, "slu_clk_waves_bf16", pool, linv,
+                         tp, level, geom)
+
+
+def _finalize_only(tp):
+    """Whether the wave tapes ``tp`` hold a target that is finalized with
+    no product (np == 0), and the longest product list of one target
+    (longer than one on lap3d12's tapes)."""
+    cnt = np.diff(tp.host["pptr"])
+    alone = (cnt == 0) & (tp.host["tfin"] == flk.FIN_U)
+    return bool(alone.any()), int(cnt.max())
+
+
 @pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
 @pytest.mark.parametrize("bs", [32, 64, 128])
 def test_clk_bf16_entries_match_plain(cuda, bs, mat):
     """slu_clk_waves_bf16 and slu_clk_trsm_bf16 against clk_update_plain
     and clk_trsm_plain at "default", level by level from the same pool
     (random patterns: values that bf16 does not hold exactly): the update
-    within BF16_TOL of scale, the TRSM (whose operands are its inputs)
-    within ULPS; each closer to the bf16 plain version than the FP32 pass
-    is, by ten times; one launch per wave and per level with L blocks,
-    and none of the FP32 entries."""
+    within BF16_TOL of scale at the launcher's own geometry and at every
+    (strip width, ring depth) it may choose, each forced, all bit-equal
+    (an output element sums the same products in the same order at every
+    geometry); the TRSM (whose operands are its inputs) within ULPS; each
+    closer to the bf16 plain version than the FP32 pass is, by ten times;
+    the tapes hold a finalize alone (np == 0), lap3d12's lists longer than
+    one;
+    one launch per wave, geometry and level with L blocks, and none of the
+    FP32 entries."""
     if mat == "lap3d12":
         A = tt.laplacian_3d(12).tocsc()
         _, lu = T.gssvx(A, np.ones(A.shape[0]), T.Options(
@@ -1666,6 +1696,9 @@ def test_clk_bf16_entries_match_plain(cuda, bs, mat):
         A = _sym_random(6 * bs, 0.004 * int(mat[-1]), int(mat[-1]))
         plan, data = block_symbolic(A, bs), A.data
     tp = clk.build_clk_tapes(plan, cuda)
+    alone, longest = _finalize_only(tp)
+    assert alone and (longest > 1 or mat != "lap3d12")
+    geoms = _wave_geoms(bs)
     pool = blocklu.init_pool(plan, data, np.float32, cuda)
     linv = torch.zeros((plan.nb, bs, bs), device=cuda)
     uinv = torch.zeros_like(linv)
@@ -1676,35 +1709,62 @@ def test_clk_bf16_entries_match_plain(cuda, bs, mat):
     dist = {"update": [0.0, 0.0], "trsm": [0.0, 0.0]}
     ntrsm = 0
     for level in range(tp.nlvl):
-        for what, kern, plain, tol in (
-                ("update", lambda p: clk.clk_update(p, linv, tp, level,
-                                                    "default"),
-                 lambda p, pr: clk.clk_update_plain(p, linv, tp, level, pr),
-                 BF16_TOL),
-                ("trsm", lambda p: clk.clk_trsm(p, uinv, tp, level,
-                                                "default"),
-                 lambda p, pr: clk.clk_trsm_plain(p, uinv, tp, level, pr),
-                 ULPS * eps)):
-            ref, hi = pool.clone(), pool.clone()
-            kern(pool)
-            plain(ref, "default")
-            plain(hi, "highest")
+        ref, hi = pool.clone(), pool.clone()
+        clk.clk_update_plain(ref, linv, tp, level, "default")
+        clk.clk_update_plain(hi, linv, tp, level, "highest")
+        scale = max(1.0, float(ref.abs().max()))
+        outs = []
+        for g in geoms:
+            out = pool.clone()
+            _clk_waves(out, linv, tp, level, g)
             torch.cuda.synchronize()
-            scale = max(1.0, float(ref.abs().max()))
-            assert float((pool - ref).abs().max()) <= tol * scale, \
-                (what, level)
-            dist[what][0] += float((pool - ref).abs().sum())
-            dist[what][1] += float((hi - ref).abs().sum())
-            if what == "update":
-                lo, hi_ = int(tp.dptr[level]), int(tp.dptr[level + 1])
-                diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi_],
-                                tp.dstep[lo:hi_], 0.0, tiny)
+            assert float((out - ref).abs().max()) <= BF16_TOL * scale, \
+                (level, g)
+            outs.append(out)
+        for g, out in zip(geoms[1:], outs[1:]):
+            assert torch.equal(out, outs[0]), (level, g)
+        pool = outs[0]
+        dist["update"][0] += float((pool - ref).abs().sum())
+        dist["update"][1] += float((hi - ref).abs().sum())
+        del outs, ref, hi
+        lo, hi_ = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi_], tp.dstep[lo:hi_],
+                        0.0, tiny)
+        ref, hi = pool.clone(), pool.clone()
+        clk.clk_trsm(pool, uinv, tp, level, "default")
+        clk.clk_trsm_plain(ref, uinv, tp, level, "default")
+        clk.clk_trsm_plain(hi, uinv, tp, level, "highest")
+        torch.cuda.synchronize()
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((pool - ref).abs().max()) <= ULPS * eps * scale, level
+        dist["trsm"][0] += float((pool - ref).abs().sum())
+        dist["trsm"][1] += float((hi - ref).abs().sum())
         ntrsm += int(tp.lptr[level + 1] > tp.lptr[level])
     for kern, fp32 in dist.values():
         assert fp32 > 0 and kern <= 0.1 * fp32
-    assert clk.UPDATE_BF16.launches == int(tp.lwave[-1]) > 0
+    assert clk.UPDATE_BF16.launches == len(geoms) * int(tp.lwave[-1]) > 0
     assert clk.TRSM_BF16.launches == ntrsm > 0
     assert clk.UPDATE.launches == clk.TRSM.launches == 0
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_clk_bf16_waves_repeat_bit_equal(cuda, bs):
+    """Two launches of slu_clk_waves_bf16 on the same input give the same
+    bits, level by level, at the launcher's own geometry and at every one
+    it may choose (no atomics, a fixed order)."""
+    A = _sym_random(6 * bs, 0.008, 2)
+    plan = block_symbolic(A, bs)
+    tp = clk.build_clk_tapes(plan, cuda)
+    pool = blocklu.init_pool(plan, A.data, np.float32, cuda)
+    linv = torch.randn((plan.nb, bs, bs), device=cuda) / bs
+    for level in range(tp.nlvl):
+        for g in _wave_geoms(bs):
+            a, b = pool.clone(), pool.clone()
+            _clk_waves(a, linv, tp, level, g)
+            _clk_waves(b, linv, tp, level, g)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (level, g)
+        clk.clk_update(pool, linv, tp, level, "default")
 
 
 def test_bf16_first_gssvx_on_the_card(cuda):
@@ -1844,6 +1904,51 @@ def test_tck_bf16_entries_match_plain(cuda, bs, mat):
         assert e["slu_tck_waves_bf16"] == int(tp.lwave[-1]) > 0
         assert e["slu_tck_tiles_bf16"] == ntiles > 0
         assert tck.UPDATE.launches == 0
+
+
+@pytest.mark.parametrize("mat", ["lap3d12", "random1"])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_tck_bf16_waves_every_geometry(cuda, bs, mat):
+    """slu_tck_waves_bf16 (phase A) against tck_waves_plain at "default",
+    level by level from the same pool, at the launcher's own geometry and
+    at every (strip width, ring depth) it may choose, each forced: within
+    BF16_TOL of scale and all bit-equal; the tapes hold a finalize alone,
+    lap3d12's lists longer than one."""
+    plan, data = _bf16_plan(cuda, mat, bs, "tck")
+    tp = tck.build_tck_tapes(plan, cuda)
+    alone, longest = _finalize_only(tp)
+    assert alone and (longest > 1 or mat != "lap3d12")
+    geoms = _wave_geoms(bs)
+    pool = blocklu.init_pool(plan, data, np.float32, cuda)
+    linv, uinv, tiny = _zero_inverses(pool, plan.nb)
+    tck.UPDATE_BF16.reset_counts()
+    for level in range(tp.nlvl):
+        ref = pool.clone()
+        tck.tck_waves_plain(ref, linv, tp, level, "default")
+        scale = max(1.0, float(ref.abs().max()))
+        outs = []
+        for g in geoms:
+            out = pool.clone()
+            if g is None:
+                tck.tck_waves(out, linv, tp, level, "default")
+            else:
+                clk.launch_waves(tck.UPDATE_BF16, "slu_tck_waves_bf16", out,
+                                 linv, tp, level, g)
+            torch.cuda.synchronize()
+            assert float((out - ref).abs().max()) <= BF16_TOL * scale, \
+                (level, g)
+            outs.append(out)
+        for g, out in zip(geoms[1:], outs[1:]):
+            assert torch.equal(out, outs[0]), (level, g)
+        pool = outs[0]
+        del outs, ref
+        tck.tck_tiles(pool, tp, level, "default")
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        0.0, tiny)
+        clk.clk_trsm(pool, uinv, tp, level, "default")
+    e = tck.UPDATE_BF16.entry_launches
+    assert e["slu_tck_waves_bf16"] == len(geoms) * int(tp.lwave[-1]) > 0
 
 
 @pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
@@ -2017,7 +2122,7 @@ def test_xprof_trace_on_the_card(cuda, tmp_path):
     names = {e.get("name") for e in events}
     assert {"slu:FACT", "slu:SOLVE", "slu:REFINE"} <= names
     kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    for k in ("diag_lu_kernel", "wave_kernel", "band_times_inverse",
+    for k in ("diag_lu_kernel", "wave_mma_kernel", "band_times_inverse",
               "chunk_kernel", "rows_kernel"):
         assert any(k in nm for nm in kern), k
 
