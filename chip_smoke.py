@@ -12,9 +12,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm``,
    ``diag_apply`` and of ``rdma.cu``'s six entries, and every bf16-pass
    instantiation of ``clk.cu`` (``waves.cuh``'s ``wave_mma_kernel``, and
-   ``band_times_inverse`` with its BF16 flag set), of ``tck.cu``
-   (``tck_tile_mma_kernel``) and of ``flk.cu`` (on ``chain.cuh``'s
-   ``ChainMma``), must spill no registers;
+   ``band_times_inverse`` with its BF16 flag set), and of ``tck.cu`` and
+   ``flk.cu`` (``passes.cuh``'s ``chunks_mma_kernel``, ``sum_mma_kernel``
+   and their bodies ``chunk_band_mma``, ``sum_band_mma``), must spill no
+   registers;
 3. the main path through the user entry point:
    ``gssvx(A, b, Options(dtype="float32", block_size=128))`` on
    ``laplacian_3d(32)`` (n = 32,768), with every launch count set to 0
@@ -228,13 +229,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    13b. tck's and flk's bf16 pass (ROADMAP.md item 2b) on lap3d32:
    gssvx under "auto" through tck, flk and ILU(1) (SamePattern_SameRowPerm
    refactors of phase 5's plans), driven like the main path
-   (tck_update_bf16 and clk_trsm_bf16, or flk_bf16, must launch; the FP32
-   entries only after an escalation, which the counter must report),
-   each twice with bit-equal x and equal refinement steps;
-   tck_update_bf16 and flk_bf16 against their plain versions at
+   (tck_update_bf16 and clk_trsm_bf16, or flk_bf16, must launch, as
+   often as the tapes say; the FP32 entries only after an escalation,
+   which the counter must report), each twice with bit-equal x and equal
+   refinement steps; tck_update_bf16 (phase B on the positions' chains
+   cut into chunks) and flk_bf16 against their plain versions at
    "default" level by level (BF16_TOL, and closer to the bf16 plain
    version than the FP32 pass is, by ten times; their costliest levels
-   and groups, bounds at the dense bf16 tensor-core peak); and per
+   and groups, bounds at the dense bf16 tensor-core peak, phase B's
+   beside its time); and per
    executor FACT / SOLVE / REFINE, the steps, berr and the escalation
    under "auto" and "highest" in turns, with the executor's kernels
    inside one warm factor at each precision;
@@ -383,7 +386,8 @@ REPLACES = {
 ALSO_REPLACES = {"schur": "superlu_dist_tpu/ops/kernels/pallas_exec.py:52"}
 #: where a kernel's body lives when it is not in the source that builds it
 SOURCE = {"trsm": "panel.cuh", "clk_trsm": "panel.cuh",
-          "clk_trsm_bf16": "panel.cuh"}
+          "clk_trsm_bf16": "panel.cuh", "flk": "passes.cuh",
+          "flk_bf16": "passes.cuh"}
 #: the pass precision of each fused executor's row (the others run the
 #: working type)
 PRECISION = {"clk_update": "highest", "clk_trsm": "highest",
@@ -463,12 +467,12 @@ def main() -> None:
                  "clk.cu (the bf16 waves)")
     check_spills(_build.ptxas_report(clk.UPDATE), ("true>(", "Lb1EEv"),
                  "clk.cu (the bf16 pass)")
-    # tck's phase B and flk's chain in the bf16 pass (tck.cu's
-    # wave_mma_kernel is clk.cu's, checked above)
-    check_spills(_build.ptxas_report(tck.UPDATE), "tck_tile_mma",
-                 "tck.cu (the bf16 pass)")
-    check_spills(_build.ptxas_report(flk.KERNEL), "ChainMma",
-                 "flk.cu (the bf16 pass)")
+    # tck's phase B and flk's chain in the bf16 pass, passes.cuh's
+    # kernels and their bodies (tck.cu's wave_mma_kernel is clk.cu's,
+    # checked above)
+    for k in (tck.UPDATE, flk.KERNEL):
+        check_spills(_build.ptxas_report(k), ("mma_kernel", "band_mma"),
+                     f"{k.source} (the bf16 pass)")
     ctx = dict(torch=torch, blocklu=blocklu, clk=clk, diag_lu=diag_lu,
                flk=flk, schur=schur, sweep=sweep, solve_gemm=solve_gemm,
                tck=tck, rdma=rdma, kernels=kernels, entry_launches={},
@@ -1717,6 +1721,10 @@ def tck_phase(ctx, rng, checks, launches):
           f"{len(tp.host['tiles'])} tiles of up to {tp.w} rows; the TPU "
           f"stream at {tp.w} rows: {c['tiles']} tiles, {c['gemm']} GEMM "
           f"chunks, {c['finu']} FINU jobs", flush=True)
+    pb = phase_b_bound(plan, tp)
+    print(f"lap3d50 tck_update_bf16 phase B (its chains): bound "
+          f"{pb['bound_ms']:.4f} ms ({pb['bound_by']}) per factor",
+          flush=True)
     warm_call(ctx, "tck lap3d50", A, b, opts)
     checks.update(check_tck(lu, ctx, report=True))
     print_check("tck_update", checks["tck_update"], launches["tck_update"])
@@ -1754,6 +1762,9 @@ def tck_phase(ctx, rng, checks, launches):
                   f"plain {o['plain_ms']:.3f} ms, bound {o['bound_ms']:.4f}"
                   f" ms ({o['bound_by']}); {got['flk']} launches on its "
                   f"path", flush=True)
+            w = fused_bf16_bound(lu.plan, lu._ftapes, lu, ctx)
+            print(f"lap3d50 flk_bf16: bound {w['bound_ms']:.4f} ms "
+                  f"({w['bound_by']}) per factor", flush=True)
             # phase 13b on lap3d50: flk bf16-first against "highest"
             precision_compare(ctx, "lap3d50 flk", A, b,
                               opts.replace(executor="flk"), lu)
@@ -2529,31 +2540,50 @@ def profile_phase(lu, A, b):
 def print_tck_levels(tp, per_level, top=6, name="tck_update"):
     """Where tck_update's time goes: the costliest levels, each with
     phase A (waves, U targets, L·U products, critical path: the longest
-    per-wave lists summed) and phase B (tiles, their rows, L·U products,
-    the longest tile's list), and each phase's ms."""
+    per-wave lists summed) and phase B (FP32: tiles, their rows, L·U
+    products, the longest tile's list; bf16: positions, L·U products, the
+    longest chain of one position, which the tiles could not cut, chunks
+    and the longest, positions of several chunks), and each phase's
+    ms."""
     h = tp.host
     cnt = np.diff(h["pptr"])
     tcnt = h["tiles"][:, 3] - h["tiles"][:, 2]
+    bf16 = name.endswith("_bf16")
+    c = tp.chains
     total = sum(r[0] for r in per_level)
+    nb_ = (f"{int(c.qptr[-1])} chunks of {len(c.host['tslot'])} positions"
+           if bf16 else f"{len(tcnt)} tiles")
     print(f"{name} by level (kernel {total:.3f} ms over {tp.nlvl} "
           f"levels: phase A {sum(r[1] for r in per_level):.3f} ms in "
           f"{int(tp.lwave[-1])} waves, phase B "
-          f"{sum(r[2] for r in per_level):.3f} ms in {len(tcnt)} tiles; top "
-          f"{top}):")
+          f"{sum(r[2] for r in per_level):.3f} ms in {nb_}; top {top}):")
     for ms, ms_a, ms_b, lvl in sorted(per_level, reverse=True)[:top]:
         w0, w1 = int(tp.lwave[lvl]), int(tp.lwave[lvl + 1])
         t0, t1 = int(tp.wptr[w0]), int(tp.wptr[w1])
         crit = sum(int(cnt[tp.wptr[w]:tp.wptr[w + 1]].max(initial=0))
                    for w in range(w0, w1))
         b0, b1 = int(tp.tptr[lvl]), int(tp.tptr[lvl + 1])
+        if bf16:
+            p0, p1 = int(c.tptr[lvl]), int(c.tptr[lvl + 1])
+            q0, q1 = int(c.qptr[lvl]), int(c.qptr[lvl + 1])
+            qn = np.diff(c.host["qcptr"][q0:q1 + 1])
+            pb = (f"{p1 - p0} positions, {int(qn.sum())} L·U products, "
+                  f"longest chain of one position "
+                  f"{int(np.diff(c.host['cptr'][p0:p1 + 1]).max(initial=0))}"
+                  f" ({b1 - b0} tiles); {q1 - q0} chunks (longest "
+                  f"{int(qn.max(initial=0))}), "
+                  f"{int(c.mptr[lvl + 1] - c.mptr[lvl])} positions of "
+                  "several")
+        else:
+            pb = (f"{b1 - b0} tiles of up to {int(h['trows'][lvl])} rows "
+                  f"(tallest {int(tp.hmax[lvl])}), "
+                  f"{int(tcnt[b0:b1].sum())} L·U products, longest tile "
+                  f"{int(tcnt[b0:b1].max(initial=0))}")
         print(f"  level {lvl:3d}: kernel {ms:9.3f} ms; phase A {ms_a:.3f} "
               f"ms: {w1 - w0} waves, {t1 - t0} U targets, "
               f"{int(cnt[t0:t1].sum())} L·U products, critical path {crit} "
               f"({1e3 * ms_a / max(crit, 1):.2f} us a product);"
-              f" phase B {ms_b:.3f} ms: {b1 - b0} tiles of up to "
-              f"{int(h['trows'][lvl])} rows (tallest {int(tp.hmax[lvl])}), "
-              f"{int(tcnt[b0:b1].sum())} L·U products, longest tile "
-              f"{int(tcnt[b0:b1].max(initial=0))}", flush=True)
+              f" phase B {ms_b:.3f} ms: {pb}", flush=True)
 
 
 def print_update_levels(tp, per_level, bs, top=6, name="clk_update"):
@@ -3474,18 +3504,18 @@ def precision_compare(ctx, what, A, b, opts, lu):
 
 
 def check_fused_bf16(lu, ctx, report=False):
-    """tck's or flk's bf16 pass (``lu.executor``: ``slu_tck_waves_bf16``
-    and ``slu_tck_tiles_bf16``, or ``slu_flk_chunks_bf16`` and
-    ``slu_flk_sum_bf16``) against its plain version at "default" on
-    ``lu``'s plan, tck phase by phase and flk group by group, level by
-    level: both get the same input and the factor goes on with the
-    kernel's output (diag_lu, and for tck clk_trsm_bf16, run as kernels
-    between them). Held to BF16_TOL (a finalize inside a launch rounds a
+    """tck's or flk's bf16 pass (``lu.executor``: ``slu_tck_waves_bf16``,
+    then ``slu_tck_chunks_bf16`` and ``slu_tck_sum_bf16`` on phase B's
+    chains, or ``slu_flk_chunks_bf16`` and ``slu_flk_sum_bf16``) against
+    its plain version at "default" on ``lu``'s plan, tck phase by phase
+    and flk group by group, level by level: both get the same input and
+    the factor goes on with the kernel's output (diag_lu, and for tck
+    clk_trsm_bf16, run as kernels between them). Held to BF16_TOL (a finalize inside a launch rounds a
     sum that the two order differently), and over the factor its summed
     distance from the bf16 plain version to BF16_FRACTION of the FP32
     plain pass's. No one PyTorch call computes either (library_ms None).
-    With ``report`` it prints the costliest levels (tck) or groups
-    (flk)."""
+    With ``report`` it prints the costliest levels (tck, with phase B's
+    time beside its own bound, :func:`phase_b_bound`) or groups (flk)."""
     torch, tck, flk, clk, diag_lu = (ctx[k] for k in (
         "torch", "tck", "flk", "clk", "diag_lu"))
     plan, tp = lu.plan, lu._ftapes
@@ -3514,8 +3544,8 @@ def check_fused_bf16(lu, ctx, report=False):
             ms_a = step(lambda p: tck.tck_waves(p, linv, tp, lvl, "default"),
                         lambda p, pr: tck.tck_waves_plain(p, linv, tp, lvl,
                                                           pr))
-            ms_b = step(lambda p: tck.tck_tiles(p, tp, lvl, "default"),
-                        lambda p, pr: tck.tck_tiles_plain(p, tp, lvl, pr))
+            ms_b = step(lambda p: tck.tck_chains(p, tp, lvl),
+                        lambda p, pr: tck.tck_chains_plain(p, tp, lvl, pr))
             per.append((ms_a + ms_b, ms_a, ms_b, lvl))
             diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
                             tp.dstep[lo:hi], th, tiny)
@@ -3532,6 +3562,10 @@ def check_fused_bf16(lu, ctx, report=False):
                                 tp.dstep[lo:hi], th, tiny)
     if report and name == "tck_update_bf16":
         print_tck_levels(tp, per, name=name)
+        pb = phase_b_bound(plan, tp)
+        print(f"{name} phase B: kernel {sum(r[2] for r in per):.3f} ms, "
+              f"bound {pb['bound_ms']:.4f} ms ({pb['bound_by']}) per "
+              "factor", flush=True)
     elif report:
         print_flk_groups(tp, per, plan.bs, name=name)
     o = ck.out[name]
@@ -3554,6 +3588,41 @@ def fused_bf16_bound(plan, tp, lu, ctx):
                       np.float32) if lu.executor == "tck"
          else flk_bounds(plan, tp, ctx["flk"]))
     return _bound(w["flops"], w["bytes"], "factor", peak=BF16_PEAK_FLOPS)
+
+
+def phase_b_bound(plan, tp):
+    """tck's phase B in the bf16 pass (its chains), counted as
+    :func:`update_bound` counts: 2·bs³ per product at the dense bf16
+    tensor-core peak; per level the distinct L sources, U blocks and
+    targets read once and the targets written once, at the memory
+    rate."""
+    blk = _blk(plan, np.float32)
+    c = tp.chains.host
+    nbytes = 0.0
+    for lvl in range(tp.nlvl):
+        t0, t1 = int(c["tptr"][lvl]), int(c["tptr"][lvl + 1])
+        if t1 == t0:
+            continue
+        p = slice(int(c["cptr"][t0]), int(c["cptr"][t1]))
+        tgt = c["tslot"][t0:t1]
+        reads = np.union1d(np.union1d(c["cl"][p], c["cu"][p]), tgt)
+        nbytes += blk * (len(reads) + len(tgt))
+    return _bound(2.0 * plan.bs ** 3 * len(c["cl"]), nbytes, "factor",
+                  peak=BF16_PEAK_FLOPS)
+
+
+def fused_launches(lu, name):
+    """The launches of one bf16 factor of ``lu`` on its tapes: for tck one
+    a wave, one a level with chunks and one a level with positions of
+    several chunks; for flk one a group with chunks and one a group with
+    targets of several chunks."""
+    tp = lu._ftapes
+    if name == "tck_update_bf16":
+        c = tp.chains
+        return int(tp.lwave[-1]) + int((np.diff(c.qptr) > 0).sum()) + \
+            int((np.diff(c.mptr) > 0).sum())
+    return int((np.diff(tp.qptr) > 0).sum()) + \
+        int((np.diff(tp.mptr) > 0).sum())
 
 
 def fused_precision_phase(ctx, checks, launches, A, b, lus):
@@ -3590,6 +3659,10 @@ def fused_precision_phase(ctx, checks, launches, A, b, lus):
                 any((got[k] > 0) != esc for k in fp32):
             fail(f"{what}: the counter or the FP32 launches disagree with "
                  "the escalation")
+        want = fused_launches(lu, key)
+        if got[key] != want:
+            fail(f"{what}: {got[key]} launches of {key}, the tapes give "
+                 f"{want} a factor")
         if name != "ilu1":
             launches[key] = got[key]
             e = ctx["entry_launches"][key] = dict(

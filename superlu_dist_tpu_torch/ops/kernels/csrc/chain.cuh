@@ -1,4 +1,5 @@
-// chain.cuh: the staged chain product, shared by flk.cu (`flk`),
+// chain.cuh: the staged chain product, shared by flk.cu (`flk`, through
+// passes.cuh),
 // schur.cu (`schur`, in float and double) and rdma.cu (`rdma_schur`, and
 // the launch geometry of `rdma_panel`); schur_band is the Schur update's
 // body that `schur` and `rdma_schur` share.
@@ -62,22 +63,9 @@
 // CTA) at every block size and launch, whatever `wide` asks, its k loop
 // rolled (unrolled whole it spilled 60 bytes).
 //
-// The bf16 pass (ChainMma<G>, flk's gemm_precision "default": the TPU
-// kernel's dot() at precision "default", flk.py:439-441 there, in the
-// chain product :532 and both panel finalizes :557 and :563):
-// chain_band_mma runs the same chunks, ring, order and finalize, every
-// product and the finalize on the tensor cores through mma.cuh's m16n8k16
-// bf16 tiles with float32 accumulation. The band is held in the C layout
-// (a warp owns whole 16 x 8 tiles: panel.cuh's PanelMma, 2 x 4 tiles a
-// warp in bands of 64, 1 x 4 in bands of 16 rows, 2 x 2 in bands of 16
-// columns), the staged rows of B are N + 4 floats apart, and the band as
-// the finalize's operand is kept with rows of BS + 4 floats: as A (rows
-// of the band) or transposed as B (a column of the band per row), so that
-// its fragments and the inverse's are read without bank conflicts and the
-// bands of 64 with a finalize keep two CTAs an SM (113 KiB). Operands are
-// rounded to bf16 as their fragments are built; the sums, the pool, the
-// scratch rows and the band stay float32. Chain (BF16 = false) compiles
-// to the FP32 code above, unchanged.
+// The bf16 pass of this product (ChainMma, chain_band_mma: the products
+// and the finalize on the tensor cores) lives in passes.cuh, on these
+// geometries.
 //
 // Offsets are computed in 64 bits (slot * bs^2 passes 2^31 near n = 885k).
 
@@ -111,7 +99,6 @@ struct Chain {
   template <bool LEFT>
   using Band = Panel<T, BS_, LEFT, BM_, TN>;
   static constexpr int UK = UK_ > 0 ? UK_ : Band<true>::KC / Band<true>::W;
-  static constexpr bool BF16 = false;
   static constexpr int BS = BS_;
   static constexpr int BM = BM_;
   static constexpr int BANDS = BS / BM;
@@ -203,112 +190,6 @@ __device__ __forceinline__ void chain_band(
           acc[i][j] = p < np ? acc[i][j] - prod[i][j] : prod[i][j];
           prod[i][j] = T(0);
         }
-      if (has_fin && p == np - 1) put_fin();   // read after the next barrier
-    }
-  }
-}
-
-// The bf16 pass's geometry of a float Chain G with a finalize: the warp
-// tiles of either orientation (Mma<LEFT>), a ring stage that holds either
-// orientation's chunk with B rows padded, and the band as the finalize's
-// operand with rows of LDT floats.
-template <class G>
-struct ChainMma : G {
-  static_assert(G::HAS_FIN && G::template Band<true>::W == 4,
-                "the bf16 pass is float's, with a finalize");
-  template <bool LEFT>
-  using Mma = slu_panel::PanelMma<typename G::template Band<LEFT>>;
-  static constexpr bool BF16 = true;
-  static constexpr int kStage = Mma<true>::kStage > Mma<false>::kStage
-                                    ? Mma<true>::kStage
-                                    : Mma<false>::kStage;
-  static constexpr int LDT = G::BS + 4;
-  static constexpr int kFin = G::BM * LDT;
-  static constexpr size_t kBytes =
-      (size_t)(G::STAGES * kStage + kFin) * sizeof(float);
-  static_assert(kBytes <= 113 * 1024, "shared memory: two CTAs per SM");
-};
-
-// chain_band in the bf16 pass (G a ChainMma): the same chunks, ring and
-// order; acc holds this warp's tiles of the band in the C layout (rows
-// r0 + 16 i, columns c0 + 8 j of Band<LEFT>).
-template <class G, bool LEFT, typename Src>
-__device__ __forceinline__ void chain_band_mma(
-    float* smem, int np, const float* inv, Src src, int r0, int c0,
-    float (&acc)[G::template Mma<LEFT>::WM][G::template Mma<LEFT>::WN][4]) {
-  using P = typename G::template Band<LEFT>;
-  using Q = typename G::template Mma<LEFT>;
-  constexpr int ST = G::STAGES, KC = P::KC, WM = Q::WM, WN = Q::WN;
-  constexpr int NK = G::BS / KC;   // chunks per product
-  float* fin = smem + ST * G::kStage;
-  const bool has_fin = inv != nullptr;
-  const int nchunks = (np + (has_fin ? 1 : 0)) * NK;
-
-  // the band as the finalize's operand: B transposed (LEFT: row q of fin
-  // is column q of the band) or A (rows of the band), rows LDT apart
-  auto put_fin = [&]() {
-#pragma unroll
-    for (int i = 0; i < WM; ++i)
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        if constexpr (LEFT)
-          slu_mma::store_ct<G::LDT>(fin, r0 + 16 * i, c0 + 8 * j, acc[i][j]);
-        else
-          slu_mma::store_c<G::LDT>(fin, r0 + 16 * i, c0 + 8 * j, acc[i][j]);
-      }
-  };
-  auto load = [&](int c) {
-    const int p = c / NK;
-    const float* Ag = LEFT ? inv : nullptr;
-    const float* Bg = LEFT ? nullptr : inv;
-    if (p < np) src(p, Ag, Bg);
-    stage_chunk<P, Q::LDB>(smem + (c % ST) * G::kStage, Ag, Bg,
-                           (c % NK) * KC);
-  };
-
-  if (has_fin && np == 0) put_fin();   // read after the first barrier
-#pragma unroll
-  for (int c = 0; c < ST - 1; ++c) {
-    if (c < nchunks) load(c);
-    cp_async_commit();
-  }
-  float prod[WM][WN][4];
-#pragma unroll
-  for (int i = 0; i < WM; ++i)
-#pragma unroll
-    for (int j = 0; j < WN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) prod[i][j][e] = 0.f;
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<ST - 2>();   // chunk c has landed
-    __syncthreads();           // ... for every thread; stage c-1 is free
-    if (c + ST - 1 < nchunks) load(c + ST - 1);
-    cp_async_commit();
-    const int p = c / NK;
-    const float* st = smem + (c % ST) * G::kStage;
-    if (p < np) {
-      slu_mma::mma_chunk<KC, P::LDA, Q::LDB, WM, WN>(st, st + P::kA, r0, c0,
-                                                    prod);
-    } else {
-      const int k0 = (c % NK) * KC;
-      if constexpr (LEFT)
-        slu_mma::mma_chunk<KC, P::LDA, G::LDT, WM, WN, true>(
-            st, fin + k0, r0, c0, prod);
-      else
-        slu_mma::mma_chunk<KC, G::LDT, Q::LDB, WM, WN>(
-            fin + k0, st + P::kA, r0, c0, prod);
-    }
-    if (c % NK == NK - 1) {   // product p (or the finalize) is complete
-#pragma unroll
-      for (int i = 0; i < WM; ++i)
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[i][j][e] =
-                p < np ? acc[i][j][e] - prod[i][j][e] : prod[i][j][e];
-            prod[i][j][e] = 0.f;
-          }
       if (has_fin && p == np - 1) put_fin();   // read after the next barrier
     }
   }

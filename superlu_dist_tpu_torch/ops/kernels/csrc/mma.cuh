@@ -1,6 +1,6 @@
 // mma.cuh: bf16 tensor-core products with float32 accumulation, for the
 // low pass of the fused factors (waves.cuh's update, panel.cuh's band
-// product, tck.cu's tiles, chain.cuh's chain product in flk.cu):
+// product, passes.cuh's chain product in flk.cu and tck.cu):
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on fragments built
 // from float32 operands staged in shared memory.
 //

@@ -49,18 +49,22 @@
 // finalize :306, the update products :311 and :346 and the L finalize
 // :323, in one bf16 pass with float32 accumulation). Phase A is
 // waves.cuh's wave_mma_kernel (clk.cu's slu_clk_waves_bf16, each wave at
-// the geometry that the host chooses); phase B (tck_tile_mma_kernel) keeps
-// the tiles, the ring and the order, with the products on the tensor
-// cores through mma.cuh's m16n8k16 bf16 tiles: warp w owns rows 32w ..
-// 32w + 31 of every tile position (two m16 by two n8 tiles, in the C
-// layout), so a tile still needs no barrier of its own; the staged U
-// chunks keep rows of TNB + 4 floats (distinct banks for a B fragment's k
-// rows). Operands are rounded to bf16 as their fragments are built; the
-// tile, the sums and the pool stay float32. The TRSM jobs are clk.cu's
-// slu_clk_trsm_bf16. With the padded ring a tile of 20 rows at bs = 64
-// (tck.py::tile_rows) takes 117,248 bytes, one CTA an SM; at bs 32 and
-// 128 the tallest tiles keep two.
+// the geometry that the host chooses). Phase B does not keep the tiles:
+// a tile's products run in one chain on one CTA, and at the top of the
+// elimination tree a level's few tiles each hold one position whose chain
+// of 80-100 products no tile height can shorten. So the host cuts each
+// position's chain (the tile's products into it, in the same order) into
+// chunks of at most flk.CHUNK_MAX products (tck.py::_chain_tapes, by
+// flk's rule), and phase B runs flk's two passes over them on passes.cuh's
+// bf16 chain product (slu_tck_chunks_bf16, slu_tck_sum_bf16: no
+// finalize, FIN_NONE targets): pass 1 finishes a position of one chunk
+// and writes each chunk of the others to a float32 scratch row, pass 2
+// adds a position's rows in chunk order; no atomics, so a factor repeats
+// bit for bit. Operands are rounded to bf16 as their fragments are built;
+// the sums, the pool and the scratch rows stay float32. The TRSM jobs are
+// clk.cu's slu_clk_trsm_bf16.
 
+#include "passes.cuh"
 #include "waves.cuh"
 
 namespace {
@@ -78,11 +82,10 @@ constexpr int STB = 3;
 constexpr int kTileFields = 4;          // slot0, rows, q0, q1
 constexpr int kMaxSmem = 227 * 1024;    // opt-in shared memory of a CTA
 
-// the ring (U chunk rows UL floats apart), then the tile of `rows`
-// positions (BS x TNB each)
-template <int BS, int UL = TNB>
+// the ring, then the tile of `rows` positions (BS x TNB each)
+template <int BS>
 size_t tile_smem_bytes(int rows) {
-  return (size_t)(Ring<BS, TNB, STB, UL>::kFloats + rows * BS * TNB) *
+  return (size_t)(Ring<BS, TNB, STB>::kFloats + rows * BS * TNB) *
          sizeof(float);
 }
 
@@ -160,137 +163,21 @@ tck_tile_kernel(float* __restrict__ pool,
     }
 }
 
-// tck_tile_kernel in the bf16 pass (the header says how it is laid out).
 template <int BS>
-__global__ void __launch_bounds__(Ring<BS, TNB, STB>::kThreads)
-tck_tile_mma_kernel(float* __restrict__ pool,
-                    const int32_t* __restrict__ tiles,
-                    const int32_t* __restrict__ bl,
-                    const int32_t* __restrict__ bu,
-                    const int32_t* __restrict__ bd, int t0) {
-  constexpr int UL = slu_waves::kMmaUL<TNB>;
-  using S = Ring<BS, TNB, STB, UL>;
-  static_assert(TNB == 16 && S::kThreads == BS,
-                "a warp per 32 rows of a strip of 16 columns");
-  constexpr int NK = S::NK;
-  constexpr int TP = BS * TNB;           // floats of a tile position
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* tile = smem + S::kFloats;       // rows x BS x TNB
-  const int32_t* tr = tiles + (int64_t)kTileFields * (t0 + blockIdx.x);
-  const int64_t bb = (int64_t)BS * BS;
-  const int s0 = blockIdx.y * TNB;
-  const int r0 = (threadIdx.x >> 5) * 32;
-  const int rows = tr[1], q0 = tr[2];
-  const int nchunks = (tr[3] - q0) * NK;
-  float* T0 = pool + (int64_t)tr[0] * bb + s0;
-
-  // this warp's tiles of every tile position
-  for (int p = 0; p < rows; ++p)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v[4];
-        slu_mma::load_c<BS>(T0 + p * bb, r0 + 16 * i, 8 * j, v);
-        slu_mma::store_c<TNB>(tile + p * TP, r0 + 16 * i, 8 * j, v);
-      }
-
-  auto load = [&](int c) {
-    const int q = q0 + c / NK;
-    slu_waves::stage<BS, TNB, UL>(smem + (c % STB) * S::kStage,
-                                  pool + (int64_t)bl[q] * bb,
-                                  pool + (int64_t)bu[q] * bb + s0,
-                                  (c % NK) * KC);
-  };
-#pragma unroll
-  for (int c = 0; c < STB - 1; ++c) {
-    if (c < nchunks) load(c);
-    slu_waves::cp_async_commit();
-  }
-  float prod[2][2][4] = {};
-  for (int c = 0; c < nchunks; ++c) {
-    slu_waves::cp_async_wait<STB - 2>();   // chunk c has landed
-    __syncthreads();               // ... for every thread; stage c-1 is free
-    if (c + STB - 1 < nchunks) load(c + STB - 1);
-    slu_waves::cp_async_commit();
-    const float* Ls = smem + (c % STB) * S::kStage;
-    slu_mma::mma_chunk<KC, slu_waves::LD, UL, 2, 2>(Ls, Ls + S::kL, r0, 0,
-                                                    prod);
-    if (c % NK == NK - 1) {   // the product is complete: into its position
-      float* T = tile + bd[q0 + c / NK] * TP;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float v[4];
-          slu_mma::load_c<TNB>(T, r0 + 16 * i, 8 * j, v);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            v[e] -= prod[i][j][e];
-            prod[i][j][e] = 0.f;
-          }
-          slu_mma::store_c<TNB>(T, r0 + 16 * i, 8 * j, v);
-        }
-    }
-  }
-  for (int p = 0; p < rows; ++p)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v[4];
-        slu_mma::load_c<TNB>(tile + p * TP, r0 + 16 * i, 8 * j, v);
-        slu_mma::store_c<BS>(T0 + p * bb, r0 + 16 * i, 8 * j, v);
-      }
-}
-
-template <int BS, bool BF16 = false>
 int launch_tiles(float* pool, const int32_t* tiles, const int32_t* bl,
                  const int32_t* bu, const int32_t* bd, int t0, int count,
                  int hmax, cudaStream_t stream) {
-  const size_t smem = BF16
-      ? tile_smem_bytes<BS, slu_waves::kMmaUL<TNB>>(hmax)
-      : tile_smem_bytes<BS>(hmax);
+  const size_t smem = tile_smem_bytes<BS>(hmax);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)count, BS / TNB);
   constexpr int nt = Ring<BS, TNB, STB>::kThreads;
-  cudaError_t e;
-  if constexpr (BF16) {
-    e = cudaFuncSetAttribute(tck_tile_mma_kernel<BS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    tck_tile_mma_kernel<BS><<<grid, nt, smem, stream>>>(pool, tiles, bl, bu,
-                                                        bd, t0);
-  } else {
-    e = cudaFuncSetAttribute(tck_tile_kernel<BS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    tck_tile_kernel<BS><<<grid, nt, smem, stream>>>(pool, tiles, bl, bu, bd,
-                                                    t0);
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      tck_tile_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  tck_tile_kernel<BS><<<grid, nt, smem, stream>>>(pool, tiles, bl, bu, bd,
+                                                  t0);
   return (int)cudaGetLastError();
-}
-
-// Phase B of one level in the FP32 kernel, or with BF16 its bf16 pass.
-template <bool BF16>
-int tiles_f32(void* pool, const void* tiles, const void* bl, const void* bu,
-              const void* bd, int t0, int count, int hmax, int bs,
-              void* stream) {
-  if (count == 0) return 0;
-  auto go = [&](auto launch) {
-    return launch((float*)pool, (const int32_t*)tiles, (const int32_t*)bl,
-                  (const int32_t*)bu, (const int32_t*)bd, t0, count, hmax,
-                  (cudaStream_t)stream);
-  };
-  switch (bs) {
-    case 32: return go(launch_tiles<32, BF16>);
-    case 64: return go(launch_tiles<64, BF16>);
-    case 128: return go(launch_tiles<128, BF16>);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -313,8 +200,18 @@ extern "C" int slu_tck_tiles_f32(void* pool, const void* tiles,
                                  const void* bl, const void* bu,
                                  const void* bd, int t0, int count, int hmax,
                                  int bs, void* stream) {
-  return tiles_f32<false>(pool, tiles, bl, bu, bd, t0, count, hmax, bs,
-                          stream);
+  if (count == 0) return 0;
+  auto go = [&](auto launch) {
+    return launch((float*)pool, (const int32_t*)tiles, (const int32_t*)bl,
+                  (const int32_t*)bu, (const int32_t*)bd, t0, count, hmax,
+                  (cudaStream_t)stream);
+  };
+  switch (bs) {
+    case 32: return go(launch_tiles<32>);
+    case 64: return go(launch_tiles<64>);
+    case 128: return go(launch_tiles<128>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // slu_tck_waves_f32 in the bf16 pass, wave w at the geometry geom[w]
@@ -331,11 +228,28 @@ extern "C" int slu_tck_waves_bf16(void* pool, const void* linv,
                                wptr, geom, nwaves, bs, nslots, ninv, stream);
 }
 
-// slu_tck_tiles_f32 in the bf16 pass.
-extern "C" int slu_tck_tiles_bf16(void* pool, const void* tiles,
-                                  const void* bl, const void* bu,
-                                  const void* bd, int t0, int count, int hmax,
-                                  int bs, void* stream) {
-  return tiles_f32<true>(pool, tiles, bl, bu, bd, t0, count, hmax, bs,
-                         stream);
+// Phase B of one level in the bf16 pass, pass 1: `count` chunks (int32
+// device arrays qtgt, qrow, qcptr at the level's first chunk; tslot, cl,
+// cu whole), each writing its position or its scratch row. `wide` < 0
+// chooses the band geometry by chain.cuh's rule, 0 / 1 force bands of 16
+// / 64.
+extern "C" int slu_tck_chunks_bf16(void* pool, void* scratch,
+                                   const void* qtgt, const void* qrow,
+                                   const void* qcptr, const void* tslot,
+                                   const void* cl, const void* cu, int count,
+                                   int bs, int wide, void* stream) {
+  return chunks_bf16(pool, nullptr, nullptr, scratch, qtgt, qrow, qcptr,
+                     tslot, nullptr, nullptr, cl, cu, count, bs, wide,
+                     stream);
+}
+
+// Pass 2: `count` positions of several chunks (mtgt, mrow, mcnt at the
+// level's first such position), each the sum of its scratch rows in chunk
+// order.
+extern "C" int slu_tck_sum_bf16(void* pool, const void* scratch,
+                                const void* mtgt, const void* mrow,
+                                const void* mcnt, const void* tslot,
+                                int count, int bs, int wide, void* stream) {
+  return sum_bf16(pool, nullptr, nullptr, scratch, mtgt, mrow, mcnt, tslot,
+                  nullptr, nullptr, count, bs, wide, stream);
 }

@@ -276,10 +276,6 @@ int waves_f32(void* pool, const void* linv, const void* tslot,
 // The bf16 pass (the header says how it is laid out)
 // ---------------------------------------------------------------------------
 
-// the staged rows of the U chunks in tck.cu's bf16 tiles
-template <int TN>
-constexpr int kMmaUL = TN + 4;
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }

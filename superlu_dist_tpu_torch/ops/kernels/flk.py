@@ -139,6 +139,22 @@ def band_width(bs: int, count: int, sms: int) -> int:
     return 16 if count * (bs // 64) < sms else 64
 
 
+#: the shared memory of each of two CTAs on one H100 SM
+HALF_SM_SMEM = 113 * 1024
+
+
+def chain_mma_bytes(bs: int, bm: int) -> int:
+    """Shared memory of a CTA of ``csrc/passes.cuh``'s bf16 chain product
+    (``ChainMma::kBytes``) in bands of ``bm`` at block size ``bs``: the
+    FP32 chain's stages (3 in bands of 64, else 4), each the larger
+    orientation's chunk (a bs x 32 or bm x 32 block of A in rows of 36
+    floats, then 32 rows of B of bm or bs floats padded by 4), and the band
+    as the finalize's operand, bm rows of bs + 4 floats."""
+    stages = 3 if bm == 64 else 4
+    stage = max(m * 36 + 32 * (n + 4) for m, n in ((bs, bm), (bm, bs)))
+    return (stages * stage + bm * (bs + 4)) * 4
+
+
 #: the longest chunk of the automatic cut: on an H100, chunks of 2 to 8
 #: products on every group took 6.1–7.3 ms per lap3d32 factor and 38–42
 #: on lap3d50, against 13.5–14.4 and 79–83 uncut (``tools/flk_ab.py``),
@@ -252,14 +268,26 @@ def flk_update_plain(pool, linv, uinv, tp: FlkTapes, group: int,
 def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes, group: int,
                             precision: str = "highest") -> None:
     """The two passes of :func:`flk_update` over the tapes' chunks in
-    plain PyTorch (the CPU tests hold the chunk fields with it): pass 1
-    finishes the targets of one chunk and sums each chunk of the others,
-    negated, into its scratch row; pass 2 adds a target's rows in chunk
-    order and finalizes it; the products and finalizes at
-    ``precision``."""
-    check_precision(precision)
+    plain PyTorch (the CPU tests hold the chunk fields with it):
+    :func:`passes_plain` with the group's finalizes; the products and
+    finalizes at ``precision``."""
     h = tp.host
-    q0, q1 = int(tp.qptr[group]), int(tp.qptr[group + 1])
+    passes_plain(pool, h, int(tp.qptr[group]), int(tp.qptr[group + 1]),
+                 int(tp.mptr[group]), int(tp.mptr[group + 1]),
+                 int(tp.nrow[group]), precision,
+                 lambda tgt: _finalize(pool, linv, uinv, h, tgt, precision))
+
+
+def passes_plain(pool, h, q0, q1, m0, m1, nrow, precision,
+                 finalize=None) -> None:
+    """The two passes over chunks ``q0:q1`` and pass-2 targets ``m0:m1``
+    of the chunk fields in ``h`` (:class:`FlkTapes`' names) in plain
+    PyTorch: pass 1 finishes the targets of one chunk and sums each chunk
+    of the others, negated, into its row of ``nrow`` scratch rows; pass 2
+    adds a target's rows in chunk order. ``finalize(targets)``, where
+    given, finalizes each target when its sum is complete; the products
+    at ``precision``."""
+    check_precision(precision)
     if q1 == q0:
         return
     dev, bs = pool.device, pool.shape[-1]
@@ -270,8 +298,7 @@ def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes, group: int,
     subtract_products(pool, h["cl"][prods[one]], h["cu"][prods[one]],
                       h["tslot"][h["qtgt"][pq[one]]],
                       lambda a, b: matmul_at(a, b, precision))
-    scratch = torch.zeros((int(tp.nrow[group]), bs, bs), dtype=pool.dtype,
-                          device=dev)
+    scratch = torch.zeros((nrow, bs, bs), dtype=pool.dtype, device=dev)
     for c in range(0, int((~one).sum()), SCHUR_CHUNK):
         p = prods[~one][c:c + SCHUR_CHUNK]
         scratch.index_add_(0, _idx(h["qrow"][pq[~one][c:c + SCHUR_CHUNK]],
@@ -279,9 +306,8 @@ def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes, group: int,
                            matmul_at(pool[_idx(h["cl"][p], dev)],
                                      pool[_idx(h["cu"][p], dev)], precision),
                            alpha=-1)
-    _finalize(pool, linv, uinv, h, h["qtgt"][qs[h["qrow"][qs] < 0]],
-              precision)
-    m0, m1 = int(tp.mptr[group]), int(tp.mptr[group + 1])
+    if finalize is not None:
+        finalize(h["qtgt"][qs[h["qrow"][qs] < 0]])
     if m1 == m0:
         return
     mt, cnt = h["mtgt"][m0:m1], h["mcnt"][m0:m1]
@@ -289,7 +315,8 @@ def flk_update_chunks_plain(pool, linv, uinv, tp: FlkTapes, group: int,
         has = cnt > k
         s = _idx(h["tslot"][mt[has]], dev)
         pool[s] += scratch[_idx(h["mrow"][m0:m1][has] + k, dev)]
-    _finalize(pool, linv, uinv, h, mt, precision)
+    if finalize is not None:
+        finalize(mt)
 
 
 def _idx(a, device):

@@ -14,17 +14,24 @@ each block column. Per elimination level, on one stream:
      lies above the diagonal; one launch per wave of the wave kernel that
      ``clk_update`` runs). A U block therefore sums by source wave, then
      ascending j, exactly as clk's U blocks do;
-   - phase B, ``tck_tiles``: one launch for the diagonal and L positions.
-     A column's positions are cut into tiles of up to ``w`` consecutive
-     rows; one CTA per (tile, strip) holds the tile in shared memory,
-     loaded once and stored once, and subtracts every product into it in
-     ascending source j, then L block (tck's and the JAX kernel's order).
-     Every source U(j,k) is final after phase A and comes from the pool.
-     A tile's products run in one chain, so each level takes the tallest
-     tile whose longest chain stays within the level's floor: the
-     longest chain of one position, or the level's products times
-     strips over ``sweep.CHUNK_CTAS`` (two CTAs per SM), its share of a
-     full card;
+   - phase B: the diagonal and L positions. In the FP32 pass
+     (``tck_tiles``) one launch: a column's positions are cut into tiles
+     of up to ``w`` consecutive rows; one CTA per (tile, strip) holds the
+     tile in shared memory, loaded once and stored once, and subtracts
+     every product into it in ascending source j, then L block (tck's
+     and the JAX kernel's order). Every source U(j,k) is final after
+     phase A and comes from the pool. A tile's products run in one
+     chain, so each level takes the tallest tile whose longest chain
+     stays within the level's floor: the longest chain of one position,
+     or the level's products times strips over ``sweep.CHUNK_CTAS`` (two
+     CTAs per SM), its share of a full card. In the bf16 pass
+     (``tck_chains``) each position's chain (the same products in the
+     same order) is cut into chunks of at most ``flk.CHUNK_MAX`` products
+     by flk's rule and runs on flk's two passes (``csrc/passes.cuh``, on
+     the bf16 chain product that flk's bf16 pass runs):
+     pass 1 finishes a position of one chunk and writes each chunk of the
+     others to a float32 scratch row, pass 2 adds a position's rows in
+     chunk order. No position waits on a chain longer than a chunk;
 2. ``diag_lu`` on the level's diagonal blocks (its DIAG jobs);
 3. ``clk_trsm``: L(i,k) ← L(i,k)·uinv(k) (its TRSM jobs).
 
@@ -35,8 +42,9 @@ products, as for clk (``clk.py`` says what each pass rounds):
 pass with float32 accumulation, as the TPU kernel's ``dot`` at precision
 ``"default"`` (tck.py:226-228 there: the U finalize, the update products
 and the L-part TRSM), on the tensor cores (``slu_tck_waves_bf16``,
-``slu_tck_tiles_bf16``, counted on ``UPDATE_BF16``; the TRSM on
-``clk.TRSM_BF16``). ``diag_lu`` is always full precision.
+``slu_tck_chunks_bf16``, ``slu_tck_sum_bf16``, counted on
+``UPDATE_BF16``; the TRSM on ``clk.TRSM_BF16``). ``diag_lu`` is always
+full precision.
 
 Columns of one level depend only on columns of lower levels, which
 replaces the TPU kernel's sequential grid. Without that grid the TPU's
@@ -59,6 +67,7 @@ from ..host.symbolic import SymbolicPlan
 from ._build import CudaKernel, ptr, stream_ptr
 from .clk import _waves, clk_trsm, clk_update_waves_plain, launch_waves
 from .diag_lu import CUDA_BLOCK_SIZES, diag_lu
+from .flk import _chunk_tapes, passes_plain
 from .schur import check_precision, matmul_at
 from .sweep import CHUNK_CTAS
 
@@ -71,11 +80,11 @@ UPDATE = CudaKernel("tck_update", "tck.cu", {
 UPDATE_BF16 = CudaKernel("tck_update_bf16", "tck.cu", {
     "slu_tck_waves_bf16": [_V] * 10 + [_I, _I, ctypes.c_int64,
                                        ctypes.c_int64, _V],
-    "slu_tck_tiles_bf16": [_V] * 5 + [_I] * 4 + [_V]})
-#: the kernel and the C entries (phase A, phase B) of each pass
-_PASS = {"highest": (UPDATE, "slu_tck_waves_f32", "slu_tck_tiles_f32"),
-         "default": (UPDATE_BF16, "slu_tck_waves_bf16",
-                     "slu_tck_tiles_bf16")}
+    "slu_tck_chunks_bf16": [_V] * 8 + [_I, _I, _I, _V],
+    "slu_tck_sum_bf16": [_V] * 6 + [_I, _I, _I, _V]})
+#: the kernel and the phase-A entry of each pass
+_PASS = {"highest": (UPDATE, "slu_tck_waves_f32"),
+         "default": (UPDATE_BF16, "slu_tck_waves_bf16")}
 
 MC = 8            # L blocks per GEMM chunk in the job count (the TPU's MC)
 TC = 8            # L blocks per TRSM job in the job count (its TC)
@@ -91,24 +100,54 @@ CTA_SMEM_MAX = 227 * 1024
 PLAIN_BATCH = 256
 
 
-def ring_bytes(bs: int, precision: str = "highest") -> int:
-    """Shared memory of waves.cuh's cp.async ring at block size ``bs``:
-    STAGES chunks of a bs x KC L chunk (rows padded by 4) and KC x TN of
-    the U strip (rows padded by 4 in the bf16 pass, ``precision``
-    "default")."""
-    ul = TN + 4 if precision == "default" else TN
-    return STAGES * (bs * (KC + 4) + KC * ul) * 4
+def ring_bytes(bs: int) -> int:
+    """Shared memory of the FP32 phase B's cp.async ring at block size
+    ``bs``: STAGES chunks of a bs x KC L chunk (rows padded by 4) and KC x
+    TN of the U strip."""
+    return STAGES * (bs * (KC + 4) + KC * TN) * 4
 
 
 def tile_rows(bs: int) -> int:
-    """The tallest tile (block rows) of phase B at block size ``bs``: the
-    rows of ``bs x TN`` floats that fit in ``TILE_SMEM`` beside the ring,
-    so that two CTAs share an SM (46 at bs 32, 20 at 64, 6 at 128; taller
-    tiles, up to the 227 KiB of one CTA, were no faster on an H100:
-    ``tools/tck_ab.py``). The bf16 pass's ring is wider (``ring_bytes``
-    at "default"): with it the 20 rows at bs 64 take one CTA an SM, the
-    tallest tiles at bs 32 and 128 still two."""
+    """The tallest tile (block rows) of the FP32 phase B at block size
+    ``bs``: the rows of ``bs x TN`` floats that fit in ``TILE_SMEM``
+    beside the ring, so that two CTAs share an SM (46 at bs 32, 20 at 64,
+    6 at 128; taller tiles, up to the 227 KiB of one CTA, were no faster
+    on an H100: ``tools/tck_ab.py``)."""
     return max(1, (TILE_SMEM - ring_bytes(bs)) // (bs * TN * 4))
+
+
+@dataclasses.dataclass
+class ChainTapes:
+    """Phase B of the bf16 pass: one chain per diagonal or L position
+    that has products, cut into chunks, in the fields of
+    :class:`flk.FlkTapes` (targets without finalize). ``tptr``, ``qptr``,
+    ``nrow`` and ``mptr`` are per level, host int64 arrays; the rest are
+    int32 device tensors.
+
+    - level l's positions are ``tptr[l]:tptr[l+1]``, in the tiles' order
+      (a tile's positions top down); position t is the block at pool slot
+      ``tslot[t]`` and sums ``pool[cl[p]]·pool[cu[p]]`` for p over
+      ``cptr[t]:cptr[t+1]`` in the tiles' order (ascending source j);
+    - chunks and pass 2 as in ``FlkTapes``: level l's chunks
+      ``qptr[l]:qptr[l+1]`` (``qtgt``, ``qrow``, ``qcptr``) over ``nrow[l]``
+      scratch rows, its positions of several chunks ``mptr[l]:mptr[l+1]``
+      (``mtgt``, ``mrow``, ``mcnt``).
+    """
+
+    tptr: np.ndarray
+    qptr: np.ndarray
+    nrow: np.ndarray
+    mptr: np.ndarray
+    tslot: torch.Tensor
+    cl: torch.Tensor
+    cu: torch.Tensor
+    qtgt: torch.Tensor
+    qrow: torch.Tensor
+    qcptr: torch.Tensor
+    mtgt: torch.Tensor
+    mrow: torch.Tensor
+    mcnt: torch.Tensor
+    host: dict
 
 
 @dataclasses.dataclass
@@ -156,17 +195,20 @@ class TckTapes:
     lptr: np.ndarray
     lslot: torch.Tensor
     lstep: torch.Tensor
+    chains: ChainTapes
     host: dict
 
 
 def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
-                    mc: int = MC) -> TckTapes:
+                    mc: int = MC, chunk: int | None = None) -> TckTapes:
     """Host tapes from the column-major slot order. With ``w`` None, each
     level's tiles are the tallest of up to ``tile_rows(plan.bs)`` rows
     that keep its longest chain within its floor; a given ``w`` cuts
     tiles of ``w`` rows on every level. ``mc`` is the TPU's GEMM chunk in
-    the job counts (taken at the tile rows ``tp.w``). Raises ValueError if
-    the exact-LU fill closure does not hold (an ILU plan)."""
+    the job counts (taken at the tile rows ``tp.w``). ``chunk`` forces
+    that chunk length on the bf16 phase B's chains (None:
+    ``flk.group_chunk`` per level). Raises ValueError if the exact-LU
+    fill closure does not hold (an ILU plan)."""
     nb = plan.nb
     fixed = w is not None
     w = int(w) if fixed else tile_rows(plan.bs)
@@ -271,7 +313,31 @@ def build_tck_tapes(plan: SymbolicPlan, device, w: int | None = None,
                                      "cu", "tiles", "bl", "bu", "bd",
                                      "dslot", "dstep", "lslot", "lstep")},
         dptr=np.asarray(lvo["dptr"]), lptr=np.asarray(lvo["lptr"]),
+        chains=_chain_tapes(tiles, host["bl"], host["bu"], bd, tptr,
+                            plan.bs, chunk, dev),
         host=host)
+
+
+def _chain_tapes(tiles, bl, bu, bd, tptr, bs, chunk, dev) -> ChainTapes:
+    """Phase B's products (tile by tile, each tile's in ascending source
+    j, then L block) regrouped by position, each position's keeping its
+    order, and cut into chunks by ``flk._chunk_tapes``."""
+    cnt = tiles[:, 3] - tiles[:, 2]
+    qtile = np.repeat(np.arange(len(tiles)), cnt)
+    o = np.lexsort((np.arange(len(qtile)), bd, qtile))
+    qt, d = qtile[o], bd[o]
+    new = np.ones(len(o), dtype=bool)
+    new[1:] = (qt[1:] != qt[:-1]) | (d[1:] != d[:-1])
+    start = np.flatnonzero(new)
+    tlev = np.repeat(np.arange(len(tptr) - 1), np.diff(tptr))[qt[start]]
+    host = dict(tslot=tiles[qt[start], 0] + d[start],
+                cptr=np.r_[start, len(o)], cl=bl[o], cu=bu[o],
+                tptr=np.searchsorted(tlev, np.arange(len(tptr))))
+    host.update(_chunk_tapes(host["cptr"], host["tptr"], bs, chunk))
+    ptrs = {k: host[k] for k in ("tptr", "qptr", "nrow", "mptr")}
+    return ChainTapes(**ptrs, host=host, **{
+        k: dev(host[k]) for k in ("tslot", "cl", "cu", "qtgt", "qrow",
+                                  "qcptr", "mtgt", "mrow", "mcnt")})
 
 
 def _tile_rows_by_level(lev, col, off, nlvl, w, share):
@@ -362,11 +428,26 @@ def tck_tiles_plain(pool, tp: TckTapes, level: int,
                         matmul_at(L, U, precision), alpha=-1)
 
 
+def tck_chains_plain(pool, tp: TckTapes, level: int,
+                     precision: str = "default") -> None:
+    """Plain version of :func:`tck_chains`: flk's two passes over the
+    level's chunks (``flk.passes_plain``; a position of one chunk sums
+    into itself, the others' chunks into scratch rows that are then added
+    in chunk order), the products at ``precision``."""
+    c = tp.chains
+    passes_plain(pool, c.host, int(c.qptr[level]), int(c.qptr[level + 1]),
+                 int(c.mptr[level]), int(c.mptr[level + 1]),
+                 int(c.nrow[level]), precision)
+
+
 def tck_update_plain(pool, linv, tp: TckTapes, level: int,
                      precision: str = "highest") -> None:
-    """Plain version of :func:`tck_update`: phase A, then phase B."""
+    """Plain version of :func:`tck_update`: phase A, then phase B in the
+    tiles' order (:func:`tck_tiles_plain`) at "highest" or the chunks'
+    (:func:`tck_chains_plain`) at "default"."""
     tck_waves_plain(pool, linv, tp, level, precision)
-    tck_tiles_plain(pool, tp, level, precision)
+    (tck_chains_plain if precision == "default" else tck_tiles_plain)(
+        pool, tp, level, precision)
 
 
 def tck_waves(pool, linv, tp: TckTapes, level: int,
@@ -377,38 +458,71 @@ def tck_waves(pool, linv, tp: TckTapes, level: int,
     check_precision(precision)
     if pool.device.type == "cpu":
         return tck_waves_plain(pool, linv, tp, level, precision)
-    _check_cuda(pool, linv, pool.shape[-1], tp.w, precision)
-    kernel, fn, _ = _PASS[precision]
+    _check_cuda(pool, linv, pool.shape[-1])
+    kernel, fn = _PASS[precision]
     launch_waves(kernel, fn, pool, linv, tp, level)
 
 
-def tck_tiles(pool, tp: TckTapes, level: int,
-              precision: str = "highest") -> None:
-    """Phase B of ``level``: its diagonal and L positions, tile by tile
-    (in place), one launch, the products at ``precision``."""
-    check_precision(precision)
+def tck_tiles(pool, tp: TckTapes, level: int) -> None:
+    """Phase B of ``level`` in the FP32 pass: its diagonal and L
+    positions, tile by tile (in place), one launch."""
     if pool.device.type == "cpu":
-        return tck_tiles_plain(pool, tp, level, precision)
-    _check_cuda(pool, pool, pool.shape[-1], tp.w, precision)
+        return tck_tiles_plain(pool, tp, level)
+    _check_cuda(pool, pool, pool.shape[-1], tp.w)
     lo, hi = int(tp.tptr[level]), int(tp.tptr[level + 1])
     if hi == lo:
         return
-    kernel, _, fn = _PASS[precision]
-    kernel.count(fn)
-    kernel.call(fn, ptr(pool), ptr(tp.tiles), ptr(tp.bl), ptr(tp.bu),
+    fn = "slu_tck_tiles_f32"
+    UPDATE.count(fn)
+    UPDATE.call(fn, ptr(pool), ptr(tp.tiles), ptr(tp.bl), ptr(tp.bu),
                 ptr(tp.bd), lo, hi - lo, int(tp.hmax[level]),
                 pool.shape[-1], stream_ptr(pool.device))
+
+
+def tck_chains(pool, tp: TckTapes, level: int, wide: int = -1) -> None:
+    """Phase B of ``level`` in the bf16 pass (in place): pass 1 over its
+    chunks, then pass 2 over its positions of several chunks. ``wide``
+    < 0 lets the kernel choose its bands (``csrc/chain.cuh``), 0 / 1
+    force bands of 16 / 64."""
+    if pool.device.type == "cpu":
+        return tck_chains_plain(pool, tp, level)
+    _check_cuda(pool, pool, pool.shape[-1])
+    c = tp.chains
+    q0, q1 = int(c.qptr[level]), int(c.qptr[level + 1])
+    if q1 == q0:
+        return
+    bs, stream = pool.shape[-1], stream_ptr(pool.device)
+    nrow = int(c.nrow[level])
+    scratch = torch.empty((nrow, bs, bs), dtype=pool.dtype,
+                          device=pool.device) if nrow else None
+    sp = ptr(scratch) if nrow else None
+    UPDATE_BF16.count("slu_tck_chunks_bf16")
+    UPDATE_BF16.call("slu_tck_chunks_bf16", ptr(pool), sp, ptr(c.qtgt[q0:]),
+                     ptr(c.qrow[q0:]), ptr(c.qcptr[q0:]), ptr(c.tslot),
+                     ptr(c.cl), ptr(c.cu), q1 - q0, bs, wide, stream)
+    m0, m1 = int(c.mptr[level]), int(c.mptr[level + 1])
+    if m1 > m0:
+        UPDATE_BF16.count("slu_tck_sum_bf16")
+        UPDATE_BF16.call("slu_tck_sum_bf16", ptr(pool), sp, ptr(c.mtgt[m0:]),
+                         ptr(c.mrow[m0:]), ptr(c.mcnt[m0:]), ptr(c.tslot),
+                         m1 - m0, bs, wide, stream)
 
 
 def tck_update(pool, linv, tp: TckTapes, level: int,
                precision: str = "highest") -> None:
     """Tiled left-looking update of the columns of ``level`` (in place):
-    phase A, then phase B, the products at ``precision``."""
+    phase A, then phase B (:func:`tck_tiles` at "highest",
+    :func:`tck_chains` at "default"), the products at ``precision``."""
     tck_waves(pool, linv, tp, level, precision)
-    tck_tiles(pool, tp, level, precision)
+    if precision == "default":
+        tck_chains(pool, tp, level)
+    else:
+        tck_tiles(pool, tp, level)
 
 
-def _check_cuda(pool, linv, bs, w, precision="highest"):
+def _check_cuda(pool, linv, bs, w=None):
+    """Raise unless the wrappers' tensors suit the kernels; with ``w``,
+    unless tiles of ``w`` rows fit a CTA of the FP32 phase B."""
     if pool.device.type != "cuda":
         raise ValueError(f"tck: unsupported device {pool.device}")
     for t in (pool, linv):
@@ -418,7 +532,7 @@ def _check_cuda(pool, linv, bs, w, precision="highest"):
                              "float32 (., bs, bs) tensors on one device")
     if bs not in CUDA_BLOCK_SIZES:
         raise ValueError(f"tck: block size {bs} not in {CUDA_BLOCK_SIZES}")
-    if ring_bytes(bs, precision) + w * bs * TN * 4 > CTA_SMEM_MAX:
+    if w is not None and ring_bytes(bs) + w * bs * TN * 4 > CTA_SMEM_MAX:
         raise ValueError(f"tck: tiles of {w} rows exceed a CTA's shared "
                          f"memory at block size {bs}")
 

@@ -1,6 +1,6 @@
 """Whether two checkouts' CUDA sources compile to the same machine code.
 
-    python -m superlu_dist_tpu_torch.tools.sass_same OLD_CSRC NEW_CSRC [SOURCE ...]
+    python -m superlu_dist_tpu_torch.tools.sass_same [--fp32] OLD_CSRC NEW_CSRC [SOURCE ...]
 
 Builds each ``SOURCE`` (by default every ``*.cu`` of ``NEW_CSRC``) from
 both directories with the port's nvcc flags (one nvcc per build, all
@@ -12,7 +12,11 @@ either is named, so a template argument added with a default (the bf16
 pass's flag) does not count as a change. Prints per source the kernels
 of each build, the OLD kernels without an identical NEW one (a change),
 and the NEW kernels without an OLD one (added); exits 1 if any OLD
-kernel changed. Needs the CUDA toolkit (nvcc, cuobjdump), not a card.
+kernel changed. With ``--fp32`` it holds only the FP32 kernels: the
+kernels of the bf16 pass (a name that holds one of ``BF16_MARKS``: the
+tensor-core kernels, ``mma`` or ``Mma``), which a change may redesign,
+are counted apart and not held.
+Needs the CUDA toolkit (nvcc, cuobjdump), not a card.
 """
 
 from __future__ import annotations
@@ -26,10 +30,14 @@ import sys
 from ..ops.kernels import _build
 
 OUT = os.path.join(_build.BUILD_DIR, "sass_same")
+#: name fragments of the bf16 pass's kernels (``--fp32`` does not hold them)
+BF16_MARKS = ("mma", "Mma")
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    fp32 = argv[:1] == ["--fp32"]
+    argv = argv[1:] if fp32 else argv
     if len(argv) < 2:
         print(__doc__)
         return 2
@@ -57,6 +65,10 @@ def main(argv=None) -> int:
         if not a or not b:
             print(f"{src}: no kernels read (is cuobjdump there?)")
             return 2
+        if fp32:
+            low = sorted(n for n in a if any(m in n for m in BF16_MARKS))
+            a = {n: body for n, body in a.items() if n not in low}
+            print(f"{src}: {len(low)} kernels of the bf16 pass not held")
         pool = collections.Counter(b.values())
         lost = []
         for name, body in a.items():

@@ -1867,43 +1867,57 @@ def _bf16_step(pool, kern, plain, tol, dist):
 @pytest.mark.parametrize("mat", ["lap3d12", "random1", "random2"])
 @pytest.mark.parametrize("bs", [32, 64, 128])
 def test_tck_bf16_entries_match_plain(cuda, bs, mat):
-    """slu_tck_waves_bf16 and slu_tck_tiles_bf16 against tck_waves_plain
-    and tck_tiles_plain at "default", level by level from the same pool,
-    on the kernel's own tile heights and on 3-row tiles: within BF16_TOL
-    of scale (a finalize inside phase A re-rounds sums that the two order
-    differently), each phase closer to the bf16 plain version than the
-    FP32 pass is, by ten times; one launch per wave and per level with
-    tiles, and none of the FP32 entries."""
+    """slu_tck_waves_bf16 (phase A) and slu_tck_chunks_bf16 /
+    slu_tck_sum_bf16 (phase B: each position's chain cut into chunks, on
+    passes.cuh's chain product) against tck_waves_plain and
+    tck_chains_plain at "default", level by level from the same pool, on
+    the automatic chunks and on chunks of one product, phase B in the
+    bands the kernel chooses, in bands of 16 and in bands of 64: within
+    BF16_TOL of scale (a finalize inside phase A re-rounds sums that the
+    two order differently), each phase closer to the bf16 plain version
+    than the FP32 pass is, by ten times; a second phase B from the same
+    input bit-equal to the first; one launch per wave, per level with
+    chunks and per level with positions of several chunks, and none of
+    the FP32 entries."""
     plan, data = _bf16_plan(cuda, mat, bs, "tck")
-    for w in (None, 3):
-        tp = tck.build_tck_tapes(plan, cuda, w=w)
-        pool = blocklu.init_pool(plan, data, np.float32, cuda)
-        linv, uinv, tiny = _zero_inverses(pool, plan.nb)
-        for k in (tck.UPDATE, tck.UPDATE_BF16):
-            k.reset_counts()
-        dist = {"a": [0.0, 0.0], "b": [0.0, 0.0]}
-        ntiles = 0
-        for level in range(tp.nlvl):
-            _bf16_step(pool, lambda p: tck.tck_waves(p, linv, tp, level,
-                                                     "default"),
-                       lambda p, pr: tck.tck_waves_plain(p, linv, tp, level,
-                                                         pr),
-                       BF16_TOL, dist["a"])
-            _bf16_step(pool, lambda p: tck.tck_tiles(p, tp, level,
-                                                     "default"),
-                       lambda p, pr: tck.tck_tiles_plain(p, tp, level, pr),
-                       BF16_TOL, dist["b"])
-            ntiles += int(tp.tptr[level + 1] > tp.tptr[level])
-            lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
-            diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
-                            tp.dstep[lo:hi], 0.0, tiny)
-            clk.clk_trsm(pool, uinv, tp, level, "default")
-        for kern, fp32 in dist.values():
-            assert fp32 > 0 and kern <= 0.1 * fp32
-        e = tck.UPDATE_BF16.entry_launches
-        assert e["slu_tck_waves_bf16"] == int(tp.lwave[-1]) > 0
-        assert e["slu_tck_tiles_bf16"] == ntiles > 0
-        assert tck.UPDATE.launches == 0
+    for chunk in (None, 1):
+        tp = tck.build_tck_tapes(plan, cuda, chunk=chunk)
+        c = tp.chains
+        nq = int((np.diff(c.qptr) > 0).sum())
+        nm = int((np.diff(c.mptr) > 0).sum())
+        for wide in (-1, 0, 1):
+            pool = blocklu.init_pool(plan, data, np.float32, cuda)
+            linv, uinv, tiny = _zero_inverses(pool, plan.nb)
+            for k in (tck.UPDATE, tck.UPDATE_BF16):
+                k.reset_counts()
+            dist = {"a": [0.0, 0.0], "b": [0.0, 0.0]}
+            for level in range(tp.nlvl):
+                _bf16_step(pool, lambda p: tck.tck_waves(p, linv, tp, level,
+                                                         "default"),
+                           lambda p, pr: tck.tck_waves_plain(
+                               p, linv, tp, level, pr),
+                           BF16_TOL, dist["a"])
+                again = pool.clone()
+                _bf16_step(pool, lambda p: tck.tck_chains(p, tp, level,
+                                                          wide),
+                           lambda p, pr: tck.tck_chains_plain(p, tp, level,
+                                                              pr),
+                           BF16_TOL, dist["b"])
+                tck.tck_chains(again, tp, level, wide)
+                assert torch.equal(again, pool), (chunk, wide, level)
+                del again
+                lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+                diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],
+                                tp.dstep[lo:hi], 0.0, tiny)
+                clk.clk_trsm(pool, uinv, tp, level, "default")
+            for kern, fp32 in dist.values():
+                assert fp32 > 0 and kern <= 0.1 * fp32
+            e = tck.UPDATE_BF16.entry_launches
+            assert e["slu_tck_waves_bf16"] == int(tp.lwave[-1]) > 0
+            assert e["slu_tck_chunks_bf16"] == 2 * nq > 0
+            assert e["slu_tck_sum_bf16"] == 2 * nm
+            assert nm > 0 or chunk is None
+            assert tck.UPDATE.launches == 0
 
 
 @pytest.mark.parametrize("mat", ["lap3d12", "random1"])
@@ -1942,7 +1956,7 @@ def test_tck_bf16_waves_every_geometry(cuda, bs, mat):
             assert torch.equal(out, outs[0]), (level, g)
         pool = outs[0]
         del outs, ref
-        tck.tck_tiles(pool, tp, level, "default")
+        tck.tck_chains(pool, tp, level)
         lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
         diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
                         0.0, tiny)
@@ -1960,7 +1974,8 @@ def test_flk_bf16_entries_match_plain(cuda, bs, mat):
     targets), each in the bands the kernel chooses, bands of 16 and bands
     of 64: within BF16_TOL of scale (a finalize rounds a sum that the two
     order differently), closer to the bf16 plain version than the FP32
-    pass is, by ten times; both entries launched, the FP32 ones not."""
+    pass is, by ten times; a second launch from the same input bit-equal
+    to the first; both entries launched, the FP32 ones not."""
     plan, data = _bf16_plan(cuda, mat, bs, "flk")
     for chunk in (None, 1):
         tp = flk.build_flk_tapes(plan, cuda, chunk=chunk)
@@ -1972,10 +1987,14 @@ def test_flk_bf16_entries_match_plain(cuda, bs, mat):
             dist = [0.0, 0.0]
             for level in range(tp.nlvl):
                 for g in (2 * level, 2 * level + 1):
+                    again = pool.clone()
                     _bf16_step(pool, lambda p: flk.flk_update(
                         p, linv, uinv, tp, g, wide, "default"),
                         lambda p, pr: flk.flk_update_plain(
                             p, linv, uinv, tp, g, pr), BF16_TOL, dist)
+                    flk.flk_update(again, linv, uinv, tp, g, wide, "default")
+                    assert torch.equal(again, pool), (chunk, wide, g)
+                    del again
                     if g == 2 * level:
                         lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
                         diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi],

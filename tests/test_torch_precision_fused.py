@@ -164,6 +164,28 @@ def test_plain_tck_level_matches_ml_dtypes_oracle():
     assert torch.equal(pool, lu.pool)
 
 
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+def test_plain_tck_chains_match_ml_dtypes_oracle(chunk):
+    """Every level of the bf16 tck factor's plain version, phase B on its
+    positions' chains cut into chunks of ``chunk`` products (None: the
+    automatic cut), against the numpy oracle from the same input, within
+    64 float32 ulp of scale; the factor goes on with the plain version's
+    output, and its diag_lu and TRSM run between the levels."""
+    lu, pool, linv, uinv, tiny = _setup("tck")
+    plan = lu.plan
+    tp = tck.build_tck_tapes(plan, "cpu", chunk=chunk)
+    assert len(tp.chains.host["mtgt"]) > 0
+    for level in range(tp.nlvl):
+        want = pool.numpy().copy()
+        _oracle_left_looking(want, linv.numpy(), plan, level)
+        tck.tck_update_plain(pool, linv, tp, level, "default")
+        assert np.abs(pool.numpy() - want).max() <= _tol(want), level
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        lu._thresh(), tiny)
+        clk.clk_trsm(pool, uinv, tp, level, "default")
+
+
 def test_plain_flk_level_matches_ml_dtypes_oracle():
     """One level of ``flk_update_plain`` at "default", both its groups
     (the diagonal targets, then the L and U panels with their finalizes),

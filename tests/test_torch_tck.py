@@ -17,7 +17,7 @@ from superlu_dist_tpu.utils.testing import random_sparse
 import superlu_dist_tpu_torch as T
 from superlu_dist_tpu_torch.ops import blocklu as tbl
 from superlu_dist_tpu_torch.ops.host.symbolic import block_symbolic
-from superlu_dist_tpu_torch.ops.kernels import clk, diag_lu, tck
+from superlu_dist_tpu_torch.ops.kernels import clk, diag_lu, flk, tck
 from superlu_dist_tpu_torch.utils.testing import laplacian_2d, laplacian_3d
 
 torch.set_num_threads(2)
@@ -108,6 +108,102 @@ def test_tck_tapes_cover_every_schur_triple():
     assert sorted(finals) == sorted(np.asarray(plan.u_slots).tolist())
     assert set(h["bu"].tolist()) <= set(finals)
     assert h["tiles"][:, 1].max() > 1, "multi-row tiles not exercised"
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+def test_tck_chain_tapes_cover_phase_b_once(chunk):
+    """The bf16 phase B's tape (``TckTapes.chains``) holds every phase-B
+    tile product exactly once: level by level, one chain per position
+    that has products, in the tiles' order (a tile's positions top down),
+    each chain the tile's products into that position in the tile's order
+    (ascending source j); each chain cut into chunks of at most
+    CHUNK_MAX products (``chunk`` when given) that cover it in order; a
+    position of one chunk takes no scratch row, the chunks of a position
+    of several take consecutive rows, numbered in chunk order and
+    distinct within the level, and the position is a pass-2 job of its
+    level with those rows."""
+    A = laplacian_3d(8).tocsc()
+    plan = block_symbolic(A, 8)
+    tp = tck.build_tck_tapes(plan, "cpu", w=4, chunk=chunk)
+    h, c = tp.host, tp.chains
+    ch = c.host
+    cap = chunk or flk.CHUNK_MAX
+    multi = 0
+    for lvl in range(tp.nlvl):
+        want = []   # (slot, [(l, u), ...]) per position, in tile order
+        for s0, rows, q0, q1 in h["tiles"][tp.tptr[lvl]:tp.tptr[lvl + 1]]:
+            for d in range(rows):
+                sel = np.flatnonzero(h["bd"][q0:q1] == d) + q0
+                if len(sel):
+                    want.append((s0 + d, list(zip(h["bl"][sel].tolist(),
+                                                  h["bu"][sel].tolist()))))
+        t0, t1 = c.tptr[lvl], c.tptr[lvl + 1]
+        got = [(int(ch["tslot"][t]),
+                list(zip(ch["cl"][ch["cptr"][t]:ch["cptr"][t + 1]].tolist(),
+                         ch["cu"][ch["cptr"][t]:ch["cptr"][t + 1]].tolist())))
+               for t in range(t0, t1)]
+        assert got == want
+        rows = set()
+        m = range(c.mptr[lvl], c.mptr[lvl + 1])
+        for t in range(t0, t1):
+            q0, q1 = ch["chunkptr"][t], ch["chunkptr"][t + 1]
+            assert c.qptr[lvl] <= q0 < q1 <= c.qptr[lvl + 1]
+            assert (ch["qtgt"][q0:q1] == t).all()
+            assert ch["qcptr"][q0] == ch["cptr"][t]
+            assert ch["qcptr"][q1] == ch["cptr"][t + 1]
+            assert (np.diff(ch["qcptr"][q0:q1 + 1]) >= 1).all()
+            assert (np.diff(ch["qcptr"][q0:q1 + 1]) <= cap).all()
+            r = ch["qrow"][q0:q1]
+            if q1 - q0 == 1:
+                assert r[0] == -1 and t not in ch["mtgt"][m.start:m.stop]
+                continue
+            multi += 1
+            assert (np.diff(r) == 1).all() and 0 <= r[0]
+            assert r[-1] < c.nrow[lvl] and not rows & set(r.tolist())
+            rows |= set(r.tolist())
+            j = m.start + int(np.flatnonzero(ch["mtgt"][m.start:m.stop]
+                                             == t)[0])
+            assert ch["mrow"][j] == r[0] and ch["mcnt"][j] == q1 - q0
+        assert len(rows) == c.nrow[lvl]
+    assert multi == len(ch["mtgt"]) > 0
+    assert len(ch["cl"]) == len(h["bl"])
+
+
+@pytest.mark.parametrize("chunk", [None, 3])
+def test_tck_chains_plain_matches_tiles_plain(chunk):
+    """At "highest" the bf16 phase B's plain version on its chunks
+    (``tck_chains_plain``) computes the FP32 tiles' function: from the
+    same pool, level by level, within 16 float32 ulp of the pool's scale
+    of ``tck_tiles_plain`` (a position sums its chunks' partial sums
+    instead of one running sum)."""
+    A = laplacian_3d(8).tocsc().astype(np.float32)
+    A.data = A.data * (1.0 + 0.1 * np.random.default_rng(2)
+                       .standard_normal(A.nnz)).astype(np.float32)
+    plan = block_symbolic(A, 8)
+    tp = tck.build_tck_tapes(plan, "cpu", w=4, chunk=chunk)
+    pool = tbl.init_pool(plan, A.data, np.float32, "cpu")
+    bs, nb = plan.bs, plan.nb
+    linv = torch.zeros((nb, bs, bs))
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32)
+    eps = float(np.finfo(np.float32).eps)
+    moved = 0.0
+    for level in range(tp.nlvl):
+        tck.tck_waves_plain(pool, linv, tp, level)
+        tiles, chains = pool.clone(), pool.clone()
+        tck.tck_tiles_plain(tiles, tp, level)
+        tck.tck_chains_plain(chains, tp, level, "highest")
+        scale = max(1.0, float(tiles.abs().max()))
+        diff = float((tiles - chains).abs().max())
+        assert diff <= 16 * eps * scale, level
+        moved = max(moved, diff)
+        pool = tiles
+        lo, hi = int(tp.dptr[level]), int(tp.dptr[level + 1])
+        diag_lu.diag_lu_plain(pool, linv, uinv, tp.dslot[lo:hi].long(),
+                              tp.dstep[lo:hi].long(), 0.0, tiny)
+        clk.clk_trsm_plain(pool, uinv, tp, level)
+    if chunk == 3:
+        assert moved > 0, "no position summed chunks apart"
 
 
 def test_tck_equals_clk_plain():
