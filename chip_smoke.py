@@ -9,10 +9,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build every CUDA kernel (one nvcc per source, in parallel) and print
    the build seconds and the ptxas resource lines, each under its
    function's name; every instantiation of ``schur``, and every complex
-   instantiation of ``diag_lu``, ``trsm``, ``schur``, ``solve_gemm``,
-   ``diag_apply`` and of ``rdma.cu``'s six entries, and every bf16-pass
-   instantiation of ``clk.cu`` (``waves.cuh``'s ``wave_mma_kernel``, and
-   ``band_times_inverse`` with its BF16 flag set), and of ``tck.cu`` and
+   instantiation of ``diag_lu``, ``trsm`` (complex128's
+   ``zband_times_inverse`` on the FP64 tensor cores named apart),
+   ``schur``, ``solve_gemm``, ``diag_apply`` and of ``rdma.cu``'s six
+   entries, and every bf16-pass instantiation of ``clk.cu``
+   (``waves.cuh``'s ``wave_mma_kernel``, and ``panel.cuh``'s
+   ``trsm_mma_kernel``), and of ``tck.cu`` and
    ``flk.cu`` (``passes.cuh``'s ``chunks_mma_kernel``, ``sum_mma_kernel``
    and their bodies ``chunk_band_mma``, ``sum_band_mma``), must spill no
    registers;
@@ -460,13 +462,17 @@ def main() -> None:
         # a complex element type, demangled or mangled (slu_cplx::real_of
         # names the real instantiations too)
         check_spills(_build.ptxas_report(k), ("cplx<", "4cplxI"), k.source)
+    # complex128's trsm on the FP64 tensor cores (panel.cuh's
+    # zband_times_inverse and its _batch, every block size and band)
+    check_spills(_build.ptxas_report(schur.SCHUR), "zband_times_inverse",
+                 "schur.cu (complex128 trsm)")
     # the bf16 pass's instantiations: waves.cuh's wave_mma_kernel (every
-    # block size and strip width), and band_times_inverse with BF16 = true
-    # (the last template argument), demangled or mangled
+    # block size and strip width), and panel.cuh's trsm_mma_kernel (every
+    # block size and band)
     check_spills(_build.ptxas_report(clk.UPDATE), "wave_mma_kernel",
                  "clk.cu (the bf16 waves)")
-    check_spills(_build.ptxas_report(clk.UPDATE), ("true>(", "Lb1EEv"),
-                 "clk.cu (the bf16 pass)")
+    check_spills(_build.ptxas_report(clk.UPDATE), "trsm_mma_kernel",
+                 "clk.cu (the bf16 TRSM)")
     # tck's phase B and flk's chain in the bf16 pass, passes.cuh's
     # kernels and their bodies (tck.cu's wave_mma_kernel is clk.cu's,
     # checked above)
@@ -3562,10 +3568,11 @@ def check_fused_bf16(lu, ctx, report=False):
                                 tp.dstep[lo:hi], th, tiny)
     if report and name == "tck_update_bf16":
         print_tck_levels(tp, per, name=name)
-        pb = phase_b_bound(plan, tp)
-        print(f"{name} phase B: kernel {sum(r[2] for r in per):.3f} ms, "
-              f"bound {pb['bound_ms']:.4f} ms ({pb['bound_by']}) per "
-              "factor", flush=True)
+        for ph, pb, i in (("A", phase_a_bound(plan, tp), 1),
+                          ("B", phase_b_bound(plan, tp), 2)):
+            print(f"{name} phase {ph}: kernel {sum(r[i] for r in per):.3f} "
+                  f"ms, bound {pb['bound_ms']:.4f} ms ({pb['bound_by']}) "
+                  "per factor", flush=True)
     elif report:
         print_flk_groups(tp, per, plan.bs, name=name)
     o = ck.out[name]
@@ -3588,6 +3595,32 @@ def fused_bf16_bound(plan, tp, lu, ctx):
                       np.float32) if lu.executor == "tck"
          else flk_bounds(plan, tp, ctx["flk"]))
     return _bound(w["flops"], w["bytes"], "factor", peak=BF16_PEAK_FLOPS)
+
+
+def phase_a_bound(plan, tp):
+    """tck's phase A in the bf16 pass (the U blocks' waves), counted as
+    :func:`update_bound` counts: 2·bs³ per product and per U finalize at
+    the dense bf16 tensor-core peak; per level the distinct L sources, U
+    sources and targets read once, the targets written once and the
+    finalizes' inverses read once, at the memory rate."""
+    from superlu_dist_tpu_torch.ops.kernels.flk import FIN_NONE
+    blk = _blk(plan, np.float32)
+    h = tp.host
+    nbytes = 0.0
+    for lvl in range(tp.nlvl):
+        w0, w1 = int(tp.lwave[lvl]), int(tp.lwave[lvl + 1])
+        t0, t1 = int(tp.wptr[w0]), int(tp.wptr[w1])
+        if t1 == t0:
+            continue
+        p = slice(int(h["pptr"][t0]), int(h["pptr"][t1]))
+        tgt = np.unique(h["tslot"][t0:t1])
+        reads = np.union1d(np.union1d(h["cl"][p], h["cu"][p]), tgt)
+        fin = h["tfin"][t0:t1] != FIN_NONE
+        ninv = len(np.unique(h["tstep"][t0:t1][fin]))
+        nbytes += blk * (len(reads) + len(tgt) + ninv)
+    nfin = int(np.count_nonzero(h["tfin"] != FIN_NONE))
+    return _bound(2.0 * plan.bs ** 3 * (len(h["cl"]) + nfin), nbytes,
+                  "factor", peak=BF16_PEAK_FLOPS)
 
 
 def phase_b_bound(plan, tp):
@@ -3825,10 +3858,10 @@ print(json.dumps(dict(
 
 #: the device-kernel names (``__global__`` functions) by which a trace of
 #: the main path shows each of its kernels: diag_lu.cu's, clk.cu's update
-#: waves in the bf16 pass (waves.cuh) and panel TRSM (panel.cuh),
-#: solve_gemm.cu's two passes
+#: waves in the bf16 pass (waves.cuh) and panel TRSM in the bf16 pass
+#: (panel.cuh's trsm_mma_kernel), solve_gemm.cu's two passes
 TRACE_KERNELS = {"diag_lu": ("diag_lu_kernel",),
-                 "clk": ("wave_mma_kernel", "band_times_inverse"),
+                 "clk": ("wave_mma_kernel", "trsm_mma_kernel"),
                  "solve_gemm": ("chunk_kernel", "rows_kernel")}
 
 

@@ -12,7 +12,8 @@ stream:
    finalized as U(i,k) ← linv(i)·U(i,k) once its sum is complete;
 2. ``diag_lu`` (``csrc/diag_lu.cu``) on the level's diagonal blocks;
 3. ``clk_trsm`` (``csrc/clk.cu``, the band-times-inverse kernel of
-   ``csrc/panel.cuh``, as ``schur.trsm``): L(i,k) ← L(i,k)·uinv(k).
+   ``csrc/panel.cuh``, as ``schur.trsm``; in the bf16 pass
+   ``panel.cuh``'s ``trsm_mma_kernel``): L(i,k) ← L(i,k)·uinv(k).
 
 Columns of one level depend only on columns of lower levels, so the
 level order gives the dependencies that the TPU kernel takes from its
@@ -436,8 +437,9 @@ def _launch_trsm(pool, uinv, tp: ClkTapes, level: int,
         return
     kernel, fn = _TRSM[precision]
     kernel.count(fn)
-    kernel.call(fn, ptr(pool), ptr(uinv), ptr(tp.lslot[lo:hi]),
-                ptr(tp.lstep[lo:hi]), hi - lo, pool.shape[-1],
+    # int32 offsets into the tapes, without a tensor op on the launch path
+    kernel.call(fn, ptr(pool), ptr(uinv), _V(tp.lslot.data_ptr() + 4 * lo),
+                _V(tp.lstep.data_ptr() + 4 * lo), hi - lo, pool.shape[-1],
                 stream_ptr(pool.device))
 
 

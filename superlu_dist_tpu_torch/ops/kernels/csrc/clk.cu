@@ -45,8 +45,9 @@
 // tensor-core peak, 989 TFLOP/s dense, take about a sixth of that).
 // clk_update's is waves.cuh's wave_mma_kernel: a producer warp, bulk
 // copies on mbarriers, and per wave the strip width and ring depth that
-// the host chooses (clk.py::wave_geoms); clk_trsm's is the band kernel's
-// BF16 flag.
+// the host chooses (clk.py::wave_geoms); clk_trsm's is panel.cuh's
+// trsm_mma_kernel: one CTA per (L block, band of rows), uinv(k) rounded
+// to bf16 once in shared memory.
 
 #include "panel.cuh"
 #include "waves.cuh"
@@ -98,6 +99,6 @@ extern "C" int slu_clk_trsm_f32(void* pool, const void* uinv,
 extern "C" int slu_clk_trsm_bf16(void* pool, const void* uinv,
                                  const void* lslots, const void* lsteps,
                                  int count, int bs, void* stream) {
-  return slu_panel::trsm<float, true>(pool, uinv, lslots, lsteps, count, bs,
-                                      0, stream);
+  return slu_panel::trsm_bf16(pool, uinv, lslots, lsteps, count, bs,
+                              stream);
 }

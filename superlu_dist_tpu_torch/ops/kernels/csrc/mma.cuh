@@ -1,8 +1,9 @@
 // mma.cuh: bf16 tensor-core products with float32 accumulation, for the
-// low pass of the fused factors (waves.cuh's update, panel.cuh's band
-// product, passes.cuh's chain product in flk.cu and tck.cu):
+// low pass of the fused factors (waves.cuh's update, panel.cuh's TRSM,
+// passes.cuh's chain product in flk.cu and tck.cu):
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on fragments built
-// from float32 operands staged in shared memory.
+// from float32 operands staged in shared memory, or (B) read by ldmatrix
+// from an operand rounded to bf16 once in shared memory.
 //
 // Replaces: the precision="default" dots of the TPU kernels
 // (superlu_dist_tpu/ops/kernels/clk.py::_clk_kernel, its dot() at
@@ -90,6 +91,40 @@ __device__ __forceinline__ void frag_bt(const float* Bt, int k0, int c0,
   const float2 v = *reinterpret_cast<const float2*>(p + 8);
   b[0] = pack_bf16(u.x, u.y);
   b[1] = pack_bf16(v.x, v.y);
+}
+
+// The B fragments of two 16 x 8 tiles, rows (k) k0 .. k0+15 and columns c0
+// .. c0+15, of a row-major (k, n) bf16 matrix in shared memory with leading
+// dimension LDB (elements; 16-byte rows of 8): b[0], b[1] the columns c0 ..
+// c0+7, b[2], b[3] the next 8, by one ldmatrix .trans (lane l gives the
+// row k0 + (l & 7) + 8 ((l >> 3) & 1) of the columns c0 + 8 (l >> 4)).
+// With rows of LDB * 2 bytes an odd multiple of 16, the eight rows of a
+// matrix fall in distinct banks.
+template <int LDB>
+__device__ __forceinline__ void frag_b2_bf16(const uint16_t* B, int k0,
+                                             int c0, uint32_t (&b)[4]) {
+  const int l = threadIdx.x & 31;
+  const uint16_t* p =
+      B + (k0 + (l & 7) + 8 * ((l >> 3) & 1)) * LDB + c0 + 8 * (l >> 4);
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(a));
+}
+
+// The same for one tile (columns c0 .. c0+7): b[0], b[1].
+template <int LDB>
+__device__ __forceinline__ void frag_b1_bf16(const uint16_t* B, int k0,
+                                             int c0, uint32_t (&b)[2]) {
+  const int l = threadIdx.x & 15;
+  const uint16_t* p = B + (k0 + (l & 7) + 8 * (l >> 3)) * LDB + c0;
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(a));
 }
 
 // This lane's share of the 16 x 8 tile at (r0, c0) of a row-major float

@@ -3,6 +3,7 @@ strip widths, or the bf16 pass against variants of an earlier checkout's.
 
     python -m superlu_dist_tpu_torch.tools.clk_strip_ab [K ...]
     python -m superlu_dist_tpu_torch.tools.clk_strip_ab --bf16 OLD_CSRC [K ...]
+    python -m superlu_dist_tpu_torch.tools.clk_strip_ab --trsm OLD_CSRC [K ...]
 
 FP32 (the first form): for each strip width TN of ``WIDTHS`` it copies
 ``csrc/clk.cu`` and its headers into ``build/torch_kernels/ab/tn<TN>``
@@ -42,6 +43,30 @@ less that) and bytes in flight (the staging less that). Each run is
 called once, untimed, before the first timed level (a library's runtime
 sets up at its first call), and kernels load eagerly
 (``CUDA_MODULE_LOADING=EAGER``). Needs a CUDA device.
+
+trsm (``--trsm OLD_CSRC``, a checkout whose bf16 TRSM is ``panel.cuh``'s
+``band_product_mma``, as before the bf16 TRSM had a kernel of its own):
+clk's bf16 TRSM (``slu_clk_trsm_bf16``) on the clk plan of
+``laplacian_3d(K)`` (bs 128; K = 32 and 50 unless given), level by level
+in a bf16 factor that goes on with the shipped kernels: each level's L
+panels, from the same input, L2 flushed before each, through OLD's entry
+as it is and cut by text patches of its ``band_product_mma``
+(``TRSM_VARIANTS``: the staging only, the ``mma``s removed; fragments and
+``mma``s from one resident chunk, the staging removed; the barriers
+only), and through the shipped entry, each run in the order of the runs
+and then back, a ``torch.cuda._sleep`` holding the card while the host
+enqueues each timed launch (the events read the card's time, not the
+host's, where the hold outlasts the host's enqueue: both are printed). It
+prints per level the panels and columns and each run's ms (the
+faster of its two), per run the ms per factor and whether its output
+equals OLD's bit for bit, and the split of OLD's time per band product
+on an SM (the launch's ms times the SMs over its CTAs, summed over the
+launches of bands of 64 and, apart, of bands of 16) into barriers and
+loop (the barriers-only cut), fragments and ``mma``s (the resident chunk
+less that) and bytes in flight (the staging less that). Before that,
+the main path's warm FACT under "auto" by SamePattern_SameRowPerm
+refactors with OLD's bf16 TRSM and the shipped one in turns (old, new,
+new, old, after one untimed call through each).
 """
 
 from __future__ import annotations
@@ -52,6 +77,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -108,16 +134,17 @@ def _start(tn: int):
     return _nvcc(d, path)
 
 
-def _start_bf16(label: str, src_dir: str, patches, region="void wave_mma("):
+def _start_bf16(label: str, src_dir: str, patches, region="void wave_mma(",
+                header="waves.cuh", end="__global__"):
     """Copy ``src_dir``'s clk.cu and headers into a build directory of
-    its own, patch its waves.cuh (each pattern matched once: inside the
-    function whose text starts with ``region``, or anywhere with None;
+    its own, patch its ``header`` (each pattern matched once: inside the
+    text from ``region`` to the next ``end``, or anywhere with None;
     STAGES anywhere), start nvcc; returns (process, .so)."""
     d = os.path.join(_build.BUILD_DIR, "ab", "bf16_" +
                      re.sub(r"\W+", "_", label))
     _copy_headers(src_dir, d)
     shutil.copy(os.path.join(src_dir, "clk.cu"), d)
-    path = os.path.join(d, "waves.cuh")
+    path = os.path.join(d, header)
     with open(path) as f:
         text = f.read()
 
@@ -125,7 +152,7 @@ def _start_bf16(label: str, src_dir: str, patches, region="void wave_mma("):
         if region is None:
             return 0, len(t)
         a = t.index(region)
-        return a, t.index("__global__", a)
+        return a, t.index(end, a)
     for pat, rep in patches:
         a, b = (0, len(text)) if "STAGES =" in pat else cut(text)
         part, n = re.subn(pat, rep, text[a:b])
@@ -465,9 +492,228 @@ def main_bf16(old: str, ks) -> None:
                   f"{per['old staging only'] - bar:.3f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 TRSM
+# ---------------------------------------------------------------------------
+
+#: the patches of OLD's panel.cuh per variant, inside band_product_mma
+_T_NO_MMA = (r"slu_mma::mma_chunk<[^;]*;", "(void)A;")
+_T_NO_STAGE = ((r"if \(c \+ ST - 1 < NK\)\s*stage_chunk<P, Q::LDB>\([^;]*;",
+                ""),
+               (r"if \(c < NK\)", "if (c < 1)"),
+               (r"const float\* A = ring \+ \(c % ST\) \* Q::kStage;",
+                "const float* A = ring;"))
+TRSM_VARIANTS = {
+    "old": (),
+    "old staging only": (_T_NO_MMA,),
+    "old resident chunk": _T_NO_STAGE,
+    "old barriers only": (_T_NO_MMA,) + _T_NO_STAGE,
+}
+
+
+#: cycles of torch.cuda._sleep before a timed launch: the card waits on it
+#: while the host enqueues the launch, so the events hold the kernel's
+#: time on the card and not the host's time to launch it (a launch's
+#: enqueue now and then takes the host 0.1-0.3 ms)
+HOLD_CYCLES = 2_000_000
+
+
+def _old_trsm(lib):
+    """A function (pool, uinv, tp, level) launching ``level``'s L panels
+    through OLD's slu_clk_trsm_bf16."""
+    fn = lib.slu_clk_trsm_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def go(pool, uinv, tp, level):
+        lo, hi = int(tp.lptr[level]), int(tp.lptr[level + 1])
+        if hi == lo:
+            return
+        err = fn(_build.ptr(pool), _build.ptr(uinv),
+                 _build.ptr(tp.lslot[lo:hi]), _build.ptr(tp.lstep[lo:hi]),
+                 hi - lo, pool.shape[-1], _build.stream_ptr(pool.device))
+        if err:
+            raise RuntimeError(f"old slu_clk_trsm_bf16: cudaError {err}")
+    return go
+
+
+def _new_trsm(pool, uinv, tp, level):
+    """``level``'s L panels through the shipped slu_clk_trsm_bf16."""
+    _clk.clk_trsm(pool, uinv, tp, level, "default")
+
+
+def _trsm_factor(torch, lu, runs, flush, order):
+    """One bf16 clk factor of ``lu``'s plan with the shipped kernels;
+    before each level's TRSM, every run of ``runs`` on the level's L
+    panels from the same input (L2 flushed) in ``order``; prints each
+    run's longest host enqueue beside the hold's card time. Returns
+    {label: ms per level} (the least of its runs) and {label: bit-equality
+    of its outputs to the first label's}."""
+    from ..ops import blocklu
+    from ..ops.kernels import diag_lu
+    plan, tp = lu.plan, lu._ftapes
+    pool = blocklu.init_pool(plan, lu._a3_data, np.float32, "cuda")
+    linv = torch.zeros((plan.nb, plan.bs, plan.bs), device="cuda")
+    uinv = torch.zeros_like(linv)
+    tiny = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = {lab: np.full(tp.nlvl, np.inf) for lab in runs}
+    same = dict.fromkeys(runs, True)
+    host = dict.fromkeys(runs, 0.0)
+    for lvl in range(tp.nlvl):
+        _clk.clk_update(pool, linv, tp, lvl, "default")
+        lo, hi = int(tp.dptr[lvl]), int(tp.dptr[lvl + 1])
+        diag_lu.diag_lu(pool, linv, uinv, tp.dslot[lo:hi], tp.dstep[lo:hi],
+                        lu._thresh(), tiny)
+        lo, hi = int(tp.lptr[lvl]), int(tp.lptr[lvl + 1])
+        if hi > lo:
+            idx = tp.lslot[lo:hi].long()
+            X0 = pool[idx]
+            if lvl == 0:   # each library's runtime set up, untimed
+                for lab in runs:
+                    runs[lab](pool, uinv, tp, lvl)
+                    pool[idx] = X0
+            outs = {}
+            for lab in order:
+                pool[idx] = X0
+                flush.zero_()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda._sleep(HOLD_CYCLES)
+                ev[0].record()
+                t0 = time.perf_counter()
+                runs[lab](pool, uinv, tp, lvl)
+                host[lab] = max(host[lab], 1e3 * (time.perf_counter() - t0))
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms[lab][lvl] = min(ms[lab][lvl], ev[0].elapsed_time(ev[1]))
+                outs.setdefault(lab, pool[idx])
+            for lab, a in outs.items():
+                same[lab] &= bool(torch.equal(a, outs[order[0]]))
+            pool[idx] = X0
+            del outs, X0
+        else:
+            for lab in runs:
+                ms[lab][lvl] = 0.0
+        _clk.clk_trsm(pool, uinv, tp, lvl, "default")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    ev[1].record()
+    torch.cuda.synchronize()
+    print("  the host's longest enqueue, ms: "
+          + "; ".join(f"{lab} {h:.4f}" for lab, h in host.items())
+          + f"; the hold on the card {ev[0].elapsed_time(ev[1]):.4f}",
+          flush=True)
+    return ms, same
+
+
+def _trsm_fact_turns(torch, A, lu, old_go, order=("old", "new", "new", "old")):
+    """The main path's warm FACT under "auto" by SamePattern_SameRowPerm
+    refactors of ``lu``, the bf16 TRSM through OLD's entry (``old_go``) or
+    the shipped one, in ``order`` after one untimed call through each;
+    prints each call's FACT device ms, the refinement steps and berr."""
+    from .. import Fact, gssvx
+    shipped = _clk.clk_trsm
+
+    def through_old(pool, uinv, tp, level, precision="highest"):
+        if precision != "default":
+            return shipped(pool, uinv, tp, level, precision)
+        if tp.lptr[level + 1] > tp.lptr[level]:
+            _clk.TRSM_BF16.count("slu_clk_trsm_bf16")
+        old_go(pool, uinv, tp, level)
+
+    b = np.ones(A.shape[0])
+    opts = lu.options.replace(fact=Fact.SAME_PATTERN_SAME_ROWPERM,
+                              gemm_precision="auto")
+    try:
+        for i, lab in enumerate(("old", "new") + tuple(order)):
+            _clk.clk_trsm = through_old if lab == "old" else shipped
+            lu._prec_sticky = False
+            res, _ = gssvx(A, b, opts, lu=lu)
+            torch.cuda.synchronize()
+            if i < 2:   # one untimed call through each first
+                continue
+            dm = res.stat.device_ms
+            print(f"  warm FACT under auto, {lab}: {dm['FACT']:.3f} ms "
+                  f"(gemm_precision {res.stat.counters['gemm_precision']}, "
+                  f"{res.stat.refine_steps} refinement steps, REFINE "
+                  f"{dm['REFINE']:.3f} ms, berr {float(res.berr.max()):.2e})",
+                  flush=True)
+    finally:
+        _clk.clk_trsm = shipped
+
+
+def main_trsm(old: str, ks) -> None:
+    os.environ["CUDA_MODULE_LOADING"] = "EAGER"
+    import torch
+
+    from .. import Options, gssvx
+    from ..utils.testing import laplacian_3d
+    if not torch.cuda.is_available():
+        raise SystemExit("clk_strip_ab needs a CUDA device")
+    print("card:", _card(), flush=True)
+    started = {lab: _start_bf16(lab, old, p, "void band_product_mma(",
+                                "panel.cuh", "\n}\n")
+               for lab, p in TRSM_VARIANTS.items()}
+    libs = {}
+    for lab, (proc, so) in started.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"nvcc failed for {lab}")
+        libs[lab] = ctypes.CDLL(so)
+    runs = {lab: _old_trsm(libs[lab]) for lab in TRSM_VARIANTS}
+    runs["new"] = _new_trsm
+    labels = list(runs)
+    order = labels + labels[::-1]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for k in ks:
+        A = laplacian_3d(k)
+        _, lu = gssvx(A, np.ones(A.shape[0]),
+                      Options(dtype="float32", block_size=128,
+                              gemm_precision="highest"))
+        _trsm_fact_turns(torch, A, lu, runs["old"])
+        tp, bs = lu._ftapes, lu.plan.bs
+        ms, same = _trsm_factor(torch, lu, runs, flush, order)
+        steps = tp.host["lstep"]
+        cnt = np.diff(tp.lptr)
+        wide = np.zeros(tp.nlvl, dtype=bool)
+        for lvl in range(tp.nlvl):
+            lo, hi = int(tp.lptr[lvl]), int(tp.lptr[lvl + 1])
+            if hi == lo:
+                continue
+            ncol = len(np.unique(steps[lo:hi]))
+            wide[lvl] = 2 * (hi - lo) >= _clk.SMS
+            print(f"  lap3d{k} level {lvl:3d}: {hi - lo:4d} panels, {ncol} "
+                  f"columns; "
+                  + "; ".join(f"{lab} {ms[lab][lvl]:.4f}" for lab in labels)
+                  + " ms", flush=True)
+        print(f"lap3d{k} bf16 TRSM: {int((cnt > 0).sum())} launches, "
+              f"{int(cnt.sum())} L panels", flush=True)
+        for lab in labels:
+            print(f"  {lab:28s} {ms[lab].sum():8.4f} ms per factor; "
+                  f"bit-equal to {labels[0]}: {same[lab]}", flush=True)
+        for what, sel, bands in (("bands of 64", wide, bs // 64),
+                                 ("bands of 16", ~wide & (cnt > 0),
+                                  bs // 16)):
+            ctas = float(cnt[sel].sum() * bands)
+            if not ctas:
+                continue
+            per = {lab: 1e3 * ms[lab][sel].sum() * _clk.SMS / ctas
+                   for lab in TRSM_VARIANTS}
+            bar = per["old barriers only"]
+            print(f"  old, {what} ({int(sel.sum())} launches, {int(ctas)} "
+                  f"CTAs): {per['old']:.3f} us per band product on an SM "
+                  f"= barriers and loop {bar:.3f} + fragments and mma "
+                  f"{per['old resident chunk'] - bar:.3f} + bytes in "
+                  f"flight {per['old staging only'] - bar:.3f} (overlap "
+                  f"{per['old resident chunk'] + per['old staging only'] - bar - per['old']:.3f})",
+                  flush=True)
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
     if args[:1] == ["--bf16"]:
         main_bf16(args[1], [int(a) for a in args[2:]] or [32, 50])
+    elif args[:1] == ["--trsm"]:
+        main_trsm(args[1], [int(a) for a in args[2:]] or [32, 50])
     else:
         main([int(a) for a in args] or [32, 50])

@@ -14,8 +14,10 @@ of each build, the OLD kernels without an identical NEW one (a change),
 and the NEW kernels without an OLD one (added); exits 1 if any OLD
 kernel changed. With ``--fp32`` it holds only the FP32 kernels: the
 kernels of the bf16 pass (a name that holds one of ``BF16_MARKS``: the
-tensor-core kernels, ``mma`` or ``Mma``), which a change may redesign,
-are counted apart and not held.
+tensor-core kernels, ``mma`` or ``Mma``; or ``band_times_inverse`` with
+its bf16 flag, the last template argument, set, as checkouts before the
+bf16 TRSM had a kernel of its own named it), which a change may
+redesign, are counted apart and not held.
 Needs the CUDA toolkit (nvcc, cuobjdump), not a card.
 """
 
@@ -32,6 +34,12 @@ from ..ops.kernels import _build
 OUT = os.path.join(_build.BUILD_DIR, "sass_same")
 #: name fragments of the bf16 pass's kernels (``--fp32`` does not hold them)
 BF16_MARKS = ("mma", "Mma")
+
+
+def bf16_pass(name: str) -> bool:
+    """Whether the (mangled) kernel ``name`` is one of the bf16 pass's."""
+    return any(m in name for m in BF16_MARKS) or (
+        "band_times_inverse" in name and "Lb1EEEv" in name)
 
 
 def main(argv=None) -> int:
@@ -66,7 +74,7 @@ def main(argv=None) -> int:
             print(f"{src}: no kernels read (is cuobjdump there?)")
             return 2
         if fp32:
-            low = sorted(n for n in a if any(m in n for m in BF16_MARKS))
+            low = sorted(n for n in a if bf16_pass(n))
             a = {n: body for n, body in a.items() if n not in low}
             print(f"{src}: {len(low)} kernels of the bf16 pass not held")
         pool = collections.Counter(b.values())

@@ -284,10 +284,24 @@ def test_flk_factors_are_bit_equal(cuda):
     assert np.array_equal(r1.x, r2.x)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+#: the element types of the level executor's trsm
+TRSM_DTYPES = [torch.float32, torch.float64, torch.complex64,
+               torch.complex128]
+
+
+def _eps(dtype) -> float:
+    """The unit roundoff of ``dtype``'s real parts."""
+    return float(np.finfo(np.float32 if dtype in (torch.float32,
+                                                  torch.complex64)
+                          else np.float64).eps)
+
+
+@pytest.mark.parametrize("dtype", TRSM_DTYPES, ids=lambda d: str(d)[6:])
 @pytest.mark.parametrize("left", [False, True])
 @pytest.mark.parametrize("bs", [32, 64, 128])
 def test_trsm_matches_plain(cuda, bs, left, dtype):
+    """A few panels (bands of 16 in complex128's FP64 tensor-core kernel,
+    and in the others' at bs 128 and 64)."""
     g = torch.Generator(device="cpu").manual_seed(bs + left)
     pool = torch.randn(40, bs, bs, generator=g, dtype=dtype).to(cuda)
     dinv = torch.randn(9, bs, bs, generator=g, dtype=dtype).to(cuda)
@@ -298,12 +312,10 @@ def test_trsm_matches_plain(cuda, bs, left, dtype):
     schur.trsm(pool, dinv, slots, steps, left)
     torch.cuda.synchronize()
     scale = max(1.0, float(want.abs().max()))
-    assert float((pool - want).abs().max()) \
-        <= ULPS * np.finfo(np.float32 if dtype == torch.float32
-                           else np.float64).eps * scale
+    assert float((pool - want).abs().max()) <= ULPS * _eps(dtype) * scale
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", TRSM_DTYPES, ids=lambda d: str(d)[6:])
 @pytest.mark.parametrize("bs", [32, 64, 128])
 def test_trsm_many_panels_matches_plain(cuda, bs, dtype):
     """300 panels of a 320-slot pool in one launch per flag, over 12
@@ -326,7 +338,7 @@ def test_trsm_many_panels_matches_plain(cuda, bs, dtype):
     slots = torch.randperm(320, generator=g)[:300].to(torch.int32).to(cuda)
     steps = torch.randint(0, nb, (300,), generator=g,
                           dtype=torch.int32).to(cuda)
-    eps = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps
+    eps = _eps(dtype)
     for left, dinv in ((False, uinv), (True, linv)):
         want = pool.clone()
         schur.trsm_plain(want, dinv, slots, steps, left)
@@ -336,6 +348,41 @@ def test_trsm_many_panels_matches_plain(cuda, bs, dtype):
         assert schur.TRSM.launches == n0 + 1
         scale = max(1.0, float(want.abs().max()))
         assert float((pool - want).abs().max()) <= ULPS * eps * scale
+
+
+@pytest.mark.parametrize("count", [5, 300])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_complex128_trsm_repeats_and_batch_bit_equal(cuda, bs, count):
+    """complex128's trsm (the FP64 tensor cores' kernel) in a launch of 5
+    panels (bands of 16) and of 300 (the wide bands), both flags: two
+    launches on the same input give the same bits, and trsm_batch on
+    three stacked members gives each member the bits of trsm on it alone
+    (the geometry is chosen from one member's count)."""
+    g = torch.Generator(device="cpu").manual_seed(7 * bs + count)
+    dt = torch.complex128
+    P = torch.randn(3, 320, bs, bs, generator=g, dtype=dt).to(cuda)
+    D = torch.randn(3, 12, bs, bs, generator=g, dtype=dt).to(cuda)
+    slots = torch.randperm(320, generator=g)[:count].to(torch.int32)
+    steps = torch.randint(0, 12, (count,), generator=g, dtype=torch.int32)
+    slots, steps = slots.to(cuda), steps.to(cuda)
+    for left in (False, True):
+        a, b = P[0].clone(), P[0].clone()
+        schur.trsm(a, D[0], slots, steps, left)
+        schur.trsm(b, D[0], slots, steps, left)
+        Pb = P.clone()
+        n0 = schur.TRSM_BATCH.launches
+        schur.trsm_batch(Pb, D, slots, steps, left)
+        torch.cuda.synchronize()
+        assert schur.TRSM_BATCH.launches == n0 + 1
+        assert torch.equal(a, b)
+        for m in range(3):
+            one = P[m].clone()
+            schur.trsm(one, D[m], slots, steps, left)
+            assert torch.equal(Pb[m], one), (left, m)
+        want = P[0].clone()
+        schur.trsm_plain(want, D[0], slots, steps, left)
+        scale = max(1.0, float(want.abs().max()))
+        assert float((a - want).abs().max()) <= ULPS * _eps(dt) * scale
 
 
 @pytest.mark.parametrize("bs", [32, 64, 128])
@@ -2141,7 +2188,7 @@ def test_xprof_trace_on_the_card(cuda, tmp_path):
     names = {e.get("name") for e in events}
     assert {"slu:FACT", "slu:SOLVE", "slu:REFINE"} <= names
     kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    for k in ("diag_lu_kernel", "wave_mma_kernel", "band_times_inverse",
+    for k in ("diag_lu_kernel", "wave_mma_kernel", "trsm_mma_kernel",
               "chunk_kernel", "rows_kernel"):
         assert any(k in nm for nm in kern), k
 

@@ -101,17 +101,24 @@ def test_level_executor_equals_right_looking_plain(ilu):
 
 
 @pytest.mark.parametrize("tri", [False, True], ids=["full", "tri"])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
-                         ids=["f64", "f32"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.complex128, torch.complex64],
+                         ids=["f64", "f32", "c128", "c64"])
 @pytest.mark.parametrize("left", [False, True])
 def test_trsm_plain(left, dtype, tri):
     """``trsm`` on the CPU against one product per panel. ``tri``: the
     inverses are triangular as diag_lu leaves them (linv lower for U
     panels, uinv upper for L panels) and steps repeat, as in a level of
-    the tapes."""
+    the tapes. The complex types' imaginary parts are drawn after the
+    real parts."""
     rng = np.random.default_rng(3)
     pool = torch.as_tensor(rng.standard_normal((6, 8, 8)), dtype=dtype)
     dinv = torch.as_tensor(rng.standard_normal((3, 8, 8)), dtype=dtype)
+    if dtype.is_complex:
+        pool += 1j * torch.as_tensor(rng.standard_normal((6, 8, 8)),
+                                     dtype=dtype)
+        dinv += 1j * torch.as_tensor(rng.standard_normal((3, 8, 8)),
+                                     dtype=dtype)
     slots, steps = [4, 1, 2], [2, 0, 2]
     if tri:
         dinv = torch.tril(dinv) if left else torch.triu(dinv)
@@ -121,7 +128,7 @@ def test_trsm_plain(left, dtype, tri):
         want[s] = dinv[k] @ pool[s] if left else pool[s] @ dinv[k]
     schur.trsm(pool, dinv, torch.tensor(slots, dtype=torch.int32),
                torch.tensor(steps, dtype=torch.int32), left)
-    tol = 1e-14 if dtype == torch.float64 else 1e-5
+    tol = 1e-14 if dtype in (torch.float64, torch.complex128) else 1e-5
     assert torch.allclose(pool, want, rtol=tol, atol=tol)
 
 
