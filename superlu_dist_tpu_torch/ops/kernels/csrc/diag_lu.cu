@@ -17,14 +17,17 @@
 // 1 tile takes as long as one of 130.
 //
 // Design: one CTA per tile, running slu_tile::tile_lu (tile_lu.cuh, shared
-// with rdma.cu): the forward LU in panels of 32 columns (one warp factors
-// each 32x32 diagonal subtile with shuffles, two warps form its inverses,
-// all 16 warps form the panel's L and U blocks and the trailing update
-// from register tiles), then the L^{-1} and U^{-1} sweeps side by side on
-// the two halves of the CTA, one barrier a step: 143 barriers a tile at
-// bs=128 (the element-by-element form had 640). The tile, then both
-// inverses packed in its place, live in dynamic shared memory (79 KiB in
-// float, 158 KiB in double at bs=128). The kernel is a template on the
+// with rdma.cu), as the TPU's _lu_tile_blocked: the forward LU in panels
+// of 32 columns (one warp factors each 32x32 diagonal subtile with
+// shuffles, two warps form its inverses and keep them, all 16 warps form
+// the panel's L and U blocks and the trailing update from register
+// tiles), then L^{-1} and U^{-1} by block substitution, two warps per
+// 32x32 block, the blocks at one distance from the diagonal at once, each
+// block's sum solved with its diagonal block by substitution. Barriers a tile: 16 at bs=128, 6 at 64, 2 at 32 (the
+// earlier form's paired sweeps had 143, 71, 35; the element-by-element
+// form 640 at 128). The tile, the staged subtile and the panels' inverses live in
+// dynamic shared memory (100 KiB in float, 200 KiB in double at bs=128);
+// the inverses are built in linv and uinv. The kernel is a template on the
 // element type: the _f32, _f64, _c64 and _c128 entries launch float,
 // double, complex64 and complex128 (cplx.cuh; a complex tiny pivot keeps
 // its phase, and complex128 at bs=128 keeps the tile in the pool, as
@@ -33,8 +36,8 @@
 // The _batch entries factor the same tiles of every member of a stacked
 // pool (members x pool_stride elements, linv and uinv members x
 // inv_stride): the member is blockIdx.z and only moves the pointers (the
-// pool's, the inverses', which hold complex128's in-pool scratch at bs =
-// 128, its threshold and its tiny counter), so each member computes bit
+// pool's, the inverses', which hold each block's sum on its way, its
+// threshold and its tiny counter), so each member computes bit
 // for bit what the unbatched entry computes on it alone. One launch takes
 // at most kMaxMembers members (gridDim.z); the caller launches larger
 // batches in chunks of members.

@@ -18,50 +18,62 @@
 // 64 KiB and ~2.8 MFLOP at bs = 128). So the design counts barriers and
 // the instructions between them.
 //
-// Design. The forward LU runs right-looking in panels of kPb = 32 columns,
-// as _lu_tile_blocked does. Per panel: (a) warp 0 factors the 32x32
+// Design, as _lu_tile_blocked: (1) the forward LU, right-looking in
+// panels of kPb = 32 columns. Per panel: (a) warp 0 factors the 32x32
 // diagonal subtile alone, lane i holding row i in registers and the pivot
 // row passed by __shfl_sync, then warps 0 and 1 (joined by a named
-// barrier, not a CTA one) form the subtile's inverses li and ui, a column
-// per lane; (b) all 16 warps form the L block below, A[rest, p] . ui, and
-// the U block to the right, li . A[p, rest], into registers, then write
-// them in place after a barrier; (c) the trailing update A[rest, rest] -=
-// L . U with k = 32, each warp a register tile of whole rows. Then the
-// inverses are two unblocked sweeps sharing one loop of bs - 1 steps and
-// one barrier a step: warps 0-7 substitute forward for L^{-1}, warps 8-15
-// backward for U^{-1} in the TPU's column-product form (U = (I + C) D,
-// C[i][j] = U[i][j] / U[j][j] strictly upper, U^{-1} = D^{-1} (I + C)^{-1}),
-// both packed in one square over the tile's shared memory. Barriers per
-// tile (CTA-wide): 1 + 4 (bs / 32) - 3 + 2 + (bs - 1), i.e. 143 at bs =
-// 128 (the element-by-element form took 640), 71 at 64, 35 at 32, and
-// bs / 32 named ones for warps 0-1. Arithmetic is IEEE in T on the CUDA
-// cores, each sum in ascending k.
+// barrier, not a CTA one) form the subtile's inverses li_p and ui_p, a
+// column per lane, and keep them in shared memory to the end; (b) all 16
+// warps form the L block below, A[rest, p] . ui_p, and the U block to the
+// right, li_p . A[p, rest], into registers, then write them in place after
+// a barrier; (c) the trailing update A[rest, rest] -= L . U with k = 32,
+// each warp a register tile of whole rows. (2) The compact LU goes back to
+// the pool and each li_p, ui_p into the diagonal blocks of linv[step],
+// uinv[step], then a barrier. (3) The inverses' other blocks by block
+// substitution over the P = bs / 32 panels, as flk.py:409-430 build them:
+//   L^{-1}(p, r) = L(p, p)^{-1} . (-sum_{q = r}^{p-1} L(p, q) . L^{-1}(q, r)),
+//   U^{-1}(p, r) = U(p, p)^{-1} . (-sum_{q = p+1}^{r} U(p, q) . U^{-1}(q, r)),
+// q ascending, by block distance |p - r| = 1 .. P - 1: the blocks at one
+// distance are independent, two warps each (a half of its columns), the
+// even warps on L^{-1} and the odd ones on U^{-1}, a barrier between
+// distances. A lane holds 16 rows of a column of the sum in registers
+// (strides known at compile time; float sums in double, rounded once),
+// writes them to the mirrored block (r, p) of its output, which is zero
+// in the result; one lane a column then solves with the diagonal block by
+// substitution, as the plain version does (complex, whose column would
+// spill a lane's registers, multiplies by li_p or ui_p as flk.py does),
+// and the sum's block is zeroed. A tile with pivot growth showed why: the
+// product by the computed li_p and float sums lost to the plain version's
+// accuracy on the card. Barriers per tile (CTA-wide): 1 + (4P - 3) + (P -
+// 1) = 5P - 3, i.e. 17 at bs = 128, 7 at 64 and 2 at 32 (two unblocked
+// sweeps of bs - 1 steps had 143, 71 and 35), and P named ones for warps
+// 0-1. Arithmetic is IEEE on the CUDA cores, each sum in a fixed order
+// (ascending k within ascending q), no atomics in a sum.
 //
-// Measured on an H100 (tools/diag_lu_ab.py, tools/diag_lu_phases.py):
-// a launch takes one tile's latency, 0.19 ms in float and 0.27-0.30 ms
-// in double at bs = 128, half the element-by-element form's; the sweeps,
-// one step at a time, hold 53-63% of it.
-//
-// Shared memory: the tile (then the packed inverses), three padded 32 x 33
-// subtiles (the staged LU, li, ui), two double-buffered factor columns and
-// the pivots: 79 KiB in float, 158 KiB in double and complex64 at bs = 128.
+// Shared memory (tile_lu_smem_bytes): the tile, the staged subtile LU
+// (32 x 33, padded) and the 2P subtile inverses (32 x 32 each): 100 KiB
+// in float, 200 KiB in double and complex64 at bs = 128, of the 227 KiB
+// a CTA may have. L^{-1} and U^{-1} are built in device memory, where
+// they end, read back by the later distances through L1 and L2.
 //
 // Complex (cplx.cuh's element type; the threshold stays real, and a tiny
-// pivot keeps its phase) differs in two places:
+// pivot keeps its phase) differs in three places:
 // - registers: warp 0's 32 x 32 LU and the subtile's inverses keep their
-//   rows and columns in the padded subtiles in shared memory instead of
-//   32 complex registers a lane (512 threads may hold 128 registers each;
-//   complex64 held there spilled 44 bytes, as double spills 88), and the
-//   trailing update takes a warp's rows in two passes; every sum keeps
-//   its order;
+//   rows and columns in shared memory instead of 32 complex registers a
+//   lane (512 threads may hold 128 registers each; complex64 held there
+//   spilled 44 bytes, as double spills 88), and the trailing update takes
+//   a warp's rows in two passes; every sum keeps its order;
+// - complex128's block substitution takes a lane's 16 rows in two passes
+//   of 8 (32 registers of sums, as the other types' one pass);
 // - shared memory at bs = 128 in complex128: the tile alone is 256 KiB,
-//   over the 227 KiB
-//   a CTA may have. There the forward LU works on the tile in place in
-//   the pool (device memory, which L2 holds for the CTA), with only the
-//   subtiles, factor columns and pivots in shared memory (61 KiB), and
-//   the sweeps build their packed inverses in place in linv[step], which
-//   the last pass splits into L^{-1} and U^{-1}. tile_in_shared<T>(bs)
-//   tells the two layouts apart.
+//   over the 227 KiB a CTA may have. There the forward LU works on the
+//   tile in place in the pool (device memory, which L2 holds for the CTA),
+//   with only the staged LU and the 8 subtile inverses in shared memory
+//   (144.5 KiB). tile_in_shared<T>(bs) tells the two layouts apart.
+//
+// tools/diag_lu_phases.py cuts a launch at the line that adds the tiny
+// count (the forward LU done) and at the comment that opens (e), the
+// block substitution (the LU and the diagonal inverses stored).
 //
 // The caller launches kTileThreads threads with tile_lu_smem_bytes<T>(bs)
 // of dynamic shared memory, CTA b for the tile of slots[b], bs in {32,
@@ -72,6 +84,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "cplx.cuh"
 
@@ -89,6 +103,7 @@ constexpr int kWarps = kTileThreads / 32;
 constexpr int kPb = 32;                 // panel width
 constexpr int kPad = kPb + 1;           // row stride of a staged subtile
 constexpr int kSub = kPb * kPad;
+constexpr int kSq = kPb * kPb;          // a subtile inverse (unpadded)
 constexpr unsigned kFull = 0xffffffffu;
 
 // entries of T in one 16-byte shared-memory load
@@ -121,17 +136,22 @@ __device__ __forceinline__ void ldv(const cplx<double>* p,
 // the shared memory a CTA may have on an H100
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// the staged subtile LU and the 2 (bs / kPb) subtile inverses, elements
+__host__ __device__ constexpr size_t subtile_elems(int bs) {
+  return kSub + 2 * (size_t)(bs / kPb) * kSq;
+}
+
 // whether the tile of T at block size bs fits in shared memory beside the
 // rest (else it stays in the pool: complex128 at bs = 128)
 template <typename T>
 __host__ __device__ constexpr bool tile_in_shared(int bs) {
-  return ((size_t)bs * bs + 3 * kSub + 5 * bs) * sizeof(T) <= kMaxSmem;
+  return ((size_t)bs * bs + subtile_elems(bs)) * sizeof(T) <= kMaxSmem;
 }
 
 template <typename T>
 __host__ __device__ constexpr size_t tile_lu_smem_bytes(int bs) {
-  return ((tile_in_shared<T>(bs) ? (size_t)bs * bs : 0) + 3 * kSub +
-          5 * bs) * sizeof(T);
+  return ((tile_in_shared<T>(bs) ? (size_t)bs * bs : 0) +
+          subtile_elems(bs)) * sizeof(T);
 }
 
 // whether T keeps warp 0's subtile rows and the inverses' columns in
@@ -198,8 +218,8 @@ __device__ __noinline__ int subtile_lu(T* __restrict__ D, int ld,
 
 // (a2) Warps 0 and 1, once the LU is in S: lane c of warp 0 forms column c
 // of the subtile's L^{-1} into LI, lane c of warp 1 column c of U^{-1}
-// into UI (both padded), each a substitution in registers with the
-// factor's entries read by broadcast.
+// into UI (both 32 x 32, row major), each a substitution in registers
+// with the factor's entries read by broadcast.
 template <typename T>
 __device__ __noinline__ void subtile_inverses(const T* __restrict__ S,
                                               T* __restrict__ LI,
@@ -209,19 +229,19 @@ __device__ __noinline__ void subtile_inverses(const T* __restrict__ S,
     // column c of the inverse in place in LI or UI, the same sums in the
     // same order
     T* x = (threadIdx.x < 32 ? LI : UI) + c;
-    for (int i = 0; i < kPb; ++i) x[i * kPad] = i == c ? T(1) : T(0);
+    for (int i = 0; i < kPb; ++i) x[i * kPb] = i == c ? T(1) : T(0);
     if (threadIdx.x < 32) {
       for (int k = 0; k < kPb - 1; ++k) {
-        const T xk = x[k * kPad];
+        const T xk = x[k * kPb];
         for (int i = k + 1; i < kPb; ++i)
-          x[i * kPad] = fma(-S[i * kPad + k], xk, x[i * kPad]);
+          x[i * kPb] = fma(-S[i * kPad + k], xk, x[i * kPb]);
       }
     } else {
       for (int k = kPb - 1; k >= 0; --k) {
-        const T xk = x[k * kPad] / S[k * kPad + k];
-        x[k * kPad] = xk;
+        const T xk = x[k * kPb] / S[k * kPad + k];
+        x[k * kPb] = xk;
         for (int i = 0; i < k; ++i)
-          x[i * kPad] = fma(-S[i * kPad + k], xk, x[i * kPad]);
+          x[i * kPb] = fma(-S[i * kPad + k], xk, x[i * kPb]);
       }
     }
   } else {
@@ -235,7 +255,7 @@ __device__ __noinline__ void subtile_inverses(const T* __restrict__ S,
         for (int i = k + 1; i < kPb; ++i)
           x[i] = fma(-S[i * kPad + k], x[k], x[i]);
 #pragma unroll
-      for (int i = 0; i < kPb; ++i) LI[i * kPad + c] = x[i];
+      for (int i = 0; i < kPb; ++i) LI[i * kPb + c] = x[i];
     } else {
 #pragma unroll
       for (int k = kPb - 1; k >= 0; --k) {
@@ -245,7 +265,7 @@ __device__ __noinline__ void subtile_inverses(const T* __restrict__ S,
           x[i] = fma(-S[i * kPad + k], x[k], x[i]);
       }
 #pragma unroll
-      for (int i = 0; i < kPb; ++i) UI[i * kPad + c] = x[i];
+      for (int i = 0; i < kPb; ++i) UI[i * kPb + c] = x[i];
     }
   }
 }
@@ -281,10 +301,10 @@ __device__ __forceinline__ void panel_blocks(T* __restrict__ A,
 #pragma unroll
     for (int mm = 0; mm < V; ++mm) {
       const int m = m0 + mm;
-      const T u = UI[m * kPad + lane];
+      const T u = UI[m * kPb + lane];
 #pragma unroll
       for (int q = 0; q < RL; ++q) accL[q] = fma(al[q][mm], u, accL[q]);
-      const T l0 = LI[(2 * w) * kPad + m], l1 = LI[(2 * w + 1) * kPad + m];
+      const T l0 = LI[(2 * w) * kPb + m], l1 = LI[(2 * w + 1) * kPb + m];
 #pragma unroll
       for (int q = 0; q < CU; ++q) {
         const T v = AU[m * BS + 32 * q];
@@ -351,21 +371,153 @@ __device__ __forceinline__ void trailing(T* __restrict__ A) {
 }
 
 // The panels from column O on: 4 CTA barriers per panel, 1 for the last.
+// Panel p's inverses go to LI + p kSq and UI + p kSq.
 template <typename T, int BS, int O>
 __device__ __forceinline__ void panels(T* A, T* S, T* LI, T* UI,
                                        real_t<T> thresh, int& ntiny) {
+  T* li = LI + (O / kPb) * kSq;
+  T* ui = UI + (O / kPb) * kSq;
   if (threadIdx.x < 32)
     ntiny += subtile_lu<T>(A + O * BS + O, BS, S, thresh);
   if (threadIdx.x < 64) {
     asm volatile("bar.sync 1, 64;" ::: "memory");   // warps 0-1: S is set
-    subtile_inverses<T>(S, LI, UI);
+    subtile_inverses<T>(S, li, ui);
   }
   __syncthreads();
   if constexpr (O + kPb < BS) {
-    panel_blocks<T, BS, O>(A, LI, UI);
+    panel_blocks<T, BS, O>(A, li, ui);
     trailing<T, BS, O>(A);
     panels<T, BS, O + kPb>(A, S, LI, UI, thresh, ntiny);
   }
+}
+
+// rows of a pass of inverse_block (a lane's 16, or 8 in complex128: at
+// most 32 registers of sums) and entries of the right factor's column a
+// lane loads a step ahead of their products (at most 32 registers in
+// flight)
+template <typename T>
+constexpr int kRp = sizeof(T) == 16 ? kPb / 4 : kPb / 2;
+template <typename T>
+constexpr int kKc = sizeof(T) == 16 ? 2 : 8;
+
+// the type inverse_block sums in: double for float (the sum is rounded
+// to float once, where it is stored; a block's sum has up to 96 terms,
+// and a tile with growth cancels them), T otherwise
+template <typename T>
+using acc_t = typename std::conditional<std::is_same<T, float>::value,
+                                        double, T>::type;
+
+// acc[i] += (NEG ? -1 : 1) . M[i][k] . x[k * LDX], i < R, k ascending over
+// 0 .. 31: M's rows (row stride LDM, 16-byte aligned) read kVec<T>
+// entries at a time by broadcast; x is this lane's column, kKc<T> entries
+// loaded a step ahead of their products.
+template <typename T, int R, int LDM, int LDX, bool NEG>
+__device__ __forceinline__ void mac(acc_t<T> (&acc)[R], const T* M,
+                                    const T* x) {
+  using S = acc_t<T>;
+  constexpr int V = kVec<T>, KC = kKc<T>;
+  T xv[KC];
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) xv[kk] = x[kk * LDX];
+#pragma unroll
+  for (int k0 = 0; k0 < kPb; k0 += KC) {
+    T xn[KC];
+    if (k0 + KC < kPb)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) xn[kk] = x[(k0 + KC + kk) * LDX];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int k1 = 0; k1 < KC; k1 += V) {
+        T m[V];
+        ldv(M + i * LDM + k0 + k1, m);
+#pragma unroll
+        for (int kk = 0; kk < V; ++kk)
+          acc[i] = fma(S(NEG ? -m[kk] : m[kk]), S(xv[k1 + kk]), acc[i]);
+      }
+    if (k0 + KC < kPb)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) xv[kk] = xn[kk];
+  }
+}
+
+// whether inverse_block solves with the diagonal block by substitution,
+// a lane's column in registers (float and double; a lane's 32 complex
+// entries spill), or multiplies by its inverse
+template <typename T>
+constexpr bool kSolve = !slu_cplx::is_cplx<T>;
+
+// (e) One 32 x 32 block (p, r) of an inverse Z (device memory, row stride
+// BS), half h of its columns by one warp:
+//   Z(p, r) = F(p, p)^{-1} . (-sum_{q = qa}^{qb} F(p, q) . Z(q, r)),
+// q ascending, with F the tile's compact LU (row stride BS): L's blocks
+// (F(p, p) unit lower) for L^{-1}, U's for U^{-1} (up). Lane l takes
+// column 16 h + l % 16 and rows 16 (l / 16) .. + 15 of the sum, kRp<T>
+// at a time, which goes through the mirrored block Z(r, p), zero in the
+// result. Then lanes 0-15 each solve F(p, p) x = sum for their column by
+// substitution, as the plain version does (complex: E_p . sum, E the
+// side's subtile inverses in shared memory), and the sum's block is
+// zeroed. Z(q, r) for q = r is the diagonal block stored before.
+template <typename T, int BS>
+__device__ __forceinline__ void inverse_block(const T* A, T* Z, const T* E,
+                                              bool up, int p, int r,
+                                              int qa, int qb, int h) {
+  constexpr int R = kRp<T>;
+  const int lane = threadIdx.x & 31;
+  const int c = 16 * h + (lane & 15), r1 = (kPb / 2) * (lane >> 4);
+  T* sum = Z + (r * kPb) * BS + p * kPb + c;
+  T* out = Z + (p * kPb) * BS + r * kPb + c;
+#pragma unroll 1
+  for (int r0 = r1; r0 < r1 + kPb / 2; r0 += R) {
+    acc_t<T> acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = acc_t<T>(0);
+#pragma unroll 1
+    for (int q = qa; q <= qb; ++q)
+      mac<T, R, BS, BS, true>(acc, A + (p * kPb + r0) * BS + q * kPb,
+                              Z + (q * kPb) * BS + r * kPb + c);
+#pragma unroll
+    for (int i = 0; i < R; ++i) sum[(r0 + i) * BS] = T(acc[i]);
+  }
+  __syncwarp();
+  if constexpr (kSolve<T>) {
+    if (lane < 16) {
+      const T* F = A + (p * kPb) * BS + p * kPb;    // the diagonal block
+      T x[kPb];
+#pragma unroll
+      for (int i = 0; i < kPb; ++i) x[i] = sum[i * BS];
+      if (!up) {
+#pragma unroll
+        for (int k = 0; k < kPb - 1; ++k)
+#pragma unroll
+          for (int i = k + 1; i < kPb; ++i)
+            x[i] = fma(-F[i * BS + k], x[k], x[i]);
+      } else {
+#pragma unroll
+        for (int k = kPb - 1; k >= 0; --k) {
+          x[k] = x[k] / F[k * BS + k];
+#pragma unroll
+          for (int i = 0; i < k; ++i)
+            x[i] = fma(-F[i * BS + k], x[k], x[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPb; ++i) out[i * BS] = x[i];
+    }
+  } else {
+#pragma unroll 1
+    for (int r0 = r1; r0 < r1 + kPb / 2; r0 += R) {
+      T acc[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] = T(0);
+      mac<T, R, kPb, BS, false>(acc, E + p * kSq + r0 * kPb, sum);
+#pragma unroll
+      for (int i = 0; i < R; ++i) out[(r0 + i) * BS] = acc[i];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = r1; i < r1 + kPb / 2; ++i) sum[i * BS] = T(0);
 }
 
 template <typename T, int BS>
@@ -376,19 +528,16 @@ __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
                                            int32_t* __restrict__ tiny) {
   extern __shared__ __align__(16) unsigned char tile_lu_smem[];
   constexpr int bb = BS * BS;
-  constexpr int msk = BS - 1;
-  constexpr int lg = BS == 32 ? 5 : BS == 64 ? 6 : 7;
-  static_assert((1 << lg) == BS, "bs is 32, 64 or 128");
+  constexpr int P = BS / kPb;
+  static_assert(P * kPb == BS && P <= 4, "bs is 32, 64 or 128");
   // the tile in shared memory, or in place in the pool (the header says
   // when)
   constexpr bool kSh = tile_in_shared<T>(BS);
   T* base = reinterpret_cast<T*>(tile_lu_smem);
   T* A = kSh ? base : g;                        // the tile
   T* S = kSh ? base + bb : base;                // staged subtile LU
-  T* LI = S + kSub;                             // its L^{-1}
-  T* UI = LI + kSub;                            // its U^{-1}
-  T* cb = UI + kSub;                            // [2][2][BS] factor columns
-  T* dg = cb + 4 * BS;                          // [BS] the pivots
+  T* LI = S + kSub;                             // [P] panels' L^{-1}
+  T* UI = LI + P * kSq;                         // [P] panels' U^{-1}
   const int tid = threadIdx.x;
 
   if constexpr (kSh)
@@ -398,78 +547,28 @@ __device__ __forceinline__ void tile_lu_bs(T* __restrict__ g,
   panels<T, BS, 0>(A, S, LI, UI, thresh, ntiny);
   if (tid == 0 && ntiny) atomicAdd(tiny, ntiny);
 
-  // The sweeps build Z: L^{-1} strictly below the diagonal, (I + C)^{-1}
-  // strictly above it, and the diagonal of ones they share. Step s: warps
-  // 0-7 eliminate row j = s of L^{-1} from the rows below (its columns
-  // <= j) with column j of L; warps 8-15 row j = BS-1-s of (I + C)^{-1}
-  // from the rows above (its columns >= j) with column j of C. Each
-  // factor column is staged in cb one step ahead, read from the LU stored
-  // in g. Warp w % 8 takes rows w % 8 + 8 k, lane + 32 q the columns, over
-  // the chunks of 32 columns that hold active ones only, KB rows at a
-  // time (all loads before the stores; four, two for complex).
-  const int t = tid & (kTileThreads / 2 - 1);  // thread within its half
-  const bool lower = tid < kTileThreads / 2;
+  // The compact LU back to the pool; each panel's inverses into the
+  // diagonal blocks, with their exact zeros and unit diagonal, which (e)
+  // reads after the barrier.
   if constexpr (kSh)
     for (int e = tid; e < bb; e += kTileThreads) g[e] = A[e];
-  if (t < BS) {
-    if (lower) {
-      dg[t] = A[t * BS + t];
-      cb[t] = A[t * BS];                             // L[t][0]
-    } else {
-      cb[BS + t] = A[t * BS + BS - 1] / A[bb - 1];   // C[t][BS-1]
-    }
+  for (int e = tid; e < P * kSq; e += kTileThreads) {
+    const int p = e / kSq, i = (e / kPb) % kPb, c = e % kPb;
+    const int o = (p * kPb + i) * BS + p * kPb + c;
+    gl[o] = c > i ? T(0) : c == i ? T(1) : LI[e];
+    gu[o] = c < i ? T(0) : UI[e];
   }
-  // Z: in the tile's shared memory, or in place in linv[step]
-  T* Z = kSh ? A : gl;
-  constexpr int KB = kRowsShared<T> ? 2 : 4;
-  __syncthreads();
-  for (int e = tid; e < bb; e += kTileThreads)
-    Z[e] = (e >> lg) == (e & msk) ? T(1) : T(0);
-  __syncthreads();
-
-  const int hw = (tid >> 5) & 7, lane = tid & 31;
-  for (int s = 0; s < BS - 1; ++s) {
-    const int j = lower ? s : BS - 1 - s;
-    const int i0 = lower ? j + 1 + hw : hw, i1 = lower ? BS : j;
-    const T* f = cb + ((s & 1) * 2 + !lower) * BS;
-    // the next step's factor column: loaded now, staged after this step
-    const int jn = lower ? j + 1 : j - 1;
-    T fn = T(0);
-    if (t < BS && s + 2 < BS)
-      fn = lower ? g[t * BS + jn] : g[t * BS + jn] / dg[jn];
-    const int qa = lower ? 0 : j >> 5, qb = lower ? j >> 5 : BS / 32 - 1;
-    for (int q = qa; q <= qb; ++q) {
-      const int c = lane + 32 * q;
-      const bool act = lower ? c <= j : c >= j;
-      const T rj = Z[j * BS + c];
-      T* zc = Z + c;
-      int i = i0;
-      for (; i + 8 * (KB - 1) < i1; i += 8 * KB) {
-        T fk[KB], r[KB];
-#pragma unroll
-        for (int k = 0; k < KB; ++k) {
-          fk[k] = f[i + 8 * k];
-          r[k] = zc[(i + 8 * k) * BS];
-        }
-        if (act)
-#pragma unroll
-          for (int k = 0; k < KB; ++k)
-            zc[(i + 8 * k) * BS] = fma(-fk[k], rj, r[k]);
-      }
-      for (; i < i1; i += 8) {
-        const T fi = f[i], r = zc[i * BS];
-        if (act) zc[i * BS] = fma(-fi, rj, r);
-      }
+  if constexpr (P > 1) __syncthreads();
+  // (e) the block substitution, stage by stage
+  const int w = tid >> 5, j = w >> 2;
+  const bool up = w & 1;                        // odd warps: U^{-1}
+  for (int d = 1; d < P; ++d) {
+    if (j < P - d) {
+      const int p = up ? j : j + d, r = up ? j + d : j;
+      inverse_block<T, BS>(A, up ? gu : gl, up ? UI : LI, up, p, r,
+                           up ? p + 1 : r, up ? r : p - 1, (w >> 1) & 1);
     }
-    if (t < BS) cb[(((s + 1) & 1) * 2 + !lower) * BS + t] = fn;
-    __syncthreads();
-  }
-
-  for (int e = tid; e < bb; e += kTileThreads) {
-    const int i = e >> lg, c = e & msk;
-    const T z = Z[e];
-    gl[e] = c < i ? z : c == i ? T(1) : T(0);
-    gu[e] = c >= i ? z / dg[i] : T(0);
+    if (d + 1 < P) __syncthreads();
   }
 }
 

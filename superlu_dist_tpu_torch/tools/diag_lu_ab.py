@@ -4,8 +4,9 @@
 
 Builds each source with the port's nvcc flags into a library of its own
 (under ``build/torch_kernels/ab``), loads both into one process and, for
-float32 and float64 at 130 and 8 tiles of 128 × 128 and of 64 × 64,
-launches them in alternating order (an L2 flush before each launch, CUDA
+float32 and float64 at 130 tiles and 1 of 128 × 128, 64 × 64 and 32 × 32
+and for complex128 at 130 and 1 of 128 × 128, launches them in
+alternating order (an L2 flush before each launch, CUDA
 events around it): prints whether the outputs agree bit for bit and, where
 they do not, the largest difference of each output (the LU, L⁻¹, U⁻¹, the
 tiny count) relative to max(1, max |OLD|), the median time of each with
@@ -36,7 +37,8 @@ def _build_lib(src: str, tag: str):
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     subprocess.run([_build._nvcc(), *flags, "-o", so, src], check=True)
     lib = ctypes.CDLL(so)
-    for sfx, th in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+    for sfx, th in (("f32", ctypes.c_float), ("f64", ctypes.c_double),
+                    ("c128", ctypes.c_double)):
         f = getattr(lib, f"slu_diag_lu_{sfx}")
         f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, th,
                                               ctypes.c_void_p, ctypes.c_void_p]
@@ -51,13 +53,21 @@ def _rel(got, want) -> float:
                  / max(1.0, float(want.abs().max())))
 
 
-def tiles(bs, dt, ntile):
-    """Diagonally dominant tiles in pool slots 1..ntile of ntile + 2, and
-    their slots and steps, on the card."""
+#: the element type of each entry suffix
+DTYPES = {"f32": "float32", "f64": "float64", "c128": "complex128"}
+
+
+def tiles(bs, sfx, ntile):
+    """Diagonally dominant tiles of entry ``sfx``'s type in pool slots
+    1..ntile of ntile + 2, and their slots and steps, on the card."""
     import torch
     g = torch.Generator().manual_seed(11)
     base = (torch.randn(ntile + 2, bs, bs, generator=g, dtype=torch.float64)
-            + 40 * torch.eye(bs, dtype=torch.float64)).to(dt).cuda()
+            + 40 * torch.eye(bs, dtype=torch.float64))
+    if sfx == "c128":
+        base = base + 1j * torch.randn(ntile + 2, bs, bs, generator=g,
+                                       dtype=torch.float64)
+    base = base.to(getattr(torch, DTYPES[sfx])).cuda()
     slots = torch.arange(1, ntile + 1, dtype=torch.int32, device="cuda")
     steps = torch.arange(ntile, dtype=torch.int32, device="cuda")
     return base, slots, steps
@@ -86,10 +96,11 @@ def timed_launch(fn, base, slots, steps, flush, stream):
     return ev[0].elapsed_time(ev[1]), (pool, li, ui, tiny)
 
 
-def _case(libs, bs, dt, sfx, ntile, flush, stream) -> str:
-    """One alternating A/B of ``ntile`` tiles of bs × bs in ``dt``."""
+def _case(libs, bs, sfx, ntile, flush, stream) -> str:
+    """One alternating A/B of ``ntile`` tiles of bs × bs for entry
+    ``sfx``."""
     import torch
-    base, slots, steps = tiles(bs, dt, ntile)
+    base, slots, steps = tiles(bs, sfx, ntile)
     ms = {"old": [], "new": []}
     outs = {}
     for rep in range(PAIRS + 1):
@@ -123,11 +134,10 @@ def main(old_src: str, new_src: str) -> None:
                                                                  "new")}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    for bs in (128, 64):
-        for dt, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-            for ntile in (130, 8):
-                print(_case(libs, bs, dt, sfx, ntile, flush, stream),
-                      flush=True)
+    cases = [(bs, sfx) for bs in (128, 64, 32) for sfx in ("f32", "f64")]
+    for bs, sfx in cases + [(128, "c128")]:
+        for ntile in (130, 1):
+            print(_case(libs, bs, sfx, ntile, flush, stream), flush=True)
     a, b = _build.sass(libs["old"][1]), _build.sass(libs["new"][1])
     for name in sorted(a):
         print(f"SASS {name}: {len(a[name])} / {len(b.get(name, []))} "

@@ -169,9 +169,12 @@ class Options:
     # Schur-GEMM pass precision. In the JAX package "auto" factors with
     # one-pass bf16 GEMMs when refinement is on and re-factors at
     # "highest" when refinement stalls (the psgssvx_d2 escalation,
-    # reference: SRC/single/psgssvx_d2.c:516-1584). The PyTorch port's
-    # kernels compute in IEEE FP32 only, so there "auto" resolves to
-    # "highest" and the escalation never fires.
+    # reference: SRC/single/psgssvx_d2.c:516-1584). The PyTorch port does
+    # the same (models/driver.py::_resolve_precision): on a CUDA device
+    # "auto" resolves to "default" (one bf16 pass, float32 accumulation)
+    # for clk, tck and flk when refinement is on, and refine() re-factors
+    # at "highest" on a stall; on the CPU, and for the level executor
+    # (float64, complex, "xla"), the factor runs at "highest".
     gemm_precision: str = "auto"       # "auto" | "bf16" | "highest"
 
     # adaptive plan policy (irregular-matrix guard): when the block plan's
@@ -267,7 +270,11 @@ _SPEC_FIELDS = {
 #:   SLU_TPU_WRITELU        path             (dump factor pool, ref WRITELU)
 #:   SLU_TPU_XPROF          logdir           (process-wide profiler trace)
 #:   SLU_TPU_SYMB_THREADS   N                (parallel symbolic threads)
-_ENV_ONLY = ("NATIVE", "CHECKLU", "WRITELU", "XPROF", "SYMB_THREADS")
+#:   SLU_TPU_COMPLEX        embed            (complex64 factors its real
+#:                                            ring embedding, read when a
+#:                                            SparseLU factors)
+_ENV_ONLY = ("NATIVE", "CHECKLU", "WRITELU", "XPROF", "SYMB_THREADS",
+             "COMPLEX")
 
 
 def sp_ienv(spec: str, options: Optional[Options] = None):

@@ -796,6 +796,79 @@ def test_diag_lu_matches_plain(cuda, bs, dtype, ntile):
         assert not pool[torch.as_tensor(untouched, device=cuda)].any()
 
 
+#: a growth tile (diagonal shift sqrt(bs)) against the plain version run
+#: in float64 or complex128, in units of the working type's roundoff at
+#: the output's magnitude: the tiles' growth amplifies either algorithm's
+#: roundoff. The plain version itself, run in float32 and complex64 on
+#: these tiles, is off by up to 622, 307 and 14,200 such units at bs 32,
+#: 64 and 128 (on the CPU); the limits leave 4 to 27 times that for the
+#: kernel's other order of summation.
+GROWTH_ULPS = {32: 4096, 64: 8192, 128: 65536}
+DIAG_DTYPES = [torch.float32, torch.float64, torch.complex64,
+               torch.complex128]
+
+
+@pytest.mark.parametrize("dtype", DIAG_DTYPES, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_diag_lu_repeats_batch_bit_equal_and_growth(cuda, bs, dtype):
+    """diag_lu on 20 tiles in each of the four types: a second launch on
+    the same tiles repeats the first bit for bit, and ``diag_lu_batch`` on
+    three members gives each member diag_lu's output on it alone bit for
+    bit (pool, inverses, tiny count), on diagonally dominant tiles (shift
+    bs) and on tiles with growth (shift sqrt(bs)); the growth tiles' LU
+    and inverses then against the plain version in the wide type, at the
+    tolerance GROWTH_ULPS states."""
+    rng = np.random.default_rng(bs)
+    n, members, thresh = 20, 3, 1e-6
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    eps = _eps(dtype)
+    sl = torch.as_tensor(rng.permutation(n + 2)[:n] + 1, dtype=torch.int32,
+                         device=cuda)
+    st = torch.as_tensor(rng.permutation(n), dtype=torch.int32,
+                         device=cuda)
+
+    def make(shift):
+        shape = (members, n, bs, bs)
+        t = rng.standard_normal(shape) + shift * np.eye(bs)
+        if dtype.is_complex:
+            t = t + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(t).to(cuda).to(dtype)
+
+    def run(tiles):
+        pool = torch.zeros(n + 3, bs, bs, dtype=dtype, device=cuda)
+        pool[sl.long()] = tiles
+        linv = torch.zeros(n, bs, bs, dtype=dtype, device=cuda)
+        uinv = torch.zeros_like(linv)
+        tiny = torch.zeros(1, dtype=torch.int32, device=cuda)
+        diag_lu.diag_lu(pool, linv, uinv, sl, st, thresh, tiny)
+        torch.cuda.synchronize()
+        return pool, linv, uinv, tiny
+
+    for shift in (float(bs), float(np.sqrt(bs))):
+        tiles = make(shift)
+        outs = [run(tiles[m]) for m in range(members)]
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], run(tiles[0])))
+        P = torch.zeros(members, n + 3, bs, bs, dtype=dtype, device=cuda)
+        P[:, sl.long()] = tiles
+        L = torch.zeros(members, n, bs, bs, dtype=dtype, device=cuda)
+        U = torch.zeros_like(L)
+        th = torch.full((members,), thresh, dtype=P.real.dtype, device=cuda)
+        tb = torch.zeros(members, dtype=torch.int32, device=cuda)
+        diag_lu.diag_lu_batch(P, L, U, sl, st, th, tb)
+        torch.cuda.synchronize()
+        for m, (p1, l1, u1, t1) in enumerate(outs):
+            assert torch.equal(P[m], p1) and torch.equal(L[m], l1)
+            assert torch.equal(U[m], u1) and int(tb[m]) == int(t1.item())
+    pool, linv, uinv, tiny = outs[0]
+    got = (pool[sl.long()], linv[st.long()], uinv[st.long()])
+    ref = diag_lu.lu_inv_plain(tiles[0].to(wide), thresh)
+    assert int(tiny.item()) == int(ref[3]) == 0
+    for g, r in zip(got, ref):
+        scale = max(1.0, float(r.abs().max()))
+        err = float((g.to(wide) - r).abs().max())
+        assert err <= GROWTH_ULPS[bs] * eps * scale
+
+
 @pytest.mark.parametrize("bs", [32, 64, 128])
 @pytest.mark.parametrize("pr,pc", [(2, 2), (1, 4), (4, 1), (2, 4)])
 def test_rdma_kernels_match_plain(cuda, bs, pr, pc):

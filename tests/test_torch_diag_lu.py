@@ -110,3 +110,22 @@ def test_cuda_wrapper_refuses_cpu_shapes():
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(1, dtype=torch.int32), 16)
+
+
+def test_phase_tool_cuts_the_kernel():
+    """``tools/diag_lu_phases.py`` cuts the checkout's ``tile_lu.cuh`` at
+    each line of its ``CUTS`` that the block-substitution kernel has, each
+    occurring exactly once, in the kernel's order; the sweeps' cut of the
+    kernel before it occurs nowhere; and each line it stamps occurs
+    exactly once."""
+    import os
+    from superlu_dist_tpu_torch.ops.kernels import _build
+    from superlu_dist_tpu_torch.tools import diag_lu_phases as ph
+    with open(os.path.join(_build._CSRC, "tile_lu.cuh")) as f:
+        text = f.read()
+    for name in ("forward", "stores"):
+        assert text.count(ph.CUTS[name]) == 1, name
+    assert text.count(ph.CUTS["setup"]) == 0
+    assert ph.cuts_in(text) == ["forward", "stores"]
+    for line, _, _ in ph.STAMPS:
+        assert text.count(line) == 1, line

@@ -1,11 +1,13 @@
 """The port's runtime utilities on the CPU: the ``SLU_TPU_XPROF``
 process-wide trace and ``annotate`` (``utils/profiling.py``),
 ``utils/prewarm.py`` (the function and its command line), the env
-catalog, and the one list of the port's CUDA kernels."""
+catalog against the variables the sources read, and the one list of the
+port's CUDA kernels."""
 
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -120,6 +122,45 @@ def test_prewarm_command_line(tmp_path):
 def test_env_catalog_lists_the_debug_and_trace_variables():
     assert {"CHECKLU", "WRITELU", "XPROF"} <= set(topts._ENV_ONLY)
     assert not {"CHECKLU", "WRITELU", "XPROF"} & set(topts._SPEC_FIELDS)
+
+
+#: ``SLU_TPU_*`` names that the port reads and that are no solver
+#: setting, so ``_ENV_ONLY`` does not list them: the directory of the
+#: reference's example matrices, which only ``utils/testing.py`` (test
+#: data) reads
+ENV_TEST_DATA = {"REFERENCE_EXAMPLES"}
+#: a read of one ``SLU_TPU_*`` variable by name: ``os.environ.get``,
+#: ``os.environ[...]``, ``os.getenv`` or C's ``getenv``
+ENV_READ = re.compile(
+    r"""(?:environ\.get\(|environ\[|getenv\()\s*["']SLU_TPU_(\w+)["']""")
+
+
+def _env_reads():
+    """The ``SLU_TPU_*`` names read in the port's sources, by name."""
+    pkg = os.path.join(REPO, "superlu_dist_tpu_torch")
+    names = set()
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith((".py", ".c", ".cpp", ".h", ".cu", ".cuh")):
+                with open(os.path.join(root, f)) as fh:
+                    names.update(ENV_READ.findall(fh.read()))
+    return names
+
+
+def test_env_catalog_lists_every_variable_read():
+    """``_ENV_ONLY`` is the set of ``SLU_TPU_*`` variables the port reads
+    outside ``_SPEC_FIELDS`` (those are read by ``sp_ienv`` and
+    ``apply_env_overrides`` through ``_ENV_PREFIX``), less the test data's
+    ``ENV_TEST_DATA``. A name only mentioned (``SLU_TPU_CLK_GEMM_PRECISION``
+    in ``models/driver.py``, which says the port does not read it) does
+    not count."""
+    read = _env_reads()
+    assert {"NATIVE", "COMPLEX", "SYMB_THREADS"} <= read
+    assert "CLK_GEMM_PRECISION" not in read
+    assert ENV_TEST_DATA <= read
+    assert set(topts._ENV_ONLY) == read - set(topts._SPEC_FIELDS) \
+        - ENV_TEST_DATA
+    assert not set(topts._ENV_ONLY) & set(topts._SPEC_FIELDS)
 
 
 def test_one_list_of_kernels():
